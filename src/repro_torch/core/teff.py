@@ -1,0 +1,134 @@
+"""T_eff, the paper's effective-memory-throughput performance model.
+
+    T_eff = A_eff / t,     A_eff = n_IO * n_gridpoints * sizeof(eltype)
+
+where ``n_IO`` counts the arrays that must be read or written once per time
+step under perfect reuse (Fig. 1: read T and Ci, write T2, so n_IO = 3).
+
+The yardstick is this card's own device-to-device copy bandwidth, measured
+at run time (:func:`measure_device_bandwidth`); :func:`device_spec` records
+it beside the card's name and power limit. No hardware constant is built in.
+Timing needs the card: :func:`measure` times with CUDA events and raises
+without one.
+"""
+from __future__ import annotations
+
+import dataclasses
+import subprocess
+from typing import Callable
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    name: str
+    power_limit: str   # as nvidia-smi reports it, e.g. "700.00 W"
+    peak_bw: float     # bytes/s: the measured device-to-device copy bandwidth
+
+
+def a_eff(n_points: int, n_read: int, n_write: int, itemsize: int) -> int:
+    """Effective bytes moved per step: each counted field crosses memory once."""
+    return (n_read + n_write) * n_points * itemsize
+
+
+def a_eff_blocked(n_points: int, n_read: int, n_write: int, itemsize: int,
+                  nsteps: int = 1) -> float:
+    """Ideal per-step traffic under k-step temporal blocking: each counted
+    field crosses memory once per k steps."""
+    return a_eff(n_points, n_read, n_write, itemsize) / max(int(nsteps), 1)
+
+
+def a_eff_checked(a_eff_step: float, check_bytes: float, check_every: int = 1,
+                  fused: bool = True) -> float:
+    """Per-step ideal traffic of a solver that checks convergence every
+    ``check_every`` steps: a fused check adds nothing (the per-block
+    partials are rounded to zero); a separate norm pass re-reads
+    ``check_bytes`` on every check step."""
+    m = max(int(check_every), 1)
+    return a_eff_step + (0.0 if fused else check_bytes / m)
+
+
+def a_eff_from_ir(ir, itemsize: int, nsteps: int = 1) -> float:
+    """A_eff derived from the stencil IR's read and write sets."""
+    return ir.io_bytes(itemsize) / max(int(nsteps), 1)
+
+
+def t_eff(a_eff_bytes: float, seconds: float) -> float:
+    """Effective throughput in bytes/s."""
+    return a_eff_bytes / seconds
+
+
+def fraction(throughput: float, hw: HardwareSpec) -> float:
+    return throughput / hw.peak_bw
+
+
+@dataclasses.dataclass
+class Measurement:
+    median_s: float
+    ci95_s: tuple[float, float]
+    samples_s: list[float]
+
+    def t_eff(self, a_eff_bytes: float) -> float:
+        return t_eff(a_eff_bytes, self.median_s)
+
+
+def _require_card() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("timing needs the card: torch.cuda.is_available() is false")
+
+
+def measure(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
+            inner: int = 1) -> Measurement:
+    """Median device time per call of ``fn`` with a bootstrap 95% CI (the
+    paper's medians of 20 samples). Each sample is ``inner`` calls between
+    two CUDA events on the current stream, after a synchronisation."""
+    _require_card()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    samples = [s.elapsed_time(e) / 1e3 / inner for s, e in events]
+    med = float(np.median(samples))
+    rng = np.random.RandomState(0)
+    boots = [float(np.median(rng.choice(samples, size=len(samples)))) for _ in range(200)]
+    return Measurement(med, (float(np.percentile(boots, 2.5)),
+                             float(np.percentile(boots, 97.5))), samples)
+
+
+def measure_device_bandwidth(nbytes: int = 1 << 30, iters: int = 20) -> float:
+    """The card's device-to-device copy bandwidth in bytes/s (read + write),
+    the T_eff yardstick."""
+    _require_card()
+    src = torch.ones(nbytes // 4, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    m = measure(lambda: dst.copy_(src), iters=iters, warmup=3)
+    return 2 * src.numel() * 4 / m.median_s
+
+
+def card_info(index: int = 0) -> tuple[str, str]:
+    """(name, power limit) of card ``index`` as ``nvidia-smi`` reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+    name, power = (p.strip() for p in out.split(",", 1))
+    return name, power
+
+
+def device_spec(index: int = 0, nbytes: int = 1 << 30) -> HardwareSpec:
+    """The card's :class:`HardwareSpec`, built at run time."""
+    _require_card()
+    name, power = card_info(index)
+    with torch.cuda.device(index):
+        bw = measure_device_bandwidth(nbytes)
+    return HardwareSpec(name=name, power_limit=power, peak_bw=bw)
