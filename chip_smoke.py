@@ -3,12 +3,17 @@
 
     python3 chip_smoke.py            # from the repository root
 
-It builds every CUDA kernel of the Fig. 1 path from the sources in the
-checkout (one nvcc per source, all started together), holds each kernel
-against its plain PyTorch version on the card, drives the port's main path
-at the paper's FIG1 size (512^3 f32: 100 @parallel steps, the same steps
-with the explicit kernel, then solve_until), checks the result, and times
-each kernel beside its plain version and its bound.
+It builds every CUDA kernel of the port from the sources in the checkout
+(one nvcc per source, all started together), holds each kernel against its
+plain PyTorch version on the card, and drives the port's two main paths:
+the paper's FIG1 (512^3 f32: 100 @parallel steps, the same steps with the
+explicit kernel, then solve_until) and Zamba2-1.2B serving at full width
+and depth (batch 4, a 1024-token prompt, 32 generated tokens, random
+weights from a seed) through ``repro_torch.launch.serve``, whose prefill
+runs the conv1d, SSD and attention kernels; the serving run's prefill
+logits are held against the same run on the plain versions. It then times
+each kernel beside its plain version, the PyTorch library call that
+computes the same function (where there is one) and its bound.
 
 It prints JSON lines; the line before the last lists the kernels, the one
 before that is the card's name and power limit as nvidia-smi gives them,
@@ -38,6 +43,22 @@ PEAK_F32_PER_S = 67e12
 T_RANGE = (1.7, 2.7)      # the maximum principle for the Fig. 1 initial state
 T_SLACK = 2.0 ** -20      # a few f32 ulps of rounding at T ~ 2
 
+# Zamba2-1.2B serving at full width and depth; the kernels' shapes on its
+# prefill path (conv over d_conv_in = 4224 channels with K = 4; SSD with 64
+# heads of P = N = 64, one group, chunk 64; attention with 32 heads of 64).
+LM_ARCH = "zamba2-1.2b"
+LM_SERVE = dict(batch=4, prompt_len=1024, gen_len=32)
+# (rtol, atol) of each LM kernel against its plain version, f32: conv1d sums
+# its taps in the plain version's order, and SiLU's exponential differs by a
+# few ulp; attention's online softmax over key tiles rounds otherwise than
+# one softmax per row; the SSD kernel sums its products in another order and
+# carries the state's rounding across up to 16 chunks.
+LM_TOL = {"conv1d": (1e-5, 1e-6), "ssd": (1e-4, 1e-4), "attention": (1e-5, 1e-5)}
+# Prefill logits (O(1) for these random weights) of the kernels against the
+# plain versions after 38 Mamba2 layers and 6 shared-block applications,
+# each a few f32 roundings apart.
+LOGITS_TOL = (1e-3, 1e-3)
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -66,7 +87,7 @@ def main() -> int:
     from repro_torch.configs import FIG1, Diffusion3DConfig
     from repro_torch.core import init_parallel_stencil, teff
     from repro_torch.examples import quickstart
-    from repro_torch.kernels import build, diffusion3d, ref, stencil
+    from repro_torch.kernels import attention, build, conv1d, diffusion3d, ref, ssd, stencil
 
     torch.manual_seed(0)
     dev = torch.device("cuda", 0)
@@ -90,7 +111,9 @@ def main() -> int:
              step.with_reductions(ALL_REDS).compiled(**shape_kw, **sc_names),
              generic.compiled(**{n: (8, 8, 8) for n in ("A2", "B2", "A", "B")}, c=1.0, h=1.0)]
     t0 = time.perf_counter()
+    lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
     builds = build.compile_many([("diffusion3d", diffusion3d.SOURCE.read_text())]
+                                + [(n, m.SOURCE.read_text()) for n, m in lm_kernels.items()]
                                 + [(c.lib_name, c.source) for c in calls])
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "builds": [{"name": b.name, "seconds": b.seconds,
@@ -152,6 +175,26 @@ def main() -> int:
         emit(row)
         del T, T2, Ci
 
+    # ---- 3b. the LM kernels against their plain versions -------------------
+    lm_cases = lm_kernel_cases(torch, dev, gen)
+    for label, case in lm_cases.items():
+        kernel = case["name"]
+        got = case["kernel"]()
+        torch.cuda.synchronize()
+        want = case["plain"]()
+        rtol, atol = LM_TOL[kernel]
+        row = {"phase": "check_lm", "kernel": kernel, "case": label, "shape": case["shape"],
+               "rtol": rtol, "atol": atol}
+        for part, g, w in zip(case["parts"], got, want):
+            row[part] = close_report(torch, g, w, rtol, atol)
+        emit(row)
+        for part in case["parts"]:
+            require(row[part]["ok"], f"{kernel} ({label}): {part} outside rtol {rtol}, "
+                    f"atol {atol}: {row[part]}")
+        if label.endswith("zamba2"):
+            err_at[kernel] = max(row[part]["max_abs_err"] for part in case["parts"])
+        del got, want
+
     # ---- 4. the main path at FIG1 ------------------------------------------
     stencil.launches.clear()
     diffusion3d.launches = 0
@@ -194,6 +237,10 @@ def main() -> int:
             "solve_until differs between the backends at 64^3")
     del rc, rt
 
+    # ---- 4b. the LM main path: Zamba2-1.2B serving ----------------------------
+    lm = lm_main_path(torch, dev)
+    lm_counts = lm["launches"]
+
     # ---- 5. times at FIG1 ---------------------------------------------------
     spec = teff.device_spec(0)
     grid, f, sc = quickstart.initial_state(FIG1, "cuda")
@@ -225,6 +272,30 @@ def main() -> int:
           "t_eff_over_copy": {k: a_eff / (v / 1e3) / spec.peak_bw for k, v in ms.items()},
           "bound_ms": bound_ms, "copy_bound_ms": copy_bound_ms})
 
+    del grid, f
+    # ---- 5b. times of the LM kernels at the Zamba2 prefill shapes --------------
+    torch.backends.cudnn.allow_tf32 = False      # the library conv in f32, as the kernel
+    lm_times = {}
+    for label, case in lm_cases.items():
+        if not label.endswith("zamba2"):
+            continue
+        kernel = case["name"]
+        t = {"ms": teff.measure(case["kernel"], iters=20, warmup=3).median_s * 1e3,
+             "plain_ms": teff.measure(case["plain"], iters=20, warmup=3).median_s * 1e3,
+             "library_ms": (teff.measure(case["library"], iters=20, warmup=3).median_s * 1e3
+                            if case["library"] else None),
+             "bytes": case["bytes"], "flops": case["flops"]}
+        by_bytes, by_ops = case["bytes"] / PEAK_BYTES_PER_S, case["flops"] / PEAK_F32_PER_S
+        t["bound_ms"] = max(by_bytes, by_ops) * 1e3
+        t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        t["library"] = case["library_name"]
+        lm_times[kernel] = t
+    emit({"phase": "times_lm", "card": spec.name, "power_limit": spec.power_limit,
+          "shapes": {c["name"]: c["shape"] for k, c in lm_cases.items() if k.endswith("zamba2")},
+          "launches_per_request": lm_counts, "kernels": lm_times,
+          "prefill_ms": lm["prefill_ms"], "decode_tok_per_s": lm["decode_tok_per_s"]})
+    del lm_cases
+
     # ---- 6. the kernels line -------------------------------------------------
     fig1 = SHAPES[-1]
     gen_src = "src/repro_torch/kernels/codegen.py"
@@ -242,6 +313,14 @@ def main() -> int:
                 else "operations",
                 "copy_bound_ms": copy_bound_ms, "library_ms": None}
                for k, c, src, rep in rows]
+    lm_rows = [("conv1d", "src/repro/kernels/conv1d.py:44"),
+               ("ssd", "src/repro/kernels/ssd.py:78"),
+               ("attention", "src/repro/kernels/attention.py:74")]
+    kernels += [{"name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{k}.cu",
+                 "replaces": rep, "launches": lm_counts[k], "max_abs_err": err_at[k],
+                 **{x: lm_times[k][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")}}
+                for k, rep in lm_rows]
     print(f"{name}, {power}", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -251,6 +330,159 @@ def main() -> int:
 
 def max_abs_diff(a, b) -> float:
     return float((a - b).abs().max())
+
+
+def close_report(torch, got, want, rtol, atol) -> dict:
+    """Max absolute error, max relative error (over elements larger than
+    atol) and whether ``got`` is within rtol/atol of ``want`` everywhere."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    big = want.abs() > atol
+    rel = float((diff[big] / want.abs()[big]).max()) if bool(big.any()) else 0.0
+    return {"max_abs_err": float(diff.max()), "max_rel_err": rel,
+            "ok": bool(torch.allclose(got, want, rtol=rtol, atol=atol))}
+
+
+def flat_tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from flat_tensors(v)
+        else:
+            yield v
+
+
+def lm_main_path(torch, dev, smoke: bool = False, serve_kw=LM_SERVE) -> dict:
+    """Serve the LM through ``repro_torch.launch.serve`` on the kernels (the
+    launch counts set to 0 just before, read just after), then on the plain
+    versions with the same weights and prompt; check the outputs."""
+    from repro_torch import configs
+    from repro_torch.kernels import attention, conv1d, ssd
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import RunConfig, build as build_model, synth_batch
+
+    lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
+    scfg = lm_serve.ServeConfig(**serve_kw)
+    cfg = configs.get_smoke(LM_ARCH) if smoke else configs.get_arch(LM_ARCH)
+    model = build_model(cfg, RunConfig(param_dtype="float32"), dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(scfg.seed))
+    prompt = synth_batch(model, torch.Generator(device=dev).manual_seed(scfg.seed + 1),
+                         scfg.prompt_len, scfg.batch)["tokens"]
+    for m in lm_kernels.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    toks, info = lm_serve.serve(LM_ARCH, scfg, smoke=smoke, device=dev, params=params,
+                                tokens=prompt, log_fn=lambda *a: None)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: m.launches for n, m in lm_kernels.items()}
+    plain_rc = RunConfig(param_dtype="float32", attn_impl="ref", ssd_impl="ref",
+                         conv_impl="ref")
+    toks_ref, info_ref = lm_serve.serve(LM_ARCH, scfg, rc=plain_rc, smoke=smoke, device=dev,
+                                        params=params, tokens=prompt, log_fn=lambda *a: None)
+    logits, logits_ref = info["prefill_logits"], info_ref["prefill_logits"]
+    lm = {"phase": "main_path_lm", "arch": cfg.name, "smoke": smoke, "serve": serve_kw,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "params": sum(t.numel() for t in flat_tensors(params)),
+          "wall_s": wall, "launches": counts,
+          "prefill_ms": info["t_prefill_s"] * 1e3, "decode_s": info["t_decode_s"],
+          "decode_tok_per_s": info["tok_per_s"],
+          "plain_prefill_ms": info_ref["t_prefill_s"] * 1e3,
+          "plain_decode_tok_per_s": info_ref["tok_per_s"],
+          "logits": {"shape": list(logits.shape), "finite": bool(torch.isfinite(logits).all()),
+                     "min": float(logits.min()), "max": float(logits.max()),
+                     "vs_plain": close_report(torch, logits, logits_ref, *LOGITS_TOL),
+                     "rtol": LOGITS_TOL[0], "atol": LOGITS_TOL[1]},
+          "tokens": {"shape": list(toks.shape), "min": int(toks.min()), "max": int(toks.max()),
+                     "agree_with_plain": int((toks == toks_ref).sum()),
+                     "of": int(toks.size), "first_row": toks[0].tolist()}}
+    emit(lm)
+    require(lm["logits"]["finite"] and list(logits.shape) == [scfg.batch, cfg.vocab],
+            "prefill logits are not finite or of the wrong shape")
+    require(toks.shape == (scfg.batch, scfg.gen_len) and 0 <= toks.min()
+            and toks.max() < cfg.vocab, "generated tokens out of range")
+    require(lm["logits"]["vs_plain"]["ok"],
+            f"prefill logits of the kernels and the plain versions differ: {lm['logits']}")
+    n_groups = cfg.n_layers // cfg.attn_every
+    if dev.type == "cuda":
+        require(counts == {"conv1d": cfg.n_layers, "ssd": cfg.n_layers,
+                           "attention": n_groups}, f"launches on the serving path {counts}")
+    return lm
+
+
+def lm_kernel_cases(torch, dev, gen):
+    """Inputs, kernel, plain version, library call, bytes and operations of
+    each LM kernel, at a small odd shape and at the Zamba2 prefill shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention, conv1d, ref, ssd
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    cases = {}
+    for label, (B, L, C, K) in {"odd": (2, 70, 300, 3),
+                                "zamba2": (4, 1024, 4224, 4)}.items():
+        x, w, b = randn(B, L, C), randn(K, C, scale=K ** -0.5), randn(C, scale=0.1)
+        cases[f"conv1d_{label}"] = {
+            "name": "conv1d", "shape": {"x": [B, L, C], "K": K}, "parts": ["out"],
+            "kernel": lambda x=x, w=w, b=b: (conv1d.conv1d_causal(x, w, b, silu=True),),
+            "plain": lambda x=x, w=w, b=b: (conv1d.plain(x, w, b, silu=True),),
+            "library_name": "F.conv1d(groups=C, padding=K-1) + SiLU (cuDNN, TF32 off)",
+            "library": lambda x=x, w=w, b=b, L=L, C=C, K=K: F.silu(F.conv1d(
+                x.transpose(1, 2), w.flip(0).t()[:, None, :], b, padding=K - 1,
+                groups=C)[..., :L]).transpose(1, 2),
+            "bytes": 4 * (2 * B * L * C + K * C + C), "flops": B * L * C * (2 * K + 5)}
+    for label, (B, L, H, P, G, N, chunk, with_h0) in {
+            "odd": (2, 100, 8, 16, 4, 16, 64, True),
+            "zamba2": (4, 1024, 64, 64, 1, 64, 64, False)}.items():
+        x = randn(B, L, H, P, scale=0.5)
+        u = torch.rand((B, L, H), generator=gen)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).to(dev)
+        A = -(torch.rand((H,), generator=gen) * 15 + 1).to(dev)
+        Bm, Cm = randn(B, L, G, N, scale=0.3), randn(B, L, G, N, scale=0.3)
+        D = torch.ones(H).to(dev)
+        h0 = randn(B, H, P, N, scale=0.2) if with_h0 else None
+        cs = ssd.pick_chunk(L, chunk)
+        tri = cs * (cs + 1) // 2
+        cases[f"ssd_{label}"] = {
+            "name": "ssd", "parts": ["y", "h_final"],
+            "shape": {"x": [B, L, H, P], "G": G, "N": N, "chunk": cs, "h0": with_h0},
+            "kernel": lambda a=(x, dt, A, Bm, Cm), D=D, h0=h0, c=chunk:
+                ssd.ssd_chunk_scan(*a, D=D, h0=h0, chunk=c),
+            "plain": lambda a=(x, dt, A, Bm, Cm), D=D, h0=h0, cs=cs:
+                ref.ssd(*a, D=D, h0=h0, chunk=cs),
+            "library_name": None, "library": None,
+            # x, dt, A, B, C, D (and h0) read once; y and the final state written once
+            "bytes": 4 * (2 * B * L * H * P + B * L * H + 2 * H + 2 * B * L * G * N
+                          + (2 if with_h0 else 1) * B * H * P * N),
+            # per (b, h, chunk): C·Bᵀ and W·x over the causal triangle, C·h and
+            # the state update over (cs, P, N)
+            "flops": B * H * (L // cs) * (2 * tri * (N + P) + 4 * cs * P * N)}
+    for label, (B, Hq, Hkv, L, D, causal, window) in {
+            "odd": (2, 4, 2, 200, 64, True, 37),
+            "zamba2": (4, 32, 32, 1024, 64, True, None)}.items():
+        q, k, v = randn(B, Hq, L, D), randn(B, Hkv, L, D), randn(B, Hkv, L, D)
+        i = torch.arange(L)
+        allowed = torch.ones(L, L, dtype=torch.bool)
+        if causal:
+            allowed &= i[None, :] <= i[:, None]
+        if window is not None:
+            allowed &= i[None, :] > i[:, None] - window
+        pairs = int(allowed.sum())
+        cases[f"attention_{label}"] = {
+            "name": "attention", "parts": ["out"],
+            "shape": {"q": [B, Hq, L, D], "Hkv": Hkv, "causal": causal, "window": window},
+            "kernel": lambda q=q, k=k, v=v, c=causal, wd=window:
+                (attention.flash_attention(q, k, v, causal=c, window=wd),),
+            "plain": lambda q=q, k=k, v=v, c=causal, wd=window:
+                (ref.attention(q, k, v, causal=c, window=wd),),
+            "library_name": "F.scaled_dot_product_attention(is_causal=True)",
+            "library": (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)) if causal and window is None and Hq == Hkv
+            else None,
+            "bytes": 4 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D),
+            "flops": 4 * B * Hq * D * pairs}
+    return cases
 
 
 def make_generic(ps):

@@ -2,7 +2,11 @@
 
 The reference's fields are ``jax.Array``s; taken to numpy (``np.asarray``),
 they become the port's tensors with :func:`fields_from_numpy`, and the port's
-tensors go back with :func:`fields_to_numpy`. Nothing here imports JAX.
+tensors go back with :func:`fields_to_numpy`. An LM parameter tree or
+serving cache taken to numpy (``jax.tree.map(np.asarray, tree)``) becomes
+the port's tree key for key with :func:`params_from_numpy` or
+:func:`cache_from_numpy`, since both packages keep one layout. Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -25,3 +29,28 @@ def fields_from_numpy(arrays: Mapping[str, np.ndarray], *, device="cuda",
 def fields_to_numpy(fields: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Each tensor as a numpy array on the host (a copy)."""
     return {n: t.detach().cpu().numpy().copy() for n, t in fields.items()}
+
+
+def _tree_from_numpy(tree, dev):
+    if isinstance(tree, Mapping):
+        return {k: _tree_from_numpy(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True)).to(dev).contiguous()
+
+
+def params_from_numpy(tree: Mapping, *, device="cuda") -> dict:
+    """A nested dict of numpy arrays (the reference's parameter tree) as the
+    port's tree: the same keys, each leaf a new tensor of the same dtype on
+    ``device``."""
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def cache_from_numpy(cache: Mapping, *, device="cuda") -> dict:
+    """The reference's serving cache (``conv``, ``ssm``, ``k``, ``v``) as the
+    port's."""
+    return _tree_from_numpy(cache, resolve_device(device))
+
+
+def cache_to_numpy(cache: Mapping) -> dict:
+    """The port's serving cache as numpy arrays on the host (copies)."""
+    return {n: (cache_to_numpy(t) if isinstance(t, Mapping)
+                else t.detach().cpu().numpy().copy()) for n, t in cache.items()}

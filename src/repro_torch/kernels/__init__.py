@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for the hot spots, their plain PyTorch versions
 in ref.py, and the public entry points in ops.py."""
-from . import codegen, diffusion3d, ops, ref, stencil
+from . import attention, codegen, conv1d, diffusion3d, ops, ref, ssd, stencil
 
-__all__ = ["codegen", "diffusion3d", "ops", "ref", "stencil"]
+__all__ = ["attention", "codegen", "conv1d", "diffusion3d", "ops", "ref", "ssd", "stencil"]

@@ -3,7 +3,20 @@ CPU tests hold against the JAX package, and that ``chip_smoke.py`` holds
 each CUDA kernel against on the card."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+NEG_INF = -1e30
+
+
+def pick_divisor(n: int, target: int) -> int:
+    """The largest divisor of ``n`` not above ``target`` (the reference's
+    ``ops._pick_divisor``)."""
+    c = min(target, n)
+    while n % c:
+        c -= 1
+    return max(c, 1)
 
 
 # -- 3-D heat diffusion (paper Fig. 1) ---------------------------------------
@@ -34,3 +47,132 @@ def laplacian_step(U, coeff, dt, inv_spacing):
     out = U.clone()
     out[inner] = U[inner] + dt * coeff * lap
     return out
+
+
+# -- causal depthwise conv1d (Mamba2's short convolution) --------------------
+def conv1d_causal(x, w, b=None):
+    """x: (B, L, C), w: (K, C) depthwise taps; ``out[t] = sum_d w[d] x[t-d]``
+    with zeros where ``t - d < 0``, plus the bias. The reference oracle's
+    order: taps from the oldest input to the newest, then the bias."""
+    B, L, C = x.shape
+    K = w.shape[0]
+    xp = torch.nn.functional.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for k in range(K):
+        out = out + xp[:, k:k + L, :] * w[K - 1 - k][None, None, :]
+    if b is not None:
+        out = out + b[None, None, :]
+    return out
+
+
+# -- attention oracle ----------------------------------------------------------
+def attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
+              window: Optional[int] = None):
+    """q: (B, Hq, Lq, D), k/v: (B, Hkv, Lk, D); GQA by head broadcast
+    (``kv head = q head // rep``). ``window``: each query attends to its last
+    ``window`` keys. Computed in f32; a row with no key left gives 0."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    scale = (D ** -0.5) if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    qpos = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
+    kpos = torch.arange(Lk, device=q.device)[None, :]
+    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask[None, None], logits, float("-inf"))
+    # a row with no key left would be a softmax of -inf only (NaN); it gives
+    # 0, as the flash kernel gives it
+    p = torch.where(mask.any(-1, keepdim=True)[None, None], torch.softmax(logits, dim=-1), 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)
+
+
+# -- Mamba2 SSD ------------------------------------------------------------------
+def _heads(m, H):
+    """(B, L, G, N) per state group -> (B, L, H, N) per head."""
+    rep = H // m.shape[2]
+    return torch.repeat_interleave(m, rep, dim=2) if rep > 1 else m
+
+
+def ssd_scan(x, dt, A, B, C, D=None, h0=None):
+    """Sequential state-space-duality oracle (Mamba2, arXiv:2405.21060).
+
+    x (b, L, H, P); dt (b, L, H) positive; A (H,) negative; B/C (b, L, G, N)
+    per state group; D (H,) or None; h0 (b, H, P, N) or None.
+    Returns (y (b, L, H, P), h_final (b, H, P, N) f32)."""
+    b, L, H, P = x.shape
+    N = B.shape[3]
+    Bh, Ch = _heads(B, H).float(), _heads(C, H).float()
+    h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    xf, dtf = x.float(), dt.float()
+    ys = []
+    for t in range(L):
+        h, y = ssd_step(h, xf[:, t], dtf[:, t], A, Bh[:, t], Ch[:, t])
+        ys.append(y)
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((b, 0, H, P))
+    if D is not None:
+        y = y + xf * D[None, None, :, None].float()
+    return y.to(x.dtype), h
+
+
+def ssd_step(h, x_t, dt_t, A, B_t, C_t):
+    """One token of the SSD recurrence, f32: h (b, H, P, N), x_t (b, H, P),
+    dt_t (b, H), B_t/C_t (b, H, N). Returns (h_new, y_t without the skip)."""
+    dA = torch.exp(dt_t * A.float()[None, :])
+    h = h * dA[..., None, None] + (dt_t[..., None] * x_t)[..., None] * B_t[:, :, None, :]
+    return h, torch.einsum("bhpn,bhn->bhp", h, C_t)
+
+
+def ssd(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64):
+    """Chunked SSD, the twin of the reference's ``ops._ssd_chunked_jnp``: the
+    plain version of the SSD kernel (the same per-chunk algebra).
+
+    Bm/Cm are per state group (B, L, G, N). The chunk is the largest divisor
+    of L not above ``chunk``. Returns (y (B, L, H, P), h_final f32)."""
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    cs = pick_divisor(L, chunk)
+    nc = L // cs
+    f32 = torch.float32
+    xr = x.reshape(B, nc, cs, H, P).float()
+    dtr = dt.reshape(B, nc, cs, H).float()
+    Br = _heads(Bm, H).reshape(B, nc, cs, H, N).float()
+    Cr = _heads(Cm, H).reshape(B, nc, cs, H, N).float()
+
+    la = dtr * A[None, None, None, :].float()
+    logcum = torch.cumsum(la, dim=2)                            # (B, nc, cs, H)
+    s_last = torch.exp(logcum[:, :, -1])                        # (B, nc, H)
+
+    # chunk-local quadratic part; mask BEFORE the exp: for u > t the log
+    # difference is positive and can overflow
+    cb = torch.einsum("bnthd,bnuhd->bntuh", Cr, Br)
+    ldiff = logcum[:, :, :, None, :] - logcum[:, :, None, :, :]
+    idx = torch.arange(cs, device=x.device)
+    tri = idx[:, None] >= idx[None, :]
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], ldiff, NEG_INF))
+    w = cb * decay * dtr[:, :, None, :, :]
+    y_intra = torch.einsum("bntuh,bnuhp->bnthp", w, xr)
+
+    # per-chunk state contribution and the inter-chunk recurrence
+    coeff = torch.exp(logcum[:, :, -1:, :] - logcum) * dtr          # (B, nc, cs, H)
+    G_ = torch.einsum("bnuh,bnuhp,bnuhs->bnhps", coeff, xr, Br)      # (B, nc, H, P, N)
+    h = torch.zeros((B, H, P, N), dtype=f32, device=x.device) if h0 is None else h0.float()
+    starts = []
+    for c in range(nc):
+        starts.append(h)                                            # state at chunk start
+        h = h * s_last[:, c, :, None, None] + G_[:, c]
+    h_starts = torch.stack(starts, dim=1)                           # (B, nc, H, P, N)
+
+    y_inter = torch.einsum("bnths,bnhps->bnthp", Cr * torch.exp(logcum)[..., None], h_starts)
+    y = (y_intra + y_inter).reshape(B, L, H, P)
+    if D is not None:
+        y = y + x.float() * D[None, None, :, None].float()
+    return y.to(x.dtype), h

@@ -1,0 +1,100 @@
+"""Architecture and run configuration of the port's LM path.
+
+A copy of ``src/repro/models/config.py`` (the port imports nothing of the
+JAX package): :class:`ArchConfig` carries the published architecture
+hyperparameters, :class:`RunConfig` the deployment knobs the serving path
+reads (parameter dtype, and the implementation of each kernel:
+``"cuda"``, the hand-written CUDA kernel, or ``"ref"``, its plain PyTorch
+version).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+IMPLS = ("cuda", "ref")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None   # default d_model // n_heads
+    # attention details
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    window: Optional[int] = None     # sliding-window attention
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    # hybrid (Zamba2): one shared attention block applied every k ssm layers
+    attn_every: int = 0
+    # enc-dec
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+    # vlm / audio stub frontend
+    n_patches: int = 0
+    source_len: int = 0
+    notes: str = ""
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    # The CUDA kernels take float32; bf16 storage is ROADMAP queue 2,
+    # items 3-5 ("bf16 inputs").
+    param_dtype: str = "float32"
+    attn_impl: str = "cuda"          # cuda | ref
+    ssd_impl: str = "cuda"
+    conv_impl: str = "cuda"
+
+    def __post_init__(self):
+        for f in ("attn_impl", "ssd_impl", "conv_impl"):
+            if getattr(self, f) not in IMPLS:
+                raise ValueError(f"{f} must be one of {IMPLS}, got {getattr(self, f)!r}")
+
+
+SMOKE_OVERRIDES = dict(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
+    head_dim=16, n_patches=4, source_len=8,
+)
+
+
+def smoke_variant(cfg: ArchConfig) -> ArchConfig:
+    """Tiny same-family config for CPU smoke tests (the reference's rule)."""
+    kw = dict(SMOKE_OVERRIDES)
+    if cfg.is_moe:
+        kw.update(n_experts=4, top_k=2)
+    if cfg.family in ("ssm", "hybrid"):
+        kw.update(ssm_state=16, ssm_head_dim=16, ssm_expand=2)
+    if cfg.family == "hybrid":
+        kw.update(attn_every=2)
+    if cfg.family == "encdec":
+        kw.update(n_enc_layers=2, n_dec_layers=2)
+    if cfg.n_kv_heads == cfg.n_heads:
+        kw["n_kv_heads"] = kw["n_heads"]
+    if cfg.window is not None:
+        kw["window"] = 16
+    return dataclasses.replace(cfg, **kw)

@@ -6,12 +6,16 @@ installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: each kernel must equal its plain version bitwise (the build
-passes --fmad=false, so every multiply and add rounds on its own as
+Tolerances: each stencil kernel must equal its plain version bitwise (the
+build passes --fmad=false, so every multiply and add rounds on its own as
 PyTorch's operators do). Max reductions are bitwise too; sums fold in
 another order and are held to rtol 1e-5. (A ``pow`` with an exponent other
 than 2, 3 or 0.5 compiles to ``powf``, documented within 4 ulp; no kernel
-here uses one.)
+here uses one.) The LM kernels: conv1d rtol 1e-5 / atol 1e-6 (its taps sum
+in the plain version's order; SiLU's exponential differs by a few ulp),
+attention rtol 1e-5 / atol 1e-5 (an online softmax over key tiles against
+one softmax per row), SSD rtol 1e-4 / atol 1e-4 (the products sum in
+another order, and the state carries rounding across chunks).
 """
 import numpy as np
 import pytest
@@ -20,7 +24,9 @@ import torch
 from repro_torch.configs import Diffusion3DConfig
 from repro_torch.core import fd2d, fd3d, init_parallel_stencil, teff
 from repro_torch.examples import quickstart
-from repro_torch.kernels import diffusion3d, ref, stencil
+from repro_torch.kernels import attention, conv1d, diffusion3d, ops, ref, ssd, stencil
+from repro_torch.launch import serve as lm_serve
+from repro_torch.models import RunConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +125,84 @@ def test_measure_times_on_the_card(card):
     m = teff.measure(lambda: x.mul_(1.0), iters=5, warmup=1)
     assert m.median_s > 0 and len(m.samples_s) == 5
     assert teff.measure_device_bandwidth(1 << 24, iters=3) > 0
+
+
+def _randn(rng, shape, card, scale=1.0):
+    return torch.tensor((rng.randn(*shape) * scale).astype(np.float32), device=card)
+
+
+@pytest.mark.parametrize("B,L,C,K", [(2, 3, 40, 4), (2, 70, 300, 4), (1, 33, 17, 3),
+                                     (1, 20, 5, 9)])
+@pytest.mark.parametrize("silu", [False, True])
+def test_conv1d_equals_plain(card, B, L, C, K, silu, rng):
+    x, w, b = _randn(rng, (B, L, C), card), _randn(rng, (K, C), card), _randn(rng, (C,), card)
+    before = conv1d.launches
+    got = conv1d.conv1d_causal(x, w, b, silu=silu)
+    torch.cuda.synchronize()
+    assert conv1d.launches == before + 1
+    torch.testing.assert_close(got, conv1d.plain(x, w, b, silu=silu), rtol=1e-5, atol=1e-6)
+    if not silu:   # the taps sum in the plain version's order
+        assert torch.equal(got, conv1d.plain(x, w, b))
+    with pytest.raises(TypeError, match="float32"):
+        conv1d.conv1d_causal(x.double(), w.double(), b.double())
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk,with_h0", [
+    (1, 32, 2, 4, 1, 8, 8, False),
+    (2, 64, 4, 8, 2, 16, 16, True),
+    (1, 80, 4, 8, 4, 8, 32, True),
+    (2, 100, 8, 64, 1, 64, 64, False),
+])
+def test_ssd_equals_plain(card, B, L, H, P, G, N, chunk, with_h0, rng):
+    x = _randn(rng, (B, L, H, P), card, 0.5)
+    dt = torch.tensor((np.abs(rng.randn(B, L, H)) * 0.1 + 0.01).astype(np.float32),
+                      device=card)
+    A = torch.tensor((-np.abs(rng.rand(H)) - 0.1).astype(np.float32), device=card)
+    Bm, Cm = _randn(rng, (B, L, G, N), card, 0.3), _randn(rng, (B, L, G, N), card, 0.3)
+    D = _randn(rng, (H,), card)
+    h0 = _randn(rng, (B, H, P, N), card, 0.2) if with_h0 else None
+    before = ssd.launches
+    y, h = ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, D=D, h0=h0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    cs = ssd.pick_chunk(L, chunk)
+    yw, hw = ref.ssd(x, dt, A, Bm, Cm, D=D, h0=h0, chunk=cs)
+    torch.testing.assert_close(y, yw, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, hw, rtol=1e-4, atol=1e-4)
+    ys, hs = ref.ssd_scan(x, dt, A, Bm, Cm, D=D, h0=h0)
+    torch.testing.assert_close(y, ys, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, hs, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,D", [(1, 4, 4, 64, 16), (2, 4, 2, 97, 32),
+                                          (1, 2, 1, 130, 64), (1, 2, 2, 33, 128)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 37), (False, None),
+                                           (False, 9), (True, 0)])
+def test_attention_equals_plain(card, B, Hq, Hkv, L, D, causal, window, rng):
+    q, k, v = (_randn(rng, (B, h, L, D), card) for h in (Hq, Hkv, Hkv))
+    before = attention.launches
+    got = attention.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if window == 0:
+        assert torch.all(got == 0)
+
+
+def test_lm_serve_backends_agree_on_the_card(card):
+    scfg = lm_serve.ServeConfig(batch=2, prompt_len=40, gen_len=6)
+    counts = (conv1d.launches, ssd.launches, attention.launches)
+    got, info = lm_serve.serve("zamba2-1.2b", scfg, smoke=True, device="cuda",
+                               log_fn=lambda *a: None)
+    # the smoke config: 2 Mamba2 layers and one application of the shared block
+    assert (conv1d.launches - counts[0], ssd.launches - counts[1],
+            attention.launches - counts[2]) == (2, 2, 1)
+    rc = RunConfig(attn_impl="ref", ssd_impl="ref", conv_impl="ref")
+    want, winfo = lm_serve.serve("zamba2-1.2b", scfg, rc=rc, smoke=True, device="cuda",
+                                 log_fn=lambda *a: None)
+    torch.testing.assert_close(info["prefill_logits"], winfo["prefill_logits"],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got, want)
+    assert ops.conv1d_causal(torch.zeros(1, 2, 3, device=card), torch.ones(2, 3, device=card),
+                             impl="cuda").abs().max() == 0
