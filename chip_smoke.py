@@ -13,7 +13,9 @@ weights from a seed) through ``repro_torch.launch.serve``, whose prefill
 runs the conv1d, SSD and attention kernels; the serving run's prefill
 logits are held against the same run on the plain versions. It then times
 each kernel beside its plain version, the PyTorch library call that
-computes the same function (where there is one) and its bound.
+computes the same function (where there is one) and its bound: for the
+attention and SSD kernels, whose products run on the tensor cores at f32
+accuracy (3xTF32), at 165 TFLOP/s, with the f32 CUDA-core bound beside it.
 
 It prints JSON lines; the line before the last lists the kernels, the one
 before that is the card's name and power limit as nvidia-smi gives them,
@@ -40,6 +42,10 @@ SUM_RTOL = 1e-5
 # cores, at the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# f32-accurate products on the tensor cores: three TF32 products (495
+# TFLOP/s dense) per f32 product (3xTF32), the route of the attention and
+# SSD kernels
+PEAK_3XTF32_PER_S = 495e12 / 3
 T_RANGE = (1.7, 2.7)      # the maximum principle for the Fig. 1 initial state
 T_SLACK = 2.0 ** -20      # a few f32 ulps of rounding at T ~ 2
 
@@ -51,8 +57,9 @@ LM_SERVE = dict(batch=4, prompt_len=1024, gen_len=32)
 # (rtol, atol) of each LM kernel against its plain version, f32: conv1d sums
 # its taps in the plain version's order, and SiLU's exponential differs by a
 # few ulp; attention's online softmax over key tiles rounds otherwise than
-# one softmax per row; the SSD kernel sums its products in another order and
-# carries the state's rounding across up to 16 chunks.
+# one softmax per row, and each 3xTF32 product is about 2^-21 relative off;
+# the SSD kernel sums its 3xTF32 products in another order, over 64-step
+# chunks where the plain version's pick_chunk may take 1-step ones.
 LM_TOL = {"conv1d": (1e-5, 1e-6), "ssd": (1e-4, 1e-4), "attention": (1e-5, 1e-5)}
 # Prefill logits (O(1) for these random weights) of the kernels against the
 # plain versions after 38 Mamba2 layers and 6 shared-block applications,
@@ -112,13 +119,15 @@ def main() -> int:
              generic.compiled(**{n: (8, 8, 8) for n in ("A2", "B2", "A", "B")}, c=1.0, h=1.0)]
     t0 = time.perf_counter()
     lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
-    builds = build.compile_many([("diffusion3d", diffusion3d.SOURCE.read_text())]
-                                + [(n, m.SOURCE.read_text()) for n, m in lm_kernels.items()]
+    builds = build.compile_many([("diffusion3d", build.read_source(diffusion3d.SOURCE))]
+                                + [(n, build.read_source(m.SOURCE))
+                                   for n, m in lm_kernels.items()]
                                 + [(c.lib_name, c.source) for c in calls])
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "builds": [{"name": b.name, "seconds": b.seconds,
                       "ptxas": [ln.strip() for ln in b.log.splitlines()
-                                if "registers" in ln or "spill" in ln]}
+                                if "entry function" in ln or "registers" in ln
+                                or "spill" in ln]}
                      for b in builds]})
 
     # ---- 3. kernels against their plain versions ------------------------
@@ -177,6 +186,7 @@ def main() -> int:
 
     # ---- 3b. the LM kernels against their plain versions -------------------
     lm_cases = lm_kernel_cases(torch, dev, gen)
+    lm_failures = []     # every case is checked and printed before any fails
     for label, case in lm_cases.items():
         kernel = case["name"]
         got = case["kernel"]()
@@ -188,12 +198,12 @@ def main() -> int:
         for part, g, w in zip(case["parts"], got, want):
             row[part] = close_report(torch, g, w, rtol, atol)
         emit(row)
-        for part in case["parts"]:
-            require(row[part]["ok"], f"{kernel} ({label}): {part} outside rtol {rtol}, "
-                    f"atol {atol}: {row[part]}")
+        lm_failures += [f"{kernel} ({label}): {part} outside rtol {rtol}, atol {atol}: "
+                        f"{row[part]}" for part in case["parts"] if not row[part]["ok"]]
         if label.endswith("zamba2"):
             err_at[kernel] = max(row[part]["max_abs_err"] for part in case["parts"])
         del got, want
+    require(not lm_failures, "; ".join(lm_failures))
 
     # ---- 4. the main path at FIG1 ------------------------------------------
     stencil.launches.clear()
@@ -285,9 +295,15 @@ def main() -> int:
              "library_ms": (teff.measure(case["library"], iters=20, warmup=3).median_s * 1e3
                             if case["library"] else None),
              "bytes": case["bytes"], "flops": case["flops"]}
-        by_bytes, by_ops = case["bytes"] / PEAK_BYTES_PER_S, case["flops"] / PEAK_F32_PER_S
+        # bound_ms at the rate of the units the kernel runs its products on
+        # (attention, SSD: 3xTF32 tensor cores; conv1d: f32 CUDA cores);
+        # the f32 CUDA-core bound beside it
+        rate = PEAK_3XTF32_PER_S if case["tensor_cores"] else PEAK_F32_PER_S
+        by_bytes, by_ops = case["bytes"] / PEAK_BYTES_PER_S, case["flops"] / rate
         t["bound_ms"] = max(by_bytes, by_ops) * 1e3
         t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        t["bound_rate"] = "3xTF32 tensor cores" if case["tensor_cores"] else "f32 CUDA cores"
+        t["bound_f32_cuda_cores_ms"] = max(by_bytes, case["flops"] / PEAK_F32_PER_S) * 1e3
         t["library"] = case["library_name"]
         lm_times[kernel] = t
     emit({"phase": "times_lm", "card": spec.name, "power_limit": spec.power_limit,
@@ -319,7 +335,7 @@ def main() -> int:
     kernels += [{"name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{k}.cu",
                  "replaces": rep, "launches": lm_counts[k], "max_abs_err": err_at[k],
                  **{x: lm_times[k][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms")}}
+                                                "bound_f32_cuda_cores_ms", "library_ms")}}
                 for k, rep in lm_rows]
     print(f"{name}, {power}", flush=True)
     emit({"kernels": kernels})
@@ -412,7 +428,8 @@ def lm_main_path(torch, dev, smoke: bool = False, serve_kw=LM_SERVE) -> dict:
 
 def lm_kernel_cases(torch, dev, gen):
     """Inputs, kernel, plain version, library call, bytes and operations of
-    each LM kernel, at a small odd shape and at the Zamba2 prefill shape."""
+    each LM kernel, at small shapes on the kernels' tile edges and at the
+    Zamba2 prefill shape."""
     import torch.nn.functional as F
     from repro_torch.kernels import attention, conv1d, ref, ssd
 
@@ -431,9 +448,19 @@ def lm_kernel_cases(torch, dev, gen):
             "library": lambda x=x, w=w, b=b, L=L, C=C, K=K: F.silu(F.conv1d(
                 x.transpose(1, 2), w.flip(0).t()[:, None, :], b, padding=K - 1,
                 groups=C)[..., :L]).transpose(1, 2),
-            "bytes": 4 * (2 * B * L * C + K * C + C), "flops": B * L * C * (2 * K + 5)}
+            "bytes": 4 * (2 * B * L * C + K * C + C), "flops": B * L * C * (2 * K + 5),
+            "tensor_cores": False}
     for label, (B, L, H, P, G, N, chunk, with_h0) in {
             "odd": (2, 100, 8, 16, 4, 16, 64, True),
+            # pick_chunk halves to 8; chunks 16 and 32 with G = 2; P and N
+            # that take 4-byte copies; a chunk above 64 (short last chunk)
+            "L1000_G2_h0": (1, 1000, 8, 64, 2, 64, 64, True),
+            "chunk16_G2": (2, 256, 8, 64, 2, 64, 16, False),
+            "chunk32_G2_h0": (1, 256, 8, 32, 2, 32, 32, True),
+            "P6_N10": (1, 40, 2, 6, 1, 10, 16, True),
+            "chunk96": (1, 96, 2, 64, 1, 64, 96, True),
+            # an odd L at Zamba2's H, P, N: pick_chunk gives 1, the kernels 64
+            "L1023_h0": (1, 1023, 64, 64, 1, 64, 64, True),
             "zamba2": (4, 1024, 64, 64, 1, 64, 64, False)}.items():
         x = randn(B, L, H, P, scale=0.5)
         u = torch.rand((B, L, H), generator=gen)
@@ -442,11 +469,13 @@ def lm_kernel_cases(torch, dev, gen):
         Bm, Cm = randn(B, L, G, N, scale=0.3), randn(B, L, G, N, scale=0.3)
         D = torch.ones(H).to(dev)
         h0 = randn(B, H, P, N, scale=0.2) if with_h0 else None
-        cs = ssd.pick_chunk(L, chunk)
-        tri = cs * (cs + 1) // 2
+        cs = ssd.pick_chunk(L, chunk)      # the plain version's chunk
+        kcs, nc = ssd.plan(L, chunk)         # the kernels'
+        rows = [min(kcs, L - c * kcs) for c in range(nc)]
         cases[f"ssd_{label}"] = {
             "name": "ssd", "parts": ["y", "h_final"],
-            "shape": {"x": [B, L, H, P], "G": G, "N": N, "chunk": cs, "h0": with_h0},
+            "shape": {"x": [B, L, H, P], "G": G, "N": N, "chunk": cs, "kernel_chunk": kcs,
+                      "h0": with_h0},
             "kernel": lambda a=(x, dt, A, Bm, Cm), D=D, h0=h0, c=chunk:
                 ssd.ssd_chunk_scan(*a, D=D, h0=h0, chunk=c),
             "plain": lambda a=(x, dt, A, Bm, Cm), D=D, h0=h0, cs=cs:
@@ -455,11 +484,22 @@ def lm_kernel_cases(torch, dev, gen):
             # x, dt, A, B, C, D (and h0) read once; y and the final state written once
             "bytes": 4 * (2 * B * L * H * P + B * L * H + 2 * H + 2 * B * L * G * N
                           + (2 if with_h0 else 1) * B * H * P * N),
-            # per (b, h, chunk): C·Bᵀ and W·x over the causal triangle, C·h and
-            # the state update over (cs, P, N)
-            "flops": B * H * (L // cs) * (2 * tri * (N + P) + 4 * cs * P * N)}
+            # per (b, h) and kernel chunk of r steps: C·Bᵀ and W·x over the
+            # causal triangle, C·h and the state update over (r, P, N)
+            "flops": B * H * sum(r * (r + 1) * (N + P) + 4 * r * P * N for r in rows),
+            "tensor_cores": True}
     for label, (B, Hq, Hkv, L, D, causal, window) in {
             "odd": (2, 4, 2, 200, 64, True, 37),
+            # the tile edges (64 query rows, 32 keys), GQA rep 2 and 4,
+            # window 0, non-causal
+            "L1_rep2": (1, 4, 2, 1, 64, True, None),
+            "L63_rep4_D128_w37": (1, 8, 2, 63, 128, True, 37),
+            "L65_D16_noncausal": (2, 4, 4, 65, 16, False, None),
+            "L1000_rep4_w0": (1, 8, 2, 1000, 64, True, 0),
+            "L1024_D16": (1, 4, 4, 1024, 16, True, None),
+            "L1024_D128_rep2": (1, 4, 2, 1024, 128, True, None),
+            # 4096 keys: the output sums over 128 key tiles
+            "L4096": (1, 4, 4, 4096, 64, True, None),
             "zamba2": (4, 32, 32, 1024, 64, True, None)}.items():
         q, k, v = randn(B, Hq, L, D), randn(B, Hkv, L, D), randn(B, Hkv, L, D)
         i = torch.arange(L)
@@ -481,7 +521,7 @@ def lm_kernel_cases(torch, dev, gen):
                 q, k, v, is_causal=True)) if causal and window is None and Hq == Hkv
             else None,
             "bytes": 4 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D),
-            "flops": 4 * B * Hq * D * pairs}
+            "flops": 4 * B * Hq * D * pairs, "tensor_cores": True}
     return cases
 
 

@@ -3,18 +3,23 @@
 Every kernel is a ``.cu`` file with a plain C entry point (no PyTorch
 headers), compiled at first use with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 [--fmad=false]
          -shared -Xcompiler -fPIC -Xptxas -v
 
 into ``build/repro_torch/`` at the repository root, under a name that
 carries a hash of the source and the flags, so a changed source rebuilds
-and an unchanged one is loaded as it is. The library is written to a
-temporary name and moved into place with ``os.replace``, so two processes
-building the same source never see a half-written file.
+and an unchanged one is loaded as it is. :func:`read_source` inlines the
+headers a source includes from ``csrc/`` (``#include "name.cuh"``), so the
+hash covers them too and the compiled text stands alone. The library is
+written to a temporary name and moved into place with ``os.replace``, so
+two processes building the same source never see a half-written file.
 
-``--fmad=false`` keeps every multiply and add rounded on its own, as
-PyTorch's elementwise operators round them, so a kernel and its plain
-version can be compared bitwise on the card.
+The flags are per source (:func:`flags`). ``--fmad=false`` keeps every
+multiply and add rounded on its own, as PyTorch's elementwise operators
+round them, so the stencil kernels and conv1d can be compared bitwise with
+their plain versions on the card. The sources in :data:`CONTRACTED`
+(attention, SSD) are held to a tolerance, not bitwise, and compile with
+FMA contraction.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises
 ``RuntimeError`` with the compiler's output.
@@ -25,6 +30,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,9 +38,12 @@ from pathlib import Path
 from typing import Sequence
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Sources compiled with FMA contraction; every other one gets --fmad=false.
+CONTRACTED = frozenset({"attention", "ssd"})
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+_LOCAL_INCLUDE = re.compile(r'^#include "([^"/]+)"[ \t]*$', re.M)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +74,20 @@ def nvcc() -> str:
     return path
 
 
+def read_source(path: Path) -> str:
+    """The text of the CUDA source at ``path``, each ``#include "name"`` of
+    a header in :data:`CSRC_DIR` replaced by that header's text."""
+    return _LOCAL_INCLUDE.sub(lambda m: (CSRC_DIR / m.group(1)).read_text(),
+                              Path(path).read_text())
+
+
+def flags(name: str) -> tuple[str, ...]:
+    """nvcc's flags for the source called ``name``."""
+    return NVCC_FLAGS if name in CONTRACTED else NVCC_FLAGS + ("--fmad=false",)
+
+
 def library_path(name: str, source: str) -> Path:
-    digest = hashlib.sha256("\0".join((source, *NVCC_FLAGS)).encode()).hexdigest()
+    digest = hashlib.sha256("\0".join((source, *flags(name))).encode()).hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
@@ -91,7 +112,7 @@ def compile_many(sources: Sequence[tuple[str, str]]) -> list[Build]:
             src = lib.with_name(f"{lib.stem}.tmp{os.getpid()}.cu")
             tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
             src.write_text(source)
-            cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [exe, *flags(name), "-o", str(tmp), str(src)]
             procs.append((name, lib, src, tmp, cmd, time.perf_counter(), subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         failures = []

@@ -34,7 +34,7 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
 
 @functools.cache
 def library() -> build.Library:
-    return build.Library("conv1d", SOURCE.read_text(), _ARGTYPES)
+    return build.Library("conv1d", build.read_source(SOURCE), _ARGTYPES)
 
 
 def plain(x, w, b=None, silu: bool = False):

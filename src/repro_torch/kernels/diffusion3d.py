@@ -30,7 +30,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_float] * 5 + [ctypes.c_int64] * 7
 
 @functools.cache
 def library() -> build.Library:
-    return build.Library("diffusion3d", SOURCE.read_text(), _ARGTYPES)
+    return build.Library("diffusion3d", build.read_source(SOURCE), _ARGTYPES)
 
 
 def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1):

@@ -7,14 +7,15 @@ installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: each stencil kernel must equal its plain version bitwise (the
-build passes --fmad=false, so every multiply and add rounds on its own as
-PyTorch's operators do). Max reductions are bitwise too; sums fold in
+build passes them --fmad=false, so every multiply and add rounds on its own
+as PyTorch's operators do). Max reductions are bitwise too; sums fold in
 another order and are held to rtol 1e-5. (A ``pow`` with an exponent other
 than 2, 3 or 0.5 compiles to ``powf``, documented within 4 ulp; no kernel
 here uses one.) The LM kernels: conv1d rtol 1e-5 / atol 1e-6 (its taps sum
 in the plain version's order; SiLU's exponential differs by a few ulp),
-attention rtol 1e-5 / atol 1e-5 (an online softmax over key tiles against
-one softmax per row), SSD rtol 1e-4 / atol 1e-4 (the products sum in
+attention rtol 1e-5 / atol 1e-5 (3xTF32 products on the tensor cores, about
+2^-21 relative each, and an online softmax over key tiles against one
+softmax per row), SSD rtol 1e-4 / atol 1e-4 (3xTF32 products summed in
 another order, and the state carries rounding across chunks).
 """
 import numpy as np
@@ -152,6 +153,15 @@ def test_conv1d_equals_plain(card, B, L, C, K, silu, rng):
     (2, 64, 4, 8, 2, 16, 16, True),
     (1, 80, 4, 8, 4, 8, 32, True),
     (2, 100, 8, 64, 1, 64, 64, False),
+    (1, 1000, 4, 64, 2, 64, 64, True),     # L = 1000: pick_chunk halves to 8, the
+                                           # kernels run 64 steps, the last chunk 40
+    (1, 1023, 64, 64, 1, 64, 64, True),    # odd L at Zamba2's H, P, N: pick_chunk 1
+    (1, 1000, 2, 64, 1, 64, 64, False),
+    (2, 256, 4, 64, 2, 64, 16, False),     # chunk 16, G = 2
+    (1, 256, 4, 64, 2, 64, 32, True),      # chunk 32, G = 2, h0
+    (1, 40, 2, 6, 1, 10, 16, True),        # P, N not multiples of 4: 4-byte copies
+    (1, 96, 2, 8, 1, 8, 96, True),         # chunk 96: 64-step chunks, the last short
+    (1, 70, 2, 72, 1, 128, 64, True),      # two p tiles, two n tiles, N = 128
 ])
 def test_ssd_equals_plain(card, B, L, H, P, G, N, chunk, with_h0, rng):
     x = _randn(rng, (B, L, H, P), card, 0.5)
@@ -164,7 +174,7 @@ def test_ssd_equals_plain(card, B, L, H, P, G, N, chunk, with_h0, rng):
     before = ssd.launches
     y, h = ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, D=D, h0=h0, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd.launches == before + 1
+    assert ssd.launches == before + 1      # one call, two device launches
     cs = ssd.pick_chunk(L, chunk)
     yw, hw = ref.ssd(x, dt, A, Bm, Cm, D=D, h0=h0, chunk=cs)
     torch.testing.assert_close(y, yw, rtol=1e-4, atol=1e-4)
@@ -175,7 +185,14 @@ def test_ssd_equals_plain(card, B, L, H, P, G, N, chunk, with_h0, rng):
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,L,D", [(1, 4, 4, 64, 16), (2, 4, 2, 97, 32),
-                                          (1, 2, 1, 130, 64), (1, 2, 2, 33, 128)])
+                                          (1, 2, 1, 130, 64), (1, 2, 2, 33, 128),
+                                          # the tile edges (64 query rows, 32 keys),
+                                          # GQA rep 2 and 4
+                                          (1, 4, 2, 1, 64), (1, 8, 2, 63, 64),
+                                          (2, 4, 2, 65, 48), (1, 8, 2, 1000, 80),
+                                          (1, 2, 2, 1024, 16), (1, 4, 2, 1024, 128),
+                                          # 4096 keys: O sums over 128 key tiles
+                                          (1, 2, 1, 4096, 64)])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 37), (False, None),
                                            (False, 9), (True, 0)])
 def test_attention_equals_plain(card, B, Hq, Hkv, L, D, causal, window, rng):

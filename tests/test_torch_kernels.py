@@ -213,15 +213,37 @@ def test_build_caches_by_source(monkeypatch, tmp_path):
     assert build.library_path("k", "// a\n") == a.library
     (again,) = build.compile_many([("k", "// a\n")])
     assert again is a and len(calls) == 1
-    assert "--fmad=false" in build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    # the stencil kernels are held bitwise (no FMA contraction); attention
+    # and SSD, held to a tolerance, compile with it
+    assert "--fmad=false" in build.flags("k") and "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert "--fmad=false" not in build.flags("attention") + build.flags("ssd")
 
 
 def test_library_argtypes_match_the_c_entry_points():
     """Pointers and the stream are c_void_p, sizes c_int64, scalars c_float,
-    in the order the C sources declare them."""
-    src = diffusion3d.SOURCE.read_text()
-    sig = src[src.index('extern "C" int launch('):].split(")", 1)[0]
-    n_ptr, n_f, n_i = sig.count("void*"), sig.count("float "), sig.count("int64_t")
-    want = [ctypes.c_void_p] * (n_ptr - 1) + [ctypes.c_float] * n_f \
-        + [ctypes.c_int64] * n_i + [ctypes.c_void_p]
-    assert diffusion3d._ARGTYPES == want
+    in the order each C source declares them."""
+    from repro_torch.kernels import attention, conv1d, ssd
+    kinds = {"int64_t": ctypes.c_int64, "float": ctypes.c_float}
+    for mod in (diffusion3d, conv1d, ssd, attention):
+        src = mod.SOURCE.read_text()
+        head = 'extern "C" int launch('
+        sig = src[src.index(head) + len(head):].split(")", 1)[0]
+        want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]] for p in sig.split(",")]
+        assert mod._ARGTYPES == want, mod.__name__
+
+
+def test_read_source_inlines_the_csrc_headers(tmp_path, monkeypatch):
+    """A source's ``#include "x.cuh"`` of a header in csrc/ becomes the
+    header's text, so a changed header changes the library's hash; system
+    headers stay as they are."""
+    (tmp_path / "h.cuh").write_text("// helper v1\n")
+    (tmp_path / "k.cu").write_text('#include <cstdint>\n#include "h.cuh"\nint k;\n')
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    text = build.read_source(tmp_path / "k.cu")
+    assert text == "#include <cstdint>\n// helper v1\n\nint k;\n"
+    (tmp_path / "h.cuh").write_text("// helper v2\n")
+    assert build.library_path("k", build.read_source(tmp_path / "k.cu")) \
+        != build.library_path("k", text)
+    from repro_torch.kernels import attention, ssd
+    for mod in (attention, ssd):
+        assert '#include "tf32x3.cuh"' in mod.SOURCE.read_text()

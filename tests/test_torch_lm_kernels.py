@@ -14,6 +14,8 @@ a sigmoid; both sides round each once); attention rtol 1e-5 / atol 1e-6
 / atol 1e-5 (up to 80 steps of a recurrence, and the chunked and
 sequential forms sum in different orders).
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -215,4 +217,53 @@ def test_wrappers_refuse_tensors_off_the_card_and_cpu():
         ssd.ssd_chunk_scan(torch.zeros(1, 4, 2, 4, **m), torch.zeros(1, 4, 2, **m),
                            torch.zeros(2, **m), torch.zeros(1, 4, 1, 8, **m),
                            torch.zeros(1, 4, 1, 8, **m))
-    assert ssd.smem_bytes(64, 64, 64) < ssd.MAX_SMEM < ssd.smem_bytes(256, 256, 64)
+    assert ssd.smem_bytes(64) < ssd.smem_bytes(256) < ssd.MAX_SMEM < ssd.smem_bytes(512)
+
+
+def test_ssd_plan_and_shared_memory():
+    """The kernels' chunk is ``chunk`` up to 64 steps for every L (a longer
+    one runs as 64-step chunks), the last chunk short where it does not
+    divide L, so an L that 64 does not divide keeps whole tiles; the output
+    kernel's shared memory lets three blocks share an SM at Zamba2's N = 64."""
+    assert ssd.plan(1024, 64) == (64, 16)
+    assert ssd.plan(1023, 64) == (64, 16)         # pick_chunk would give 1
+    assert ssd.plan(1000, 64) == (64, 16)         # pick_chunk would give 8
+    assert ssd.plan(7, 64) == (64, 1)
+    assert ssd.plan(256, 16) == (16, 16)
+    assert ssd.plan(128, 128) == (64, 2)
+    assert ssd.plan(96, 96) == (64, 2)            # 64 + a short chunk of 32
+    assert ssd.plan(0, 64) == (64, 0)
+    assert ssd.smem_bytes(64) == 68096 and 3 * (ssd.smem_bytes(64) + 1024) <= 228 * 1024
+    assert ssd.smem_bytes(10) == ssd.smem_bytes(16)   # N is padded to 16
+
+
+def test_ssd_shared_memory_matches_the_c_source():
+    """ssd.py's tile constants and smem_bytes are csrc/ssd.cu's: its
+    constants, and its out_smem_bytes expression evaluated here."""
+    src = ssd.SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
+    env = {}
+    for name in ("kChunk", "kTile", "kLdX"):
+        env[name] = eval(consts[name], {}, dict(env))
+    assert (env["kChunk"], env["kTile"]) == (ssd.KERNEL_CHUNK, ssd._TILE)
+    body = re.search(r"out_smem_bytes\(int npad\) \{\s*return ([^;]+);", src).group(1)
+    for N in (1, 10, 16, 64, 100, 256):
+        assert eval(body, {}, {**env, "npad": -(-N // 16) * 16}) == ssd.smem_bytes(N), N
+
+
+def test_wrappers_refuse_shapes_the_kernels_do_not_take():
+    """Refused before any tensor reaches the card (``meta`` tensors here)."""
+    m = dict(device="meta")
+    with pytest.raises(ValueError, match="head dim 24"):
+        attention.flash_attention(*(torch.zeros(1, 2, 8, 24, **m) for _ in range(3)))
+    with pytest.raises(ValueError, match="must divide"):
+        attention.flash_attention(torch.zeros(1, 3, 8, 16, **m),
+                                  *(torch.zeros(1, 2, 8, 16, **m) for _ in range(2)))
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd.ssd_chunk_scan(torch.zeros(1, 4, 2, 4, **m), torch.zeros(1, 4, 2, **m),
+                           torch.zeros(2, **m), torch.zeros(1, 4, 1, 512, **m),
+                           torch.zeros(1, 4, 1, 512, **m))
+    with pytest.raises(ValueError, match="groups"):
+        ssd.ssd_chunk_scan(torch.zeros(1, 4, 3, 4, **m), torch.zeros(1, 4, 3, **m),
+                           torch.zeros(3, **m), torch.zeros(1, 4, 2, 8, **m),
+                           torch.zeros(1, 4, 2, 8, **m))

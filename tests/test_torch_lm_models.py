@@ -311,5 +311,8 @@ def test_profile_serve_runs_its_phases_on_the_cpu():
     assert out["device"] == "cpu" and out["prefill_ms"] > 0 and out["decode_step_ms"] > 0
     # no device number from a CPU run
     assert out["prefill_trace"]["device_ms"] == 0 and out["prefill_trace"]["busy_share"] is None
-    assert profile_serve._kind("void ssd_kernel(float*)") == "port kernels"
+    for name in ("void (anonymous namespace)::ssd_states_kernel(float*)",
+                 "void (anonymous namespace)::ssd_output_kernel(float*)",
+                 "void (anonymous namespace)::attention_kernel<64>(float*)"):
+        assert profile_serve._kind(name) == "port kernels"
     assert profile_serve._kind("sm90_xmma_gemm_f32f32") == "matrix products"
