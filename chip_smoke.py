@@ -11,7 +11,14 @@ explicit kernel, then solve_until) and Zamba2-1.2B serving at full width
 and depth (batch 4, a 1024-token prompt, 32 generated tokens, random
 weights from a seed) through ``repro_torch.launch.serve``, whose prefill
 runs the conv1d, SSD and attention kernels; the serving run's prefill
-logits are held against the same run on the plain versions. It then times
+logits are held against the same run on the plain versions. The paper's two coupled solvers follow
+through ``repro_torch.examples.porosity_waves`` (2-D, 8192^2: staggered
+Darcy fluxes, every boundary condition, the flux-split scheme, a fixed run
+and a ``--tol`` run) and ``repro_torch.examples.gross_pitaevskii`` (3-D,
+512^3: the fused radius-2 update, every boundary condition, the two-launch
+scheme, a fixed run and the drift-guarded run); each of their generated
+kernels is first held bitwise against the ``torch`` backend at small odd
+shapes and at those sizes. It then times
 each kernel beside its plain version, the PyTorch library call that
 computes the same function (where there is one) and its bound: for the
 attention and SSD kernels, whose products run on the tensor cores at f32
@@ -48,6 +55,16 @@ PEAK_F32_PER_S = 67e12
 PEAK_3XTF32_PER_S = 495e12 / 3
 T_RANGE = (1.7, 2.7)      # the maximum principle for the Fig. 1 initial state
 T_SLACK = 2.0 ** -20      # a few f32 ulps of rounding at T ~ 2
+
+# The coupled solvers: small odd shapes, then the sizes their users run
+# (porosity 8192^2: four 268 MB fields per fused step; GP 512^3, FIG1's
+# size: five 537 MB fields per fused step).
+COUPLED_SMALL = {"porosity": (33, 20), "gp": (13, 17, 130)}
+COUPLED_FULL = {"porosity": (8192, 8192), "gp": (512, 512, 512)}
+PW_STEPS, PW_TOL_CAP, PW_TOL = 200, 200, 1e-9
+GP_STEPS, GP_TOL_CAP, GP_TOL = 50, 50, 1e-3
+SHORT_STEPS = {"porosity": 20, "gp": 5}    # the other bc and scheme variants
+AGREE_STEPS = {"porosity": 5, "gp": 3}     # full size, cuda against torch backend
 
 # Zamba2-1.2B serving at full width and depth; the kernels' shapes on its
 # prefill path (conv over d_conv_in = 4224 channels with K = 4; SSD with 64
@@ -117,18 +134,22 @@ def main() -> int:
              step.with_reductions(ERR).compiled(**shape_kw, **sc_names),
              step.with_reductions(ALL_REDS).compiled(**shape_kw, **sc_names),
              generic.compiled(**{n: (8, 8, 8) for n in ("A2", "B2", "A", "B")}, c=1.0, h=1.0)]
+    coupled = coupled_variants(torch, dev)
+    calls += [v["kernel"].compiled(**v["shapes"](COUPLED_SMALL[v["solver"]]), **v["scalars"])
+              for v in coupled.values()]
     t0 = time.perf_counter()
     lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
-    builds = build.compile_many([("diffusion3d", build.read_source(diffusion3d.SOURCE))]
-                                + [(n, build.read_source(m.SOURCE))
-                                   for n, m in lm_kernels.items()]
-                                + [(c.lib_name, c.source) for c in calls])
+    sources = ([("diffusion3d", build.read_source(diffusion3d.SOURCE))]
+               + [(n, build.read_source(m.SOURCE)) for n, m in lm_kernels.items()]
+               + [(c.lib_name, c.source) for c in calls])
+    builds = build.compile_many(sources)
+    variant_of = {c.source: name for name, c in zip(coupled, calls[-len(coupled):])}
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-          "builds": [{"name": b.name, "seconds": b.seconds,
+          "builds": [{"name": b.name, "variant": variant_of.get(src), "seconds": b.seconds,
                       "ptxas": [ln.strip() for ln in b.log.splitlines()
                                 if "entry function" in ln or "registers" in ln
                                 or "spill" in ln]}
-                     for b in builds]})
+                     for b, (_, src) in zip(builds, sources)]})
 
     # ---- 3. kernels against their plain versions ------------------------
     gen = torch.Generator(device="cpu").manual_seed(20260714)
@@ -205,6 +226,31 @@ def main() -> int:
         del got, want
     require(not lm_failures, "; ".join(lm_failures))
 
+    # ---- 3c. the coupled solvers' generated kernels against the torch backend
+    cgen = torch.Generator(device=dev).manual_seed(20260715)
+    # what PyTorch computes on the card for a tensor divided by a Python
+    # scalar (the porosity updates divide by phi0, dx and dy): the kernels
+    # emit a product with the reciprocal taken in double, rounded to f32
+    x = (torch.rand(1 << 20, generator=cgen, device=dev) + 0.5)
+    xc, probe = x.cpu(), {}
+    for sc_ in (0.01, 10.0 / 23, 10.0 / 8191, 3.0):
+        got, f32 = (x / sc_).cpu(), torch.tensor(sc_, dtype=torch.float32)
+        cases = {"x * f32(1 / s)": xc * torch.tensor(1.0 / sc_, dtype=torch.float32),
+                 "x * (1 / f32(s))": xc * (torch.tensor(1.0) / f32),
+                 "x / f32(s)": xc / f32,
+                 "f32(x / s) in double": (xc.double() / sc_).float()}
+        probe[repr(sc_)] = {k: bool(torch.equal(got, v)) for k, v in cases.items()}
+    emit({"phase": "division_probe", "cases": probe})
+    require(all(c["x * f32(1 / s)"] for c in probe.values()),
+            f"PyTorch's CUDA division by a scalar is not what the kernels emit: {probe}")
+    del x, xc
+    for shapes in (COUPLED_SMALL, COUPLED_FULL):
+        for name, v in coupled.items():
+            d = check_coupled(torch, name, v, shapes[v["solver"]], cgen)
+            if shapes is COUPLED_FULL:
+                err_at[name] = d
+        torch.cuda.empty_cache()
+
     # ---- 4. the main path at FIG1 ------------------------------------------
     stencil.launches.clear()
     diffusion3d.launches = 0
@@ -250,6 +296,10 @@ def main() -> int:
     # ---- 4b. the LM main path: Zamba2-1.2B serving ----------------------------
     lm = lm_main_path(torch, dev)
     lm_counts = lm["launches"]
+    torch.cuda.empty_cache()
+
+    # ---- 4c. the coupled solvers' main paths ----------------------------------
+    coupled_runs = coupled_main_path(torch, coupled)
 
     # ---- 5. times at FIG1 ---------------------------------------------------
     spec = teff.device_spec(0)
@@ -312,6 +362,14 @@ def main() -> int:
           "prefill_ms": lm["prefill_ms"], "decode_tok_per_s": lm["decode_tok_per_s"]})
     del lm_cases
 
+    # ---- 5c. times of the coupled kernels at full size --------------------------
+    coupled_times = {}
+    for name, v in coupled.items():
+        coupled_times[name] = time_coupled(torch, v, COUPLED_FULL[v["solver"]], cgen)
+        torch.cuda.empty_cache()
+    emit({"phase": "times_coupled", "card": spec.name, "power_limit": spec.power_limit,
+          "shapes": COUPLED_FULL, "kernels": coupled_times})
+
     # ---- 6. the kernels line -------------------------------------------------
     fig1 = SHAPES[-1]
     gen_src = "src/repro_torch/kernels/codegen.py"
@@ -337,6 +395,12 @@ def main() -> int:
                  **{x: lm_times[k][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "bound_f32_cuda_cores_ms", "library_ms")}}
                 for k, rep in lm_rows]
+    kernels += [{"name": k, "route": "cuda", "source": gen_src,
+                 "replaces": "src/repro/kernels/stencil.py:1052",
+                 "launches": coupled_runs["launches"][k], "max_abs_err": err_at[k],
+                 **{x: coupled_times[k][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                 "library_ms": None}
+                for k in coupled]
     print(f"{name}, {power}", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -523,6 +587,292 @@ def lm_kernel_cases(torch, dev, gen):
             "bytes": 4 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D),
             "flops": 4 * B * Hq * D * pairs, "tensor_cores": True}
     return cases
+
+
+def coupled_variants(torch, dev) -> dict:
+    """Each generated kernel of the two coupled solvers, by name, beside its
+    ``torch``-backend twin: the solver, the kernel, its plain twin, the
+    field shapes for a base shape, and scalars for the checks. The porosity
+    kernels are made for the 8192^2 grid (its spacings are literals in their
+    source), so the main path loads the libraries built here."""
+    import inspect
+
+    from repro_torch.examples import gross_pitaevskii as gp, porosity_waves as pw
+
+    def pair(solver, pick, **kw):
+        mod, cfg_cls = (pw, pw.PorosityConfig) if solver == "porosity" else (gp, gp.GPConfig)
+        n = COUPLED_FULL[solver][0]
+        kern = []
+        for backend in ("cuda", "torch"):
+            cfg = cfg_cls(n=n, device="cuda", backend=backend, **kw)
+            kern.append(mod.make_step(mod.make_grid(cfg), cfg).kernels[pick])
+        return kern
+
+    def entry(solver, pair_, reductions=None):
+        k, p = pair_
+        if reductions:
+            k, p = k.with_reductions(reductions), p.with_reductions(reductions)
+        names = [a for a in inspect.signature(k.fn).parameters]
+        fields = [a for a in names if a in ("phi2", "Pe2", "phi", "Pe", "qx", "qy",
+                                             "re2", "im2", "re", "im", "V")]
+
+        def shapes(base):
+            out = {}
+            for f in fields:
+                off = {"qx": (1, 0), "qy": (0, 1)}.get(f, (0,) * len(base))
+                out[f] = tuple(b - o for b, o in zip(base, off))
+            return out
+
+        scalars = {a: v for a, v in dict(dtau=1e-3, g=0.5, dt=1e-3, _dx2=3.0, _dy2=2.0,
+                                          _dz2=5.0).items() if a in names}
+        return {"solver": solver, "kernel": k, "plain": p, "shapes": shapes,
+                "scalars": scalars}
+
+    v = {}
+    for bc in ("none", "neumann", "dirichlet", "periodic"):
+        kind = {"neumann": "neumann0"}.get(bc, bc)
+        v[f"porosity_fused[{kind}]"] = entry("porosity", pair("porosity", 0, bc=bc))
+    v["porosity_fused[neumann0]+err"] = entry("porosity", pair("porosity", 0, bc="neumann"),
+                                              {"err": "max_abs_diff(Pe2, Pe)"})
+    v["porosity_fluxes"] = entry("porosity", pair("porosity", 0, flux_split=True))
+    v["porosity_update[neumann0]"] = entry("porosity", pair("porosity", 1, flux_split=True))
+    for bc in ("none", "neumann", "dirichlet", "periodic"):
+        kind = {"neumann": "neumann0"}.get(bc, bc)
+        v[f"gp_fused[{kind}]"] = entry("gp", pair("gp", 0, bc=bc))
+    v["gp_fused[none]+mass"] = entry("gp", pair("gp", 0), {"m_re": "sum_sq(re2)",
+                                                           "m_im": "sum_sq(im2)"})
+    v["gp_step_re"] = entry("gp", pair("gp", 0, fused=False))
+    v["gp_step_im"] = entry("gp", pair("gp", 1, fused=False))
+    return v
+
+
+def coupled_fields(torch, v, base, gen):
+    """Random fields at physical magnitudes for a variant (generated on the
+    card from a seeded generator): porosity 0.005-0.015, pressures and
+    fluxes +-0.005; GP values in [0, 1). The outputs' previous values differ
+    from the inputs, so the kept rings and the bc sources show."""
+    out = {}
+    for f, shp in v["shapes"](base).items():
+        u = torch.rand(shp, generator=gen, device=gen.device)
+        if f in ("phi", "phi2"):
+            u = 0.005 + 0.01 * u
+        elif v["solver"] == "porosity":
+            u = (u - 0.5) * 0.01
+        out[f] = u
+    return out
+
+
+def check_coupled(torch, name, v, base, gen) -> float:
+    """One call of a variant's generated kernel against its ``torch``-backend
+    twin on the same inputs: outputs bitwise, max reductions bitwise, sums
+    within SUM_RTOL. Returns the largest error of what the kernel returns."""
+    k, p = v["kernel"], v["plain"]
+    f = coupled_fields(torch, v, base, gen)
+    got, want = k(**f, **v["scalars"]), p(**f, **v["scalars"])
+    (o_k, r_k), (o_p, r_p) = (got, want) if k.reductions else ((got, {}), (want, {}))
+    if len(k.outputs) == 1:
+        o_k, o_p = {k.outputs[0]: o_k}, {k.outputs[0]: o_p}
+    diffs = {o: max_abs_diff(o_k[o], o_p[o]) for o in k.outputs}
+    bitwise = all(bool(torch.equal(o_k[o], o_p[o])) for o in k.outputs)
+    reds = {n: {"kernel": float(r_k[n]), "plain": float(r_p[n])} for n in r_k}
+    emit({"phase": "check_coupled", "variant": name, "shape": list(base),
+          "bc": {o: c.kind for o, c in k.bc.items()}, "max_abs_diff": diffs,
+          "bitwise": bitwise, "reductions": reds})
+    require(bitwise, f"{name} differs from the torch backend at {base}: {diffs}")
+    errs = list(diffs.values())
+    for n, r in k.reductions.items():
+        a, b = reds[n]["kernel"], reds[n]["plain"]
+        if r.combine == "max":
+            require(a == b, f"{name}: {n} differs at {base}")
+            errs.append(abs(a - b))
+        else:
+            require(math.isclose(a, b, rel_tol=SUM_RTOL), f"{name}: {n} outside rtol at {base}")
+    return max(errs)
+
+
+def tap_cost(call) -> tuple[float, float]:
+    """(bytes, f32 operations) of one launch: each field the update reads
+    once, each output written once (A_eff); the tap program's operations at
+    every written cell (x ** 3 counts two products), and two or three per
+    base cell for each reduction."""
+    ir, prog = call.ir, call.program
+    ops = 0
+    for op in prog.outputs:
+        cells = math.prod(n - 2 * w for n, w in zip(ir.field_shapes[op.name], op.rings))
+        per = sum(int(a[1][1]) - 1 if kind == "pow" and a[1][0] == "const"
+                  and a[1][1] in (2, 3) else 1 for kind, a in op.ops)
+        ops += per * cells
+    for _, r in prog.reductions:
+        ops += (3 if r.kind == "max_abs_diff" else 2) * math.prod(ir.base_shape)
+    return float(ir.io_bytes(4)), float(ops)
+
+
+def bound_of(a_eff, ops) -> tuple[float, str]:
+    by_bytes, by_ops = a_eff / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def time_coupled(torch, v, base, gen) -> dict:
+    """CUDA-event medians of one launch of the variant's kernel and of its
+    torch-backend twin at ``base``, beside the bound."""
+    from repro_torch.core import teff
+
+    f = coupled_fields(torch, v, base, gen)
+    k, p, sc = v["kernel"], v["plain"], v["scalars"]
+    a_eff, ops = tap_cost(k.compiled(**f, **sc))
+    bound_ms, bound_by = bound_of(a_eff, ops)
+    ms = teff.measure(lambda: k(**f, **sc), iters=20, warmup=3).median_s * 1e3
+    plain_ms = teff.measure(lambda: p(**f, **sc), iters=10, warmup=2).median_s * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms, "a_eff_bytes": a_eff, "ops": ops,
+            "t_eff_GBps": a_eff / (ms / 1e3) / 1e9}
+
+
+def coupled_main_path(torch, coupled) -> dict:
+    """Both solvers at full size through the twins' ``solve``: porosity at
+    8192^2 (a fixed run, a ``--tol`` run, then the other bcs and the
+    flux-split scheme), GP at 512^3 (a fixed run, the drift-guarded run, the
+    other bcs and the two-launch scheme). The launch counts are set to 0
+    just before each run and read just after; every run must launch
+    exactly the kernels it names, as often as its steps say. Each run's time
+    per step is its wall time less that of the same call cut to one step
+    (one check block with a tol, and made twice, so that loading the kernel
+    falls in the first), over the steps between them."""
+    from repro_torch.examples import gross_pitaevskii as gp, porosity_waves as pw
+    from repro_torch.kernels import stencil
+
+    launches = dict.fromkeys(coupled, 0)
+    rows = []
+    n_pw, n_gp = COUPLED_FULL["porosity"][0], COUPLED_FULL["gp"][0]
+
+    def drive(solver, label, kw, names):
+        mod, cfg = (pw, pw.PorosityConfig(n=n_pw, device="cuda", **kw)) if solver == \
+            "porosity" else (gp, gp.GPConfig(n=n_gp, device="cuda", **kw))
+        stencil.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = mod.solve(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(stencil.launches)
+        require(set(counts) == set(names) and all(counts[c] > 0 for c in names),
+                f"{label}: launches {counts}, expected kernels {sorted(names)}")
+        for c, variant in names.items():
+            launches[variant] += counts[c]
+        return r, wall, counts
+
+    def wall_of(solver, kw):
+        """Host time of one solve call (no counting)."""
+        mod, cfg = (pw, pw.PorosityConfig(n=n_pw, device="cuda", **kw)) if solver == \
+            "porosity" else (gp, gp.GPConfig(n=n_gp, device="cuda", **kw))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = mod.solve(cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, r["iters"]
+
+    def record(solver, label, kw, names, r, wall, counts, steps, short):
+        cost = {}
+        for c, v in names.items():
+            a, o = tap_cost(coupled[v]["kernel"].compiled(
+                **coupled[v]["shapes"](COUPLED_FULL[solver]), **coupled[v]["scalars"]))
+            cost[v] = (a, o, counts[c] / steps)
+        a_eff = sum(a * share for a, _, share in cost.values())
+        ops = sum(o * share for _, o, share in cost.values())
+        # the same call cut to one step (one check block with a tol), made
+        # after a first such call has loaded the kernel, pays the set-up, the
+        # trace and the diagnostics once: the difference is the time of the
+        # steps that follow
+        short_wall, short_steps = short
+        ms = ((wall - short_wall) / (steps - short_steps) if steps > short_steps
+              else wall / steps) * 1e3
+        bound_ms, bound_by = bound_of(a_eff, ops)
+        row = {"phase": "main_path_coupled", "solver": solver, "run": label,
+               "shape": list(COUPLED_FULL[solver]), "config": kw, "steps": steps,
+               "launches": counts, "wall_s": wall, "short_run": {"wall_s": short_wall,
+                                                                  "steps": short_steps},
+               "ms_per_step": ms, "a_eff_bytes_per_step": a_eff,
+               "t_eff_GBps": a_eff / (ms / 1e3) / 1e9, "bound_ms": bound_ms,
+               "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+               "host_syncs": r["host_syncs"], "iters": r["iters"]}
+        if solver == "porosity":
+            phi = r["phi"]
+            row.update(phi_range=[r["phi_min"], r["phi_max"]], pe_absmax=r["pe_absmax"],
+                       residual=r["residual"], peak0_y=r["peak0_y"], peak_y=r["peak_y"],
+                       finite=bool(torch.isfinite(phi).all() and torch.isfinite(r["Pe"]).all()))
+            require(row["finite"], f"porosity {label}: non-finite fields")
+            require(abs(r["peak_y"] - r["peak0_y"]) <= 1.5 * r["grid"].spacing[1]
+                    or r["peak_y"] > r["peak0_y"],
+                    f"porosity {label}: the anomaly left its place downward "
+                    f"({r['peak0_y']} -> {r['peak_y']})")
+        else:
+            row.update(mass0=r["mass0"], mass=r["mass"], drift=r["drift"],
+                       finite=bool(torch.isfinite(r["re"]).all()
+                                   and torch.isfinite(r["im"]).all()))
+            require(row["finite"], f"GP {label}: non-finite fields")
+            require(r["drift"] < 0.05, f"GP {label}: mass drift {r['drift']}")
+        emit(row)
+        rows.append(row)
+
+    runs = [
+        ("porosity", "fixed", dict(nt=PW_STEPS), {"update": "porosity_fused[neumann0]"}),
+        ("porosity", "tol", dict(nt=PW_TOL_CAP, tol=PW_TOL, check_every=10),
+         {"update": "porosity_fused[neumann0]", "update[err]": "porosity_fused[neumann0]+err"}),
+        ("porosity", "bc=none", dict(nt=SHORT_STEPS["porosity"], bc="none"),
+         {"update": "porosity_fused[none]"}),
+        ("porosity", "bc=dirichlet", dict(nt=SHORT_STEPS["porosity"], bc="dirichlet"),
+         {"update": "porosity_fused[dirichlet]"}),
+        ("porosity", "bc=periodic", dict(nt=SHORT_STEPS["porosity"], bc="periodic"),
+         {"update": "porosity_fused[periodic]"}),
+        ("porosity", "flux_split", dict(nt=SHORT_STEPS["porosity"], flux_split=True),
+         {"fluxes": "porosity_fluxes", "update": "porosity_update[neumann0]"}),
+        ("gp", "fixed", dict(nt=GP_STEPS), {"update": "gp_fused[none]"}),
+        ("gp", "guarded", dict(nt=GP_TOL_CAP, tol=GP_TOL, check_every=10),
+         {"update": "gp_fused[none]", "update[m_re,m_im]": "gp_fused[none]+mass"}),
+        ("gp", "bc=neumann", dict(nt=SHORT_STEPS["gp"], bc="neumann"),
+         {"update": "gp_fused[neumann0]"}),
+        ("gp", "bc=dirichlet", dict(nt=SHORT_STEPS["gp"], bc="dirichlet"),
+         {"update": "gp_fused[dirichlet]"}),
+        ("gp", "bc=periodic", dict(nt=SHORT_STEPS["gp"], bc="periodic"),
+         {"update": "gp_fused[periodic]"}),
+        ("gp", "two_launch", dict(nt=SHORT_STEPS["gp"], fused=False),
+         {"step_re": "gp_step_re", "step_im": "gp_step_im"}),
+    ]
+    for solver, label, kw, names in runs:
+        short_kw = dict(kw, nt=kw.get("check_every", 1))
+        wall_of(solver, short_kw)      # loads the library and its module on the card
+        short = wall_of(solver, short_kw)
+        r, wall, counts = drive(solver, label, kw, names)
+        steps = r["iters"]
+        checks = steps // kw["check_every"] if "tol" in kw else 0
+        for c in names:       # the checked kernel's label ends with its reductions
+            want = checks if c.endswith("]") else steps - checks
+            require(counts[c] == want, f"{solver} {label}: {c} launched {counts[c]}, "
+                                       f"expected {want}")
+        if "tol" in kw:
+            require(r["host_syncs"] == steps // kw["check_every"],
+                    f"{solver} {label}: host syncs {r['host_syncs']}")
+        record(solver, label, kw, names, r, wall, counts, steps, short)
+        del r
+        torch.cuda.empty_cache()
+
+    # a few steps at full size: the generated kernels against the torch backend
+    agree = {}
+    for solver, mod, cfg_cls, n, keys in (("porosity", pw, pw.PorosityConfig, n_pw, ("phi", "Pe")),
+                                          ("gp", gp, gp.GPConfig, n_gp, ("re", "im"))):
+        rs = [mod.solve(cfg_cls(n=n, nt=AGREE_STEPS[solver], device="cuda", backend=b))
+              for b in ("cuda", "torch")]
+        agree[solver] = {k: max_abs_diff(rs[0][k], rs[1][k]) for k in keys}
+        require(all(d == 0.0 for d in agree[solver].values()),
+                f"{solver}: cuda and torch backends disagree after "
+                f"{AGREE_STEPS[solver]} steps at full size: {agree[solver]}")
+        del rs
+        torch.cuda.empty_cache()
+    emit({"phase": "main_path_coupled_vs_torch_backend", "steps": AGREE_STEPS,
+          "max_abs_diff": agree})
+    for k, n in launches.items():
+        require(n > 0, f"kernel {k} was not launched on the coupled main path")
+    return {"launches": launches, "runs": rows}
 
 
 def make_generic(ps):

@@ -23,6 +23,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def default_backend(device) -> str:
+    """The ``@parallel`` backend an entry point takes when the caller names
+    none: the generated kernels on the card, the plain path on the CPU."""
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
 def on_device(t: torch.Tensor, device: torch.device) -> bool:
     """Whether ``t`` lies on ``device`` (``cuda`` without an index means the
     current card)."""

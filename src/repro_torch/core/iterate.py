@@ -66,8 +66,13 @@ def _resolve_error(kernel, error) -> Callable[[Mapping[str, Any]], Any]:
 
 def make_solver(kernel, scalars: Mapping[str, Any] | None = None, *,
                 check_every: int = 1, error: str | Callable | None = None,
-                until: str = "below"):
+                until: str = "below", checkpoint=None):
     """Build ``solver(fields, tol, max_iters) -> SolveResult``."""
+    if checkpoint is not None:
+        raise NotImplementedError(
+            "checkpoint= is not ported yet (ROADMAP queue 1, item 6: the "
+            "checkpointed solve_until)"
+        )
     if not kernel.reductions:
         raise ValueError(
             "solve_until needs a kernel with fused reductions "
@@ -98,6 +103,7 @@ def make_solver(kernel, scalars: Mapping[str, Any] | None = None, *,
         return cur
 
     def solver(fields: Mapping[str, torch.Tensor], tol: float, max_iters: int) -> SolveResult:
+        kernel.check_rotations(fields)
         # the error is an f32 value: compare it with tol rounded to f32, as
         # the reference's device loop does
         tol = float(torch.tensor(float(tol), dtype=torch.float32))
@@ -121,7 +127,8 @@ def make_solver(kernel, scalars: Mapping[str, Any] | None = None, *,
 def solve_until(kernel, fields: Mapping[str, torch.Tensor],
                 scalars: Mapping[str, Any] | None = None, *, tol: float,
                 max_iters: int, check_every: int = 1,
-                error: str | Callable | None = None, until: str = "below") -> SolveResult:
+                error: str | Callable | None = None, until: str = "below",
+                checkpoint=None) -> SolveResult:
     """Iterate ``kernel`` until its fused error scalar crosses ``tol`` (or
     ``max_iters`` steps), checking every ``check_every`` steps.
 
@@ -130,7 +137,8 @@ def solve_until(kernel, fields: Mapping[str, torch.Tensor],
     argument to its initial tensor, ``scalars`` the non-field arguments.
     ``error`` picks the convergence scalar: a reduction name (default: the
     single declared reduction) or a callable over the reduction dict.
+    ``checkpoint=`` is not ported yet and raises ``NotImplementedError``.
     """
     solver = make_solver(kernel, scalars, check_every=check_every, error=error,
-                         until=until)
+                         until=until, checkpoint=checkpoint)
     return solver(fields, tol, max_iters)

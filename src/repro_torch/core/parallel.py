@@ -26,6 +26,16 @@ Arguments are classified by value: tensors of the kernel's dimensionality
 are fields, everything else is a scalar. Every name in ``outputs`` must be
 a field argument; its previous contents provide the boundary values (the
 paper's ``@inn(T2) = ...`` semantics). Outputs are new tensors.
+
+Fields of one kernel may be staggered: a face-centred field is up to the
+kernel's radius shorter than the cell-centred base along an axis, and an
+output staggered along an axis is written at its full extent there (the
+paper's ``@all(qx) = ...``). Boundary conditions are declared per output,
+``bc={"T2": BoundaryCondition("neumann0"), ...}`` (or a bare kind string),
+and hold after every step exactly as the ``core.boundary`` post-pass
+applied after the write would: the ``torch`` backend applies that
+post-pass, the generated CUDA kernel computes the face values inside its
+launch.
 """
 from __future__ import annotations
 
@@ -81,19 +91,16 @@ class ParallelStencil:
         time step (``{"T2": "T"}``), as ``solve_until`` needs.
         ``reductions`` declares named in-launch reductions
         (``{"err": "max_abs_diff(T2, T)"}``): the call then returns
-        ``(outputs, {name: 0-d tensor})``."""
-        if bc is not None:
-            raise NotImplementedError(
-                "bc= is not ported yet (ROADMAP queue 1, item 3: bc "
-                "dirichlet/neumann0, then periodic)"
-            )
+        ``(outputs, {name: 0-d tensor})``, each folded over the outputs
+        after their boundary conditions. ``bc`` maps outputs to
+        :class:`~repro_torch.ir.BoundaryCondition` or kind strings."""
         if march_axis is not None:
             raise NotImplementedError(
                 "march_axis= is not ported yet (ROADMAP queue 1, item 3: march_axis)"
             )
 
         def deco(fn: Callable) -> StencilKernel:
-            return StencilKernel(self, fn, tuple(outputs), rotations, reductions)
+            return StencilKernel(self, fn, tuple(outputs), rotations, reductions, bc)
 
         return deco
 
@@ -109,12 +116,22 @@ class StencilKernel:
 
     def __init__(self, ps: ParallelStencil, fn: Callable, outputs: tuple[str, ...],
                  rotations: Mapping[str, str] | None = None,
-                 reductions: Mapping[str, Any] | None = None):
+                 reductions: Mapping[str, Any] | None = None,
+                 bc: Mapping[str, Any] | None = None):
         self.ps = ps
         self.fn = fn
         self.outputs = outputs
         self.rotations = dict(rotations) if rotations else None
+        self.bc = _ir.normalize_bcs(bc, outputs, ps.ndims)
         self.reductions = _ir.normalize_reductions(reductions)
+        if self.reductions and any(c.kind == "periodic" for c in self.bc.values()):
+            # the port computes periodic faces inside its launch, but keeps the
+            # reference's API, whose fold would see pre-wrap faces
+            raise ValueError(
+                "fused reductions cannot be declared next to a periodic "
+                "boundary condition (as in the reference engine, whose wrap "
+                "scatter runs after its launch)"
+            )
         for name, r in self.reductions.items():
             if r.kind in UNPORTED_KINDS:
                 raise NotImplementedError(
@@ -141,7 +158,8 @@ class StencilKernel:
         key = tuple(sorted(reds.items()))
         v = self._red_variants.get(key)
         if v is None:
-            v = StencilKernel(self.ps, self.fn, self.outputs, self.rotations, reds)
+            v = StencilKernel(self.ps, self.fn, self.outputs, self.rotations, reds,
+                              self.bc)
             self._red_variants[key] = v
         return v
 
@@ -190,6 +208,8 @@ class StencilKernel:
 
             ir = _ir.trace_stencil(update, shapes, self.outputs, scalar_names,
                                    reductions=self.reductions)
+            # face depths must fit the outputs' extents
+            _ir.normalize_bcs(self.bc, self.outputs, self.ps.ndims, field_shapes=shapes)
             _stencil.unsupported(ir)
             self._ir_cache[key] = ir
         return ir
@@ -220,14 +240,15 @@ class StencilKernel:
                         zip(ir.write_rings[name], fields[name].shape))
             out = fields[name].clone()
             out[idx] = updates[name]
-            outs[name] = out
+            cond = self.bc.get(name)
+            outs[name] = out if cond is None else cond.apply(out)
         reds = self.apply_reductions(outs, fields) if self.reductions else None
         return outs, reds
 
     def _call(self, ir: _ir.StencilIR) -> _stencil.StencilCall:
         call = self._calls.get(id(ir))
         if call is None:
-            call = self._calls[id(ir)] = _stencil.StencilCall(ir, self.label)
+            call = self._calls[id(ir)] = _stencil.StencilCall(ir, self.label, self.bc)
         return call
 
     def compiled(self, **kwargs) -> _stencil.StencilCall:
@@ -247,13 +268,43 @@ class StencilKernel:
         return (res, reds) if self.reductions else res
 
     def run_steps(self, nsteps: int, **kwargs):
-        """Advance ``nsteps`` fused time steps. Only ``nsteps=1`` is ported."""
-        if int(nsteps) != 1:
+        """Advance ``nsteps`` fused time steps. Only ``nsteps=1`` is ported;
+        for more, the rotations are checked as the reference checks them
+        before the refusal."""
+        nsteps = int(nsteps)
+        if nsteps < 1:
+            raise ValueError(f"nsteps must be >= 1, got {nsteps}")
+        if nsteps > 1:
+            self.check_rotations(self._split(kwargs)[0])
             raise NotImplementedError(
                 "run_steps(k > 1) is not ported yet (ROADMAP queue 1, item 3: "
                 "run_steps(k) for both kernels)"
             )
         return self(**kwargs)
+
+    def check_rotations(self, fields: Mapping[str, torch.Tensor]) -> None:
+        """Every output rotates into a field of its own shape that is not an
+        output (``ValueError`` otherwise): what k steps in one launch, and
+        ``solve_until``'s double buffers, need."""
+        if not self.rotations or set(self.outputs) - set(self.rotations):
+            raise ValueError(
+                "stepping more than once requires rotations covering every output "
+                "(pass rotations={'T2': 'T'}-style mapping to @parallel)"
+            )
+        for o, tgt in self.rotations.items():
+            if tgt not in fields:
+                raise ValueError(f"rotation target {tgt!r} is not a field")
+            if tgt in self.outputs:
+                raise ValueError(
+                    f"rotation target {tgt!r} is an output; outputs only "
+                    "provide boundary values and cannot receive sweep results"
+                )
+            if o in fields and fields[o].shape != fields[tgt].shape:
+                raise ValueError(
+                    f"rotation {o!r} -> {tgt!r} joins fields of different "
+                    f"shapes {tuple(fields[o].shape)} vs {tuple(fields[tgt].shape)}; "
+                    "double-buffer partners must share one staggering"
+                )
 
     @property
     def launch_info(self) -> dict:

@@ -20,6 +20,7 @@ from ..configs.diffusion3d import Diffusion3DConfig
 from ..core import FieldSet, Grid, fd3d as fd, init_parallel_stencil, solve_until
 from ..core.iterate import SolveResult
 from ..core import teff
+from ..core.device import default_backend
 from ..data.physics import gaussian_hotspot
 from ..kernels import ops
 
@@ -64,10 +65,8 @@ def run(cfg: Diffusion3DConfig, *, device="cuda", backend: str | None = None,
     """The Fig. 1 main path: ``cfg.nt`` steps of the ``@parallel`` step, the
     same steps with the explicit kernel, then ``solve_until`` with the
     error ``max|T2 - T|`` folded into the launch."""
-    if backend is None:
-        backend = "cuda" if torch.device(device).type == "cuda" else "torch"
     grid, fields, sc = initial_state(cfg, device)
-    ps = init_parallel_stencil(backend=backend, device=device)
+    ps = init_parallel_stencil(backend=backend or default_backend(device), device=device)
     step = make_step(ps)
 
     # Time loop (Fig. 1 lines 34-37)

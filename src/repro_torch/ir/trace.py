@@ -20,7 +20,7 @@ from . import sym
 from .reductions import Reduction, normalize_reductions
 from .sym import SymArray, TraceError
 
-__all__ = ["StencilIR", "trace_stencil", "write_geometry"]
+__all__ = ["StencilIR", "field_geometry", "trace_stencil", "write_geometry"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +63,36 @@ class StencilIR:
         every read field streams in once, every output streams out once."""
         names = self.read_fields + self.out_names
         return sum(math.prod(self.field_shapes[f]) * itemsize for f in names)
+
+
+def field_geometry(
+    shape: Sequence[int],
+    field_names: Sequence[str],
+    field_shapes: Mapping[str, Sequence[int]] | None,
+    radius: int,
+) -> tuple[dict[str, tuple[int, ...]], dict[str, tuple[int, ...]]]:
+    """Resolve per-field shapes and staggering offsets against the base
+    (cell-centred) ``shape``; offsets must lie in ``[0, radius]``."""
+    base = tuple(int(s) for s in shape)
+    field_shapes = dict(field_shapes or {})
+    shapes, offsets = {}, {}
+    for n in field_names:
+        s = tuple(int(x) for x in field_shapes.get(n, base))
+        if len(s) != len(base):
+            raise ValueError(
+                f"field {n!r} shape {s} has rank {len(s)}, expected {len(base)}"
+            )
+        off = tuple(b - x for b, x in zip(base, s))
+        if any(o < 0 or o > radius for o in off):
+            raise ValueError(
+                f"field {n!r} shape {s} is not within the staggering band of "
+                f"base shape {base}: per-axis offsets {off} must lie in "
+                f"[0, radius={radius}] (face-centred fields are at most "
+                "`radius` shorter than the cell-centred base per axis)"
+            )
+        shapes[n] = s
+        offsets[n] = off
+    return shapes, offsets
 
 
 def write_geometry(
@@ -124,6 +154,8 @@ def trace_stencil(
     if not shapes:
         raise TraceError("no fields to trace")
     nd = len(next(iter(shapes.values())))
+    if any(len(s) != nd for s in shapes.values()):
+        raise ValueError(f"fields of one kernel must share a rank, got {shapes}")
     base = tuple(max(s[a] for s in shapes.values()) for a in range(nd))
     offsets = {n: tuple(b - x for b, x in zip(base, s)) for n, s in shapes.items()}
     out_names = tuple(out_names)
@@ -186,6 +218,10 @@ def trace_stencil(
         r_inf = max(r_inf, lo, hi)
     for rings in write_rings.values():
         r_inf = max(r_inf, *rings)
+    # fields of one system agree up to face/cell staggering: at most the
+    # inferred radius (at least 1) shorter than the base, as the reference
+    # engine requires
+    field_geometry(base, tuple(shapes), shapes, max(r_inf, 1))
 
     reds = normalize_reductions(reductions, tuple(shapes))
     for name, r in reds.items():

@@ -102,7 +102,7 @@ def compile_many(sources: Sequence[tuple[str, str]]) -> list[Build]:
             builds[lib] = BUILDS[lib]
         elif lib.exists():
             builds[lib] = BUILDS[lib] = Build(name, lib, 0.0, "")
-        else:
+        elif all(lib != p[2] for p in pending):     # one nvcc per library
             pending.append((name, source, lib))
     if pending:
         exe = nvcc()

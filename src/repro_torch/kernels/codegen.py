@@ -5,8 +5,11 @@ shifted views.
 A tap program holds, for each output, the list of loads it makes relative
 to the cell it writes (``(field, (dx, dy, dz))``), a sequence of operations
 in single-assignment form over those loads, the scalar parameters and the
-literal constants, and the output's write geometry (``inn`` ring or ``all``
-per axis). Scalar parameters are the scalar-only subtrees of the update
+literal constants, the output's write geometry (``inn`` ring or ``all``
+per axis) and its boundary condition. Loads are relative to the output cell
+in every field's own index space (a face-centred field's cell ``c`` sits
+beside the base cell ``c``), as the reference's relative-slice protocol
+reads them. Scalar parameters are the scalar-only subtrees of the update
 (``_dx ** 2``, ``lam``): they are evaluated on the host in Python numbers,
 as the plain path evaluates them, and reach the kernel as ``float``
 arguments. Operand order is kept, so ``1 - x`` and ``x - 1`` lower to
@@ -14,7 +17,10 @@ different programs.
 
 The torch form lets the CPU tests check the lowering, which is the hard
 part, without ``nvcc``: it must agree bitwise with the ``torch`` backend of
-``@parallel``. Only the printing of C syntax is left for the card to check.
+``@parallel``. It realizes boundary conditions as the kernel does, by
+taking each face cell's value from its source cell (:func:`bc_source`),
+not by the post-pass it is held against. Only the printing of C syntax is
+left for the card to check.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import Any, Mapping, Sequence
 
 import torch
 
+from ..ir.bc import BoundaryCondition
 from ..ir.reductions import Reduction
 from ..ir.sym import BINARY_OPS, UNARY_OPS, SymScalar
 from ..ir.trace import StencilIR
@@ -44,6 +51,7 @@ class OutputProgram:
     loads: tuple[tuple[str, tuple[int, ...]], ...]
     ops: tuple[tuple[str, tuple[Ref, ...]], ...]
     result: Ref
+    bc: BoundaryCondition | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +64,7 @@ class TapProgram:
     outputs: tuple[OutputProgram, ...]
     params: tuple[SymScalar, ...]
     reductions: tuple[tuple[str, Reduction], ...]
+    offsets: tuple[tuple[int, ...], ...] = ()   # per field: base shape - field shape
 
     def host_values(self, scalars: Mapping[str, Any]) -> list:
         """The scalar parameters' values for one call."""
@@ -108,8 +117,10 @@ class _Lowering:
         return ref
 
 
-def lower(ir: StencilIR) -> TapProgram:
-    """The tap program of a traced update (collocated fields)."""
+def lower(ir: StencilIR, bcs: Mapping[str, BoundaryCondition] | None = None) -> TapProgram:
+    """The tap program of a traced update, with each output's boundary
+    condition (``bcs``, normalized)."""
+    bcs = dict(bcs or {})
     params: dict[str, int] = {}
     param_list: list[SymScalar] = []
     outputs = []
@@ -118,10 +129,43 @@ def lower(ir: StencilIR) -> TapProgram:
         result = low.visit(ir.exprs[o], (0,) * ir.ndim)
         outputs.append(OutputProgram(
             name=o, modes=ir.write_modes[o], rings=ir.write_rings[o],
-            loads=tuple(low.loads), ops=tuple(low.ops), result=result))
+            loads=tuple(low.loads), ops=tuple(low.ops), result=result,
+            bc=bcs.get(o)))
     return TapProgram(ndim=ir.ndim, fields=tuple(ir.field_shapes),
                       outputs=tuple(outputs), params=tuple(param_list),
-                      reductions=tuple(ir.reductions.items()))
+                      reductions=tuple(ir.reductions.items()),
+                      offsets=tuple(ir.offsets[f] for f in ir.field_shapes))
+
+
+# ---------------------------------------------------------- boundary sources
+def bc_source(kind: str, n: int, depth: int) -> list[int]:
+    """Per cell of an axis of extent ``n``, the cell whose post-write value
+    a ``neumann0`` or ``periodic`` face takes (``core.boundary``'s low then
+    high face; interior cells map to themselves). ``check_depth`` keeps
+    every source off both faces, so mapping each axis on its own gives the
+    post-pass's corners too. The CUDA form prints the same arithmetic."""
+    d = depth
+    shift = d if kind == "neumann0" else n - 2 * d
+    return [g + shift if g < d else g - shift if g >= n - d else g for g in range(n)]
+
+
+def apply_bc(out: torch.Tensor, bc: BoundaryCondition) -> torch.Tensor:
+    """``out`` with ``bc`` realized as the kernel realizes it: a dirichlet
+    face holds the value, any other face the value of its source cell."""
+    axes = sorted(set(bc.resolved_axes(out.dim())))
+    d = bc.depth
+    if bc.kind == "dirichlet":
+        face = torch.zeros(out.shape, dtype=torch.bool, device=out.device)
+        for a in axes:
+            g = torch.arange(out.shape[a], device=out.device).view(
+                [-1 if b == a else 1 for b in range(out.dim())])
+            face = face | (g < d) | (g >= out.shape[a] - d)
+        return torch.where(face, torch.tensor(bc.value, dtype=out.dtype, device=out.device),
+                           out)
+    for a in axes:
+        src = torch.tensor(bc_source(bc.kind, out.shape[a], d), device=out.device)
+        out = out.index_select(a, src)
+    return out
 
 
 # ---------------------------------------------------------------- torch form
@@ -142,10 +186,11 @@ def evaluate_torch(program: TapProgram, fields: Mapping[str, torch.Tensor],
         prev = fields[op.name]
         region = tuple(slice(w, n - w) for w, n in zip(op.rings, prev.shape))
 
-        def view(field, off, rings=op.rings):
-            f = fields[field]
-            return f[tuple(slice(w + d, n - w + d)
-                           for w, d, n in zip(rings, off, f.shape))]
+        def view(field, off, rings=op.rings, shape=prev.shape):
+            # the output's region, shifted by the tap, in the field's own
+            # index space
+            return fields[field][tuple(slice(w + d, n - w + d)
+                                       for w, d, n in zip(rings, off, shape))]
 
         loads = [view(f, off) for f, off in op.loads]
         vals: list = []
@@ -164,7 +209,7 @@ def evaluate_torch(program: TapProgram, fields: Mapping[str, torch.Tensor],
             vals.append(_apply(kind, [resolve(a) for a in args]))
         out = prev.clone()
         out[region] = resolve(op.result)
-        outs[op.name] = out
+        outs[op.name] = out if op.bc is None else apply_bc(out, op.bc)
     if not program.reductions:
         return outs, None
     reds = {}
@@ -190,7 +235,29 @@ def float_literal(v) -> str:
 
 
 _C_BINARY = {"add": "+", "sub": "-", "mul": "*", "div": "/"}
-_AXES = ("x", "y", "z")
+
+
+def reciprocal(v) -> float:
+    """The reciprocal of a scalar divisor as PyTorch forms it for its CUDA
+    division: 1 / s in double, to be rounded once to f32 (found on the H100
+    with PyTorch 2.11: ``x / s`` equals ``x * float32(1 / s)`` there, not
+    ``x * (1 / float32(s))``, for s = 10/23 and 10/8191)."""
+    v = float(v)
+    return 1.0 / v if v else math.copysign(math.inf, v)
+
+
+def divisor_params(program: TapProgram) -> tuple[int, ...]:
+    """The scalar parameters that divide a tensor: the launch passes each
+    one's :func:`reciprocal` as well, after the parameters."""
+    return tuple(sorted({args[1][1] for op in program.outputs for kind, args in op.ops
+                         if kind == "div" and args[1][0] == "param"
+                         and args[0][0] in ("load", "op")}))
+
+
+def _recip(ref: Ref) -> str:
+    if ref[0] == "const":
+        return float_literal(reciprocal(ref[1]))
+    return f"r{ref[1]}"
 
 
 def _c_expr(kind: str, args: list[str], raw: list[Ref]) -> str:
@@ -207,19 +274,17 @@ def _c_expr(kind: str, args: list[str], raw: list[Ref]) -> str:
         if raw[1][0] == "const" and raw[1][1] == 0.5:
             return f"sqrtf({args[0]})"
         return f"powf({args[0]}, {args[1]})"
+    if kind == "div":
+        scalar = [r[0] in ("param", "const") for r in raw]
+        if scalar[1] and not scalar[0]:
+            # PyTorch's CUDA division of a tensor by a host scalar multiplies
+            # by the scalar's f32 reciprocal (div_true_kernel_cuda)
+            return f"({args[0]} * {_recip(raw[1])})"
+        if scalar[0] and not scalar[1]:
+            # a scalar over a tensor is Tensor.__rtruediv__:
+            # reciprocal(tensor) * scalar
+            return f"((1.0f / {args[1]}) * {args[0]})"
     return f"({args[0]} {_C_BINARY[kind]} {args[1]})"
-
-
-def _offset(off: tuple[int, ...]) -> str:
-    terms = ""
-    for d, ax in zip(off, _AXES):
-        if d == 1:
-            terms += f" + s{ax}"
-        elif d == -1:
-            terms += f" - s{ax}"
-        elif d:
-            terms += f" {'+' if d > 0 else '-'} {abs(d)} * s{ax}"
-    return f"i{terms}"
 
 
 def pad3(t: tuple, fill) -> tuple:
@@ -230,14 +295,53 @@ def _combine(kind: str, acc: str, val: str) -> str:
     return f"max_nan({acc}, {val})" if kind == "max" else f"({acc} + {val})"
 
 
+def shape_classes(program: TapProgram) -> tuple[tuple[int, int, int], ...]:
+    """The distinct staggering offsets of the program's fields, padded to
+    3-D: fields of one class share extents and strides, and the launch
+    passes one pair of strides per class."""
+    return tuple(sorted({pad3(o, 0) for o in program.offsets}))
+
+
+def _index(coords: Sequence[str], c: int) -> str:
+    """The flat index of the cell at ``coords`` in a field of class ``c``
+    (z is contiguous)."""
+    return f"{coords[0]} * s{c}x + {coords[1]} * s{c}y + {coords[2]}"
+
+
+def _offset(base: str, c: int, off: tuple[int, ...]) -> str:
+    """``base`` moved by the tap ``off`` in a field of class ``c``."""
+    terms = ""
+    for d, s in zip(off, (f"s{c}x", f"s{c}y", "")):
+        if not d:
+            continue
+        term = f"{abs(d)} * {s}" if s and abs(d) != 1 else (s or str(abs(d)))
+        terms += f" {'+' if d > 0 else '-'} {term}"
+    return f"{base}{terms}"
+
+
 def cuda_source(program: TapProgram) -> str:
     """CUDA C++ source of the fused launch: one ``__global__`` function and
-    a plain C entry point ``launch``. Shapes, strides and the grid are
-    runtime arguments, so one build serves every grid size."""
+    a plain C entry point ``launch``. The base extents, one pair of strides
+    per shape class and the grid are runtime arguments, so one build serves
+    every grid size; the staggering offsets are fixed by the program.
+
+    The launch covers the base (cell-centred) extent. Each output is written
+    inside its own extent only (a face-centred output is shorter), with its
+    update inside its write region and its previous value on the ring. A
+    boundary condition is computed in the same launch: a dirichlet face
+    holds its value, and a neumann0 or periodic face evaluates the output at
+    its source cell (:func:`bc_source`), with the same expression in the
+    same order, so it equals that cell's own value bitwise. Reductions fold
+    every output after its boundary condition."""
     if program.ndim > 3:
         raise NotImplementedError("the generated CUDA kernel handles 1-3 dimensions")
+    lead = 3 - program.ndim
     fidx = {f: k for k, f in enumerate(program.fields)}
+    classes = shape_classes(program)
+    fcls = {f: classes.index(pad3(o, 0)) for f, o in zip(program.fields, program.offsets)}
     n_out, n_red, n_par = len(program.outputs), len(program.reductions), len(program.params)
+    dims = ("nx", "ny", "nz")
+    strides = [f"s{c}{ax}" for c in range(len(classes)) for ax in ("x", "y")]
     lines = []
     w = lines.append
     w("// Generated by repro_torch.kernels.codegen from a traced @parallel update.")
@@ -259,14 +363,21 @@ def cuda_source(program: TapProgram) -> str:
     params = [f"const float* __restrict__ in{k}" for k in range(len(program.fields))]
     params += [f"float* __restrict__ out{k}" for k in range(n_out)]
     params += [f"float* __restrict__ part{k}" for k in range(n_red)]
+    divs = divisor_params(program)
     params += [f"const float p{k}" for k in range(n_par)]
-    params += [f"const int64_t {n}" for n in ("nx", "ny", "nz", "sx", "sy", "sz", "xc")]
+    params += [f"const float r{k}" for k in divs]
+    params += [f"const int64_t {n}" for n in (*dims, *strides, "xc")]
     w("__global__ void __launch_bounds__(kBlockZ * kBlockY) stencil_kernel(")
     w("    " + ",\n    ".join(params) + ") {")
     w("  const int64_t z = static_cast<int64_t>(blockIdx.x) * kBlockZ + threadIdx.x;")
     w("  const int64_t y = static_cast<int64_t>(blockIdx.y) * kBlockY + threadIdx.y;")
     w("  const int64_t x0 = static_cast<int64_t>(blockIdx.z) * xc;")
     w("  const int64_t x1 = x0 + xc < nx ? x0 + xc : nx;")
+    for c, off in enumerate(classes):
+        if any(off):
+            w(f"  // shape class {c}: base extents less {off}")
+        for ax, n, d in zip("xyz", dims, off):
+            w(f"  const int64_t m{c}{ax} = {n}" + (f" - {d};" if d else ";"))
     for r in range(n_red):
         w(f"  float acc{r} = 0.0f;")
     w("  if (z < nz && y < ny) {")
@@ -276,37 +387,76 @@ def cuda_source(program: TapProgram) -> str:
         # rolled (63); without accumulators the unrolled loop takes 32.
         w("    #pragma unroll 1")
     w("    for (int64_t x = x0; x < x1; ++x) {")
-    w("      const int64_t i = x * sx + y * sy + z * sz;")
+    for c in range(len(classes)):
+        w(f"      const int64_t i{c} = {_index(('x', 'y', 'z'), c)};")
+
+    def ref(r):
+        kind, v = r
+        if kind == "load":
+            return f"l{v}"
+        if kind == "op":
+            return f"e{v}"
+        if kind == "param":
+            return f"p{v}"
+        return float_literal(v)
+
     for k, op in enumerate(program.outputs):
+        co = fcls[op.name]
         modes, rings = pad3(op.modes, "all"), pad3(op.rings, 0)
-        conds = [f"{ax} >= {r} && {ax} < n{ax} - {r}"
-                 for ax, m, r in zip(_AXES, modes, rings) if m == "inn" and r]
-        w(f"      float v{k};  // output {op.name}")
-        w(f"      if ({' && '.join(conds) if conds else 'true'}) {{")
+        bc = op.bc
+        bc_axes = sorted({a + lead for a in bc.resolved_axes(program.ndim)}) if bc else []
+        mapped = bc is not None and bc.kind != "dirichlet"
+        coords = tuple(f"{ax}{k}" for ax in "XYZ") if mapped else ("x", "y", "z")
+        w(f"      float v{k};  // output {op.name}" + (f", bc {bc.kind}" if bc else ""))
+        staggered = any(pad3(program.offsets[fidx[op.name]], 0))
+        ind = "      "
+        if staggered:
+            w(f"      if (x < m{co}x && y < m{co}y && z < m{co}z) {{  // its own extent")
+            ind += "  "
+        w(f"{ind}{{")
+        body = ind + "  "
+        if mapped:
+            # the source cell, axis by axis (neumann0: one face depth
+            # inward; periodic: across the domain)
+            for ax, X in zip("xyz", coords):
+                w(f"{body}int64_t {X} = {ax.lower()};")
+            for a in bc_axes:
+                X, m, d = coords[a], f"m{co}{'xyz'[a]}", bc.depth
+                shift = f"{d}" if bc.kind == "neumann0" else f"({m} - {2 * d})"
+                w(f"{body}if ({X} < {d}) {X} += {shift}; "
+                  f"else if ({X} >= {m} - {d}) {X} -= {shift};")
+            used = sorted({fcls[f] for f, _ in op.loads} | {co})
+            for c in used:
+                w(f"{body}const int64_t j{k}_{c} = {_index(coords, c)};")
+        base = (lambda c: f"j{k}_{c}") if mapped else (lambda c: f"i{c}")
+        conds = [f"{X} >= {r} && {X} < m{co}{ax} - {r}"
+                 for X, ax, m, r in zip(coords, "xyz", modes, rings) if m == "inn" and r]
+        if bc is not None and bc.kind == "dirichlet":
+            faces = [f"{X} < {bc.depth} || {X} >= m{co}{'xyz'[a]} - {bc.depth}"
+                     for a in bc_axes for X in [coords[a]]]
+            w(f"{body}if ({' || '.join(faces)}) {{")
+            w(f"{body}  v{k} = {float_literal(bc.value)};")
+            w(f"{body}}} else if ({' && '.join(conds) if conds else 'true'}) {{")
+        else:
+            w(f"{body}if ({' && '.join(conds) if conds else 'true'}) {{")
+        inner = body + "  "
         for j, (f, off) in enumerate(op.loads):
-            w(f"        const float l{j} = in{fidx[f]}[{_offset(pad3(off, 0))}];")
-
-        def ref(r):
-            kind, v = r
-            if kind == "load":
-                return f"l{v}"
-            if kind == "op":
-                return f"e{v}"
-            if kind == "param":
-                return f"p{v}"
-            return float_literal(v)
-
+            c = fcls[f]
+            w(f"{inner}const float l{j} = in{fidx[f]}[{_offset(base(c), c, pad3(off, 0))}];")
         for j, (kind, args) in enumerate(op.ops):
-            w(f"        const float e{j} = "
+            w(f"{inner}const float e{j} = "
               f"{_c_expr(kind, [ref(a) for a in args], list(args))};")
-        w(f"        v{k} = {ref(op.result)};")
-        w("      } else {")
-        w(f"        v{k} = in{fidx[op.name]}[i];")
-        w("      }")
-        w(f"      out{k}[i] = v{k};")
+        w(f"{inner}v{k} = {ref(op.result)};")
+        w(f"{body}}} else {{")
+        w(f"{inner}v{k} = in{fidx[op.name]}[{base(co)}];")
+        w(f"{body}}}")
+        w(f"{ind}}}")
+        w(f"{ind}out{k}[i{co}] = v{k};")
+        if staggered:
+            w("      }")
     out_idx = {op.name: k for k, op in enumerate(program.outputs)}
     for r, (_, red) in enumerate(program.reductions):
-        vals = [f"v{out_idx[f]}" if f in out_idx else f"in{fidx[f]}[i]"
+        vals = [f"v{out_idx[f]}" if f in out_idx else f"in{fidx[f]}[i{fcls[f]}]"
                 for f in red.operands]
         if red.kind == "max_abs":
             m = f"fabsf({vals[0]})"
@@ -346,9 +496,8 @@ def cuda_source(program: TapProgram) -> str:
     cargs = [f"const void* in{k}" for k in range(len(program.fields))]
     cargs += [f"void* out{k}" for k in range(n_out)]
     cargs += [f"void* part{k}" for k in range(n_red)]
-    cargs += [f"float p{k}" for k in range(n_par)]
-    cargs += [f"int64_t {n}" for n in ("nx", "ny", "nz", "sx", "sy", "sz", "xc",
-                                       "gz", "gy", "gx")]
+    cargs += [f"float p{k}" for k in range(n_par)] + [f"float r{k}" for k in divs]
+    cargs += [f"int64_t {n}" for n in (*dims, *strides, "xc", "gz", "gy", "gx")]
     cargs += ["void* stream"]
     w('extern "C" int launch(' + ", ".join(cargs) + ") {")
     w("  const dim3 grid(static_cast<unsigned>(gz), static_cast<unsigned>(gy), "
@@ -357,8 +506,8 @@ def cuda_source(program: TapProgram) -> str:
     kargs = [f"static_cast<const float*>(in{k})" for k in range(len(program.fields))]
     kargs += [f"static_cast<float*>(out{k})" for k in range(n_out)]
     kargs += [f"static_cast<float*>(part{k})" for k in range(n_red)]
-    kargs += [f"p{k}" for k in range(n_par)]
-    kargs += ["nx", "ny", "nz", "sx", "sy", "sz", "xc"]
+    kargs += [f"p{k}" for k in range(n_par)] + [f"r{k}" for k in divs]
+    kargs += [*dims, *strides, "xc"]
     w("  stencil_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(")
     w("      " + ", ".join(kargs) + ");")
     w("  return static_cast<int>(cudaGetLastError());")

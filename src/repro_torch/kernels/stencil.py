@@ -17,6 +17,13 @@ along the contiguous z axis so loads coalesce); the reduction epilogue folds
 the values already in registers, so a checked step moves no more bytes than
 a plain one.
 
+Staggered fields and boundary conditions live in the same launch: the
+grid covers the base (cell-centred) extent, each face-centred field is
+indexed with the strides of its own shape class, and a face cell of an
+output with a boundary condition computes its value in place
+(``kernels/codegen.py``). There is no second pass, and nothing falls back to
+the ``torch`` backend: a build or launch failure raises.
+
 On the CPU, a :class:`StencilCall` runs the same tap program with torch
 operators (``codegen.evaluate_torch``), only because the tensors it was given
 lie there.
@@ -32,6 +39,7 @@ from typing import Any, Mapping
 
 import torch
 
+from ..ir.bc import BoundaryCondition
 from ..ir.trace import StencilIR
 from . import build, codegen
 
@@ -77,8 +85,9 @@ def derive_launch(shape3: tuple[int, int, int], n_sm: int) -> Launch:
 
 
 def check_cuda_fields(tensors: Mapping[str, torch.Tensor], shape) -> torch.device:
-    """Every tensor on one CUDA device, float32, C-contiguous, of ``shape``;
-    raises on anything else (nothing is moved or copied silently)."""
+    """Every tensor on one CUDA device, float32, C-contiguous, of ``shape``
+    (one shape for all, or a shape per name); raises on anything else
+    (nothing is moved or copied silently)."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"fields lie on several devices {sorted(map(str, devices))}")
@@ -86,8 +95,9 @@ def check_cuda_fields(tensors: Mapping[str, torch.Tensor], shape) -> torch.devic
     for n, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"field {n!r} is {t.dtype}; the CUDA kernel takes float32")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"field {n!r} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        want = tuple(shape[n] if isinstance(shape, Mapping) else shape)
+        if tuple(t.shape) != want:
+            raise ValueError(f"field {n!r} has shape {tuple(t.shape)}, expected {want}")
         if not t.is_contiguous():
             raise ValueError(f"field {n!r} is not contiguous")
     return dev
@@ -98,13 +108,17 @@ def stream_of(dev: torch.device) -> int:
 
 
 class StencilCall:
-    """One generated kernel for a traced update (collocated f32 fields)."""
+    """One generated kernel for a traced update (f32 fields, collocated or
+    staggered) with its outputs' boundary conditions (``bcs``, normalized)."""
 
-    def __init__(self, ir: StencilIR, label: str):
+    def __init__(self, ir: StencilIR, label: str,
+                 bcs: Mapping[str, BoundaryCondition] | None = None):
         unsupported(ir)
         self.ir = ir
         self.label = label
-        self.program = codegen.lower(ir)
+        self.program = codegen.lower(ir, bcs)
+        self.classes = codegen.shape_classes(self.program)
+        self.divisors = codegen.divisor_params(self.program)
         self.source = codegen.cuda_source(self.program)
         self.lib_name = "stencil_" + re.sub(r"[^A-Za-z0-9_]", "_", label)
         self.launch_info: dict[tuple, Launch] = {}
@@ -114,8 +128,10 @@ class StencilCall:
         if self._lib is None:
             p = self.program
             argtypes = [ctypes.c_void_p] * (len(p.fields) + len(p.outputs) + len(p.reductions))
-            argtypes += [ctypes.c_float] * len(p.params)
-            argtypes += [ctypes.c_int64] * 10 + [ctypes.c_void_p]
+            # scalar parameters, then the reciprocals of the divisors, as f32
+            argtypes += [ctypes.c_float] * (len(p.params) + len(self.divisors))
+            # base extents, two strides per shape class, xc, the grid
+            argtypes += [ctypes.c_int64] * (3 + 2 * len(self.classes) + 4) + [ctypes.c_void_p]
             self._lib = build.Library(self.lib_name, self.source, argtypes)
         return self._lib
 
@@ -132,21 +148,25 @@ class StencilCall:
         ins = {f: fields[f] for f in p.fields}
         if all(t.device.type == "cpu" for t in ins.values()):
             return codegen.evaluate_torch(p, ins, scalars)
-        dev = check_cuda_fields(ins, self.ir.base_shape)
+        dev = check_cuda_fields(ins, self.ir.field_shapes)
         shape3 = codegen.pad3(self.ir.base_shape, 1)
-        stride3 = (shape3[1] * shape3[2], shape3[2], 1)
+        strides = []
+        for off in self.classes:
+            _, ny, nz = (n - d for n, d in zip(shape3, off))
+            strides += [ny * nz, nz]
         launch = derive_launch(shape3, torch.cuda.get_device_properties(dev).multi_processor_count)
         self.launch_info[tuple(self.ir.base_shape)] = launch
         outs = {op.name: torch.empty_like(ins[op.name]) for op in p.outputs}
         parts = [torch.empty(launch.n_blocks, dtype=torch.float32, device=dev)
                  for _ in p.reductions]
         host = [float(v) for v in p.host_values(scalars)]
+        host += [codegen.reciprocal(host[k]) for k in self.divisors]
         lib = self._library()
         with torch.cuda.device(dev):
             lib.launch(*(t.data_ptr() for t in ins.values()),
                        *(t.data_ptr() for t in outs.values()),
                        *(t.data_ptr() for t in parts), *host,
-                       *shape3, *stride3, launch.xc, *launch.grid, stream_of(dev))
+                       *shape3, *strides, launch.xc, *launch.grid, stream_of(dev))
         launches[self.label] += 1
         if not p.reductions:
             return outs, None
@@ -156,10 +176,5 @@ class StencilCall:
 def unsupported(ir: StencilIR) -> None:
     """Raise ``NotImplementedError`` for what the generated kernel does not
     take yet, naming the ROADMAP item that will port it."""
-    if any(any(o) for o in ir.offsets.values()):
-        raise NotImplementedError(
-            "staggered fields are not ported yet (ROADMAP queue 1, item 3: "
-            "staggered and coupled writes)"
-        )
     if ir.ndim > 3:
         raise NotImplementedError("the generated CUDA kernel handles 1-3 dimensions")

@@ -8,7 +8,9 @@ installed:
 
 Tolerances: each stencil kernel must equal its plain version bitwise (the
 build passes them --fmad=false, so every multiply and add rounds on its own
-as PyTorch's operators do). Max reductions are bitwise too; sums fold in
+as PyTorch's operators do, and a division by a scalar is emitted as
+PyTorch's CUDA product with the scalar's f32 reciprocal). That includes
+the coupled solvers' kernels: staggered fields and boundary conditions. Max reductions are bitwise too; sums fold in
 another order and are held to rtol 1e-5. (A ``pow`` with an exponent other
 than 2, 3 or 0.5 compiles to ``powf``, documented within 4 ulp; no kernel
 here uses one.) The LM kernels: conv1d rtol 1e-5 / atol 1e-6 (its taps sum
@@ -18,13 +20,15 @@ attention rtol 1e-5 / atol 1e-5 (3xTF32 products on the tensor cores, about
 softmax per row), SSD rtol 1e-4 / atol 1e-4 (3xTF32 products summed in
 another order, and the state carries rounding across chunks).
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import Diffusion3DConfig
 from repro_torch.core import fd2d, fd3d, init_parallel_stencil, teff
-from repro_torch.examples import quickstart
+from repro_torch.examples import gross_pitaevskii as gp, porosity_waves as pw, quickstart
 from repro_torch.kernels import attention, conv1d, diffusion3d, ops, ref, ssd, stencil
 from repro_torch.launch import serve as lm_serve
 from repro_torch.models import RunConfig
@@ -110,6 +114,111 @@ def test_generated_kernel_equals_torch_backend(card, case, rng):
         else:
             np.testing.assert_allclose(float(got_reds[n]), float(want_reds[n]), rtol=1e-5)
     assert k.launch_info
+
+
+def _assert_same(got, want, kern):
+    (got, got_reds), (want, want_reds) = (got, want) if kern.reductions else \
+        ((got, {}), (want, {}))
+    got = {kern.outputs[0]: got} if len(kern.outputs) == 1 else got
+    want = {kern.outputs[0]: want} if len(kern.outputs) == 1 else want
+    for o in kern.outputs:
+        assert torch.equal(got[o], want[o]), o
+    for n, r in kern.reductions.items():
+        if r.combine == "max":
+            assert float(got_reds[n]) == float(want_reds[n]), n
+        else:
+            np.testing.assert_allclose(float(got_reds[n]), float(want_reds[n]), rtol=1e-5)
+
+
+COUPLED_BCS = ["none", "neumann", "dirichlet", "periodic"]
+
+
+@pytest.mark.parametrize("bc", COUPLED_BCS)
+@pytest.mark.parametrize("shape", [(33, 20), (9, 12)])
+def test_porosity_kernels_equal_torch_backend(card, bc, shape, rng):
+    """Fused (with and without its residual epilogue) and flux-split:
+    staggered `all` writes and every bc kind in the generated kernel."""
+    grid = pw.Grid(shape, (10.0, 10.0))
+    phi = torch.tensor((rng.rand(*shape) * 0.01 + 0.005).astype(np.float32), device=card)
+    Pe = torch.tensor(((rng.rand(*shape) - 0.5) * 0.01).astype(np.float32), device=card)
+    f = dict(phi2=phi.flip(0).contiguous(), Pe2=Pe.flip(1).contiguous(), phi=phi, Pe=Pe)
+    for split in (False, True):
+        cfgs = [pw.PorosityConfig(n=shape[0], device="cuda", backend=b, bc=bc,
+                                  flux_split=split) for b in ("cuda", "torch")]
+        (k, *rest), (p, *prest) = (pw.make_step(grid, c).kernels for c in cfgs)
+        if split:
+            q = dict(qx=torch.rand(shape[0] - 1, shape[1], device=card),
+                     qy=torch.rand(shape[0], shape[1] - 1, device=card))
+            before = stencil.launches[k.label]
+            _assert_same(k(**q, phi=phi, Pe=Pe), p(**q, phi=phi, Pe=Pe), k)
+            assert stencil.launches[k.label] == before + 1
+            k, p = rest[0], prest[0]
+            f = dict(f, **q)
+        _assert_same(k(**f, dtau=1e-3), p(**f, dtau=1e-3), k)
+        if not split and bc != "periodic":
+            err = {"err": "max_abs_diff(Pe2, Pe)"}
+            kr, pr = k.with_reductions(err), p.with_reductions(err)
+            _assert_same(kr(**f, dtau=1e-3), pr(**f, dtau=1e-3), kr)
+
+
+@pytest.mark.parametrize("bc", COUPLED_BCS)
+@pytest.mark.parametrize("shape", [(13, 17, 130), (7, 8, 9)])
+def test_gp_kernels_equal_torch_backend(card, bc, shape, rng):
+    """The fused radius-2 update (with and without its mass epilogues) and
+    the two-launch scheme."""
+    grid = gp.Grid(shape, (8.0, 8.0, 8.0))
+    re, im, V = (torch.tensor(rng.rand(*shape).astype(np.float32), device=card)
+                 for _ in range(3))
+    sc = dict(g=0.5, dt=1e-3, _dx2=3.0, _dy2=2.0, _dz2=5.0)
+    f = dict(re2=im.clone(), im2=re.clone(), re=re, im=im, V=V)
+    for fused in (True, False):
+        ks, ps_ = (gp.make_step(grid, gp.GPConfig(n=shape[0], device="cuda", backend=b,
+                                                  bc=bc, fused=fused)).kernels
+                   for b in ("cuda", "torch"))
+        for k, p in zip(ks, ps_):
+            args = {n: f[n] for n in inspect.signature(k.fn).parameters if n in f}
+            _assert_same(k(**args, **sc), p(**args, **sc), k)
+            if fused and bc != "periodic":
+                mass = {"m_re": "sum_sq(re2)", "m_im": "sum_sq(im2)"}
+                kr, pr = k.with_reductions(mass), p.with_reductions(mass)
+                _assert_same(kr(**args, **sc), pr(**args, **sc), kr)
+
+
+def test_division_by_a_host_scalar_on_the_card(card, rng):
+    """What the generated kernel emits for ``tensor / scalar``: PyTorch on
+    the card multiplies by the scalar's reciprocal, taken in double and
+    rounded once to f32."""
+    x = torch.tensor(rng.rand(1 << 16).astype(np.float32) + 0.5, device=card)
+    for s in (0.01, 10.0 / 23.0, 3.0, 10.0 / 8191.0):
+        inv = np.float32(1.0 / s)
+        got, want = (x / s).cpu().numpy(), x.cpu().numpy() * inv
+        assert want.dtype == np.float32
+        np.testing.assert_array_equal(got, want, err_msg=f"x / {s}")
+
+    @init_parallel_stencil(ndims=2).parallel(outputs=("T2",))
+    def divisions(T2, T, h):
+        return {"T2": 2.0 / fd2d.inn(T) + fd2d.inn(T) / h + fd2d.inn(T) / (10.0 / 23.0)
+                + fd2d.inn(T) / (1.5 + fd2d.d2_xi(T))}
+
+    plain = init_parallel_stencil(backend="torch", device="cuda", ndims=2).parallel(
+        outputs=("T2",))(divisions.fn)
+    f = {n: _rand(rng, (33, 130), card) for n in ("T2", "T")}
+    for h in (10.0 / 23.0, 3.0, 10.0 / 8191.0):
+        assert torch.equal(divisions(**f, h=h), plain(**f, h=h)), h
+
+
+def test_coupled_solvers_backends_agree_on_the_card(card):
+    for kw in (dict(n=64, nt=20), dict(n=64, nt=20, flux_split=True),
+               dict(n=64, nt=200, tol=1e-5, bc="dirichlet")):
+        rc, rt = (pw.solve(pw.PorosityConfig(device="cuda", backend=b, **kw))
+                  for b in ("cuda", "torch"))
+        assert torch.equal(rc["phi"], rt["phi"]) and torch.equal(rc["Pe"], rt["Pe"]), kw
+        assert rc["iters"] == rt["iters"] and rc["residual"] == rt["residual"], kw
+    for kw in (dict(n=24, nt=10, bc="neumann"), dict(n=24, nt=40, tol=1e-3)):
+        rc, rt = (gp.solve(gp.GPConfig(device="cuda", backend=b, **kw))
+                  for b in ("cuda", "torch"))
+        assert torch.equal(rc["re"], rt["re"]) and torch.equal(rc["im"], rt["im"]), kw
+        assert rc["iters"] == rt["iters"], kw
 
 
 def test_quickstart_backends_agree_on_the_card(card):

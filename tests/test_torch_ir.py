@@ -197,5 +197,25 @@ def test_cuda_source_pow_and_reductions():
                        reductions={"e": "max_abs_diff(T2, T)", "m": "sum_sq(T2)"})
     src = codegen.cuda_source(codegen.lower(ir))
     assert "(l0 * l0)" in src and "powf(l0, p0)" in src and "sqrtf(l0)" in src
-    assert "max_nan(acc0, (fabsf(v0 - in1[i])))" in src
+    assert "max_nan(acc0, (fabsf(v0 - in1[i0])))" in src
     assert "(acc1 + (v0 * v0))" in src and "part1[bid]" in src
+
+
+def test_division_by_a_scalar_prints_the_reciprocal_product():
+    """PyTorch's CUDA kernel divides a tensor by a Python scalar as a product
+    with 1/s taken in double and rounded to f32; the printed kernel does the
+    same, for a literal divisor and for a scalar argument (its reciprocal
+    passed beside it), and divides tensor by tensor."""
+    def k(T2, T, h):
+        return {"T2": fd2d.inn(T) / (10.0 / 23.0) + fd2d.inn(T) / h
+                + 2.0 / fd2d.inn(T) + fd2d.inn(T) / fd2d.d2_xi(T)}
+
+    ir = trace_stencil(lambda f, s: k(**f, **s), {"T2": S2, "T": S2}, ("T2",), ("h",))
+    src = codegen.cuda_source(codegen.lower(ir))
+    assert f"(l0 * {codegen.float_literal(2.3)})" in src          # not 2.3000002
+    assert codegen.float_literal(2.3) != codegen.float_literal(
+        float(np.float32(1.0) / np.float32(10.0 / 23.0)))
+    assert "const float p0" in src and "const float r0" in src   # 1 / h, taken on the host
+    assert codegen.divisor_params(codegen.lower(ir)) == (0,)
+    assert "(l0 * r0)" in src and "((1.0f / l0) * 0x1.0000000000000p+1f)" in src
+    assert "(l0 / e" in src

@@ -30,6 +30,16 @@ from repro_torch.examples import quickstart
 r = quickstart.run(Diffusion3DConfig(nx=8, ny=8, nz=8, nt=1), device="cpu",
                    max_iters=1, check_every=1)
 assert torch.equal(r.T, r.T_explicit) and bool(torch.isfinite(r.T).all())
+from repro_torch.core import boundary
+from repro_torch.examples import gross_pitaevskii, porosity_waves
+from repro_torch.ir import bc
+p = porosity_waves.solve(porosity_waves.PorosityConfig(n=12, nt=2, device="cpu",
+                                                       flux_split=True))
+g = gross_pitaevskii.solve(gross_pitaevskii.GPConfig(n=8, nt=2, device="cpu",
+                                                     bc="neumann"))
+assert bool(torch.isfinite(p["phi"]).all()) and bool(torch.isfinite(g["re"]).all())
+assert torch.equal(bc.BoundaryCondition("periodic").apply(g["re"]),
+                   boundary.periodic(g["re"]))
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m in sys.modules if sys.modules[m] is not None)
 print("imported", len(names), "modules")

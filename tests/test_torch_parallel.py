@@ -109,8 +109,8 @@ def test_two_output_and_upwind_kernels_match_reference(rng):
 
 def test_unported_features_raise_not_implemented(rng):
     ps = init_parallel_stencil(backend="torch", device="cpu")
-    with pytest.raises(NotImplementedError, match="bc"):
-        ps.parallel(outputs=("T2",), bc={"T2": "dirichlet"})
+    # bc= is ported (tests/test_torch_bc.py): declaring one no longer raises
+    assert ps.parallel(outputs=("T2",), bc={"T2": "dirichlet"})(fig1).bc["T2"].kind == "dirichlet"
     with pytest.raises(NotImplementedError, match="march_axis"):
         ps.parallel(outputs=("T2",), march_axis=0)
     for kind in ("finite", "nan_count"):
@@ -128,8 +128,10 @@ def test_unported_features_raise_not_implemented(rng):
     def flux(qx, P):
         return {"qx": P[1:] - P[:-1]}
 
-    with pytest.raises(NotImplementedError, match="staggered"):
-        flux(qx=torch.zeros(8, 9, 10), P=torch.zeros(9, 9, 10))
+    # staggered fields are ported (tests/test_torch_coupled.py): the face
+    # field is written at its full extent
+    q = flux(qx=torch.zeros(8, 9, 10), P=torch.arange(9.0).expand(10, 9, 9).permute(2, 1, 0))
+    assert q.shape == (8, 9, 10) and torch.equal(q, torch.ones(8, 9, 10))
 
 
 def test_cuda_backend_raises_without_card():
