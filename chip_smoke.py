@@ -23,6 +23,11 @@ each kernel beside its plain version, the PyTorch library call that
 computes the same function (where there is one) and its bound: for the
 attention and SSD kernels, whose products run on the tensor cores at f32
 accuracy (3xTF32), at 165 TFLOP/s, with the f32 CUDA-core bound beside it.
+Every generated kernel must build without register spills; its time is
+also given as a ratio to the hand ``diffusion3d`` kernel's in the same run,
+GP's fused kernel is timed on the solver's own state too, and a
+``targets`` line says which of the generated kernel's speed targets the run
+met.
 
 It prints JSON lines; the line before the last lists the kernels, the one
 before that is the card's name and power limit as nvidia-smi gives them,
@@ -33,6 +38,7 @@ beside it, it exits non-zero at once.
 import json
 import math
 import os
+import re
 import sys
 import time
 
@@ -117,8 +123,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # ---- 1. card ------------------------------------------------------
-    name, power = teff.card_info(0)
-    emit({"phase": "card", "name": name, "power_limit": power,
+    card_name, card_power = teff.card_info(0)
+    emit({"phase": "card", "name": card_name, "power_limit": card_power,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "count": torch.cuda.device_count()})
 
@@ -143,13 +149,17 @@ def main() -> int:
                + [(n, build.read_source(m.SOURCE)) for n, m in lm_kernels.items()]
                + [(c.lib_name, c.source) for c in calls])
     builds = build.compile_many(sources)
-    variant_of = {c.source: name for name, c in zip(coupled, calls[-len(coupled):])}
+    call_names = ["stencil", "stencil+err", "stencil+4red", "generic", *coupled]
+    variant_of = {c.source: name for name, c in zip(call_names, calls)}
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "builds": [{"name": b.name, "variant": variant_of.get(src), "seconds": b.seconds,
                       "ptxas": [ln.strip() for ln in b.log.splitlines()
                                 if "entry function" in ln or "registers" in ln
                                 or "spill" in ln]}
                      for b, (_, src) in zip(builds, sources)]})
+    ptxas = {name: ptxas_summary(b.log) for name, b in zip(call_names, builds[-len(calls):])}
+    require(all(not p["spills"] for p in ptxas.values()),
+            f"ptxas spills registers in a generated kernel: {ptxas}")
 
     # ---- 3. kernels against their plain versions ------------------------
     gen = torch.Generator(device="cpu").manual_seed(20260714)
@@ -330,7 +340,9 @@ def main() -> int:
           "copy_bandwidth_GBps": spec.peak_bw / 1e9, "ms": ms,
           "t_eff_GBps": {k: a_eff / (v / 1e3) / 1e9 for k, v in ms.items()},
           "t_eff_over_copy": {k: a_eff / (v / 1e3) / spec.peak_bw for k, v in ms.items()},
-          "bound_ms": bound_ms, "copy_bound_ms": copy_bound_ms})
+          "bound_ms": bound_ms, "copy_bound_ms": copy_bound_ms,
+          "over_diffusion3d": {k: ms[k] / ms["diffusion3d"] for k in ("stencil", "stencil+err")},
+          "ptxas": {k: ptxas[k] for k in ("stencil", "stencil+err")}})
 
     del grid, f
     # ---- 5b. times of the LM kernels at the Zamba2 prefill shapes --------------
@@ -365,10 +377,16 @@ def main() -> int:
     # ---- 5c. times of the coupled kernels at full size --------------------------
     coupled_times = {}
     for name, v in coupled.items():
-        coupled_times[name] = time_coupled(torch, v, COUPLED_FULL[v["solver"]], cgen)
+        t = coupled_times[name] = time_coupled(torch, v, COUPLED_FULL[v["solver"]], cgen)
+        t["over_diffusion3d"] = t["ms"] / ms["diffusion3d"]
+        t["ptxas"] = ptxas[name]
         torch.cuda.empty_cache()
+    gp_state = time_gp_on_state(torch, coupled["gp_fused[none]"], cgen)
     emit({"phase": "times_coupled", "card": spec.name, "power_limit": spec.power_limit,
-          "shapes": COUPLED_FULL, "kernels": coupled_times})
+          "shapes": COUPLED_FULL, "diffusion3d_ms": ms["diffusion3d"], "kernels": coupled_times,
+          "gp_fused_on_solver_state": gp_state})
+    emit({"phase": "targets", "card": spec.name, "power_limit": spec.power_limit,
+          **targets(ms, coupled_times)})
 
     # ---- 6. the kernels line -------------------------------------------------
     fig1 = SHAPES[-1]
@@ -401,7 +419,7 @@ def main() -> int:
                  **{x: coupled_times[k][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
                  "library_ms": None}
                 for k in coupled]
-    print(f"{name}, {power}", flush=True)
+    print(f"{card_name}, {card_power}", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -692,19 +710,26 @@ def check_coupled(torch, name, v, base, gen) -> float:
 
 def tap_cost(call) -> tuple[float, float]:
     """(bytes, f32 operations) of one launch: each field the update reads
-    once, each output written once (A_eff); the tap program's operations at
-    every written cell (x ** 3 counts two products), and two or three per
-    base cell for each reduction."""
+    once, each output written once (A_eff); the shared tap program and its
+    stages at every base cell (``TapProgram.ops_per_cell``: x ** 3 counts two
+    products), and two or three per base cell for each reduction."""
     ir, prog = call.ir, call.program
-    ops = 0
-    for op in prog.outputs:
-        cells = math.prod(n - 2 * w for n, w in zip(ir.field_shapes[op.name], op.rings))
-        per = sum(int(a[1][1]) - 1 if kind == "pow" and a[1][0] == "const"
-                  and a[1][1] in (2, 3) else 1 for kind, a in op.ops)
-        ops += per * cells
+    cells = math.prod(ir.base_shape)
+    ops = prog.ops_per_cell() * cells
     for _, r in prog.reductions:
-        ops += (3 if r.kind == "max_abs_diff" else 2) * math.prod(ir.base_shape)
+        ops += (3 if r.kind == "max_abs_diff" else 2) * cells
     return float(ir.io_bytes(4)), float(ops)
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, spill bytes and static shared memory from ptxas's -v lines."""
+    regs = [int(ln.split("Used ")[1].split()[0]) for ln in log.splitlines() if "Used " in ln]
+    smem = [int(ln.split("bytes smem")[0].split()[-1]) for ln in log.splitlines()
+            if "bytes smem" in ln]
+    spills = [ln.strip() for ln in log.splitlines()
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+    return {"registers": max(regs, default=None), "smem_bytes": max(smem, default=0),
+            "spills": spills}
 
 
 def bound_of(a_eff, ops) -> tuple[float, str]:
@@ -725,7 +750,52 @@ def time_coupled(torch, v, base, gen) -> dict:
     plain_ms = teff.measure(lambda: p(**f, **sc), iters=10, warmup=2).median_s * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / ms, "a_eff_bytes": a_eff, "ops": ops,
+            "ops_per_cell": k.compiled(**f, **sc).program.ops_per_cell(),
             "t_eff_GBps": a_eff / (ms / 1e3) / 1e9}
+
+
+def time_gp_on_state(torch, v, gen) -> dict:
+    """GP's fused kernel at 512^3 under CUDA events on the solver's own
+    state (``init_state``: a Gaussian in re, im zero, the trap V; outputs
+    passed as the inputs, as ``solve`` passes them) and, in turns, on the
+    uniform random fields of ``time_coupled``."""
+    from repro_torch.core import teff
+    from repro_torch.examples import gross_pitaevskii as gp
+
+    cfg = gp.GPConfig(n=COUPLED_FULL["gp"][0], device="cuda")
+    grid, re, im, V = gp.init_state(cfg)
+    inv2 = tuple(1.0 / d ** 2 for d in grid.spacing)
+    state = dict(re2=re, im2=im, re=re, im=im, V=V)
+    sc = dict(g=cfg.g, dt=gp.timestep(grid), _dx2=inv2[0], _dy2=inv2[1], _dz2=inv2[2])
+    rand = coupled_fields(torch, v, COUPLED_FULL["gp"], gen)
+    k = v["kernel"]
+    out = {}
+    for label, f in (("state", state), ("random", rand), ("state_again", state),
+                     ("random_again", rand)):
+        out[label] = teff.measure(lambda: k(**f, **sc), iters=20, warmup=3).median_s * 1e3
+    return {"ms": out, "scalars": sc}
+
+
+def targets(ms, coupled) -> dict:
+    """This slice's speed targets for the generated kernel, each with its
+    number from this run and whether it was met (a missed target is
+    reported, not failed)."""
+    pw, gp_ = coupled["porosity_fused[neumann0]"], coupled["gp_fused[none]"]
+    two = coupled["gp_step_re"]["ms"] + coupled["gp_step_im"]["ms"]
+    rows = {
+        "porosity_fused[neumann0] <= 0.641 ms": (pw["ms"], pw["ms"] <= 0.641),
+        "gp_fused[none] <= 1.603 ms": (gp_["ms"], gp_["ms"] <= 1.603),
+        "gp_fused[none] < step_re + step_im": ([gp_["ms"], two], gp_["ms"] < two),
+        "+err <= 1.15 x its base": (
+            coupled["porosity_fused[neumann0]+err"]["ms"] / pw["ms"],
+            coupled["porosity_fused[neumann0]+err"]["ms"] <= 1.15 * pw["ms"]),
+        "+mass <= 1.15 x its base": (
+            coupled["gp_fused[none]+mass"]["ms"] / gp_["ms"],
+            coupled["gp_fused[none]+mass"]["ms"] <= 1.15 * gp_["ms"]),
+        "FIG1 step within 5% of 0.6847 ms": (ms["stencil"], ms["stencil"] <= 1.05 * 0.6847),
+        "FIG1 err within 5% of 0.9185 ms": (ms["stencil+err"], ms["stencil+err"] <= 1.05 * 0.9185),
+    }
+    return {"targets": {k: {"value": v, "met": met} for k, (v, met) in rows.items()}}
 
 
 def coupled_main_path(torch, coupled) -> dict:

@@ -1,26 +1,46 @@
-"""Lower a traced :class:`~repro_torch.ir.StencilIR` to a flat tap program
-and print it two ways: as CUDA C++ source, and as a torch evaluation over
+"""Lower a traced :class:`~repro_torch.ir.StencilIR` to a tap program and
+print it two ways: as CUDA C++ source, and as a torch evaluation over
 shifted views.
 
-A tap program holds, for each output, the list of loads it makes relative
-to the cell it writes (``(field, (dx, dy, dz))``), a sequence of operations
-in single-assignment form over those loads, the scalar parameters and the
-literal constants, the output's write geometry (``inn`` ring or ``all``
-per axis) and its boundary condition. Loads are relative to the output cell
-in every field's own index space (a face-centred field's cell ``c`` sits
-beside the base cell ``c``), as the reference's relative-slice protocol
-reads them. Scalar parameters are the scalar-only subtrees of the update
-(``_dx ** 2``, ``lam``): they are evaluated on the host in Python numbers,
-as the plain path evaluates them, and reach the kernel as ``float``
-arguments. Operand order is kept, so ``1 - x`` and ``x - 1`` lower to
-different programs.
+A tap program holds three kinds of straight-line program, each a list of
+loads relative to the cell it computes (``(field, (dx, dy, dz))``) and a
+sequence of operations in single-assignment form over them:
+
+* the **core** program (:class:`CoreProgram`): every output of the update
+  at one cell, in one shared sequence. Outputs that read the same value at
+  the same shift share its loads and operations (porosity's ``phi2`` reuses
+  ``Pe2``'s update). It serves every cell where all outputs are written by
+  their update and no boundary face lies;
+* the **stages** (:class:`Stage`): intermediates of the update that the
+  core program reads at more than one shift (GP's new ``re1`` at seven,
+  porosity's face fluxes ``qx`` and ``qy`` at two each). Each is computed
+  once per element by its own program and read by the core program at its
+  shifts (``("read", i)`` operands): the CUDA kernel stages it in shared
+  memory, the torch form as a whole tensor, as the ``torch`` backend and the
+  reference's window-wise Pallas body compute it;
+* each output's **direct** program (:class:`OutputProgram`): its update
+  expanded alone, with nothing staged, for the cells outside the core:
+  kept rings, the cells of a staggered output's extent that another output
+  does not cover, and boundary faces, where a ``neumann0`` or ``periodic``
+  cell evaluates its output at its source cell (:func:`bc_source`).
+
+Loads are relative to the computed cell in every field's own index space (a
+face-centred field's cell ``c`` sits beside the base cell ``c``), as the
+reference's relative-slice protocol reads them; an intermediate's element
+``e`` sits in the same integer coordinates. Scalar parameters are the
+scalar-only subtrees of the update (``_dx ** 2``, ``lam``): they are
+evaluated on the host in Python numbers, as the plain path evaluates them,
+and reach the kernel as ``float`` arguments. Operand order is kept, so
+``1 - x`` and ``x - 1`` lower to different programs. Every value is computed
+by the same operations in the same order on every path, so the core, staged
+and direct values of a cell are bitwise the same.
 
 The torch form lets the CPU tests check the lowering, which is the hard
 part, without ``nvcc``: it must agree bitwise with the ``torch`` backend of
 ``@parallel``. It realizes boundary conditions as the kernel does, by
-taking each face cell's value from its source cell (:func:`bc_source`),
-not by the post-pass it is held against. Only the printing of C syntax is
-left for the card to check.
+taking each face cell's value from its source cell, not by the post-pass it
+is held against. Only the printing of C syntax is left for the card to
+check.
 """
 from __future__ import annotations
 
@@ -36,28 +56,72 @@ from ..ir.reductions import Reduction
 from ..ir.sym import BINARY_OPS, UNARY_OPS, SymScalar
 from ..ir.trace import StencilIR
 
-# An operand of an operation: ("load", i), ("op", i), ("param", i) or
-# ("const", number).
+# An operand of an operation: ("load", i), ("read", i) (a staged
+# intermediate), ("op", i), ("param", i) or ("const", number).
 Ref = tuple[str, Any]
+Loads = tuple[tuple[str, tuple[int, ...]], ...]
+Ops = tuple[tuple[str, tuple[Ref, ...]], ...]
+
+# An intermediate is staged when reading it at its extra shifts, instead of
+# computing it again there, saves at least this many operations per cell:
+# below that, the shared-memory round trip and the barrier cost more than
+# they save (porosity's flux kernel recomputes k = (phi / phi0) ** 3).
+STAGE_MIN_SAVED_OPS = 8
 
 
 @dataclasses.dataclass(frozen=True)
 class OutputProgram:
-    """The taps and operations that compute one output."""
+    """The taps and operations that compute one output on its own."""
 
     name: str
     modes: tuple[str, ...]
     rings: tuple[int, ...]
-    loads: tuple[tuple[str, tuple[int, ...]], ...]
-    ops: tuple[tuple[str, tuple[Ref, ...]], ...]
+    loads: Loads
+    ops: Ops
     result: Ref
     bc: BoundaryCondition | None = None
 
 
 @dataclasses.dataclass(frozen=True)
+class Stage:
+    """An intermediate that the core program reads at several shifts.
+
+    Its elements ``e`` lie in ``[0, base - trim)`` per axis, in the cells'
+    integer coordinates; a cell ``c`` of the core reads it at ``e - c`` in
+    the box ``lo..hi``. ``loads``, ``ops`` and ``result`` compute it at one
+    element, its loads relative to that element."""
+
+    trim: tuple[int, ...]
+    lo: tuple[int, ...]
+    hi: tuple[int, ...]
+    loads: Loads
+    ops: Ops
+    result: Ref
+
+    @property
+    def footprint(self) -> tuple[tuple[int, int], ...]:
+        """``lo..hi`` per axis, centred on the intermediate (shifted by half
+        its trim): GP's ``re1 = inn(re) + ...`` is read at -1..1."""
+        return tuple((lo + t // 2, hi + t // 2) for lo, hi, t in zip(self.lo, self.hi, self.trim))
+
+
+@dataclasses.dataclass(frozen=True)
+class CoreProgram:
+    """Every output at one cell, in one shared program: ``loads`` relative
+    to the cell, ``reads`` of the staged intermediates ``(stage, shift)``,
+    and one result per output."""
+
+    loads: Loads
+    reads: tuple[tuple[int, tuple[int, ...]], ...]
+    ops: Ops
+    results: tuple[Ref, ...]
+
+
+@dataclasses.dataclass(frozen=True)
 class TapProgram:
-    """One fused launch: every output's taps, the host-evaluated scalar
-    parameters and the reductions folded over the written cells."""
+    """One fused launch: the core program, its stages and every output's
+    direct program, the host-evaluated scalar parameters and the reductions
+    folded over the written cells."""
 
     ndim: int
     fields: tuple[str, ...]
@@ -65,19 +129,38 @@ class TapProgram:
     params: tuple[SymScalar, ...]
     reductions: tuple[tuple[str, Reduction], ...]
     offsets: tuple[tuple[int, ...], ...] = ()   # per field: base shape - field shape
+    core: CoreProgram | None = None
+    stages: tuple[Stage, ...] = ()
 
     def host_values(self, scalars: Mapping[str, Any]) -> list:
         """The scalar parameters' values for one call."""
         return [p.evaluate(scalars) for p in self.params]
 
+    def ops_per_cell(self) -> int:
+        """f32 operations per core cell: the core program and each stage
+        once (``x ** 2`` and ``x ** 3`` count as their products)."""
+        return op_count(self.core.ops) + sum(op_count(s.ops) for s in self.stages)
+
+
+def op_count(ops: Ops) -> int:
+    """f32 operations of a program: ``x ** 2`` and ``x ** 3`` are one and
+    two products, every other operation one."""
+    return sum(int(args[1][1]) - 1 if kind == "pow" and args[1][0] == "const"
+               and args[1][1] in (2, 3) else 1 for kind, args in ops)
+
 
 class _Lowering:
-    def __init__(self, rings: tuple[int, ...], params: dict[str, int],
-                 param_list: list[SymScalar]):
-        self.rings = rings
+    """Memoized lowering of expression nodes at shifts relative to one cell
+    (``rel``: the node's element index less the cell's). Nodes in ``stops``
+    are read from their stage instead of computed."""
+
+    def __init__(self, params: dict[str, int], param_list: list[SymScalar],
+                 stops: Mapping[int, int] | None = None):
         self.params = params
         self.param_list = param_list
+        self.stops = dict(stops or {})
         self.loads: dict[tuple[str, tuple[int, ...]], int] = {}
+        self.reads: dict[tuple[int, tuple[int, ...]], int] = {}
         self.ops: dict[tuple[str, tuple[Ref, ...]], int] = {}
         self.memo: dict[tuple[int, tuple[int, ...]], Ref] = {}
 
@@ -96,45 +179,117 @@ class _Lowering:
             self.ops[key] = len(self.ops)
         return ("op", self.ops[key])
 
-    def visit(self, node, shift: tuple[int, ...]) -> Ref:
+    def visit(self, node, rel: tuple[int, ...]) -> Ref:
         if isinstance(node, SymScalar):
             return self.scalar(node)
-        memo_key = (id(node), shift)
+        memo_key = (id(node), rel)
         if memo_key in self.memo:
             return self.memo[memo_key]
         if node.op == "leaf":
-            off = tuple(s - w for s, w in zip(shift, self.rings))
-            key = (node.name, off)
-            if key not in self.loads:
-                self.loads[key] = len(self.loads)
-            ref = ("load", self.loads[key])
+            ref = ("load", self.loads.setdefault((node.name, rel), len(self.loads)))
         elif node.op == "slice":
             ref = self.visit(node.children[0],
-                             tuple(s + st for s, st in zip(shift, node.starts)))
+                             tuple(r + st for r, st in zip(rel, node.starts)))
+        elif id(node) in self.stops:
+            ref = ("read", self.reads.setdefault((self.stops[id(node)], rel), len(self.reads)))
         else:
-            ref = self.emit(node.op, tuple(self.visit(c, shift) for c in node.children))
+            ref = self.emit(node.op, tuple(self.visit(c, rel) for c in node.children))
         self.memo[memo_key] = ref
         return ref
+
+
+def _reach(roots, stops=frozenset()) -> dict[int, tuple[Any, set]]:
+    """The operation nodes reached from ``roots`` (``(node, rel)`` pairs),
+    each with the shifts it is read at; nodes in ``stops`` are recorded but
+    not entered."""
+    found: dict[int, tuple[Any, set]] = {}
+    seen = set()
+    todo = list(roots)
+    while todo:
+        node, rel = todo.pop()
+        if isinstance(node, SymScalar) or (id(node), rel) in seen or node.op == "leaf":
+            continue
+        seen.add((id(node), rel))
+        if node.op == "slice":
+            todo.append((node.children[0], tuple(r + s for r, s in zip(rel, node.starts))))
+            continue
+        found.setdefault(id(node), (node, set()))[1].add(rel)
+        if id(node) not in stops:
+            todo.extend((c, rel) for c in node.children)
+    return found
+
+
+def _choose_stages(roots, ndim: int) -> dict[int, tuple[Any, set]]:
+    """The intermediates to stage, in the order :func:`_reach` meets them:
+    the outermost operation nodes read at several shifts whose staging
+    saves at least :data:`STAGE_MIN_SAVED_OPS` operations per cell. An
+    intermediate read inside another one is recomputed there (one level of
+    staging)."""
+    def cost(node) -> int:
+        low = _Lowering({}, [])
+        low.visit(node, (0,) * ndim)
+        return op_count(tuple(low.ops))
+
+    stops = {i for i, (_, rels) in _reach(roots).items() if len(rels) > 1}
+    while True:
+        reached = {i: v for i, v in _reach(roots, stops).items() if i in stops}
+        rejected = {i for i, (node, rels) in reached.items()
+                    if cost(node) * (len(rels) - 1) < STAGE_MIN_SAVED_OPS}
+        if not rejected:
+            return reached
+        stops -= rejected
 
 
 def lower(ir: StencilIR, bcs: Mapping[str, BoundaryCondition] | None = None) -> TapProgram:
     """The tap program of a traced update, with each output's boundary
     condition (``bcs``, normalized)."""
     bcs = dict(bcs or {})
+    nd = ir.ndim
     params: dict[str, int] = {}
     param_list: list[SymScalar] = []
     outputs = []
-    for o in ir.out_names:
-        low = _Lowering(ir.write_rings[o], params, param_list)
-        result = low.visit(ir.exprs[o], (0,) * ir.ndim)
+    roots = [(ir.exprs[o], tuple(-w for w in ir.write_rings[o])) for o in ir.out_names]
+    for o, (expr, rel) in zip(ir.out_names, roots):
+        low = _Lowering(params, param_list)
+        result = low.visit(expr, rel)
         outputs.append(OutputProgram(
             name=o, modes=ir.write_modes[o], rings=ir.write_rings[o],
             loads=tuple(low.loads), ops=tuple(low.ops), result=result,
             bc=bcs.get(o)))
-    return TapProgram(ndim=ir.ndim, fields=tuple(ir.field_shapes),
+    chosen = _choose_stages(roots, nd)
+    stages = []
+    for node, rels in chosen.values():
+        low = _Lowering(params, param_list)
+        result = low.visit(node, (0,) * nd)
+        stages.append(Stage(
+            trim=tuple(b - s for b, s in zip(ir.base_shape, node.shape)),
+            lo=tuple(min(r[a] for r in rels) for a in range(nd)),
+            hi=tuple(max(r[a] for r in rels) for a in range(nd)),
+            loads=tuple(low.loads), ops=tuple(low.ops), result=result))
+    low = _Lowering(params, param_list, {i: k for k, i in enumerate(chosen)})
+    results = tuple(low.visit(expr, rel) for expr, rel in roots)
+    core = CoreProgram(loads=tuple(low.loads), reads=tuple(low.reads), ops=tuple(low.ops),
+                       results=results)
+    return TapProgram(ndim=nd, fields=tuple(ir.field_shapes),
                       outputs=tuple(outputs), params=tuple(param_list),
                       reductions=tuple(ir.reductions.items()),
-                      offsets=tuple(ir.offsets[f] for f in ir.field_shapes))
+                      offsets=tuple(ir.offsets[f] for f in ir.field_shapes),
+                      core=core, stages=tuple(stages))
+
+
+def core_box(program: TapProgram, out_shapes: Mapping[str, Sequence[int]]):
+    """Per axis ``(lo, hi)``: the cells where every output is written by its
+    update, inside its extent and off its boundary faces (dirichlet too).
+    The core program computes these; None when there are none."""
+    lo, hi = [0] * program.ndim, [math.inf] * program.ndim
+    for op in program.outputs:
+        axes = set(op.bc.resolved_axes(program.ndim)) if op.bc else set()
+        for a, (m, r) in enumerate(zip(out_shapes[op.name], op.rings)):
+            d = max(r, op.bc.depth if a in axes else 0)
+            lo[a], hi[a] = max(lo[a], d), min(hi[a], m - d)
+    if any(l >= h for l, h in zip(lo, hi)):
+        return None
+    return tuple(zip(lo, hi))
 
 
 # ---------------------------------------------------------- boundary sources
@@ -175,16 +330,40 @@ def _apply(kind: str, args: Sequence):
     return BINARY_OPS[kind](*args)
 
 
+def _run(loads: Loads, ops: Ops, view, host, read=None):
+    """Evaluate a program on tensors: ``view(field, off)`` gives a load's
+    values, ``read(i)`` a staged read's. Returns the resolver of refs."""
+    vals: list = []
+    lv = [view(f, off) for f, off in loads]
+
+    def resolve(ref):
+        kind, v = ref
+        if kind == "load":
+            return lv[v]
+        if kind == "read":
+            return read(v)
+        if kind == "op":
+            return vals[v]
+        if kind == "param":
+            return host[v]
+        return v
+
+    for kind, args in ops:
+        vals.append(_apply(kind, [resolve(a) for a in args]))
+    return resolve
+
+
 def evaluate_torch(program: TapProgram, fields: Mapping[str, torch.Tensor],
                    scalars: Mapping[str, Any]):
     """Run the tap program with torch operators on shifted views of
-    ``fields``. Returns ``(outputs, reductions)``; ``reductions`` is None
-    when the program has none."""
+    ``fields``, as the kernel runs it: each output's direct program on its
+    write region and faces, then the core program, reading each stage
+    computed once as a whole tensor, on the core cells. Returns ``(outputs,
+    reductions)``; ``reductions`` is None when the program has none."""
     host = program.host_values(scalars)
     outs = {}
     for op in program.outputs:
         prev = fields[op.name]
-        region = tuple(slice(w, n - w) for w, n in zip(op.rings, prev.shape))
 
         def view(field, off, rings=op.rings, shape=prev.shape):
             # the output's region, shifted by the tap, in the field's own
@@ -192,24 +371,28 @@ def evaluate_torch(program: TapProgram, fields: Mapping[str, torch.Tensor],
             return fields[field][tuple(slice(w + d, n - w + d)
                                        for w, d, n in zip(rings, off, shape))]
 
-        loads = [view(f, off) for f, off in op.loads]
-        vals: list = []
-
-        def resolve(ref):
-            kind, v = ref
-            if kind == "load":
-                return loads[v]
-            if kind == "op":
-                return vals[v]
-            if kind == "param":
-                return host[v]
-            return v
-
-        for kind, args in op.ops:
-            vals.append(_apply(kind, [resolve(a) for a in args]))
         out = prev.clone()
-        out[region] = resolve(op.result)
+        out[tuple(slice(w, n - w) for w, n in zip(op.rings, prev.shape))] = \
+            _run(op.loads, op.ops, view, host)(op.result)
         outs[op.name] = out if op.bc is None else apply_bc(out, op.bc)
+    box = core_box(program, {o: tuple(t.shape) for o, t in outs.items()})
+    if program.core is not None and box is not None:
+        f0 = program.fields[0]
+        base = [n + d for n, d in zip(fields[f0].shape, program.offsets[0])]
+        staged = []
+        for s in program.stages:
+            ext = [b - t for b, t in zip(base, s.trim)]
+            staged.append(_run(s.loads, s.ops, lambda f, off, ext=ext: fields[f][tuple(
+                slice(d, d + n) for d, n in zip(off, ext))], host)(s.result))
+
+        def window(t, off):
+            return t[tuple(slice(lo + d, hi + d) for (lo, hi), d in zip(box, off))]
+
+        core = program.core
+        resolve = _run(core.loads, core.ops, lambda f, off: window(fields[f], off), host,
+                       lambda i: window(staged[core.reads[i][0]], core.reads[i][1]))
+        for op, res in zip(program.outputs, core.results):
+            outs[op.name][tuple(slice(lo, hi) for lo, hi in box)] = resolve(res)
     if not program.reductions:
         return outs, None
     reds = {}
@@ -220,7 +403,36 @@ def evaluate_torch(program: TapProgram, fields: Mapping[str, torch.Tensor],
 
 
 # ----------------------------------------------------------------- CUDA form
-BLOCK_Z, BLOCK_Y = 32, 8
+# The kernel works on (x, y, z), z contiguous, and marches x: a 3-D grid
+# marches its first axis, a 2-D grid (n0, n1) is laid out as (n0, 1, n1) and
+# marches n0, a 1-D grid is (1, 1, n).
+_AXES3 = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}
+SHARED_LIMIT = 48 * 1024      # static shared memory of one block
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelShape:
+    """How a generated kernel is laid out: ``tile`` threads of a block along
+    (z, y), ``planes`` each block writes per step of its march (the core
+    program runs on them unrolled, so their loads are in flight together,
+    and the stages pass one barrier per step), and ``min_blocks`` of them
+    kept resident on an SM (``__launch_bounds__``: it caps the registers)."""
+
+    tile: tuple[int, int]
+    planes: int
+    min_blocks: int
+
+    @property
+    def threads(self) -> int:
+        return self.tile[0] * self.tile[1]
+
+
+def to3(t: Sequence, fill) -> tuple:
+    """A rank-1..3 tuple laid out on the kernel's (x, y, z) axes."""
+    out = [fill] * 3
+    for a, v in zip(_AXES3[len(t)], t):
+        out[a] = v
+    return tuple(out)
 
 
 def float_literal(v) -> str:
@@ -246,12 +458,19 @@ def reciprocal(v) -> float:
     return 1.0 / v if v else math.copysign(math.inf, v)
 
 
+def _all_ops(program: TapProgram):
+    yield from (a for op in program.outputs for a in op.ops)
+    if program.core is not None:
+        yield from program.core.ops
+    yield from (a for s in program.stages for a in s.ops)
+
+
 def divisor_params(program: TapProgram) -> tuple[int, ...]:
     """The scalar parameters that divide a tensor: the launch passes each
     one's :func:`reciprocal` as well, after the parameters."""
-    return tuple(sorted({args[1][1] for op in program.outputs for kind, args in op.ops
+    return tuple(sorted({args[1][1] for kind, args in _all_ops(program)
                          if kind == "div" and args[1][0] == "param"
-                         and args[0][0] in ("load", "op")}))
+                         and args[0][0] in ("load", "read", "op")}))
 
 
 def _recip(ref: Ref) -> str:
@@ -287,19 +506,68 @@ def _c_expr(kind: str, args: list[str], raw: list[Ref]) -> str:
     return f"({args[0]} {_C_BINARY[kind]} {args[1]})"
 
 
-def pad3(t: tuple, fill) -> tuple:
-    return (fill,) * (3 - len(t)) + tuple(t)
-
-
 def _combine(kind: str, acc: str, val: str) -> str:
     return f"max_nan({acc}, {val})" if kind == "max" else f"({acc} + {val})"
 
 
 def shape_classes(program: TapProgram) -> tuple[tuple[int, int, int], ...]:
-    """The distinct staggering offsets of the program's fields, padded to
-    3-D: fields of one class share extents and strides, and the launch
-    passes one pair of strides per class."""
-    return tuple(sorted({pad3(o, 0) for o in program.offsets}))
+    """The distinct staggering offsets of the program's fields, on the
+    kernel's (x, y, z) axes: fields of one class share extents and strides,
+    and the launch passes one pair of strides per class."""
+    return tuple(sorted({to3(o, 0) for o in program.offsets}))
+
+
+def march_reach(program: TapProgram) -> tuple[int, int]:
+    """``(lo, hi)``: the shifts along the march axis at which the core
+    program reads its stages ((0, 0) without stages)."""
+    if not program.stages:
+        return 0, 0
+    return (min(to3(s.lo, 0)[0] for s in program.stages),
+            max(to3(s.hi, 0)[0] for s in program.stages))
+
+
+def kernel_shape(program: TapProgram) -> KernelShape:
+    """The layout of the program's kernel: the fastest on the H100 without
+    register spills over the candidates of ``launch/tune_stencil.py``
+    (PERF.md, section 6). Six resident blocks of 256 threads (40 registers), but
+    five (48) for a program with stages, which can spill at 40; four planes
+    per step for a staged program, whose loads the stages already hold
+    back behind a barrier, but two for a staged 3-D program with
+    reductions (GP's mass epilogue spills at four) and for a program
+    without stages."""
+    planes = 4 if program.stages and not (program.ndim == 3 and program.reductions) else 2
+    tile = (32, 8) if program.ndim == 3 else (256, 1)
+    return KernelShape(tile, planes, 5 if program.stages else 6)
+
+
+def queue_planes(program: TapProgram, shape: KernelShape) -> int:
+    """Planes of each stage kept in shared memory: a step reads
+    ``planes - 1 + hi - lo + 1`` of them while the next stages ``planes``
+    more, with one barrier between (0 without stages)."""
+    return march_lag(program) + 2 * shape.planes if program.stages else 0
+
+
+def march_lag(program: TapProgram) -> int:
+    """Planes a chunk stages before it writes its first: the stages' reach
+    along the march axis."""
+    lo, hi = march_reach(program)
+    return hi - lo
+
+
+def stage_tile(s: Stage, shape: KernelShape) -> tuple[int, int]:
+    """Rows and columns (y, z) of one plane of a stage in shared memory:
+    the block's tile and the halo its readers reach."""
+    lo, hi = to3(s.lo, 0), to3(s.hi, 0)
+    return shape.tile[1] + hi[1] - lo[1], shape.tile[0] + hi[2] - lo[2]
+
+
+def shared_bytes(program: TapProgram, shape: KernelShape | None = None) -> int:
+    """Static shared memory of one block: the stages' plane queues and the
+    reduction fold's one value per warp and reduction."""
+    shape = shape or kernel_shape(program)
+    cells = sum(math.prod(stage_tile(s, shape)) for s in program.stages)
+    return 4 * (cells * queue_planes(program, shape)
+                + len(program.reductions) * (shape.threads // 32))
 
 
 def _index(coords: Sequence[str], c: int) -> str:
@@ -308,10 +576,11 @@ def _index(coords: Sequence[str], c: int) -> str:
     return f"{coords[0]} * s{c}x + {coords[1]} * s{c}y + {coords[2]}"
 
 
-def _offset(base: str, c: int, off: tuple[int, ...]) -> str:
-    """``base`` moved by the tap ``off`` in a field of class ``c``."""
+def _offset(base: str, c: int, off: tuple[int, ...], stride: str = "s") -> str:
+    """``base`` moved by the tap ``off`` in a field of class ``c``, with the
+    strides ``{stride}{c}x`` and ``{stride}{c}y``."""
     terms = ""
-    for d, s in zip(off, (f"s{c}x", f"s{c}y", "")):
+    for d, s in zip(off, (f"{stride}{c}x", f"{stride}{c}y", "")):
         if not d:
             continue
         term = f"{abs(d)} * {s}" if s and abs(d) != 1 else (s or str(abs(d)))
@@ -319,41 +588,92 @@ def _offset(base: str, c: int, off: tuple[int, ...]) -> str:
     return f"{base}{terms}"
 
 
-def cuda_source(program: TapProgram) -> str:
+def _printer(load: str, read: str, op: str):
+    def ref(r: Ref) -> str:
+        kind, v = r
+        if kind == "load":
+            return f"{load}{v}"
+        if kind == "read":
+            return f"{read}{v}"
+        if kind == "op":
+            return f"{op}{v}"
+        if kind == "param":
+            return f"p{v}"
+        return float_literal(v)
+    return ref
+
+
+def _emit_ops(w, ind: str, ops: Ops, name: str, ref) -> None:
+    for j, (kind, args) in enumerate(ops):
+        w(f"{ind}const float {name}{j} = {_c_expr(kind, [ref(a) for a in args], list(args))};")
+
+
+def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
     """CUDA C++ source of the fused launch: one ``__global__`` function and
     a plain C entry point ``launch``. The base extents, one pair of strides
     per shape class and the grid are runtime arguments, so one build serves
-    every grid size; the staggering offsets are fixed by the program.
+    every grid size; the staggering offsets, the stages' footprints and the
+    tile are fixed by the program.
 
-    The launch covers the base (cell-centred) extent. Each output is written
-    inside its own extent only (a face-centred output is shorter), with its
-    update inside its write region and its previous value on the ring. A
-    boundary condition is computed in the same launch: a dirichlet face
-    holds its value, and a neumann0 or periodic face evaluates the output at
-    its source cell (:func:`bc_source`), with the same expression in the
-    same order, so it equals that cell's own value bitwise. Reductions fold
-    every output after its boundary condition."""
+    A block owns a tile of (y, z) columns and marches a chunk of x planes
+    (:func:`to3` lays out lower ranks), ``planes`` per step
+    (:class:`KernelShape`, by default :func:`kernel_shape`). A step first
+    stages, for each intermediate, the next ``planes`` planes
+    (``march_reach()[1]`` ahead of the planes it writes) over its tile and
+    halo into a rolling queue in shared memory, then passes one barrier and
+    writes its planes. An element outside the intermediate's frame is
+    computed at the nearest element inside (its loads stay in range) and
+    stored as 0; no written cell reads it. A thread whose step lies wholly
+    in the core runs the core program on its planes, unrolled and without a
+    branch, so their loads are in flight together; any other step goes cell
+    by cell, a core cell through the core program and any other through
+    each output's direct program as before: its update inside its write
+    region, its previous value on the ring, its dirichlet value on a face,
+    and on a neumann0 or periodic face the same expression at its source
+    cell (:func:`bc_source`), so it equals that cell's own value bitwise.
+    Reductions fold every output after its boundary condition, in registers
+    over the march, then across the block with warp shuffles."""
     if program.ndim > 3:
         raise NotImplementedError("the generated CUDA kernel handles 1-3 dimensions")
-    lead = 3 - program.ndim
+    nd = program.ndim
+    axes3 = _AXES3[nd]
+    shape = shape or kernel_shape(program)
+    (bz, by), planes = shape.tile, shape.planes
     fidx = {f: k for k, f in enumerate(program.fields)}
     classes = shape_classes(program)
-    fcls = {f: classes.index(pad3(o, 0)) for f, o in zip(program.fields, program.offsets)}
+    fcls = {f: classes.index(to3(o, 0)) for f, o in zip(program.fields, program.offsets)}
     n_out, n_red, n_par = len(program.outputs), len(program.reductions), len(program.params)
+    core = program.core
+    stages = program.stages
+    lo_x, hi_x = march_reach(program)
+    lead = march_lag(program)
     dims = ("nx", "ny", "nz")
     strides = [f"s{c}{ax}" for c in range(len(classes)) for ax in ("x", "y")]
     lines = []
     w = lines.append
     w("// Generated by repro_torch.kernels.codegen from a traced @parallel update.")
     w("// Replaces the generic Pallas launch src/repro/kernels/stencil.py::")
-    w("// build_stencil_call for this update. Each thread marches a column")
-    w("// segment along x; threadIdx.x runs along z, the contiguous axis.")
+    w("// build_stencil_call for this update. A block owns a tile of (y, z)")
+    w("// columns, threadIdx.x along z (the contiguous axis), and marches a chunk")
+    w("// of x planes, kPlanes per step; intermediates read at several shifts are")
+    w("// staged once per cell in shared memory. Offsets inside a block are")
+    w("// 32-bit, from a 64-bit block base.")
     w("#include <cstdint>")
     w("#include <cuda_runtime.h>")
     w("")
     w("namespace {")
-    w(f"constexpr int kBlockZ = {BLOCK_Z};")
-    w(f"constexpr int kBlockY = {BLOCK_Y};")
+    w(f"constexpr int kBlockZ = {bz};")
+    w(f"constexpr int kBlockY = {by};")
+    w("constexpr int kThreads = kBlockZ * kBlockY;")
+    w("constexpr int kWarps = kThreads / 32;")
+    w(f"constexpr int kPlanes = {planes};  // planes per step")
+    if stages:
+        w(f"constexpr int kSlots = {queue_planes(program, shape)};  // planes kept per stage")
+        w(f"constexpr int kHi = {hi_x};  // a step stages the planes this far ahead")
+        w("")
+        w("__device__ __forceinline__ int wrap(int s) {")
+        w("  return s < 0 ? s + kSlots : s >= kSlots ? s - kSlots : s;")
+        w("}")
     w("")
     w("// max that propagates NaN, as torch.amax does")
     w("__device__ __forceinline__ float max_nan(float a, float b) {")
@@ -367,96 +687,62 @@ def cuda_source(program: TapProgram) -> str:
     params += [f"const float p{k}" for k in range(n_par)]
     params += [f"const float r{k}" for k in divs]
     params += [f"const int64_t {n}" for n in (*dims, *strides, "xc")]
-    w("__global__ void __launch_bounds__(kBlockZ * kBlockY) stencil_kernel(")
+    w(f"__global__ void __launch_bounds__(kThreads, {shape.min_blocks}) stencil_kernel(")
     w("    " + ",\n    ".join(params) + ") {")
-    w("  const int64_t z = static_cast<int64_t>(blockIdx.x) * kBlockZ + threadIdx.x;")
-    w("  const int64_t y = static_cast<int64_t>(blockIdx.y) * kBlockY + threadIdx.y;")
-    w("  const int64_t x0 = static_cast<int64_t>(blockIdx.z) * xc;")
-    w("  const int64_t x1 = x0 + xc < nx ? x0 + xc : nx;")
+    tiles = [stage_tile(s, shape) for s in stages]
+    for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
+        w(f"  // stage {k}: footprint {s.footprint}, {op_count(s.ops)} operations")
+        w(f"  __shared__ float sm{k}[kSlots][{py * pz}];  // {py} x {pz} per plane")
+    w("  const int tz = threadIdx.x, ty = threadIdx.y;")
+    w("  const int tid = ty * kBlockZ + tz;")
+    w("  const int z0 = blockIdx.x * kBlockZ, y0 = blockIdx.y * kBlockY;")
+    w("  const int x0 = blockIdx.z * static_cast<int>(xc);")
+    w("  const int x1 = min(x0 + static_cast<int>(xc), static_cast<int>(nx));")
+    w("  const int y = y0 + ty, z = z0 + tz;")
     for c, off in enumerate(classes):
         if any(off):
             w(f"  // shape class {c}: base extents less {off}")
         for ax, n, d in zip("xyz", dims, off):
-            w(f"  const int64_t m{c}{ax} = {n}" + (f" - {d};" if d else ";"))
+            w(f"  const int m{c}{ax} = static_cast<int>({n})" + (f" - {d};" if d else ";"))
+        w(f"  const int S{c}x = static_cast<int>(s{c}x), S{c}y = static_cast<int>(s{c}y);")
+        w(f"  const int64_t b{c} = x0 * s{c}x + y0 * s{c}y + z0;")
+    for f, k in fidx.items():
+        w(f"  const float* __restrict__ g{k} = in{k} + b{fcls[f]};")
+    for k, op in enumerate(program.outputs):
+        w(f"  float* __restrict__ h{k} = out{k} + b{fcls[op.name]};")
+    # the core: every output written by its update, inside its extent, off
+    # its faces
+    box_lo, box_hi = [{0} for _ in range(3)], [[] for _ in range(3)]
+    for op in program.outputs:
+        co = fcls[op.name]
+        bc_axes = {axes3[a] for a in op.bc.resolved_axes(nd)} if op.bc else set()
+        for a, r in enumerate(to3(op.rings, 0)):
+            d = max(r, op.bc.depth if a in bc_axes else 0)
+            box_lo[a].add(d)
+            box_hi[a].append(f"m{co}{'xyz'[a]}" + (f" - {d}" if d else ""))
+    for a, ax in enumerate("xyz"):
+        hi_e = ""
+        for t in dict.fromkeys(box_hi[a]):
+            hi_e = f"min({hi_e}, {t})" if hi_e else t
+        w(f"  const int c{ax}lo = {max(box_lo[a])}, c{ax}hi = {hi_e};")
+    w("  const bool in_grid = y < ny && z < nz;")
+    w("  const bool yz_core = y >= cylo && y < cyhi && z >= czlo && z < czhi;")
+    for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
+        _emit_stage_setup(w, shape, k, s, py, pz, fcls)
     for r in range(n_red):
         w(f"  float acc{r} = 0.0f;")
-    w("  if (z < nz && y < ny) {")
-    if n_red:
-        # Unrolled, a loop that carries reduction accumulators took 79
-        # registers (3 blocks of 256 threads per SM) and ran slower than
-        # rolled (63); without accumulators the unrolled loop takes 32.
-        w("    #pragma unroll 1")
-    w("    for (int64_t x = x0; x < x1; ++x) {")
-    for c in range(len(classes)):
-        w(f"      const int64_t i{c} = {_index(('x', 'y', 'z'), c)};")
-
-    def ref(r):
-        kind, v = r
-        if kind == "load":
-            return f"l{v}"
-        if kind == "op":
-            return f"e{v}"
-        if kind == "param":
-            return f"p{v}"
-        return float_literal(v)
-
-    for k, op in enumerate(program.outputs):
-        co = fcls[op.name]
-        modes, rings = pad3(op.modes, "all"), pad3(op.rings, 0)
-        bc = op.bc
-        bc_axes = sorted({a + lead for a in bc.resolved_axes(program.ndim)}) if bc else []
-        mapped = bc is not None and bc.kind != "dirichlet"
-        coords = tuple(f"{ax}{k}" for ax in "XYZ") if mapped else ("x", "y", "z")
-        w(f"      float v{k};  // output {op.name}" + (f", bc {bc.kind}" if bc else ""))
-        staggered = any(pad3(program.offsets[fidx[op.name]], 0))
-        ind = "      "
-        if staggered:
-            w(f"      if (x < m{co}x && y < m{co}y && z < m{co}z) {{  // its own extent")
-            ind += "  "
-        w(f"{ind}{{")
-        body = ind + "  "
-        if mapped:
-            # the source cell, axis by axis (neumann0: one face depth
-            # inward; periodic: across the domain)
-            for ax, X in zip("xyz", coords):
-                w(f"{body}int64_t {X} = {ax.lower()};")
-            for a in bc_axes:
-                X, m, d = coords[a], f"m{co}{'xyz'[a]}", bc.depth
-                shift = f"{d}" if bc.kind == "neumann0" else f"({m} - {2 * d})"
-                w(f"{body}if ({X} < {d}) {X} += {shift}; "
-                  f"else if ({X} >= {m} - {d}) {X} -= {shift};")
-            used = sorted({fcls[f] for f, _ in op.loads} | {co})
-            for c in used:
-                w(f"{body}const int64_t j{k}_{c} = {_index(coords, c)};")
-        base = (lambda c: f"j{k}_{c}") if mapped else (lambda c: f"i{c}")
-        conds = [f"{X} >= {r} && {X} < m{co}{ax} - {r}"
-                 for X, ax, m, r in zip(coords, "xyz", modes, rings) if m == "inn" and r]
-        if bc is not None and bc.kind == "dirichlet":
-            faces = [f"{X} < {bc.depth} || {X} >= m{co}{'xyz'[a]} - {bc.depth}"
-                     for a in bc_axes for X in [coords[a]]]
-            w(f"{body}if ({' || '.join(faces)}) {{")
-            w(f"{body}  v{k} = {float_literal(bc.value)};")
-            w(f"{body}}} else if ({' && '.join(conds) if conds else 'true'}) {{")
-        else:
-            w(f"{body}if ({' && '.join(conds) if conds else 'true'}) {{")
-        inner = body + "  "
-        for j, (f, off) in enumerate(op.loads):
-            c = fcls[f]
-            w(f"{inner}const float l{j} = in{fidx[f]}[{_offset(base(c), c, pad3(off, 0))}];")
-        for j, (kind, args) in enumerate(op.ops):
-            w(f"{inner}const float e{j} = "
-              f"{_c_expr(kind, [ref(a) for a in args], list(args))};")
-        w(f"{inner}v{k} = {ref(op.result)};")
-        w(f"{body}}} else {{")
-        w(f"{inner}v{k} = in{fidx[op.name]}[{base(co)}];")
-        w(f"{body}}}")
-        w(f"{ind}}}")
-        w(f"{ind}out{k}[i{co}] = v{k};")
-        if staggered:
-            w("      }")
+    if stages:
+        w("  int base = 0;  // the queue slot of the first plane a step stages")
+    w("  #pragma unroll 1")
+    w(f"  for (int xs = x0{f' - {lead}' if lead else ''}; xs < x1; xs += kPlanes) {{")
+    for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
+        _emit_stage(w, shape, k, s, py, pz, fidx, fcls)
+    if stages:
+        w("    __syncthreads();")
     out_idx = {op.name: k for k, op in enumerate(program.outputs)}
+    reds = []
     for r, (_, red) in enumerate(program.reductions):
-        vals = [f"v{out_idx[f]}" if f in out_idx else f"in{fidx[f]}[i{fcls[f]}]"
+        vals = [f"v{out_idx[f]}" if f in out_idx else f"g{fidx[f]}[at{fcls[f]}]"
                 for f in red.operands]
         if red.kind == "max_abs":
             m = f"fabsf({vals[0]})"
@@ -469,26 +755,74 @@ def cuda_source(program: TapProgram) -> str:
         else:
             raise NotImplementedError(
                 f"reduction kind {red.kind!r} is not ported to the CUDA kernel")
-        w(f"      acc{r} = {_combine(red.combine, f'acc{r}', f'({m})')};")
+        reds.append(f"acc{r} = {_combine(red.combine, f'acc{r}', f'({m})')};")
+    # the core program at plane x
+    w("    auto core = [&](const int x) {")
+    ind = "      "
+    for c in range(len(classes)):
+        w(f"{ind}const int at{c} = (x - x0) * S{c}x + ty * S{c}y + tz;")
+    for d in sorted({to3(rel, 0)[0] for _, rel in core.reads}):
+        w(f"{ind}const int q{d - lo_x} = wrap(base + (x - xs) + {d - hi_x});")
+    for j, (f, off) in enumerate(core.loads):
+        c = fcls[f]
+        w(f"{ind}const float l{j} = g{fidx[f]}[{_offset(f'at{c}', c, to3(off, 0), 'S')}];")
+    for j, (k, rel) in enumerate(core.reads):
+        d, lo = to3(rel, 0), to3(stages[k].lo, 0)
+        pz = tiles[k][1]
+        w(f"{ind}const float u{j} = sm{k}[q{d[0] - lo_x}][(ty + {d[1] - lo[1]}) * {pz} + tz + {d[2] - lo[2]}];")
+    ref = _printer("l", "u", "e")
+    _emit_ops(w, ind, core.ops, "e", ref)
+    for k, (op, res) in enumerate(zip(program.outputs, core.results)):
+        w(f"{ind}const float v{k} = {ref(res)};")
+        w(f"{ind}h{k}[at{fcls[op.name]}] = v{k};")
+    for line in reds:
+        w(f"{ind}{line}")
+    w("    };")
+    # every output's direct program at plane x: rings, faces and the edges
+    # of staggered extents
+    w("    auto direct = [&](const int x) {")
+    for c in range(len(classes)):
+        w(f"{ind}const int at{c} = (x - x0) * S{c}x + ty * S{c}y + tz;")
+    for k in range(n_out):
+        w(f"{ind}float v{k};")
+    _emit_direct(w, program, fidx, fcls)
+    for line in reds:
+        w(f"{ind}{line}")
+    w("    };")
+    w("    if (in_grid) {")
+    w("      if (yz_core && xs >= x0 && xs >= cxlo && xs + kPlanes <= x1 && xs + kPlanes <= cxhi) {")
+    w("        #pragma unroll")
+    w("        for (int p = 0; p < kPlanes; ++p) core(xs + p);")
+    w("      } else {")
+    w("        #pragma unroll 1")
+    w("        for (int x = max(xs, x0); x < min(xs + kPlanes, x1); ++x) {")
+    w("          if (yz_core && x >= cxlo && x < cxhi) core(x); else direct(x);")
+    w("        }")
+    w("      }")
     w("    }")
+    if stages:
+        w("    base = wrap(base + kPlanes);")
     w("  }")
     if n_red:
-        w("  // Fold each reduction over the block in shared memory into the")
-        w("  // block's own slot of its partials: no float atomics, so the")
-        w("  // value is the same on every run.")
-        w("  __shared__ float red[kBlockZ * kBlockY];")
-        w("  const int tid = threadIdx.y * kBlockZ + threadIdx.x;")
+        w("  // Fold each reduction over the block: within each warp by shuffles,")
+        w("  // then over the warps' values, into the block's own slot of its")
+        w("  // partials. No float atomics, so the value is the same on every run.")
+        w(f"  __shared__ float red[kWarps * {n_red}];")
+        w("  const int lane = tid & 31, warp = tid >> 5;")
         w("  const int64_t bid = (static_cast<int64_t>(blockIdx.z) * gridDim.y + "
           "blockIdx.y) * gridDim.x + blockIdx.x;")
         for r, (_, red) in enumerate(program.reductions):
-            w(f"  red[tid] = acc{r};")
-            w("  __syncthreads();")
-            w("  for (int s = kBlockZ * kBlockY / 2; s > 0; s >>= 1) {")
-            w(f"    if (tid < s) red[tid] = {_combine(red.combine, 'red[tid]', 'red[tid + s]')};")
-            w("    __syncthreads();")
-            w("  }")
-            w(f"  if (tid == 0) part{r}[bid] = red[0];")
-            w("  __syncthreads();")
+            shfl = f"__shfl_xor_sync(0xffffffffu, acc{r}, o)"
+            w(f"  for (int o = 16; o > 0; o >>= 1) acc{r} = {_combine(red.combine, f'acc{r}', shfl)};")
+            w(f"  if (lane == 0) red[{r} * kWarps + warp] = acc{r};")
+        w("  __syncthreads();")
+        w("  if (warp == 0) {")
+        for r, (_, red) in enumerate(program.reductions):
+            shfl = f"__shfl_xor_sync(0xffffffffu, a{r}, o)"
+            w(f"    float a{r} = lane < kWarps ? red[{r} * kWarps + lane] : 0.0f;")
+            w(f"    for (int o = 16; o > 0; o >>= 1) a{r} = {_combine(red.combine, f'a{r}', shfl)};")
+            w(f"    if (lane == 0) part{r}[bid] = a{r};")
+        w("  }")
     w("}")
     w("")
     w("}  // namespace")
@@ -517,3 +851,119 @@ def cuda_source(program: TapProgram) -> str:
     w("  return cudaGetErrorString(static_cast<cudaError_t>(err));")
     w("}")
     return "\n".join(lines) + "\n"
+
+
+def _emit_stage_setup(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int, fcls) -> None:
+    """The fixed (y, z) elements each thread stages for stage ``k``, every
+    plane: their frame test and their offsets in each shape class, taken
+    at the nearest element inside the frame."""
+    nt = shape.threads
+    lo, trim = to3(s.lo, 0), to3(s.trim, 0)
+    n = py * pz
+    for i in range(-(-n // nt)):
+        e = f"tid + {i * nt}" if i else "tid"
+        w(f"  const int e{k}_{i} = {e};")
+        ey = f"y0 + {lo[1]} + e{k}_{i} / {pz}" if py > 1 else f"y0 + {lo[1]}"
+        w(f"  const int ey{k}_{i} = min(max({ey}, 0), static_cast<int>(ny) - {trim[1] + 1});")
+        w(f"  const int ez{k}_{i} = min(max(z0 + {lo[2]} + e{k}_{i} % {pz}, 0), "
+          f"static_cast<int>(nz) - {trim[2] + 1});")
+        inside = [f"ey{k}_{i} == {ey}", f"ez{k}_{i} == z0 + {lo[2]} + e{k}_{i} % {pz}"]
+        if (i + 1) * nt > n:
+            inside.insert(0, f"e{k}_{i} < {n}")
+        w(f"  const bool in{k}_{i} = {' && '.join(inside)};")
+        for c in sorted({fcls[f] for f, _ in s.loads}):
+            w(f"  const int o{k}_{i}_{c} = (ey{k}_{i} - y0) * S{c}y + (ez{k}_{i} - z0);")
+
+
+def _emit_stage(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int, fidx, fcls) -> None:
+    """Stage ``k``'s planes ``xs + kHi .. + kPlanes - 1`` over its tile and
+    halo. An element outside the frame is computed at the nearest element
+    inside (so every load is in range and none waits on a branch) and
+    stored as 0."""
+    nt = shape.threads
+    n = py * pz
+    trim_x = to3(s.trim, 0)[0]
+    w(f"    // stage {k}")
+    w("    #pragma unroll")
+    w("    for (int p = 0; p < kPlanes; ++p) {")
+    w("      const int q = xs + kHi + p;")
+    w(f"      const int qc = min(max(q, 0), static_cast<int>(nx) - {trim_x + 1});")
+    w(f"      float* const dst = sm{k}[wrap(base + p)];")
+    for i in range(-(-n // nt)):
+        ind = "      "
+        if (i + 1) * nt > n:
+            w(f"      if (e{k}_{i} < {n}) {{")
+            ind += "  "
+        else:
+            w("      {")
+            ind += "  "
+        for c in sorted({fcls[f] for f, _ in s.loads}):
+            w(f"{ind}const int e{c} = (qc - x0) * S{c}x + o{k}_{i}_{c};")
+        for j, (f, off) in enumerate(s.loads):
+            c = fcls[f]
+            w(f"{ind}const float a{j} = g{fidx[f]}[{_offset(f'e{c}', c, to3(off, 0), 'S')}];")
+        ref = _printer("a", "?", "t")
+        _emit_ops(w, ind, s.ops, "t", ref)
+        w(f"{ind}dst[e{k}_{i}] = q == qc && in{k}_{i} ? {ref(s.result)} : 0.0f;")
+        w("      }")
+    w("    }")
+
+
+def _emit_direct(w, program: TapProgram, fidx, fcls) -> None:
+    """Each output's direct program at a cell (x, y, z) outside the core,
+    indexed from the block's base (``at{class}``; a source cell across the
+    domain in 64 bits)."""
+    axes3 = _AXES3[program.ndim]
+    ref = _printer("l", "?", "e")
+    for k, op in enumerate(program.outputs):
+        co = fcls[op.name]
+        modes, rings = to3(op.modes, "all"), to3(op.rings, 0)
+        bc = op.bc
+        bc_axes = sorted({axes3[a] for a in bc.resolved_axes(program.ndim)}) if bc else []
+        mapped = bc is not None and bc.kind != "dirichlet"
+        coords = tuple(f"{ax}{k}" for ax in "XYZ") if mapped else ("x", "y", "z")
+        staggered = any(to3(program.offsets[fidx[op.name]], 0))
+        ind = "      "
+        if staggered:
+            w(f"{ind}if (x < m{co}x && y < m{co}y && z < m{co}z) {{  // its own extent")
+            ind += "  "
+        w(f"{ind}{{  // output {op.name}" + (f", bc {bc.kind}" if bc else ""))
+        body = ind + "  "
+        if mapped:
+            # the source cell, axis by axis (neumann0: one face depth
+            # inward; periodic: across the domain)
+            for ax, X in zip("xyz", coords):
+                w(f"{body}int64_t {X} = {ax};")
+            for a in bc_axes:
+                X, m, d = coords[a], f"m{co}{'xyz'[a]}", bc.depth
+                shift = f"{d}" if bc.kind == "neumann0" else f"({m} - {2 * d})"
+                w(f"{body}if ({X} < {d}) {X} += {shift}; "
+                  f"else if ({X} >= {m} - {d}) {X} -= {shift};")
+            used = sorted({fcls[f] for f, _ in op.loads} | {co})
+            rel = (f"({coords[0]} - x0)", f"({coords[1]} - y0)", f"({coords[2]} - z0)")
+            for c in used:
+                w(f"{body}const int64_t j{k}_{c} = {_index(rel, c)};")
+        base = (lambda c: f"j{k}_{c}") if mapped else (lambda c: f"at{c}")
+        conds = [f"{X} >= {r} && {X} < m{co}{ax} - {r}"
+                 for X, ax, m, r in zip(coords, "xyz", modes, rings) if m == "inn" and r]
+        if bc is not None and bc.kind == "dirichlet":
+            faces = [f"{X} < {bc.depth} || {X} >= m{co}{'xyz'[a]} - {bc.depth}"
+                     for a in bc_axes for X in [coords[a]]]
+            w(f"{body}if ({' || '.join(faces)}) {{")
+            w(f"{body}  v{k} = {float_literal(bc.value)};")
+            w(f"{body}}} else if ({' && '.join(conds) if conds else 'true'}) {{")
+        else:
+            w(f"{body}if ({' && '.join(conds) if conds else 'true'}) {{")
+        inner = body + "  "
+        for j, (f, off) in enumerate(op.loads):
+            c = fcls[f]
+            w(f"{inner}const float l{j} = g{fidx[f]}[{_offset(base(c), c, to3(off, 0))}];")
+        _emit_ops(w, inner, op.ops, "e", ref)
+        w(f"{inner}v{k} = {ref(op.result)};")
+        w(f"{body}}} else {{")
+        w(f"{inner}v{k} = g{fidx[op.name]}[{base(co)}];")
+        w(f"{body}}}")
+        w(f"{ind}}}")
+        w(f"{ind}h{k}[at{co}] = v{k};")
+        if staggered:
+            w("      }")

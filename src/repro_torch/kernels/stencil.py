@@ -11,11 +11,19 @@ ring; each reduction is a 0-d tensor finished from per-block partials.
 
 What bounds it on the H100: bytes. The Fig. 1 step reads T and Ci and
 writes T2 once (12 bytes per cell) for about 16 f32 operations, far below
-the card's f32 operations per byte. The generated kernel loads each tap
-from device memory through L1/L2 (one thread per column segment, threadIdx.x
-along the contiguous z axis so loads coalesce); the reduction epilogue folds
-the values already in registers, so a checked step moves no more bytes than
-a plain one.
+the card's f32 operations per byte; the coupled solvers' fused updates do
+45-48 operations per cell on 16-20 bytes. So the kernel must not multiply
+its operations: ``codegen.lower`` gives one launch a single tap program
+shared by its outputs, and stages each intermediate read at several shifts
+(GP's ``re1``, porosity's face fluxes) once per cell in shared memory, as
+the reference's window-wise body computes it once per window cell. A block
+owns a tile of (y, z) columns, threadIdx.x along the contiguous z axis so
+loads coalesce, and marches a chunk of x planes (a 2-D grid marches its
+first axis), so the per-thread set-up and the 64-bit block base are paid
+once per column and offsets inside the block are 32-bit. The fields' own
+taps are loaded from device memory through L1/L2. Reductions accumulate in
+registers over the march and fold once per block (warp shuffles, then
+shared memory), so a checked step moves no more bytes than a plain one.
 
 Staggered fields and boundary conditions live in the same launch: the
 grid covers the base (cell-centred) extent, each face-centred field is
@@ -47,18 +55,19 @@ from . import build, codegen
 # launches, and nowhere else.
 launches: collections.Counter = collections.Counter()
 
-# 2048 threads per SM on Hopper, 256 per block.
-RESIDENT_BLOCKS_PER_SM = 2048 // (codegen.BLOCK_Z * codegen.BLOCK_Y)
-# Blocks in flight per launch, in waves of the card's resident capacity.
-WAVES = 4
+# Blocks per launch, in waves of the card's resident capacity: with more,
+# shorter chunks the last wave idles less of the card, against the lag
+# planes each chunk stages first (24 measured best on the H100, PERF.md).
+WAVES = 24
 _MAX_GRID_YZ = 65535
+_INT32_MAX = 2 ** 31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
 class Launch:
-    """Grid of one launch over a 3-D extent (lower-rank grids pad leading
-    axes with 1): ``grid`` is (blocks along z, along y, x chunks), ``xc``
-    the planes each thread marches."""
+    """Grid of one launch over a 3-D extent (``codegen.to3`` lays out lower
+    ranks): ``grid`` is (blocks along z, along y, x chunks), ``xc`` the
+    planes each block marches."""
 
     grid: tuple[int, int, int]
     block: tuple[int, int, int]
@@ -69,19 +78,31 @@ class Launch:
         return math.prod(self.grid)
 
 
-def derive_launch(shape3: tuple[int, int, int], n_sm: int) -> Launch:
-    """Blocks of 32 (z) x 8 (y) threads, each thread marching ``xc`` planes
-    along x; ``xc`` is cut so that the launch holds about ``WAVES`` waves
-    of the SMs' resident blocks."""
+def derive_launch(shape3: tuple[int, int, int], n_sm: int, kernel: codegen.KernelShape,
+                  halo: int = 0, lag: int = 0, waves: int | None = None) -> Launch:
+    """Blocks of the kernel's tile of (z, y) threads, each block marching a
+    chunk of ``xc`` planes along x after staging ``lag`` planes ahead; the
+    chunk and its lag fill whole steps of the kernel's planes (the last
+    chunk ends at the grid's end). The chunk is cut so that the launch holds
+    about ``waves`` (by default ``WAVES``) waves of the SMs' resident blocks,
+    so the last wave idles the card for a small share of the run, and so
+    that a chunk and ``halo`` planes on either side stay within 32-bit
+    offsets."""
     nx, ny, nz = shape3
-    gz, gy = -(-nz // codegen.BLOCK_Z), -(-ny // codegen.BLOCK_Y)
-    target = WAVES * RESIDENT_BLOCKS_PER_SM * n_sm
+    (bz, by), step = kernel.tile, kernel.planes
+    gz, gy = -(-nz // bz), -(-ny // by)
+    target = (waves or WAVES) * kernel.min_blocks * n_sm
     chunks = min(nx, max(1, -(-target // (gz * gy))))
-    xc = -(-nx // chunks)
+    xc = -(-(-(-nx // chunks) + lag) // step) * step - lag
+    plane = ny * nz
+    max_xc = (_INT32_MAX // plane - 2 * halo + lag) // step * step - lag
+    if max_xc < 1:
+        raise ValueError(f"grid {shape3}: a plane of {plane} cells exceeds 32-bit offsets")
+    xc = min(xc, max_xc)
     gx = -(-nx // xc)
     if gy > _MAX_GRID_YZ or gx > _MAX_GRID_YZ:
         raise ValueError(f"grid {shape3} exceeds the CUDA grid limits")
-    return Launch((gz, gy, gx), (codegen.BLOCK_Z, codegen.BLOCK_Y, 1), xc)
+    return Launch((gz, gy, gx), (bz, by, 1), xc)
 
 
 def check_cuda_fields(tensors: Mapping[str, torch.Tensor], shape) -> torch.device:
@@ -109,30 +130,45 @@ def stream_of(dev: torch.device) -> int:
 
 class StencilCall:
     """One generated kernel for a traced update (f32 fields, collocated or
-    staggered) with its outputs' boundary conditions (``bcs``, normalized)."""
+    staggered) with its outputs' boundary conditions (``bcs``, normalized),
+    laid out as ``shape`` (by default ``codegen.kernel_shape``)."""
 
     def __init__(self, ir: StencilIR, label: str,
-                 bcs: Mapping[str, BoundaryCondition] | None = None):
+                 bcs: Mapping[str, BoundaryCondition] | None = None,
+                 shape: codegen.KernelShape | None = None):
         unsupported(ir)
         self.ir = ir
         self.label = label
         self.program = codegen.lower(ir, bcs)
+        self.shape = shape or codegen.kernel_shape(self.program)
+        smem = codegen.shared_bytes(self.program, self.shape)
+        if smem > codegen.SHARED_LIMIT:
+            # the counterpart of the reference's preflight_vmem
+            raise NotImplementedError(
+                f"{label}: its staged intermediates need {smem} bytes of shared memory "
+                f"per block, above the {codegen.SHARED_LIMIT} of static shared memory")
         self.classes = codegen.shape_classes(self.program)
         self.divisors = codegen.divisor_params(self.program)
-        self.source = codegen.cuda_source(self.program)
+        self.source = codegen.cuda_source(self.program, self.shape)
+        self.lag = codegen.march_lag(self.program)
+        # planes a chunk reads beyond its own: the taps' reach and the stages' lag
+        self.halo = ir.inferred_radius + self.lag + self.shape.planes
         self.lib_name = "stencil_" + re.sub(r"[^A-Za-z0-9_]", "_", label)
         self.launch_info: dict[tuple, Launch] = {}
         self._lib: build.Library | None = None
 
+    def argtypes(self) -> list:
+        """The ``ctypes`` types of the entry point's arguments."""
+        p = self.program
+        argtypes = [ctypes.c_void_p] * (len(p.fields) + len(p.outputs) + len(p.reductions))
+        # scalar parameters, then the reciprocals of the divisors, as f32
+        argtypes += [ctypes.c_float] * (len(p.params) + len(self.divisors))
+        # base extents, two strides per shape class, xc, the grid
+        return argtypes + [ctypes.c_int64] * (3 + 2 * len(self.classes) + 4) + [ctypes.c_void_p]
+
     def _library(self) -> build.Library:
         if self._lib is None:
-            p = self.program
-            argtypes = [ctypes.c_void_p] * (len(p.fields) + len(p.outputs) + len(p.reductions))
-            # scalar parameters, then the reciprocals of the divisors, as f32
-            argtypes += [ctypes.c_float] * (len(p.params) + len(self.divisors))
-            # base extents, two strides per shape class, xc, the grid
-            argtypes += [ctypes.c_int64] * (3 + 2 * len(self.classes) + 4) + [ctypes.c_void_p]
-            self._lib = build.Library(self.lib_name, self.source, argtypes)
+            self._lib = build.Library(self.lib_name, self.source, self.argtypes())
         return self._lib
 
     def run(self, fields: Mapping[str, torch.Tensor], scalars: Mapping[str, Any]):
@@ -149,28 +185,47 @@ class StencilCall:
         if all(t.device.type == "cpu" for t in ins.values()):
             return codegen.evaluate_torch(p, ins, scalars)
         dev = check_cuda_fields(ins, self.ir.field_shapes)
-        shape3 = codegen.pad3(self.ir.base_shape, 1)
+        launch, outs, parts, args = self.arguments(
+            ins, scalars, torch.cuda.get_device_properties(dev).multi_processor_count)
+        self.launch_info[tuple(self.ir.base_shape)] = launch
+        with torch.cuda.device(dev):
+            self._library().launch(*args, stream_of(dev))
+        launches[self.label] += 1
+        return self.finish(outs, parts)
+
+    def arguments(self, ins: Mapping[str, torch.Tensor], scalars: Mapping[str, Any],
+                  n_sm: int, xc: int | None = None, divisor=codegen.reciprocal):
+        """``(launch, outs, parts, args)`` of one launch on ``ins`` for a
+        card of ``n_sm`` SMs (or with chunks of ``xc`` planes): new outputs
+        and per-block partials beside ``ins``, and the entry point's
+        arguments but the stream; ``divisor`` of each scalar divisor is
+        passed after the parameters."""
+        p = self.program
+        shape3 = codegen.to3(self.ir.base_shape, 1)
         strides = []
         for off in self.classes:
             _, ny, nz = (n - d for n, d in zip(shape3, off))
             strides += [ny * nz, nz]
-        launch = derive_launch(shape3, torch.cuda.get_device_properties(dev).multi_processor_count)
-        self.launch_info[tuple(self.ir.base_shape)] = launch
+        launch = derive_launch(shape3, n_sm, self.shape, self.halo, self.lag)
+        if xc is not None:
+            launch = Launch((*launch.grid[:2], -(-shape3[0] // xc)), launch.block, xc)
+        dev = next(iter(ins.values())).device
         outs = {op.name: torch.empty_like(ins[op.name]) for op in p.outputs}
         parts = [torch.empty(launch.n_blocks, dtype=torch.float32, device=dev)
                  for _ in p.reductions]
         host = [float(v) for v in p.host_values(scalars)]
-        host += [codegen.reciprocal(host[k]) for k in self.divisors]
-        lib = self._library()
-        with torch.cuda.device(dev):
-            lib.launch(*(t.data_ptr() for t in ins.values()),
-                       *(t.data_ptr() for t in outs.values()),
-                       *(t.data_ptr() for t in parts), *host,
-                       *shape3, *strides, launch.xc, *launch.grid, stream_of(dev))
-        launches[self.label] += 1
-        if not p.reductions:
+        host += [divisor(host[k]) for k in self.divisors]
+        args = [*(t.data_ptr() for t in ins.values()), *(t.data_ptr() for t in outs.values()),
+                *(t.data_ptr() for t in parts), *host, *shape3, *strides, launch.xc,
+                *launch.grid]
+        return launch, outs, parts, args
+
+    def finish(self, outs, parts):
+        """``(outs, reds)`` with each reduction finished from its partials."""
+        if not self.program.reductions:
             return outs, None
-        return outs, {name: r.finish(part) for (name, r), part in zip(p.reductions, parts)}
+        return outs, {name: r.finish(part)
+                      for (name, r), part in zip(self.program.reductions, parts)}
 
 
 def unsupported(ir: StencilIR) -> None:

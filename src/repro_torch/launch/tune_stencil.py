@@ -1,0 +1,149 @@
+"""Time the generated ``@parallel`` kernel's layouts on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.tune_stencil [--waves 8,16,24,32]
+
+For the coupled solvers' kernels at their full sizes (porosity 8192^2, GP
+512^3) and the Fig. 1 step at 512^3, it builds each candidate
+:class:`~repro_torch.kernels.codegen.KernelShape` (tile, planes per step,
+resident blocks) in parallel, holds each launch bitwise against the
+``torch`` backend, and prints one JSON line per kernel: for each candidate
+and number of waves (``stencil.WAVES``) the CUDA-event median ms, ptxas's
+registers and spill bytes. ``codegen.kernel_shape`` and ``stencil.WAVES``
+are this tool's choice: the fastest candidate without spills. It needs the
+card and measures nothing on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import re
+import sys
+import time
+
+import torch
+
+from ..core import init_parallel_stencil, teff
+from ..examples import gross_pitaevskii as gp, porosity_waves as pw, quickstart
+from ..configs import FIG1
+from ..kernels import build, codegen, stencil
+
+Shape = codegen.KernelShape
+STAGED_3D = [Shape((32, 8), p, b) for p in (1, 2, 4) for b in (4, 5, 6)]
+PLAIN_3D = [Shape((32, 8), p, b) for p in (1, 2, 4) for b in (6, 8)]
+STAGED_2D = [Shape((256, 1), p, b) for p in (2, 4) for b in (4, 5, 6)] + [Shape((128, 1), 4, 8)]
+PLAIN_2D = [Shape((256, 1), p, b) for p in (1, 2, 4) for b in (6, 8)]
+SCALARS = dict(dtau=1e-3, g=0.5, dt=1e-3, _dx2=3.0, _dy2=2.0, _dz2=5.0)
+
+
+def kernels(dev) -> dict:
+    """``name: (kernel, plain twin, fields, scalars)`` at full size."""
+    gen = torch.Generator(device=dev).manual_seed(20260715)
+
+    def solver(mod, cfg_cls, n, pick, reductions=None, **kw):
+        pair = []
+        for backend in ("cuda", "torch"):
+            cfg = cfg_cls(n=n, device="cuda", backend=backend, **kw)
+            k = mod.make_step(mod.make_grid(cfg), cfg).kernels[pick]
+            pair.append(k.with_reductions(reductions))
+        return pair
+
+    def fields(kern, base, porosity):
+        out = {}
+        for f in inspect.signature(kern.fn).parameters:
+            if f in SCALARS:
+                continue
+            off = {"qx": (1, 0), "qy": (0, 1)}.get(f, (0,) * len(base))
+            u = torch.rand([b - o for b, o in zip(base, off)], generator=gen, device=dev)
+            out[f] = 0.005 + 0.01 * u if f.startswith("phi") else (
+                (u - 0.5) * 0.01 if porosity else u)
+        return out
+
+    out = {}
+    pw_n, gp_n = 8192, 512
+    for name, pair, porosity in (
+            ("porosity_fused[neumann0]", solver(pw, pw.PorosityConfig, pw_n, 0, bc="neumann"), 1),
+            ("porosity_fused[neumann0]+err", solver(pw, pw.PorosityConfig, pw_n, 0,
+                                                    {"err": "max_abs_diff(Pe2, Pe)"},
+                                                    bc="neumann"), 1),
+            ("porosity_fluxes", solver(pw, pw.PorosityConfig, pw_n, 0, flux_split=True), 1),
+            ("gp_fused[none]", solver(gp, gp.GPConfig, gp_n, 0), 0),
+            ("gp_fused[none]+mass", solver(gp, gp.GPConfig, gp_n, 0,
+                                           {"m_re": "sum_sq(re2)", "m_im": "sum_sq(im2)"}), 0),
+            ("gp_step_re", solver(gp, gp.GPConfig, gp_n, 0, fused=False), 0)):
+        k = pair[0]
+        base = (pw_n,) * 2 if porosity else (gp_n,) * 3
+        names = inspect.signature(k.fn).parameters
+        out[name] = (*pair, fields(k, base, porosity),
+                     {n: v for n, v in SCALARS.items() if n in names})
+    step = quickstart.make_step(init_parallel_stencil())
+    plain = quickstart.make_step(init_parallel_stencil(backend="torch", device="cuda"))
+    _, f, sc = quickstart.initial_state(FIG1, "cuda")
+    out["stencil+err"] = (step.with_reductions({"err": "max_abs_diff(T2, T)"}),
+                          plain.with_reductions({"err": "max_abs_diff(T2, T)"}), f, sc)
+    out["stencil"] = (step, plain, f, sc)
+    return out
+
+
+def candidates(call) -> list:
+    p = call.program
+    if p.ndim == 3:
+        return STAGED_3D if p.stages else PLAIN_3D
+    return STAGED_2D if p.stages else PLAIN_2D
+
+
+def ptxas(log: str) -> dict:
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    return {"registers": max(regs, default=None),
+            "spill_bytes": sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--waves", default="8,16,24,32", help="values of stencil.WAVES to time")
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("tune_stencil: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    name, power = teff.card_info(0)
+    print(json.dumps({"card": name, "power_limit": power}), flush=True)
+    waves = [int(w) for w in args.waves.split(",")]
+    todo = kernels(dev)
+    tuned = {}
+    for n, (k, _, f, sc) in todo.items():
+        call = k.compiled(**f, **sc)
+        tuned[n] = [stencil.StencilCall(call.ir, call.label, k.bc, shape)
+                    for shape in candidates(call)]
+    t0 = time.perf_counter()
+    logs = iter(build.compile_many([(t.lib_name, t.source) for ts in tuned.values()
+                                    for t in ts]))
+    print(json.dumps({"built": sum(map(len, tuned.values())),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    default_waves = stencil.WAVES
+    for n, (k, plain, f, sc) in todo.items():
+        want = plain(**f, **sc)
+        want = want[0] if k.reductions else want
+        want = {k.outputs[0]: want} if len(k.outputs) == 1 else want
+        row = {}
+        for t in tuned[n]:
+            found = ptxas(next(logs).log)
+            for w in waves:
+                stencil.WAVES = w
+                outs, _ = t.run(f, sc)
+                same = all(torch.equal(outs[o], want[o]) for o in k.outputs)
+                ms = teff.measure(lambda: t.run(f, sc), iters=args.iters, warmup=3).median_s * 1e3
+                sh = t.shape
+                row[f"{sh.tile[0]}x{sh.tile[1]}/p{sh.planes}/b{sh.min_blocks}/w{w}"] = {
+                    "ms": ms, "bitwise": same, **found}
+        stencil.WAVES = default_waves
+        chosen = codegen.kernel_shape(tuned[n][0].program)
+        print(json.dumps({"kernel": n, "chosen": f"{chosen.tile[0]}x{chosen.tile[1]}/p"
+                          f"{chosen.planes}/b{chosen.min_blocks}/w{default_waves}",
+                          "candidates": row}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -116,6 +116,20 @@ def test_generated_kernel_equals_torch_backend(card, case, rng):
     assert k.launch_info
 
 
+@pytest.mark.parametrize("shape", [(33, 20, 130), (9, 10, 33), (70, 20, 40)])
+def test_fig1_variants_equal_torch_backend(card, shape, rng):
+    """The Fig. 1 step and its reduction variants at tile edges and at a
+    march that neither the chunk nor the planes per step divide."""
+    ps = init_parallel_stencil()
+    pp = init_parallel_stencil(backend="torch", device="cuda")
+    f = {n: _rand(rng, shape, card) for n in ("T2", "T", "Ci")}
+    sc = dict(lam=1.0, dt=1e-4, _dx=32.0, _dy=19.0, _dz=129.0)
+    for reds in (None, {"err": "max_abs_diff(T2, T)"}, CASES["fig1"][6]):
+        k = quickstart.make_step(ps).with_reductions(reds)
+        p = quickstart.make_step(pp).with_reductions(reds)
+        _assert_same(k(**f, **sc), p(**f, **sc), k)
+
+
 def _assert_same(got, want, kern):
     (got, got_reds), (want, want_reds) = (got, want) if kern.reductions else \
         ((got, {}), (want, {}))
@@ -134,7 +148,9 @@ COUPLED_BCS = ["none", "neumann", "dirichlet", "periodic"]
 
 
 @pytest.mark.parametrize("bc", COUPLED_BCS)
-@pytest.mark.parametrize("shape", [(33, 20), (9, 12)])
+# tile edges, a 2-D tile (256 wide) and a march of 1001 rows that neither the
+# chunk nor the planes per step divide
+@pytest.mark.parametrize("shape", [(33, 20), (9, 12), (37, 300), (1001, 40)])
 def test_porosity_kernels_equal_torch_backend(card, bc, shape, rng):
     """Fused (with and without its residual epilogue) and flux-split:
     staggered `all` writes and every bc kind in the generated kernel."""
@@ -162,7 +178,9 @@ def test_porosity_kernels_equal_torch_backend(card, bc, shape, rng):
 
 
 @pytest.mark.parametrize("bc", COUPLED_BCS)
-@pytest.mark.parametrize("shape", [(13, 17, 130), (7, 8, 9)])
+# tile edges, and a march of 70 planes that neither the chunk nor the planes
+# per step divide
+@pytest.mark.parametrize("shape", [(13, 17, 130), (7, 8, 9), (11, 19, 41), (70, 20, 40)])
 def test_gp_kernels_equal_torch_backend(card, bc, shape, rng):
     """The fused radius-2 update (with and without its mass epilogues) and
     the two-launch scheme."""

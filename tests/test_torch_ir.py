@@ -197,7 +197,8 @@ def test_cuda_source_pow_and_reductions():
                        reductions={"e": "max_abs_diff(T2, T)", "m": "sum_sq(T2)"})
     src = codegen.cuda_source(codegen.lower(ir))
     assert "(l0 * l0)" in src and "powf(l0, p0)" in src and "sqrtf(l0)" in src
-    assert "max_nan(acc0, (fabsf(v0 - in1[i0])))" in src
+    # the input operand is read at the cell through the block's own pointer
+    assert "max_nan(acc0, (fabsf(v0 - g1[at0])))" in src
     assert "(acc1 + (v0 * v0))" in src and "part1[bid]" in src
 
 

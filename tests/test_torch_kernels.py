@@ -165,17 +165,25 @@ def test_stencil_call_on_cpu_runs_the_torch_form(rng):
 
 
 def test_derive_launch_covers_the_grid():
+    kernel = codegen.KernelShape((32, 8), 4, 4)
     for shape in [(512, 512, 512), (33, 20, 130), (1, 17, 12), (1, 1, 5)]:
-        la = stencil.derive_launch(shape, n_sm=132)
+        la = stencil.derive_launch(shape, 132, kernel)
         gz, gy, gx = la.grid
         assert gz * 32 >= shape[2] and gy * 8 >= shape[1] and gx * la.xc >= shape[0]
         assert (gx - 1) * la.xc < shape[0]
-        assert la.block == (32, 8, 1)
-    la = stencil.derive_launch((512, 512, 512), n_sm=132)
-    # about WAVES waves of 8 resident 256-thread blocks on each of 132 SMs
-    assert la.n_blocks >= stencil.WAVES * 8 * 132
+        assert la.block == (32, 8, 1) and la.xc % kernel.planes == 0
+        # a staged kernel's chunk and its lag fill whole steps
+        lagged = stencil.derive_launch(shape, 132, kernel, lag=2)
+        assert (lagged.xc + 2) % kernel.planes == 0
+    la = stencil.derive_launch((512, 512, 512), 132, kernel)
+    # about WAVES waves of the kernel's resident 256-thread blocks on each of 132 SMs
+    assert la.n_blocks >= stencil.WAVES * kernel.min_blocks * 132
     with pytest.raises(ValueError, match="grid limits"):
-        stencil.derive_launch((4, 8 * 70000, 4), n_sm=132)
+        stencil.derive_launch((4, 8 * 70000, 4), 132, kernel)
+    # the hand kernel keeps its own launch: each thread marches x, about 4
+    # waves of 8 resident blocks
+    la = diffusion3d.column_launch((512, 512, 512), 132)
+    assert la.block == (32, 8, 1) and la.grid == (16, 64, 5) and la.xc == 103
 
 
 # ---------------------------------------------------------------- build
