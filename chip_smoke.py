@@ -18,7 +18,17 @@ and a ``--tol`` run) and ``repro_torch.examples.gross_pitaevskii`` (3-D,
 512^3: the fused radius-2 update, every boundary condition, the two-launch
 scheme, a fixed run and the drift-guarded run); each of their generated
 kernels is first held bitwise against the ``torch`` backend at small odd
-shapes and at those sizes. It then times
+shapes and at those sizes. The k-step kernels (``run_steps(k)``: FIG1's
+step, porosity's and GP's fused kernels for every in-launch bc with their
+epilogues, a staggered rotation, k = 2-4; the hand kernel's ``nsteps``, in
+place and not) are each held bitwise against k single-step launches at
+small odd shapes and at full size, against their plain version (the
+``torch`` backend's k steps, ``ref.diffusion3d_steps``) at full size on the
+fields they are timed on, and against it where outputs and targets differ
+on the ring; their main path is each solver's
+own state advanced 12 steps as ``run_steps(k)`` launches, which must equal
+12 single steps, with the launch counts set to 0 before each run and read
+after. It then times
 each kernel beside its plain version, the PyTorch library call that
 computes the same function (where there is one) and its bound: for the
 attention and SSD kernels, whose products run on the tensor cores at f32
@@ -27,7 +37,11 @@ Every generated kernel must build without register spills; its time is
 also given as a ratio to the hand ``diffusion3d`` kernel's in the same run,
 GP's fused kernel is timed on the solver's own state too, and a
 ``targets`` line says which of the generated kernel's speed targets the run
-met.
+met. ``times_k_steps`` gives each k-step kernel's ms per launch and per step
+beside its bound per step (the launch's bytes over 3.35 TB/s or its
+operations, halo cone included, over 67 TFLOP/s, whichever is larger),
+the share of it, T_eff per step over the copy bandwidth, shared memory,
+registers and spills.
 
 It prints JSON lines; the line before the last lists the kernels, the one
 before that is the card's name and power limit as nvidia-smi gives them,
@@ -71,6 +85,19 @@ PW_STEPS, PW_TOL_CAP, PW_TOL = 200, 200, 1e-9
 GP_STEPS, GP_TOL_CAP, GP_TOL = 50, 50, 1e-3
 SHORT_STEPS = {"porosity": 20, "gp": 5}    # the other bc and scheme variants
 AGREE_STEPS = {"porosity": 5, "gp": 3}     # full size, cuda against torch backend
+
+# k steps per launch (``run_steps(k)``): the generated FIG1 step, porosity's
+# and GP's fused kernels and a staggered rotation, each held bitwise against k
+# single-step launches of its program at a small odd shape and at full size.
+# GP stops at k = 3 (its k = 4 cone needs 136-197 KB of a block's 227 KB of
+# shared memory), as does the staggered kernel, a check of the rotation only.
+STEPS_KS = {"fig1": (2, 3, 4), "porosity": (2, 3, 4), "gp": (2, 3), "staggered": (2, 3)}
+STEPS_SMALL = {"fig1": (33, 20, 130), "porosity": (33, 20), "gp": (13, 17, 130),
+               "staggered": (33, 20)}
+STEPS_FULL = {"fig1": (512, 512, 512), "porosity": (8192, 8192), "gp": (512, 512, 512),
+              "staggered": (8192, 8192)}
+STEPS_RUN = 12      # steps of each k-step main-path run, a multiple of every k
+HAND_KS = (2, 3, 4)
 
 # Zamba2-1.2B serving at full width and depth; the kernels' shapes on its
 # prefill path (conv over d_conv_in = 4224 channels with K = 4; SSD with 64
@@ -143,21 +170,31 @@ def main() -> int:
     coupled = coupled_variants(torch, dev)
     calls += [v["kernel"].compiled(**v["shapes"](COUPLED_SMALL[v["solver"]]), **v["scalars"])
               for v in coupled.values()]
+    ksteps = k_step_variants(coupled, step, step_plain)
+    calls_k = {(name, k): v["kernel"].compiled(nsteps=k, **v["shapes"](STEPS_SMALL[v["solver"]]),
+                                               **v["scalars"])
+               for name, v in ksteps.items() for k in STEPS_KS[v["solver"]]}
     t0 = time.perf_counter()
     lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
     sources = ([("diffusion3d", build.read_source(diffusion3d.SOURCE))]
                + [(n, build.read_source(m.SOURCE)) for n, m in lm_kernels.items()]
-               + [(c.lib_name, c.source) for c in calls])
+               + [(c.lib_name, c.source) for c in calls]
+               + [(c.lib_name, c.source) for c in calls_k.values()])
     builds = build.compile_many(sources)
     call_names = ["stencil", "stencil+err", "stencil+4red", "generic", *coupled]
     variant_of = {c.source: name for name, c in zip(call_names, calls)}
+    variant_of.update({c.source: f"{name}/k{k}" for (name, k), c in calls_k.items()})
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "builds": [{"name": b.name, "variant": variant_of.get(src), "seconds": b.seconds,
                       "ptxas": [ln.strip() for ln in b.log.splitlines()
                                 if "entry function" in ln or "registers" in ln
                                 or "spill" in ln]}
                      for b, (_, src) in zip(builds, sources)]})
-    ptxas = {name: ptxas_summary(b.log) for name, b in zip(call_names, builds[-len(calls):])}
+    n_gen = len(calls) + len(calls_k)
+    ptxas = {name: ptxas_summary(b.log)
+             for name, b in zip(call_names + [f"{n}/k{k}" for n, k in calls_k],
+                                builds[-n_gen:])}
+    ptxas.update(hand_ptxas(builds[0].log))
     require(all(not p["spills"] for p in ptxas.values()),
             f"ptxas spills registers in a generated kernel: {ptxas}")
 
@@ -178,7 +215,7 @@ def main() -> int:
         sc = {"lam": 1.0, "dt": 1e-4, "_dx": float(shape[0] - 1),
               "_dy": float(shape[1] - 1), "_dz": float(shape[2] - 1)}
         args = (sc["lam"], sc["dt"], sc["_dx"], sc["_dy"], sc["_dz"])
-        d_hand = max_abs_diff(diffusion3d.diffusion3d_step(T2, T, Ci, *args),
+        d_hand = max_abs_diff(diffusion3d.diffusion3d_step(T2, T, Ci, *args, alias=False),
                               ref.diffusion3d_step(T2, T, Ci, *args))
         require(d_hand == 0.0, f"diffusion3d differs from its plain version at {shape}")
         err_at[shape] = {"diffusion3d": d_hand}
@@ -261,6 +298,18 @@ def main() -> int:
                 err_at[name] = d
         torch.cuda.empty_cache()
 
+    # ---- 3d. k steps per launch against k single-step launches ------------------
+    for shapes in (STEPS_SMALL, STEPS_FULL):
+        for name, v in ksteps.items():
+            for k in STEPS_KS[v["solver"]]:
+                d = check_k_steps(torch, name, v, k, shapes[v["solver"]], cgen)
+                if shapes is STEPS_FULL:
+                    err_at[f"{name}/k{k}"] = d
+        for base in ((13, 17, 130), (33, 20, 130), STEPS_FULL["fig1"]):
+            err_at.update(check_hand_steps(torch, base, cgen))
+        torch.cuda.empty_cache()
+    check_ring_rule(torch, ksteps, cgen)
+
     # ---- 4. the main path at FIG1 ------------------------------------------
     stencil.launches.clear()
     diffusion3d.launches = 0
@@ -311,17 +360,25 @@ def main() -> int:
     # ---- 4c. the coupled solvers' main paths ----------------------------------
     coupled_runs = coupled_main_path(torch, coupled)
 
+    # ---- 4d. the main paths in k steps per launch ------------------------------
+    k_runs = k_steps_main_path(torch, ksteps)
+    torch.cuda.empty_cache()
+
     # ---- 5. times at FIG1 ---------------------------------------------------
     spec = teff.device_spec(0)
     grid, f, sc = quickstart.initial_state(FIG1, "cuda")
     args = (sc["lam"], sc["dt"], sc["_dx"], sc["_dy"], sc["_dz"])
+    T2_own = f["T2"].clone()     # the hand step in place writes into it
     timed = {
         "stencil": lambda: step(**f, **sc),
         "stencil_plain": lambda: step_plain(**f, **sc),
         "stencil+err": lambda: step.with_reductions(ERR)(**f, **sc),
         "stencil+err_plain": lambda: step_plain.with_reductions(ERR)(**f, **sc),
-        "diffusion3d": lambda: diffusion3d.diffusion3d_step(f["T2"], f["T"], f["Ci"], *args),
+        "diffusion3d": lambda: diffusion3d.diffusion3d_step(f["T2"], f["T"], f["Ci"], *args,
+                                                            alias=False),
         "diffusion3d_plain": lambda: ref.diffusion3d_step(f["T2"], f["T"], f["Ci"], *args),
+        "diffusion3d_in_place": lambda: diffusion3d.diffusion3d_step(T2_own, f["T"], f["Ci"],
+                                                                     *args, alias=True),
     }
     ms = {k: teff.measure(fn, iters=20, warmup=3).median_s * 1e3 for k, fn in timed.items()}
     a_eff = teff.a_eff_from_ir(step.stencil_ir(**f, **sc), 4)
@@ -388,6 +445,27 @@ def main() -> int:
     emit({"phase": "targets", "card": spec.name, "power_limit": spec.power_limit,
           **targets(ms, coupled_times)})
 
+    # ---- 5d. times of the k-step kernels at full size ----------------------------
+    single_ms = {"stencil": ms["stencil"], "staggered": None,
+                 **{n: coupled_times[n]["ms"] for n in ksteps if n in coupled_times}}
+    k_times = {}
+    for name, v in ksteps.items():
+        for k in STEPS_KS[v["solver"]]:
+            t = time_k_steps(torch, name, v, k, STEPS_FULL[v["solver"]], cgen, spec)
+            err_at[f"{name}/k{k}"] = max(err_at[f"{name}/k{k}"], t["max_abs_err"])
+            t["single_step_ms"] = single_ms[name]
+            t["ptxas"] = ptxas[f"{name}/k{k}"]
+            k_times[f"{name}/k{k}"] = t
+            torch.cuda.empty_cache()
+    for k in HAND_KS:
+        t = time_hand_steps(torch, k, cgen, spec)
+        err_at[f"diffusion3d/k{k}"] = max(err_at[f"diffusion3d/k{k}"], t["max_abs_err"])
+        t["single_step_ms"] = ms["diffusion3d"]
+        t["ptxas"] = ptxas[f"diffusion3d/k{k}"]
+        k_times[f"diffusion3d/k{k}"] = t
+    emit({"phase": "times_k_steps", "card": spec.name, "power_limit": spec.power_limit,
+          "copy_bandwidth_GBps": spec.peak_bw / 1e9, "shapes": STEPS_FULL, "kernels": k_times})
+
     # ---- 6. the kernels line -------------------------------------------------
     fig1 = SHAPES[-1]
     gen_src = "src/repro_torch/kernels/codegen.py"
@@ -419,6 +497,18 @@ def main() -> int:
                  **{x: coupled_times[k][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
                  "library_ms": None}
                 for k in coupled]
+    kernels += [{"name": k, "route": "cuda",
+                 "source": ("src/repro_torch/kernels/csrc/diffusion3d.cu"
+                            if k.startswith("diffusion3d") else
+                            "src/repro_torch/kernels/codegen_steps.py"),
+                 "replaces": ("src/repro/kernels/diffusion3d.py:75"
+                              if k.startswith("diffusion3d") else
+                              "src/repro/kernels/stencil.py:1052"),
+                 "launches": k_runs["launches"][k], "max_abs_err": err_at[k],
+                 **{x: t[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by", "ms_per_step",
+                                      "bound_ms_per_step")},
+                 "library_ms": None}
+                for k, t in k_times.items()]
     print(f"{card_name}, {card_power}", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -943,6 +1033,364 @@ def coupled_main_path(torch, coupled) -> dict:
     for k, n in launches.items():
         require(n > 0, f"kernel {k} was not launched on the coupled main path")
     return {"launches": launches, "runs": rows}
+
+
+def k_step_variants(coupled, step, step_plain) -> dict:
+    """The k-step cases: FIG1's generated step, porosity's and GP's fused
+    kernels for each bc that runs inside a launch (with the residual and mass
+    epilogues), and a staggered rotation, each beside its torch twin."""
+    from repro_torch.core import fd2d, init_parallel_stencil
+    from repro_torch.examples import porosity_waves as pw
+
+    def staggered(ps):
+        @ps.parallel(outputs=("T2", "q2"), rotations={"T2": "T", "q2": "q"})
+        def stag(T2, q2, T, q, dt):
+            return {"T2": fd2d.inn(T) + dt * fd2d.d_xi(q),
+                    "q2": 0.7 * q + 0.3 * fd2d.av_xa(T)}
+        return stag
+
+    v = {"stencil": {"solver": "fig1", "kernel": step, "plain": step_plain,
+                     "shapes": lambda b: {n: b for n in ("T2", "T", "Ci")},
+                     "scalars": dict(lam=1.0, dt=1e-7, _dx=511.0, _dy=511.0, _dz=511.0)}}
+    # porosity's kernels take the solver's own pseudo-time step at 8192^2 (its
+    # spacings are literals in their source): the single-step checks' 1e-3
+    # overflows to inf within four steps
+    cfg = pw.PorosityConfig(n=COUPLED_FULL["porosity"][0], device="cuda")
+    dtau = {"dtau": pw.timestep(cfg, pw.make_grid(cfg))}
+    for name in ("porosity_fused[none]", "porosity_fused[dirichlet]", "porosity_fused[neumann0]",
+                 "porosity_fused[neumann0]+err", "gp_fused[none]", "gp_fused[dirichlet]",
+                 "gp_fused[neumann0]", "gp_fused[none]+mass"):
+        v[name] = dict(coupled[name], scalars=dtau) if name.startswith("porosity") \
+            else coupled[name]
+    v["staggered"] = {
+        "solver": "staggered", "scalars": {"dt": 1e-3},
+        "kernel": staggered(init_parallel_stencil(ndims=2)),
+        "plain": staggered(init_parallel_stencil(backend="torch", device="cuda", ndims=2)),
+        "shapes": lambda b: {"T2": b, "T": b, "q2": (b[0] - 1, b[1]), "q": (b[0] - 1, b[1])}}
+    return v
+
+
+def k_fields(torch, v, base, gen):
+    """Random fields for a k-step case (``coupled_fields``; FIG1's Ci in
+    [0.5, 1.5)), each output a copy of its rotation target, as the solvers
+    pass them."""
+    f = coupled_fields(torch, v, base, gen)
+    if "Ci" in f:
+        f["Ci"] = f["Ci"] + 0.5
+    for o, t in v["kernel"].rotations.items():
+        f[o] = f[t].clone()
+    return f
+
+
+def rotate_run(kern, fields, sc, k, n_steps):
+    """``n_steps`` steps as ``run_steps(k)`` launches with the double-buffer
+    rotation between them; returns the fields after the last and its
+    reductions."""
+    cur, reds = dict(fields), None
+    for _ in range(n_steps // k):
+        res = kern.run_steps(k, **cur, **sc)
+        res, reds = res if kern.reductions else (res, None)
+        outs = {kern.outputs[0]: res} if len(kern.outputs) == 1 else res
+        for o, t in kern.rotations.items():
+            cur[o], cur[t] = cur[t], outs[o]
+    return cur, reds
+
+
+def split_result(kern, res):
+    """``(outputs by name, reductions by name)`` of what a kernel returns."""
+    res, reds = res if kern.reductions else (res, {})
+    return ({kern.outputs[0]: res} if len(kern.outputs) == 1 else res), reds
+
+
+def hold_to(torch, kern, got, reds, want, want_reds, what) -> float:
+    """Outputs bitwise, max reductions bitwise, sums within SUM_RTOL;
+    returns the largest difference of the outputs and max reductions."""
+    errs = [max_abs_diff(got[o], want[o]) for o in kern.outputs]
+    require(all(bool(torch.equal(got[o], want[o])) for o in kern.outputs),
+            f"{what}: outputs differ by {errs}")
+    for n, r in kern.reductions.items():
+        a, b = float(reds[n]), float(want_reds[n])
+        if r.combine == "max":
+            require(a == b, f"{what}: {n} differs ({a} against {b})")
+            errs.append(abs(a - b))
+        else:
+            require(math.isclose(a, b, rel_tol=SUM_RTOL), f"{what}: {n} outside rtol {SUM_RTOL}")
+    return max(errs)
+
+
+def check_k_steps(torch, name, v, k, base, gen) -> float:
+    """One launch of the k-step kernel against k single-step launches of the
+    same program: outputs bitwise; the last step's max reductions bitwise,
+    sums within SUM_RTOL. Returns the largest error of what it returns."""
+    from repro_torch.kernels import stencil
+
+    kern, sc = v["kernel"], v["scalars"]
+    f = k_fields(torch, v, base, gen)
+    want, want_reds = rotate_run(kern, f, sc, 1, k)
+    require(all(bool(torch.isfinite(want[t]).all()) for t in kern.rotations.values()),
+            f"{name}: {k} single steps at {base} leave non-finite values")
+    want = {o: want[t] for o, t in kern.rotations.items()}
+    label = f"{kern.label}/k{k}"
+    before = stencil.launches[label]
+    got, reds = split_result(kern, kern.run_steps(k, **f, **sc))
+    torch.cuda.synchronize()
+    emit({"phase": "check_k_steps", "variant": name, "k": k, "shape": list(base),
+          "launches": stencil.launches[label] - before,
+          "max_abs_diff": {o: max_abs_diff(got[o], want[o]) for o in kern.outputs},
+          "reductions": {n: {"kernel": float(reds[n]), "k_launches": float(want_reds[n])}
+                         for n in reds}})
+    require(stencil.launches[label] == before + 1, f"{name}: run_steps({k}) made "
+            f"{stencil.launches[label] - before} launches of {label}")
+    return hold_to(torch, kern, got, reds, want, want_reds,
+                   f"{name}: run_steps({k}) against {k} launches at {base}")
+
+
+def check_hand_steps(torch, base, gen) -> dict:
+    """The hand kernel's k steps in one launch, in place and not, against k
+    single-step launches (T2 a copy of T), and its k-step ring rule against
+    the plain version (T2 apart from T on the ring)."""
+    from repro_torch.kernels import diffusion3d, ref
+
+    errs = {}
+    for k in HAND_KS:
+        T = torch.rand(base, generator=gen, device=gen.device)
+        Ci = torch.rand(base, generator=gen, device=gen.device) + 0.5
+        args = (1.0, 1e-4, float(base[0] - 1), float(base[1] - 1), float(base[2] - 1))
+        a, b = T.clone(), T.clone()
+        for _ in range(k):
+            a = diffusion3d.diffusion3d_step(a, b, Ci, *args, alias=False)
+            a, b = b, a
+        row = {"phase": "check_hand_steps", "k": k, "shape": list(base)}
+        diffs = []
+        for alias in (False, True):
+            T2 = T.clone()
+            got = diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=alias)
+            torch.cuda.synchronize()
+            diffs.append(max_abs_diff(got, b))
+            row[f"alias={alias}"] = {"max_abs_diff": diffs[-1],
+                                     "in_place": got.data_ptr() == T2.data_ptr()}
+            require(bool(torch.equal(got, b)), f"diffusion3d nsteps={k} alias={alias} "
+                    f"differs from {k} launches at {base}")
+            require(row[f"alias={alias}"]["in_place"] == alias, "alias= did not hold")
+        T2 = torch.rand(base, generator=gen, device=gen.device)
+        d = max_abs_diff(diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=False),
+                         ref.diffusion3d_steps(T2, T, Ci, *args, nsteps=k))
+        row["ring_rule_max_abs_diff"] = d
+        emit(row)
+        require(d == 0.0, f"diffusion3d nsteps={k} ring rule differs at {base}")
+        errs[f"diffusion3d/k{k}"] = max(d, *diffs)
+    return errs
+
+
+def check_ring_rule(torch, ksteps, gen) -> None:
+    """With outputs apart from their targets on the ring, the k-step kernel
+    equals its plain version (``codegen.evaluate_steps_torch``) on the card."""
+    from repro_torch.kernels import codegen
+
+    rows = {}
+    for name in ("stencil", "porosity_fused[neumann0]", "gp_fused[neumann0]", "staggered"):
+        v = ksteps[name]
+        kern, sc = v["kernel"], v["scalars"]
+        base = STEPS_SMALL[v["solver"]]
+        f = k_fields(torch, v, base, gen)
+        for o in kern.outputs:
+            f[o] = f[o] + 0.25
+        call = kern.compiled(nsteps=3 if name != "gp_fused[neumann0]" else 2, **f, **sc)
+        got, _ = call.run(f, sc)
+        want, _ = codegen.evaluate_steps_torch(call.program, call.rotations, call.nsteps, f, sc)
+        rows[name] = {o: max_abs_diff(got[o], want[o]) for o in kern.outputs}
+    emit({"phase": "check_k_steps_ring_rule", "max_abs_diff": rows})
+    require(all(d == 0.0 for r in rows.values() for d in r.values()),
+            f"a k-step kernel breaks the ring rule: {rows}")
+
+
+def k_steps_main_path(torch, ksteps) -> dict:
+    """Each k-step kernel on its solver's own state at full size
+    (``quickstart.initial_state``, ``porosity_waves.init_state``,
+    ``gross_pitaevskii.init_state``; the staggered rotation on random
+    fields): STEPS_RUN steps as ``run_steps(k)`` launches for every k, with
+    the launch counts set to 0 just before each run and read just after,
+    and the same steps as single-step launches, which every k must equal
+    bitwise. The hand kernel runs the FIG1 steps in place (``alias=True``).
+    Host-clock ms per step of each run beside the single-step run's."""
+    from repro_torch.configs import FIG1
+    from repro_torch.examples import gross_pitaevskii as gp, porosity_waves as pw, quickstart
+    from repro_torch.kernels import diffusion3d, stencil
+
+    def state(name, v):
+        if v["solver"] == "fig1":
+            _, f, sc = quickstart.initial_state(FIG1, "cuda")
+            return f, sc
+        if v["solver"] == "porosity":
+            cfg = pw.PorosityConfig(n=STEPS_FULL["porosity"][0], device="cuda")
+            grid, phi, Pe = pw.init_state(cfg)
+            return (dict(phi2=phi.clone(), Pe2=Pe.clone(), phi=phi, Pe=Pe),
+                    {"dtau": pw.timestep(cfg, grid)})
+        if v["solver"] == "gp":
+            cfg = gp.GPConfig(n=STEPS_FULL["gp"][0], device="cuda")
+            grid, re, im, V = gp.init_state(cfg)
+            inv2 = tuple(1.0 / d ** 2 for d in grid.spacing)
+            return (dict(re2=re.clone(), im2=im.clone(), re=re, im=im, V=V),
+                    dict(g=cfg.g, dt=gp.timestep(grid), _dx2=inv2[0], _dy2=inv2[1],
+                         _dz2=inv2[2]))
+        gen = torch.Generator(device="cuda").manual_seed(20260716)
+        return k_fields(torch, v, STEPS_FULL["staggered"], gen), v["scalars"]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    launches, rows = {}, []
+    for name, v in ksteps.items():
+        kern = v["kernel"]
+        f, sc = state(name, v)
+        rotate_run(kern, f, sc, 1, 1)      # the single-step library loaded
+        (want, _), wall1 = timed(lambda: rotate_run(kern, f, sc, 1, STEPS_RUN))
+        row = {"phase": "main_path_k_steps", "variant": name,
+               "shape": list(STEPS_FULL[v["solver"]]), "steps": STEPS_RUN,
+               "ms_per_step": {"1": wall1 / STEPS_RUN * 1e3}}
+        for k in STEPS_KS[v["solver"]]:
+            label = f"{kern.label}/k{k}"
+            rotate_run(kern, f, sc, k, k)      # loads the k-step library
+            stencil.launches.clear()
+            (got, reds), wall = timed(lambda: rotate_run(kern, f, sc, k, STEPS_RUN))
+            counts = dict(stencil.launches)
+            require(counts == {label: STEPS_RUN // k},
+                    f"{name}: run_steps({k}) x {STEPS_RUN // k} launched {counts}")
+            launches[f"{name}/k{k}"] = counts[label]
+            same = all(bool(torch.equal(got[t], want[t])) for t in kern.rotations.values())
+            require(same, f"{name}: {STEPS_RUN} steps as run_steps({k}) differ from single steps")
+            finite = all(bool(torch.isfinite(got[t]).all()) for t in kern.rotations.values())
+            require(finite, f"{name}: non-finite fields after run_steps({k})")
+            if reds:
+                require(all(math.isfinite(float(r)) for r in reds.values()),
+                        f"{name}: non-finite reductions")
+            row["ms_per_step"][str(k)] = wall / STEPS_RUN * 1e3
+            row.setdefault("launches", {})[label] = counts[label]
+        emit(row)
+        rows.append(row)
+        del f, want
+        torch.cuda.empty_cache()
+    # the hand kernel, in place, on FIG1's state
+    _, f, sc = quickstart.initial_state(FIG1, "cuda")
+    args = (sc["lam"], sc["dt"], sc["_dx"], sc["_dy"], sc["_dz"])
+
+    def hand_run(k):
+        a, b = f["T2"].clone(), f["T"].clone()
+        for _ in range(STEPS_RUN // k):
+            a = diffusion3d.diffusion3d_step(a, b, f["Ci"], *args, nsteps=k, alias=True)
+            a, b = b, a
+        return b
+
+    hand_run(1)
+    want, wall1 = timed(lambda: hand_run(1))
+    row = {"phase": "main_path_k_steps", "variant": "diffusion3d", "shape": list(FIG1.shape),
+           "steps": STEPS_RUN, "ms_per_step": {"1": wall1 / STEPS_RUN * 1e3}, "launches": {}}
+    for k in HAND_KS:
+        hand_run(k)
+        diffusion3d.launches = 0
+        got, wall = timed(lambda: hand_run(k))
+        require(diffusion3d.launches == STEPS_RUN // k,
+                f"diffusion3d nsteps={k}: {diffusion3d.launches} launches")
+        require(bool(torch.equal(got, want)), f"diffusion3d nsteps={k} differs from single steps")
+        launches[f"diffusion3d/k{k}"] = diffusion3d.launches
+        row["launches"][f"diffusion3d/k{k}"] = diffusion3d.launches
+        row["ms_per_step"][str(k)] = wall / STEPS_RUN * 1e3
+    emit(row)
+    rows.append(row)
+    return {"launches": launches, "runs": rows}
+
+
+def time_k_steps(torch, name, v, k, base, gen, spec) -> dict:
+    """CUDA-event medians of one ``run_steps(k)`` launch and of the torch
+    twin's k steps at ``base``, the launch's result held to the twin's on
+    the same fields (``hold_to``: its difference is ``max_abs_err``), beside
+    the bound: the larger of the launch's
+    bytes (each field read once, each output written once: one step's A_eff)
+    over 3.35 TB/s and its operations over 67 TFLOP/s, the operations being
+    each phase's program over its cells, k sweeps and the halo cone
+    included (``halo_compute_overhead``: their excess over k cone-free
+    sweeps), plus the last sweep's reductions."""
+    from repro_torch.core import teff
+    from repro_torch.kernels import codegen, codegen_steps
+
+    kern, p, sc = v["kernel"], v["plain"], v["scalars"]
+    f = k_fields(torch, v, base, gen)
+    call = kern.compiled(nsteps=k, **f, **sc)
+    prog, plan, shape = call.program, call.plan, call.shape
+    cells = math.prod(call.ir.base_shape)
+    tile = shape.tile[0] * shape.tile[1]
+    per_tile = sum(math.prod(plan.region(ph, shape)) * codegen.op_count(
+        prog.core.ops if ph.stage is None else prog.stages[ph.stage].ops) for ph in plan.phases)
+    ops = per_tile / tile * cells
+    overhead = ops / (k * cells * prog.ops_per_cell()) - 1.0
+    for _, r in prog.reductions:
+        ops += (3 if r.kind == "max_abs_diff" else 2) * cells
+    a_eff = float(call.ir.io_bytes(4))
+    bound_ms, bound_by = bound_of(a_eff, ops)
+    err = hold_to(torch, kern, *split_result(kern, kern.run_steps(k, **f, **sc)),
+                  *split_result(p, p.run_steps(k, **f, **sc)),
+                  f"{name}: run_steps({k}) against its plain version at {base}")
+    ms = teff.measure(lambda: kern.run_steps(k, **f, **sc), iters=20, warmup=3).median_s * 1e3
+    plain_ms = teff.measure(lambda: p.run_steps(k, **f, **sc), iters=5, warmup=1).median_s * 1e3
+    return {"k": k, "max_abs_err": err, "ms": ms, "ms_per_step": ms / k, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_ms_per_step": bound_ms / k, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms, "a_eff_bytes": a_eff, "ops": ops,
+            "halo_compute_overhead": overhead,
+            "t_eff_per_step_GBps": a_eff * k / (ms / 1e3) / 1e9,
+            "t_eff_per_step_over_copy": a_eff * k / (ms / 1e3) / spec.peak_bw,
+            "smem_bytes": codegen_steps.shared_bytes(prog, plan, shape),
+            "tile": list(shape.tile), "planes": shape.planes, "lead": plan.lead}
+
+
+def time_hand_steps(torch, k, gen, spec) -> dict:
+    """The hand kernel's k steps at FIG1 in place, beside k plain steps and
+    the bound (12 bytes per cell once; 16 operations per cell-sweep over the
+    cone, ``teff.halo_compute_overhead`` of its 16 x 32 tile)."""
+    from repro_torch.core import teff
+    from repro_torch.kernels import diffusion3d, ref
+
+    base = STEPS_FULL["fig1"]
+    T = torch.rand(base, generator=gen, device=gen.device)
+    T2, Ci = T.clone(), torch.rand(base, generator=gen, device=gen.device) + 0.5
+    args = (1.0, 1e-4, 511.0, 511.0, 511.0)
+    cells = math.prod(base)
+    interior = math.prod(n - 2 for n in base)
+    (bz, by), _ = diffusion3d._STEPS_SHAPE
+    overhead = teff.halo_compute_overhead((by, bz), 1, k)
+    a_eff, ops = 12.0 * cells, 16.0 * interior * k * (1 + overhead)
+    bound_ms, bound_by = bound_of(a_eff, ops)
+    want = ref.diffusion3d_steps(T2, T, Ci, *args, nsteps=k)
+    got = diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=True)
+    err = max_abs_diff(got, want)
+    require(bool(torch.equal(got, want)), f"diffusion3d nsteps={k} differs from its plain "
+            f"version at {base} by {err}")
+    ms = teff.measure(lambda: diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k,
+                                                           alias=True),
+                      iters=20, warmup=3).median_s * 1e3
+    plain_ms = teff.measure(lambda: ref.diffusion3d_steps(T2, T, Ci, *args, nsteps=k),
+                            iters=5, warmup=1).median_s * 1e3
+    return {"k": k, "max_abs_err": err, "ms": ms, "ms_per_step": ms / k, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_ms_per_step": bound_ms / k, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms, "a_eff_bytes": a_eff, "ops": ops,
+            "halo_compute_overhead": overhead,
+            "t_eff_per_step_GBps": a_eff * k / (ms / 1e3) / 1e9,
+            "t_eff_per_step_over_copy": a_eff * k / (ms / 1e3) / spec.peak_bw,
+            "smem_bytes": diffusion3d.shared_bytes(k), "alias": True}
+
+
+def hand_ptxas(log: str) -> dict:
+    """ptxas's summary of each k-step instance of the hand kernel
+    (``diffusion3d_steps_kernel<K>``), as ``diffusion3d/k{K}``."""
+    out = {}
+    for part in re.split(r"(?=ptxas info\s*: Compiling entry function)", log):
+        m = re.search(r"diffusion3d_steps_kernelILi(\d+)E", part.split("\n", 1)[0])
+        if m:
+            out[f"diffusion3d/k{m.group(1)}"] = ptxas_summary(part)
+    return out
 
 
 def make_generic(ps):

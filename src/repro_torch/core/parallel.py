@@ -36,6 +36,11 @@ and hold after every step exactly as the ``core.boundary`` post-pass
 applied after the write would: the ``torch`` backend applies that
 post-pass, the generated CUDA kernel computes the face values inside its
 launch.
+
+``kernel.run_steps(k, **fields)`` advances k steps, each output rotating into
+its ``rotations`` target: on ``backend="cuda"`` in one launch of a generated
+k-step kernel (k launches for a periodic condition), on ``backend="torch"``
+as k rotated single steps.
 """
 from __future__ import annotations
 
@@ -245,16 +250,23 @@ class StencilKernel:
         reds = self.apply_reductions(outs, fields) if self.reductions else None
         return outs, reds
 
-    def _call(self, ir: _ir.StencilIR) -> _stencil.StencilCall:
-        call = self._calls.get(id(ir))
+    def _call(self, ir: _ir.StencilIR, nsteps: int = 1) -> _stencil.StencilCall:
+        key = (id(ir), nsteps)
+        call = self._calls.get(key)
         if call is None:
-            call = self._calls[id(ir)] = _stencil.StencilCall(ir, self.label, self.bc)
+            call = self._calls[key] = _stencil.StencilCall(
+                ir, self.label, self.bc, nsteps=nsteps,
+                rotations=self.rotations if nsteps > 1 else None)
         return call
 
-    def compiled(self, **kwargs) -> _stencil.StencilCall:
+    def compiled(self, nsteps: int = 1, **kwargs) -> _stencil.StencilCall:
         """The generated kernel for a field set (arguments as for
-        :meth:`stencil_ir`); its ``source`` is what the build compiles."""
-        return self._call(self.stencil_ir(**kwargs))
+        :meth:`stencil_ir`), sweeping ``nsteps`` times per launch; its
+        ``source`` is what the build compiles."""
+        nsteps = int(nsteps)
+        if nsteps > 1:
+            self.check_rotations(kwargs)
+        return self._call(self.stencil_ir(**kwargs), nsteps)
 
     def _run_cuda(self, fields, scalars, ir: _ir.StencilIR):
         return self._call(ir).run(fields, scalars)
@@ -268,24 +280,46 @@ class StencilKernel:
         return (res, reds) if self.reductions else res
 
     def run_steps(self, nsteps: int, **kwargs):
-        """Advance ``nsteps`` fused time steps. Only ``nsteps=1`` is ported;
-        for more, the rotations are checked as the reference checks them
-        before the refusal."""
+        """Advance ``nsteps`` time steps; returns the final outputs (the
+        structure of ``__call__``, with the last step's reductions).
+
+        ``backend="cuda"`` makes one launch of the generated k-step kernel
+        (``kernels/codegen_steps.py``): each field crosses device memory once
+        per ``nsteps`` steps, with the boundary conditions applied between
+        sweeps as the post-pass applies them between steps. A periodic
+        condition wraps across the whole domain, outside every block's
+        window, so it runs as ``nsteps`` single-step launches instead, as the
+        reference does. ``backend="torch"`` runs ``nsteps`` single steps with
+        the ``rotations`` double-buffer rotation (the reference's ``jnp``
+        path). Both equal ``nsteps`` rotated calls bitwise when each output
+        and its rotation target agree on the write ring."""
         nsteps = int(nsteps)
         if nsteps < 1:
             raise ValueError(f"nsteps must be >= 1, got {nsteps}")
-        if nsteps > 1:
-            self.check_rotations(self._split(kwargs)[0])
-            raise NotImplementedError(
-                "run_steps(k > 1) is not ported yet (ROADMAP queue 1, item 3: "
-                "run_steps(k) for both kernels)"
-            )
-        return self(**kwargs)
+        if nsteps == 1:
+            return self(**kwargs)
+        fields, scalars = self._split(kwargs)
+        self.check_rotations(fields)
+        ir = self._trace({n: tuple(v.shape) for n, v in fields.items()}, tuple(scalars))
+        periodic = any(c.kind == "periodic" for c in self.bc.values())
+        if self.ps.backend == "cuda" and not periodic:
+            outs, reds = self._call(ir, nsteps).run(fields, scalars)
+        else:
+            run = self._run_cuda if self.ps.backend == "cuda" else self._run_torch
+            cur = dict(fields)
+            for s in range(nsteps):
+                outs, reds = run(cur, scalars, ir)
+                if s < nsteps - 1:
+                    for o, tgt in self.rotations.items():
+                        cur[o], cur[tgt] = cur[tgt], outs[o]
+        res = outs[self.outputs[0]] if len(self.outputs) == 1 else outs
+        return (res, reds) if self.reductions else res
 
     def check_rotations(self, fields: Mapping[str, torch.Tensor]) -> None:
         """Every output rotates into a field of its own shape that is not an
         output (``ValueError`` otherwise): what k steps in one launch, and
-        ``solve_until``'s double buffers, need."""
+        ``solve_until``'s double buffers, need. ``fields`` maps names to
+        tensors or shape tuples."""
         if not self.rotations or set(self.outputs) - set(self.rotations):
             raise ValueError(
                 "stepping more than once requires rotations covering every output "
@@ -299,11 +333,13 @@ class StencilKernel:
                     f"rotation target {tgt!r} is an output; outputs only "
                     "provide boundary values and cannot receive sweep results"
                 )
-            if o in fields and fields[o].shape != fields[tgt].shape:
+            so, st = (tuple(getattr(fields[n], "shape", fields[n])) if n in fields else None
+                      for n in (o, tgt))
+            if so is not None and so != st:
                 raise ValueError(
                     f"rotation {o!r} -> {tgt!r} joins fields of different "
-                    f"shapes {tuple(fields[o].shape)} vs {tuple(fields[tgt].shape)}; "
-                    "double-buffer partners must share one staggering"
+                    f"shapes {so} vs {st}; double-buffer partners must share one "
+                    "staggering"
                 )
 
     @property

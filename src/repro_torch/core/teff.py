@@ -14,6 +14,7 @@ without one.
 from __future__ import annotations
 
 import dataclasses
+import math
 import subprocess
 from typing import Callable
 
@@ -38,6 +39,38 @@ def a_eff_blocked(n_points: int, n_read: int, n_write: int, itemsize: int,
     """Ideal per-step traffic under k-step temporal blocking: each counted
     field crosses memory once per k steps."""
     return a_eff(n_points, n_read, n_write, itemsize) / max(int(nsteps), 1)
+
+
+def window_overlap_factor(block, halo, nsteps: int = 1,
+                          march_axis: int | None = None) -> float:
+    """Read amplification of a tiled launch against ideal once-per-sweep
+    streaming: ``prod_a (b_a + k*(lo_a + hi_a)) / b_a`` over the axes whose
+    windows overlap (``halo``: an int, or per-axis (lo, hi) pairs). A launch
+    that marches ``march_axis`` carries that axis's halo planes on chip, so
+    the axis drops out of the product."""
+    k = max(int(nsteps), 1)
+    block = tuple(int(b) for b in block)
+    if isinstance(halo, int):
+        halo = ((halo, halo),) * len(block)
+    f = 1.0
+    for a, (b, (lo, hi)) in enumerate(zip(block, halo)):
+        if march_axis is not None and a == march_axis:
+            continue
+        f *= (b + k * (lo + hi)) / b
+    return f
+
+
+def halo_compute_overhead(block, radius: int, nsteps: int) -> float:
+    """Share of redundant cell updates of a k-step launch against k ideal
+    sweeps over the block: sweep s updates the block widened by
+    ``(k-1-s)*radius`` cells per side (the shrinking halo cone)."""
+    k = max(int(nsteps), 1)
+    block = tuple(int(b) for b in block)
+    ideal = k * math.prod(block)
+    total = sum(
+        math.prod(b + 2 * (k - 1 - s) * radius for b in block) for s in range(k)
+    )
+    return total / ideal - 1.0
 
 
 def a_eff_checked(a_eff_step: float, check_bytes: float, check_every: int = 1,

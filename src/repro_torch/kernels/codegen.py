@@ -354,25 +354,27 @@ def _run(loads: Loads, ops: Ops, view, host, read=None):
 
 
 def evaluate_torch(program: TapProgram, fields: Mapping[str, torch.Tensor],
-                   scalars: Mapping[str, Any]):
+                   scalars: Mapping[str, Any], prev: Mapping[str, torch.Tensor] | None = None):
     """Run the tap program with torch operators on shifted views of
     ``fields``, as the kernel runs it: each output's direct program on its
     write region and faces, then the core program, reading each stage
-    computed once as a whole tensor, on the core cells. Returns ``(outputs,
-    reductions)``; ``reductions`` is None when the program has none."""
+    computed once as a whole tensor, on the core cells. A cell an output
+    does not write keeps its ``prev`` value (by default the output's own).
+    Returns ``(outputs, reductions)``; ``reductions`` is None when the
+    program has none."""
     host = program.host_values(scalars)
     outs = {}
     for op in program.outputs:
-        prev = fields[op.name]
+        prev_op = fields[op.name] if prev is None else prev[op.name]
 
-        def view(field, off, rings=op.rings, shape=prev.shape):
+        def view(field, off, rings=op.rings, shape=prev_op.shape):
             # the output's region, shifted by the tap, in the field's own
             # index space
             return fields[field][tuple(slice(w + d, n - w + d)
                                        for w, d, n in zip(rings, off, shape))]
 
-        out = prev.clone()
-        out[tuple(slice(w, n - w) for w, n in zip(op.rings, prev.shape))] = \
+        out = prev_op.clone()
+        out[tuple(slice(w, n - w) for w, n in zip(op.rings, prev_op.shape))] = \
             _run(op.loads, op.ops, view, host)(op.result)
         outs[op.name] = out if op.bc is None else apply_bc(out, op.bc)
     box = core_box(program, {o: tuple(t.shape) for o, t in outs.items()})
@@ -400,6 +402,23 @@ def evaluate_torch(program: TapProgram, fields: Mapping[str, torch.Tensor],
         ops = [outs[f] if f in outs else fields[f] for f in r.operands]
         reds[name] = r.fold(r.map_element(*ops))
     return outs, reds
+
+
+def evaluate_steps_torch(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
+                         fields: Mapping[str, torch.Tensor], scalars: Mapping[str, Any]):
+    """``nsteps`` sweeps of :func:`evaluate_torch` with the k-step kernel's
+    semantics (the reference's ``build_stencil_call(nsteps=k)``): each
+    sweep's outputs become their rotation targets' values for the next; an
+    intermediate sweep keeps the target's previous value where an output is
+    not written, the last sweep the output's own; the reductions are the
+    last sweep's."""
+    cur = dict(fields)
+    for s in range(int(nsteps) - 1):
+        outs, _ = evaluate_torch(program, cur, scalars,
+                                 prev={o: cur[rotations[o]] for o in rotations})
+        for o, t in rotations.items():
+            cur[t] = outs[o]
+    return evaluate_torch(program, cur, scalars)
 
 
 # ----------------------------------------------------------------- CUDA form
@@ -635,8 +654,6 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
     over the march, then across the block with warp shuffles."""
     if program.ndim > 3:
         raise NotImplementedError("the generated CUDA kernel handles 1-3 dimensions")
-    nd = program.ndim
-    axes3 = _AXES3[nd]
     shape = shape or kernel_shape(program)
     (bz, by), planes = shape.tile, shape.planes
     fidx = {f: k for k, f in enumerate(program.fields)}
@@ -710,21 +727,7 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
         w(f"  const float* __restrict__ g{k} = in{k} + b{fcls[f]};")
     for k, op in enumerate(program.outputs):
         w(f"  float* __restrict__ h{k} = out{k} + b{fcls[op.name]};")
-    # the core: every output written by its update, inside its extent, off
-    # its faces
-    box_lo, box_hi = [{0} for _ in range(3)], [[] for _ in range(3)]
-    for op in program.outputs:
-        co = fcls[op.name]
-        bc_axes = {axes3[a] for a in op.bc.resolved_axes(nd)} if op.bc else set()
-        for a, r in enumerate(to3(op.rings, 0)):
-            d = max(r, op.bc.depth if a in bc_axes else 0)
-            box_lo[a].add(d)
-            box_hi[a].append(f"m{co}{'xyz'[a]}" + (f" - {d}" if d else ""))
-    for a, ax in enumerate("xyz"):
-        hi_e = ""
-        for t in dict.fromkeys(box_hi[a]):
-            hi_e = f"min({hi_e}, {t})" if hi_e else t
-        w(f"  const int c{ax}lo = {max(box_lo[a])}, c{ax}hi = {hi_e};")
+    _emit_core_box(w, program, fcls)
     w("  const bool in_grid = y < ny && z < nz;")
     w("  const bool yz_core = y >= cylo && y < cyhi && z >= czlo && z < czhi;")
     for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
@@ -853,6 +856,25 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
     return "\n".join(lines) + "\n"
 
 
+def _emit_core_box(w, program: TapProgram, fcls) -> None:
+    """``c{x,y,z}lo``/``hi``: the core, where every output is written by its
+    update, inside its extent, off its faces."""
+    axes3 = _AXES3[program.ndim]
+    box_lo, box_hi = [{0} for _ in range(3)], [[] for _ in range(3)]
+    for op in program.outputs:
+        co = fcls[op.name]
+        bc_axes = {axes3[a] for a in op.bc.resolved_axes(program.ndim)} if op.bc else set()
+        for a, r in enumerate(to3(op.rings, 0)):
+            d = max(r, op.bc.depth if a in bc_axes else 0)
+            box_lo[a].add(d)
+            box_hi[a].append(f"m{co}{'xyz'[a]}" + (f" - {d}" if d else ""))
+    for a, ax in enumerate("xyz"):
+        hi_e = ""
+        for t in dict.fromkeys(box_hi[a]):
+            hi_e = f"min({hi_e}, {t})" if hi_e else t
+        w(f"  const int c{ax}lo = {max(box_lo[a])}, c{ax}hi = {hi_e};")
+
+
 def _emit_stage_setup(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int, fcls) -> None:
     """The fixed (y, z) elements each thread stages for stage ``k``, every
     plane: their frame test and their offsets in each shape class, taken
@@ -909,10 +931,15 @@ def _emit_stage(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int, fidx,
     w("    }")
 
 
-def _emit_direct(w, program: TapProgram, fidx, fcls) -> None:
-    """Each output's direct program at a cell (x, y, z) outside the core,
-    indexed from the block's base (``at{class}``; a source cell across the
-    domain in 64 bits)."""
+def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
+                 store=None) -> None:
+    """Each output's direct program at a cell (x, y, z) outside the core.
+    By default (the single-step kernel) its loads are indexed from the
+    block's base (``at{class}``; a source cell across the domain in 64
+    bits), its previous value is the output's own and it is stored to the
+    output. The k-step kernel passes ``access(field, coords, off)`` (the
+    tap ``off`` of a field at the cell ``coords``, three C expressions),
+    ``prev(op, coords)`` and ``store(k, op)``."""
     axes3 = _AXES3[program.ndim]
     ref = _printer("l", "?", "e")
     for k, op in enumerate(program.outputs):
@@ -929,21 +956,35 @@ def _emit_direct(w, program: TapProgram, fidx, fcls) -> None:
             ind += "  "
         w(f"{ind}{{  // output {op.name}" + (f", bc {bc.kind}" if bc else ""))
         body = ind + "  "
+        ctype = "int64_t" if access is None else "int"
         if mapped:
             # the source cell, axis by axis (neumann0: one face depth
             # inward; periodic: across the domain)
             for ax, X in zip("xyz", coords):
-                w(f"{body}int64_t {X} = {ax};")
+                w(f"{body}{ctype} {X} = {ax};")
             for a in bc_axes:
                 X, m, d = coords[a], f"m{co}{'xyz'[a]}", bc.depth
                 shift = f"{d}" if bc.kind == "neumann0" else f"({m} - {2 * d})"
                 w(f"{body}if ({X} < {d}) {X} += {shift}; "
                   f"else if ({X} >= {m} - {d}) {X} -= {shift};")
-            used = sorted({fcls[f] for f, _ in op.loads} | {co})
-            rel = (f"({coords[0]} - x0)", f"({coords[1]} - y0)", f"({coords[2]} - z0)")
-            for c in used:
-                w(f"{body}const int64_t j{k}_{c} = {_index(rel, c)};")
-        base = (lambda c: f"j{k}_{c}") if mapped else (lambda c: f"at{c}")
+            if access is None:
+                used = sorted({fcls[f] for f, _ in op.loads} | {co})
+                rel = (f"({coords[0]} - x0)", f"({coords[1]} - y0)", f"({coords[2]} - z0)")
+                for c in used:
+                    w(f"{body}const int64_t j{k}_{c} = {_index(rel, c)};")
+        if access is None:
+            base = (lambda c: f"j{k}_{c}") if mapped else (lambda c: f"at{c}")
+
+            def tap(f, off, base=base):
+                c = fcls[f]
+                return f"g{fidx[f]}[{_offset(base(c), c, off)}]"
+
+            before = f"g{fidx[op.name]}[{base(co)}]"
+        else:
+            def tap(f, off, coords=coords):
+                return access(f, coords, off)
+
+            before = prev(op, coords)
         conds = [f"{X} >= {r} && {X} < m{co}{ax} - {r}"
                  for X, ax, m, r in zip(coords, "xyz", modes, rings) if m == "inn" and r]
         if bc is not None and bc.kind == "dirichlet":
@@ -956,14 +997,13 @@ def _emit_direct(w, program: TapProgram, fidx, fcls) -> None:
             w(f"{body}if ({' && '.join(conds) if conds else 'true'}) {{")
         inner = body + "  "
         for j, (f, off) in enumerate(op.loads):
-            c = fcls[f]
-            w(f"{inner}const float l{j} = g{fidx[f]}[{_offset(base(c), c, to3(off, 0))}];")
+            w(f"{inner}const float l{j} = {tap(f, to3(off, 0))};")
         _emit_ops(w, inner, op.ops, "e", ref)
         w(f"{inner}v{k} = {ref(op.result)};")
         w(f"{body}}} else {{")
-        w(f"{inner}v{k} = g{fidx[op.name]}[{base(co)}];")
+        w(f"{inner}v{k} = {before};")
         w(f"{body}}}")
         w(f"{ind}}}")
-        w(f"{ind}h{k}[at{co}] = v{k};")
+        w(f"{ind}" + (f"h{k}[at{co}] = v{k};" if store is None else store(k, op)))
         if staggered:
             w("      }")

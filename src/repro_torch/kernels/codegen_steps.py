@@ -1,0 +1,594 @@
+"""Print the k-step generated kernel: ``k`` sweeps of a tap program in one
+launch, the counterpart of ``build_stencil_call(nsteps=k, rotations=...)``
+(``src/repro/kernels/stencil.py:936-990``).
+
+Each sweep runs the whole tap program of :mod:`.codegen` (core, stages,
+the outputs' direct programs for rings, faces and staggered extents, and
+``dirichlet``/``neumann0`` faces), and its outputs become the loads of
+their rotation targets in the next sweep. The semantics are the
+reference's: on an intermediate sweep a cell outside an output's write
+region carries its rotation target's previous value (then the boundary
+condition applies); the last sweep blends with the output's own previous
+values; reductions fold over the last sweep only. The result equals ``k``
+rotated single steps whenever each output and its target agree on the
+write ring, as they do in the solvers.
+
+Layout. A block owns the single-step kernel's tile of (y, z) columns and
+marches a chunk of x planes. The launch is cut into **phases**, in order:
+for each sweep, its stages, then its outputs. A phase computes, at each
+step of the march, ``planes`` planes lying ``lag`` planes ahead of the
+planes the last phase writes, over the tile widened by ``ext`` cells (its
+consumers' reach, so the halo cone shrinks sweep by sweep), and keeps them
+in a rolling queue of ``slots`` planes in shared memory; the last phase
+writes device memory. Sweep 0 loads its fields from device memory, every
+later sweep loads its rotation targets from the previous sweep's queues,
+and fields that do not rotate (``Ci``, ``V``) are read from device memory
+by every sweep. So the rotated fields cross device memory once per launch.
+A ``neumann0`` face evaluates its output at its source cell, as in the
+single-step kernel: the lag and the low side of the halo grow by the face
+depth, so the source's taps lie inside the previous sweep's queue.
+
+Every phase walks its region cell by cell, each thread taking every
+``threads``-th cell. Where the whole region of a step's planes lies in the
+core (or, for a stage, in the intermediate's frame), the cells run one
+program unrolled and without a branch, all of a thread's cells computed
+into registers before any is stored; elsewhere each cell takes the core or
+its outputs' direct programs. A barrier ends each phase but the last, and
+every queue holds one step of planes more than its readers need, so the
+next step never writes a plane still being read.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Mapping
+
+from .codegen import (_AXES3, KernelShape, TapProgram, _combine, _emit_core_box, _emit_direct,
+                      _emit_ops, _offset, _printer, divisor_params, shape_classes, to3)
+
+# Shared memory a block can use on the H100 (232,448 bytes), above 48 KB
+# only as dynamic shared memory after cudaFuncSetAttribute.
+SHARED_LIMIT = 227 * 1024
+
+Box = tuple[tuple[int, int], tuple[int, int], tuple[int, int]]   # (lo, hi) per x, y, z
+
+
+@dataclasses.dataclass(frozen=True)
+class Phase:
+    """One phase of the k-step launch: the stage ``stage`` of sweep
+    ``sweep``, or its outputs (``stage`` None). ``ext`` widens the tile by
+    (y lo, y hi, z lo, z hi) cells; ``lag`` is how far ahead of the
+    written planes it computes; ``slots`` the planes of its queue (0 for
+    the last phase, which writes device memory)."""
+
+    sweep: int
+    stage: int | None
+    ext: tuple[int, int, int, int]
+    lag: int
+    slots: int
+
+    @property
+    def name(self) -> str:
+        return f"s{self.sweep}" + ("o" if self.stage is None else f"t{self.stage}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The phases of a k-step launch and the planes ``lead`` that a chunk
+    computes before the first plane it writes."""
+
+    nsteps: int
+    rotations: tuple[tuple[str, str], ...]     # (output, target), in output order
+    phases: tuple[Phase, ...]
+    lead: int
+    reach: int                                 # planes any phase reads beyond its own
+
+    def region(self, ph: Phase, shape: KernelShape) -> tuple[int, int]:
+        """Rows and columns (y, z) of one plane of the phase."""
+        (bz, by), (ylo, yhi, zlo, zhi) = shape.tile, ph.ext
+        return by + ylo + yhi, bz + zlo + zhi
+
+
+def _box(offsets) -> Box:
+    """Per axis of (x, y, z): how far below and above the cell the
+    offsets reach (0 at least)."""
+    offs = [to3(o, 0) if len(o) < 3 else tuple(o) for o in offsets] or [(0, 0, 0)]
+    return tuple((max(0, -min(o[a] for o in offs)), max(0, max(o[a] for o in offs)))
+                 for a in range(3))
+
+
+def _add(a: Box, b: Box) -> Box:
+    return tuple((x0 + y0, x1 + y1) for (x0, x1), (y0, y1) in zip(a, b))
+
+
+def _max(a: Box, b: Box) -> Box:
+    return tuple((max(x0, y0), max(x1, y1)) for (x0, x1), (y0, y1) in zip(a, b))
+
+
+def plan(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
+         shape: KernelShape) -> Plan:
+    """The phases of a ``nsteps``-sweep launch of ``program`` whose outputs
+    rotate into their ``rotations`` targets, laid out as ``shape``."""
+    k, P = int(nsteps), shape.planes
+    if any(op.bc is not None and op.bc.kind == "periodic" for op in program.outputs):
+        raise ValueError(
+            "periodic boundary conditions cannot run inside a k-step launch (their "
+            "wrap sources lie outside every block's window); run_steps realizes them "
+            "as k single-step launches")
+    targets = set(rotations.values())
+    nd = program.ndim
+    axes3 = _AXES3[nd]
+    # the outputs' reach into the previous sweep: every tap of a target
+    out_taps = [to3(off, 0) for op in program.outputs for f, off in op.loads if f in targets]
+    out_taps += [to3(off, 0) for f, off in program.core.loads if f in targets]
+    reach = _box(out_taps)
+    # a neumann0 face evaluates at its source, `depth` cells inward: the
+    # source's taps reach that much further behind along the march and
+    # below the tile (the source of a high face lies below it; a low
+    # face's source stays inside the tile, which holds two face depths)
+    face = [0, 0, 0]
+    for op in program.outputs:
+        if op.bc is not None and op.bc.kind == "neumann0":
+            for a in op.bc.resolved_axes(nd):
+                face[axes3[a]] = max(face[axes3[a]], op.bc.depth)
+    (bz, by) = shape.tile
+    if 2 * face[1] > by or 2 * face[2] > bz:
+        raise NotImplementedError(
+            f"a neumann0 face of depth {max(face)} needs a tile of at least two face "
+            f"depths, got {shape.tile}")
+    sweep_reach = _add(reach, ((face[0], face[0]), (face[1], 0), (face[2], 0)))
+    stage_read = [_box([s.lo, s.hi]) for s in program.stages]
+    stage_taps = [_box([to3(off, 0) for f, off in s.loads if f in targets])
+                  for s in program.stages]
+    # backward from the last phase: extents, lags and each reader's reach
+    # behind along the march, per producer
+    ext: dict = {}
+    lag: dict = {}
+    readers: dict = {}     # producer -> [(reader, planes behind)]
+    zero = ((0, 0),) * 3
+    ext[(k - 1, None)], lag[(k - 1, None)] = zero, 0
+    for s in range(k - 1, -1, -1):
+        for j, rd in enumerate(stage_read):
+            ext[(s, j)] = _add(ext[(s, None)], rd)
+            lag[(s, j)] = lag[(s, None)] + rd[0][1]
+            readers.setdefault((s, j), []).append(((s, None), rd[0][0]))
+        if s == 0:
+            break
+        e = _add(ext[(s, None)], sweep_reach)
+        a = lag[(s, None)] + sweep_reach[0][1]
+        readers.setdefault((s - 1, None), []).append(((s, None), sweep_reach[0][0]))
+        for j, taps in enumerate(stage_taps):
+            e = _max(e, _add(ext[(s, j)], taps))
+            a = max(a, lag[(s, j)] + taps[0][1])
+            readers[(s - 1, None)].append(((s, j), taps[0][0]))
+        ext[(s - 1, None)], lag[(s - 1, None)] = e, a
+    order = [(s, j) for s in range(k) for j in [*range(len(program.stages)), None]]
+    # the first plane (relative to the chunk's first) each phase must
+    # compute, and the planes its queue must hold
+    need = {(k - 1, None): 0}
+    for key in reversed(order[:-1]):
+        need[key] = min(need[r] - b for r, b in readers[key])
+    lead = max(lag[key] - need[key] for key in order)
+    phases = []
+    for key in order:
+        slots = 0 if key == order[-1] else \
+            max(lag[key] - lag[r] + b for r, b in readers[key]) + 2 * P
+        (_, (ylo, yhi), (zlo, zhi)) = ext[key]
+        phases.append(Phase(key[0], key[1], (ylo, yhi, zlo, zhi), lag[key], slots))
+    # planes a chunk reads beyond its own: the lead and what the phases
+    # read behind it, the lags and what they read ahead
+    far = lead + max(lag.values()) + P + 2 * max(sum(r[0]) for r in [sweep_reach, *stage_taps])
+    return Plan(k, tuple((op.name, rotations[op.name]) for op in program.outputs),
+                tuple(phases), lead, far)
+
+
+def shared_bytes(program: TapProgram, pl: Plan, shape: KernelShape) -> int:
+    """Dynamic shared memory of one block (the phases' queues) and the
+    reduction fold's static words."""
+    cells = 0
+    for ph in pl.phases:
+        per = len(program.outputs) if ph.stage is None else 1
+        cells += per * ph.slots * math.prod(pl.region(ph, shape))
+    return 4 * (cells + len(program.reductions) * (shape.threads // 32))
+
+
+def steps_shape(program: TapProgram, rotations: Mapping[str, str], nsteps: int) -> KernelShape:
+    """The layout of a program's k-step kernel: the fastest without register
+    spills over the candidates of ``launch/tune_stencil.py --steps`` on the
+    H100 (PERF.md). Two planes per step; a 32 x 16 tile for a 3-D
+    program without stages (FIG1's step), 32 x 8 with stages (GP's fused
+    update, whose cone of staged planes grows fastest), one row of 256
+    cells in 2-D; as many resident blocks as the queues leave shared memory
+    for, at most four (``__launch_bounds__`` then caps a thread at 64
+    registers, 32 for the 512 threads of a 32 x 16 tile). One plane per
+    step where two would not fit a block's shared memory (GP with neumann0
+    faces at k = 4)."""
+    tile = ((32, 8) if program.stages else (32, 16)) if program.ndim == 3 else (256, 1)
+    for planes in (2, 1):
+        trial = KernelShape(tile, planes, 4)
+        smem = shared_bytes(program, plan(program, rotations, nsteps, trial), trial)
+        if smem <= SHARED_LIMIT:
+            break
+    return KernelShape(tile, planes, max(1, min(4, SHARED_LIMIT // max(smem, 1))))
+
+
+def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
+                shape: KernelShape | None = None) -> str:
+    """CUDA C++ source of the ``nsteps``-sweep launch: one ``__global__``
+    function and the plain C entry point ``launch``, with the arguments of
+    the single-step kernel's (``codegen.cuda_source``)."""
+    if program.ndim > 3:
+        raise NotImplementedError("the generated CUDA kernel handles 1-3 dimensions")
+    shape = shape or steps_shape(program, rotations, nsteps)
+    pl = plan(program, rotations, nsteps, shape)
+    smem = shared_bytes(program, pl, shape)
+    if smem > SHARED_LIMIT:
+        raise NotImplementedError(
+            f"{nsteps} sweeps of this update need {smem} bytes of shared memory per "
+            f"block, above the {SHARED_LIMIT} a block can have on the H100; take fewer "
+            "steps per launch")
+    (bz, by) = shape.tile
+    fidx = {f: i for i, f in enumerate(program.fields)}
+    classes = shape_classes(program)
+    fcls = {f: classes.index(to3(o, 0)) for f, o in zip(program.fields, program.offsets)}
+    n_out, n_red, n_par = len(program.outputs), len(program.reductions), len(program.params)
+    rot = dict(pl.rotations)
+    src_of = {t: o for o, t in pl.rotations}      # target -> the output rotating into it
+    oidx = {op.name: i for i, op in enumerate(program.outputs)}
+    dims = ("nx", "ny", "nz")
+    strides = [f"s{c}{ax}" for c in range(len(classes)) for ax in ("x", "y")]
+    lines = []
+    w = lines.append
+    w("// Generated by repro_torch.kernels.codegen_steps from a traced @parallel update.")
+    w(f"// {nsteps} sweeps in one launch: replaces the generic Pallas launch")
+    w("// src/repro/kernels/stencil.py::build_stencil_call(nsteps=k, rotations=...).")
+    w("// Phases (sweep, stage or outputs): each computes its planes ahead of the")
+    w("// written ones over the tile and its halo into a plane queue in shared")
+    w("// memory; later sweeps load their rotation targets from those queues.")
+    for ph in pl.phases:
+        py, pz = pl.region(ph, shape)
+        what = "outputs" if ph.stage is None else f"stage {ph.stage}"
+        w(f"//   {ph.name}: sweep {ph.sweep} {what}, {py} x {pz} cells per plane, "
+          f"lag {ph.lag}, {ph.slots} slots")
+    w(f"// lead {pl.lead} planes; {smem} bytes of shared memory per block")
+    w("#include <cstdint>")
+    w("#include <cuda_runtime.h>")
+    w("")
+    w("namespace {")
+    w(f"constexpr int kBlockZ = {bz};")
+    w(f"constexpr int kBlockY = {by};")
+    w("constexpr int kThreads = kBlockZ * kBlockY;")
+    w("constexpr int kWarps = kThreads / 32;")
+    w(f"constexpr int kPlanes = {shape.planes};  // planes per step")
+    w(f"constexpr int kLead = {pl.lead};")
+    w(f"constexpr int kShared = {smem - 4 * n_red * (shape.threads // 32)};  // dynamic bytes")
+    w("")
+    w("__device__ __forceinline__ int slot(int x, int q) {")
+    w("  const int r = x % q;")
+    w("  return r < 0 ? r + q : r;")
+    w("}")
+    w("")
+    w("// max that propagates NaN, as torch.amax does")
+    w("__device__ __forceinline__ float max_nan(float a, float b) {")
+    w("  return (b != b || b > a) ? b : a;")
+    w("}")
+    w("")
+    params = [f"const float* __restrict__ in{i}" for i in range(len(program.fields))]
+    params += [f"float* __restrict__ out{i}" for i in range(n_out)]
+    params += [f"float* __restrict__ part{i}" for i in range(n_red)]
+    divs = divisor_params(program)
+    params += [f"const float p{i}" for i in range(n_par)]
+    params += [f"const float r{i}" for i in divs]
+    params += [f"const int64_t {n}" for n in (*dims, *strides, "xc")]
+    w(f"__global__ void __launch_bounds__(kThreads, {shape.min_blocks}) stencil_kernel(")
+    w("    " + ",\n    ".join(params) + ") {")
+    w("  extern __shared__ float smem[];")
+    w("  const int tz = threadIdx.x, ty = threadIdx.y;")
+    w("  const int tid = ty * kBlockZ + tz;")
+    w("  const int z0 = blockIdx.x * kBlockZ, y0 = blockIdx.y * kBlockY;")
+    w("  const int x0 = blockIdx.z * static_cast<int>(xc);")
+    w("  const int x1 = min(x0 + static_cast<int>(xc), static_cast<int>(nx));")
+    w("  const int NX = static_cast<int>(nx), NY = static_cast<int>(ny), "
+      "NZ = static_cast<int>(nz);")
+    for c, off in enumerate(classes):
+        if any(off):
+            w(f"  // shape class {c}: base extents less {off}")
+        for ax, n, d in zip("xyz", dims, off):
+            w(f"  const int m{c}{ax} = static_cast<int>({n})" + (f" - {d};" if d else ";"))
+        w(f"  const int S{c}x = static_cast<int>(s{c}x), S{c}y = static_cast<int>(s{c}y);")
+        w(f"  const int64_t b{c} = x0 * s{c}x + y0 * s{c}y + z0;")
+    for f, i in fidx.items():
+        w(f"  const float* __restrict__ g{i} = in{i} + b{fcls[f]};")
+    for i, op in enumerate(program.outputs):
+        w(f"  float* __restrict__ h{i} = out{i} + b{fcls[op.name]};")
+    _emit_core_box(w, program, fcls)
+    # the queues
+    offset = 0
+    qname = {}
+    for ph in pl.phases[:-1]:
+        py, pz = pl.region(ph, shape)
+        for q in ([op.name for op in program.outputs] if ph.stage is None else [None]):
+            name = f"q{ph.name}" + ("" if q is None else f"_{oidx[q]}")
+            qname[(ph.name, q)] = name
+            w(f"  float* const {name} = smem + {offset};  // {ph.slots} x {py} x {pz}")
+            offset += ph.slots * py * pz
+    for r in range(n_red):
+        w(f"  float acc{r} = 0.0f;")
+    by_key = {(ph.sweep, ph.stage): ph for ph in pl.phases}
+
+    def queue_at(ph, q, X, Y, Z, off):
+        """The element of phase ``ph``'s queue ``q`` at the cell (X, Y, Z)
+        moved by ``off``."""
+        py, pz = pl.region(ph, shape)
+        ylo, zlo = ph.ext[0], ph.ext[2]
+        dx, dy, dz = off
+        xs_ = f"{X} + {dx}" if dx else X
+        row = f"({Y} - y0 + {ylo + dy})" if ylo + dy else f"({Y} - y0)"
+        col = f"{Z} - z0 + {zlo + dz}" if zlo + dz else f"{Z} - z0"
+        return (f"{qname[(ph.name, q)]}[slot({xs_}, {ph.slots}) * {py * pz} + "
+                f"{row} * {pz} + {col}]")
+
+    def global_at(f, X, Y, Z, off):
+        c = fcls[f]
+        if (X, Y, Z) == ("x", "y", "z"):
+            return f"g{fidx[f]}[{_offset(f'at{c}', c, off, 'S')}]"
+        dx, dy, dz = off
+        return (f"g{fidx[f]}[({X} - x0 + {dx}) * S{c}x + ({Y} - y0 + {dy}) * S{c}y + "
+                f"({Z} - z0 + {dz})]")
+
+    def access_for(sweep):
+        def access(f, coords, off):
+            if sweep > 0 and f in src_of:
+                return queue_at(by_key[(sweep - 1, None)], src_of[f], *coords, off)
+            return global_at(f, *coords, off)
+        return access
+
+    last = pl.phases[-1]
+    nt = shape.threads
+    w("  #pragma unroll 1")
+    w(f"  for (int xs = x0 - kLead; xs < x1; xs += kPlanes) {{")
+    for ph in pl.phases:
+        py, pz = pl.region(ph, shape)
+        n = py * pz
+        is_last = ph is last
+        access = access_for(ph.sweep)
+        ylo, yhi, zlo, zhi = ph.ext
+        if ph.stage is None:
+            body = _out_body(program, ph, is_last, access, fidx, fcls, classes, qname, oidx,
+                             by_key, queue_at, global_at, rot)
+            fast = [f"xa >= cxlo", "xa + kPlanes <= cxhi", f"y0 - {ylo} >= cylo",
+                    f"y0 + {by + yhi} <= cyhi", f"z0 - {zlo} >= czlo", f"z0 + {bz + zhi} <= czhi"]
+            if is_last:
+                fast += ["xa >= x0", "xa + kPlanes <= x1"]
+        else:
+            body = None
+            tx, ty_, tz_ = to3(program.stages[ph.stage].trim, 0)
+            fast = ["xa >= 0", f"xa + kPlanes <= NX - {tx}", f"y0 - {ylo} >= 0",
+                    f"y0 + {by + yhi} <= NY - {ty_}", f"z0 - {zlo} >= 0",
+                    f"z0 + {bz + zhi} <= NZ - {tz_}"]
+        w(f"    {{  // {ph.name}")
+        w(f"      const int xa = xs + {ph.lag};" if ph.lag else "      const int xa = xs;")
+        # the fast path: every cell of the step's planes lies in the core (or
+        # the intermediate's frame), so the cells run one program, unrolled
+        # and without a branch, into registers first and stored after, so
+        # that no store stands between one cell's loads and the next's
+        ni = -(-n // nt)
+        names = [f"rv{i}" for i in range(n_out)] if ph.stage is None else ["rt"]
+        w(f"      if ({' && '.join(fast)}) {{")
+        for r in names:
+            w(f"        float {r}[kPlanes * {ni}];")
+        for part in ("compute", "store"):
+            w("        #pragma unroll")
+            w("        for (int p = 0; p < kPlanes; ++p) {")
+            w("          const int x = xa + p;")
+            if part == "store" and not is_last:
+                w(f"          const int sl = slot(x, {ph.slots}) * {n};")
+            w("          #pragma unroll")
+            w(f"          for (int ie = 0; ie < {ni}; ++ie) {{")
+            w("            const int e = tid + ie * kThreads;")
+            w(f"            if (ie < {n // nt} || e < {n}) {{" if n % nt else "            {")
+            ind = "              "
+            if part == "compute":
+                _emit_cell_coords(w, ind, ph, py, pz)
+                if ph.stage is not None:
+                    _emit_stage_cell(w, ind, program, ph, qname, access, fcls, frame=False,
+                                     into=f"rt[p * {ni} + ie]")
+                else:
+                    body(w, ind, fast=True, into=f"[p * {ni} + ie]")
+            elif ph.stage is not None:
+                w(f"{ind}{qname[(ph.name, None)]}[sl + e] = rt[p * {ni} + ie];")
+            elif not is_last:
+                for i, op in enumerate(program.outputs):
+                    w(f"{ind}{qname[(ph.name, op.name)]}[sl + e] = rv{i}[p * {ni} + ie];")
+            else:
+                _emit_cell_coords(w, ind, ph, py, pz)
+                for i, op in enumerate(program.outputs):
+                    c = fcls[op.name]
+                    w(f"{ind}h{i}[(x - x0) * S{c}x + (y - y0) * S{c}y + (z - z0)] = "
+                      f"rv{i}[p * {ni} + ie];")
+            w("            }")
+            w("          }")
+            w("        }")
+        w("      } else {")
+        w("        #pragma unroll 1")
+        w("        for (int p = 0; p < kPlanes; ++p) {")
+        w("          const int x = xa + p;")
+        if is_last:
+            w("          if (x < x0 || x >= x1) continue;")
+        else:
+            w(f"          const int sl = slot(x, {ph.slots}) * {n};")
+        w("          #pragma unroll 1")
+        w(f"          for (int e = tid; e < {n}; e += kThreads) {{")
+        _emit_cell_coords(w, ind, ph, py, pz)
+        if ph.stage is not None:
+            _emit_stage_cell(w, ind, program, ph, qname, access, fcls, frame=True)
+        else:
+            w(f"{ind}if (x < 0 || x >= NX || y < 0 || y >= NY || z < 0 || z >= NZ) continue;")
+            body(w, ind, fast=False)
+        w("          }")
+        w("        }")
+        w("      }")
+        w("    }")
+        if not is_last:
+            w("    __syncthreads();")
+    w("  }")
+    if n_red:
+        w("  // Fold each reduction over the block: within each warp by shuffles,")
+        w("  // then over the warps' values, into the block's own slot of its")
+        w("  // partials. No float atomics, so the value is the same on every run.")
+        w(f"  __shared__ float red[kWarps * {n_red}];")
+        w("  const int lane = tid & 31, warp = tid >> 5;")
+        w("  const int64_t bid = (static_cast<int64_t>(blockIdx.z) * gridDim.y + "
+          "blockIdx.y) * gridDim.x + blockIdx.x;")
+        for r, (_, red) in enumerate(program.reductions):
+            shfl = f"__shfl_xor_sync(0xffffffffu, acc{r}, o)"
+            w(f"  for (int o = 16; o > 0; o >>= 1) acc{r} = {_combine(red.combine, f'acc{r}', shfl)};")
+            w(f"  if (lane == 0) red[{r} * kWarps + warp] = acc{r};")
+        w("  __syncthreads();")
+        w("  if (warp == 0) {")
+        for r, (_, red) in enumerate(program.reductions):
+            shfl = f"__shfl_xor_sync(0xffffffffu, a{r}, o)"
+            w(f"    float a{r} = lane < kWarps ? red[{r} * kWarps + lane] : 0.0f;")
+            w(f"    for (int o = 16; o > 0; o >>= 1) a{r} = {_combine(red.combine, f'a{r}', shfl)};")
+            w(f"    if (lane == 0) part{r}[bid] = a{r};")
+        w("  }")
+    w("}")
+    w("")
+    w("}  // namespace")
+    w("")
+    cargs = [f"const void* in{i}" for i in range(len(program.fields))]
+    cargs += [f"void* out{i}" for i in range(n_out)]
+    cargs += [f"void* part{i}" for i in range(n_red)]
+    cargs += [f"float p{i}" for i in range(n_par)] + [f"float r{i}" for i in divs]
+    cargs += [f"int64_t {n}" for n in (*dims, *strides, "xc", "gz", "gy", "gx")]
+    cargs += ["void* stream"]
+    w('extern "C" int launch(' + ", ".join(cargs) + ") {")
+    w("  const dim3 grid(static_cast<unsigned>(gz), static_cast<unsigned>(gy), "
+      "static_cast<unsigned>(gx));")
+    w("  const dim3 block(kBlockZ, kBlockY, 1);")
+    w("  const cudaError_t set = cudaFuncSetAttribute(")
+    w("      stencil_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);")
+    w("  if (set != cudaSuccess) return static_cast<int>(set);")
+    kargs = [f"static_cast<const float*>(in{i})" for i in range(len(program.fields))]
+    kargs += [f"static_cast<float*>(out{i})" for i in range(n_out)]
+    kargs += [f"static_cast<float*>(part{i})" for i in range(n_red)]
+    kargs += [f"p{i}" for i in range(n_par)] + [f"r{i}" for i in divs]
+    kargs += [*dims, *strides, "xc"]
+    w("  stencil_kernel<<<grid, block, kShared, static_cast<cudaStream_t>(stream)>>>(")
+    w("      " + ", ".join(kargs) + ");")
+    w("  return static_cast<int>(cudaGetLastError());")
+    w("}")
+    w("")
+    w('extern "C" const char* error_string(int err) {')
+    w("  return cudaGetErrorString(static_cast<cudaError_t>(err));")
+    w("}")
+    return "\n".join(lines) + "\n"
+
+
+def _emit_cell_coords(w, ind: str, ph: Phase, py: int, pz: int) -> None:
+    """The cell (x, y, z) of element ``e`` of the phase's region."""
+    if py == 1:
+        w(f"{ind}const int ly = 0, lz = e;")
+    else:
+        w(f"{ind}const int ly = e / {pz}, lz = e - ly * {pz};")
+    w(f"{ind}const int y = y0 - {ph.ext[0]} + ly, z = z0 - {ph.ext[2]} + lz;")
+
+
+def _out_body(program: TapProgram, ph: Phase, is_last: bool, access, fidx, fcls, classes,
+              qname, oidx, by_key, queue_at, global_at, rot):
+    """The printer of an outputs phase at one cell: ``body(w, ind, fast)``
+    prints the core program (``fast``: the cell is known to lie in the
+    core) or the core/direct split."""
+    if is_last:
+        def store(i, op):
+            return f"h{i}[at{fcls[op.name]}] = v{i};"
+
+        def prev(op, coords):
+            return global_at(op.name, *coords, (0, 0, 0))
+    else:
+        def store(i, op):
+            return f"{qname[(ph.name, op.name)]}[sl + e] = v{i};"
+
+        def prev(op, coords):
+            return access(rot[op.name], coords, (0, 0, 0))
+    reds = []
+    if is_last:
+        for r, (_, red) in enumerate(program.reductions):
+            vals = [f"v{oidx[f]}" if f in oidx else access(f, ("x", "y", "z"), (0, 0, 0))
+                    for f in red.operands]
+            if red.kind == "max_abs":
+                m = f"fabsf({vals[0]})"
+            elif red.kind == "max_abs_diff":
+                m = f"fabsf({vals[0]} - {vals[1]})"
+            elif red.kind == "sum":
+                m = vals[0]
+            elif red.kind == "sum_sq":
+                m = f"{vals[0]} * {vals[0]}"
+            else:
+                raise NotImplementedError(
+                    f"reduction kind {red.kind!r} is not ported to the CUDA kernel")
+            reds.append(f"acc{r} = {_combine(red.combine, f'acc{r}', f'({m})')};")
+
+    def core(w, ind, into=None):
+        c = program.core
+        for j, (f, off) in enumerate(c.loads):
+            w(f"{ind}const float l{j} = {access(f, ('x', 'y', 'z'), to3(off, 0))};")
+        for j, (si, rel) in enumerate(c.reads):
+            sph = by_key[(ph.sweep, si)]
+            w(f"{ind}const float u{j} = {queue_at(sph, None, 'x', 'y', 'z', to3(rel, 0))};")
+        ref = _printer("l", "u", "e")
+        _emit_ops(w, ind, c.ops, "e", ref)
+        for i, (op, res) in enumerate(zip(program.outputs, c.results)):
+            w(f"{ind}const float v{i} = {ref(res)};")
+            w(f"{ind}" + (store(i, op) if into is None else f"rv{i}{into} = v{i};"))
+        for line in reds:
+            w(f"{ind}{line}")
+
+    def body(w, ind, fast, into=None):
+        """``fast``: the cell lies in the core, and its outputs go to the
+        registers ``rv{output}{into}`` instead of their stores."""
+        for c in range(len(classes)):
+            w(f"{ind}const int at{c} = (x - x0) * S{c}x + (y - y0) * S{c}y + (z - z0);")
+        if fast:
+            core(w, ind, into)
+            return
+        w(f"{ind}if (x >= cxlo && x < cxhi && y >= cylo && y < cyhi && z >= czlo && "
+          "z < czhi) {")
+        core(w, ind + "  ")
+        w(f"{ind}}} else {{")
+        for i in range(len(program.outputs)):
+            w(f"{ind}  float v{i};")
+        _emit_direct(w, program, fidx, fcls, access=access, prev=prev, store=store)
+        for line in reds:
+            w(f"{ind}  {line}")
+        w(f"{ind}}}")
+    return body
+
+
+def _emit_stage_cell(w, ind: str, program: TapProgram, ph: Phase, qname, access,
+                     fcls, frame: bool, into: str | None = None) -> None:
+    """Stage ``ph.stage`` of sweep ``ph.sweep`` at one element: its program
+    inside the intermediate's frame, 0 outside (no written cell reads it);
+    without ``frame`` the element is known to lie inside, and its value
+    goes to the register ``into``."""
+    s = program.stages[ph.stage]
+    tx, ty_, tz_ = to3(s.trim, 0)
+    cind = ind
+    if frame:
+        w(f"{ind}float v = 0.0f;")
+        w(f"{ind}if (x >= 0 && x < NX - {tx} && y >= 0 && y < NY - {ty_} && z >= 0 && "
+          f"z < NZ - {tz_}) {{")
+        cind = ind + "  "
+    for c in sorted({fcls[f] for f, _ in s.loads}):
+        w(f"{cind}const int at{c} = (x - x0) * S{c}x + (y - y0) * S{c}y + (z - z0);")
+    for j, (f, off) in enumerate(s.loads):
+        w(f"{cind}const float a{j} = {access(f, ('x', 'y', 'z'), to3(off, 0))};")
+    ref = _printer("a", "?", "t")
+    _emit_ops(w, cind, s.ops, "t", ref)
+    if frame:
+        w(f"{cind}v = {ref(s.result)};")
+        w(f"{ind}}}")
+        w(f"{ind}{qname[(ph.name, None)]}[sl + e] = v;")
+    else:
+        w(f"{ind}{into} = {ref(s.result)};")
+

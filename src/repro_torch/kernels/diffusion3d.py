@@ -1,12 +1,14 @@
 """The explicit Fig. 1 diffusion step as a hand-written CUDA kernel.
 
 Counterpart of the Pallas TPU kernel
-``src/repro/kernels/diffusion3d.py::diffusion3d_step``. The kernel is
-``csrc/diffusion3d.cu`` (its header says what bounds it on the H100 and how
-its design answers that); :func:`diffusion3d_step` checks the arguments,
-builds the kernel at first use and launches it on PyTorch's current stream.
-Its plain version is :func:`repro_torch.kernels.ref.diffusion3d_step`, used
-only for tensors that lie on the CPU.
+``src/repro/kernels/diffusion3d.py::diffusion3d_step``, with its ``nsteps``
+(k steps in one launch) and ``alias`` (the result in T2's buffer). The
+kernel is ``csrc/diffusion3d.cu`` (its header says what bounds it on the
+H100 and how its design answers that); :func:`diffusion3d_step` checks the
+arguments, builds the kernel at first use and launches it on PyTorch's
+current stream. Its plain version is
+:func:`repro_torch.kernels.ref.diffusion3d_steps`, used only for tensors
+that lie on the CPU.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from . import build, ref
 from .codegen import KernelShape
-from .stencil import Launch, check_cuda_fields, derive_launch, stream_of
+from .stencil import STEPS_WAVES, Launch, check_cuda_fields, derive_launch, stream_of
 
 SOURCE = build.CSRC_DIR / "diffusion3d.cu"
 
@@ -25,14 +27,36 @@ SOURCE = build.CSRC_DIR / "diffusion3d.cu"
 # launches, and nowhere else.
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_float] * 5 + [ctypes.c_int64] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_float] * 5 + [ctypes.c_int64] * 8
              + [ctypes.c_void_p])
+_BLOCK = (32, 8)            # threads along (z, y) of the single step, as in the source
+_STEPS_SHAPE = (32, 16), 2  # the k-step kernel's tile and planes per step
+_SLOTS = 4                  # planes per queue of the k-step kernel
+MAX_STEPS = 4               # the largest nsteps the kernel takes (kMaxSteps)
 
 
-def column_launch(shape: tuple[int, int, int], n_sm: int) -> Launch:
-    """Blocks of 32 (z) x 8 (y) threads, each thread marching ``xc`` planes
-    along x, in about 4 waves of the SMs' 8 resident blocks."""
-    return derive_launch(shape, n_sm, KernelShape((32, 8), 1, 8), waves=4)
+def shared_bytes(nsteps: int) -> int:
+    """Shared memory of one block of the k-step kernel: queue q < k over the
+    tile and ``k - q`` cells of halo per side (0 for one step)."""
+    if nsteps == 1:
+        return 0
+    (bz, by), _ = _STEPS_SHAPE
+    return 4 * _SLOTS * sum((by + 2 * (nsteps - q)) * (bz + 2 * (nsteps - q))
+                            for q in range(nsteps))
+
+
+def column_launch(shape: tuple[int, int, int], n_sm: int, nsteps: int = 1) -> Launch:
+    """One step: blocks of 32 (z) x 8 (y) threads, each thread marching ``xc``
+    planes along x, in about 4 waves of the SMs' 8 resident blocks. k steps:
+    blocks of 32 x 16 threads marching two planes per step, in about
+    ``stencil.STEPS_WAVES`` waves of the blocks the queues let reside, each
+    chunk first computing ``2 k`` planes ahead of its own."""
+    if nsteps == 1:
+        return derive_launch(shape, n_sm, KernelShape(_BLOCK, 1, 8), waves=4)
+    tile, planes = _STEPS_SHAPE
+    resident = max(1, min(2, 232448 // shared_bytes(nsteps)))
+    return derive_launch(shape, n_sm, KernelShape(tile, planes, resident), lag=2 * nsteps,
+                         waves=STEPS_WAVES)
 
 
 @functools.cache
@@ -40,33 +64,54 @@ def library() -> build.Library:
     return build.Library("diffusion3d", build.read_source(SOURCE), _ARGTYPES)
 
 
-def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1):
-    """One explicit Euler step of the Fig. 1 heat equation; returns a new
-    tensor (the update on the interior, T2's values on the boundary ring).
+def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
-    CUDA tensors run the kernel; CPU tensors run the plain version. The
+
+def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1,
+                     alias: bool | None = None):
+    """``nsteps`` explicit Euler steps of the Fig. 1 heat equation in one
+    launch: the update on the interior, T2's values on the boundary ring
+    (intermediate steps keep T's ring, as the reference does; the result
+    equals ``nsteps`` rotated single steps when T2 and T agree there).
+
+    ``alias=True`` writes the result into T2's buffer and returns it (the
+    reference donates T2's buffer); T2 must not share storage with T or Ci.
+    By default (``None``) the result aliases T2 on the card and is a new
+    tensor on the CPU, as the reference aliases on its accelerator only.
+
+    CUDA tensors run the kernel (``nsteps`` at most ``MAX_STEPS``); CPU
+    tensors run the plain version. The
     scalars are squared here in Python double, as the plain version squares
     them, and reach the kernel as f32."""
     global launches
-    if int(nsteps) != 1:
-        raise NotImplementedError(
-            "nsteps > 1 is not ported yet (ROADMAP queue 1, item 3: run_steps(k) "
-            "for both kernels)"
-        )
+    nsteps = int(nsteps)
+    if nsteps < 1:
+        raise ValueError(f"nsteps must be >= 1, got {nsteps}")
     fields = {"T2": T2, "T": T, "Ci": Ci}
-    if all(t.device.type == "cpu" for t in fields.values()):
-        return ref.diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz)
+    on_cpu = all(t.device.type == "cpu" for t in fields.values())
+    alias = (not on_cpu) if alias is None else bool(alias)
+    if alias and (_shares_storage(T2, T) or _shares_storage(T2, Ci)):
+        raise ValueError("alias=True writes into T2's buffer, which must not share "
+                         "storage with T or Ci")
+    if on_cpu:
+        out = ref.diffusion3d_steps(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps)
+        return T2.copy_(out) if alias else out
     if T.dim() != 3 or min(T.shape) < 3:
         raise ValueError(f"T must be 3-D with every extent >= 3, got {tuple(T.shape)}")
     dev = check_cuda_fields(fields, T.shape)
+    if nsteps > MAX_STEPS:
+        raise NotImplementedError(
+            f"nsteps={nsteps}: the kernel takes at most {MAX_STEPS} steps per launch, "
+            "the steps the card checks")
     launch = column_launch(tuple(T.shape), torch.cuda.get_device_properties(dev)
-                           .multi_processor_count)
-    out = torch.empty_like(T)
+                           .multi_processor_count, nsteps)
+    out = T2 if alias else torch.empty_like(T)
     lib = library()
     with torch.cuda.device(dev):
         lib.launch(out.data_ptr(), T2.data_ptr(), T.data_ptr(), Ci.data_ptr(),
                    float(lam), float(dt), float(inv_dx ** 2), float(inv_dy ** 2),
-                   float(inv_dz ** 2), *T.shape, launch.xc, *launch.grid,
+                   float(inv_dz ** 2), *T.shape, launch.xc, nsteps, *launch.grid,
                    stream_of(dev))
     launches += 1
     return out

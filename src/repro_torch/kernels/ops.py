@@ -26,9 +26,12 @@ def _check_impl(impl: str) -> None:
 # 3-D diffusion step (paper Fig. 1)
 # =====================================================================
 def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, impl: str = "cuda"):
+    """One step into a new tensor under either implementation (the kernel's
+    in-place form is ``diffusion3d.diffusion3d_step(alias=True)``)."""
     _check_impl(impl)
     if impl == "cuda":
-        return _diff_kernel.diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz)
+        return _diff_kernel.diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz,
+                                             alias=False)
     return _ref.diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz)
 
 

@@ -35,6 +35,15 @@ def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz):
     return out
 
 
+def diffusion3d_steps(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1):
+    """``nsteps`` rotated steps of :func:`diffusion3d_step` with the reference's
+    k-step ring rule: an intermediate step keeps T's value on the boundary
+    ring, the last takes T2's (the reference's ``nsteps=k`` kernel)."""
+    for _ in range(int(nsteps) - 1):
+        T = diffusion3d_step(T, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz)
+    return diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz)
+
+
 # -- generic 2nd-order laplacian step ----------------------------------------
 def laplacian_step(U, coeff, dt, inv_spacing):
     nd = U.ndim

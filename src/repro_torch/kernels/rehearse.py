@@ -34,7 +34,7 @@ from typing import Any, Mapping
 
 import torch
 
-from . import build, codegen, stencil
+from . import build, codegen, codegen_steps, stencil
 
 _SHIM = r'''
 #include <cstdint>
@@ -55,10 +55,12 @@ struct dim3 {
 static U3 threadIdx, blockIdx;
 static dim3 gridDim, blockDim;
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+typedef void* cudaStream_t;
 using std::min;
 using std::max;
 // Each CUDA thread of a block is a fiber on one OS thread; a barrier
@@ -77,6 +79,9 @@ static std::vector<Fiber>* g_fibers;
 static int g_cur;
 static std::function<void()>* g_body;
 static Barrier g_block;
+// Called before each block: fills a k-step kernel's dynamic shared memory
+// with NaN, as a card may leave it holding anything.
+static void (*g_block_start)() = nullptr;
 static Barrier g_warp[64];
 static float g_lanes[2048];
 static void arrive(Barrier& b) {
@@ -114,6 +119,7 @@ static void run_grid(dim3 grid, dim3 block, std::function<void()> body) {
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
         blockIdx = {bx, by, bz};
+        if (g_block_start) g_block_start();
         g_block = Barrier{n};
         for (int w = 0; w < n / 32; ++w) g_warp[w] = Barrier{32};
         for (int t = 0; t < n; ++t) {
@@ -147,7 +153,34 @@ static void run_grid(dim3 grid, dim3 block, std::function<void()> body) {
       }
 }
 '''
-_LAUNCH = "stencil_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>("
+_LAUNCH = re.compile(r"(stencil_kernel|diffusion3d_steps_kernel<K>|kernel)"
+                     r"<<<grid, block, [A-Za-z0-9]+, "
+                     r"(?:st|static_cast<cudaStream_t>\(stream\))>>>\(")
+_LAUNCHED = re.compile(r"(run_grid\(grid, block, \[&\] \{ [A-Za-z0-9_<>]+\(\n[^;]*\));")
+_SET_SHARED = re.compile(r"  const cudaError_t set = cudaFuncSetAttribute\([^;]*;\n"
+                         r"  if \(set != cudaSuccess\) [^\n]*\n")
+
+
+def _host_text(text: str, shared_floats: int = 0) -> str:
+    """CUDA source as C++ for the host behind :data:`_SHIM`: each launch a
+    loop over the grid's blocks and threads; dynamic shared memory (of
+    ``shared_floats``) a static array filled with NaN before each block, as
+    a card may leave it holding anything."""
+    if "extern __shared__ float smem[];" in text:
+        shared_floats = max(shared_floats, 1)     # a launch may need none
+        text = text.replace("extern __shared__ float smem[];", "float* const smem = g_smem;")
+        text = text.replace("namespace {\n", "namespace {\n"
+                            f"float g_smem[{shared_floats}];\n"
+                            "void nan_smem() { std::fill(g_smem, g_smem + "
+                            f"{shared_floats}, NAN); }}\n"
+                            "const int g_smem_hook = (g_block_start = nan_smem, 0);\n", 1)
+    text = text.replace("#include <cuda_runtime.h>\n", "")
+    text = _SET_SHARED.sub("", text)
+    text = _LAUNCH.sub(r"run_grid(grid, block, [&] { \1(", text)
+    text = _LAUNCHED.sub(r"\1; });", text)
+    text = text.replace("return static_cast<int>(cudaGetLastError());", "return 0;")
+    text = text.replace("static_cast<int>(cudaErrorInvalidValue)", "1")
+    return _SHIM + text[:text.index('extern "C" const char* error_string')]
 
 
 def _cpu_division(kind, args, raw):
@@ -162,18 +195,17 @@ _c_expr = codegen._c_expr
 
 def source(call: stencil.StencilCall) -> str:
     """The call's kernel as C++ for the host: CUDA's names defined, the
-    launch a loop over blocks and threads, scalar divisions true."""
+    launch a loop over blocks and threads, scalar divisions true, a k-step
+    kernel's dynamic shared memory a static array."""
     codegen._c_expr = _cpu_division
     try:
-        text = codegen.cuda_source(call.program, call.shape)
+        if call.rotations is None:
+            return _host_text(codegen.cuda_source(call.program, call.shape))
+        text = codegen_steps.cuda_source(call.program, call.rotations, call.nsteps, call.shape)
+        return _host_text(text, codegen_steps.shared_bytes(call.program, call.plan,
+                                                           call.shape) // 4)
     finally:
         codegen._c_expr = _c_expr
-    text = text.replace("#include <cuda_runtime.h>\n", "")
-    text = text.replace(_LAUNCH, "run_grid(grid, block, [&] { stencil_kernel(")
-    text = re.sub(r"(run_grid\(grid, block, \[&\] \{ stencil_kernel\(\n[^;]*\));",
-                  r"\1; });", text)
-    text = text.replace("return static_cast<int>(cudaGetLastError());", "return 0;")
-    return _SHIM + text[:text.index('extern "C" const char* error_string')]
 
 
 def compiler() -> str | None:
@@ -184,7 +216,10 @@ def compiler() -> str | None:
 def library(call: stencil.StencilCall) -> ctypes.CDLL:
     """Compile the call's rehearsal into ``build/repro_torch/rehearse/``
     (cached by a hash of its text)."""
-    text = source(call)
+    return _compile(source(call), call.lib_name)
+
+
+def _compile(text: str, name: str) -> ctypes.CDLL:
     build_dir = build.BUILD_DIR / "rehearse"
     build_dir.mkdir(parents=True, exist_ok=True)
     lib = build_dir / f"{hashlib.sha256(text.encode()).hexdigest()[:16]}.so"
@@ -199,7 +234,7 @@ def library(call: stencil.StencilCall) -> ctypes.CDLL:
                                "-shared", "-w", "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
         if done.returncode != 0:
-            raise RuntimeError(f"g++ failed on the rehearsal of {call.lib_name}:\n"
+            raise RuntimeError(f"g++ failed on the rehearsal of {name}:\n"
                                f"{done.stderr[:8000]}")
         os.replace(tmp, lib)
         src.unlink()
@@ -220,3 +255,28 @@ def run(call: stencil.StencilCall, fields: Mapping[str, torch.Tensor],
     fn.restype = ctypes.c_int
     fn(*args, None)
     return call.finish(outs, parts)
+
+
+def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1,
+                     n_sm: int = 132, xc: int | None = None) -> torch.Tensor:
+    """The hand kernel ``csrc/diffusion3d.cu`` on CPU tensors, launched as
+    ``diffusion3d.diffusion3d_step`` launches it on a card with ``n_sm`` SMs
+    (or with chunks of ``xc`` planes), into a new tensor."""
+    from . import diffusion3d
+
+    text = _host_text(build.read_source(diffusion3d.SOURCE),
+                      diffusion3d.shared_bytes(diffusion3d.MAX_STEPS) // 4)
+    fn = _compile(text, "diffusion3d").launch
+    fn.argtypes = diffusion3d._ARGTYPES
+    fn.restype = ctypes.c_int
+    launch = diffusion3d.column_launch(tuple(T.shape), n_sm, nsteps)
+    if xc is not None:
+        launch = stencil.Launch((*launch.grid[:2], -(-T.shape[0] // xc)), launch.block, xc)
+    out = torch.empty_like(T)
+    ins = [t.contiguous() for t in (T2, T, Ci)]
+    err = fn(out.data_ptr(), *(t.data_ptr() for t in ins), float(lam), float(dt),
+             float(inv_dx ** 2), float(inv_dy ** 2), float(inv_dz ** 2), *T.shape, launch.xc,
+             int(nsteps), *launch.grid, None)
+    if err:
+        raise RuntimeError(f"the rehearsed diffusion3d launch refused nsteps={nsteps}")
+    return out

@@ -32,9 +32,14 @@ output with a boundary condition computes its value in place
 (``kernels/codegen.py``). There is no second pass, and nothing falls back to
 the ``torch`` backend: a build or launch failure raises.
 
+A :class:`StencilCall` made with ``nsteps`` k > 1 launches the k-step kernel
+of ``kernels/codegen_steps.py`` instead: k sweeps in one launch, each output
+rotating into its target, the fields crossing device memory once (the
+counterpart of ``build_stencil_call(nsteps=k)``).
+
 On the CPU, a :class:`StencilCall` runs the same tap program with torch
-operators (``codegen.evaluate_torch``), only because the tensors it was given
-lie there.
+operators (``codegen.evaluate_torch``, ``codegen.evaluate_steps_torch`` for
+k sweeps), only because the tensors it was given lie there.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ import torch
 
 from ..ir.bc import BoundaryCondition
 from ..ir.trace import StencilIR
-from . import build, codegen
+from . import build, codegen, codegen_steps
 
 # Launches of the generated kernels, by kernel name; ``run`` adds one where it
 # launches, and nowhere else.
@@ -59,6 +64,10 @@ launches: collections.Counter = collections.Counter()
 # shorter chunks the last wave idles less of the card, against the lag
 # planes each chunk stages first (24 measured best on the H100, PERF.md).
 WAVES = 24
+# The same for the k-step kernels, whose chunks first compute a lead of
+# planes that grows with k (8 measured best or within 3% of it on the H100,
+# PERF.md).
+STEPS_WAVES = 8
 _MAX_GRID_YZ = 65535
 _INT32_MAX = 2 ** 31 - 1
 
@@ -131,29 +140,51 @@ def stream_of(dev: torch.device) -> int:
 class StencilCall:
     """One generated kernel for a traced update (f32 fields, collocated or
     staggered) with its outputs' boundary conditions (``bcs``, normalized),
-    laid out as ``shape`` (by default ``codegen.kernel_shape``)."""
+    laid out as ``shape`` (by default ``codegen.kernel_shape``). With
+    ``rotations`` the kernel is the k-step one (``codegen_steps``): it
+    sweeps the update ``nsteps`` times in one launch, each output rotating
+    into its ``rotations`` target, and its launches count under
+    ``"{label}/k{nsteps}"`` (at ``nsteps`` 1 it is the k-step printer's
+    single sweep, which ``launch/tune_stencil.py`` times against the
+    single-step kernel)."""
 
     def __init__(self, ir: StencilIR, label: str,
                  bcs: Mapping[str, BoundaryCondition] | None = None,
-                 shape: codegen.KernelShape | None = None):
+                 shape: codegen.KernelShape | None = None, nsteps: int = 1,
+                 rotations: Mapping[str, str] | None = None):
         unsupported(ir)
         self.ir = ir
-        self.label = label
+        self.nsteps = int(nsteps)
+        if rotations is None and self.nsteps != 1:
+            raise ValueError(f"{label}: {self.nsteps} sweeps per launch need rotations")
+        self.label = label if rotations is None else f"{label}/k{self.nsteps}"
         self.program = codegen.lower(ir, bcs)
-        self.shape = shape or codegen.kernel_shape(self.program)
-        smem = codegen.shared_bytes(self.program, self.shape)
-        if smem > codegen.SHARED_LIMIT:
-            # the counterpart of the reference's preflight_vmem
-            raise NotImplementedError(
-                f"{label}: its staged intermediates need {smem} bytes of shared memory "
-                f"per block, above the {codegen.SHARED_LIMIT} of static shared memory")
         self.classes = codegen.shape_classes(self.program)
         self.divisors = codegen.divisor_params(self.program)
-        self.source = codegen.cuda_source(self.program, self.shape)
-        self.lag = codegen.march_lag(self.program)
-        # planes a chunk reads beyond its own: the taps' reach and the stages' lag
-        self.halo = ir.inferred_radius + self.lag + self.shape.planes
-        self.lib_name = "stencil_" + re.sub(r"[^A-Za-z0-9_]", "_", label)
+        if rotations is None:
+            self.rotations = None
+            self.shape = shape or codegen.kernel_shape(self.program)
+            smem = codegen.shared_bytes(self.program, self.shape)
+            if smem > codegen.SHARED_LIMIT:
+                # the counterpart of the reference's preflight_vmem
+                raise NotImplementedError(
+                    f"{label}: its staged intermediates need {smem} bytes of shared memory "
+                    f"per block, above the {codegen.SHARED_LIMIT} of static shared memory")
+            self.source = codegen.cuda_source(self.program, self.shape)
+            self.lag = codegen.march_lag(self.program)
+            # planes a chunk reads beyond its own: the taps' reach and the stages' lag
+            self.halo = ir.inferred_radius + self.lag + self.shape.planes
+        else:
+            self.rotations = dict(rotations)
+            self.shape = shape or codegen_steps.steps_shape(self.program, self.rotations,
+                                                            self.nsteps)
+            self.plan = codegen_steps.plan(self.program, self.rotations, self.nsteps,
+                                           self.shape)
+            self.source = codegen_steps.cuda_source(self.program, self.rotations,
+                                                    self.nsteps, self.shape)
+            self.lag = self.plan.lead
+            self.halo = self.plan.reach
+        self.lib_name = "stencil_" + re.sub(r"[^A-Za-z0-9_]", "_", self.label)
         self.launch_info: dict[tuple, Launch] = {}
         self._lib: build.Library | None = None
 
@@ -183,7 +214,9 @@ class StencilCall:
         p = self.program
         ins = {f: fields[f] for f in p.fields}
         if all(t.device.type == "cpu" for t in ins.values()):
-            return codegen.evaluate_torch(p, ins, scalars)
+            if self.rotations is None:
+                return codegen.evaluate_torch(p, ins, scalars)
+            return codegen.evaluate_steps_torch(p, self.rotations, self.nsteps, ins, scalars)
         dev = check_cuda_fields(ins, self.ir.field_shapes)
         launch, outs, parts, args = self.arguments(
             ins, scalars, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -206,7 +239,8 @@ class StencilCall:
         for off in self.classes:
             _, ny, nz = (n - d for n, d in zip(shape3, off))
             strides += [ny * nz, nz]
-        launch = derive_launch(shape3, n_sm, self.shape, self.halo, self.lag)
+        launch = derive_launch(shape3, n_sm, self.shape, self.halo, self.lag,
+                               WAVES if self.rotations is None else STEPS_WAVES)
         if xc is not None:
             launch = Launch((*launch.grid[:2], -(-shape3[0] // xc)), launch.block, xc)
         dev = next(iter(ins.values())).device

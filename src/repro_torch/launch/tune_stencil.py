@@ -1,6 +1,7 @@
 """Time the generated ``@parallel`` kernel's layouts on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil [--waves 8,16,24,32]
+    PYTHONPATH=src python -m repro_torch.launch.tune_stencil --steps [--waves 2,4,8] [--ks 1,2]
 
 For the coupled solvers' kernels at their full sizes (porosity 8192^2, GP
 512^3) and the Fig. 1 step at 512^3, it builds each candidate
@@ -8,9 +9,17 @@ For the coupled solvers' kernels at their full sizes (porosity 8192^2, GP
 resident blocks) in parallel, holds each launch bitwise against the
 ``torch`` backend, and prints one JSON line per kernel: for each candidate
 and number of waves (``stencil.WAVES``) the CUDA-event median ms, ptxas's
-registers and spill bytes. ``codegen.kernel_shape`` and ``stencil.WAVES``
-are this tool's choice: the fastest candidate without spills. It needs the
-card and measures nothing on the CPU.
+registers and spill bytes; a launch that is not bitwise stops it with a
+``RuntimeError``. ``codegen.kernel_shape`` and ``stencil.WAVES``
+are this tool's choice: the fastest candidate without spills. With
+``--steps`` it times the k-step kernels (``kernels/codegen_steps.py``) of
+FIG1's step and porosity's fused kernel (k = 2, 3, 4) and GP's (k = 2, 3)
+the same way, each launch held bitwise against k single-step launches, over
+the layouts in ``STEPS_3D``/``STEPS_2D`` and values of ``stencil.STEPS_WAVES``;
+``codegen_steps.steps_shape`` and ``stencil.STEPS_WAVES`` are its choice.
+``--ks 1`` times the k-step printer's single sweep beside the single-step
+kernel of ``kernels/codegen.py`` on the same fields. It needs the card and
+measures nothing on the CPU.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ import torch
 from ..core import init_parallel_stencil, teff
 from ..examples import gross_pitaevskii as gp, porosity_waves as pw, quickstart
 from ..configs import FIG1
-from ..kernels import build, codegen, stencil
+from ..kernels import build, codegen, codegen_steps, stencil
 
 Shape = codegen.KernelShape
 STAGED_3D = [Shape((32, 8), p, b) for p in (1, 2, 4) for b in (4, 5, 6)]
@@ -34,6 +43,12 @@ PLAIN_3D = [Shape((32, 8), p, b) for p in (1, 2, 4) for b in (6, 8)]
 STAGED_2D = [Shape((256, 1), p, b) for p in (2, 4) for b in (4, 5, 6)] + [Shape((128, 1), 4, 8)]
 PLAIN_2D = [Shape((256, 1), p, b) for p in (1, 2, 4) for b in (6, 8)]
 SCALARS = dict(dtau=1e-3, g=0.5, dt=1e-3, _dx2=3.0, _dy2=2.0, _dz2=5.0)
+STEPS_3D = [Shape(t, p, b) for t in ((32, 8), (32, 16)) for p in (2, 4) for b in (2, 4)] \
+    + [Shape((32, 16), 8, 2), Shape((32, 32), 2, 2)]
+STEPS_2D = [Shape(t, p, b) for t in ((256, 1), (512, 1)) for p in (2, 4) for b in (2, 4)] \
+    + [Shape((512, 1), 8, 2), Shape((1024, 1), 2, 2)]
+STEPS_KS = {"stencil": (2, 3, 4), "porosity_fused[neumann0]": (2, 3, 4),
+            "gp_fused[none]": (2, 3)}
 
 
 def kernels(dev) -> dict:
@@ -98,9 +113,93 @@ def ptxas(log: str) -> dict:
             "spill_bytes": sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))}
 
 
+def steps_candidates(kern, fields, scalars, nsteps: int) -> list:
+    """The k-step calls of ``kern`` over the layouts of ``STEPS_3D`` or
+    ``STEPS_2D`` whose queues fit a block's shared memory; at ``nsteps`` 1
+    the k-step printer's single sweep."""
+    ir = kern.compiled(**fields, **scalars).ir
+    calls = []
+    for shape in STEPS_3D if ir.ndim == 3 else STEPS_2D:
+        try:
+            calls.append(stencil.StencilCall(ir, kern.label, kern.bc, shape, nsteps,
+                                             kern.rotations))
+        except NotImplementedError:     # its queues exceed a block's shared memory
+            continue
+    return calls
+
+
+def steps_choice(call) -> str:
+    """The layout ``codegen_steps.steps_shape`` gives the call's program and
+    k, with the current ``stencil.STEPS_WAVES``, as the candidates are named."""
+    sh = codegen_steps.steps_shape(call.program, call.rotations, call.nsteps)
+    return f"{sh.tile[0]}x{sh.tile[1]}/p{sh.planes}/b{sh.min_blocks}/w{stencil.STEPS_WAVES}"
+
+
+def tune_steps(todo: dict, waves: list, iters: int, ks: list | None = None) -> None:
+    """Time each k-step kernel's candidate layouts (one JSON line per
+    kernel and k, for the k of ``STEPS_KS`` or of ``ks``); every launch must
+    equal k single-step launches of the same program bitwise (a
+    ``RuntimeError`` otherwise); outputs start as copies of their targets.
+    At k = 1 the line also gives the single-step kernel's time on the same
+    fields (``single_step_ms``), the printers' comparison."""
+    tuned = {}
+    for n, default_ks in STEPS_KS.items():
+        k, _, f, sc = todo[n]
+        f = dict(f)
+        for o, t in k.rotations.items():
+            f[o] = f[t].clone()
+        if "dtau" in sc:
+            # the solver's own pseudo-time step: SCALARS' 1e-3 overflows
+            # within a few steps at 8192^2
+            cfg = pw.PorosityConfig(n=8192, device="cuda")
+            sc = dict(sc, dtau=pw.timestep(cfg, pw.make_grid(cfg)))
+        todo[n] = (k, None, f, sc)
+        for nsteps in (default_ks if ks is None else ks):
+            tuned[(n, nsteps)] = steps_candidates(k, f, sc, nsteps)
+    t0 = time.perf_counter()
+    logs = iter(build.compile_many([(t.lib_name, t.source) for ts in tuned.values()
+                                    for t in ts]))
+    print(json.dumps({"built": sum(map(len, tuned.values())),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    default_waves = stencil.STEPS_WAVES
+    for (n, nsteps), calls in tuned.items():
+        k, _, f, sc = todo[n]
+        cur = dict(f)
+        for _ in range(nsteps):
+            res = k(**cur, **sc)
+            res = res[0] if k.reductions else res
+            outs = {k.outputs[0]: res} if len(k.outputs) == 1 else res
+            for o, t in k.rotations.items():
+                cur[o], cur[t] = cur[t], outs[o]
+        row = {}
+        for t in calls:
+            found = ptxas(next(logs).log)
+            for w in waves:
+                stencil.STEPS_WAVES = w
+                outs, _ = t.run(f, sc)
+                if not all(torch.equal(outs[o], cur[tgt]) for o, tgt in k.rotations.items()):
+                    raise RuntimeError(f"{t.label} at {t.shape}, {w} waves: not bitwise equal "
+                                       f"to {nsteps} single-step launches")
+                ms = teff.measure(lambda: t.run(f, sc), iters=iters, warmup=3).median_s * 1e3
+                sh = t.shape
+                row[f"{sh.tile[0]}x{sh.tile[1]}/p{sh.planes}/b{sh.min_blocks}/w{w}"] = {
+                    "ms": ms, "ms_per_step": ms / nsteps, **found}
+        stencil.STEPS_WAVES = default_waves
+        line = {"kernel": n, "k": nsteps, "chosen": steps_choice(calls[0]), "candidates": row}
+        if nsteps == 1:
+            one = k.compiled(**f, **sc)
+            line["single_step_ms"] = teff.measure(lambda: one.run(f, sc), iters=iters,
+                                                  warmup=3).median_s * 1e3
+        print(json.dumps(line), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--waves", default="8,16,24,32", help="values of stencil.WAVES to time")
+    ap.add_argument("--waves", default=None,
+                    help="values of stencil.WAVES (with --steps: STEPS_WAVES) to time")
+    ap.add_argument("--steps", action="store_true", help="tune the k-step kernels")
+    ap.add_argument("--ks", default=None,
+                    help="with --steps: the k to time, e.g. 1,2 (default: STEPS_KS)")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -109,8 +208,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     name, power = teff.card_info(0)
     print(json.dumps({"card": name, "power_limit": power}), flush=True)
-    waves = [int(w) for w in args.waves.split(",")]
+    waves = [int(w) for w in (args.waves or ("2,4,8" if args.steps else "8,16,24,32"))
+             .split(",")]
     todo = kernels(dev)
+    if args.steps:
+        tune_steps(todo, waves, args.iters,
+                   [int(x) for x in args.ks.split(",")] if args.ks else None)
+        return 0
     tuned = {}
     for n, (k, _, f, sc) in todo.items():
         call = k.compiled(**f, **sc)
@@ -132,11 +236,13 @@ def main(argv=None) -> int:
             for w in waves:
                 stencil.WAVES = w
                 outs, _ = t.run(f, sc)
-                same = all(torch.equal(outs[o], want[o]) for o in k.outputs)
+                if not all(torch.equal(outs[o], want[o]) for o in k.outputs):
+                    raise RuntimeError(f"{t.label} at {t.shape}, {w} waves: not bitwise equal "
+                                       "to the torch backend")
                 ms = teff.measure(lambda: t.run(f, sc), iters=args.iters, warmup=3).median_s * 1e3
                 sh = t.shape
                 row[f"{sh.tile[0]}x{sh.tile[1]}/p{sh.planes}/b{sh.min_blocks}/w{w}"] = {
-                    "ms": ms, "bitwise": same, **found}
+                    "ms": ms, **found}
         stencil.WAVES = default_waves
         chosen = codegen.kernel_shape(tuned[n][0].program)
         print(json.dumps({"kernel": n, "chosen": f"{chosen.tile[0]}x{chosen.tile[1]}/p"

@@ -210,8 +210,14 @@ def test_rotation_checks_come_before_the_run_steps_refusal(rng):
         partial.run_steps(2, A2=T, B2=T, A=T, B=T)
     stag = ps.parallel(outputs=("T2", "q2"), rotations={"T2": "T", "q2": "q"})(_stag(fd2d))
     q = torch.zeros(N - 1, M)
-    with pytest.raises(NotImplementedError, match="run_steps"):
-        stag.run_steps(2, T2=T, q2=q, T=T, q=q, dt=0.1)
+    # run_steps(k) is ported (tests/test_torch_temporal.py): a staggered
+    # rotation's two steps equal two rotated calls
+    Tr = torch.arange(float(N * M)).reshape(N, M) / (N * M)
+    qr = torch.arange(float((N - 1) * M)).reshape(N - 1, M) / (N * M)
+    one = stag(T2=Tr, q2=qr, T=Tr, q=qr, dt=0.1)
+    two = stag(T2=Tr, q2=qr, T=one["T2"], q=one["q2"], dt=0.1)
+    got = stag.run_steps(2, T2=Tr, q2=qr, T=Tr, q=qr, dt=0.1)
+    assert all(torch.equal(got[o], two[o]) for o in ("T2", "q2"))
     with pytest.raises(ValueError, match="nsteps"):
         stag.run_steps(0, T2=T, q2=q, T=T, q=q, dt=0.1)
     assert set(stag.run_steps(1, T2=T, q2=q, T=T, q=q, dt=0.1)) == {"T2", "q2"}

@@ -81,7 +81,7 @@ def test_diffusion3d_equals_plain_bitwise(card, shape, rng):
     T, T2, Ci = (_rand(rng, shape, card) for _ in range(3))
     args = (1.0, 1e-4, 32.0, 19.0, 129.0)
     before = diffusion3d.launches
-    got = diffusion3d.diffusion3d_step(T2, T, Ci, *args)
+    got = diffusion3d.diffusion3d_step(T2, T, Ci, *args, alias=False)
     torch.cuda.synchronize()
     assert diffusion3d.launches == before + 1
     assert torch.equal(got, ref.diffusion3d_step(T2, T, Ci, *args))
@@ -200,6 +200,137 @@ def test_gp_kernels_equal_torch_backend(card, bc, shape, rng):
                 mass = {"m_re": "sum_sq(re2)", "m_im": "sum_sq(im2)"}
                 kr, pr = k.with_reductions(mass), p.with_reductions(mass)
                 _assert_same(kr(**args, **sc), pr(**args, **sc), kr)
+
+
+@pytest.mark.parametrize("shape", [(33, 20, 130), (13, 17, 130), (9, 10, 33)])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_diffusion3d_nsteps_equals_k_launches(card, shape, k, rng):
+    """k steps in one launch equal k rotated single-step launches bitwise
+    (T2 and T agree on the ring), in place and not; the plain version's
+    k-step rule (T2 apart on the ring) too."""
+    T, Ci = _rand(rng, shape, card), _rand(rng, shape, card)
+    args = (1.0, 1e-4, 32.0, 19.0, 129.0)
+    a, b = T.clone(), T.clone()
+    for _ in range(k):
+        a = diffusion3d.diffusion3d_step(a, b, Ci, *args, alias=False)
+        a, b = b, a
+    before = diffusion3d.launches
+    got = diffusion3d.diffusion3d_step(T.clone(), T, Ci, *args, nsteps=k, alias=False)
+    assert diffusion3d.launches == before + 1 and torch.equal(got, b)
+    T2 = T.clone()
+    got = diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=True)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == T2.data_ptr() and torch.equal(got, b)
+    T2 = _rand(rng, shape, card)
+    assert torch.equal(diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=False),
+                       ref.diffusion3d_steps(T2, T, Ci, *args, nsteps=k))
+    with pytest.raises(ValueError, match="storage"):
+        diffusion3d.diffusion3d_step(T, T, Ci, *args, nsteps=k, alias=True)
+    with pytest.raises(NotImplementedError, match="at most"):
+        diffusion3d.diffusion3d_step(T.clone(), T, Ci, *args, nsteps=diffusion3d.MAX_STEPS + 1)
+
+
+def _sequential_launches(kern, f, sc, k):
+    """k single-step launches of ``kern`` with the double-buffer rotation."""
+    cur = dict(f)
+    for _ in range(k):
+        res = kern(**cur, **sc)
+        res = res[0] if kern.reductions else res
+        outs = {kern.outputs[0]: res} if len(kern.outputs) == 1 else res
+        for o, t in kern.rotations.items():
+            cur[o], cur[t] = cur[t], outs[o]
+    return {o: cur[t] for o, t in kern.rotations.items()}
+
+
+def _k_step_kernels(card):
+    """``name: (kernel, fields for a base shape, scalars)`` of the k-step
+    cases: FIG1 with and without its reductions, porosity's and GP's fused
+    kernels for every in-launch bc, a staggered rotation."""
+    def porosity(bc, reds=None):
+        cfg = pw.PorosityConfig(n=64, device="cuda", bc=bc)
+        k = pw.make_step(pw.make_grid(cfg), cfg).kernels[0]
+        return k.with_reductions(reds), ("phi", "Pe"), {"dtau": 1e-3}
+
+    def gp_(bc, reds=None):
+        cfg = gp.GPConfig(n=16, device="cuda", bc=bc)
+        k = gp.make_step(gp.make_grid(cfg), cfg).kernels[0]
+        return k.with_reductions(reds), ("re", "im", "V"), dict(g=0.5, dt=1e-3, _dx2=3.0,
+                                                                 _dy2=2.0, _dz2=5.0)
+
+    ps2 = init_parallel_stencil(ndims=2)
+
+    @ps2.parallel(outputs=("T2", "q2"), rotations={"T2": "T", "q2": "q"})
+    def stag(T2, q2, T, q, dt):
+        return {"T2": fd2d.inn(T) + dt * fd2d.d_xi(q), "q2": 0.7 * q + 0.3 * fd2d.av_xa(T)}
+
+    fig = quickstart.make_step(init_parallel_stencil())
+    out = {"fig1": (fig, ("T", "Ci"), dict(lam=1.0, dt=1e-4, _dx=32.0, _dy=19.0, _dz=129.0)),
+           "fig1+4red": (fig.with_reductions(CASES["fig1"][6]), ("T", "Ci"),
+                         dict(lam=1.0, dt=1e-4, _dx=32.0, _dy=19.0, _dz=129.0)),
+           "staggered": (stag, ("T", "q"), {"dt": 1e-3})}
+    for bc in ("none", "neumann", "dirichlet"):
+        out[f"porosity[{bc}]"] = porosity(bc)
+        out[f"gp[{bc}]"] = gp_(bc)
+    out["porosity[neumann]+err"] = porosity("neumann", {"err": "max_abs_diff(Pe2, Pe)"})
+    out["gp[none]+mass"] = gp_("none", {"m_re": "sum_sq(re2)", "m_im": "sum_sq(im2)"})
+    return out
+
+
+K_STEP_SHAPES = {"fig1": (33, 20, 130), "gp": (13, 17, 130), "porosity": (37, 300),
+                 "staggered": (33, 20)}
+
+
+@pytest.mark.parametrize("name", ["fig1", "fig1+4red", "staggered"]
+                         + [f"{s}[{bc}]" for s in ("porosity", "gp")
+                            for bc in ("none", "neumann", "dirichlet")]
+                         + ["porosity[neumann]+err", "gp[none]+mass"])
+@pytest.mark.parametrize("k", [2, 3])
+def test_generated_k_step_kernel_equals_k_launches(card, name, k, rng):
+    """One launch of the generated k-step kernel equals k single-step
+    launches of the same program bitwise, outputs starting as copies of
+    their targets; its reductions are the last step's."""
+    kern, names, sc = _k_step_kernels(card)[name]
+    base = K_STEP_SHAPES[name.split("[")[0].split("+")[0]]
+    f = {}
+    for n in names:
+        shape = (base[0] - 1, base[1]) if n == "q" else base
+        f[n] = _rand(rng, shape, card) * (0.01 if name.startswith("porosity") else 1.0)
+    for o, t in kern.rotations.items():
+        f[o] = f[t].clone()
+    want = _sequential_launches(kern, f, sc, k)
+    label = f"{kern.label}/k{k}"
+    before = stencil.launches[label]
+    got = kern.run_steps(k, **f, **sc)
+    torch.cuda.synchronize()
+    assert stencil.launches[label] == before + 1
+    got, reds = got if kern.reductions else (got, {})
+    got = {kern.outputs[0]: got} if len(kern.outputs) == 1 else got
+    for o in kern.outputs:
+        assert torch.equal(got[o], want[o]), o
+    if kern.reductions:
+        cur = dict(f)
+        plain = init_parallel_stencil(backend="torch", device="cuda", ndims=kern.ps.ndims)
+        twin = plain.parallel(outputs=kern.outputs, rotations=kern.rotations,
+                              reductions=kern.reductions, bc=kern.bc)(kern.fn)
+        _, want_reds = twin.run_steps(k, **cur, **sc)
+        for n, r in kern.reductions.items():
+            if r.combine == "max":
+                assert float(reds[n]) == float(want_reds[n]), n
+            else:
+                np.testing.assert_allclose(float(reds[n]), float(want_reds[n]), rtol=1e-5)
+
+
+def test_periodic_run_steps_makes_k_launches(card, rng):
+    cfg = pw.PorosityConfig(n=33, device="cuda", bc="periodic")
+    kern = pw.make_step(pw.make_grid(cfg), cfg).kernels[0]
+    phi = _rand(rng, (33, 33), card) * 0.01
+    Pe = _rand(rng, (33, 33), card) * 0.01
+    f = dict(phi2=phi.clone(), Pe2=Pe.clone(), phi=phi, Pe=Pe)
+    want = _sequential_launches(kern, f, {"dtau": 1e-3}, 3)
+    before = stencil.launches[kern.label]
+    got = kern.run_steps(3, **f, dtau=1e-3)
+    assert stencil.launches[kern.label] == before + 3
+    assert all(torch.equal(got[o], want[o]) for o in kern.outputs)
 
 
 def test_division_by_a_host_scalar_on_the_card(card, rng):

@@ -111,8 +111,12 @@ def test_diffusion3d_dispatch_and_unported(rng):
     assert torch.equal(a, ops.diffusion3d_step(T2, T, Ci, *args, impl="ref"))
     with pytest.raises(ValueError, match="impl"):
         ops.diffusion3d_step(T2, T, Ci, *args, impl="pallas")
-    with pytest.raises(NotImplementedError, match="run_steps"):
-        diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=2)
+    # nsteps is ported (tests/test_torch_temporal.py): two steps in one call
+    # equal two rotated calls when T2 and T agree on the ring
+    two = diffusion3d.diffusion3d_step(T, T, Ci, *args, nsteps=2)
+    assert torch.equal(two, ops.diffusion3d_step(T, ops.diffusion3d_step(T, T, Ci, *args),
+                                                 Ci, *args, impl="ref"))
+    assert diffusion3d.launches == before
 
 
 def test_explicit_step_equals_parallel_step_bitwise(rng):

@@ -120,8 +120,11 @@ def test_unported_features_raise_not_implemented(rng):
         init_parallel_stencil(backend="torch", device="cpu", dtype=torch.bfloat16)
     arrays, sc = _state(rng, (9, 10, 11))
     f = fields_from_numpy(arrays, device="cpu")
-    with pytest.raises(NotImplementedError, match="run_steps"):
-        _port().run_steps(2, **f, **sc)
+    # run_steps(k) is ported (tests/test_torch_temporal.py): two steps equal
+    # two rotated calls
+    step = _port()
+    assert torch.equal(step.run_steps(2, **f, **sc),
+                       step(T2=f["T"], T=step(**f, **sc), Ci=f["Ci"], **sc))
     assert torch.equal(_port().run_steps(1, **f, **sc), _port()(**f, **sc))
 
     @ps.parallel(outputs=("qx",))
