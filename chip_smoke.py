@@ -43,6 +43,23 @@ operations, halo cone included, over 67 TFLOP/s, whichever is larger),
 the share of it, T_eff per step over the copy bandwidth, shared memory,
 registers and spills.
 
+Then all of it with the fields stored bf16 and f16 (computed in f32): every
+generated variant above (``check_mixed`` for FIG1's three and the generic
+kernel, ``check_coupled`` and ``check_k_steps`` rows with a ``dtype``) held
+bitwise against the ``torch`` backend at the same dtype at the small shapes
+and at full size, k-step ones against k single-step launches, and the hand
+kernel (``check_hand_steps``, k = 1-4, in place and not, computing at the
+storage dtype) against its plain version at that dtype. An f16 field that
+leaves its range must hold inf and NaN where the plain version does; the
+rows count them. The mixed main path (``main_path_mixed``) drives FIG1 at
+512^3 through ``init_parallel_stencil(dtype=...)`` and ``solve_until``
+beside the f32 run (one step held to the f32 step within 4 eps max|T|, T_eff
+at storage bytes), porosity 8192^2 ``--dtype`` through the twin's
+``solve``, GP's fused kernel on its state, and the k-step main path at each
+dtype, with the launch counts set to 0 before each run and read after;
+``times_mixed`` gives each kernel's ms beside its bound at storage bytes,
+its plain ms, registers and spills.
+
 It prints JSON lines; the line before the last lists the kernels, the one
 before that is the card's name and power limit as nvidia-smi gives them,
 and the last line is {"ok": true, "device": {...}}. Any failure exits
@@ -98,6 +115,24 @@ STEPS_FULL = {"fig1": (512, 512, 512), "porosity": (8192, 8192), "gp": (512, 512
               "staggered": (8192, 8192)}
 STEPS_RUN = 12      # steps of each k-step main-path run, a multiple of every k
 HAND_KS = (2, 3, 4)
+
+# Sub-f32 storage: the fields stored bf16 or f16 and computed in f32 (the
+# hand kernel computes at the storage dtype, as its reference does). Every
+# generated variant above and the hand kernel are held bitwise against their
+# plain versions at both dtypes; the main path is FIG1 (MIXED_STEPS steps,
+# then solve_until) and porosity (fixed and --tol runs) at each, GP's fused
+# kernel on its state, and the k-step kernels of MIXED_K_VARIANTS.
+MIXED_TAGS = {"bf16": "bfloat16", "f16": "float16"}
+MIXED_STEPS = 100
+MIXED_K_VARIANTS = ("stencil", "porosity_fused[neumann0]")
+# The hand kernel computes at the storage dtype, its scalars rounded to it:
+# FIG1's inv_dx^2 (261121 at 512^3) is beyond f16's 65504, so at f16 it runs
+# only at these scalars (every product rounds, the step stable), as at bf16
+# in the checks and times; the f16 hand kernel is off the main path.
+HAND_MIXED_ARGS = (0.7, 1e-3, 8.3, 9.1, 10.7)
+# one bf16 step against one f32 step from the same state: the reference's own
+# bound (benchmarks/bench_teff.py::bench_mixed), 4 eps max|T|
+MIXED_ONE_STEP_EPS = 4
 
 # Zamba2-1.2B serving at full width and depth; the kernels' shapes on its
 # prefill path (conv over d_conv_in = 4224 channels with K = 4; SSD with 64
@@ -174,27 +209,50 @@ def main() -> int:
     calls_k = {(name, k): v["kernel"].compiled(nsteps=k, **v["shapes"](STEPS_SMALL[v["solver"]]),
                                                **v["scalars"])
                for name, v in ksteps.items() for k in STEPS_KS[v["solver"]]}
+    # every variant above with its fields stored bf16 and f16
+    single = [("stencil", step, shape_kw, sc_names),
+              ("stencil+err", step.with_reductions(ERR), shape_kw, sc_names),
+              ("stencil+4red", step.with_reductions(ALL_REDS), shape_kw, sc_names),
+              ("generic", generic, {n: (8, 8, 8) for n in ("A2", "B2", "A", "B")},
+               dict(c=1.0, h=1.0)),
+              *((n, v["kernel"], v["shapes"](COUPLED_SMALL[v["solver"]]), v["scalars"])
+                for n, v in coupled.items())]
+    calls_mixed = {}
+    for tag, name in MIXED_TAGS.items():
+        dt = getattr(torch, name)
+        for n, kern, shp, scl in single:
+            calls_mixed[f"{n}:{tag}"] = kern.with_dtype(dt).compiled(**shp, **scl)
+        for (n, k) in calls_k:
+            v = ksteps[n]
+            calls_mixed[f"{n}/k{k}:{tag}"] = v["kernel"].with_dtype(dt).compiled(
+                nsteps=k, **v["shapes"](STEPS_SMALL[v["solver"]]), **v["scalars"])
     t0 = time.perf_counter()
     lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
     sources = ([("diffusion3d", build.read_source(diffusion3d.SOURCE))]
                + [(n, build.read_source(m.SOURCE)) for n, m in lm_kernels.items()]
                + [(c.lib_name, c.source) for c in calls]
-               + [(c.lib_name, c.source) for c in calls_k.values()])
+               + [(c.lib_name, c.source) for c in calls_k.values()]
+               + [(c.lib_name, c.source) for c in calls_mixed.values()])
     builds = build.compile_many(sources)
     call_names = ["stencil", "stencil+err", "stencil+4red", "generic", *coupled]
     variant_of = {c.source: name for name, c in zip(call_names, calls)}
     variant_of.update({c.source: f"{name}/k{k}" for (name, k), c in calls_k.items()})
+    variant_of.update({c.source: name for name, c in calls_mixed.items()})
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "builds": [{"name": b.name, "variant": variant_of.get(src), "seconds": b.seconds,
                       "ptxas": [ln.strip() for ln in b.log.splitlines()
                                 if "entry function" in ln or "registers" in ln
                                 or "spill" in ln]}
                      for b, (_, src) in zip(builds, sources)]})
-    n_gen = len(calls) + len(calls_k)
+    n_gen = len(calls) + len(calls_k) + len(calls_mixed)
     ptxas = {name: ptxas_summary(b.log)
-             for name, b in zip(call_names + [f"{n}/k{k}" for n, k in calls_k],
+             for name, b in zip(call_names + [f"{n}/k{k}" for n, k in calls_k] + list(calls_mixed),
                                 builds[-n_gen:])}
-    ptxas.update(hand_ptxas(builds[0].log))
+    hand = hand_ptxas(builds[0].log)
+    # the single step (two instances merged) and k = 2-4, for f32, bf16 and f16
+    require(len(hand) == 3 * (1 + len(HAND_KS)),
+            f"ptxas's lines of the hand kernel's instances not all found: {sorted(hand)}")
+    ptxas.update(hand)
     require(all(not p["spills"] for p in ptxas.values()),
             f"ptxas spills registers in a generated kernel: {ptxas}")
 
@@ -310,6 +368,36 @@ def main() -> int:
         torch.cuda.empty_cache()
     check_ring_rule(torch, ksteps, cgen)
 
+    # ---- 3e. bf16 and f16 storage: every variant against its plain version -----
+    # the generated kernels bitwise against the torch backend at the same
+    # storage dtype, at the small shapes and at full size (k-step ones against
+    # k single-step launches); the hand kernel (k = 1-4) against its plain
+    # version at storage dtype, in place and not
+    mixed_v = {}
+    for tag, name in MIXED_TAGS.items():
+        dt = getattr(torch, name)
+        err_at.update(check_fig1_mixed(torch, variants, (generic, generic_plain), dt, tag,
+                                       gen, dev))
+        coupled_t, ksteps_t = retyped(coupled, dt), retyped(ksteps, dt)
+        mixed_v[tag] = (dt, coupled_t, ksteps_t)
+        for shapes in (COUPLED_SMALL, COUPLED_FULL):
+            for n, v in coupled_t.items():
+                d = check_coupled(torch, f"{n}:{tag}", v, shapes[v["solver"]], cgen)
+                if shapes is COUPLED_FULL:
+                    err_at[f"{n}:{tag}"] = d
+            torch.cuda.empty_cache()
+        for shapes in (STEPS_SMALL, STEPS_FULL):
+            for n, v in ksteps_t.items():
+                for k in STEPS_KS[v["solver"]]:
+                    d = check_k_steps(torch, f"{n}:{tag}", v, k, shapes[v["solver"]], cgen)
+                    if shapes is STEPS_FULL:
+                        err_at[f"{n}/k{k}:{tag}"] = d
+            torch.cuda.empty_cache()
+        for base in ((13, 17, 130), (33, 20, 130), STEPS_FULL["fig1"]):
+            err_at.update(check_hand_steps(torch, base, cgen, dt, (1, *HAND_KS)))
+        check_ring_rule(torch, ksteps_t, cgen)
+        torch.cuda.empty_cache()
+
     # ---- 4. the main path at FIG1 ------------------------------------------
     stencil.launches.clear()
     diffusion3d.launches = 0
@@ -364,8 +452,17 @@ def main() -> int:
     k_runs = k_steps_main_path(torch, ksteps)
     torch.cuda.empty_cache()
 
-    # ---- 5. times at FIG1 ---------------------------------------------------
+    # ---- 4e. the main path with bf16 and f16 storage -----------------------------
     spec = teff.device_spec(0)
+    mixed_runs = mixed_main_path(torch, spec, coupled_runs)
+    fig1_args = fig1_hand_args()
+    for tag, (dt, _, ksteps_t) in mixed_v.items():
+        mixed_runs["launches"].update(k_steps_main_path(
+            torch, {n: ksteps_t[n] for n in MIXED_K_VARIANTS}, dt,
+            hand=hand_fits(torch, dt, fig1_args))["launches"])
+        torch.cuda.empty_cache()
+
+    # ---- 5. times at FIG1 ---------------------------------------------------
     grid, f, sc = quickstart.initial_state(FIG1, "cuda")
     args = (sc["lam"], sc["dt"], sc["_dx"], sc["_dy"], sc["_dz"])
     T2_own = f["T2"].clone()     # the hand step in place writes into it
@@ -466,6 +563,22 @@ def main() -> int:
     emit({"phase": "times_k_steps", "card": spec.name, "power_limit": spec.power_limit,
           "copy_bandwidth_GBps": spec.peak_bw / 1e9, "shapes": STEPS_FULL, "kernels": k_times})
 
+    # ---- 5e. times of the bf16 and f16 kernels at full size ---------------------
+    mixed_times = {}
+    for tag, (dt, coupled_t, ksteps_t) in mixed_v.items():
+        mixed_times.update(time_mixed(torch, tag, dt, step, step_plain, coupled_t, ksteps_t,
+                                      cgen, spec, ptxas))
+    f32_ms = {"stencil": ms["stencil"], "stencil+err": ms["stencil+err"],
+              "diffusion3d": ms["diffusion3d"], **{n: t["ms"] for n, t in coupled_times.items()},
+              **{n: t["ms"] for n, t in k_times.items()}}
+    emit({"phase": "times_mixed", "card": spec.name, "power_limit": spec.power_limit,
+          "copy_bandwidth_GBps": spec.peak_bw / 1e9, "kernels": mixed_times,
+          "off_main_path": sorted(set(mixed_times) - set(mixed_runs["launches"])),
+          "f32_ms": f32_ms,
+          "over_f32": {k: t["ms"] / f32_ms[k.split(":")[0]] for k, t in mixed_times.items()}})
+    for k, n in mixed_runs["launches"].items():
+        require(n > 0, f"kernel {k} was not launched on the mixed main path")
+
     # ---- 6. the kernels line -------------------------------------------------
     fig1 = SHAPES[-1]
     gen_src = "src/repro_torch/kernels/codegen.py"
@@ -509,6 +622,19 @@ def main() -> int:
                                       "bound_ms_per_step")},
                  "library_ms": None}
                 for k, t in k_times.items()]
+    kernels += [{"name": k, "route": "cuda",
+                 "source": ("src/repro_torch/kernels/csrc/diffusion3d.cu"
+                            if k.startswith("diffusion3d") else
+                            "src/repro_torch/kernels/codegen_steps.py" if "/k" in k else gen_src),
+                 "replaces": ("src/repro/kernels/diffusion3d.py:75"
+                              if k.startswith("diffusion3d") else
+                              "src/repro/kernels/stencil.py:1052"),
+                 "launches": mixed_runs["launches"][k],
+                 "max_abs_err": max(err_at[k], t.get("max_abs_err", 0.0)),
+                 **{x: t[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                 "library_ms": None}
+                # the f16 hand kernel is timed but off the main path
+                for k, t in mixed_times.items() if k in mixed_runs["launches"]]
     print(f"{card_name}, {card_power}", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -754,11 +880,13 @@ def coupled_variants(torch, dev) -> dict:
     return v
 
 
-def coupled_fields(torch, v, base, gen):
+def coupled_fields(torch, v, base, gen, cast=True):
     """Random fields at physical magnitudes for a variant (generated on the
     card from a seeded generator): porosity 0.005-0.015, pressures and
     fluxes +-0.005; GP values in [0, 1). The outputs' previous values differ
-    from the inputs, so the kept rings and the bc sources show."""
+    from the inputs, so the kept rings and the bc sources show. Made in f32
+    and rounded once to the kernel's storage dtype (unless ``cast`` is
+    false)."""
     out = {}
     for f, shp in v["shapes"](base).items():
         u = torch.rand(shp, generator=gen, device=gen.device)
@@ -767,7 +895,38 @@ def coupled_fields(torch, v, base, gen):
         elif v["solver"] == "porosity":
             u = (u - 0.5) * 0.01
         out[f] = u
-    return out
+    return stored(v, out) if cast else out
+
+
+def stored(v, fields):
+    """``fields`` rounded to the storage dtype of the variant's kernel."""
+    dt = v["kernel"].ps.dtype
+    return {n: t.to(dt) for n, t in fields.items()}
+
+
+def launch_label(kern, k: int = 1) -> str:
+    """The label a kernel's launches count under: its name, the storage tag
+    of a bf16 or f16 kernel, and ``/k{k}`` of a k-step launch."""
+    from repro_torch.kernels import stencil
+
+    dt = kern.ps.dtype
+    tag = "" if dt == stencil.STORAGE_DTYPES[0] else f":{stencil.dtype_tag(dt)}"
+    return f"{kern.label}{tag}" + (f"/k{k}" if k > 1 else "")
+
+
+def same(torch, a, b) -> bool:
+    """Bitwise equal values, NaN matching NaN (an f16 run may overflow)."""
+    return bool(torch.equal(a, b)) or bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def finite_diff(torch, a, b) -> float:
+    """max |a - b| over the cells where both are finite (0 if none)."""
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return float((a.float() - b.float()).abs()[ok].max()) if bool(ok.any()) else 0.0
+
+
+def nonfinite(torch, outs) -> int:
+    return sum(int((~torch.isfinite(t)).sum()) for t in outs.values())
 
 
 def check_coupled(torch, name, v, base, gen) -> float:
@@ -781,11 +940,12 @@ def check_coupled(torch, name, v, base, gen) -> float:
     if len(k.outputs) == 1:
         o_k, o_p = {k.outputs[0]: o_k}, {k.outputs[0]: o_p}
     diffs = {o: max_abs_diff(o_k[o], o_p[o]) for o in k.outputs}
-    bitwise = all(bool(torch.equal(o_k[o], o_p[o])) for o in k.outputs)
+    bitwise = all(same(torch, o_k[o], o_p[o]) for o in k.outputs)
     reds = {n: {"kernel": float(r_k[n]), "plain": float(r_p[n])} for n in r_k}
     emit({"phase": "check_coupled", "variant": name, "shape": list(base),
-          "bc": {o: c.kind for o, c in k.bc.items()}, "max_abs_diff": diffs,
-          "bitwise": bitwise, "reductions": reds})
+          "dtype": str(k.ps.dtype), "bc": {o: c.kind for o, c in k.bc.items()},
+          "max_abs_diff": diffs, "bitwise": bitwise, "nonfinite": nonfinite(torch, o_k),
+          "reductions": reds})
     require(bitwise, f"{name} differs from the torch backend at {base}: {diffs}")
     errs = list(diffs.values())
     for n, r in k.reductions.items():
@@ -802,13 +962,14 @@ def tap_cost(call) -> tuple[float, float]:
     """(bytes, f32 operations) of one launch: each field the update reads
     once, each output written once (A_eff); the shared tap program and its
     stages at every base cell (``TapProgram.ops_per_cell``: x ** 3 counts two
-    products), and two or three per base cell for each reduction."""
+    products), and two or three per base cell for each reduction. Bytes at
+    the storage width (2 for bf16 and f16 fields)."""
     ir, prog = call.ir, call.program
     cells = math.prod(ir.base_shape)
     ops = prog.ops_per_cell() * cells
     for _, r in prog.reductions:
         ops += (3 if r.kind == "max_abs_diff" else 2) * cells
-    return float(ir.io_bytes(4)), float(ops)
+    return float(ir.io_bytes(call.dtype.itemsize)), float(ops)
 
 
 def ptxas_summary(log: str) -> dict:
@@ -1073,10 +1234,11 @@ def k_step_variants(coupled, step, step_plain) -> dict:
 def k_fields(torch, v, base, gen):
     """Random fields for a k-step case (``coupled_fields``; FIG1's Ci in
     [0.5, 1.5)), each output a copy of its rotation target, as the solvers
-    pass them."""
-    f = coupled_fields(torch, v, base, gen)
+    pass them, at the kernel's storage dtype."""
+    f = coupled_fields(torch, v, base, gen, cast=False)
     if "Ci" in f:
         f["Ci"] = f["Ci"] + 0.5
+    f = stored(v, f)
     for o, t in v["kernel"].rotations.items():
         f[o] = f[t].clone()
     return f
@@ -1106,7 +1268,7 @@ def hold_to(torch, kern, got, reds, want, want_reds, what) -> float:
     """Outputs bitwise, max reductions bitwise, sums within SUM_RTOL;
     returns the largest difference of the outputs and max reductions."""
     errs = [max_abs_diff(got[o], want[o]) for o in kern.outputs]
-    require(all(bool(torch.equal(got[o], want[o])) for o in kern.outputs),
+    require(all(same(torch, got[o], want[o]) for o in kern.outputs),
             f"{what}: outputs differ by {errs}")
     for n, r in kern.reductions.items():
         a, b = float(reds[n]), float(want_reds[n])
@@ -1127,14 +1289,16 @@ def check_k_steps(torch, name, v, k, base, gen) -> float:
     kern, sc = v["kernel"], v["scalars"]
     f = k_fields(torch, v, base, gen)
     want, want_reds = rotate_run(kern, f, sc, 1, k)
-    require(all(bool(torch.isfinite(want[t]).all()) for t in kern.rotations.values()),
+    require(kern.ps.dtype == torch.float16
+            or all(bool(torch.isfinite(want[t]).all()) for t in kern.rotations.values()),
             f"{name}: {k} single steps at {base} leave non-finite values")
     want = {o: want[t] for o, t in kern.rotations.items()}
-    label = f"{kern.label}/k{k}"
+    label = launch_label(kern, k)
     before = stencil.launches[label]
     got, reds = split_result(kern, kern.run_steps(k, **f, **sc))
     torch.cuda.synchronize()
     emit({"phase": "check_k_steps", "variant": name, "k": k, "shape": list(base),
+          "dtype": str(kern.ps.dtype), "nonfinite": nonfinite(torch, got),
           "launches": stencil.launches[label] - before,
           "max_abs_diff": {o: max_abs_diff(got[o], want[o]) for o in kern.outputs},
           "reductions": {n: {"kernel": float(reds[n]), "k_launches": float(want_reds[n])}
@@ -1145,40 +1309,55 @@ def check_k_steps(torch, name, v, k, base, gen) -> float:
                    f"{name}: run_steps({k}) against {k} launches at {base}")
 
 
-def check_hand_steps(torch, base, gen) -> dict:
+def check_hand_steps(torch, base, gen, dtype=None, ks=HAND_KS) -> dict:
     """The hand kernel's k steps in one launch, in place and not, against k
     single-step launches (T2 a copy of T), and its k-step ring rule against
-    the plain version (T2 apart from T on the ring)."""
-    from repro_torch.kernels import diffusion3d, ref
+    the plain version (T2 apart from T on the ring); fields stored as
+    ``dtype`` (f32 by default), where each operation rounds to it. At f16
+    the steep random fields leave its range within two steps: inf and NaN
+    must then stand where the plain version has them (``same``), and the
+    row counts them; differences are taken over the finite cells."""
+    from repro_torch.kernels import diffusion3d, ref, stencil
 
+    dtype = dtype or torch.float32
+    tag = "" if dtype == torch.float32 else f":{stencil.dtype_tag(dtype)}"
     errs = {}
-    for k in HAND_KS:
-        T = torch.rand(base, generator=gen, device=gen.device)
-        Ci = torch.rand(base, generator=gen, device=gen.device) + 0.5
-        args = (1.0, 1e-4, float(base[0] - 1), float(base[1] - 1), float(base[2] - 1))
+    for k in ks:
+        T = torch.rand(base, generator=gen, device=gen.device).to(dtype)
+        Ci = (torch.rand(base, generator=gen, device=gen.device) + 0.5).to(dtype)
+        args = (1.0, 1e-4, float(base[0] - 1), float(base[1] - 1), float(base[2] - 1)) \
+            if dtype == torch.float32 else HAND_MIXED_ARGS
         a, b = T.clone(), T.clone()
         for _ in range(k):
             a = diffusion3d.diffusion3d_step(a, b, Ci, *args, alias=False)
             a, b = b, a
-        row = {"phase": "check_hand_steps", "k": k, "shape": list(base)}
+        row = {"phase": "check_hand_steps", "k": k, "shape": list(base), "dtype": str(dtype)}
         diffs = []
         for alias in (False, True):
             T2 = T.clone()
             got = diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=alias)
             torch.cuda.synchronize()
-            diffs.append(max_abs_diff(got, b))
+            diffs.append(finite_diff(torch, got, b))
             row[f"alias={alias}"] = {"max_abs_diff": diffs[-1],
                                      "in_place": got.data_ptr() == T2.data_ptr()}
-            require(bool(torch.equal(got, b)), f"diffusion3d nsteps={k} alias={alias} "
+            require(same(torch, got, b), f"diffusion3d{tag} nsteps={k} alias={alias} "
                     f"differs from {k} launches at {base}")
             require(row[f"alias={alias}"]["in_place"] == alias, "alias= did not hold")
-        T2 = torch.rand(base, generator=gen, device=gen.device)
-        d = max_abs_diff(diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=False),
-                         ref.diffusion3d_steps(T2, T, Ci, *args, nsteps=k))
+        T2 = torch.rand(base, generator=gen, device=gen.device).to(dtype)
+        ring = diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=False)
+        ring_plain = ref.diffusion3d_steps(T2, T, Ci, *args, nsteps=k)
+        d = finite_diff(torch, ring, ring_plain)
         row["ring_rule_max_abs_diff"] = d
+        # the plain version at storage dtype, in place (T2 a copy of T)
+        plain = ref.diffusion3d_steps(T.clone(), T, Ci, *args, nsteps=k)
+        row["plain_max_abs_diff"] = finite_diff(torch, b, plain)
+        row["nonfinite"] = nonfinite(torch, {"T": b})
         emit(row)
-        require(d == 0.0, f"diffusion3d nsteps={k} ring rule differs at {base}")
-        errs[f"diffusion3d/k{k}"] = max(d, *diffs)
+        require(same(torch, ring, ring_plain),
+                f"diffusion3d{tag} nsteps={k} ring rule differs at {base}")
+        require(same(torch, b, plain),
+                f"diffusion3d{tag} nsteps={k} differs from its plain version at {base}")
+        errs[f"diffusion3d{'/k' + str(k) if k > 1 else ''}{tag}"] = max(d, *diffs)
     return errs
 
 
@@ -1204,7 +1383,7 @@ def check_ring_rule(torch, ksteps, gen) -> None:
             f"a k-step kernel breaks the ring rule: {rows}")
 
 
-def k_steps_main_path(torch, ksteps) -> dict:
+def k_steps_main_path(torch, ksteps, dtype=None, hand=True) -> dict:
     """Each k-step kernel on its solver's own state at full size
     (``quickstart.initial_state``, ``porosity_waves.init_state``,
     ``gross_pitaevskii.init_state``; the staggered rotation on random
@@ -1212,12 +1391,22 @@ def k_steps_main_path(torch, ksteps) -> dict:
     the launch counts set to 0 just before each run and read just after,
     and the same steps as single-step launches, which every k must equal
     bitwise. The hand kernel runs the FIG1 steps in place (``alias=True``).
-    Host-clock ms per step of each run beside the single-step run's."""
+    Host-clock ms per step of each run beside the single-step run's. With
+    ``dtype`` the states are rounded to it once and every kernel stores it
+    (``ksteps`` retyped to it); counts and rows carry its tag. ``hand``
+    false leaves the hand kernel out (FIG1's scalars overflow f16)."""
     from repro_torch.configs import FIG1
     from repro_torch.examples import gross_pitaevskii as gp, porosity_waves as pw, quickstart
     from repro_torch.kernels import diffusion3d, stencil
 
+    dtype = dtype or torch.float32
+    tag = "" if dtype == torch.float32 else f":{stencil.dtype_tag(dtype)}"
+
     def state(name, v):
+        f, sc = state32(name, v)
+        return {n: t.to(dtype) for n, t in f.items()}, sc
+
+    def state32(name, v):
         if v["solver"] == "fig1":
             _, f, sc = quickstart.initial_state(FIG1, "cuda")
             return f, sc
@@ -1249,18 +1438,18 @@ def k_steps_main_path(torch, ksteps) -> dict:
         f, sc = state(name, v)
         rotate_run(kern, f, sc, 1, 1)      # the single-step library loaded
         (want, _), wall1 = timed(lambda: rotate_run(kern, f, sc, 1, STEPS_RUN))
-        row = {"phase": "main_path_k_steps", "variant": name,
+        row = {"phase": "main_path_k_steps", "variant": name + tag,
                "shape": list(STEPS_FULL[v["solver"]]), "steps": STEPS_RUN,
                "ms_per_step": {"1": wall1 / STEPS_RUN * 1e3}}
         for k in STEPS_KS[v["solver"]]:
-            label = f"{kern.label}/k{k}"
+            label = launch_label(kern, k)
             rotate_run(kern, f, sc, k, k)      # loads the k-step library
             stencil.launches.clear()
             (got, reds), wall = timed(lambda: rotate_run(kern, f, sc, k, STEPS_RUN))
             counts = dict(stencil.launches)
             require(counts == {label: STEPS_RUN // k},
                     f"{name}: run_steps({k}) x {STEPS_RUN // k} launched {counts}")
-            launches[f"{name}/k{k}"] = counts[label]
+            launches[f"{name}/k{k}{tag}"] = counts[label]
             same = all(bool(torch.equal(got[t], want[t])) for t in kern.rotations.values())
             require(same, f"{name}: {STEPS_RUN} steps as run_steps({k}) differ from single steps")
             finite = all(bool(torch.isfinite(got[t]).all()) for t in kern.rotations.values())
@@ -1274,8 +1463,11 @@ def k_steps_main_path(torch, ksteps) -> dict:
         rows.append(row)
         del f, want
         torch.cuda.empty_cache()
+    if not hand:
+        return {"launches": launches, "runs": rows}
     # the hand kernel, in place, on FIG1's state
     _, f, sc = quickstart.initial_state(FIG1, "cuda")
+    f = {n: t.to(dtype) for n, t in f.items()}
     args = (sc["lam"], sc["dt"], sc["_dx"], sc["_dy"], sc["_dz"])
 
     def hand_run(k):
@@ -1287,17 +1479,18 @@ def k_steps_main_path(torch, ksteps) -> dict:
 
     hand_run(1)
     want, wall1 = timed(lambda: hand_run(1))
-    row = {"phase": "main_path_k_steps", "variant": "diffusion3d", "shape": list(FIG1.shape),
+    row = {"phase": "main_path_k_steps", "variant": "diffusion3d" + tag, "shape": list(FIG1.shape),
            "steps": STEPS_RUN, "ms_per_step": {"1": wall1 / STEPS_RUN * 1e3}, "launches": {}}
     for k in HAND_KS:
         hand_run(k)
         diffusion3d.launches = 0
         got, wall = timed(lambda: hand_run(k))
         require(diffusion3d.launches == STEPS_RUN // k,
-                f"diffusion3d nsteps={k}: {diffusion3d.launches} launches")
-        require(bool(torch.equal(got, want)), f"diffusion3d nsteps={k} differs from single steps")
-        launches[f"diffusion3d/k{k}"] = diffusion3d.launches
-        row["launches"][f"diffusion3d/k{k}"] = diffusion3d.launches
+                f"diffusion3d{tag} nsteps={k}: {diffusion3d.launches} launches")
+        require(bool(torch.equal(got, want)),
+                f"diffusion3d{tag} nsteps={k} differs from single steps")
+        launches[f"diffusion3d/k{k}{tag}"] = diffusion3d.launches
+        row["launches"][f"diffusion3d/k{k}{tag}"] = diffusion3d.launches
         row["ms_per_step"][str(k)] = wall / STEPS_RUN * 1e3
     emit(row)
     rows.append(row)
@@ -1329,7 +1522,7 @@ def time_k_steps(torch, name, v, k, base, gen, spec) -> dict:
     overhead = ops / (k * cells * prog.ops_per_cell()) - 1.0
     for _, r in prog.reductions:
         ops += (3 if r.kind == "max_abs_diff" else 2) * cells
-    a_eff = float(call.ir.io_bytes(4))
+    a_eff = float(call.ir.io_bytes(call.dtype.itemsize))
     bound_ms, bound_by = bound_of(a_eff, ops)
     err = hold_to(torch, kern, *split_result(kern, kern.run_steps(k, **f, **sc)),
                   *split_result(p, p.run_steps(k, **f, **sc)),
@@ -1342,26 +1535,28 @@ def time_k_steps(torch, name, v, k, base, gen, spec) -> dict:
             "halo_compute_overhead": overhead,
             "t_eff_per_step_GBps": a_eff * k / (ms / 1e3) / 1e9,
             "t_eff_per_step_over_copy": a_eff * k / (ms / 1e3) / spec.peak_bw,
-            "smem_bytes": codegen_steps.shared_bytes(prog, plan, shape),
+            "smem_bytes": codegen_steps.shared_bytes(prog, plan, shape, call.dtype),
             "tile": list(shape.tile), "planes": shape.planes, "lead": plan.lead}
 
 
-def time_hand_steps(torch, k, gen, spec) -> dict:
+def time_hand_steps(torch, k, gen, spec, dtype=None) -> dict:
     """The hand kernel's k steps at FIG1 in place, beside k plain steps and
-    the bound (12 bytes per cell once; 16 operations per cell-sweep over the
-    cone, ``teff.halo_compute_overhead`` of its 16 x 32 tile)."""
+    the bound (T, Ci and the output once: 12 bytes per cell in f32, 6 in
+    bf16 or f16; 16 operations per cell-sweep over the cone,
+    ``teff.halo_compute_overhead`` of its 16 x 32 tile)."""
     from repro_torch.core import teff
     from repro_torch.kernels import diffusion3d, ref
 
+    dtype = dtype or torch.float32
     base = STEPS_FULL["fig1"]
-    T = torch.rand(base, generator=gen, device=gen.device)
-    T2, Ci = T.clone(), torch.rand(base, generator=gen, device=gen.device) + 0.5
-    args = (1.0, 1e-4, 511.0, 511.0, 511.0)
+    T = torch.rand(base, generator=gen, device=gen.device).to(dtype)
+    T2, Ci = T.clone(), (torch.rand(base, generator=gen, device=gen.device) + 0.5).to(dtype)
+    args = (1.0, 1e-4, 511.0, 511.0, 511.0) if dtype == torch.float32 else HAND_MIXED_ARGS
     cells = math.prod(base)
     interior = math.prod(n - 2 for n in base)
     (bz, by), _ = diffusion3d._STEPS_SHAPE
-    overhead = teff.halo_compute_overhead((by, bz), 1, k)
-    a_eff, ops = 12.0 * cells, 16.0 * interior * k * (1 + overhead)
+    overhead = teff.halo_compute_overhead((by, bz), 1, k) if k > 1 else 0.0
+    a_eff, ops = 3.0 * dtype.itemsize * cells, 16.0 * interior * k * (1 + overhead)
     bound_ms, bound_by = bound_of(a_eff, ops)
     want = ref.diffusion3d_steps(T2, T, Ci, *args, nsteps=k)
     got = diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=True)
@@ -1379,17 +1574,358 @@ def time_hand_steps(torch, k, gen, spec) -> dict:
             "halo_compute_overhead": overhead,
             "t_eff_per_step_GBps": a_eff * k / (ms / 1e3) / 1e9,
             "t_eff_per_step_over_copy": a_eff * k / (ms / 1e3) / spec.peak_bw,
-            "smem_bytes": diffusion3d.shared_bytes(k), "alias": True}
+            "smem_bytes": diffusion3d.shared_bytes(k, dtype.itemsize), "alias": True}
+
+
+# the storage types as the compiler mangles them, and their tags
+MANGLED = {"f": "", "13__nv_bfloat16": ":bf16", "6__half": ":f16"}
 
 
 def hand_ptxas(log: str) -> dict:
-    """ptxas's summary of each k-step instance of the hand kernel
-    (``diffusion3d_steps_kernel<K>``), as ``diffusion3d/k{K}``."""
+    """ptxas's summary of each instance of the hand kernel: the k-step ones
+    (``diffusion3d_steps_kernel<K, S>``) as ``diffusion3d/k{K}`` and the
+    single step's two (``diffusion3d_kernel<kCopyRing, S>``, merged) as
+    ``diffusion3d``, each with the storage tag of S (``:bf16``, ``:f16``)."""
     out = {}
+    types = "|".join(MANGLED)
     for part in re.split(r"(?=ptxas info\s*: Compiling entry function)", log):
-        m = re.search(r"diffusion3d_steps_kernelILi(\d+)E", part.split("\n", 1)[0])
+        head = part.split("\n", 1)[0]
+        m = re.search(rf"diffusion3d_steps_kernelILi(\d+)E({types})E", head)
         if m:
-            out[f"diffusion3d/k{m.group(1)}"] = ptxas_summary(part)
+            out[f"diffusion3d/k{m.group(1)}{MANGLED[m.group(2)]}"] = ptxas_summary(part)
+        m = re.search(rf"diffusion3d_kernelILb[01]E({types})E", head)
+        if m:
+            key = f"diffusion3d{MANGLED[m.group(1)]}"
+            one = ptxas_summary(part)
+            if key in out:
+                one = {"registers": max(out[key]["registers"] or 0, one["registers"] or 0),
+                       "smem_bytes": max(out[key]["smem_bytes"], one["smem_bytes"]),
+                       "spills": out[key]["spills"] + one["spills"]}
+            out[key] = one
+    return out
+
+
+# ---- sub-f32 storage ---------------------------------------------------------
+def fig1_hand_args() -> tuple:
+    """FIG1's scalars as the hand kernel takes them (``quickstart.initial_state``'s)."""
+    from repro_torch.configs import FIG1
+    from repro_torch.core import Grid
+
+    grid = Grid(FIG1.shape, (FIG1.lx, FIG1.ly, FIG1.lz))
+    return (FIG1.lam, grid.stable_diffusion_dt(FIG1.lam / FIG1.c0), *grid.inv_spacing)
+
+
+def hand_fits(torch, dtype, args) -> bool:
+    """Whether the hand kernel's scalars, rounded to ``dtype``, are finite."""
+    from repro_torch.kernels import ref
+
+    return all(math.isfinite(v) for v in ref.stored_scalars(dtype, *args))
+
+
+def retyped(variants, dtype) -> dict:
+    """Each variant with its kernel and its torch twin storing their fields
+    as ``dtype`` (computed in f32)."""
+    return {name: dict(v, kernel=v["kernel"].with_dtype(dtype),
+                       plain=v["plain"].with_dtype(dtype)) for name, v in variants.items()}
+
+
+def check_fig1_mixed(torch, variants, generic_pair, dtype, tag, gen, dev) -> dict:
+    """FIG1's three generated variants at ``dtype`` against the torch
+    backend at the same dtype, at every shape of SHAPES (outputs bitwise,
+    max reductions bitwise, sums within SUM_RTOL), and the generic
+    two-output kernel at the small ones. Returns each variant's error at
+    full size, by ``{label}:{tag}``."""
+    errs = {}
+    for shape in SHAPES:
+        T = torch.rand(shape, generator=gen).to(dev).to(dtype)
+        T2 = torch.rand(shape, generator=gen).to(dev).to(dtype)
+        Ci = (torch.rand(shape, generator=gen) + 0.5).to(dev).to(dtype)
+        sc = {"lam": 1.0, "dt": 1e-4, "_dx": float(shape[0] - 1),
+              "_dy": float(shape[1] - 1), "_dz": float(shape[2] - 1)}
+        row = {"phase": "check_mixed", "dtype": str(dtype), "shape": list(shape)}
+        for label, (kern, plain) in variants.items():
+            k, pl = kern.with_dtype(dtype), plain.with_dtype(dtype)
+            got, want = split_result(k, k(T2=T2, T=T, Ci=Ci, **sc)), \
+                split_result(pl, pl(T2=T2, T=T, Ci=Ci, **sc))
+            require(got[0]["T2"].dtype == dtype, f"{label}:{tag} returns {got[0]['T2'].dtype}")
+            d = hold_to(torch, k, *got, *want, f"{label}:{tag} against the torch backend "
+                                               f"at {shape}")
+            row[label] = {"max_abs_diff": d, "reductions": {
+                n: [float(got[1][n]), float(want[1][n])] for n in got[1]}}
+            errs[f"{label}:{tag}"] = d
+        if shape != SHAPES[-1]:
+            gk, gp_ = (g.with_dtype(dtype) for g in generic_pair)
+            fa = {n: torch.rand(shape, generator=gen).to(dev).to(dtype)
+                  for n in ("A2", "B2", "A", "B")}
+            row["generic_max_abs_diff"] = hold_to(
+                torch, gk, *split_result(gk, gk(**fa, c=0.3, h=0.7)),
+                *split_result(gp_, gp_(**fa, c=0.3, h=0.7)), f"generic:{tag} at {shape}")
+        emit(row)
+        del T, T2, Ci
+    return errs
+
+
+def mixed_main_path(torch, spec, coupled_runs) -> dict:
+    """The main path with fields stored bf16 and f16 (computed in f32), each
+    run with the launch counts set to 0 just before it and read just after:
+
+    * FIG1 at 512^3 through ``init_parallel_stencil(dtype=...)``: MIXED_STEPS
+      steps of the generated step, the same steps with the hand kernel
+      (which computes at the storage dtype), then ``solve_until``
+      (``check_every = 10``), beside the same run in f32 (as
+      ``benchmarks/bench_teff.py::bench_mixed`` pairs them). ms per step
+      (host clock), T_eff at storage bytes over the copy bandwidth, and one
+      step against the f32 step from the same state within 4 eps max|T|;
+    * porosity 8192^2 ``--dtype`` through the twin's ``solve`` (a fixed run
+      and a ``--tol`` run), its anomaly's y beside the f32 runs';
+    * GP's fused kernel at 512^3 on its own state, GP_STEPS steps.
+    """
+    from repro_torch.configs import FIG1
+    from repro_torch.core import init_parallel_stencil, iterate, teff
+    from repro_torch.examples import gross_pitaevskii as gp, porosity_waves as pw, quickstart
+    from repro_torch.kernels import diffusion3d, stencil
+
+    _, f32f, sc = quickstart.initial_state(FIG1, "cuda")
+    args = (sc["lam"], sc["dt"], sc["_dx"], sc["_dy"], sc["_dz"])
+    launches, rows, one, ran = {}, [], {}, {}
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for tag, name in (("f32", "float32"), *MIXED_TAGS.items()):
+        dt = getattr(torch, name)
+        step = quickstart.make_step(init_parallel_stencil(dtype=dt))
+        conv = step.with_reductions(ERR)
+        f = {n: t.to(dt) for n, t in f32f.items()}
+        hand = hand_fits(torch, dt, args)
+        # the libraries loaded, and one step from the initial state
+        one[tag] = step(**f, **sc)
+        conv(**f, **sc)
+        if hand:
+            diffusion3d.diffusion3d_step(f["T2"], f["T"], f["Ci"], *args, alias=False)
+
+        def fig1_steps():
+            T, T2 = f["T"], f["T2"]
+            for _ in range(MIXED_STEPS):
+                T2 = step(T2=T2, T=T, Ci=f["Ci"], **sc)
+                T, T2 = T2, T
+            return T, T2
+
+        def hand_steps():
+            T, T2 = f["T"], f["T2"]
+            for _ in range(MIXED_STEPS):
+                T2 = diffusion3d.diffusion3d_step(T2, T, f["Ci"], *args, alias=False)
+                T, T2 = T2, T
+            return T
+
+        stencil.launches.clear()
+        diffusion3d.launches = 0
+        (T, T2), t_steps = wall(fig1_steps)
+        T_hand, t_hand = wall(hand_steps) if hand else (None, None)
+        res, t_solve = wall(lambda: iterate.solve_until(
+            conv, dict(T2=T2, T=T, Ci=f["Ci"]), sc, tol=1e-7, max_iters=1000, check_every=10))
+        counts = {**stencil.launches, "diffusion3d": diffusion3d.launches}
+        lab, lab_err = launch_label(step), launch_label(conv)
+        require(counts[lab] == MIXED_STEPS + res.iters - res.host_syncs
+                and counts[lab_err] == res.host_syncs
+                and counts["diffusion3d"] == (MIXED_STEPS if hand else 0),
+                f"FIG1 {tag}: launches {counts}")
+        require(res.host_syncs == res.iters // 10, f"FIG1 {tag}: host syncs {res.host_syncs}")
+        out = res.output(conv)
+        ran[tag] = T
+        isz = dt.itemsize
+        ir = step.stencil_ir(**f, **sc)
+        a_eff = teff.a_eff_from_ir(ir, isz, field_itemsizes={n: isz for n in ir.field_shapes})
+        # a few ulps of storage rounding at T ~ 2
+        eps = torch.finfo(dt).eps if tag != "f32" else 0.0
+        slack = T_SLACK + MIXED_ONE_STEP_EPS * eps * T_RANGE[1]
+        lo, hi = T_RANGE[0] - slack, T_RANGE[1] + slack
+        stats = {n: {"finite": bool(torch.isfinite(t).all()), "min": float(t.min()),
+                     "max": float(t.max())} for n, t in (("T", T), ("T_hand", T_hand),
+                                                          ("solve_T", out)) if t is not None}
+        ms = t_steps / MIXED_STEPS * 1e3
+        row = {"phase": "main_path_mixed", "config": "FIG1", "dtype": name,
+               "shape": list(FIG1.shape), "steps": MIXED_STEPS, "launches": counts,
+               "ms_per_step": ms,
+               "hand_ms_per_step": t_hand / MIXED_STEPS * 1e3 if hand else
+               "not run: FIG1's scalars rounded to this dtype overflow it",
+               "solve": {"iters": res.iters, "err": res.err, "host_syncs": res.host_syncs,
+                         "ms_per_step": t_solve / max(res.iters, 1) * 1e3, "tol": 1e-7},
+               "a_eff_bytes": a_eff, "t_eff_GBps": a_eff / (ms / 1e3) / 1e9,
+               "t_eff_over_copy": a_eff / (ms / 1e3) / spec.peak_bw, "fields": stats,
+               "generated_vs_hand_max_abs_diff": max_abs_diff(T.float(), T_hand.float())
+               if hand else None}
+        if tag != "f32":
+            bound = MIXED_ONE_STEP_EPS * eps * float(f32f["T"].abs().max())
+            d1 = max_abs_diff(one[tag].float(), one["f32"])
+            row["one_step_vs_f32"] = {"max_abs_diff": d1, "bound": bound}
+            row["after_steps_vs_f32_max_abs_diff"] = max_abs_diff(T.float(), ran["f32"])
+            require(d1 <= bound, f"FIG1 {tag}: one step differs from f32 by {d1} > {bound}")
+            launches[f"stencil:{tag}"] = counts[lab]
+            launches[f"stencil+err:{tag}"] = counts[lab_err]
+            if hand:
+                launches[f"diffusion3d:{tag}"] = counts["diffusion3d"]
+        emit(row)
+        rows.append(row)
+        for n, st in stats.items():
+            require(st["finite"], f"FIG1 {tag}: {n} holds non-finite values")
+            require(lo <= st["min"] and st["max"] <= hi,
+                    f"FIG1 {tag}: {n} leaves [{lo}, {hi}]: [{st['min']}, {st['max']}]")
+        del f, T, T2, T_hand, res, out
+    del one, ran
+    torch.cuda.empty_cache()
+
+    # porosity 8192^2 --dtype, a fixed run and a --tol run, beside f32's
+    f32_rows = {r["run"]: r for r in coupled_runs["runs"] if r["solver"] == "porosity"}
+    n_pw = COUPLED_FULL["porosity"][0]
+    for tag, name in MIXED_TAGS.items():
+        for run, kw, names in (
+                ("fixed", dict(nt=PW_STEPS), {"update": "porosity_fused[neumann0]"}),
+                ("tol", dict(nt=PW_TOL_CAP, tol=PW_TOL, check_every=10),
+                 {"update": "porosity_fused[neumann0]",
+                  "update[err]": "porosity_fused[neumann0]+err"})):
+            def solve(nt):
+                return pw.solve(pw.PorosityConfig(n=n_pw, device="cuda", dtype=name,
+                                                  **dict(kw, nt=nt)))
+            short_nt = kw.get("check_every", 1)
+            solve(short_nt)                      # loads the libraries
+            _, short = wall(lambda: solve(short_nt))
+            stencil.launches.clear()
+            r, t = wall(lambda: solve(kw["nt"]))
+            counts = dict(stencil.launches)
+            steps = r["iters"]
+            checks = steps // 10 if "tol" in kw else 0
+            want = {f"{c}:{tag}": (checks if c.endswith("]") else steps - checks) for c in names}
+            require(counts == want, f"porosity {tag} {run}: launches {counts}, expected {want}")
+            for c, v in names.items():
+                launches[f"{v}:{tag}"] = launches.get(f"{v}:{tag}", 0) + counts[f"{c}:{tag}"]
+            ms = ((t - short) / (steps - short_nt) if steps > short_nt else t / steps) * 1e3
+            isz = getattr(torch, name).itemsize
+            a_eff = 4 * n_pw * n_pw * isz      # phi, Pe read; phi2, Pe2 written
+            finite = bool(torch.isfinite(r["phi"]).all() and torch.isfinite(r["Pe"]).all())
+            row = {"phase": "main_path_mixed", "config": "porosity", "dtype": name, "run": run,
+                   "shape": [n_pw, n_pw], "steps": steps, "launches": counts,
+                   "ms_per_step": ms, "a_eff_bytes_per_step": a_eff,
+                   "t_eff_GBps": a_eff / (ms / 1e3) / 1e9,
+                   "t_eff_over_copy": a_eff / (ms / 1e3) / spec.peak_bw,
+                   "phi_range": [r["phi_min"], r["phi_max"]], "residual": r["residual"],
+                   "host_syncs": r["host_syncs"], "finite": finite,
+                   "peak_y": [r["peak0_y"], r["peak_y"]],
+                   "f32": {"ms_per_step": f32_rows[run]["ms_per_step"],
+                           "peak_y": [f32_rows[run]["peak0_y"], f32_rows[run]["peak_y"]]}}
+            emit(row)
+            rows.append(row)
+            require(finite, f"porosity {tag} {run}: non-finite fields")
+            require(abs(r["peak_y"] - r["peak0_y"]) <= 1.5 * r["grid"].spacing[1]
+                    or r["peak_y"] > r["peak0_y"],
+                    f"porosity {tag} {run}: the anomaly left its place downward "
+                    f"({r['peak0_y']} -> {r['peak_y']})")
+            del r
+    torch.cuda.empty_cache()
+
+    # GP's fused kernel on its own state, stored bf16 and f16
+    cfg = gp.GPConfig(n=COUPLED_FULL["gp"][0], device="cuda")
+    grid, re, im, V = gp.init_state(cfg)
+    inv2 = tuple(1.0 / d ** 2 for d in grid.spacing)
+    gsc = dict(g=cfg.g, dt=gp.timestep(grid), _dx2=inv2[0], _dy2=inv2[1], _dz2=inv2[2])
+    kern32 = gp.make_step(grid, cfg).kernels[0]
+    dv = math.prod(grid.spacing)
+    mass0 = float((re.double() ** 2 + im.double() ** 2).sum()) * dv
+    for tag, name in MIXED_TAGS.items():
+        dt = getattr(torch, name)
+        kern = kern32.with_dtype(dt)
+        cur = dict(re2=re.to(dt), im2=im.to(dt), re=re.to(dt), im=im.to(dt), V=V.to(dt))
+        kern(**cur, **gsc)                   # loads the library
+        stencil.launches.clear()
+
+        def gp_steps():
+            c = dict(cur)
+            for _ in range(GP_STEPS):
+                o = kern(**c, **gsc)
+                c["re2"], c["re"] = c["re"], o["re2"]
+                c["im2"], c["im"] = c["im"], o["im2"]
+            return c
+
+        c, t = wall(gp_steps)
+        counts = dict(stencil.launches)
+        require(counts == {f"update:{tag}": GP_STEPS}, f"GP {tag}: launches {counts}")
+        launches[f"gp_fused[none]:{tag}"] = GP_STEPS
+        mass = float((c["re"].double() ** 2 + c["im"].double() ** 2).sum()) * dv
+        finite = bool(torch.isfinite(c["re"]).all() and torch.isfinite(c["im"]).all())
+        row = {"phase": "main_path_mixed", "config": "gp", "dtype": name,
+               "shape": list(COUPLED_FULL["gp"]), "steps": GP_STEPS, "launches": counts,
+               "ms_per_step": t / GP_STEPS * 1e3, "mass0": mass0, "mass": mass,
+               "drift": abs(mass - mass0) / mass0, "finite": finite}
+        emit(row)
+        rows.append(row)
+        require(finite, f"GP {tag}: non-finite fields")
+        del cur, c
+    del re, im, V
+    torch.cuda.empty_cache()
+    return {"launches": launches, "runs": rows}
+
+
+def time_mixed(torch, tag, dtype, step, step_plain, coupled_t, ksteps_t, gen, spec,
+               ptxas) -> dict:
+    """CUDA-event medians (20) of each kernel of the mixed main path at
+    ``dtype`` beside its plain version at the same dtype and its bound at
+    storage bytes (2 per cell of each field): FIG1's step and its ``err``
+    variant, the hand step (a new buffer; in place beside it), every coupled
+    variant (those off the mixed main path too), and the k-step kernels of
+    MIXED_K_VARIANTS and the hand kernel (k = 2-4). Registers and spills
+    from ptxas."""
+    from repro_torch.configs import FIG1
+    from repro_torch.core import teff
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import diffusion3d, ref
+
+    out = {}
+    _, f, sc = quickstart.initial_state(FIG1, "cuda")
+    f = {n: t.to(dtype) for n, t in f.items()}
+    args = (sc["lam"], sc["dt"], sc["_dx"], sc["_dy"], sc["_dz"])
+    for name, kern, plain in (("stencil", step, step_plain),
+                              ("stencil+err", step.with_reductions(ERR),
+                               step_plain.with_reductions(ERR))):
+        k, p = kern.with_dtype(dtype), plain.with_dtype(dtype)
+        a_eff, ops = tap_cost(k.compiled(**f, **sc))
+        bound_ms, bound_by = bound_of(a_eff, ops)
+        ms = teff.measure(lambda: k(**f, **sc), iters=20, warmup=3).median_s * 1e3
+        plain_ms = teff.measure(lambda: p(**f, **sc), iters=10, warmup=2).median_s * 1e3
+        out[f"{name}:{tag}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                                "a_eff_bytes": a_eff, "ops": ops,
+                                "t_eff_over_copy": a_eff / (ms / 1e3) / spec.peak_bw,
+                                "ptxas": ptxas[f"{name}:{tag}"]}
+    hand = time_hand_steps(torch, 1, gen, spec, dtype)       # in place
+    new_ms = teff.measure(lambda: diffusion3d.diffusion3d_step(f["T2"], f["T"], f["Ci"], *args,
+                                                               alias=False),
+                          iters=20, warmup=3).median_s * 1e3
+    plain_ms = teff.measure(lambda: ref.diffusion3d_step(f["T2"], f["T"], f["Ci"], *args),
+                            iters=10, warmup=2).median_s * 1e3
+    out[f"diffusion3d:{tag}"] = {**hand, "ms": new_ms, "in_place_ms": hand["ms"],
+                                 "plain_ms": plain_ms, "share_of_bound": hand["bound_ms"] / new_ms,
+                                 "ptxas": ptxas[f"diffusion3d:{tag}"]}
+    del f
+    for name, v in coupled_t.items():
+        t = time_coupled(torch, v, COUPLED_FULL[v["solver"]], gen)
+        t["ptxas"] = ptxas[f"{name}:{tag}"]
+        out[f"{name}:{tag}"] = t
+        torch.cuda.empty_cache()
+    for name in MIXED_K_VARIANTS:
+        v = ksteps_t[name]
+        for k in STEPS_KS[v["solver"]]:
+            t = time_k_steps(torch, name, v, k, STEPS_FULL[v["solver"]], gen, spec)
+            t["ptxas"] = ptxas[f"{name}/k{k}:{tag}"]
+            out[f"{name}/k{k}:{tag}"] = t
+            torch.cuda.empty_cache()
+    for k in HAND_KS:
+        t = time_hand_steps(torch, k, gen, spec, dtype)
+        t["ptxas"] = ptxas[f"diffusion3d/k{k}:{tag}"]
+        out[f"diffusion3d/k{k}:{tag}"] = t
     return out
 
 

@@ -9,6 +9,9 @@ and one launch of the checked kernel, then one read of the error scalar on
 the host (a device synchronisation). :attr:`SolveResult.host_syncs` counts
 those reads, so the gap from the reference's zero stays visible.
 
+With bf16 or f16 storage the fields stay at their storage dtype across
+checks, and the error is folded at the kernel's ``acc_dtype`` (f32).
+
 ``until="below"`` runs while ``err > tol`` (convergence); ``until="above"``
 runs while ``err <= tol`` (drift guard). Steps are taken in multiples of
 ``check_every``: ``iters`` may overshoot ``max_iters`` by at most
@@ -107,7 +110,9 @@ def make_solver(kernel, scalars: Mapping[str, Any] | None = None, *,
         # the error is an f32 value: compare it with tol rounded to f32, as
         # the reference's device loop does
         tol = float(torch.tensor(float(tol), dtype=torch.float32))
-        cur = dict(fields)
+        # the fields are carried at the kernel's storage dtype (rounded once
+        # here if given wider); the error is a reduction at its acc_dtype
+        cur = {n: v.to(kernel.ps.dtype) for n, v in fields.items()}
         reds: dict[str, torch.Tensor] = {}
         err = math.inf if until == "below" else -math.inf
         it = syncs = 0

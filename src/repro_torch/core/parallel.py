@@ -37,6 +37,14 @@ applied after the write would: the ``torch`` backend applies that
 post-pass, the generated CUDA kernel computes the face values inside its
 launch.
 
+``dtype`` is the fields' storage dtype: what they occupy in device memory
+and what every call returns. bf16 and f16 storage compute in f32
+(``compute_dtype``, by default ``kernels.stencil.default_compute_dtype``):
+both backends cast each field up on load, run the update in f32 and round
+each output to storage on store, and reductions fold the stored outputs
+widened to ``acc_dtype`` (never narrower than f32). So a bf16 step moves
+half the bytes of an f32 one, and its derivatives keep f32 precision.
+
 ``kernel.run_steps(k, **fields)`` advances k steps, each output rotating into
 its ``rotations`` target: on ``backend="cuda"`` in one launch of a generated
 k-step kernel (k launches for a periodic condition), on ``backend="torch"``
@@ -61,21 +69,33 @@ _BACKENDS = ("cuda", "torch")
 @dataclasses.dataclass(frozen=True)
 class ParallelStencil:
     """Backend/dtype/ndims/device context (the paper's
-    ``@init_parallel_stencil``)."""
+    ``@init_parallel_stencil``). ``dtype`` is the storage dtype,
+    ``compute_dtype`` (None: ``default_compute_dtype(dtype)``) what the
+    update runs at."""
 
     backend: str = "cuda"
     dtype: torch.dtype = torch.float32
     ndims: int = 3
     device: Any = "cuda"
+    compute_dtype: torch.dtype | None = None
 
     def __post_init__(self):
         if self.backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {_BACKENDS}")
-        if self.dtype != torch.float32:
+        cd = self.compute_dtype
+        if cd is None:
+            cd = _stencil.default_compute_dtype(self.dtype)
+        # the port runs f32, bf16 and f16 storage, each computed in f32; the
+        # reference also runs f64 storage under x64 and any compute named
+        if self.dtype not in _stencil.STORAGE_DTYPES or cd != torch.float32:
+            item = ("f64 storage" if torch.float64 in (self.dtype, cd)
+                    else "compute narrower than f32")
             raise NotImplementedError(
-                f"storage dtype {self.dtype} is not ported yet (ROADMAP queue 1, "
-                "item 3: sub-f32 storage); fields are float32"
+                f"storage {self.dtype} with compute {cd} is not ported yet (ROADMAP "
+                f"queue 1, item 3: {item}); the port runs f32, bf16 and f16 storage, "
+                "each computed in f32"
             )
+        object.__setattr__(self, "compute_dtype", cd)
         dev = resolve_device(self.device)
         if self.backend == "cuda" and dev.type != "cuda":
             raise ValueError(
@@ -83,6 +103,11 @@ class ParallelStencil:
                 "backend='torch' for device='cpu'"
             )
         object.__setattr__(self, "device", dev)
+
+    @property
+    def acc_dtype(self) -> torch.dtype:
+        """The dtype reductions accumulate in (never narrower than f32)."""
+        return _stencil.accum_dtype(self.compute_dtype)
 
     def parallel(
         self,
@@ -111,8 +136,10 @@ class ParallelStencil:
 
 
 def init_parallel_stencil(backend: str = "cuda", dtype: torch.dtype = torch.float32,
-                          ndims: int = 3, device="cuda") -> ParallelStencil:
-    return ParallelStencil(backend=backend, dtype=dtype, ndims=ndims, device=device)
+                          ndims: int = 3, device="cuda",
+                          compute_dtype: torch.dtype | None = None) -> ParallelStencil:
+    return ParallelStencil(backend=backend, dtype=dtype, ndims=ndims, device=device,
+                           compute_dtype=compute_dtype)
 
 
 class StencilKernel:
@@ -146,6 +173,7 @@ class StencilKernel:
         self._ir_cache: dict = {}
         self._calls: dict = {}
         self._red_variants: dict = {}
+        self._dtype_variants: dict = {}
         functools.update_wrapper(self, fn)
 
     @property
@@ -168,13 +196,30 @@ class StencilKernel:
             self._red_variants[key] = v
         return v
 
+    def with_dtype(self, dtype: torch.dtype) -> "StencilKernel":
+        """The same update with its fields stored as ``dtype`` (computed at
+        ``default_compute_dtype(dtype)``), on this kernel's backend and
+        device: how a solver that takes no storage dtype of its own runs at
+        bf16 or f16. Memoized."""
+        if dtype == self.ps.dtype:
+            return self
+        v = self._dtype_variants.get(dtype)
+        if v is None:
+            ps = dataclasses.replace(self.ps, dtype=dtype, compute_dtype=None)
+            v = StencilKernel(ps, self.fn, self.outputs, self.rotations, self.reductions,
+                              self.bc)
+            self._dtype_variants[dtype] = v
+        return v
+
     def apply_reductions(self, outs: Mapping[str, torch.Tensor],
                          fields: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """Whole-tensor folds of this kernel's reductions over the new
-        outputs and the pre-step fields: what a separate pass computes."""
+        outputs and the pre-step fields (as stored), each widened to
+        ``acc_dtype`` first: what a separate pass computes."""
         reds = {}
+        acc = self.ps.acc_dtype
         for name, r in self.reductions.items():
-            ops = [outs[op] if op in outs else fields[op] for op in r.operands]
+            ops = [(outs[op] if op in outs else fields[op]).to(acc) for op in r.operands]
             reds[name] = r.fold(r.map_element(*ops))
         return reds
 
@@ -188,6 +233,7 @@ class StencilKernel:
                         f"field {name!r} lies on {v.device}, but the kernel runs "
                         f"on {self.ps.device}; move it explicitly"
                     )
+                # fields live at the storage dtype: cast once at the rim
                 fields[name] = v.to(self.ps.dtype)
             elif getattr(v, "ndim", 0) == self.ps.ndims:
                 raise TypeError(
@@ -238,7 +284,10 @@ class StencilKernel:
 
     # -- backends -----------------------------------------------------------
     def _run_torch(self, fields, scalars, ir: _ir.StencilIR):
-        updates = self.fn(**fields, **scalars)
+        # cast on load, compute at compute_dtype, round on store (the write
+        # into the storage-dtype output rounds to nearest even)
+        cd = self.ps.compute_dtype
+        updates = self.fn(**{n: v.to(cd) for n, v in fields.items()}, **scalars)
         outs = {}
         for name in self.outputs:
             idx = tuple(slice(w, n - w) for w, n in
@@ -256,7 +305,7 @@ class StencilKernel:
         if call is None:
             call = self._calls[key] = _stencil.StencilCall(
                 ir, self.label, self.bc, nsteps=nsteps,
-                rotations=self.rotations if nsteps > 1 else None)
+                rotations=self.rotations if nsteps > 1 else None, dtype=self.ps.dtype)
         return call
 
     def compiled(self, nsteps: int = 1, **kwargs) -> _stencil.StencilCall:

@@ -83,9 +83,11 @@ def a_eff_checked(a_eff_step: float, check_bytes: float, check_every: int = 1,
     return a_eff_step + (0.0 if fused else check_bytes / m)
 
 
-def a_eff_from_ir(ir, itemsize: int, nsteps: int = 1) -> float:
-    """A_eff derived from the stencil IR's read and write sets."""
-    return ir.io_bytes(itemsize) / max(int(nsteps), 1)
+def a_eff_from_ir(ir, itemsize: int, nsteps: int = 1, field_itemsizes=None) -> float:
+    """A_eff derived from the stencil IR's read and write sets, each field at
+    its storage width (``field_itemsizes``, ``{field: itemsize}``, defaulting
+    to ``itemsize``: 2 for bf16 or f16 fields), over the steps per launch."""
+    return ir.io_bytes(itemsize, field_itemsizes=field_itemsizes) / max(int(nsteps), 1)
 
 
 def t_eff(a_eff_bytes: float, seconds: float) -> float:

@@ -9,6 +9,7 @@ Pseudo-transient two-field compaction model (Raess et al. 2022, 2-D):
     PYTHONPATH=src python -m repro_torch.examples.porosity_waves --device cuda \
         [--n 128] [--nt 500] [--backend cuda|torch] [--flux-split]
         [--bc neumann|dirichlet|periodic] [--tol 1e-6] [--check-every 10]
+        [--dtype float32|bfloat16|float16]
 
 The coupled (phi, Pe) update runs as one fused ``@parallel`` launch per
 step, its staggered Darcy fluxes in-kernel (``d_xa``/``av_xa``). With
@@ -20,6 +21,9 @@ per output (``--bc``) and computed inside the launch on ``--backend cuda``
 (also on ``--device cpu``). With ``--tol`` the fused kernel gains a
 ``max_abs_diff(Pe2, Pe)`` epilogue and ``solve_until`` iterates it to
 steady state, checking every ``--check-every`` steps; ``--nt`` caps it.
+``--dtype`` is the fields' storage dtype: bf16 and f16 fields are rounded
+once from the f32 initial state, and every step computes in f32 and rounds
+on store, so each step moves half the bytes of an f32 one.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ class PorosityConfig:
     rho_g: float = 30.0        # buoyancy contrast
     device: str = "cuda"
     backend: str | None = None  # cuda | torch; None: cuda on the card
-    dtype: str = "float32"     # field storage dtype (only float32 is ported)
+    dtype: str = "float32"     # field STORAGE dtype; compute stays f32
     flux_split: bool = False
     bc: str = "neumann"        # neumann | dirichlet | periodic | none
     tol: float | None = None   # steady-state residual (None: fixed nt)
@@ -56,12 +60,12 @@ class PorosityConfig:
         return self.backend or default_backend(self.device)
 
 
+    @property
+    def storage(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
 def _check_ported(cfg: PorosityConfig) -> None:
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"--dtype {cfg.dtype} is not ported yet (ROADMAP queue 1, item 3.4: "
-            "sub-f32 storage); fields are float32"
-        )
     if cfg.checkpoint_dir is not None:
         raise NotImplementedError(
             "--checkpoint-dir is not ported yet (ROADMAP queue 1, item 6: "
@@ -101,6 +105,9 @@ def init_state(cfg: PorosityConfig):
     x, y = grid.meshgrid(device=cfg.device)
     phi = cfg.phi0 + cfg.dphi * cfg.phi0 * torch.exp(
         -((x - 5.0) ** 2 + (y - 2.0) ** 2) / 0.5)
+    # storage rounding happens once, here: every later step computes in f32
+    # and rounds only on store
+    phi = phi.to(cfg.storage)
     Pe = torch.zeros_like(phi)
     return grid, phi, Pe
 
@@ -119,7 +126,8 @@ def make_step(grid: Grid, cfg: PorosityConfig):
     dx, dy = grid.spacing
     phi0, npow, eta, rho_g = cfg.phi0, cfg.npow, cfg.eta, cfg.rho_g
     bc = boundary_conditions(cfg)
-    ps = init_parallel_stencil(backend=cfg.resolved_backend, ndims=2, device=cfg.device)
+    ps = init_parallel_stencil(backend=cfg.resolved_backend, dtype=cfg.storage, ndims=2,
+                               device=cfg.device)
 
     if not cfg.flux_split:
         @ps.parallel(outputs=("phi2", "Pe2"),
@@ -159,8 +167,8 @@ def make_step(grid: Grid, cfg: PorosityConfig):
         return {"phi2": phi_new, "Pe2": Pe_new}
 
     nx, ny = grid.shape
-    qx0 = torch.zeros((nx - 1, ny), device=ps.device)
-    qy0 = torch.zeros((nx, ny - 1), device=ps.device)
+    qx0 = torch.zeros((nx - 1, ny), dtype=ps.dtype, device=ps.device)
+    qy0 = torch.zeros((nx, ny - 1), dtype=ps.dtype, device=ps.device)
 
     def step(phi, Pe, dtau):
         q = fluxes(qx=qx0, qy=qy0, phi=phi, Pe=Pe)
@@ -248,7 +256,8 @@ def main(argv=None):
                     help="generated CUDA kernel (default on the card) or plain PyTorch")
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16", "float16"],
-                    help="field storage dtype (only float32 is ported)")
+                    help="field storage dtype (stencil arithmetic stays f32; bf16/f16 "
+                         "halve the bytes every step moves)")
     ap.add_argument("--flux-split", action="store_true",
                     help="explicit staggered flux fields (two launches)")
     ap.add_argument("--bc", default="neumann",
@@ -272,7 +281,7 @@ def main(argv=None):
              else f"{cfg.nt} steps")
     print(f"porosity wave: {steps} on {r['grid'].shape} "
           f"[{cfg.resolved_backend}{'/flux-split' if cfg.flux_split else ''}"
-          f"/bc={cfg.bc} on {cfg.device}]; "
+          f"/bc={cfg.bc}{'' if cfg.dtype == 'float32' else '/' + cfg.dtype} on {cfg.device}]; "
           f"phi in [{r['phi_min']:.4f}, {r['phi_max']:.4f}]; "
           f"anomaly y: {r['peak0_y']:.2f} -> {r['peak_y']:.2f}")
 

@@ -18,17 +18,28 @@ import torch
 from .core.device import resolve_device
 
 
+def _host_array(a) -> np.ndarray:
+    """``a`` as a numpy array torch can read: a bf16 array (``ml_dtypes``,
+    the reference's storage) widened to f32, which is exact."""
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
 def fields_from_numpy(arrays: Mapping[str, np.ndarray], *, device="cuda",
                       dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
-    """Each array as a new contiguous tensor of ``dtype`` on ``device``."""
+    """Each array as a new contiguous tensor of ``dtype`` on ``device``: an
+    f32 array given for bf16 or f16 fields is rounded once (to nearest
+    even), a bf16 or f16 one is taken as it is."""
     dev = resolve_device(device)
-    return {n: torch.tensor(np.asarray(a), dtype=dtype, device=dev).contiguous()
+    return {n: torch.tensor(_host_array(a), dtype=dtype, device=dev).contiguous()
             for n, a in arrays.items()}
 
 
 def fields_to_numpy(fields: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    """Each tensor as a numpy array on the host (a copy)."""
-    return {n: t.detach().cpu().numpy().copy() for n, t in fields.items()}
+    """Each tensor as a numpy array on the host (a copy). bf16 fields come
+    back as f32 arrays (exact: numpy has no bf16), f16 as f16."""
+    return {n: (t.detach().float() if t.dtype == torch.bfloat16 else t.detach())
+            .cpu().numpy().copy() for n, t in fields.items()}
 
 
 def _tree_from_numpy(tree, dev):

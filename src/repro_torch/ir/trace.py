@@ -58,11 +58,14 @@ class StencilIR:
         """(n_read, n_write): the paper's A_eff field counting."""
         return len(self.read_fields), len(self.out_names)
 
-    def io_bytes(self, itemsize: int) -> int:
+    def io_bytes(self, itemsize: int, field_itemsizes: Mapping[str, int] | None = None) -> int:
         """Bytes that must cross device memory per step under perfect reuse:
-        every read field streams in once, every output streams out once."""
+        every read field streams in once, every output streams out once,
+        each at its own extent and at its storage width (``field_itemsizes``,
+        ``{field: itemsize}``, defaulting to ``itemsize``)."""
+        isz = field_itemsizes or {}
         names = self.read_fields + self.out_names
-        return sum(math.prod(self.field_shapes[f]) * itemsize for f in names)
+        return sum(math.prod(self.field_shapes[f]) * isz.get(f, itemsize) for f in names)
 
 
 def field_geometry(

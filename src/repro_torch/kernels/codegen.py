@@ -35,6 +35,12 @@ and reach the kernel as ``float`` arguments. Operand order is kept, so
 by the same operations in the same order on every path, so the core, staged
 and direct values of a cell are bitwise the same.
 
+Fields may be stored narrower than they are computed (:class:`Storage`):
+a bf16 or f16 kernel widens every load to f32, runs the same program in f32
+and rounds each output to its storage type on store (round to nearest
+even); reductions fold the stored value, widened to f32. The torch form
+does the same on tensors.
+
 The torch form lets the CPU tests check the lowering, which is the hard
 part, without ``nvcc``: it must agree bitwise with the ``torch`` backend of
 ``@parallel``. It realizes boundary conditions as the kernel does, by
@@ -55,6 +61,7 @@ from ..ir.bc import BoundaryCondition
 from ..ir.reductions import Reduction
 from ..ir.sym import BINARY_OPS, UNARY_OPS, SymScalar
 from ..ir.trace import StencilIR
+from .ref import stored_value
 
 # An operand of an operation: ("load", i), ("read", i) (a staged
 # intermediate), ("op", i), ("param", i) or ("const", number).
@@ -67,6 +74,70 @@ Ops = tuple[tuple[str, tuple[Ref, ...]], ...]
 # below that, the shared-memory round trip and the barrier cost more than
 # they save (porosity's flux kernel recomputes k = (phi / phi0) ** 3).
 STAGE_MIN_SAVED_OPS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Storage:
+    """How a kernel's fields are stored: the C++ type of a storage dtype
+    and the intrinsics that widen it to f32 on load and round f32 to it on
+    store (to nearest even, NaN kept quiet). f32 storage prints neither:
+    its loads and stores are plain."""
+
+    dtype: torch.dtype
+    ctype: str = "float"
+    header: str = ""
+    to_float: str = ""
+    from_float: str = ""
+
+    @property
+    def wide(self) -> bool:
+        return self.dtype == torch.float32
+
+    @property
+    def itemsize(self) -> int:
+        return torch.finfo(self.dtype).bits // 8
+
+    def widen(self, e: str) -> str:
+        return e if self.wide else f"widen({e})"
+
+    def narrow(self, e: str) -> str:
+        return e if self.wide else f"narrow({e})"
+
+    def rounded(self, e: str) -> str:
+        """``e`` rounded to the storage type and widened back: the value a
+        store keeps, the one a reduction folds."""
+        return e if self.wide else f"widen(narrow({e}))"
+
+    def includes(self) -> list[str]:
+        return [] if self.wide else [f"#include <{self.header}>"]
+
+    def helpers(self) -> list[str]:
+        """The conversions' device functions (none for f32)."""
+        if self.wide:
+            return []
+        t = self.ctype
+        return [f"// fields are stored as {t} and computed in float: a load widens,",
+                "// a store rounds to nearest even",
+                f"__device__ __forceinline__ float widen(const {t} v) {{ return {self.to_float}(v); }}",
+                f"__device__ __forceinline__ {t} narrow(const float v) {{ "
+                f"return {self.from_float}(v); }}",
+                ""]
+
+
+_STORAGES = {
+    torch.float32: Storage(torch.float32),
+    torch.bfloat16: Storage(torch.bfloat16, "__nv_bfloat16", "cuda_bf16.h", "__bfloat162float",
+                            "__float2bfloat16_rn"),
+    torch.float16: Storage(torch.float16, "__half", "cuda_fp16.h", "__half2float",
+                           "__float2half_rn"),
+}
+
+
+def storage(dtype: torch.dtype = torch.float32) -> Storage:
+    """The :class:`Storage` of a storage dtype (f32, bf16 or f16)."""
+    if dtype not in _STORAGES:
+        raise NotImplementedError(f"storage dtype {dtype} is not ported to the CUDA kernel")
+    return _STORAGES[dtype]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -360,9 +431,18 @@ def evaluate_torch(program: TapProgram, fields: Mapping[str, torch.Tensor],
     write region and faces, then the core program, reading each stage
     computed once as a whole tensor, on the core cells. A cell an output
     does not write keeps its ``prev`` value (by default the output's own).
+    Fields stored in bf16 or f16 are widened to f32 first and each output
+    is rounded to its storage dtype at the end, as the kernel stores it.
     Returns ``(outputs, reductions)``; ``reductions`` is None when the
-    program has none."""
+    program has none (each folded in f32 over the stored values)."""
     host = program.host_values(scalars)
+    stored = fields[program.fields[0]].dtype
+    # stencil.default_compute_dtype's rule, which is also the accumulation
+    # dtype: f32 for bf16 and f16 storage
+    compute = torch.promote_types(stored, torch.float32)
+    if compute != stored:
+        fields = {n: t.to(compute) for n, t in fields.items()}
+        prev = None if prev is None else {n: t.to(compute) for n, t in prev.items()}
     outs = {}
     for op in program.outputs:
         prev_op = fields[op.name] if prev is None else prev[op.name]
@@ -395,11 +475,13 @@ def evaluate_torch(program: TapProgram, fields: Mapping[str, torch.Tensor],
                        lambda i: window(staged[core.reads[i][0]], core.reads[i][1]))
         for op, res in zip(program.outputs, core.results):
             outs[op.name][tuple(slice(lo, hi) for lo, hi in box)] = resolve(res)
+    if compute != stored:
+        outs = {n: t.to(stored) for n, t in outs.items()}
     if not program.reductions:
         return outs, None
     reds = {}
     for name, r in program.reductions:
-        ops = [outs[f] if f in outs else fields[f] for f in r.operands]
+        ops = [(outs[f] if f in outs else fields[f]).to(compute) for f in r.operands]
         reds[name] = r.fold(r.map_element(*ops))
     return outs, reds
 
@@ -627,8 +709,10 @@ def _emit_ops(w, ind: str, ops: Ops, name: str, ref) -> None:
         w(f"{ind}const float {name}{j} = {_c_expr(kind, [ref(a) for a in args], list(args))};")
 
 
-def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
-    """CUDA C++ source of the fused launch: one ``__global__`` function and
+def cuda_source(program: TapProgram, shape: KernelShape | None = None,
+                dtype: torch.dtype = torch.float32) -> str:
+    """CUDA C++ source of the fused launch for fields stored as ``dtype``
+    (f32, bf16 or f16; computed in f32): one ``__global__`` function and
     a plain C entry point ``launch``. The base extents, one pair of strides
     per shape class and the grid are runtime arguments, so one build serves
     every grid size; the staggering offsets, the stages' footprints and the
@@ -650,10 +734,12 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
     region, its previous value on the ring, its dirichlet value on a face,
     and on a neumann0 or periodic face the same expression at its source
     cell (:func:`bc_source`), so it equals that cell's own value bitwise.
-    Reductions fold every output after its boundary condition, in registers
-    over the march, then across the block with warp shuffles."""
+    Reductions fold every output after its boundary condition and its
+    rounding to storage, in f32 registers over the march, then across the
+    block with warp shuffles."""
     if program.ndim > 3:
         raise NotImplementedError("the generated CUDA kernel handles 1-3 dimensions")
+    st = storage(dtype)
     shape = shape or kernel_shape(program)
     (bz, by), planes = shape.tile, shape.planes
     fidx = {f: k for k, f in enumerate(program.fields)}
@@ -677,8 +763,12 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
     w("// 32-bit, from a 64-bit block base.")
     w("#include <cstdint>")
     w("#include <cuda_runtime.h>")
+    for line in st.includes():
+        w(line)
     w("")
     w("namespace {")
+    for line in st.helpers():
+        w(line)
     w(f"constexpr int kBlockZ = {bz};")
     w(f"constexpr int kBlockY = {by};")
     w("constexpr int kThreads = kBlockZ * kBlockY;")
@@ -697,8 +787,9 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
     w("  return (b != b || b > a) ? b : a;")
     w("}")
     w("")
-    params = [f"const float* __restrict__ in{k}" for k in range(len(program.fields))]
-    params += [f"float* __restrict__ out{k}" for k in range(n_out)]
+    T = st.ctype
+    params = [f"const {T}* __restrict__ in{k}" for k in range(len(program.fields))]
+    params += [f"{T}* __restrict__ out{k}" for k in range(n_out)]
     params += [f"float* __restrict__ part{k}" for k in range(n_red)]
     divs = divisor_params(program)
     params += [f"const float p{k}" for k in range(n_par)]
@@ -724,9 +815,9 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
         w(f"  const int S{c}x = static_cast<int>(s{c}x), S{c}y = static_cast<int>(s{c}y);")
         w(f"  const int64_t b{c} = x0 * s{c}x + y0 * s{c}y + z0;")
     for f, k in fidx.items():
-        w(f"  const float* __restrict__ g{k} = in{k} + b{fcls[f]};")
+        w(f"  const {T}* __restrict__ g{k} = in{k} + b{fcls[f]};")
     for k, op in enumerate(program.outputs):
-        w(f"  float* __restrict__ h{k} = out{k} + b{fcls[op.name]};")
+        w(f"  {T}* __restrict__ h{k} = out{k} + b{fcls[op.name]};")
     _emit_core_box(w, program, fcls)
     w("  const bool in_grid = y < ny && z < nz;")
     w("  const bool yz_core = y >= cylo && y < cyhi && z >= czlo && z < czhi;")
@@ -739,13 +830,13 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
     w("  #pragma unroll 1")
     w(f"  for (int xs = x0{f' - {lead}' if lead else ''}; xs < x1; xs += kPlanes) {{")
     for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
-        _emit_stage(w, shape, k, s, py, pz, fidx, fcls)
+        _emit_stage(w, shape, k, s, py, pz, fidx, fcls, st)
     if stages:
         w("    __syncthreads();")
     out_idx = {op.name: k for k, op in enumerate(program.outputs)}
     reds = []
     for r, (_, red) in enumerate(program.reductions):
-        vals = [f"v{out_idx[f]}" if f in out_idx else f"g{fidx[f]}[at{fcls[f]}]"
+        vals = [f"v{out_idx[f]}" if f in out_idx else st.widen(f"g{fidx[f]}[at{fcls[f]}]")
                 for f in red.operands]
         if red.kind == "max_abs":
             m = f"fabsf({vals[0]})"
@@ -768,7 +859,8 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
         w(f"{ind}const int q{d - lo_x} = wrap(base + (x - xs) + {d - hi_x});")
     for j, (f, off) in enumerate(core.loads):
         c = fcls[f]
-        w(f"{ind}const float l{j} = g{fidx[f]}[{_offset(f'at{c}', c, to3(off, 0), 'S')}];")
+        w(f"{ind}const float l{j} = "
+          f"{st.widen(f'g{fidx[f]}[{_offset(f"at{c}", c, to3(off, 0), "S")}]')};")
     for j, (k, rel) in enumerate(core.reads):
         d, lo = to3(rel, 0), to3(stages[k].lo, 0)
         pz = tiles[k][1]
@@ -776,8 +868,8 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
     ref = _printer("l", "u", "e")
     _emit_ops(w, ind, core.ops, "e", ref)
     for k, (op, res) in enumerate(zip(program.outputs, core.results)):
-        w(f"{ind}const float v{k} = {ref(res)};")
-        w(f"{ind}h{k}[at{fcls[op.name]}] = v{k};")
+        val = emit_value(w, ind, k, ref(res), st)
+        w(f"{ind}h{k}[at{fcls[op.name]}] = {val};")
     for line in reds:
         w(f"{ind}{line}")
     w("    };")
@@ -788,7 +880,7 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
         w(f"{ind}const int at{c} = (x - x0) * S{c}x + ty * S{c}y + tz;")
     for k in range(n_out):
         w(f"{ind}float v{k};")
-    _emit_direct(w, program, fidx, fcls)
+    _emit_direct(w, program, fidx, fcls, st=st)
     for line in reds:
         w(f"{ind}{line}")
     w("    };")
@@ -840,8 +932,8 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
     w("  const dim3 grid(static_cast<unsigned>(gz), static_cast<unsigned>(gy), "
       "static_cast<unsigned>(gx));")
     w("  const dim3 block(kBlockZ, kBlockY, 1);")
-    kargs = [f"static_cast<const float*>(in{k})" for k in range(len(program.fields))]
-    kargs += [f"static_cast<float*>(out{k})" for k in range(n_out)]
+    kargs = [f"static_cast<const {T}*>(in{k})" for k in range(len(program.fields))]
+    kargs += [f"static_cast<{T}*>(out{k})" for k in range(n_out)]
     kargs += [f"static_cast<float*>(part{k})" for k in range(n_red)]
     kargs += [f"p{k}" for k in range(n_par)] + [f"r{k}" for k in divs]
     kargs += [*dims, *strides, "xc"]
@@ -854,6 +946,19 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None) -> str:
     w("  return cudaGetErrorString(static_cast<cudaError_t>(err));")
     w("}")
     return "\n".join(lines) + "\n"
+
+
+def emit_value(w, ind: str, k: int, expr: str, st: Storage) -> str:
+    """Print output ``k``'s value ``v{k}`` at a cell: for f32 storage the
+    computed value; else the value rounded to storage (``n{k}``) and
+    ``v{k}`` widened from it, the value a reduction folds. Returns the
+    name of the value to store."""
+    if st.wide:
+        w(f"{ind}const float v{k} = {expr};")
+        return f"v{k}"
+    w(f"{ind}const {st.ctype} n{k} = {st.narrow(expr)};")
+    w(f"{ind}const float v{k} = {st.widen(f'n{k}')};")
+    return f"n{k}"
 
 
 def _emit_core_box(w, program: TapProgram, fcls) -> None:
@@ -897,7 +1002,8 @@ def _emit_stage_setup(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int,
             w(f"  const int o{k}_{i}_{c} = (ey{k}_{i} - y0) * S{c}y + (ez{k}_{i} - z0);")
 
 
-def _emit_stage(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int, fidx, fcls) -> None:
+def _emit_stage(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int, fidx, fcls,
+                st: Storage) -> None:
     """Stage ``k``'s planes ``xs + kHi .. + kPlanes - 1`` over its tile and
     halo. An element outside the frame is computed at the nearest element
     inside (so every load is in range and none waits on a branch) and
@@ -923,7 +1029,8 @@ def _emit_stage(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int, fidx,
             w(f"{ind}const int e{c} = (qc - x0) * S{c}x + o{k}_{i}_{c};")
         for j, (f, off) in enumerate(s.loads):
             c = fcls[f]
-            w(f"{ind}const float a{j} = g{fidx[f]}[{_offset(f'e{c}', c, to3(off, 0), 'S')}];")
+            w(f"{ind}const float a{j} = "
+              f"{st.widen(f'g{fidx[f]}[{_offset(f"e{c}", c, to3(off, 0), "S")}]')};")
         ref = _printer("a", "?", "t")
         _emit_ops(w, ind, s.ops, "t", ref)
         w(f"{ind}dst[e{k}_{i}] = q == qc && in{k}_{i} ? {ref(s.result)} : 0.0f;")
@@ -932,14 +1039,16 @@ def _emit_stage(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int, fidx,
 
 
 def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
-                 store=None) -> None:
+                 store=None, st: Storage = _STORAGES[torch.float32]) -> None:
     """Each output's direct program at a cell (x, y, z) outside the core.
     By default (the single-step kernel) its loads are indexed from the
     block's base (``at{class}``; a source cell across the domain in 64
     bits), its previous value is the output's own and it is stored to the
     output. The k-step kernel passes ``access(field, coords, off)`` (the
-    tap ``off`` of a field at the cell ``coords``, three C expressions),
-    ``prev(op, coords)`` and ``store(k, op)``."""
+    tap ``off`` of a field at the cell ``coords``, three C expressions, its
+    value in f32), ``prev(op, coords)`` and ``store(k, op, value)``. The
+    value ``v{k}`` is rounded to storage ``st`` before it is stored and
+    folded."""
     axes3 = _AXES3[program.ndim]
     ref = _printer("l", "?", "e")
     for k, op in enumerate(program.outputs):
@@ -977,9 +1086,9 @@ def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
 
             def tap(f, off, base=base):
                 c = fcls[f]
-                return f"g{fidx[f]}[{_offset(base(c), c, off)}]"
+                return st.widen(f"g{fidx[f]}[{_offset(base(c), c, off)}]")
 
-            before = f"g{fidx[op.name]}[{base(co)}]"
+            before = st.widen(f"g{fidx[op.name]}[{base(co)}]")
         else:
             def tap(f, off, coords=coords):
                 return access(f, coords, off)
@@ -991,7 +1100,7 @@ def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
             faces = [f"{X} < {bc.depth} || {X} >= m{co}{'xyz'[a]} - {bc.depth}"
                      for a in bc_axes for X in [coords[a]]]
             w(f"{body}if ({' || '.join(faces)}) {{")
-            w(f"{body}  v{k} = {float_literal(bc.value)};")
+            w(f"{body}  v{k} = {float_literal(stored_value(bc.value, st.dtype))};")
             w(f"{body}}} else if ({' && '.join(conds) if conds else 'true'}) {{")
         else:
             w(f"{body}if ({' && '.join(conds) if conds else 'true'}) {{")
@@ -999,11 +1108,12 @@ def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
         for j, (f, off) in enumerate(op.loads):
             w(f"{inner}const float l{j} = {tap(f, to3(off, 0))};")
         _emit_ops(w, inner, op.ops, "e", ref)
-        w(f"{inner}v{k} = {ref(op.result)};")
+        w(f"{inner}v{k} = {st.rounded(ref(op.result))};")
         w(f"{body}}} else {{")
         w(f"{inner}v{k} = {before};")
         w(f"{body}}}")
         w(f"{ind}}}")
-        w(f"{ind}" + (f"h{k}[at{co}] = v{k};" if store is None else store(k, op)))
+        val = st.narrow(f"v{k}")
+        w(f"{ind}" + (f"h{k}[at{co}] = {val};" if store is None else store(k, op, val)))
         if staggered:
             w("      }")

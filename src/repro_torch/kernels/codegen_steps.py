@@ -36,6 +36,15 @@ into registers before any is stored; elsewhere each cell takes the core or
 its outputs' direct programs. A barrier ends each phase but the last, and
 every queue holds one step of planes more than its readers need, so the
 next step never writes a plane still being read.
+
+Fields stored as bf16 or f16 are widened on load and computed in f32, as in
+the single-step kernel. Each sweep's outputs are rounded to storage before
+they enter their queue (the reference's k-step launch rounds each
+intermediate sweep through storage), so ``run_steps(k)`` equals k single
+steps, each of which stores its outputs, bitwise. The output queues hold
+the storage type (half the shared memory of f32 queues; the layout is the
+f32 twin's, see :func:`steps_shape`); a stage's queue holds f32, an
+intermediate of the update and not a stored field.
 """
 from __future__ import annotations
 
@@ -43,8 +52,11 @@ import dataclasses
 import math
 from typing import Mapping
 
-from .codegen import (_AXES3, KernelShape, TapProgram, _combine, _emit_core_box, _emit_direct,
-                      _emit_ops, _offset, _printer, divisor_params, shape_classes, to3)
+import torch
+
+from .codegen import (_AXES3, KernelShape, Storage, TapProgram, _combine, _emit_core_box,
+                      _emit_direct, _emit_ops, _offset, _printer, divisor_params, emit_value,
+                      shape_classes, storage, to3)
 
 # Shared memory a block can use on the H100 (232,448 bytes), above 48 KB
 # only as dynamic shared memory after cudaFuncSetAttribute.
@@ -182,14 +194,23 @@ def plan(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
                 tuple(phases), lead, far)
 
 
-def shared_bytes(program: TapProgram, pl: Plan, shape: KernelShape) -> int:
-    """Dynamic shared memory of one block (the phases' queues) and the
-    reduction fold's static words."""
-    cells = 0
+def queue_words(pl: Plan, ph: Phase, shape: KernelShape, itemsize: int = 4) -> int:
+    """4-byte words of one queue of phase ``ph``: a stage's of f32, an
+    output's of ``itemsize``-byte storage (rounded up to whole words)."""
+    cells = ph.slots * math.prod(pl.region(ph, shape))
+    return cells if ph.stage is not None else -(-cells * itemsize // 4)
+
+
+def shared_bytes(program: TapProgram, pl: Plan, shape: KernelShape,
+                 dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of one block (the phases' queues, each output's
+    at its storage width) and the reduction fold's static words."""
+    isz = storage(dtype).itemsize
+    words = 0
     for ph in pl.phases:
         per = len(program.outputs) if ph.stage is None else 1
-        cells += per * ph.slots * math.prod(pl.region(ph, shape))
-    return 4 * (cells + len(program.reductions) * (shape.threads // 32))
+        words += per * queue_words(pl, ph, shape, isz)
+    return 4 * (words + len(program.reductions) * (shape.threads // 32))
 
 
 def steps_shape(program: TapProgram, rotations: Mapping[str, str], nsteps: int) -> KernelShape:
@@ -202,7 +223,10 @@ def steps_shape(program: TapProgram, rotations: Mapping[str, str], nsteps: int) 
     for, at most four (``__launch_bounds__`` then caps a thread at 64
     registers, 32 for the 512 threads of a 32 x 16 tile). One plane per
     step where two would not fit a block's shared memory (GP with neumann0
-    faces at k = 4)."""
+    faces at k = 4). A bf16 or f16 kernel takes its f32 twin's layout: its
+    2-byte queues need less shared memory, but more blocks would cap its
+    registers below what its f32 twin was held to without spills
+    (porosity's k = 4 kernel spilled at 4 blocks on the H100, PERF.md)."""
     tile = ((32, 8) if program.stages else (32, 16)) if program.ndim == 3 else (256, 1)
     for planes in (2, 1):
         trial = KernelShape(tile, planes, 4)
@@ -213,15 +237,18 @@ def steps_shape(program: TapProgram, rotations: Mapping[str, str], nsteps: int) 
 
 
 def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
-                shape: KernelShape | None = None) -> str:
-    """CUDA C++ source of the ``nsteps``-sweep launch: one ``__global__``
-    function and the plain C entry point ``launch``, with the arguments of
-    the single-step kernel's (``codegen.cuda_source``)."""
+                shape: KernelShape | None = None, dtype: torch.dtype = torch.float32) -> str:
+    """CUDA C++ source of the ``nsteps``-sweep launch for fields stored as
+    ``dtype`` (computed in f32): one ``__global__`` function and the plain
+    C entry point ``launch``, with the arguments of the single-step
+    kernel's (``codegen.cuda_source``)."""
     if program.ndim > 3:
         raise NotImplementedError("the generated CUDA kernel handles 1-3 dimensions")
+    st = storage(dtype)
+    T = st.ctype
     shape = shape or steps_shape(program, rotations, nsteps)
     pl = plan(program, rotations, nsteps, shape)
-    smem = shared_bytes(program, pl, shape)
+    smem = shared_bytes(program, pl, shape, dtype)
     if smem > SHARED_LIMIT:
         raise NotImplementedError(
             f"{nsteps} sweeps of this update need {smem} bytes of shared memory per "
@@ -253,8 +280,12 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     w(f"// lead {pl.lead} planes; {smem} bytes of shared memory per block")
     w("#include <cstdint>")
     w("#include <cuda_runtime.h>")
+    for line in st.includes():
+        w(line)
     w("")
     w("namespace {")
+    for line in st.helpers():
+        w(line)
     w(f"constexpr int kBlockZ = {bz};")
     w(f"constexpr int kBlockY = {by};")
     w("constexpr int kThreads = kBlockZ * kBlockY;")
@@ -273,8 +304,8 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     w("  return (b != b || b > a) ? b : a;")
     w("}")
     w("")
-    params = [f"const float* __restrict__ in{i}" for i in range(len(program.fields))]
-    params += [f"float* __restrict__ out{i}" for i in range(n_out)]
+    params = [f"const {T}* __restrict__ in{i}" for i in range(len(program.fields))]
+    params += [f"{T}* __restrict__ out{i}" for i in range(n_out)]
     params += [f"float* __restrict__ part{i}" for i in range(n_red)]
     divs = divisor_params(program)
     params += [f"const float p{i}" for i in range(n_par)]
@@ -298,11 +329,12 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
         w(f"  const int S{c}x = static_cast<int>(s{c}x), S{c}y = static_cast<int>(s{c}y);")
         w(f"  const int64_t b{c} = x0 * s{c}x + y0 * s{c}y + z0;")
     for f, i in fidx.items():
-        w(f"  const float* __restrict__ g{i} = in{i} + b{fcls[f]};")
+        w(f"  const {T}* __restrict__ g{i} = in{i} + b{fcls[f]};")
     for i, op in enumerate(program.outputs):
-        w(f"  float* __restrict__ h{i} = out{i} + b{fcls[op.name]};")
+        w(f"  {T}* __restrict__ h{i} = out{i} + b{fcls[op.name]};")
     _emit_core_box(w, program, fcls)
-    # the queues
+    # the queues: a stage's of f32, an output's of the storage type, each at
+    # a whole number of 4-byte words into the block's shared memory
     offset = 0
     qname = {}
     for ph in pl.phases[:-1]:
@@ -310,8 +342,12 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
         for q in ([op.name for op in program.outputs] if ph.stage is None else [None]):
             name = f"q{ph.name}" + ("" if q is None else f"_{oidx[q]}")
             qname[(ph.name, q)] = name
-            w(f"  float* const {name} = smem + {offset};  // {ph.slots} x {py} x {pz}")
-            offset += ph.slots * py * pz
+            if q is None or st.wide:
+                w(f"  float* const {name} = smem + {offset};  // {ph.slots} x {py} x {pz}")
+            else:
+                w(f"  {T}* const {name} = reinterpret_cast<{T}*>(smem + {offset});  "
+                  f"// {ph.slots} x {py} x {pz}")
+            offset += queue_words(pl, ph, shape, st.itemsize)
     for r in range(n_red):
         w(f"  float acc{r} = 0.0f;")
     by_key = {(ph.sweep, ph.stage): ph for ph in pl.phases}
@@ -325,16 +361,17 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
         xs_ = f"{X} + {dx}" if dx else X
         row = f"({Y} - y0 + {ylo + dy})" if ylo + dy else f"({Y} - y0)"
         col = f"{Z} - z0 + {zlo + dz}" if zlo + dz else f"{Z} - z0"
-        return (f"{qname[(ph.name, q)]}[slot({xs_}, {ph.slots}) * {py * pz} + "
-                f"{row} * {pz} + {col}]")
+        at = (f"{qname[(ph.name, q)]}[slot({xs_}, {ph.slots}) * {py * pz} + "
+              f"{row} * {pz} + {col}]")
+        return at if q is None else st.widen(at)
 
     def global_at(f, X, Y, Z, off):
         c = fcls[f]
         if (X, Y, Z) == ("x", "y", "z"):
-            return f"g{fidx[f]}[{_offset(f'at{c}', c, off, 'S')}]"
+            return st.widen(f"g{fidx[f]}[{_offset(f'at{c}', c, off, 'S')}]")
         dx, dy, dz = off
-        return (f"g{fidx[f]}[({X} - x0 + {dx}) * S{c}x + ({Y} - y0 + {dy}) * S{c}y + "
-                f"({Z} - z0 + {dz})]")
+        return st.widen(f"g{fidx[f]}[({X} - x0 + {dx}) * S{c}x + ({Y} - y0 + {dy}) * S{c}y + "
+                        f"({Z} - z0 + {dz})]")
 
     def access_for(sweep):
         def access(f, coords, off):
@@ -355,7 +392,7 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
         ylo, yhi, zlo, zhi = ph.ext
         if ph.stage is None:
             body = _out_body(program, ph, is_last, access, fidx, fcls, classes, qname, oidx,
-                             by_key, queue_at, global_at, rot)
+                             by_key, queue_at, global_at, rot, st)
             fast = [f"xa >= cxlo", "xa + kPlanes <= cxhi", f"y0 - {ylo} >= cylo",
                     f"y0 + {by + yhi} <= cyhi", f"z0 - {zlo} >= czlo", f"z0 + {bz + zhi} <= czhi"]
             if is_last:
@@ -371,7 +408,10 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
         # the fast path: every cell of the step's planes lies in the core (or
         # the intermediate's frame), so the cells run one program, unrolled
         # and without a branch, into registers first and stored after, so
-        # that no store stands between one cell's loads and the next's
+        # that no store stands between one cell's loads and the next's; the
+        # registers hold f32 (an output rounded to storage, widened back):
+        # at FIG1's k = 4 and 32 registers, 2-byte arrays spilled where f32
+        # ones did not (on the H100, PERF.md)
         ni = -(-n // nt)
         names = [f"rv{i}" for i in range(n_out)] if ph.stage is None else ["rt"]
         w(f"      if ({' && '.join(fast)}) {{")
@@ -399,13 +439,14 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
                 w(f"{ind}{qname[(ph.name, None)]}[sl + e] = rt[p * {ni} + ie];")
             elif not is_last:
                 for i, op in enumerate(program.outputs):
-                    w(f"{ind}{qname[(ph.name, op.name)]}[sl + e] = rv{i}[p * {ni} + ie];")
+                    w(f"{ind}{qname[(ph.name, op.name)]}[sl + e] = "
+                      f"{st.narrow(f'rv{i}[p * {ni} + ie]')};")
             else:
                 _emit_cell_coords(w, ind, ph, py, pz)
                 for i, op in enumerate(program.outputs):
                     c = fcls[op.name]
                     w(f"{ind}h{i}[(x - x0) * S{c}x + (y - y0) * S{c}y + (z - z0)] = "
-                      f"rv{i}[p * {ni} + ie];")
+                      f"{st.narrow(f'rv{i}[p * {ni} + ie]')};")
             w("            }")
             w("          }")
             w("        }")
@@ -469,8 +510,8 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     w("  const cudaError_t set = cudaFuncSetAttribute(")
     w("      stencil_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);")
     w("  if (set != cudaSuccess) return static_cast<int>(set);")
-    kargs = [f"static_cast<const float*>(in{i})" for i in range(len(program.fields))]
-    kargs += [f"static_cast<float*>(out{i})" for i in range(n_out)]
+    kargs = [f"static_cast<const {T}*>(in{i})" for i in range(len(program.fields))]
+    kargs += [f"static_cast<{T}*>(out{i})" for i in range(n_out)]
     kargs += [f"static_cast<float*>(part{i})" for i in range(n_red)]
     kargs += [f"p{i}" for i in range(n_par)] + [f"r{i}" for i in divs]
     kargs += [*dims, *strides, "xc"]
@@ -495,19 +536,20 @@ def _emit_cell_coords(w, ind: str, ph: Phase, py: int, pz: int) -> None:
 
 
 def _out_body(program: TapProgram, ph: Phase, is_last: bool, access, fidx, fcls, classes,
-              qname, oidx, by_key, queue_at, global_at, rot):
+              qname, oidx, by_key, queue_at, global_at, rot, st: Storage):
     """The printer of an outputs phase at one cell: ``body(w, ind, fast)``
     prints the core program (``fast``: the cell is known to lie in the
-    core) or the core/direct split."""
+    core) or the core/direct split. Each output is rounded to storage
+    before it is stored, to device memory or to its queue."""
     if is_last:
-        def store(i, op):
-            return f"h{i}[at{fcls[op.name]}] = v{i};"
+        def store(i, op, val):
+            return f"h{i}[at{fcls[op.name]}] = {val};"
 
         def prev(op, coords):
             return global_at(op.name, *coords, (0, 0, 0))
     else:
-        def store(i, op):
-            return f"{qname[(ph.name, op.name)]}[sl + e] = v{i};"
+        def store(i, op, val):
+            return f"{qname[(ph.name, op.name)]}[sl + e] = {val};"
 
         def prev(op, coords):
             return access(rot[op.name], coords, (0, 0, 0))
@@ -539,8 +581,8 @@ def _out_body(program: TapProgram, ph: Phase, is_last: bool, access, fidx, fcls,
         ref = _printer("l", "u", "e")
         _emit_ops(w, ind, c.ops, "e", ref)
         for i, (op, res) in enumerate(zip(program.outputs, c.results)):
-            w(f"{ind}const float v{i} = {ref(res)};")
-            w(f"{ind}" + (store(i, op) if into is None else f"rv{i}{into} = v{i};"))
+            val = emit_value(w, ind, i, ref(res), st)
+            w(f"{ind}" + (store(i, op, val) if into is None else f"rv{i}{into} = v{i};"))
         for line in reds:
             w(f"{ind}{line}")
 
@@ -558,7 +600,7 @@ def _out_body(program: TapProgram, ph: Phase, is_last: bool, access, fidx, fcls,
         w(f"{ind}}} else {{")
         for i in range(len(program.outputs)):
             w(f"{ind}  float v{i};")
-        _emit_direct(w, program, fidx, fcls, access=access, prev=prev, store=store)
+        _emit_direct(w, program, fidx, fcls, access=access, prev=prev, store=store, st=st)
         for line in reds:
             w(f"{ind}  {line}")
         w(f"{ind}}}")

@@ -48,6 +48,17 @@
 // and the last takes T2's there: the result equals k rotated single steps
 // when T2 and T agree on the ring.
 //
+// Storage: every kernel is a template on the storage type S of T2, T, Ci and
+// the output (float, __nv_bfloat16 or __half). As in the reference, whose
+// Pallas body computes at the fields' own dtype, a bf16 or f16 step computes
+// at the storage type: each operation's f32 result is rounded to S
+// (rnd<S>), the scalars arrive already rounded to S, and the queues of the
+// k-step form hold S. Rounding an f32 +, - or x of two S values to S equals
+// that operation in S, since f32 keeps at least 2p + 2 bits of S's p; so the
+// kernel equals the plain version, which PyTorch runs on bf16 or f16
+// tensors one operation at a time. A bf16 step reads and writes 6 bytes per
+// cell, half the f32 step's.
+//
 // The order of operations is the plain version's (kernels/ref.py), and the
 // build passes --fmad=false, so the kernel and the plain version agree
 // bitwise. The output may be T2's own buffer (alias): T2 is read only on
@@ -57,21 +68,55 @@
 // Without __restrict__ on `out` and T2 the single step took 6% longer on
 // the H100 (PERF.md), so it keeps them and is instantiated for each
 // case, the in-place one never reading T2. The k-step form is instantiated
-// for k = 2-4, the steps the card checks.
+// for k = 2-4, the steps the card checks, each for the three storage types.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 namespace {
 
 constexpr int kBlockZ = 32;
 constexpr int kBlockY = 8;
 
+// A stored value widened to f32, and an f32 value rounded to the storage
+// type (to nearest even).
+__device__ __forceinline__ float ld(const float v) { return v; }
+__device__ __forceinline__ float ld(const __nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float ld(const __half v) { return __half2float(v); }
+template <typename S> __device__ __forceinline__ S st(float v);
+template <> __device__ __forceinline__ float st<float>(const float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(const float v) {
+  return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half st<__half>(const float v) {
+  return __float2half_rn(v);
+}
+// An operation's f32 result rounded to S and widened back: arithmetic in S.
+template <typename S> __device__ __forceinline__ float rnd(const float v) { return ld(st<S>(v)); }
+
+// The explicit Euler update at one cell from its value tc, its six
+// neighbours and Ci, in the plain version's order, each operation in S;
+// the result stored as S.
+template <typename S>
+__device__ __forceinline__ S update(const float tc, const float xp, const float xm,
+                                    const float yp, const float ym, const float zp,
+                                    const float zm, const float ci, const float lam,
+                                    const float dt, const float idx2, const float idy2,
+                                    const float idz2) {
+  const float c2 = rnd<S>(2.0f * tc);
+  const float lap = rnd<S>(rnd<S>(rnd<S>(rnd<S>(rnd<S>(xp - c2) + xm) * idx2) +
+                                  rnd<S>(rnd<S>(rnd<S>(yp - c2) + ym) * idy2)) +
+                           rnd<S>(rnd<S>(rnd<S>(zp - c2) + zm) * idz2));
+  return st<S>(tc + rnd<S>(dt * rnd<S>(rnd<S>(lam * ci) * lap)));
+}
+
 // kCopyRing: `out` is a buffer of its own and takes T2's ring; in place
 // (`out` is T2's buffer) the ring already holds it and T2 is not read.
-template <bool kCopyRing>
+template <bool kCopyRing, typename S>
 __global__ void __launch_bounds__(kBlockZ * kBlockY) diffusion3d_kernel(
-    float* __restrict__ out, const float* __restrict__ T2,
-    const float* __restrict__ T, const float* __restrict__ Ci,
+    S* __restrict__ out, const S* __restrict__ T2,
+    const S* __restrict__ T, const S* __restrict__ Ci,
     const float lam, const float dt, const float idx2, const float idy2,
     const float idz2, const int64_t nx, const int64_t ny, const int64_t nz,
     const int64_t xc) {
@@ -89,20 +134,18 @@ __global__ void __launch_bounds__(kBlockZ * kBlockY) diffusion3d_kernel(
     }
     return;
   }
-  float tm = x0 > 0 ? T[i - sx] : 0.0f;
-  float tc = T[i];
+  float tm = x0 > 0 ? ld(T[i - sx]) : 0.0f;
+  float tc = ld(T[i]);
   for (int64_t x = x0; x < x1; ++x, i += sx) {
     if (x == 0 || x == nx - 1) {
       if (kCopyRing) out[i] = T2[i];
       tm = tc;
-      if (x + 1 < nx) tc = T[i + sx];
+      if (x + 1 < nx) tc = ld(T[i + sx]);
       continue;
     }
-    const float tp = T[i + sx];
-    const float lap = ((tp - 2.0f * tc) + tm) * idx2 +
-                      ((T[i + sy] - 2.0f * tc) + T[i - sy]) * idy2 +
-                      ((T[i + 1] - 2.0f * tc) + T[i - 1]) * idz2;
-    out[i] = tc + dt * ((lam * Ci[i]) * lap);
+    const float tp = ld(T[i + sx]);
+    out[i] = update<S>(tc, tp, tm, ld(T[i + sy]), ld(T[i - sy]), ld(T[i + 1]), ld(T[i - 1]),
+                       ld(Ci[i]), lam, dt, idx2, idy2, idz2);
     tm = tc;
     tc = tp;
   }
@@ -117,22 +160,24 @@ constexpr int kP = 2;        // planes per step
 constexpr int kSlots = 4;    // planes per queue: a step reads kP + 2 of them
 constexpr int kMaxSteps = 4;   // the largest k the card checks
 
-// Shared memory of the k-step kernel: queue q (0 <= q < k) over the tile and
-// k - q cells of halo per side.
-__host__ __device__ constexpr int queue_floats(int k, int q) {
+// Shared memory of the k-step kernel: queue q (0 <= q < k) of stored values
+// over the tile and k - q cells of halo per side.
+__host__ __device__ constexpr int queue_cells(int k, int q) {
   return kSlots * (kStepsY + 2 * (k - q)) * (kBlockZ + 2 * (k - q));
 }
 
-__host__ __device__ constexpr int shared_floats(int k) {
+__host__ __device__ constexpr int shared_cells(int k) {
   int f = 0;
-  for (int q = 0; q < k; ++q) f += queue_floats(k, q);
+  for (int q = 0; q < k; ++q) f += queue_cells(k, q);
   return f;
 }
 
 // Resident blocks the k-step kernel's shared memory leaves room for, at most
 // 2 (64 registers a thread: at 3 or 4 the unrolled sweeps spill).
+template <typename S>
 __host__ __device__ constexpr int min_blocks(int k) {
-  return 232448 / (4 * shared_floats(k)) < 2 ? 232448 / (4 * shared_floats(k)) : 2;
+  return 232448 / (static_cast<int>(sizeof(S)) * shared_cells(k)) < 2
+             ? 232448 / (static_cast<int>(sizeof(S)) * shared_cells(k)) : 2;
 }
 
 __device__ __forceinline__ int slot(int x) { return (x + (kSlots << 20)) & (kSlots - 1); }
@@ -143,9 +188,9 @@ __device__ __forceinline__ int slot(int x) { return (x + (kSlots << 20)) & (kSlo
 // all of the thread's cells into registers before any is stored (a store to
 // shared memory between them would hold back the next cell's loads);
 // elsewhere a ring cell keeps T's value.
-template <int H>
-__device__ __forceinline__ void sweep(const float* __restrict__ qin, float* __restrict__ qout,
-                                      const float* __restrict__ Ci, const int xa, const int y0,
+template <int H, typename S>
+__device__ __forceinline__ void sweep(const S* __restrict__ qin, S* __restrict__ qout,
+                                      const S* __restrict__ Ci, const int xa, const int y0,
                                       const int z0, const int tid, const int NX, const int NY,
                                       const int NZ, const int64_t sx, const int64_t sy,
                                       const float lam, const float dt, const float idx2,
@@ -154,24 +199,23 @@ __device__ __forceinline__ void sweep(const float* __restrict__ qin, float* __re
   constexpr int pin = (py + 2) * pzi, n = py * pz, m = (n + kThreads - 1) / kThreads;
   if (xa >= 1 && xa + kP <= NX - 1 && y0 - H >= 1 && y0 + kStepsY + H <= NY - 1 &&
       z0 - H >= 1 && z0 + kBlockZ + H <= NZ - 1) {
-    float v[kP * m];
+    S v[kP * m];
     #pragma unroll
     for (int p = 0; p < kP; ++p) {
-      const float* const cm = qin + slot(xa + p - 1) * pin;
-      const float* const cc = qin + slot(xa + p) * pin;
-      const float* const cp = qin + slot(xa + p + 1) * pin;
-      const float* const ci = Ci + (xa + p) * sx;
+      const S* const cm = qin + slot(xa + p - 1) * pin;
+      const S* const cc = qin + slot(xa + p) * pin;
+      const S* const cp = qin + slot(xa + p + 1) * pin;
+      const S* const ci = Ci + (xa + p) * sx;
       #pragma unroll
       for (int j = 0; j < m; ++j) {
         const int e = tid + j * kThreads;
         if (j < n / kThreads || e < n) {
           const int ly = e / pz, lz = e - ly * pz;
           const int i = (ly + 1) * pzi + lz + 1;
-          const float tc = cc[i];
-          const float lap = ((cp[i] - 2.0f * tc) + cm[i]) * idx2 +
-                            ((cc[i + pzi] - 2.0f * tc) + cc[i - pzi]) * idy2 +
-                            ((cc[i + 1] - 2.0f * tc) + cc[i - 1]) * idz2;
-          v[p * m + j] = tc + dt * ((lam * ci[(y0 - H + ly) * sy + z0 - H + lz]) * lap);
+          v[p * m + j] = update<S>(ld(cc[i]), ld(cp[i]), ld(cm[i]), ld(cc[i + pzi]),
+                                   ld(cc[i - pzi]), ld(cc[i + 1]), ld(cc[i - 1]),
+                                   ld(ci[(y0 - H + ly) * sy + z0 - H + lz]), lam, dt, idx2,
+                                   idy2, idz2);
         }
       }
     }
@@ -188,57 +232,56 @@ __device__ __forceinline__ void sweep(const float* __restrict__ qin, float* __re
   #pragma unroll 1
   for (int p = 0; p < kP; ++p) {
     const int x = xa + p;
-    const float* const cm = qin + slot(x - 1) * pin;
-    const float* const cc = qin + slot(x) * pin;
-    const float* const cp = qin + slot(x + 1) * pin;
+    const S* const cm = qin + slot(x - 1) * pin;
+    const S* const cc = qin + slot(x) * pin;
+    const S* const cp = qin + slot(x + 1) * pin;
     const bool xin = x >= 1 && x < NX - 1;
     #pragma unroll 1
     for (int e = tid; e < n; e += kThreads) {
       const int ly = e / pz, lz = e - ly * pz;
       const int y = y0 - H + ly, z = z0 - H + lz;
       const int i = (ly + 1) * pzi + lz + 1;
-      const float tc = cc[i];
-      float v = tc;  // the boundary ring keeps T's value
+      S v = cc[i];  // the boundary ring keeps T's value
       if (xin && y >= 1 && y < NY - 1 && z >= 1 && z < NZ - 1) {
-        const float lap = ((cp[i] - 2.0f * tc) + cm[i]) * idx2 +
-                          ((cc[i + pzi] - 2.0f * tc) + cc[i - pzi]) * idy2 +
-                          ((cc[i + 1] - 2.0f * tc) + cc[i - 1]) * idz2;
-        v = tc + dt * ((lam * Ci[x * sx + y * sy + z]) * lap);
+        v = update<S>(ld(cc[i]), ld(cp[i]), ld(cm[i]), ld(cc[i + pzi]), ld(cc[i - pzi]),
+                      ld(cc[i + 1]), ld(cc[i - 1]), ld(Ci[x * sx + y * sy + z]), lam, dt, idx2,
+                      idy2, idz2);
       }
       qout[slot(x) * n + e] = v;
     }
   }
 }
 
-template <int K, int S>
-__device__ __forceinline__ const float* sweeps(const float* qin, const float* __restrict__ Ci,
+template <int K, int Q, typename S>
+__device__ __forceinline__ const S* sweeps(const S* qin, const S* __restrict__ Ci,
                                                const int xs, const int y0, const int z0,
                                                const int tid, const int NX, const int NY,
                                                const int NZ, const int64_t sx,
                                                const int64_t sy, const float lam,
                                                const float dt, const float idx2,
                                                const float idy2, const float idz2) {
-  if constexpr (S == K - 1) {
+  if constexpr (Q == K - 1) {
     return qin;
-  } else {  // sweep S: planes xs + H, xs + H + 1 over the tile and H cells of halo
-    constexpr int H = K - 1 - S;
-    float* const qout = const_cast<float*>(qin) + queue_floats(K, S);
-    sweep<H>(qin, qout, Ci, xs + H, y0, z0, tid, NX, NY, NZ, sx, sy, lam, dt, idx2, idy2,
-             idz2);
+  } else {  // sweep Q: planes xs + H, xs + H + 1 over the tile and H cells of halo
+    constexpr int H = K - 1 - Q;
+    S* const qout = const_cast<S*>(qin) + queue_cells(K, Q);
+    sweep<H, S>(qin, qout, Ci, xs + H, y0, z0, tid, NX, NY, NZ, sx, sy, lam, dt, idx2, idy2,
+                idz2);
     __syncthreads();
-    return sweeps<K, S + 1>(qout, Ci, xs, y0, z0, tid, NX, NY, NZ, sx, sy, lam, dt, idx2,
-                            idy2, idz2);
+    return sweeps<K, Q + 1, S>(qout, Ci, xs, y0, z0, tid, NX, NY, NZ, sx, sy, lam, dt, idx2,
+                               idy2, idz2);
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(kThreads, min_blocks(K)) diffusion3d_steps_kernel(
-    float* __restrict__ out, const float* __restrict__ T2,
-    const float* __restrict__ T, const float* __restrict__ Ci,
+template <int K, typename S>
+__global__ void __launch_bounds__(kThreads, min_blocks<S>(K)) diffusion3d_steps_kernel(
+    S* __restrict__ out, const S* __restrict__ T2,
+    const S* __restrict__ T, const S* __restrict__ Ci,
     const float lam, const float dt, const float idx2, const float idy2,
     const float idz2, const int64_t nx, const int64_t ny, const int64_t nz,
     const int64_t xc) {
   extern __shared__ float smem[];
+  S* const queues = reinterpret_cast<S*>(smem);
   const int tz = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kBlockZ + tz;
   const int z0 = blockIdx.x * kBlockZ, y0 = blockIdx.y * kStepsY;
@@ -252,7 +295,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(K)) diffusion3d_steps_ker
   #pragma unroll 1
   for (int xs = x0 - 2 * K; xs < x1; xs += kP) {
     {  // T's planes xs + K, xs + K + 1 over the tile and K cells of halo
-      float v[kP * m];
+      S v[kP * m];
       #pragma unroll
       for (int p = 0; p < kP; ++p) {
         const int x = xs + K + p;
@@ -263,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(K)) diffusion3d_steps_ker
           const int ly = e / pz, lz = e - ly * pz;
           const int y = y0 - K + ly, z = z0 - K + lz;
           v[p * m + j] = xin && e < n && y >= 0 && y < NY && z >= 0 && z < NZ
-                             ? T[x * sx + y * sy + z] : 0.0f;
+                             ? T[x * sx + y * sy + z] : S{};
         }
       }
       #pragma unroll
@@ -271,13 +314,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks(K)) diffusion3d_steps_ker
         #pragma unroll
         for (int j = 0; j < m; ++j) {
           const int e = tid + j * kThreads;
-          if (j < n / kThreads || e < n) smem[slot(xs + K + p) * n + e] = v[p * m + j];
+          if (j < n / kThreads || e < n) queues[slot(xs + K + p) * n + e] = v[p * m + j];
         }
       }
     }
     __syncthreads();
-    const float* const qin = sweeps<K, 0>(smem, Ci, xs, y0, z0, tid, NX, NY, NZ, sx, sy, lam,
-                                          dt, idx2, idy2, idz2);
+    const S* const qin = sweeps<K, 0, S>(queues, Ci, xs, y0, z0, tid, NX, NY, NZ, sx, sy, lam,
+                                         dt, idx2, idy2, idz2);
     // the last sweep: the tile's planes xs, xs + 1, from the queue of sweep K - 2
     const int y = y0 + ty, z = z0 + tz;
     constexpr int pzi = kBlockZ + 2, pin = (kStepsY + 2) * pzi;
@@ -286,15 +329,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(K)) diffusion3d_steps_ker
     for (int p = 0; p < kP; ++p) {
       const int x = xs + p;
       if (x >= x0 && x < x1 && y < NY && z < NZ) {
-        const float* const cc = qin + slot(x) * pin;
+        const S* const cc = qin + slot(x) * pin;
         const int64_t g = x * sx + y * sy + z;
         if (x >= 1 && x < NX - 1 && y >= 1 && y < NY - 1 && z >= 1 && z < NZ - 1) {
-          const float tc = cc[i];
-          const float lap = ((qin[slot(x + 1) * pin + i] - 2.0f * tc) +
-                             qin[slot(x - 1) * pin + i]) * idx2 +
-                            ((cc[i + pzi] - 2.0f * tc) + cc[i - pzi]) * idy2 +
-                            ((cc[i + 1] - 2.0f * tc) + cc[i - 1]) * idz2;
-          out[g] = tc + dt * ((lam * Ci[g]) * lap);
+          out[g] = update<S>(ld(cc[i]), ld(qin[slot(x + 1) * pin + i]),
+                             ld(qin[slot(x - 1) * pin + i]), ld(cc[i + pzi]), ld(cc[i - pzi]),
+                             ld(cc[i + 1]), ld(cc[i - 1]), ld(Ci[g]), lam, dt, idx2, idy2, idz2);
         } else if (T2 != out) {
           out[g] = T2[g];
         }
@@ -303,51 +343,67 @@ __global__ void __launch_bounds__(kThreads, min_blocks(K)) diffusion3d_steps_ker
   }
 }
 
-template <int K>
-int launch_steps(const dim3 grid, const cudaStream_t st, float* out, const float* T2,
-                 const float* T, const float* Ci, float lam, float dt, float idx2,
+template <int K, typename S>
+int launch_steps(const dim3 grid, const cudaStream_t st, S* out, const S* T2,
+                 const S* T, const S* Ci, float lam, float dt, float idx2,
                  float idy2, float idz2, int64_t nx, int64_t ny, int64_t nz, int64_t xc,
                  int k) {
   if (k != K) {
     if constexpr (K < kMaxSteps) {
-      return launch_steps<K + 1>(grid, st, out, T2, T, Ci, lam, dt, idx2, idy2, idz2, nx, ny,
-                                 nz, xc, k);
+      return launch_steps<K + 1, S>(grid, st, out, T2, T, Ci, lam, dt, idx2, idy2, idz2, nx,
+                                    ny, nz, xc, k);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  constexpr int bytes = 4 * shared_floats(K);
+  constexpr int bytes = static_cast<int>(sizeof(S)) * shared_cells(K);
   const cudaError_t set = cudaFuncSetAttribute(
-      diffusion3d_steps_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      diffusion3d_steps_kernel<K, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 block(kBlockZ, kStepsY, 1);
-  diffusion3d_steps_kernel<K><<<grid, block, bytes, st>>>(
+  diffusion3d_steps_kernel<K, S><<<grid, block, bytes, st>>>(
       out, T2, T, Ci, lam, dt, idx2, idy2, idz2, nx, ny, nz, xc);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename S>
+int launch_typed(void* out, const void* T2, const void* T, const void* Ci, float lam, float dt,
+                 float idx2, float idy2, float idz2, int64_t nx, int64_t ny, int64_t nz,
+                 int64_t xc, int64_t nsteps, const dim3 grid, const cudaStream_t st) {
+  if (nsteps == 1) {
+    const dim3 block(kBlockZ, kBlockY, 1);
+    const auto kernel = out == T2 ? diffusion3d_kernel<false, S> : diffusion3d_kernel<true, S>;
+    kernel<<<grid, block, 0, st>>>(
+        static_cast<S*>(out), static_cast<const S*>(T2), static_cast<const S*>(T),
+        static_cast<const S*>(Ci), lam, dt, idx2, idy2, idz2, nx, ny, nz, xc);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return launch_steps<2, S>(grid, st, static_cast<S*>(out), static_cast<const S*>(T2),
+                            static_cast<const S*>(T), static_cast<const S*>(Ci), lam, dt, idx2,
+                            idy2, idz2, nx, ny, nz, xc, static_cast<int>(nsteps));
+}
+
 }  // namespace
 
+// storage: 0 float, 1 __nv_bfloat16, 2 __half (the scalars already rounded
+// to it by the caller).
 extern "C" int launch(void* out, const void* T2, const void* T, const void* Ci,
                       float lam, float dt, float idx2, float idy2, float idz2,
                       int64_t nx, int64_t ny, int64_t nz, int64_t xc, int64_t nsteps,
-                      int64_t gz, int64_t gy, int64_t gx, void* stream) {
+                      int64_t storage, int64_t gz, int64_t gy, int64_t gx, void* stream) {
   const dim3 grid(static_cast<unsigned>(gz), static_cast<unsigned>(gy),
                   static_cast<unsigned>(gx));
-  const dim3 block(kBlockZ, kBlockY, 1);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nsteps == 1) {
-    const auto kernel = out == T2 ? diffusion3d_kernel<false> : diffusion3d_kernel<true>;
-    kernel<<<grid, block, 0, st>>>(
-        static_cast<float*>(out), static_cast<const float*>(T2),
-        static_cast<const float*>(T), static_cast<const float*>(Ci), lam, dt,
-        idx2, idy2, idz2, nx, ny, nz, xc);
-    return static_cast<int>(cudaGetLastError());
+  if (storage == 1) {
+    return launch_typed<__nv_bfloat16>(out, T2, T, Ci, lam, dt, idx2, idy2, idz2, nx, ny, nz,
+                                       xc, nsteps, grid, st);
   }
-  return launch_steps<2>(grid, st, static_cast<float*>(out),
-                         static_cast<const float*>(T2), static_cast<const float*>(T),
-                         static_cast<const float*>(Ci), lam, dt, idx2, idy2, idz2, nx, ny,
-                         nz, xc, static_cast<int>(nsteps));
+  if (storage == 2) {
+    return launch_typed<__half>(out, T2, T, Ci, lam, dt, idx2, idy2, idz2, nx, ny, nz, xc,
+                                nsteps, grid, st);
+  }
+  return launch_typed<float>(out, T2, T, Ci, lam, dt, idx2, idy2, idz2, nx, ny, nz, xc, nsteps,
+                             grid, st);
 }
 
 extern "C" const char* error_string(int err) {

@@ -9,6 +9,11 @@ arguments, builds the kernel at first use and launches it on PyTorch's
 current stream. Its plain version is
 :func:`repro_torch.kernels.ref.diffusion3d_steps`, used only for tensors
 that lie on the CPU.
+
+Fields may be f32, bf16 or f16 (all four of one dtype). As in the
+reference, whose kernel computes at the fields' dtype, a bf16 or f16 step
+computes at that dtype: the scalars are rounded to it first
+(:func:`ref.stored_scalars`) and every operation rounds to it.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ import torch
 
 from . import build, ref
 from .codegen import KernelShape
-from .stencil import STEPS_WAVES, Launch, check_cuda_fields, derive_launch, stream_of
+from .stencil import (STEPS_WAVES, STORAGE_DTYPES, Launch, check_cuda_fields, derive_launch,
+                      stream_of)
 
 SOURCE = build.CSRC_DIR / "diffusion3d.cu"
 
@@ -27,7 +33,7 @@ SOURCE = build.CSRC_DIR / "diffusion3d.cu"
 # launches, and nowhere else.
 launches = 0
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_float] * 5 + [ctypes.c_int64] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_float] * 5 + [ctypes.c_int64] * 9
              + [ctypes.c_void_p])
 _BLOCK = (32, 8)            # threads along (z, y) of the single step, as in the source
 _STEPS_SHAPE = (32, 16), 2  # the k-step kernel's tile and planes per step
@@ -35,17 +41,19 @@ _SLOTS = 4                  # planes per queue of the k-step kernel
 MAX_STEPS = 4               # the largest nsteps the kernel takes (kMaxSteps)
 
 
-def shared_bytes(nsteps: int) -> int:
-    """Shared memory of one block of the k-step kernel: queue q < k over the
-    tile and ``k - q`` cells of halo per side (0 for one step)."""
+def shared_bytes(nsteps: int, itemsize: int = 4) -> int:
+    """Shared memory of one block of the k-step kernel: queue q < k of
+    ``itemsize``-byte stored values over the tile and ``k - q`` cells of
+    halo per side (0 for one step)."""
     if nsteps == 1:
         return 0
     (bz, by), _ = _STEPS_SHAPE
-    return 4 * _SLOTS * sum((by + 2 * (nsteps - q)) * (bz + 2 * (nsteps - q))
-                            for q in range(nsteps))
+    return itemsize * _SLOTS * sum((by + 2 * (nsteps - q)) * (bz + 2 * (nsteps - q))
+                                   for q in range(nsteps))
 
 
-def column_launch(shape: tuple[int, int, int], n_sm: int, nsteps: int = 1) -> Launch:
+def column_launch(shape: tuple[int, int, int], n_sm: int, nsteps: int = 1,
+                  itemsize: int = 4) -> Launch:
     """One step: blocks of 32 (z) x 8 (y) threads, each thread marching ``xc``
     planes along x, in about 4 waves of the SMs' 8 resident blocks. k steps:
     blocks of 32 x 16 threads marching two planes per step, in about
@@ -54,7 +62,7 @@ def column_launch(shape: tuple[int, int, int], n_sm: int, nsteps: int = 1) -> La
     if nsteps == 1:
         return derive_launch(shape, n_sm, KernelShape(_BLOCK, 1, 8), waves=4)
     tile, planes = _STEPS_SHAPE
-    resident = max(1, min(2, 232448 // shared_bytes(nsteps)))
+    resident = max(1, min(2, 232448 // shared_bytes(nsteps, itemsize)))
     return derive_launch(shape, n_sm, KernelShape(tile, planes, resident), lag=2 * nsteps,
                          waves=STEPS_WAVES)
 
@@ -81,9 +89,9 @@ def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1
     tensor on the CPU, as the reference aliases on its accelerator only.
 
     CUDA tensors run the kernel (``nsteps`` at most ``MAX_STEPS``); CPU
-    tensors run the plain version. The
-    scalars are squared here in Python double, as the plain version squares
-    them, and reach the kernel as f32."""
+    tensors run the plain version. The scalars are squared here in Python
+    double, as the plain version squares them, then rounded to the fields'
+    dtype (``ref.stored_scalars``), and reach the kernel as f32."""
     global launches
     nsteps = int(nsteps)
     if nsteps < 1:
@@ -99,19 +107,21 @@ def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1
         return T2.copy_(out) if alias else out
     if T.dim() != 3 or min(T.shape) < 3:
         raise ValueError(f"T must be 3-D with every extent >= 3, got {tuple(T.shape)}")
-    dev = check_cuda_fields(fields, T.shape)
+    if T.dtype not in STORAGE_DTYPES:
+        raise TypeError(f"T is {T.dtype}; the CUDA kernel takes float32, bfloat16 or float16")
+    dev = check_cuda_fields(fields, T.shape, T.dtype)
     if nsteps > MAX_STEPS:
         raise NotImplementedError(
             f"nsteps={nsteps}: the kernel takes at most {MAX_STEPS} steps per launch, "
             "the steps the card checks")
     launch = column_launch(tuple(T.shape), torch.cuda.get_device_properties(dev)
-                           .multi_processor_count, nsteps)
+                           .multi_processor_count, nsteps, T.element_size())
     out = T2 if alias else torch.empty_like(T)
     lib = library()
     with torch.cuda.device(dev):
         lib.launch(out.data_ptr(), T2.data_ptr(), T.data_ptr(), Ci.data_ptr(),
-                   float(lam), float(dt), float(inv_dx ** 2), float(inv_dy ** 2),
-                   float(inv_dz ** 2), *T.shape, launch.xc, nsteps, *launch.grid,
+                   *ref.stored_scalars(T.dtype, lam, dt, inv_dx, inv_dy, inv_dz), *T.shape,
+                   launch.xc, nsteps, STORAGE_DTYPES.index(T.dtype), *launch.grid,
                    stream_of(dev))
     launches += 1
     return out

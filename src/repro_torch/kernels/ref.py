@@ -20,15 +20,34 @@ def pick_divisor(n: int, target: int) -> int:
 
 
 # -- 3-D heat diffusion (paper Fig. 1) ---------------------------------------
+def stored_value(v, dtype: torch.dtype) -> float:
+    """A Python number as a tensor of ``dtype`` holds it: rounded to f32,
+    then to ``dtype`` (as PyTorch rounds a number into a bf16 or f16
+    tensor)."""
+    return float(torch.tensor(float(v), dtype=torch.float32).to(dtype).double())
+
+
+def stored_scalars(dtype, lam, dt, inv_dx, inv_dy, inv_dz) -> list[float]:
+    """``lam, dt, inv_dx**2, inv_dy**2, inv_dz**2`` as the reference's hand
+    kernel holds them: squared in Python double, then rounded to the
+    fields' dtype (:func:`stored_value`)."""
+    return [stored_value(v, dtype) for v in (lam, dt, inv_dx ** 2, inv_dy ** 2, inv_dz ** 2)]
+
+
 def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz):
-    """One explicit Euler step of ``dT/dt = lam/c * lap(T)`` on the interior.
+    """One explicit Euler step of ``dT/dt = lam/c * lap(T)`` on the interior,
+    computed at the fields' dtype, as the reference's hand kernel computes
+    it: the scalars rounded to it first (:func:`stored_scalars`), then each
+    operation rounding to it (PyTorch's bf16 and f16 operators compute each
+    in f32 and round, which equals the operation in bf16 or f16).
 
     Returns a new tensor: the update on the interior, T2's values on the
     boundary ring.
     """
-    d2x = (T[2:, 1:-1, 1:-1] - 2 * T[1:-1, 1:-1, 1:-1] + T[:-2, 1:-1, 1:-1]) * inv_dx**2
-    d2y = (T[1:-1, 2:, 1:-1] - 2 * T[1:-1, 1:-1, 1:-1] + T[1:-1, :-2, 1:-1]) * inv_dy**2
-    d2z = (T[1:-1, 1:-1, 2:] - 2 * T[1:-1, 1:-1, 1:-1] + T[1:-1, 1:-1, :-2]) * inv_dz**2
+    lam, dt, idx2, idy2, idz2 = stored_scalars(T.dtype, lam, dt, inv_dx, inv_dy, inv_dz)
+    d2x = (T[2:, 1:-1, 1:-1] - 2 * T[1:-1, 1:-1, 1:-1] + T[:-2, 1:-1, 1:-1]) * idx2
+    d2y = (T[1:-1, 2:, 1:-1] - 2 * T[1:-1, 1:-1, 1:-1] + T[1:-1, :-2, 1:-1]) * idy2
+    d2z = (T[1:-1, 1:-1, 2:] - 2 * T[1:-1, 1:-1, 1:-1] + T[1:-1, 1:-1, :-2]) * idz2
     upd = T[1:-1, 1:-1, 1:-1] + dt * (lam * Ci[1:-1, 1:-1, 1:-1] * (d2x + d2y + d2z))
     out = T2.clone()
     out[1:-1, 1:-1, 1:-1] = upd

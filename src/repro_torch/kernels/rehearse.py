@@ -13,6 +13,15 @@ by phase, on one core; a fault in the printed indexing shows here as a value
 that differs from the ``torch`` backend, and a barrier that not every thread
 reaches stops the run.
 
+CUDA's bf16 and f16 types are their 16 bits here, and their conversions
+(``__bfloat162float``, ``__float2bfloat16_rn``, ``__half2float``,
+``__float2half_rn``) are written as integer arithmetic on those bits: round
+to nearest even, NaN kept quiet, f16 subnormals, and f16 overflow to inf
+from 65520 on. ``tests/test_torch_rehearse_mixed.py`` holds each bitwise
+to PyTorch's conversions on every bf16 and f16 value, their midpoints and
+random words (:func:`convert`), since a wrong one would make every
+rehearsal of a bf16 or f16 kernel lie.
+
 One thing is patched: the kernel divides a tensor by a host scalar as
 PyTorch's CUDA kernels do, by a product with the scalar's reciprocal, while
 PyTorch on the CPU divides; the rehearsal prints a true division there (by
@@ -102,6 +111,43 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   return r;
 }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+// bf16 and f16 as their bits; CUDA's conversions as integer arithmetic.
+struct __nv_bfloat16 { uint16_t x; };
+struct __half { uint16_t x; };
+inline uint32_t f32_bits(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
+inline float bits_f32(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline float __bfloat162float(__nv_bfloat16 h) { return bits_f32(uint32_t(h.x) << 16); }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  const uint32_t u = f32_bits(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {uint16_t((u >> 16) | 0x40u)};  // quiet NaN
+  return {uint16_t((u + 0x7fffu + ((u >> 16) & 1u)) >> 16)};  // to nearest even
+}
+inline float __half2float(__half h) {
+  const uint32_t sign = uint32_t(h.x & 0x8000u) << 16, e = (h.x >> 10) & 0x1fu;
+  uint32_t m = h.x & 0x3ffu;
+  if (e == 0x1fu) return bits_f32(sign | 0x7f800000u | (m << 13));  // inf, NaN
+  if (e) return bits_f32(sign | ((e + 112u) << 23) | (m << 13));
+  if (!m) return bits_f32(sign);
+  uint32_t k = 113u;  // a subnormal, m 2^-24: normalised
+  while (!(m & 0x400u)) { m <<= 1; --k; }
+  return bits_f32(sign | (k << 23) | ((m & 0x3ffu) << 13));
+}
+inline __half __float2half_rn(float f) {
+  const uint32_t u = f32_bits(f), sign = (u >> 16) & 0x8000u, a = u & 0x7fffffffu;
+  if (a > 0x7f800000u) return {uint16_t(sign | 0x7e00u | ((a >> 13) & 0x3ffu))};  // quiet NaN
+  if (a >= 0x477ff000u) return {uint16_t(sign | 0x7c00u)};  // 65520 and above: inf
+  if (a >= 0x38800000u) {  // a normal f16: rebias, then to nearest even
+    const uint32_t m = a - 0x38000000u;
+    return {uint16_t(sign | ((m + 0xfffu + ((m >> 13) & 1u)) >> 13))};
+  }
+  const int shift = 126 - int(a >> 23);  // a subnormal f16: (1.m) 2^(e - 127) / 2^-24
+  if (shift > 24) return {uint16_t(sign)};
+  const uint32_t mant = (a & 0x7fffffu) | 0x800000u, half = 1u << (shift - 1);
+  const uint32_t rem = mant & ((1u << shift) - 1u);
+  uint32_t r = mant >> shift;
+  if (rem > half || (rem == half && (r & 1u))) ++r;
+  return {uint16_t(sign | r)};
+}
 static void fiber_main() {
   (*g_body)();
   (*g_fibers)[g_cur].done = true;
@@ -153,10 +199,10 @@ static void run_grid(dim3 grid, dim3 block, std::function<void()> body) {
       }
 }
 '''
-_LAUNCH = re.compile(r"(stencil_kernel|diffusion3d_steps_kernel<K>|kernel)"
+_LAUNCH = re.compile(r"(stencil_kernel|diffusion3d_steps_kernel<K, S>|kernel)"
                      r"<<<grid, block, [A-Za-z0-9]+, "
                      r"(?:st|static_cast<cudaStream_t>\(stream\))>>>\(")
-_LAUNCHED = re.compile(r"(run_grid\(grid, block, \[&\] \{ [A-Za-z0-9_<>]+\(\n[^;]*\));")
+_LAUNCHED = re.compile(r"(run_grid\(grid, block, \[&\] \{ [A-Za-z0-9_<>, ]+\(\n[^;]*\));")
 _SET_SHARED = re.compile(r"  const cudaError_t set = cudaFuncSetAttribute\([^;]*;\n"
                          r"  if \(set != cudaSuccess\) [^\n]*\n")
 
@@ -164,17 +210,18 @@ _SET_SHARED = re.compile(r"  const cudaError_t set = cudaFuncSetAttribute\([^;]*
 def _host_text(text: str, shared_floats: int = 0) -> str:
     """CUDA source as C++ for the host behind :data:`_SHIM`: each launch a
     loop over the grid's blocks and threads; dynamic shared memory (of
-    ``shared_floats``) a static array filled with NaN before each block, as
-    a card may leave it holding anything."""
+    ``shared_floats`` 4-byte words) a static array whose bytes are all set
+    to 0xff before each block, as a card may leave it holding anything
+    (a NaN as f32, bf16 and f16 alike)."""
     if "extern __shared__ float smem[];" in text:
         shared_floats = max(shared_floats, 1)     # a launch may need none
         text = text.replace("extern __shared__ float smem[];", "float* const smem = g_smem;")
         text = text.replace("namespace {\n", "namespace {\n"
                             f"float g_smem[{shared_floats}];\n"
-                            "void nan_smem() { std::fill(g_smem, g_smem + "
-                            f"{shared_floats}, NAN); }}\n"
+                            "void nan_smem() { std::memset(g_smem, 0xff, sizeof g_smem); }\n"
                             "const int g_smem_hook = (g_block_start = nan_smem, 0);\n", 1)
-    text = text.replace("#include <cuda_runtime.h>\n", "")
+    for header in ("cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h"):
+        text = text.replace(f"#include <{header}>\n", "")
     text = _SET_SHARED.sub("", text)
     text = _LAUNCH.sub(r"run_grid(grid, block, [&] { \1(", text)
     text = _LAUNCHED.sub(r"\1; });", text)
@@ -200,10 +247,11 @@ def source(call: stencil.StencilCall) -> str:
     codegen._c_expr = _cpu_division
     try:
         if call.rotations is None:
-            return _host_text(codegen.cuda_source(call.program, call.shape))
-        text = codegen_steps.cuda_source(call.program, call.rotations, call.nsteps, call.shape)
+            return _host_text(codegen.cuda_source(call.program, call.shape, call.dtype))
+        text = codegen_steps.cuda_source(call.program, call.rotations, call.nsteps, call.shape,
+                                         call.dtype)
         return _host_text(text, codegen_steps.shared_bytes(call.program, call.plan,
-                                                           call.shape) // 4)
+                                                           call.shape, call.dtype) // 4)
     finally:
         codegen._c_expr = _c_expr
 
@@ -230,8 +278,9 @@ def _compile(text: str, name: str) -> ctypes.CDLL:
         src = lib.with_suffix(f".{os.getpid()}.cpp")
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         src.write_text(text)
-        done = subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
-                               "-shared", "-w", "-o", str(tmp), str(src)],
+        done = subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off",
+                               "-fno-strict-aliasing", "-fPIC", "-shared", "-w", "-o", str(tmp),
+                               str(src)],
                               capture_output=True, text=True)
         if done.returncode != 0:
             raise RuntimeError(f"g++ failed on the rehearsal of {name}:\n"
@@ -239,6 +288,36 @@ def _compile(text: str, name: str) -> ctypes.CDLL:
         os.replace(tmp, lib)
         src.unlink()
     return ctypes.CDLL(str(lib))
+
+
+_CONVERT = r'''
+extern "C" void narrow(const float* x, uint16_t* out, int64_t n, int half) {
+  for (int64_t i = 0; i < n; ++i)
+    out[i] = half ? __float2half_rn(x[i]).x : __float2bfloat16_rn(x[i]).x;
+}
+extern "C" void widen(const uint16_t* h, float* out, int64_t n, int half) {
+  for (int64_t i = 0; i < n; ++i)
+    out[i] = half ? __half2float(__half{h[i]}) : __bfloat162float(__nv_bfloat16{h[i]});
+}
+'''
+
+
+def convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The rehearsal's own conversions on a CPU tensor: f32 to ``dtype``
+    (bf16 or f16) with ``__float2bfloat16_rn``/``__float2half_rn``, or a
+    bf16/f16 tensor to f32 with ``__bfloat162float``/``__half2float``."""
+    lib = _compile(_SHIM + _CONVERT, "convert")
+    src = x.contiguous()
+    if src.dtype == torch.float32:
+        out = torch.empty(src.shape, dtype=dtype)
+        fn, half = lib.narrow, dtype == torch.float16
+    else:
+        out = torch.empty(src.shape, dtype=torch.float32)
+        fn, half = lib.widen, src.dtype == torch.float16
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+    fn.restype = None
+    fn(src.data_ptr(), out.data_ptr(), src.numel(), int(half))
+    return out
 
 
 def run(call: stencil.StencilCall, fields: Mapping[str, torch.Tensor],
@@ -259,24 +338,24 @@ def run(call: stencil.StencilCall, fields: Mapping[str, torch.Tensor],
 
 def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1,
                      n_sm: int = 132, xc: int | None = None) -> torch.Tensor:
-    """The hand kernel ``csrc/diffusion3d.cu`` on CPU tensors, launched as
-    ``diffusion3d.diffusion3d_step`` launches it on a card with ``n_sm`` SMs
-    (or with chunks of ``xc`` planes), into a new tensor."""
-    from . import diffusion3d
+    """The hand kernel ``csrc/diffusion3d.cu`` on CPU tensors (f32, bf16 or
+    f16), launched as ``diffusion3d.diffusion3d_step`` launches it on a card
+    with ``n_sm`` SMs (or with chunks of ``xc`` planes), into a new tensor."""
+    from . import diffusion3d, ref
 
     text = _host_text(build.read_source(diffusion3d.SOURCE),
                       diffusion3d.shared_bytes(diffusion3d.MAX_STEPS) // 4)
     fn = _compile(text, "diffusion3d").launch
     fn.argtypes = diffusion3d._ARGTYPES
     fn.restype = ctypes.c_int
-    launch = diffusion3d.column_launch(tuple(T.shape), n_sm, nsteps)
+    launch = diffusion3d.column_launch(tuple(T.shape), n_sm, nsteps, T.element_size())
     if xc is not None:
         launch = stencil.Launch((*launch.grid[:2], -(-T.shape[0] // xc)), launch.block, xc)
     out = torch.empty_like(T)
     ins = [t.contiguous() for t in (T2, T, Ci)]
-    err = fn(out.data_ptr(), *(t.data_ptr() for t in ins), float(lam), float(dt),
-             float(inv_dx ** 2), float(inv_dy ** 2), float(inv_dz ** 2), *T.shape, launch.xc,
-             int(nsteps), *launch.grid, None)
+    err = fn(out.data_ptr(), *(t.data_ptr() for t in ins),
+             *ref.stored_scalars(T.dtype, lam, dt, inv_dx, inv_dy, inv_dz), *T.shape,
+             launch.xc, int(nsteps), stencil.STORAGE_DTYPES.index(T.dtype), *launch.grid, None)
     if err:
         raise RuntimeError(f"the rehearsed diffusion3d launch refused nsteps={nsteps}")
     return out

@@ -37,6 +37,12 @@ of ``kernels/codegen_steps.py`` instead: k sweeps in one launch, each output
 rotating into its target, the fields crossing device memory once (the
 counterpart of ``build_stencil_call(nsteps=k)``).
 
+Fields may be stored narrower than they are computed (``dtype`` bf16 or
+f16, compute f32: :func:`default_compute_dtype`): the kernel widens each
+load, computes in f32 and rounds each output to its storage type on store
+(round to nearest even); reductions fold the stored values in f32
+(:func:`accum_dtype`), so a bf16 step moves half the bytes of an f32 one.
+
 On the CPU, a :class:`StencilCall` runs the same tap program with torch
 operators (``codegen.evaluate_torch``, ``codegen.evaluate_steps_torch`` for
 k sweeps), only because the tensors it was given lie there.
@@ -114,17 +120,45 @@ def derive_launch(shape3: tuple[int, int, int], n_sm: int, kernel: codegen.Kerne
     return Launch((gz, gy, gx), (bz, by, 1), xc)
 
 
-def check_cuda_fields(tensors: Mapping[str, torch.Tensor], shape) -> torch.device:
-    """Every tensor on one CUDA device, float32, C-contiguous, of ``shape``
-    (one shape for all, or a shape per name); raises on anything else
-    (nothing is moved or copied silently)."""
+# Storage dtypes the generated and hand kernels take, each computed in f32.
+STORAGE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def default_compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The compute dtype a storage dtype implies (the reference's
+    ``kernels/stencil.py::default_compute_dtype``): sub-f32 floats widen to
+    float32 (stored narrow, computed in f32: cast on load, round on store),
+    any other dtype computes in its own precision."""
+    if dtype.is_floating_point and torch.finfo(dtype).bits < 32:
+        return torch.float32
+    return dtype
+
+
+def accum_dtype(compute_dtype: torch.dtype) -> torch.dtype:
+    """The dtype reductions accumulate in: never narrower than f32 (a bf16
+    running sum stops growing after about 256 increments, and a convergence
+    check would lose its signal), f64 for f64 compute."""
+    return torch.promote_types(torch.float32, compute_dtype)
+
+
+def dtype_tag(dtype: torch.dtype) -> str:
+    """A storage dtype's short name in kernel labels: ``bf16``, ``f16``,
+    ``f32``."""
+    return {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}[dtype]
+
+
+def check_cuda_fields(tensors: Mapping[str, torch.Tensor], shape,
+                      dtype: torch.dtype = torch.float32) -> torch.device:
+    """Every tensor on one CUDA device, of storage ``dtype``, C-contiguous,
+    of ``shape`` (one shape for all, or a shape per name); raises on
+    anything else (nothing is moved, widened or copied silently)."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"fields lie on several devices {sorted(map(str, devices))}")
     (dev,) = devices
     for n, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"field {n!r} is {t.dtype}; the CUDA kernel takes float32")
+        if t.dtype != dtype:
+            raise TypeError(f"field {n!r} is {t.dtype}; this CUDA kernel takes {dtype}")
         want = tuple(shape[n] if isinstance(shape, Mapping) else shape)
         if tuple(t.shape) != want:
             raise ValueError(f"field {n!r} has shape {tuple(t.shape)}, expected {want}")
@@ -138,9 +172,11 @@ def stream_of(dev: torch.device) -> int:
 
 
 class StencilCall:
-    """One generated kernel for a traced update (f32 fields, collocated or
-    staggered) with its outputs' boundary conditions (``bcs``, normalized),
-    laid out as ``shape`` (by default ``codegen.kernel_shape``). With
+    """One generated kernel for a traced update (fields of storage
+    ``dtype``, computed in f32, collocated or staggered) with its outputs'
+    boundary conditions (``bcs``, normalized), laid out as ``shape`` (by
+    default ``codegen.kernel_shape``). A sub-f32 kernel's launches count
+    under ``"{label}:{bf16|f16}"``. With
     ``rotations`` the kernel is the k-step one (``codegen_steps``): it
     sweeps the update ``nsteps`` times in one launch, each output rotating
     into its ``rotations`` target, and its launches count under
@@ -151,12 +187,20 @@ class StencilCall:
     def __init__(self, ir: StencilIR, label: str,
                  bcs: Mapping[str, BoundaryCondition] | None = None,
                  shape: codegen.KernelShape | None = None, nsteps: int = 1,
-                 rotations: Mapping[str, str] | None = None):
+                 rotations: Mapping[str, str] | None = None,
+                 dtype: torch.dtype = torch.float32):
         unsupported(ir)
+        if dtype not in STORAGE_DTYPES:
+            raise NotImplementedError(
+                f"{label}: storage dtype {dtype} is not ported to the CUDA kernel "
+                "(ROADMAP queue 1, item 3: f64 storage)")
         self.ir = ir
+        self.dtype = dtype
         self.nsteps = int(nsteps)
         if rotations is None and self.nsteps != 1:
             raise ValueError(f"{label}: {self.nsteps} sweeps per launch need rotations")
+        if dtype != torch.float32:
+            label = f"{label}:{dtype_tag(dtype)}"
         self.label = label if rotations is None else f"{label}/k{self.nsteps}"
         self.program = codegen.lower(ir, bcs)
         self.classes = codegen.shape_classes(self.program)
@@ -170,7 +214,7 @@ class StencilCall:
                 raise NotImplementedError(
                     f"{label}: its staged intermediates need {smem} bytes of shared memory "
                     f"per block, above the {codegen.SHARED_LIMIT} of static shared memory")
-            self.source = codegen.cuda_source(self.program, self.shape)
+            self.source = codegen.cuda_source(self.program, self.shape, dtype)
             self.lag = codegen.march_lag(self.program)
             # planes a chunk reads beyond its own: the taps' reach and the stages' lag
             self.halo = ir.inferred_radius + self.lag + self.shape.planes
@@ -181,7 +225,7 @@ class StencilCall:
             self.plan = codegen_steps.plan(self.program, self.rotations, self.nsteps,
                                            self.shape)
             self.source = codegen_steps.cuda_source(self.program, self.rotations,
-                                                    self.nsteps, self.shape)
+                                                    self.nsteps, self.shape, dtype)
             self.lag = self.plan.lead
             self.halo = self.plan.reach
         self.lib_name = "stencil_" + re.sub(r"[^A-Za-z0-9_]", "_", self.label)
@@ -207,7 +251,8 @@ class StencilCall:
         tensors (None without reductions).
 
         CPU tensors take the tap program's torch form, as every kernel
-        wrapper of the port takes its plain version on the CPU. No engine
+        wrapper of the port takes its plain version on the CPU (at the
+        fields' own storage dtype, computed in f32). No engine
         path reaches that branch (``backend="cuda"`` refuses to start off
         the card); it serves a caller that holds a :class:`StencilCall`
         directly, such as the CPU tests of the launch wrapper."""
@@ -217,7 +262,7 @@ class StencilCall:
             if self.rotations is None:
                 return codegen.evaluate_torch(p, ins, scalars)
             return codegen.evaluate_steps_torch(p, self.rotations, self.nsteps, ins, scalars)
-        dev = check_cuda_fields(ins, self.ir.field_shapes)
+        dev = check_cuda_fields(ins, self.ir.field_shapes, self.dtype)
         launch, outs, parts, args = self.arguments(
             ins, scalars, torch.cuda.get_device_properties(dev).multi_processor_count)
         self.launch_info[tuple(self.ir.base_shape)] = launch
@@ -245,6 +290,7 @@ class StencilCall:
             launch = Launch((*launch.grid[:2], -(-shape3[0] // xc)), launch.block, xc)
         dev = next(iter(ins.values())).device
         outs = {op.name: torch.empty_like(ins[op.name]) for op in p.outputs}
+        # partials at the accumulation dtype (f32), whatever the storage
         parts = [torch.empty(launch.n_blocks, dtype=torch.float32, device=dev)
                  for _ in p.reductions]
         host = [float(v) for v in p.host_values(scalars)]

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil [--waves 8,16,24,32]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --steps [--waves 2,4,8] [--ks 1,2]
+    PYTHONPATH=src python -m repro_torch.launch.tune_stencil --dtype bfloat16 [--steps]
 
 For the coupled solvers' kernels at their full sizes (porosity 8192^2, GP
 512^3) and the Fig. 1 step at 512^3, it builds each candidate
@@ -18,8 +19,11 @@ the same way, each launch held bitwise against k single-step launches, over
 the layouts in ``STEPS_3D``/``STEPS_2D`` and values of ``stencil.STEPS_WAVES``;
 ``codegen_steps.steps_shape`` and ``stencil.STEPS_WAVES`` are its choice.
 ``--ks 1`` times the k-step printer's single sweep beside the single-step
-kernel of ``kernels/codegen.py`` on the same fields. It needs the card and
-measures nothing on the CPU.
+kernel of ``kernels/codegen.py`` on the same fields. ``--dtype bfloat16`` or
+``float16`` times every kernel with its fields stored at 2 bytes a cell
+(computed in f32; the fields rounded once from the f32 ones), where a warp
+reads 64 bytes of a row instead of 128. It needs the card and measures
+nothing on the CPU.
 """
 from __future__ import annotations
 
@@ -51,8 +55,9 @@ STEPS_KS = {"stencil": (2, 3, 4), "porosity_fused[neumann0]": (2, 3, 4),
             "gp_fused[none]": (2, 3)}
 
 
-def kernels(dev) -> dict:
-    """``name: (kernel, plain twin, fields, scalars)`` at full size."""
+def kernels(dev, dtype: torch.dtype = torch.float32) -> dict:
+    """``name: (kernel, plain twin, fields, scalars)`` at full size, the
+    fields stored as ``dtype``."""
     gen = torch.Generator(device=dev).manual_seed(20260715)
 
     def solver(mod, cfg_cls, n, pick, reductions=None, **kw):
@@ -97,7 +102,8 @@ def kernels(dev) -> dict:
     out["stencil+err"] = (step.with_reductions({"err": "max_abs_diff(T2, T)"}),
                           plain.with_reductions({"err": "max_abs_diff(T2, T)"}), f, sc)
     out["stencil"] = (step, plain, f, sc)
-    return out
+    return {n: (k.with_dtype(dtype), p.with_dtype(dtype), {a: t.to(dtype) for a, t in f.items()},
+                sc) for n, (k, p, f, sc) in out.items()}
 
 
 def candidates(call) -> list:
@@ -122,7 +128,7 @@ def steps_candidates(kern, fields, scalars, nsteps: int) -> list:
     for shape in STEPS_3D if ir.ndim == 3 else STEPS_2D:
         try:
             calls.append(stencil.StencilCall(ir, kern.label, kern.bc, shape, nsteps,
-                                             kern.rotations))
+                                             kern.rotations, kern.ps.dtype))
         except NotImplementedError:     # its queues exceed a block's shared memory
             continue
     return calls
@@ -201,16 +207,18 @@ def main(argv=None) -> int:
     ap.add_argument("--ks", default=None,
                     help="with --steps: the k to time, e.g. 1,2 (default: STEPS_KS)")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "float16"],
+                    help="the fields' storage dtype (compute stays f32)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_stencil: needs an NVIDIA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     name, power = teff.card_info(0)
-    print(json.dumps({"card": name, "power_limit": power}), flush=True)
+    print(json.dumps({"card": name, "power_limit": power, "dtype": args.dtype}), flush=True)
     waves = [int(w) for w in (args.waves or ("2,4,8" if args.steps else "8,16,24,32"))
              .split(",")]
-    todo = kernels(dev)
+    todo = kernels(dev, getattr(torch, args.dtype))
     if args.steps:
         tune_steps(todo, waves, args.iters,
                    [int(x) for x in args.ks.split(",")] if args.ks else None)
@@ -218,7 +226,7 @@ def main(argv=None) -> int:
     tuned = {}
     for n, (k, _, f, sc) in todo.items():
         call = k.compiled(**f, **sc)
-        tuned[n] = [stencil.StencilCall(call.ir, call.label, k.bc, shape)
+        tuned[n] = [stencil.StencilCall(call.ir, k.label, k.bc, shape, dtype=call.dtype)
                     for shape in candidates(call)]
     t0 = time.perf_counter()
     logs = iter(build.compile_many([(t.lib_name, t.source) for ts in tuned.values()

@@ -10,7 +10,9 @@ Tolerances: each stencil kernel must equal its plain version bitwise (the
 build passes them --fmad=false, so every multiply and add rounds on its own
 as PyTorch's operators do, and a division by a scalar is emitted as
 PyTorch's CUDA product with the scalar's f32 reciprocal). That includes
-the coupled solvers' kernels: staggered fields and boundary conditions. Max reductions are bitwise too; sums fold in
+the coupled solvers' kernels: staggered fields and boundary conditions,
+and bf16 and f16 storage (f32 compute, rounded on store), where the hand
+kernel computes at the storage dtype as its plain version does. Max reductions are bitwise too; sums fold in
 another order and are held to rtol 1e-5. (A ``pow`` with an exponent other
 than 2, 3 or 0.5 compiles to ``powf``, documented within 4 ulp; no kernel
 here uses one.) The LM kernels: conv1d rtol 1e-5 / atol 1e-6 (its taps sum
@@ -27,7 +29,7 @@ import pytest
 import torch
 
 from repro_torch.configs import Diffusion3DConfig
-from repro_torch.core import fd2d, fd3d, init_parallel_stencil, teff
+from repro_torch.core import fd2d, fd3d, init_parallel_stencil, iterate, teff
 from repro_torch.examples import gross_pitaevskii as gp, porosity_waves as pw, quickstart
 from repro_torch.kernels import attention, conv1d, diffusion3d, ops, ref, ssd, stencil
 from repro_torch.launch import serve as lm_serve
@@ -384,6 +386,149 @@ def test_measure_times_on_the_card(card):
     m = teff.measure(lambda: x.mul_(1.0), iters=5, warmup=1)
     assert m.median_s > 0 and len(m.samples_s) == 5
     assert teff.measure_device_bandwidth(1 << 24, iters=3) > 0
+
+
+# -- bf16 and f16 storage (f32 compute) ------------------------------------
+LOW = {"bf16": torch.bfloat16, "f16": torch.float16}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("tag", list(LOW))
+def test_mixed_generated_kernel_equals_torch_backend(card, case, tag, rng):
+    """bf16 and f16 fields: widened on load, computed in f32, rounded on
+    store; each output bitwise, reductions of the stored values (max
+    bitwise, sums rtol 1e-5)."""
+    fn, outs, nd, names, shape, sc, reds = CASES[case]
+    dt = LOW[tag]
+    f = {n: _rand(rng, shape, card).to(dt) for n in names}
+    k = init_parallel_stencil(ndims=nd, dtype=dt).parallel(outputs=outs, reductions=reds)(fn)
+    p = init_parallel_stencil(backend="torch", device="cuda", ndims=nd, dtype=dt) \
+        .parallel(outputs=outs, reductions=reds)(fn)
+    before = stencil.launches[f"{k.label}:{tag}"]
+    got, want = k(**f, **sc), p(**f, **sc)
+    assert stencil.launches[f"{k.label}:{tag}"] == before + 1
+    assert all(t.dtype == dt for t in ((got[0],) if len(outs) == 1 else got[0].values()))
+    _assert_same(got, want, k)
+    call = k.compiled(**f, **sc)
+    with pytest.raises(TypeError, match="takes"):
+        call.run({n: t.float() for n, t in f.items()}, sc)
+
+
+# each bc at one storage dtype (chip_smoke.py holds every variant at both)
+@pytest.mark.parametrize("tag,bc", [("bf16", "none"), ("f16", "neumann"), ("bf16", "dirichlet"),
+                                    ("f16", "periodic")])
+def test_mixed_coupled_kernels_equal_torch_backend(card, bc, tag, rng):
+    """Porosity's fused and flux-split kernels and GP's fused and two-launch
+    kernels, every bc, at bf16 and f16 storage."""
+    dt = LOW[tag]
+    shape = (37, 300)
+    grid = pw.Grid(shape, (10.0, 10.0))
+    phi = torch.tensor((rng.rand(*shape) * 0.01 + 0.005).astype(np.float32), device=card)
+    Pe = torch.tensor(((rng.rand(*shape) - 0.5) * 0.01).astype(np.float32), device=card)
+    f = {n: t.to(dt) for n, t in dict(phi2=phi.flip(0).contiguous(), Pe2=Pe.flip(1).contiguous(),
+                                      phi=phi, Pe=Pe).items()}
+    for split in (False, True):
+        cfgs = [pw.PorosityConfig(n=shape[0], device="cuda", backend=b, bc=bc,
+                                  dtype=str(dt).removeprefix("torch."), flux_split=split)
+                for b in ("cuda", "torch")]
+        (k, *rest), (p, *prest) = (pw.make_step(grid, c).kernels for c in cfgs)
+        if split:
+            q = dict(qx=torch.rand(shape[0] - 1, shape[1], device=card).to(dt),
+                     qy=torch.rand(shape[0], shape[1] - 1, device=card).to(dt))
+            _assert_same(k(**q, phi=f["phi"], Pe=f["Pe"]), p(**q, phi=f["phi"], Pe=f["Pe"]), k)
+            k, p = rest[0], prest[0]
+            f = dict(f, **q)
+        _assert_same(k(**f, dtau=1e-3), p(**f, dtau=1e-3), k)
+    gshape = (13, 17, 130)
+    ggrid = gp.Grid(gshape, (8.0, 8.0, 8.0))
+    re, im, V = (torch.tensor(rng.rand(*gshape).astype(np.float32), device=card).to(dt)
+                 for _ in range(3))
+    sc = dict(g=0.5, dt=1e-3, _dx2=3.0, _dy2=2.0, _dz2=5.0)
+    gf = dict(re2=im.clone(), im2=re.clone(), re=re, im=im, V=V)
+    for fused in (True, False):
+        ks, ps_ = (gp.make_step(ggrid, gp.GPConfig(n=gshape[0], device="cuda", backend=b,
+                                                   bc=bc, fused=fused)).kernels
+                   for b in ("cuda", "torch"))
+        for k, p in zip(ks, ps_):
+            k, p = k.with_dtype(dt), p.with_dtype(dt)
+            args = {n: gf[n] for n in inspect.signature(k.fn).parameters if n in gf}
+            _assert_same(k(**args, **sc), p(**args, **sc), k)
+
+
+@pytest.mark.parametrize("name", ["fig1+4red", "staggered", "porosity[neumann]+err",
+                                  "porosity[dirichlet]", "gp[neumann]", "gp[none]+mass"])
+@pytest.mark.parametrize("tag,k", [("bf16", 3), ("f16", 2)])
+def test_mixed_k_step_kernel_equals_k_launches(card, name, k, tag, rng):
+    """Each sweep rounds its outputs through storage before the next, so one
+    launch equals k single bf16 or f16 launches bitwise."""
+    kern, names, sc = _k_step_kernels(card)[name]
+    kern = kern.with_dtype(LOW[tag])
+    base = K_STEP_SHAPES[name.split("[")[0].split("+")[0]]
+    f = {}
+    for n in names:
+        shape = (base[0] - 1, base[1]) if n == "q" else base
+        f[n] = (_rand(rng, shape, card) * (0.01 if name.startswith("porosity") else 1.0)) \
+            .to(LOW[tag])
+    for o, t in kern.rotations.items():
+        f[o] = f[t].clone()
+    want = _sequential_launches(kern, f, sc, k)
+    label = f"{kern.label}:{tag}/k{k}"
+    before = stencil.launches[label]
+    got = kern.run_steps(k, **f, **sc)
+    torch.cuda.synchronize()
+    assert stencil.launches[label] == before + 1
+    got = got[0] if kern.reductions else got
+    got = {kern.outputs[0]: got} if len(kern.outputs) == 1 else got
+    for o in kern.outputs:
+        assert got[o].dtype == LOW[tag] and torch.equal(got[o], want[o]), o
+
+
+@pytest.mark.parametrize("shape", [(33, 20, 130), (13, 17, 130)])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("tag", list(LOW))
+def test_mixed_diffusion3d_equals_plain(card, shape, k, tag, rng):
+    """The hand kernel at bf16 and f16 computes at the storage dtype, as its
+    plain version: bitwise, in place and not, and k steps equal k launches."""
+    dt = LOW[tag]
+    T, Ci = _rand(rng, shape, card).to(dt), _rand(rng, shape, card).to(dt)
+    # every product rounds, and the steps stay stable and inside f16's range
+    # (steeper scalars overflow f16 within three steps, and NaN != NaN)
+    args = (0.7, 1e-3, 8.3, 9.1, 10.7)
+    want = ref.diffusion3d_steps(T.clone(), T, Ci, *args, nsteps=k)
+    before = diffusion3d.launches
+    got = diffusion3d.diffusion3d_step(T.clone(), T, Ci, *args, nsteps=k, alias=False)
+    assert diffusion3d.launches == before + 1
+    assert got.dtype == dt and torch.equal(got, want)
+    T2 = T.clone()
+    got = diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=True)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == T2.data_ptr() and torch.equal(got, want)
+    a, b = T.clone(), T.clone()
+    for _ in range(k):
+        a = diffusion3d.diffusion3d_step(a, b, Ci, *args, alias=False)
+        a, b = b, a
+    assert torch.equal(b, want)
+    with pytest.raises(TypeError, match="takes"):
+        diffusion3d.diffusion3d_step(T.float(), T, Ci, *args, nsteps=k)
+
+
+def test_mixed_solve_until_on_the_card(card):
+    """FIG1 at bf16 through solve_until on both backends: the same steps,
+    error and fields; porosity --dtype bfloat16 alike."""
+    cfg = Diffusion3DConfig(nx=32, ny=24, nz=40, nt=20)
+    _, f, sc = quickstart.initial_state(cfg, "cuda")
+    res = []
+    for backend in ("cuda", "torch"):
+        ps = init_parallel_stencil(backend=backend, device="cuda", dtype=torch.bfloat16)
+        kern = quickstart.make_step(ps).with_reductions({"err": "max_abs_diff(T2, T)"})
+        res.append(iterate.solve_until(kern, f, sc, tol=1e-2, max_iters=200, check_every=10))
+    assert res[0].iters == res[1].iters and res[0].err == res[1].err
+    assert all(torch.equal(res[0].fields[n], res[1].fields[n]) for n in f)
+    assert res[0].fields["T"].dtype == torch.bfloat16
+    rc, rt = (pw.solve(pw.PorosityConfig(n=64, nt=100, tol=1e-6, device="cuda", backend=b,
+                                         dtype="bfloat16")) for b in ("cuda", "torch"))
+    assert torch.equal(rc["phi"], rt["phi"]) and torch.equal(rc["Pe"], rt["Pe"])
+    assert rc["iters"] == rt["iters"] and rc["residual"] == rt["residual"]
 
 
 def _randn(rng, shape, card, scale=1.0):

@@ -86,8 +86,10 @@ def test_porosity_steady_state_matches_reference(bc):
 
 
 def test_porosity_refusals():
-    with pytest.raises(NotImplementedError, match="item 3.4"):
-        pw.solve(pw.PorosityConfig(n=12, nt=1, device="cpu", dtype="bfloat16"))
+    # --dtype bfloat16/float16 are ported (tests/test_torch_mixed.py); f64
+    # storage is not
+    with pytest.raises(NotImplementedError, match="f64 storage"):
+        pw.solve(pw.PorosityConfig(n=12, nt=1, device="cpu", dtype="float64"))
     with pytest.raises(NotImplementedError, match="item 6"):
         pw.solve(pw.PorosityConfig(n=12, nt=1, device="cpu", tol=1e-3, checkpoint_dir="ck"))
     with pytest.raises(ValueError, match="flux-split"):

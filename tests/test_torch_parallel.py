@@ -116,8 +116,16 @@ def test_unported_features_raise_not_implemented(rng):
     for kind in ("finite", "nan_count"):
         with pytest.raises(NotImplementedError, match="finite/nan_count"):
             ps.parallel(outputs=("T2",), reductions={"g": f"{kind}(T2)"})(fig1)
-    with pytest.raises(NotImplementedError, match="sub-f32"):
-        init_parallel_stencil(backend="torch", device="cpu", dtype=torch.bfloat16)
+    # bf16 and f16 storage are ported (tests/test_torch_mixed.py), computed in
+    # f32; f64 storage and compute narrower than f32 are not
+    for dt in (torch.bfloat16, torch.float16):
+        ps_lo = init_parallel_stencil(backend="torch", device="cpu", dtype=dt)
+        assert (ps_lo.compute_dtype, ps_lo.acc_dtype) == (torch.float32, torch.float32)
+    with pytest.raises(NotImplementedError, match="f64 storage"):
+        init_parallel_stencil(backend="torch", device="cpu", dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="compute narrower than f32"):
+        init_parallel_stencil(backend="torch", device="cpu", dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
     arrays, sc = _state(rng, (9, 10, 11))
     f = fields_from_numpy(arrays, device="cpu")
     # run_steps(k) is ported (tests/test_torch_temporal.py): two steps equal
