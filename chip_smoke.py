@@ -60,6 +60,29 @@ dtype, with the launch counts set to 0 before each run and read after;
 ``times_mixed`` gives each kernel's ms beside its bound at storage bytes,
 its plain ms, registers and spills.
 
+Then ``march_axis`` streaming and the ``finite``/``nan_count`` reductions.
+``check_march``: every generated variant above that can march (FIG1's
+three and its guarded check, the generic kernel, the coupled fused kernels
+with their bcs and epilogues, GP's two launches, the staggered rotation,
+each k-step case) marched along each
+axis no field of it is staggered along, bitwise to the ``torch`` backend at
+small odd shapes, each ``run_steps(k)`` bitwise to k marched launches, FIG1,
+porosity's and GP's fused kernels also at bf16 and f16 and at full size;
+porosity's flux-split kernels must refuse every axis (staggered), and a
+march of 3 planes must fall back to the all-parallel launch and say so.
+``check_finite``: a health-guard kernel with NaN, inf and -inf at known
+cells and 40000 where 2 T overflows f16 on store, at f32, bf16 and f16,
+all-parallel, marched and k = 2: ``finite`` and ``nan_count`` equal to the
+``torch`` backend's, counts exact. ``main_path_march``: FIG1 512^3 through
+``quickstart.run(march_axis=a, guard=True)`` for each axis beside the
+all-parallel run (bitwise, the same iterations; ms per step and T_eff over
+the copy of ``solve_until``, host syncs), then FIG1's ``run_steps(k)`` and
+porosity's and GP's fused kernels marched along each axis on the solvers'
+own states, bitwise to their all-parallel steps. ``times_march``: each
+marched kernel's ms beside its all-parallel twin in the same run, the
+twin's bound, its plain ms, registers, spills, plane queue and the cost
+model's streamed and refetched bytes at the port's own launch tile.
+
 It prints JSON lines; the line before the last lists the kernels, the one
 before that is the card's name and power limit as nvidia-smi gives them,
 and the last line is {"ok": true, "device": {...}}. Any failure exits
@@ -226,13 +249,17 @@ def main() -> int:
             v = ksteps[n]
             calls_mixed[f"{n}/k{k}:{tag}"] = v["kernel"].with_dtype(dt).compiled(
                 nsteps=k, **v["shapes"](STEPS_SMALL[v["solver"]]), **v["scalars"])
+    # every marched variant (march_axis) and the health guard (finite, nan_count)
+    march_v = march_variants(torch, step, step_plain, (generic, generic_plain), coupled, ksteps)
+    calls_march = march_calls(torch, march_v)
     t0 = time.perf_counter()
     lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
     sources = ([("diffusion3d", build.read_source(diffusion3d.SOURCE))]
                + [(n, build.read_source(m.SOURCE)) for n, m in lm_kernels.items()]
                + [(c.lib_name, c.source) for c in calls]
                + [(c.lib_name, c.source) for c in calls_k.values()]
-               + [(c.lib_name, c.source) for c in calls_mixed.values()])
+               + [(c.lib_name, c.source) for c in calls_mixed.values()]
+               + [(c.lib_name, c.source) for c in calls_march])
     builds = build.compile_many(sources)
     call_names = ["stencil", "stencil+err", "stencil+4red", "generic", *coupled]
     variant_of = {c.source: name for name, c in zip(call_names, calls)}
@@ -245,9 +272,10 @@ def main() -> int:
                                 or "spill" in ln]}
                      for b, (_, src) in zip(builds, sources)]})
     n_gen = len(calls) + len(calls_k) + len(calls_mixed)
+    march_ptx = {b.name: ptxas_summary(b.log) for b in builds[len(builds) - len(calls_march):]}
     ptxas = {name: ptxas_summary(b.log)
              for name, b in zip(call_names + [f"{n}/k{k}" for n, k in calls_k] + list(calls_mixed),
-                                builds[-n_gen:])}
+                                builds[-n_gen - len(calls_march):len(builds) - len(calls_march)])}
     hand = hand_ptxas(builds[0].log)
     # the single step (two instances merged) and k = 2-4, for f32, bf16 and f16
     require(len(hand) == 3 * (1 + len(HAND_KS)),
@@ -255,6 +283,8 @@ def main() -> int:
     ptxas.update(hand)
     require(all(not p["spills"] for p in ptxas.values()),
             f"ptxas spills registers in a generated kernel: {ptxas}")
+    require(all(not p["spills"] for p in march_ptx.values()),
+            f"ptxas spills registers in a marched or guarded kernel: {march_ptx}")
 
     # ---- 3. kernels against their plain versions ------------------------
     gen = torch.Generator(device="cpu").manual_seed(20260714)
@@ -398,6 +428,9 @@ def main() -> int:
         check_ring_rule(torch, ksteps_t, cgen)
         torch.cuda.empty_cache()
 
+    # ---- 3f-3g. marched kernels, the refusals, finite and nan_count ------------
+    err_at.update(march_checks(torch, march_v, coupled, step, step_plain, cgen))
+
     # ---- 4. the main path at FIG1 ------------------------------------------
     stencil.launches.clear()
     diffusion3d.launches = 0
@@ -461,6 +494,10 @@ def main() -> int:
             torch, {n: ksteps_t[n] for n in MIXED_K_VARIANTS}, dt,
             hand=hand_fits(torch, dt, fig1_args))["launches"])
         torch.cuda.empty_cache()
+
+    # ---- 4f. the main path marched -------------------------------------------------
+    march_runs = march_main_path(torch, spec, march_v)
+    torch.cuda.empty_cache()
 
     # ---- 5. times at FIG1 ---------------------------------------------------
     grid, f, sc = quickstart.initial_state(FIG1, "cuda")
@@ -579,6 +616,11 @@ def main() -> int:
     for k, n in mixed_runs["launches"].items():
         require(n > 0, f"kernel {k} was not launched on the mixed main path")
 
+    # ---- 5f. times of the marched kernels at full size ---------------------------
+    march_times = march_timings(torch, march_v, cgen, spec, march_ptx)
+    for k, n in march_runs["launches"].items():
+        require(n > 0, f"kernel {k} was not launched on the marched main path")
+
     # ---- 6. the kernels line -------------------------------------------------
     fig1 = SHAPES[-1]
     gen_src = "src/repro_torch/kernels/codegen.py"
@@ -635,6 +677,7 @@ def main() -> int:
                  "library_ms": None}
                 # the f16 hand kernel is timed but off the main path
                 for k, t in mixed_times.items() if k in mixed_runs["launches"]]
+    kernels += march_rows(march_runs, march_times, err_at)
     print(f"{card_name}, {card_power}", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -906,12 +949,14 @@ def stored(v, fields):
 
 def launch_label(kern, k: int = 1) -> str:
     """The label a kernel's launches count under: its name, the storage tag
-    of a bf16 or f16 kernel, and ``/k{k}`` of a k-step launch."""
+    of a bf16 or f16 kernel, ``@m{axis}`` of a marched one and ``/k{k}`` of
+    a k-step launch."""
     from repro_torch.kernels import stencil
 
     dt = kern.ps.dtype
     tag = "" if dt == stencil.STORAGE_DTYPES[0] else f":{stencil.dtype_tag(dt)}"
-    return f"{kern.label}{tag}" + (f"/k{k}" if k > 1 else "")
+    march = "" if kern.march_axis is None else f"@m{kern.march_axis}"
+    return f"{kern.label}{tag}{march}" + (f"/k{k}" if k > 1 else "")
 
 
 def same(torch, a, b) -> bool:
@@ -1927,6 +1972,459 @@ def time_mixed(torch, tag, dtype, step, step_plain, coupled_t, ksteps_t, gen, sp
         t["ptxas"] = ptxas[f"diffusion3d/k{k}:{tag}"]
         out[f"diffusion3d/k{k}:{tag}"] = t
     return out
+
+
+# ---- march_axis streaming and the finite/nan_count reductions ------------------
+# Small shapes hold every marched variant at extents that no tile or chunk
+# divides and that fill each variant's plane queue along every axis.
+MARCH_SMALL = {"fig1": (33, 20, 130), "porosity": (33, 40), "gp": (21, 19, 130),
+               "staggered": (33, 40)}
+MARCH_FULL = {"fig1": (512, 512, 512), "porosity": (8192, 8192), "gp": (512, 512, 512)}
+MARCH_FALLBACK = (3, 20, 130)     # FIG1 marched along an axis of 3 planes: a queue of 4
+MARCH_COUPLED = ("porosity_fused[none]", "porosity_fused[neumann0]", "porosity_fused[dirichlet]",
+                 "porosity_fused[periodic]", "porosity_fused[neumann0]+err", "gp_fused[none]",
+                 "gp_fused[neumann0]", "gp_fused[dirichlet]", "gp_fused[periodic]",
+                 "gp_fused[none]+mass", "gp_step_re", "gp_step_im")
+MARCH_STAGGERED = ("porosity_fluxes", "porosity_update[neumann0]")
+MARCH_KS = {"stencil": (2, 3), "staggered": (2,),
+            **{n: (2,) for n in ("porosity_fused[none]", "porosity_fused[neumann0]",
+                                 "porosity_fused[dirichlet]", "porosity_fused[neumann0]+err",
+                                 "gp_fused[none]", "gp_fused[neumann0]", "gp_fused[dirichlet]",
+                                 "gp_fused[none]+mass")}}
+MARCH_MIXED = ("stencil", "porosity_fused[neumann0]", "gp_fused[none]")
+# the variants driven on the main path at full size, and their k
+MARCH_MAIN = {"stencil": (2, 3), "porosity_fused[neumann0]": (2,), "gp_fused[none]": (2,)}
+MARCH_MAIN_STEPS = {"porosity": 20, "gp": 10}
+HEALTH_AT = {"nan": ((5, 5, 5), (10, 3, 100)), "inf": ((20, 10, 7),), "-inf": ((1, 1, 1),),
+             "overflow": ((7, 7, 7),)}
+
+
+def make_health(ps):
+    """The serving layer's health guard on a plain update: T2 = 2 T inside,
+    ``finite`` and ``nan_count`` of the output and ``nan_count`` of the
+    input."""
+    from repro_torch.core import fd3d
+
+    @ps.parallel(outputs=("T2",), rotations={"T2": "T"},
+                 reductions={"bad": "finite(T2)", "nbad": "nan_count(T2)", "nin": "nan_count(T)"})
+    def health(T2, T):
+        return {"T2": fd3d.inn(T) * 2.0}
+
+    return health
+
+
+def march_variants(torch, step, step_plain, generic_pair, coupled, ksteps) -> dict:
+    """The variants held marched: every generated variant the checks above
+    hold (FIG1's step bare, with ``err`` and with the four classic
+    reductions, the generic two-output kernel, the coupled kernels of
+    ``MARCH_COUPLED``, the staggered rotation), and the main path's guarded
+    check (``err`` and the health guard). Each beside its torch twin."""
+    from repro_torch.examples import quickstart
+
+    guard = {"err": "max_abs_diff(T2, T)", **quickstart.GUARD}
+    fig1 = ksteps["stencil"]
+    v = {"stencil": fig1}
+    for name, reds in (("stencil+err", ERR), ("stencil+guard", guard), ("stencil+4red", ALL_REDS)):
+        v[name] = dict(fig1, kernel=step.with_reductions(reds),
+                       plain=step_plain.with_reductions(reds))
+    v["generic"] = {"solver": "fig1", "kernel": generic_pair[0], "plain": generic_pair[1],
+                    "shapes": lambda b: {n: b for n in ("A2", "B2", "A", "B")},
+                    "scalars": dict(c=0.3, h=0.7)}
+    v.update({n: ksteps[n] if n in ksteps else coupled[n] for n in MARCH_COUPLED})
+    v["staggered"] = ksteps["staggered"]
+    return v
+
+
+def march_axes(v, base) -> list:
+    """The axes along which no field of the variant is staggered."""
+    shapes = v["shapes"](base).values()
+    return [a for a in range(len(base)) if all(s[a] == base[a] for s in shapes)]
+
+
+def march_fields(torch, v, base, gen):
+    f = k_fields(torch, v, base, gen) if v["kernel"].rotations \
+        else coupled_fields(torch, v, base, gen)
+    return f
+
+
+def check_march(torch, name, v, base, gen, ks=()) -> dict:
+    """The variant marched along each axis it can march: one launch bitwise
+    to the torch backend (the all-parallel twin: marching changes the
+    launch, not the values), its ``launch_info`` naming the axis, and each
+    ``run_steps(k)`` one launch bitwise to k marched single-step launches.
+    Returns the largest error per axis and k."""
+    from repro_torch.kernels import stencil
+
+    kern, plain, sc = v["kernel"], v["plain"], v["scalars"]
+    f = march_fields(torch, v, base, gen)
+    want, want_reds = split_result(plain, plain(**f, **sc))
+    rows, errs = {}, {}
+    for a in march_axes(v, base):
+        km = kern.marched(a)
+        got, reds = split_result(km, km(**f, **sc))
+        info = dict(km.launch_info[tuple(base)])
+        errs[(a, 1)] = hold_to(torch, km, got, reds, want, want_reds,
+                               f"{name} marched along {a} at {base}")
+        require(info["march_axis"] == a and not info["march_fallback"],
+                f"{name} marched along {a} at {base} launched {info}")
+        row = {"max_abs_err": errs[(a, 1)], "nonfinite": nonfinite(torch, got),
+               **{x: info[x] for x in ("grid", "xc", "queue_planes")}}
+        for k in ks:
+            w, w_reds = rotate_run(km, f, sc, 1, k)
+            w = {o: w[t] for o, t in km.rotations.items()}
+            label = launch_label(km, k)
+            before = stencil.launches[label]
+            g, g_reds = split_result(km, km.run_steps(k, **f, **sc))
+            require(stencil.launches[label] == before + 1,
+                    f"{name}@m{a}: run_steps({k}) made {stencil.launches[label] - before} "
+                    f"launches of {label}")
+            errs[(a, k)] = row[f"k{k}_max_abs_err"] = hold_to(
+                torch, km, g, g_reds, w, w_reds,
+                f"{name}@m{a}: run_steps({k}) against {k} marched launches at {base}")
+        rows[a] = row
+    emit({"phase": "check_march", "variant": name, "shape": list(base),
+          "dtype": str(kern.ps.dtype), "axes": rows})
+    return errs
+
+
+def check_march_refusals(torch, coupled, step, step_plain, gen) -> None:
+    """A field staggered along the march axis raises (porosity's flux-split
+    kernels stagger both axes); a march extent shorter than the queue
+    launches the all-parallel kernel and says so, bitwise all the same."""
+    for name in MARCH_STAGGERED:
+        v = coupled[name]
+        f = coupled_fields(torch, v, MARCH_SMALL["porosity"], gen)
+        for a in (0, 1):
+            try:
+                v["kernel"].marched(a)(**f, **v["scalars"])
+            except ValueError as e:
+                require("staggered" in str(e), f"{name}@m{a}: {e}")
+            else:
+                raise SmokeFailure(f"{name} marched along staggered axis {a} did not raise")
+    f = {n: torch.rand(MARCH_FALLBACK, generator=gen, device=gen.device)
+         for n in ("T2", "T", "Ci")}
+    sc = dict(lam=1.0, dt=1e-4, _dx=2.0, _dy=19.0, _dz=129.0)
+    km = step.marched(0)
+    got = km(**f, **sc)
+    info = km.launch_info[MARCH_FALLBACK]
+    emit({"phase": "check_march", "variant": "stencil", "shape": list(MARCH_FALLBACK),
+          "fallback": info, "staggered_refused": list(MARCH_STAGGERED)})
+    require(info["march_fallback"] and info["march_axis"] is None,
+            f"a march of 3 planes did not fall back: {info}")
+    require(same(torch, got, step_plain(**f, **sc)), "the fallback launch differs")
+
+
+def check_finite(torch, dtype, gen) -> dict:
+    """``finite`` and ``nan_count`` against the torch backend at ``dtype``:
+    NaN, inf and -inf at known cells of T, a random 1% of NaN, and 40000 at
+    one cell, which 2 T carries past f16's range on store (inf there, so it
+    counts at f16 only); all-parallel and marched, one step and k = 2.
+    Counts must be exact and equal; the fold never NaN."""
+    from repro_torch.core import init_parallel_stencil
+
+    kern = make_health(init_parallel_stencil(dtype=dtype))
+    plain = make_health(init_parallel_stencil(backend="torch", device="cuda", dtype=dtype))
+    base = MARCH_SMALL["fig1"]
+    T = torch.rand(base, generator=gen, device=gen.device)
+    T[torch.rand(base, generator=gen, device=gen.device) < 0.01] = float("nan")
+    for what, cells in HEALTH_AT.items():
+        for c in cells:
+            T[c] = {"nan": float("nan"), "inf": float("inf"), "-inf": -float("inf"),
+                    "overflow": 40000.0}[what]
+    f = {"T2": T.to(dtype), "T": T.to(dtype)}
+    rows, errs = {}, {}
+    for march, k in ((None, 1), (None, 2), (0, 2), (2, 1)):
+        km = kern.marched(march)
+        got, reds = split_result(km, km.run_steps(k, **f))
+        want, want_reds = split_result(plain, plain.run_steps(k, **f))
+        errs[(march, k)] = hold_to(torch, km, got, reds, want, want_reds,
+                                   f"health march {march}, k = {k}, {dtype}")
+        counts = {n: float(r) for n, r in reds.items()}
+        require(counts == {n: float(r) for n, r in want_reds.items()}
+                and all(math.isfinite(c) for c in counts.values()),
+                f"health march {march}, k = {k}, {dtype}: {counts} against {want_reds}")
+        # nin counts the last sweep's input: the given T after one step
+        require((k > 1 or counts["nin"] == float((~torch.isfinite(f["T"])).sum()))
+                and counts["nbad"] == float((~torch.isfinite(want["T2"])).sum()),
+                f"health march {march}, k = {k}, {dtype}: counts are not the cells' own")
+        rows[f"m{march}/k{k}"] = {"counts": counts, "nonfinite_T2": nonfinite(torch, got)}
+    overflow = bool(torch.isinf(plain(**f)[0][HEALTH_AT["overflow"][0]]))
+    require(overflow == (dtype == torch.float16), f"2 x 40000 stored as {dtype}: inf is {overflow}")
+    emit({"phase": "check_finite", "dtype": str(dtype), "shape": list(base),
+          "cells": {k: [list(c) for c in v] for k, v in HEALTH_AT.items()},
+          "f16_overflow_on_store": overflow, "runs": rows})
+    return errs
+
+
+def march_state(torch, solver):
+    """A solver's own state at full size and its scalars (FIG1's
+    ``initial_state``, ``porosity_waves.init_state``,
+    ``gross_pitaevskii.init_state``), outputs as copies of their targets."""
+    from repro_torch.configs import FIG1
+    from repro_torch.examples import gross_pitaevskii as gp, porosity_waves as pw, quickstart
+
+    if solver == "fig1":
+        _, f, sc = quickstart.initial_state(FIG1, "cuda")
+        return f, sc
+    if solver == "porosity":
+        cfg = pw.PorosityConfig(n=MARCH_FULL["porosity"][0], device="cuda")
+        grid, phi, Pe = pw.init_state(cfg)
+        return dict(phi2=phi.clone(), Pe2=Pe.clone(), phi=phi, Pe=Pe), \
+            {"dtau": pw.timestep(cfg, grid)}
+    cfg = gp.GPConfig(n=MARCH_FULL["gp"][0], device="cuda")
+    grid, re, im, V = gp.init_state(cfg)
+    inv2 = tuple(1.0 / d ** 2 for d in grid.spacing)
+    return dict(re2=re.clone(), im2=im.clone(), re=re, im=im, V=V), \
+        dict(g=cfg.g, dt=gp.timestep(grid), _dx2=inv2[0], _dy2=inv2[1], _dz2=inv2[2])
+
+
+def march_main_path(torch, spec, variants) -> dict:
+    """The main path marched. FIG1 512^3 through ``quickstart.run`` (100
+    steps of ``step.marched(a)``, the hand kernel's 100 steps, then
+    ``solve_until`` with ``check_every = 10`` and the health guard folded
+    beside the error) for the all-parallel layout and each axis; every
+    marched run must equal the all-parallel one bitwise, iterations and
+    error included, and launch only its own marched kernels. Each solve is
+    timed again by host clock from the same state: ms per step, T_eff over
+    the copy bandwidth. Then FIG1's ``run_steps(k)`` and porosity's and
+    GP's fused kernels (their twins' ``make_step`` kernels) marched along
+    each axis on the solvers' own states: a few single steps and 12 steps
+    as ``run_steps(k)``, bitwise to the all-parallel kernel's steps. The
+    launch counts are set to 0 just before each run and read just after."""
+    from repro_torch.configs import FIG1
+    from repro_torch.core import iterate, teff
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import stencil
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    launches, fig1 = {}, {}
+    a_eff = teff.a_eff(math.prod(FIG1.shape), 2, 1, 4)
+    base = None
+    for a in (None, 0, 1, 2):
+        tag = "" if a is None else f"@m{a}"
+        stencil.launches.clear()
+        r, wall = timed(lambda: quickstart.run(FIG1, device="cuda", tol=1e-7, max_iters=1000,
+                                               check_every=10, march_axis=a, guard=True))
+        counts = dict(stencil.launches)
+        checked = r.step.with_reductions({"err": "max_abs_diff(T2, T)", **quickstart.GUARD})
+        want = {f"step{tag}", f"{checked.label}{tag}"}
+        require(set(counts) == want and all(counts.values()),
+                f"FIG1 marched along {a} launched {counts}, not {sorted(want)}")
+        launches[f"stencil{tag}"] = counts[f"step{tag}"]
+        launches[f"stencil+guard{tag}"] = counts[f"{checked.label}{tag}"]
+        _, f, sc = quickstart.initial_state(FIG1, "cuda")
+        again, solve_wall = timed(lambda: iterate.solve_until(
+            checked, f, sc, tol=1e-7, max_iters=1000, check_every=10, error="err"))
+        ms = solve_wall / again.iters * 1e3
+        out = {"T": r.T, "solve": r.solve.output(checked)}
+        row = {"phase": "main_path_march", "config": "FIG1", "march_axis": a,
+               "shape": list(FIG1.shape), "wall_s": wall, "launches": counts,
+               "solve": {"iters": r.solve.iters, "host_syncs": r.solve.host_syncs,
+                         "err": r.solve.err, "finite": float(r.solve.reds["bad"]),
+                         "nan_count": float(r.solve.reds["nbad"]), "check_every": 10},
+               "solve_ms_per_step": ms, "t_eff_GBps": a_eff / (ms / 1e3) / 1e9,
+               "t_eff_over_copy": a_eff / (ms / 1e3) / spec.peak_bw,
+               "copy_bandwidth_GBps": spec.peak_bw / 1e9,
+               "launch_info": {str(s): i for s, i in r.step.launch_info.items()}}
+        require(r.solve.host_syncs == r.solve.iters // 10, "host_syncs != iters // check_every")
+        require(float(r.solve.reds["bad"]) == 0.0 and float(r.solve.reds["nbad"]) == 0.0,
+                f"FIG1 marched along {a}: the health guard fired")
+        if base is None:
+            base = (out, r.solve.iters, r.solve.err)
+        else:
+            row["bitwise_to_all_parallel"] = all(bool(torch.equal(out[n], base[0][n]))
+                                                 for n in out)
+            require(row["bitwise_to_all_parallel"] and r.solve.iters == base[1]
+                    and r.solve.err == base[2],
+                    f"FIG1 marched along {a} differs from the all-parallel run")
+        emit(row)
+        fig1[str(a)] = row
+        del r, out, again, f
+    del base
+    torch.cuda.empty_cache()
+    for name, ks in MARCH_MAIN.items():
+        v = variants[name]
+        kern = v["kernel"]
+        solver = v["solver"]
+        f, sc = march_state(torch, solver)
+        steps = MARCH_MAIN_STEPS.get(solver, 12)
+        rotate_run(kern, f, sc, 1, 1)
+        (want, _), wall = timed(lambda: rotate_run(kern, f, sc, 1, steps))
+        row = {"phase": "main_path_march", "variant": name, "shape": list(MARCH_FULL[solver]),
+               "steps": steps, "ms_per_step": {"all_parallel": wall / steps * 1e3}}
+        for a in range(len(MARCH_FULL[solver])):
+            km = kern.marched(a)
+            runs = [(1, steps)] + [(k, 12) for k in ks] if solver != "fig1" else \
+                [(k, 12) for k in ks]
+            for k, n in runs:
+                label = launch_label(km, k)
+                rotate_run(km, f, sc, k, k)       # the library loaded
+                stencil.launches.clear()
+                (got, _), wall = timed(lambda: rotate_run(km, f, sc, k, n))
+                counts = dict(stencil.launches)
+                require(counts == {label: n // k}, f"{name}@m{a}: {n} steps as run_steps({k}) "
+                        f"launched {counts}")
+                ref, _ = rotate_run(kern, f, sc, 1, n) if n != steps else (want, None)
+                require(all(bool(torch.equal(got[t], ref[t])) for t in kern.rotations.values()),
+                        f"{name}@m{a}: {n} steps as run_steps({k}) differ from all-parallel steps")
+                key = f"{name}@m{a}" + (f"/k{k}" if k > 1 else "")
+                launches[key] = counts[label]
+                row["ms_per_step"][key] = wall / n * 1e3
+        emit(row)
+        del f, want
+        torch.cuda.empty_cache()
+    return {"launches": launches, "fig1": fig1}
+
+
+def time_march(torch, name, v, base, gen, spec, ks, ptx) -> dict:
+    """Each marched variant at full size beside its all-parallel twin in the
+    same run (CUDA-event medians of 20): its ms, the twin's, the bound
+    (the twin's: marching moves no byte the bound counts), its plain
+    version's ms (the torch backend), its difference from it, registers and
+    spills, its launch and plane queue, and the cost model's bytes per step
+    at the port's own launch tiles: streamed (``a_eff_streamed`` along the
+    march axis) against the twin's refetched (``fetched_bytes_per_step``).
+    The k-step rows as ``time_k_steps`` gives them, beside the all-parallel
+    k-step twin."""
+    from repro_torch.core import teff
+
+    kern, plain, sc = v["kernel"], v["plain"], v["scalars"]
+    f = march_fields(torch, v, base, gen)
+    twin = kern.compiled(**f, **sc)
+    a_eff, ops = tap_cost(twin)
+    bound_ms, bound_by = bound_of(a_eff, ops)
+    twin_ms = teff.measure(lambda: kern(**f, **sc), iters=20, warmup=3).median_s * 1e3
+    plain_ms = teff.measure(lambda: plain(**f, **sc), iters=10, warmup=2).median_s * 1e3
+    want, want_reds = split_result(plain, plain(**f, **sc))
+    twin_err = hold_to(torch, kern, *split_result(kern, kern(**f, **sc)), want, want_reds,
+                       f"{name} against its plain version at {base}")
+    cost = kern.cost_model(**f, **sc)
+    twin_tile = twin.cost_tile()
+    out = {name: {"ms": twin_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "share_of_bound": bound_ms / twin_ms, "max_abs_err": twin_err,
+                  "ptxas": ptx.get(twin.lib_name)}}
+    for a in march_axes(v, base):
+        km = kern.marched(a)
+        call = km.compiled(**f, **sc)
+        err = hold_to(torch, km, *split_result(km, km(**f, **sc)), want, want_reds,
+                      f"{name}@m{a} against its plain version at {base}")
+        ms = teff.measure(lambda: km(**f, **sc), iters=20, warmup=3).median_s * 1e3
+        tile = call.cost_tile()
+        launch = call.derive(spec_sm(torch))
+        out[f"{name}@m{a}"] = {
+            "ms": ms, "twin_ms": twin_ms, "over_twin": ms / twin_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share_of_bound": bound_ms / ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "queue_planes": call.queue_planes, "xc": launch.xc,
+            "grid": list(launch.grid), "tile": list(call.shape.tile), "planes": call.shape.planes,
+            "z_strided": call.program.z_strided, "ptxas": ptx.get(call.lib_name),
+            "cost_tile": list(tile), "streamed_bytes": cost.a_eff_streamed(tile, 1, a),
+            "refetched_bytes": cost.fetched_bytes_per_step(twin_tile, 1),
+            "a_eff_bytes": cost.a_eff_bytes(1),
+            "t_eff_over_copy": a_eff / (ms / 1e3) / spec.peak_bw}
+        for k in ks:
+            twin_k = teff.measure(lambda: kern.run_steps(k, **f, **sc), iters=20,
+                                  warmup=3).median_s * 1e3
+            t = time_k_steps(torch, f"{name}@m{a}", dict(v, kernel=km), k, base, gen, spec)
+            kc = km.compiled(nsteps=k, **f, **sc)
+            t.update({"twin_ms": twin_k, "over_twin": t["ms"] / twin_k,
+                      "queue_planes": kc.queue_planes, "ptxas": ptx.get(kc.lib_name),
+                      "streamed_bytes": cost.a_eff_streamed(kc.cost_tile(), k, a),
+                      "refetched_bytes": cost.fetched_bytes_per_step(
+                          kern.compiled(nsteps=k, **f, **sc).cost_tile(), k)})
+            out[f"{name}@m{a}/k{k}"] = t
+        torch.cuda.empty_cache()
+    return out
+
+
+def spec_sm(torch) -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def march_calls(torch, march_v) -> list:
+    """The calls of every marched variant (f32 at each axis and its k, bf16
+    and f16 for ``MARCH_MIXED`` at the first k), the main path's guarded
+    all-parallel check, and the health kernels at each dtype; built with
+    the rest of the sources."""
+    from repro_torch.core import init_parallel_stencil
+
+    calls = []
+    for name, v in march_v.items():
+        base = MARCH_SMALL[v["solver"]]
+        for dt in [None] + ([getattr(torch, n) for n in MIXED_TAGS.values()]
+                            if name in MARCH_MIXED else []):
+            kern = v["kernel"] if dt is None else v["kernel"].with_dtype(dt)
+            ks = MARCH_KS.get(name, ()) if dt is None else MARCH_KS.get(name, ())[:1]
+            for a in march_axes(v, base):
+                calls += [kern.marched(a).compiled(nsteps=k, **v["shapes"](base), **v["scalars"])
+                          for k in (1, *ks)]
+    g = march_v["stencil+guard"]
+    calls.append(g["kernel"].compiled(**g["shapes"](MARCH_SMALL["fig1"]), **g["scalars"]))
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        h = make_health(init_parallel_stencil(dtype=dt))
+        calls += [h.marched(a).compiled(nsteps=k, T2=MARCH_SMALL["fig1"], T=MARCH_SMALL["fig1"])
+                  for a, k in ((None, 1), (None, 2), (0, 2), (2, 1))]
+    return calls
+
+
+def march_checks(torch, march_v, coupled, step, step_plain, gen) -> dict:
+    """Every marched variant at the small shapes (bf16 and f16 for
+    ``MARCH_MIXED``), the main path's variants at full size too; then the
+    refusals and the fallback, and ``finite``/``nan_count`` at each dtype.
+    Returns the largest error of each main-path variant, by kernels-line
+    name."""
+    err_at = {}
+    for name, v in march_v.items():
+        errs = check_march(torch, name, v, MARCH_SMALL[v["solver"]], gen, MARCH_KS.get(name, ()))
+        if name in MARCH_MIXED:
+            for tag, dt_name in MIXED_TAGS.items():
+                dt = getattr(torch, dt_name)
+                vt = dict(v, kernel=v["kernel"].with_dtype(dt), plain=v["plain"].with_dtype(dt))
+                check_march(torch, f"{name}:{tag}", vt, MARCH_SMALL[v["solver"]], gen,
+                            MARCH_KS.get(name, ())[:1])
+        if name in MARCH_MAIN or name == "stencil+guard":
+            full = check_march(torch, name, v, MARCH_FULL[v["solver"]], gen,
+                               MARCH_MAIN.get(name, ()))
+            for (a, k), e in full.items():
+                err_at[f"{name}@m{a}" + (f"/k{k}" if k > 1 else "")] = max(e, errs.get((a, k), 0.0))
+        torch.cuda.empty_cache()
+    check_march_refusals(torch, coupled, step, step_plain, gen)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        check_finite(torch, dt, gen)
+    return err_at
+
+
+def march_timings(torch, march_v, gen, spec, ptx) -> dict:
+    """``time_march`` of the main path's variants and the guarded check;
+    prints the ``times_march`` line."""
+    from repro_torch.kernels import stencil
+
+    times = {}
+    for name, ks in (*MARCH_MAIN.items(), ("stencil+guard", ())):
+        v = march_v[name]
+        times.update(time_march(torch, name, v, MARCH_FULL[v["solver"]], gen, spec, ks, ptx))
+    emit({"phase": "times_march", "card": spec.name, "power_limit": spec.power_limit,
+          "copy_bandwidth_GBps": spec.peak_bw / 1e9, "shapes": MARCH_FULL,
+          "waves": stencil.WAVES, "steps_waves": stencil.STEPS_WAVES, "kernels": times})
+    return times
+
+
+def march_rows(march_runs, march_times, err_at) -> list:
+    """The kernels-line rows of the marched main path's kernels (the
+    all-parallel step has its own row)."""
+    return [{"name": k, "route": "cuda",
+             "source": ("src/repro_torch/kernels/codegen_steps.py" if "/k" in k
+                        else "src/repro_torch/kernels/codegen.py"),
+             "replaces": "src/repro/kernels/stencil.py:1052",
+             "launches": n, "max_abs_err": max(err_at.get(k, 0.0), march_times[k]["max_abs_err"]),
+             **{x: march_times[k][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             "library_ms": None}
+            for k, n in march_runs["launches"].items() if k != "stencil"]
 
 
 def make_generic(ps):

@@ -49,6 +49,16 @@ half the bytes of an f32 one, and its derivatives keep f32 precision.
 its ``rotations`` target: on ``backend="cuda"`` in one launch of a generated
 k-step kernel (k launches for a periodic condition), on ``backend="torch"``
 as k rotated single steps.
+
+``march_axis=a`` (or ``kernel.marched(a)``) streams the update along axis
+``a``: each thread of the generated kernel walks its column along that
+axis, so the planes it has read stay on chip for its next steps
+(ParallelStencil.jl's ``loopopt``; ``kernels/stencil.py`` says how the port
+lays it out). Results do not depend on it: the ``torch`` backend computes a
+marched kernel exactly as the all-parallel one, and the generated kernel is
+bitwise equal to it. A field staggered along the march axis raises
+``ValueError``; a march extent too short to fill the port's plane queue
+launches the all-parallel kernel instead, and ``launch_info`` says so.
 """
 from __future__ import annotations
 
@@ -59,7 +69,6 @@ from typing import Any, Callable, Mapping, Sequence
 import torch
 
 from .. import ir as _ir
-from ..ir.reductions import UNPORTED_KINDS
 from ..kernels import stencil as _stencil
 from .device import on_device, resolve_device
 
@@ -123,16 +132,22 @@ class ParallelStencil:
         (``{"err": "max_abs_diff(T2, T)"}``): the call then returns
         ``(outputs, {name: 0-d tensor})``, each folded over the outputs
         after their boundary conditions. ``bc`` maps outputs to
-        :class:`~repro_torch.ir.BoundaryCondition` or kind strings."""
-        if march_axis is not None:
-            raise NotImplementedError(
-                "march_axis= is not ported yet (ROADMAP queue 1, item 3: march_axis)"
-            )
+        :class:`~repro_torch.ir.BoundaryCondition` or kind strings.
+        ``march_axis`` streams the update along that axis (module
+        docstring)."""
+        march_axis = _check_march(march_axis, self.ndims)
 
         def deco(fn: Callable) -> StencilKernel:
-            return StencilKernel(self, fn, tuple(outputs), rotations, reductions, bc)
+            return StencilKernel(self, fn, tuple(outputs), rotations, reductions, bc,
+                                 march_axis)
 
         return deco
+
+
+def _check_march(march_axis, ndims: int) -> int | None:
+    if march_axis is not None and not 0 <= int(march_axis) < ndims:
+        raise ValueError(f"march_axis {march_axis} out of range for ndims={ndims}")
+    return None if march_axis is None else int(march_axis)
 
 
 def init_parallel_stencil(backend: str = "cuda", dtype: torch.dtype = torch.float32,
@@ -149,13 +164,15 @@ class StencilKernel:
     def __init__(self, ps: ParallelStencil, fn: Callable, outputs: tuple[str, ...],
                  rotations: Mapping[str, str] | None = None,
                  reductions: Mapping[str, Any] | None = None,
-                 bc: Mapping[str, Any] | None = None):
+                 bc: Mapping[str, Any] | None = None,
+                 march_axis: int | None = None):
         self.ps = ps
         self.fn = fn
         self.outputs = outputs
         self.rotations = dict(rotations) if rotations else None
         self.bc = _ir.normalize_bcs(bc, outputs, ps.ndims)
         self.reductions = _ir.normalize_reductions(reductions)
+        self.march_axis = _check_march(march_axis, ps.ndims)
         if self.reductions and any(c.kind == "periodic" for c in self.bc.values()):
             # the port computes periodic faces inside its launch, but keeps the
             # reference's API, whose fold would see pre-wrap faces
@@ -164,22 +181,35 @@ class StencilKernel:
                 "boundary condition (as in the reference engine, whose wrap "
                 "scatter runs after its launch)"
             )
-        for name, r in self.reductions.items():
-            if r.kind in UNPORTED_KINDS:
-                raise NotImplementedError(
-                    f"reduction {name!r} = {r.describe()}: the {r.kind!r} kind is "
-                    "not ported yet (ROADMAP queue 1, item 3: finite/nan_count)"
-                )
         self._ir_cache: dict = {}
         self._calls: dict = {}
         self._red_variants: dict = {}
         self._dtype_variants: dict = {}
+        self._march_variants: dict = {}
         functools.update_wrapper(self, fn)
 
     @property
     def label(self) -> str:
         name = getattr(self.fn, "__name__", "kernel")
         return f"{name}[{','.join(self.reductions)}]" if self.reductions else name
+
+    def _variant(self, ps: ParallelStencil, reductions, march_axis) -> "StencilKernel":
+        return StencilKernel(ps, self.fn, self.outputs, self.rotations, reductions, self.bc,
+                             march_axis)
+
+    def marched(self, march_axis: int | None) -> "StencilKernel":
+        """A variant of this kernel streaming along ``march_axis`` (``None``:
+        the all-parallel variant), with this kernel's reductions, dtype and
+        backend. Memoized on this kernel, so each variant traces and builds
+        once."""
+        march_axis = _check_march(march_axis, self.ps.ndims)
+        if march_axis == self.march_axis:
+            return self
+        v = self._march_variants.get(march_axis)
+        if v is None:
+            v = self._march_variants[march_axis] = self._variant(self.ps, self.reductions,
+                                                                 march_axis)
+        return v
 
     def with_reductions(self, reductions: Mapping[str, Any] | None) -> "StencilKernel":
         """A variant of this kernel with another fused-reduction set
@@ -191,9 +221,7 @@ class StencilKernel:
         key = tuple(sorted(reds.items()))
         v = self._red_variants.get(key)
         if v is None:
-            v = StencilKernel(self.ps, self.fn, self.outputs, self.rotations, reds,
-                              self.bc)
-            self._red_variants[key] = v
+            v = self._red_variants[key] = self._variant(self.ps, reds, self.march_axis)
         return v
 
     def with_dtype(self, dtype: torch.dtype) -> "StencilKernel":
@@ -206,8 +234,7 @@ class StencilKernel:
         v = self._dtype_variants.get(dtype)
         if v is None:
             ps = dataclasses.replace(self.ps, dtype=dtype, compute_dtype=None)
-            v = StencilKernel(ps, self.fn, self.outputs, self.rotations, self.reductions,
-                              self.bc)
+            v = self._variant(ps, self.reductions, self.march_axis)
             self._dtype_variants[dtype] = v
         return v
 
@@ -262,6 +289,7 @@ class StencilKernel:
             # face depths must fit the outputs' extents
             _ir.normalize_bcs(self.bc, self.outputs, self.ps.ndims, field_shapes=shapes)
             _stencil.unsupported(ir)
+            _stencil.check_march(ir, self.march_axis)
             self._ir_cache[key] = ir
         return ir
 
@@ -282,10 +310,22 @@ class StencilKernel:
             raise ValueError("no field shapes given")
         return self._trace(shapes, scalar_names)
 
+    def cost_model(self, **kwargs) -> _ir.StencilCostModel:
+        """The analytic flop and byte model of one launch for a field set
+        (arguments as for :meth:`stencil_ir`): bytes at the storage
+        itemsize, reduction partials at the accumulation width."""
+        ir = self.stencil_ir(**kwargs)
+        isz = self.ps.dtype.itemsize
+        return _ir.StencilCostModel.from_ir(
+            ir, isz, field_itemsizes=tuple(isz for _ in ir.field_shapes),
+            partials_itemsize=self.ps.acc_dtype.itemsize)
+
     # -- backends -----------------------------------------------------------
     def _run_torch(self, fields, scalars, ir: _ir.StencilIR):
         # cast on load, compute at compute_dtype, round on store (the write
-        # into the storage-dtype output rounds to nearest even)
+        # into the storage-dtype output rounds to nearest even); a marched
+        # kernel computes exactly this: marching changes the launch, not the
+        # values
         cd = self.ps.compute_dtype
         updates = self.fn(**{n: v.to(cd) for n, v in fields.items()}, **scalars)
         outs = {}
@@ -305,7 +345,8 @@ class StencilKernel:
         if call is None:
             call = self._calls[key] = _stencil.StencilCall(
                 ir, self.label, self.bc, nsteps=nsteps,
-                rotations=self.rotations if nsteps > 1 else None, dtype=self.ps.dtype)
+                rotations=self.rotations if nsteps > 1 else None, dtype=self.ps.dtype,
+                march_axis=self.march_axis)
         return call
 
     def compiled(self, nsteps: int = 1, **kwargs) -> _stencil.StencilCall:
@@ -393,9 +434,15 @@ class StencilKernel:
 
     @property
     def launch_info(self) -> dict:
-        """Launch parameters of the generated kernels, by grid shape."""
+        """Launch parameters of the generated kernels, by grid shape: the
+        grid, block and chunk, the axis the launch marched (None for the
+        all-parallel layout), the planes its march keeps live
+        (``queue_planes``, 0 when it does not march) and whether a marched
+        kernel fell back to the all-parallel launch (``march_fallback``)."""
         return {
-            shape: {"grid": v.grid, "block": v.block, "xc": v.xc}
+            shape: {"grid": v.grid, "block": v.block, "xc": v.xc,
+                    "march_axis": call.march_axis, "queue_planes": call.queue_planes,
+                    "march_fallback": call.march_fallback}
             for call in self._calls.values()
             for shape, v in call.launch_info.items()
         }

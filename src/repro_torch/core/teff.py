@@ -60,6 +60,18 @@ def window_overlap_factor(block, halo, nsteps: int = 1,
     return f
 
 
+def a_eff_streamed(n_points: int, n_read: int, n_write: int, itemsize: int,
+                   nsteps: int = 1, overlap: float = 1.0) -> float:
+    """Per-step traffic of a marched launch: each read field fetched about
+    once per sweep times the window overlap left on the axes that do not
+    march (:func:`window_overlap_factor` without the march axis; 1.0 is
+    perfect reuse), each write once, and a k-step launch amortizing both
+    over k steps. The refetched all-parallel traffic is the same formula
+    with the full overlap factor."""
+    return ((n_read * overlap + n_write) * n_points * itemsize
+            / max(int(nsteps), 1))
+
+
 def halo_compute_overhead(block, radius: int, nsteps: int) -> float:
     """Share of redundant cell updates of a k-step launch against k ideal
     sweeps over the block: sweep s updates the block widened by

@@ -59,15 +59,22 @@ class QuickstartResult:
     solve: SolveResult           # solve_until from the state after cfg.nt steps
 
 
+GUARD = {"bad": "finite(T2)", "nbad": "nan_count(T2)"}
+
+
 def run(cfg: Diffusion3DConfig, *, device="cuda", backend: str | None = None,
         tol: float = 1e-7, max_iters: int | None = None,
-        check_every: int = 10) -> QuickstartResult:
+        check_every: int = 10, march_axis: int | None = None,
+        guard: bool = False) -> QuickstartResult:
     """The Fig. 1 main path: ``cfg.nt`` steps of the ``@parallel`` step, the
     same steps with the explicit kernel, then ``solve_until`` with the
-    error ``max|T2 - T|`` folded into the launch."""
+    error ``max|T2 - T|`` folded into the launch. ``march_axis`` streams the
+    step along that axis (``StencilKernel.marched``); ``guard`` folds the
+    health guard (:data:`GUARD`: ``finite`` and ``nan_count`` of T2) into
+    the checked launch beside the error."""
     grid, fields, sc = initial_state(cfg, device)
     ps = init_parallel_stencil(backend=backend or default_backend(device), device=device)
-    step = make_step(ps)
+    step = make_step(ps).marched(march_axis)
 
     # Time loop (Fig. 1 lines 34-37)
     T, T2, Ci = fields["T"], fields["T2"], fields["Ci"]
@@ -83,10 +90,10 @@ def run(cfg: Diffusion3DConfig, *, device="cuda", backend: str | None = None,
         Te, Te2 = Te2, Te
 
     # Convergence-driven: the same kernel with a fused error epilogue
-    conv = step.with_reductions({"err": "max_abs_diff(T2, T)"})
+    conv = step.with_reductions({"err": "max_abs_diff(T2, T)", **(GUARD if guard else {})})
     res = solve_until(conv, dict(T2=T2, T=T, Ci=Ci), sc, tol=tol,
                       max_iters=10 * cfg.nt if max_iters is None else max_iters,
-                      check_every=check_every)
+                      check_every=check_every, error="err")
     return QuickstartResult(grid=grid, step=step, T=T, T_explicit=Te, solve=res)
 
 
@@ -96,15 +103,22 @@ def main(argv=None):
     ap.add_argument("--nt", type=int, default=50)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--backend", default=None, choices=["cuda", "torch"])
+    ap.add_argument("--march", type=int, default=None,
+                    help="stream the step along this axis (march_axis)")
+    ap.add_argument("--guard", action="store_true",
+                    help="fold finite(T2) and nan_count(T2) into the checked launch")
     args = ap.parse_args(argv)
     cfg = Diffusion3DConfig(nx=args.n, ny=args.n, nz=args.n, nt=args.nt)
-    r = run(cfg, device=args.device, backend=args.backend)
+    r = run(cfg, device=args.device, backend=args.backend, march_axis=args.march,
+            guard=args.guard)
     print(f"done: {cfg.nt} steps on {r.grid.shape} [{r.step.ps.backend} on "
           f"{args.device}] T in [{float(r.T.min()):.4f}, {float(r.T.max()):.4f}]")
     print(f"explicit kernel: max|T - T_explicit| = "
           f"{float((r.T - r.T_explicit).abs().max()):.3e}")
     print(f"solve_until: {r.solve.iters} steps, max|dT| = {r.solve.err:.2e}, "
-          f"{r.solve.host_syncs} host syncs")
+          f"{r.solve.host_syncs} host syncs"
+          + (f", finite {float(r.solve.reds['bad']):.0f}, nan_count "
+             f"{float(r.solve.reds['nbad']):.0f}" if args.guard else ""))
     if args.device != "cuda":
         print("T_eff: not measured (timing needs the card)")
         return

@@ -13,8 +13,14 @@ Kinds (all elementwise-map then associative-combine):
   * ``max_abs_diff(F, G)``  ``max |F - G|``   (convergence check)
   * ``sum(F)``              ``sum F``         (conserved quantity)
   * ``sum_sq(F)``           ``sum F^2``       (L2 norm squared)
-  * ``finite(F)`` and ``nan_count(F)`` parse, but no backend of this port
-    runs them yet (``NotImplementedError``).
+  * ``finite(F)``           ``max 1[!isfinite F]`` (health guard: 0 while
+    every value is finite, 1 once a NaN or inf appears)
+  * ``nan_count(F)``        ``sum 1[!isfinite F]`` (how many cells blew up)
+
+The ``finite`` and ``nan_count`` kinds fold a non-finite indicator: the
+map turns NaN and inf into exactly 1 and every other value into 0 before
+the combine, so the folded value is never NaN, and a count below 2^24 is
+an exact integer in f32.
 
 Operands name fields of the launch: an output operand reduces the freshly
 written values, an input operand the current values, so
@@ -42,8 +48,8 @@ REDUCTION_KINDS = {
     "nan_count": (1, "sum"),
 }
 
-# Health-guard kinds of the serving layer, not ported yet.
-UNPORTED_KINDS = ("finite", "nan_count")
+# kinds whose elementwise map is the non-finite indicator
+INDICATOR_KINDS = ("finite", "nan_count")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,11 +90,14 @@ class Reduction:
     def map_element(self, x, y=None):
         """The elementwise pre-combine map. Works on tensors and on the
         tracer's symbolic arrays (abs/sub/mul only)."""
-        if self.kind in UNPORTED_KINDS:
-            raise NotImplementedError(
-                f"reduction kind {self.kind!r} is not ported yet "
-                "(ROADMAP queue 1, item 3: finite/nan_count)"
-            )
+        if self.kind in INDICATOR_KINDS:
+            if hasattr(x, "flop_kind"):
+                # a symbolic array, traced for the cost model: the indicator
+                # is priced as one |.| of the operand (the same reads and
+                # one operation per element)
+                return abs(x)
+            return (~torch.isfinite(x)).to(x.dtype if x.is_floating_point()
+                                            else torch.float32)
         if self.kind == "max_abs":
             return abs(x)
         if self.kind == "max_abs_diff":

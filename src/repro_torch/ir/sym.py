@@ -46,6 +46,9 @@ BINARY_OPS = {"add": operator.add, "sub": operator.sub, "mul": operator.mul,
               "div": operator.truediv, "pow": operator.pow}
 UNARY_OPS = {"neg": operator.neg, "abs": abs}
 _SYMBOLS = {"add": "+", "sub": "-", "mul": "*", "div": "/", "pow": "**"}
+# the cost model's flop category of each operation (``ir.cost.count_flops``)
+_FLOPS = {"add": "adds", "sub": "adds", "neg": "adds", "abs": "adds",
+          "mul": "muls", "div": "divs", "pow": "pows"}
 
 
 def _merge_reads(a: Reads, b: Reads) -> dict:
@@ -155,6 +158,10 @@ class SymScalar:
 
     def __pos__(self):
         return self
+
+    def flop_kind(self) -> None:
+        """Scalar expressions are evaluated on the host: no device flops."""
+        return None
 
     __bool__ = __float__ = __int__ = __index__ = _no_value
     __lt__ = __le__ = __gt__ = __ge__ = _no_value
@@ -303,6 +310,15 @@ class SymArray:
 
     def __pos__(self):
         return self
+
+    def astype(self, _dtype):
+        """A cast traces as the value itself (the update runs at one
+        compute dtype)."""
+        return self
+
+    def flop_kind(self) -> str | None:
+        """Flop-counter category of this node (None for free ops)."""
+        return _FLOPS.get(self.op)
 
     __lt__ = __le__ = __gt__ = __ge__ = _no_value
 

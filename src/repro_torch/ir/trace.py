@@ -41,6 +41,8 @@ class StencilIR:
     scalar_names: tuple[str, ...] = ()
     exprs: dict[str, SymArray] = dataclasses.field(repr=False, default_factory=dict)
     reductions: dict[str, Reduction] = dataclasses.field(default_factory=dict)
+    # each reduction's elementwise map, traced (the cost model prices it)
+    red_exprs: dict[str, SymArray] = dataclasses.field(repr=False, default_factory=dict)
 
     @property
     def ndim(self) -> int:
@@ -66,6 +68,42 @@ class StencilIR:
         isz = field_itemsizes or {}
         names = self.read_fields + self.out_names
         return sum(math.prod(self.field_shapes[f]) * isz.get(f, itemsize) for f in names)
+
+    @property
+    def check_read_fields(self) -> tuple[str, ...]:
+        """Fields a separate check pass would read again: every reduction
+        operand, once. The fused epilogue reads none of them a second
+        time; this set prices the traffic the fusion saves."""
+        seen: list[str] = []
+        for r in self.reductions.values():
+            for op in r.operands:
+                if op not in seen:
+                    seen.append(op)
+        return tuple(seen)
+
+    def check_io_bytes(self, itemsize: int,
+                       field_itemsizes: Mapping[str, int] | None = None) -> int:
+        """Device-memory bytes of one separate check pass: each operand
+        field read once, at its storage width (``field_itemsizes``,
+        ``{field: itemsize}``, defaulting to ``itemsize``)."""
+        isz = field_itemsizes or {}
+        return sum(math.prod(self.field_shapes[f]) * isz.get(f, itemsize)
+                   for f in self.check_read_fields)
+
+    def describe(self) -> str:
+        """A readable footprint table."""
+        lines = [f"base shape {self.base_shape}, inferred radius {self.inferred_radius}, "
+                 f"window halo {self.halo}"]
+        for o in self.out_names:
+            lines.append(f"  out {o}: modes {self.write_modes[o]} rings {self.write_rings[o]}")
+            for f, iv in sorted(self.reads_rel[o].items()):
+                lines.append(f"    reads {f}: {iv}")
+        for f, d in sorted(self.field_halo.items()):
+            if any(x or y for x, y in d):
+                lines.append(f"  exchange depth {f}: {d}")
+        for n, r in sorted(self.reductions.items()):
+            lines.append(f"  reduction {n}: {r.describe()}")
+        return "\n".join(lines)
 
 
 def field_geometry(
@@ -227,6 +265,7 @@ def trace_stencil(
     field_geometry(base, tuple(shapes), shapes, max(r_inf, 1))
 
     reds = normalize_reductions(reductions, tuple(shapes))
+    red_exprs: dict[str, SymArray] = {}
     for name, r in reds.items():
         for op in r.operands:
             if any(offsets[op]):
@@ -235,6 +274,7 @@ def trace_stencil(
                     f"field {op!r} (offsets {offsets[op]}); reduction "
                     "operands must be collocated with the base grid"
                 )
+        red_exprs[name] = r.map_element(*(sym.field(op, shapes[op]) for op in r.operands))
 
     return StencilIR(
         base_shape=base,
@@ -251,4 +291,5 @@ def trace_stencil(
         scalar_names=tuple(scalar_names),
         exprs={o: updates[o] for o in out_names},
         reductions=reds,
+        red_exprs=red_exprs,
     )

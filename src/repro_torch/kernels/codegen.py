@@ -202,6 +202,25 @@ class TapProgram:
     offsets: tuple[tuple[int, ...], ...] = ()   # per field: base shape - field shape
     core: CoreProgram | None = None
     stages: tuple[Stage, ...] = ()
+    # the kernel axis (x 0, y 1, z 2) of each program axis: by default
+    # ``_AXES3[ndim]``; a marched program puts its march axis on x
+    # (:func:`march_layout`)
+    layout: tuple[int, ...] = ()
+
+    @property
+    def axes3(self) -> tuple[int, ...]:
+        return self.layout or _AXES3[self.ndim]
+
+    def to3(self, t: Sequence, fill) -> tuple:
+        """A per-axis tuple of the program laid out on the kernel's axes."""
+        return to3(t, fill, self.axes3)
+
+    @property
+    def z_strided(self) -> bool:
+        """Whether the kernel's z axis is not the fields' contiguous one
+        (a march along the contiguous axis): its offsets then carry a
+        stride of their own, and a warp's loads are strided."""
+        return self.ndim >= 2 and self.axes3[-1] != 2
 
     def host_values(self, scalars: Mapping[str, Any]) -> list:
         """The scalar parameters' values for one call."""
@@ -311,9 +330,11 @@ def _choose_stages(roots, ndim: int) -> dict[int, tuple[Any, set]]:
         stops -= rejected
 
 
-def lower(ir: StencilIR, bcs: Mapping[str, BoundaryCondition] | None = None) -> TapProgram:
+def lower(ir: StencilIR, bcs: Mapping[str, BoundaryCondition] | None = None,
+          march_axis: int | None = None) -> TapProgram:
     """The tap program of a traced update, with each output's boundary
-    condition (``bcs``, normalized)."""
+    condition (``bcs``, normalized), laid out to march ``march_axis`` (by
+    default the all-parallel layout, :func:`march_layout`)."""
     bcs = dict(bcs or {})
     nd = ir.ndim
     params: dict[str, int] = {}
@@ -345,7 +366,8 @@ def lower(ir: StencilIR, bcs: Mapping[str, BoundaryCondition] | None = None) -> 
                       outputs=tuple(outputs), params=tuple(param_list),
                       reductions=tuple(ir.reductions.items()),
                       offsets=tuple(ir.offsets[f] for f in ir.field_shapes),
-                      core=core, stages=tuple(stages))
+                      core=core, stages=tuple(stages),
+                      layout=() if march_axis is None else march_layout(nd, march_axis))
 
 
 def core_box(program: TapProgram, out_shapes: Mapping[str, Sequence[int]]):
@@ -504,11 +526,35 @@ def evaluate_steps_torch(program: TapProgram, rotations: Mapping[str, str], nste
 
 
 # ----------------------------------------------------------------- CUDA form
-# The kernel works on (x, y, z), z contiguous, and marches x: a 3-D grid
-# marches its first axis, a 2-D grid (n0, n1) is laid out as (n0, 1, n1) and
-# marches n0, a 1-D grid is (1, 1, n).
+# The kernel works on (x, y, z) and marches x. The all-parallel layout keeps
+# z contiguous: a 3-D grid marches its first axis, a 2-D grid (n0, n1) is
+# laid out as (n0, 1, n1) and marches n0, a 1-D grid is (1, 1, n).
 _AXES3 = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}
+
+
+def march_layout(ndim: int, march_axis: int) -> tuple[int, ...]:
+    """The kernel axis of each program axis in a launch marching
+    ``march_axis``: it goes on x, and the others keep their order on y and z
+    with the contiguous (last) one on z where it is not the march axis. A
+    march along a 3-D grid's axis 1 swaps the roles of x and y, its loads
+    still coalesced along z; a march along the contiguous axis (3-D axis 2,
+    2-D axis 1, 1-D axis 0) puts a strided axis on z."""
+    if not 0 <= march_axis < ndim:
+        raise ValueError(f"march_axis {march_axis} out of range for ndims={ndim}")
+    rest = [a for a in range(ndim) if a != march_axis]
+    out = [0] * ndim
+    out[march_axis] = 0
+    for a, k in zip(rest, (1, 2) if len(rest) == 2 else (2,)):
+        out[a] = k
+    return tuple(out)
 SHARED_LIMIT = 48 * 1024      # static shared memory of one block
+SM_SHARED = 227 * 1024        # shared memory of an H100 SM that blocks can use
+# Slab layouts ((z, y) tile, planes per step) in order of preference, by
+# rank: 16 planes (64 bytes of f32 along the contiguous axis per cell and
+# step) in a short tile first; measured best on the H100 for FIG1 and
+# porosity, while GP's larger queues keep 8 planes (PERF.md, section 6).
+SLABS = {3: [((32, 4), 16), ((16, 4), 16), ((16, 8), 8), ((32, 4), 8), ((16, 4), 8), ((16, 8), 4)],
+         2: [((64, 1), 16), ((128, 1), 8), ((64, 1), 8), ((128, 1), 4)]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -517,21 +563,29 @@ class KernelShape:
     (z, y), ``planes`` each block writes per step of its march (the core
     program runs on them unrolled, so their loads are in flight together,
     and the stages pass one barrier per step), and ``min_blocks`` of them
-    kept resident on an SM (``__launch_bounds__``: it caps the registers)."""
+    kept resident on an SM (``__launch_bounds__``: it caps the registers).
+    ``slab`` (a march along the contiguous axis only) stages every field
+    the core and the stages read into plane queues in shared memory, each
+    step's planes loaded planes-fastest, so a warp reads whole 32-byte
+    sectors of the contiguous axis instead of one word of 32 rows
+    (:func:`field_queues`)."""
 
     tile: tuple[int, int]
     planes: int
     min_blocks: int
+    slab: bool = False
 
     @property
     def threads(self) -> int:
         return self.tile[0] * self.tile[1]
 
 
-def to3(t: Sequence, fill) -> tuple:
-    """A rank-1..3 tuple laid out on the kernel's (x, y, z) axes."""
+def to3(t: Sequence, fill, layout: Sequence[int] | None = None) -> tuple:
+    """A rank-1..3 tuple laid out on the kernel's (x, y, z) axes (by
+    ``layout``, the kernel axis of each entry; by default the all-parallel
+    layout)."""
     out = [fill] * 3
-    for a, v in zip(_AXES3[len(t)], t):
+    for a, v in zip(layout or _AXES3[len(t)], t):
         out[a] = v
     return tuple(out)
 
@@ -611,11 +665,73 @@ def _combine(kind: str, acc: str, val: str) -> str:
     return f"max_nan({acc}, {val})" if kind == "max" else f"({acc} + {val})"
 
 
+def fold_line(r: int, red: Reduction, vals: Sequence[str]) -> str:
+    """The statement folding reduction ``r`` at one cell into ``acc{r}``:
+    its elementwise map of the operands' f32 values ``vals`` (an output's
+    stored value, widened), then its combine. The ``finite`` and
+    ``nan_count`` indicator is 1 for NaN and inf (``|v| < inf`` is false for
+    both) and 0 otherwise, so it is never NaN, and a block's count of at
+    most 2^24 cells is exact in f32."""
+    if red.kind == "max_abs":
+        m = f"fabsf({vals[0]})"
+    elif red.kind == "max_abs_diff":
+        m = f"fabsf({vals[0]} - {vals[1]})"
+    elif red.kind == "sum":
+        m = vals[0]
+    elif red.kind == "sum_sq":
+        m = f"{vals[0]} * {vals[0]}"
+    elif red.kind in ("finite", "nan_count"):
+        m = f"fabsf({vals[0]}) < {float_literal(math.inf)} ? 0.0f : 1.0f"
+    else:
+        raise NotImplementedError(f"reduction kind {red.kind!r} is not ported to the CUDA kernel")
+    return f"acc{r} = {_combine(red.combine, f'acc{r}', f'({m})')};"
+
+
+def stride_names(program: TapProgram) -> list[str]:
+    """The stride arguments of the kernel, two per shape class (x, y), or
+    three (x, y, z) where z is strided."""
+    axes = ("x", "y", "z") if program.z_strided else ("x", "y")
+    return [f"s{c}{ax}" for c in range(len(shape_classes(program))) for ax in axes]
+
+
+def block_origin(w, program: TapProgram) -> None:
+    """Print the block's origin (x0, y0, z0). Chunks along x are the
+    slowest grid dimension, but the fastest where z is strided (a march
+    along the contiguous axis): the blocks that run together then read
+    neighbouring segments of the same rows, the same DRAM pages, instead of
+    one short segment of many rows each."""
+    if program.z_strided:
+        w("  const int x0 = blockIdx.x * static_cast<int>(xc);")
+        w("  const int z0 = blockIdx.y * kBlockZ, y0 = blockIdx.z * kBlockY;")
+    else:
+        w("  const int z0 = blockIdx.x * kBlockZ, y0 = blockIdx.y * kBlockY;")
+        w("  const int x0 = blockIdx.z * static_cast<int>(xc);")
+
+
+def grid_dims(program: TapProgram) -> str:
+    """The launch's grid from the blocks along z and y and the chunks
+    (``gz``, ``gy``, ``gx``), in :func:`block_origin`'s order."""
+    dims = ("gx", "gz", "gy") if program.z_strided else ("gz", "gy", "gx")
+    return ", ".join(f"static_cast<unsigned>({d})" for d in dims)
+
+
+def _emit_strides(w, c: int, zs: bool) -> None:
+    """Shape class ``c``'s 32-bit strides inside a block and its 64-bit
+    block base."""
+    if zs:
+        w(f"  const int S{c}x = static_cast<int>(s{c}x), S{c}y = static_cast<int>(s{c}y), "
+          f"S{c}z = static_cast<int>(s{c}z);")
+        w(f"  const int64_t b{c} = x0 * s{c}x + y0 * s{c}y + z0 * s{c}z;")
+    else:
+        w(f"  const int S{c}x = static_cast<int>(s{c}x), S{c}y = static_cast<int>(s{c}y);")
+        w(f"  const int64_t b{c} = x0 * s{c}x + y0 * s{c}y + z0;")
+
+
 def shape_classes(program: TapProgram) -> tuple[tuple[int, int, int], ...]:
     """The distinct staggering offsets of the program's fields, on the
     kernel's (x, y, z) axes: fields of one class share extents and strides,
     and the launch passes one pair of strides per class."""
-    return tuple(sorted({to3(o, 0) for o in program.offsets}))
+    return tuple(sorted({program.to3(o, 0) for o in program.offsets}))
 
 
 def march_reach(program: TapProgram) -> tuple[int, int]:
@@ -623,8 +739,8 @@ def march_reach(program: TapProgram) -> tuple[int, int]:
     program reads its stages ((0, 0) without stages)."""
     if not program.stages:
         return 0, 0
-    return (min(to3(s.lo, 0)[0] for s in program.stages),
-            max(to3(s.hi, 0)[0] for s in program.stages))
+    return (min(program.to3(s.lo, 0)[0] for s in program.stages),
+            max(program.to3(s.hi, 0)[0] for s in program.stages))
 
 
 def kernel_shape(program: TapProgram) -> KernelShape:
@@ -635,30 +751,99 @@ def kernel_shape(program: TapProgram) -> KernelShape:
     per step for a staged program, whose loads the stages already hold
     back behind a barrier, but two for a staged 3-D program with
     reductions (GP's mass epilogue spills at four) and for a program
-    without stages."""
+    without stages. A march along the contiguous axis takes a slab layout
+    (``KernelShape.slab``, :data:`SLABS`; PERF.md, section 6: strided loads and
+    stores without it ran 13-18x slower than the all-parallel kernel, the
+    slab 2.8-4.2x)."""
+    if program.z_strided:
+        # a march along the contiguous axis: the first slab of SLABS that
+        # fits and keeps 512 threads resident (else the last that fits)
+        fits = [s for tile, planes in SLABS[program.ndim]
+                if (s := slab_shape(program, tile, planes)) is not None]
+        busy = [s for s in fits if s.min_blocks * s.threads >= 512]
+        if fits:
+            return (busy or fits)[-1 if not busy else 0]
     planes = 4 if program.stages and not (program.ndim == 3 and program.reductions) else 2
-    tile = (32, 8) if program.ndim == 3 else (256, 1)
-    return KernelShape(tile, planes, 5 if program.stages else 6)
+    return KernelShape(base_tile(program), planes, 5 if program.stages else 6)
+
+
+def slab_shape(program: TapProgram, tile: tuple[int, int], planes: int) -> KernelShape | None:
+    """A slab layout of ``tile`` and ``planes``, as many blocks resident as
+    its queues leave an SM's shared memory for (and at least 64 registers a
+    thread), or None where one block's queues exceed its static shared
+    memory."""
+    smem = shared_bytes(program, KernelShape(tile, planes, 1, True))
+    if smem > SHARED_LIMIT:
+        return None
+    # resident blocks: as many as shared memory holds, but registers for 64
+    # a thread at least (a slab's 2-D staggered update spilled at 32)
+    threads = tile[0] * tile[1]
+    return KernelShape(tile, planes, max(1, min(SM_SHARED // smem, 65536 // (64 * threads))),
+                       True)
+
+
+def base_tile(program: TapProgram, wide: tuple[int, int] = (32, 8)) -> tuple[int, int]:
+    """The (z, y) threads of a block: ``wide`` for a 3-D program, one row of
+    256 in 2-D and 1-D, and one warp where no program axis lies on z (a
+    1-D march, whose threads along z would all idle but one)."""
+    if 2 not in program.axes3:
+        return (32, 1)
+    return wide if program.ndim == 3 else (256, 1)
 
 
 def queue_planes(program: TapProgram, shape: KernelShape) -> int:
-    """Planes of each stage kept in shared memory: a step reads
+    """Planes of each queue kept in shared memory: a step reads
     ``planes - 1 + hi - lo + 1`` of them while the next stages ``planes``
-    more, with one barrier between (0 without stages)."""
-    return march_lag(program) + 2 * shape.planes if program.stages else 0
+    more, with one barrier between (0 without stages or field queues). A
+    slab kernel's steps end with a barrier before their stores, so the next
+    step stages into the planes this one read."""
+    if not (program.stages or shape.slab):
+        return 0
+    return march_lag(program, shape) + (1 if shape.slab else 2) * shape.planes
 
 
-def march_lag(program: TapProgram) -> int:
+def march_lag(program: TapProgram, shape: KernelShape | None = None) -> int:
     """Planes a chunk stages before it writes its first: the stages' reach
-    along the march axis."""
+    along the march axis, and with ``shape.slab`` each field queue's."""
     lo, hi = march_reach(program)
-    return hi - lo
+    lag = hi - lo
+    if shape is not None and shape.slab:
+        lag = max([lag] + [h[0] - l[0] for l, h in field_queues(program).values()])
+    return lag
 
 
-def stage_tile(s: Stage, shape: KernelShape) -> tuple[int, int]:
+def field_queues(program: TapProgram) -> dict[str, tuple[tuple[int, ...], tuple[int, ...]]]:
+    """``{field: (lo, hi)}`` on the kernel's axes: the cells around a core
+    cell at which the core program or a stage reads each field (a stage
+    element read at shift ``d`` reads its taps at ``d + t``), what a slab
+    kernel's field queue holds."""
+    boxes: dict = {}
+
+    def add(f, lo, hi):
+        b = boxes.get(f)
+        boxes[f] = (lo, hi) if b is None else (tuple(map(min, b[0], lo)), tuple(map(max, b[1], hi)))
+
+    for f, off in program.core.loads:
+        o = program.to3(off, 0)
+        add(f, o, o)
+    for s in program.stages:
+        lo, hi = program.to3(s.lo, 0), program.to3(s.hi, 0)
+        for f, off in s.loads:
+            t = program.to3(off, 0)
+            add(f, tuple(a + b for a, b in zip(lo, t)), tuple(a + b for a, b in zip(hi, t)))
+    return boxes
+
+
+def field_tile(box, shape: KernelShape) -> tuple[int, int]:
+    """Rows and columns (y, z) of one plane of a field queue."""
+    lo, hi = box
+    return shape.tile[1] + hi[1] - lo[1], shape.tile[0] + hi[2] - lo[2]
+
+
+def stage_tile(program: TapProgram, s: Stage, shape: KernelShape) -> tuple[int, int]:
     """Rows and columns (y, z) of one plane of a stage in shared memory:
     the block's tile and the halo its readers reach."""
-    lo, hi = to3(s.lo, 0), to3(s.hi, 0)
+    lo, hi = program.to3(s.lo, 0), program.to3(s.hi, 0)
     return shape.tile[1] + hi[1] - lo[1], shape.tile[0] + hi[2] - lo[2]
 
 
@@ -666,22 +851,33 @@ def shared_bytes(program: TapProgram, shape: KernelShape | None = None) -> int:
     """Static shared memory of one block: the stages' plane queues and the
     reduction fold's one value per warp and reduction."""
     shape = shape or kernel_shape(program)
-    cells = sum(math.prod(stage_tile(s, shape)) for s in program.stages)
-    return 4 * (cells * queue_planes(program, shape)
+    cells = sum(math.prod(stage_tile(program, s, shape)) for s in program.stages)
+    out = 0
+    if shape.slab:
+        cells += sum(math.prod(field_tile(b, shape)) for b in field_queues(program).values())
+        out = len(program.outputs) * shape.planes * shape.threads   # at most 4 bytes each
+    return 4 * (cells * queue_planes(program, shape) + out
                 + len(program.reductions) * (shape.threads // 32))
 
 
-def _index(coords: Sequence[str], c: int) -> str:
+def _zs(e: str, c: int, zs: bool, stride: str = "S") -> str:
+    """``e`` cells along the kernel's z in a field of class ``c``: times the
+    z stride where z is strided (:attr:`TapProgram.z_strided`)."""
+    return f"({e}) * {stride}{c}z" if zs else e
+
+
+def _index(coords: Sequence[str], c: int, zs: bool = False) -> str:
     """The flat index of the cell at ``coords`` in a field of class ``c``
-    (z is contiguous)."""
-    return f"{coords[0]} * s{c}x + {coords[1]} * s{c}y + {coords[2]}"
+    (z contiguous unless ``zs``)."""
+    return f"{coords[0]} * s{c}x + {coords[1]} * s{c}y + {_zs(coords[2], c, zs, 's')}"
 
 
-def _offset(base: str, c: int, off: tuple[int, ...], stride: str = "s") -> str:
+def _offset(base: str, c: int, off: tuple[int, ...], stride: str = "s", zs: bool = False) -> str:
     """``base`` moved by the tap ``off`` in a field of class ``c``, with the
-    strides ``{stride}{c}x`` and ``{stride}{c}y``."""
+    strides ``{stride}{c}x``, ``{stride}{c}y`` (and ``{stride}{c}z`` where
+    ``zs``)."""
     terms = ""
-    for d, s in zip(off, (f"{stride}{c}x", f"{stride}{c}y", "")):
+    for d, s in zip(off, (f"{stride}{c}x", f"{stride}{c}y", f"{stride}{c}z" if zs else "")):
         if not d:
             continue
         term = f"{abs(d)} * {s}" if s and abs(d) != 1 else (s or str(abs(d)))
@@ -744,14 +940,18 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     (bz, by), planes = shape.tile, shape.planes
     fidx = {f: k for k, f in enumerate(program.fields)}
     classes = shape_classes(program)
-    fcls = {f: classes.index(to3(o, 0)) for f, o in zip(program.fields, program.offsets)}
+    fcls = {f: classes.index(program.to3(o, 0)) for f, o in zip(program.fields, program.offsets)}
     n_out, n_red, n_par = len(program.outputs), len(program.reductions), len(program.params)
+    zs = program.z_strided
     core = program.core
     stages = program.stages
     lo_x, hi_x = march_reach(program)
-    lead = march_lag(program)
+    lead = march_lag(program, shape)
+    # a slab kernel's field queues: {field: (lo, hi)} on the kernel's axes
+    fq = field_queues(program) if shape.slab else {}
+    queued = bool(stages or fq)
     dims = ("nx", "ny", "nz")
-    strides = [f"s{c}{ax}" for c in range(len(classes)) for ax in ("x", "y")]
+    strides = stride_names(program)
     lines = []
     w = lines.append
     w("// Generated by repro_torch.kernels.codegen from a traced @parallel update.")
@@ -761,6 +961,13 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w("// of x planes, kPlanes per step; intermediates read at several shifts are")
     w("// staged once per cell in shared memory. Offsets inside a block are")
     w("// 32-bit, from a 64-bit block base.")
+    if program.layout:
+        w(f"// Marched layout: program axis a on kernel axis {program.axes3}[a] (x 0, y 1,")
+        w("// z 2)" + ("; z is strided, so a warp's loads are strided" if zs else "") + ".")
+    if fq:
+        w("// Slab: each field the core and the stages read is staged per step into a")
+        w("// plane queue in shared memory, kPlanes planes along the contiguous x per")
+        w("// cell loaded together, so a warp reads whole sectors.")
     w("#include <cstdint>")
     w("#include <cuda_runtime.h>")
     for line in st.includes():
@@ -774,9 +981,11 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w("constexpr int kThreads = kBlockZ * kBlockY;")
     w("constexpr int kWarps = kThreads / 32;")
     w(f"constexpr int kPlanes = {planes};  // planes per step")
-    if stages:
-        w(f"constexpr int kSlots = {queue_planes(program, shape)};  // planes kept per stage")
-        w(f"constexpr int kHi = {hi_x};  // a step stages the planes this far ahead")
+    if queued:
+        w(f"constexpr int kSlots = {queue_planes(program, shape)};  // planes kept per "
+          + ("queue" if fq else "stage"))
+        if stages:
+            w(f"constexpr int kHi = {hi_x};  // a step stages the planes this far ahead")
         w("")
         w("__device__ __forceinline__ int wrap(int s) {")
         w("  return s < 0 ? s + kSlots : s >= kSlots ? s - kSlots : s;")
@@ -797,14 +1006,21 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     params += [f"const int64_t {n}" for n in (*dims, *strides, "xc")]
     w(f"__global__ void __launch_bounds__(kThreads, {shape.min_blocks}) stencil_kernel(")
     w("    " + ",\n    ".join(params) + ") {")
-    tiles = [stage_tile(s, shape) for s in stages]
+    tiles = [stage_tile(program, s, shape) for s in stages]
     for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
         w(f"  // stage {k}: footprint {s.footprint}, {op_count(s.ops)} operations")
         w(f"  __shared__ float sm{k}[kSlots][{py * pz}];  // {py} x {pz} per plane")
+    for f, box in fq.items():
+        py, pz = field_tile(box, shape)
+        w(f"  // field {f}: cells {box[0]} to {box[1]} around a core cell")
+        w(f"  __shared__ float smf{fidx[f]}[kSlots][{py * pz}];  // {py} x {pz} per plane")
+    if fq:
+        w("  // each output's step of planes, as stored, written out planes-fastest")
+        for k in range(n_out):
+            w(f"  __shared__ {st.ctype} smo{k}[kPlanes][kThreads];")
     w("  const int tz = threadIdx.x, ty = threadIdx.y;")
     w("  const int tid = ty * kBlockZ + tz;")
-    w("  const int z0 = blockIdx.x * kBlockZ, y0 = blockIdx.y * kBlockY;")
-    w("  const int x0 = blockIdx.z * static_cast<int>(xc);")
+    block_origin(w, program)
     w("  const int x1 = min(x0 + static_cast<int>(xc), static_cast<int>(nx));")
     w("  const int y = y0 + ty, z = z0 + tz;")
     for c, off in enumerate(classes):
@@ -812,8 +1028,7 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
             w(f"  // shape class {c}: base extents less {off}")
         for ax, n, d in zip("xyz", dims, off):
             w(f"  const int m{c}{ax} = static_cast<int>({n})" + (f" - {d};" if d else ";"))
-        w(f"  const int S{c}x = static_cast<int>(s{c}x), S{c}y = static_cast<int>(s{c}y);")
-        w(f"  const int64_t b{c} = x0 * s{c}x + y0 * s{c}y + z0;")
+        _emit_strides(w, c, zs)
     for f, k in fidx.items():
         w(f"  const {T}* __restrict__ g{k} = in{k} + b{fcls[f]};")
     for k, op in enumerate(program.outputs):
@@ -822,54 +1037,51 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w("  const bool in_grid = y < ny && z < nz;")
     w("  const bool yz_core = y >= cylo && y < cyhi && z >= czlo && z < czhi;")
     for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
-        _emit_stage_setup(w, shape, k, s, py, pz, fcls)
+        _emit_stage_setup(w, program, shape, k, s, py, pz, fcls)
     for r in range(n_red):
         w(f"  float acc{r} = 0.0f;")
-    if stages:
+    if queued:
         w("  int base = 0;  // the queue slot of the first plane a step stages")
     w("  #pragma unroll 1")
     w(f"  for (int xs = x0{f' - {lead}' if lead else ''}; xs < x1; xs += kPlanes) {{")
+    for f, box in fq.items():
+        _emit_field_queue(w, program, shape, f, box, fidx, fcls, st)
+    if fq and stages:
+        w("    __syncthreads();")
     for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
-        _emit_stage(w, shape, k, s, py, pz, fidx, fcls, st)
-    if stages:
+        _emit_stage(w, program, shape, k, s, py, pz, fidx, fcls, st, fq)
+    if queued:
         w("    __syncthreads();")
     out_idx = {op.name: k for k, op in enumerate(program.outputs)}
-    reds = []
-    for r, (_, red) in enumerate(program.reductions):
-        vals = [f"v{out_idx[f]}" if f in out_idx else st.widen(f"g{fidx[f]}[at{fcls[f]}]")
-                for f in red.operands]
-        if red.kind == "max_abs":
-            m = f"fabsf({vals[0]})"
-        elif red.kind == "max_abs_diff":
-            m = f"fabsf({vals[0]} - {vals[1]})"
-        elif red.kind == "sum":
-            m = vals[0]
-        elif red.kind == "sum_sq":
-            m = f"{vals[0]} * {vals[0]}"
-        else:
-            raise NotImplementedError(
-                f"reduction kind {red.kind!r} is not ported to the CUDA kernel")
-        reds.append(f"acc{r} = {_combine(red.combine, f'acc{r}', f'({m})')};")
+    reds = [fold_line(r, red, [f"v{out_idx[f]}" if f in out_idx
+                               else st.widen(f"g{fidx[f]}[at{fcls[f]}]") for f in red.operands])
+            for r, (_, red) in enumerate(program.reductions)]
     # the core program at plane x
     w("    auto core = [&](const int x) {")
     ind = "      "
     for c in range(len(classes)):
-        w(f"{ind}const int at{c} = (x - x0) * S{c}x + ty * S{c}y + tz;")
-    for d in sorted({to3(rel, 0)[0] for _, rel in core.reads}):
+        w(f"{ind}const int at{c} = (x - x0) * S{c}x + ty * S{c}y + {_zs('tz', c, zs)};")
+    for d in sorted({program.to3(rel, 0)[0] for _, rel in core.reads}):
         w(f"{ind}const int q{d - lo_x} = wrap(base + (x - xs) + {d - hi_x});")
     for j, (f, off) in enumerate(core.loads):
         c = fcls[f]
+        if f in fq:
+            (flo, fhi), (_, fpz) = fq[f], field_tile(fq[f], shape)
+            d = program.to3(off, 0)
+            w(f"{ind}const float l{j} = smf{fidx[f]}[wrap(base + (x - xs) + {d[0] - fhi[0]})]"
+              f"[(ty + {d[1] - flo[1]}) * {fpz} + tz + {d[2] - flo[2]}];")
+            continue
         w(f"{ind}const float l{j} = "
-          f"{st.widen(f'g{fidx[f]}[{_offset(f"at{c}", c, to3(off, 0), "S")}]')};")
+          f"{st.widen(f'g{fidx[f]}[{_offset(f"at{c}", c, program.to3(off, 0), "S", zs)}]')};")
     for j, (k, rel) in enumerate(core.reads):
-        d, lo = to3(rel, 0), to3(stages[k].lo, 0)
+        d, lo = program.to3(rel, 0), program.to3(stages[k].lo, 0)
         pz = tiles[k][1]
         w(f"{ind}const float u{j} = sm{k}[q{d[0] - lo_x}][(ty + {d[1] - lo[1]}) * {pz} + tz + {d[2] - lo[2]}];")
     ref = _printer("l", "u", "e")
     _emit_ops(w, ind, core.ops, "e", ref)
     for k, (op, res) in enumerate(zip(program.outputs, core.results)):
         val = emit_value(w, ind, k, ref(res), st)
-        w(f"{ind}h{k}[at{fcls[op.name]}] = {val};")
+        w(f"{ind}" + (f"smo{k}[x - xs][tid] = {val};" if fq else f"h{k}[at{fcls[op.name]}] = {val};"))
     for line in reds:
         w(f"{ind}{line}")
     w("    };")
@@ -877,10 +1089,11 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     # of staggered extents
     w("    auto direct = [&](const int x) {")
     for c in range(len(classes)):
-        w(f"{ind}const int at{c} = (x - x0) * S{c}x + ty * S{c}y + tz;")
+        w(f"{ind}const int at{c} = (x - x0) * S{c}x + ty * S{c}y + {_zs('tz', c, zs)};")
     for k in range(n_out):
         w(f"{ind}float v{k};")
-    _emit_direct(w, program, fidx, fcls, st=st)
+    _emit_direct(w, program, fidx, fcls, st=st,
+                 store=(lambda k, op, val: f"smo{k}[x - xs][tid] = {val};") if fq else None)
     for line in reds:
         w(f"{ind}{line}")
     w("    };")
@@ -895,7 +1108,9 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w("        }")
     w("      }")
     w("    }")
-    if stages:
+    if fq:
+        _emit_slab_store(w, program, fidx, fcls)
+    if queued:
         w("    base = wrap(base + kPlanes);")
     w("  }")
     if n_red:
@@ -929,8 +1144,7 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     cargs += [f"int64_t {n}" for n in (*dims, *strides, "xc", "gz", "gy", "gx")]
     cargs += ["void* stream"]
     w('extern "C" int launch(' + ", ".join(cargs) + ") {")
-    w("  const dim3 grid(static_cast<unsigned>(gz), static_cast<unsigned>(gy), "
-      "static_cast<unsigned>(gx));")
+    w(f"  const dim3 grid({grid_dims(program)});")
     w("  const dim3 block(kBlockZ, kBlockY, 1);")
     kargs = [f"static_cast<const {T}*>(in{k})" for k in range(len(program.fields))]
     kargs += [f"static_cast<{T}*>(out{k})" for k in range(n_out)]
@@ -964,12 +1178,12 @@ def emit_value(w, ind: str, k: int, expr: str, st: Storage) -> str:
 def _emit_core_box(w, program: TapProgram, fcls) -> None:
     """``c{x,y,z}lo``/``hi``: the core, where every output is written by its
     update, inside its extent, off its faces."""
-    axes3 = _AXES3[program.ndim]
+    axes3 = program.axes3
     box_lo, box_hi = [{0} for _ in range(3)], [[] for _ in range(3)]
     for op in program.outputs:
         co = fcls[op.name]
         bc_axes = {axes3[a] for a in op.bc.resolved_axes(program.ndim)} if op.bc else set()
-        for a, r in enumerate(to3(op.rings, 0)):
+        for a, r in enumerate(program.to3(op.rings, 0)):
             d = max(r, op.bc.depth if a in bc_axes else 0)
             box_lo[a].add(d)
             box_hi[a].append(f"m{co}{'xyz'[a]}" + (f" - {d}" if d else ""))
@@ -980,12 +1194,13 @@ def _emit_core_box(w, program: TapProgram, fcls) -> None:
         w(f"  const int c{ax}lo = {max(box_lo[a])}, c{ax}hi = {hi_e};")
 
 
-def _emit_stage_setup(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int, fcls) -> None:
+def _emit_stage_setup(w, program: TapProgram, shape: KernelShape, k: int, s: Stage, py: int,
+                      pz: int, fcls) -> None:
     """The fixed (y, z) elements each thread stages for stage ``k``, every
     plane: their frame test and their offsets in each shape class, taken
     at the nearest element inside the frame."""
     nt = shape.threads
-    lo, trim = to3(s.lo, 0), to3(s.trim, 0)
+    lo, trim = program.to3(s.lo, 0), program.to3(s.trim, 0)
     n = py * pz
     for i in range(-(-n // nt)):
         e = f"tid + {i * nt}" if i else "tid"
@@ -998,19 +1213,25 @@ def _emit_stage_setup(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int,
         if (i + 1) * nt > n:
             inside.insert(0, f"e{k}_{i} < {n}")
         w(f"  const bool in{k}_{i} = {' && '.join(inside)};")
+        if shape.slab:
+            # the element's place in the block (unclamped): its field queue row and column
+            w(f"  const int ry{k}_{i} = {lo[1]}" + (f" + e{k}_{i} / {pz};" if py > 1 else ";"))
+            w(f"  const int rz{k}_{i} = {lo[2]} + e{k}_{i} % {pz};")
+            continue
         for c in sorted({fcls[f] for f, _ in s.loads}):
-            w(f"  const int o{k}_{i}_{c} = (ey{k}_{i} - y0) * S{c}y + (ez{k}_{i} - z0);")
+            w(f"  const int o{k}_{i}_{c} = (ey{k}_{i} - y0) * S{c}y + "
+              f"{_zs(f'(ez{k}_{i} - z0)', c, program.z_strided)};")
 
 
-def _emit_stage(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int, fidx, fcls,
-                st: Storage) -> None:
+def _emit_stage(w, program: TapProgram, shape: KernelShape, k: int, s: Stage, py: int, pz: int,
+                fidx, fcls, st: Storage, fq=None) -> None:
     """Stage ``k``'s planes ``xs + kHi .. + kPlanes - 1`` over its tile and
     halo. An element outside the frame is computed at the nearest element
     inside (so every load is in range and none waits on a branch) and
     stored as 0."""
     nt = shape.threads
     n = py * pz
-    trim_x = to3(s.trim, 0)[0]
+    trim_x = program.to3(s.trim, 0)[0]
     w(f"    // stage {k}")
     w("    #pragma unroll")
     w("    for (int p = 0; p < kPlanes; ++p) {")
@@ -1025,16 +1246,71 @@ def _emit_stage(w, shape: KernelShape, k: int, s: Stage, py: int, pz: int, fidx,
         else:
             w("      {")
             ind += "  "
-        for c in sorted({fcls[f] for f, _ in s.loads}):
-            w(f"{ind}const int e{c} = (qc - x0) * S{c}x + o{k}_{i}_{c};")
+        if not fq:
+            for c in sorted({fcls[f] for f, _ in s.loads}):
+                w(f"{ind}const int e{c} = (qc - x0) * S{c}x + o{k}_{i}_{c};")
+        hi_x = march_reach(program)[1]
         for j, (f, off) in enumerate(s.loads):
             c = fcls[f]
+            d = program.to3(off, 0)
+            if fq:
+                # from the field's queue; an element outside the frame (its
+                # value stored as 0) reads a cell clamped into the queue
+                (flo, fhi), (fpy, fpz) = fq[f], field_tile(fq[f], shape)
+                row = f"min(max(ry{k}_{i} + {d[1] - flo[1]}, 0), {fpy - 1})"
+                col = f"min(max(rz{k}_{i} + {d[2] - flo[2]}, 0), {fpz - 1})"
+                w(f"{ind}const float a{j} = smf{fidx[f]}[wrap(base + p + {hi_x + d[0] - fhi[0]})]"
+                  f"[{row} * {fpz} + {col}];")
+                continue
             w(f"{ind}const float a{j} = "
-              f"{st.widen(f'g{fidx[f]}[{_offset(f"e{c}", c, to3(off, 0), "S")}]')};")
+              f"{st.widen(f'g{fidx[f]}[{_offset(f"e{c}", c, d, "S", program.z_strided)}]')};")
         ref = _printer("a", "?", "t")
         _emit_ops(w, ind, s.ops, "t", ref)
         w(f"{ind}dst[e{k}_{i}] = q == qc && in{k}_{i} ? {ref(s.result)} : 0.0f;")
         w("      }")
+    w("    }")
+
+
+def _emit_slab_store(w, program: TapProgram, fidx, fcls) -> None:
+    """A slab kernel's stores: after a barrier, each output's step of
+    planes from shared memory to device memory, each thread taking one
+    (plane, cell) pair with the planes fastest (coalesced along the
+    contiguous x), within the chunk and the output's own extent."""
+    w("    __syncthreads();")
+    w("    for (int i = tid; i < kPlanes * kThreads; i += kThreads) {")
+    w("      const int p = i % kPlanes, e = i / kPlanes;")
+    w("      const int x = xs + p, y = y0 + e / kBlockZ, z = z0 + e % kBlockZ;")
+    w("      if (x < x0 || x >= x1) continue;")
+    for k, op in enumerate(program.outputs):
+        c = fcls[op.name]
+        w(f"      if (x < m{c}x && y < m{c}y && z < m{c}z) "
+          f"h{k}[(x - x0) * S{c}x + (y - y0) * S{c}y + (z - z0) * S{c}z] = smo{k}[p][e];")
+    w("    }")
+
+
+def _emit_field_queue(w, program: TapProgram, shape: KernelShape, f: str, box, fidx, fcls,
+                      st: Storage) -> None:
+    """A slab kernel's field ``f``: its planes ``xs + hi .. + kPlanes - 1``
+    over its queue's rows and columns, widened to f32, each thread taking
+    one (plane, cell) pair with the planes fastest, so consecutive lanes
+    read consecutive words of the contiguous axis; a cell outside the
+    field's frame is read clamped into it and stored as 0 (no written cell
+    reads it). (Keeping one plane per thread with the loop unrolled spilled
+    and ran slower on the H100, PERF.md.)"""
+    (lo, hi), (py, pz) = box, field_tile(box, shape)
+    k, c = fidx[f], fcls[f]
+    n = py * pz
+    w(f"    // field {f}: planes xs + {hi[0]} on, {py} x {pz} cells each, planes fastest")
+    w(f"    for (int i = tid; i < kPlanes * {n}; i += kThreads) {{")
+    w("      const int p = i % kPlanes, e = i / kPlanes;")
+    w(f"      const int q = xs + {hi[0]} + p;")
+    w(f"      const int qc = min(max(q, 0), m{c}x - 1);")
+    ey = f"y0 + {lo[1]} + e / {pz}" if py > 1 else f"y0 + {lo[1]}"
+    w(f"      const int ey = {ey}, ez = z0 + {lo[2]} + e % {pz};")
+    w(f"      const int eyc = min(max(ey, 0), m{c}y - 1), ezc = min(max(ez, 0), m{c}z - 1);")
+    at = f"(qc - x0) * S{c}x + (eyc - y0) * S{c}y + (ezc - z0) * S{c}z"
+    w(f"      const float v = {st.widen(f'g{k}[{at}]')};")
+    w(f"      smf{k}[wrap(base + p)][e] = q == qc && ey == eyc && ez == ezc ? v : 0.0f;")
     w("    }")
 
 
@@ -1049,16 +1325,17 @@ def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
     value in f32), ``prev(op, coords)`` and ``store(k, op, value)``. The
     value ``v{k}`` is rounded to storage ``st`` before it is stored and
     folded."""
-    axes3 = _AXES3[program.ndim]
+    axes3 = program.axes3
+    zs = program.z_strided
     ref = _printer("l", "?", "e")
     for k, op in enumerate(program.outputs):
         co = fcls[op.name]
-        modes, rings = to3(op.modes, "all"), to3(op.rings, 0)
+        modes, rings = program.to3(op.modes, "all"), program.to3(op.rings, 0)
         bc = op.bc
         bc_axes = sorted({axes3[a] for a in bc.resolved_axes(program.ndim)}) if bc else []
         mapped = bc is not None and bc.kind != "dirichlet"
         coords = tuple(f"{ax}{k}" for ax in "XYZ") if mapped else ("x", "y", "z")
-        staggered = any(to3(program.offsets[fidx[op.name]], 0))
+        staggered = any(program.offsets[fidx[op.name]])
         ind = "      "
         if staggered:
             w(f"{ind}if (x < m{co}x && y < m{co}y && z < m{co}z) {{  // its own extent")
@@ -1080,13 +1357,13 @@ def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
                 used = sorted({fcls[f] for f, _ in op.loads} | {co})
                 rel = (f"({coords[0]} - x0)", f"({coords[1]} - y0)", f"({coords[2]} - z0)")
                 for c in used:
-                    w(f"{body}const int64_t j{k}_{c} = {_index(rel, c)};")
+                    w(f"{body}const int64_t j{k}_{c} = {_index(rel, c, zs)};")
         if access is None:
             base = (lambda c: f"j{k}_{c}") if mapped else (lambda c: f"at{c}")
 
             def tap(f, off, base=base):
                 c = fcls[f]
-                return st.widen(f"g{fidx[f]}[{_offset(base(c), c, off)}]")
+                return st.widen(f"g{fidx[f]}[{_offset(base(c), c, off, zs=zs)}]")
 
             before = st.widen(f"g{fidx[op.name]}[{base(co)}]")
         else:
@@ -1106,7 +1383,7 @@ def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
             w(f"{body}if ({' && '.join(conds) if conds else 'true'}) {{")
         inner = body + "  "
         for j, (f, off) in enumerate(op.loads):
-            w(f"{inner}const float l{j} = {tap(f, to3(off, 0))};")
+            w(f"{inner}const float l{j} = {tap(f, program.to3(off, 0))};")
         _emit_ops(w, inner, op.ops, "e", ref)
         w(f"{inner}v{k} = {st.rounded(ref(op.result))};")
         w(f"{body}}} else {{")

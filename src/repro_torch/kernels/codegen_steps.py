@@ -54,9 +54,10 @@ from typing import Mapping
 
 import torch
 
-from .codegen import (_AXES3, KernelShape, Storage, TapProgram, _combine, _emit_core_box,
-                      _emit_direct, _emit_ops, _offset, _printer, divisor_params, emit_value,
-                      shape_classes, storage, to3)
+from .codegen import (KernelShape, Storage, TapProgram, _combine, _emit_core_box, _emit_direct,
+                      _emit_ops, _emit_strides, _offset, _printer, _zs, base_tile, block_origin,
+                      divisor_params, emit_value, fold_line, grid_dims, shape_classes, storage,
+                      stride_names)
 
 # Shared memory a block can use on the H100 (232,448 bytes), above 48 KB
 # only as dynamic shared memory after cudaFuncSetAttribute.
@@ -103,8 +104,8 @@ class Plan:
 
 def _box(offsets) -> Box:
     """Per axis of (x, y, z): how far below and above the cell the
-    offsets reach (0 at least)."""
-    offs = [to3(o, 0) if len(o) < 3 else tuple(o) for o in offsets] or [(0, 0, 0)]
+    offsets (on the kernel's axes) reach (0 at least)."""
+    offs = [tuple(o) for o in offsets] or [(0, 0, 0)]
     return tuple((max(0, -min(o[a] for o in offs)), max(0, max(o[a] for o in offs)))
                  for a in range(3))
 
@@ -129,7 +130,8 @@ def plan(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
             "as k single-step launches")
     targets = set(rotations.values())
     nd = program.ndim
-    axes3 = _AXES3[nd]
+    axes3 = program.axes3
+    to3 = program.to3
     # the outputs' reach into the previous sweep: every tap of a target
     out_taps = [to3(off, 0) for op in program.outputs for f, off in op.loads if f in targets]
     out_taps += [to3(off, 0) for f, off in program.core.loads if f in targets]
@@ -149,7 +151,7 @@ def plan(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
             f"a neumann0 face of depth {max(face)} needs a tile of at least two face "
             f"depths, got {shape.tile}")
     sweep_reach = _add(reach, ((face[0], face[0]), (face[1], 0), (face[2], 0)))
-    stage_read = [_box([s.lo, s.hi]) for s in program.stages]
+    stage_read = [_box([to3(s.lo, 0), to3(s.hi, 0)]) for s in program.stages]
     stage_taps = [_box([to3(off, 0) for f, off in s.loads if f in targets])
                   for s in program.stages]
     # backward from the last phase: extents, lags and each reader's reach
@@ -227,7 +229,7 @@ def steps_shape(program: TapProgram, rotations: Mapping[str, str], nsteps: int) 
     2-byte queues need less shared memory, but more blocks would cap its
     registers below what its f32 twin was held to without spills
     (porosity's k = 4 kernel spilled at 4 blocks on the H100, PERF.md)."""
-    tile = ((32, 8) if program.stages else (32, 16)) if program.ndim == 3 else (256, 1)
+    tile = base_tile(program, (32, 8) if program.stages else (32, 16))
     for planes in (2, 1):
         trial = KernelShape(tile, planes, 4)
         smem = shared_bytes(program, plan(program, rotations, nsteps, trial), trial)
@@ -257,13 +259,14 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     (bz, by) = shape.tile
     fidx = {f: i for i, f in enumerate(program.fields)}
     classes = shape_classes(program)
-    fcls = {f: classes.index(to3(o, 0)) for f, o in zip(program.fields, program.offsets)}
+    fcls = {f: classes.index(program.to3(o, 0)) for f, o in zip(program.fields, program.offsets)}
+    zs = program.z_strided
     n_out, n_red, n_par = len(program.outputs), len(program.reductions), len(program.params)
     rot = dict(pl.rotations)
     src_of = {t: o for o, t in pl.rotations}      # target -> the output rotating into it
     oidx = {op.name: i for i, op in enumerate(program.outputs)}
     dims = ("nx", "ny", "nz")
-    strides = [f"s{c}{ax}" for c in range(len(classes)) for ax in ("x", "y")]
+    strides = stride_names(program)
     lines = []
     w = lines.append
     w("// Generated by repro_torch.kernels.codegen_steps from a traced @parallel update.")
@@ -278,6 +281,9 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
         w(f"//   {ph.name}: sweep {ph.sweep} {what}, {py} x {pz} cells per plane, "
           f"lag {ph.lag}, {ph.slots} slots")
     w(f"// lead {pl.lead} planes; {smem} bytes of shared memory per block")
+    if program.layout:
+        w(f"// Marched layout: program axis a on kernel axis {program.axes3}[a] (x 0, y 1,")
+        w("// z 2)" + ("; z is strided, so a warp's loads are strided" if zs else "") + ".")
     w("#include <cstdint>")
     w("#include <cuda_runtime.h>")
     for line in st.includes():
@@ -316,8 +322,7 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     w("  extern __shared__ float smem[];")
     w("  const int tz = threadIdx.x, ty = threadIdx.y;")
     w("  const int tid = ty * kBlockZ + tz;")
-    w("  const int z0 = blockIdx.x * kBlockZ, y0 = blockIdx.y * kBlockY;")
-    w("  const int x0 = blockIdx.z * static_cast<int>(xc);")
+    block_origin(w, program)
     w("  const int x1 = min(x0 + static_cast<int>(xc), static_cast<int>(nx));")
     w("  const int NX = static_cast<int>(nx), NY = static_cast<int>(ny), "
       "NZ = static_cast<int>(nz);")
@@ -326,8 +331,7 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
             w(f"  // shape class {c}: base extents less {off}")
         for ax, n, d in zip("xyz", dims, off):
             w(f"  const int m{c}{ax} = static_cast<int>({n})" + (f" - {d};" if d else ";"))
-        w(f"  const int S{c}x = static_cast<int>(s{c}x), S{c}y = static_cast<int>(s{c}y);")
-        w(f"  const int64_t b{c} = x0 * s{c}x + y0 * s{c}y + z0;")
+        _emit_strides(w, c, zs)
     for f, i in fidx.items():
         w(f"  const {T}* __restrict__ g{i} = in{i} + b{fcls[f]};")
     for i, op in enumerate(program.outputs):
@@ -368,10 +372,10 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     def global_at(f, X, Y, Z, off):
         c = fcls[f]
         if (X, Y, Z) == ("x", "y", "z"):
-            return st.widen(f"g{fidx[f]}[{_offset(f'at{c}', c, off, 'S')}]")
+            return st.widen(f"g{fidx[f]}[{_offset(f'at{c}', c, off, 'S', zs)}]")
         dx, dy, dz = off
         return st.widen(f"g{fidx[f]}[({X} - x0 + {dx}) * S{c}x + ({Y} - y0 + {dy}) * S{c}y + "
-                        f"({Z} - z0 + {dz})]")
+                        f"{_zs(f'({Z} - z0 + {dz})', c, zs)}]")
 
     def access_for(sweep):
         def access(f, coords, off):
@@ -399,7 +403,7 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
                 fast += ["xa >= x0", "xa + kPlanes <= x1"]
         else:
             body = None
-            tx, ty_, tz_ = to3(program.stages[ph.stage].trim, 0)
+            tx, ty_, tz_ = program.to3(program.stages[ph.stage].trim, 0)
             fast = ["xa >= 0", f"xa + kPlanes <= NX - {tx}", f"y0 - {ylo} >= 0",
                     f"y0 + {by + yhi} <= NY - {ty_}", f"z0 - {zlo} >= 0",
                     f"z0 + {bz + zhi} <= NZ - {tz_}"]
@@ -445,7 +449,7 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
                 _emit_cell_coords(w, ind, ph, py, pz)
                 for i, op in enumerate(program.outputs):
                     c = fcls[op.name]
-                    w(f"{ind}h{i}[(x - x0) * S{c}x + (y - y0) * S{c}y + (z - z0)] = "
+                    w(f"{ind}h{i}[(x - x0) * S{c}x + (y - y0) * S{c}y + {_zs('(z - z0)', c, zs)}] = "
                       f"{st.narrow(f'rv{i}[p * {ni} + ie]')};")
             w("            }")
             w("          }")
@@ -504,8 +508,7 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     cargs += [f"int64_t {n}" for n in (*dims, *strides, "xc", "gz", "gy", "gx")]
     cargs += ["void* stream"]
     w('extern "C" int launch(' + ", ".join(cargs) + ") {")
-    w("  const dim3 grid(static_cast<unsigned>(gz), static_cast<unsigned>(gy), "
-      "static_cast<unsigned>(gx));")
+    w(f"  const dim3 grid({grid_dims(program)});")
     w("  const dim3 block(kBlockZ, kBlockY, 1);")
     w("  const cudaError_t set = cudaFuncSetAttribute(")
     w("      stencil_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);")
@@ -553,31 +556,19 @@ def _out_body(program: TapProgram, ph: Phase, is_last: bool, access, fidx, fcls,
 
         def prev(op, coords):
             return access(rot[op.name], coords, (0, 0, 0))
-    reds = []
-    if is_last:
-        for r, (_, red) in enumerate(program.reductions):
-            vals = [f"v{oidx[f]}" if f in oidx else access(f, ("x", "y", "z"), (0, 0, 0))
-                    for f in red.operands]
-            if red.kind == "max_abs":
-                m = f"fabsf({vals[0]})"
-            elif red.kind == "max_abs_diff":
-                m = f"fabsf({vals[0]} - {vals[1]})"
-            elif red.kind == "sum":
-                m = vals[0]
-            elif red.kind == "sum_sq":
-                m = f"{vals[0]} * {vals[0]}"
-            else:
-                raise NotImplementedError(
-                    f"reduction kind {red.kind!r} is not ported to the CUDA kernel")
-            reds.append(f"acc{r} = {_combine(red.combine, f'acc{r}', f'({m})')};")
+    # the last sweep folds the reductions, each output's value as stored
+    reds = [fold_line(r, red, [f"v{oidx[f]}" if f in oidx
+                               else access(f, ("x", "y", "z"), (0, 0, 0)) for f in red.operands])
+            for r, (_, red) in enumerate(program.reductions)] if is_last else []
 
     def core(w, ind, into=None):
         c = program.core
         for j, (f, off) in enumerate(c.loads):
-            w(f"{ind}const float l{j} = {access(f, ('x', 'y', 'z'), to3(off, 0))};")
+            w(f"{ind}const float l{j} = {access(f, ('x', 'y', 'z'), program.to3(off, 0))};")
         for j, (si, rel) in enumerate(c.reads):
             sph = by_key[(ph.sweep, si)]
-            w(f"{ind}const float u{j} = {queue_at(sph, None, 'x', 'y', 'z', to3(rel, 0))};")
+            w(f"{ind}const float u{j} = "
+              f"{queue_at(sph, None, 'x', 'y', 'z', program.to3(rel, 0))};")
         ref = _printer("l", "u", "e")
         _emit_ops(w, ind, c.ops, "e", ref)
         for i, (op, res) in enumerate(zip(program.outputs, c.results)):
@@ -586,11 +577,14 @@ def _out_body(program: TapProgram, ph: Phase, is_last: bool, access, fidx, fcls,
         for line in reds:
             w(f"{ind}{line}")
 
+    zs = program.z_strided
+
     def body(w, ind, fast, into=None):
         """``fast``: the cell lies in the core, and its outputs go to the
         registers ``rv{output}{into}`` instead of their stores."""
         for c in range(len(classes)):
-            w(f"{ind}const int at{c} = (x - x0) * S{c}x + (y - y0) * S{c}y + (z - z0);")
+            w(f"{ind}const int at{c} = (x - x0) * S{c}x + (y - y0) * S{c}y + "
+              f"{_zs('(z - z0)', c, zs)};")
         if fast:
             core(w, ind, into)
             return
@@ -614,7 +608,7 @@ def _emit_stage_cell(w, ind: str, program: TapProgram, ph: Phase, qname, access,
     without ``frame`` the element is known to lie inside, and its value
     goes to the register ``into``."""
     s = program.stages[ph.stage]
-    tx, ty_, tz_ = to3(s.trim, 0)
+    tx, ty_, tz_ = program.to3(s.trim, 0)
     cind = ind
     if frame:
         w(f"{ind}float v = 0.0f;")
@@ -622,9 +616,10 @@ def _emit_stage_cell(w, ind: str, program: TapProgram, ph: Phase, qname, access,
           f"z < NZ - {tz_}) {{")
         cind = ind + "  "
     for c in sorted({fcls[f] for f, _ in s.loads}):
-        w(f"{cind}const int at{c} = (x - x0) * S{c}x + (y - y0) * S{c}y + (z - z0);")
+        w(f"{cind}const int at{c} = (x - x0) * S{c}x + (y - y0) * S{c}y + "
+          f"{_zs('(z - z0)', c, program.z_strided)};")
     for j, (f, off) in enumerate(s.loads):
-        w(f"{cind}const float a{j} = {access(f, ('x', 'y', 'z'), to3(off, 0))};")
+        w(f"{cind}const float a{j} = {access(f, ('x', 'y', 'z'), program.to3(off, 0))};")
     ref = _printer("a", "?", "t")
     _emit_ops(w, cind, s.ops, "t", ref)
     if frame:

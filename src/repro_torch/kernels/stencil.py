@@ -43,6 +43,26 @@ load, computes in f32 and rounds each output to its storage type on store
 (round to nearest even); reductions fold the stored values in f32
 (:func:`accum_dtype`), so a bf16 step moves half the bytes of an f32 one.
 
+A marched call (``march_axis=a``, the counterpart of the reference's
+streamed launch, ``src/repro/kernels/stencil.py:826-833``) lays the
+program out with axis ``a`` on the kernel's x (``codegen.march_layout``),
+so each block walks its columns along ``a``: the planes a step reads stay
+in L1 (and the stages' queues) for the next steps. Its chunks are cut as
+the all-parallel launch's are (``WAVES``, ``STEPS_WAVES``): longer ones,
+which refetch fewer lag and halo planes, measured slower on the H100 for
+their last wave (``launch/tune_stencil.py --march``). A march along a
+non-contiguous axis is a permutation of the kernel's x and y, its loads
+still coalesced along z. A march along the contiguous axis puts a strided
+axis on z; its single-step kernel is a slab (``codegen.KernelShape.slab``):
+each step loads its planes of every field into shared memory and stores
+its outputs from there, planes-fastest, so warps move whole sectors (the
+k-step kernel reads and writes strided). The port's plane queue
+(:attr:`StencilCall.queue_planes`) is the planes of the march axis one step
+of a block touches: its planes, the taps' reach behind and ahead over its
+sweeps, and the stages' lag (the k-step lead). A march extent shorter than
+that launches the all-parallel kernel instead, and the call records
+``march_fallback``.
+
 On the CPU, a :class:`StencilCall` runs the same tap program with torch
 operators (``codegen.evaluate_torch``, ``codegen.evaluate_steps_torch`` for
 k sweeps), only because the tensors it was given lie there.
@@ -94,7 +114,8 @@ class Launch:
 
 
 def derive_launch(shape3: tuple[int, int, int], n_sm: int, kernel: codegen.KernelShape,
-                  halo: int = 0, lag: int = 0, waves: int | None = None) -> Launch:
+                  halo: int = 0, lag: int = 0, waves: int | None = None,
+                  strides3: tuple[int, int, int] | None = None) -> Launch:
     """Blocks of the kernel's tile of (z, y) threads, each block marching a
     chunk of ``xc`` planes along x after staging ``lag`` planes ahead; the
     chunk and its lag fill whole steps of the kernel's planes (the last
@@ -102,15 +123,22 @@ def derive_launch(shape3: tuple[int, int, int], n_sm: int, kernel: codegen.Kerne
     about ``waves`` (by default ``WAVES``) waves of the SMs' resident blocks,
     so the last wave idles the card for a small share of the run, and so
     that a chunk and ``halo`` planes on either side stay within 32-bit
-    offsets."""
+    offsets (``strides3``: the strides of the kernel's (x, y, z), by default
+    those of a C-contiguous (nx, ny, nz) grid)."""
     nx, ny, nz = shape3
     (bz, by), step = kernel.tile, kernel.planes
     gz, gy = -(-nz // bz), -(-ny // by)
     target = (waves or WAVES) * kernel.min_blocks * n_sm
     chunks = min(nx, max(1, -(-target // (gz * gy))))
     xc = -(-(-(-nx // chunks) + lag) // step) * step - lag
-    plane = ny * nz
-    max_xc = (_INT32_MAX // plane - 2 * halo + lag) // step * step - lag
+    if strides3 is None:
+        plane = ny * nz
+        max_xc = (_INT32_MAX // plane - 2 * halo + lag) // step * step - lag
+    else:
+        # a block's offsets along y and z, halo included, and its chunk's along x
+        sx, sy, sz = strides3
+        plane = (by + 2 * halo) * sy + (bz + 2 * halo) * sz
+        max_xc = ((_INT32_MAX - plane) // max(sx, 1) - 2 * halo + lag) // step * step - lag
     if max_xc < 1:
         raise ValueError(f"grid {shape3}: a plane of {plane} cells exceeds 32-bit offsets")
     xc = min(xc, max_xc)
@@ -171,11 +199,29 @@ def stream_of(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def check_march(ir: StencilIR, march_axis: int | None) -> None:
+    """``ValueError`` for a field staggered along the march axis (the
+    reference's rule: streaming slides collocated planes)."""
+    if march_axis is None:
+        return
+    if not 0 <= march_axis < ir.ndim:
+        raise ValueError(f"march_axis {march_axis} out of range for a {ir.ndim}-d stencil")
+    for n, off in ir.offsets.items():
+        if off[march_axis]:
+            raise ValueError(
+                f"march_axis {march_axis} points at a staggered axis: field {n!r} has "
+                f"offset {off[march_axis]} there; streaming slides collocated planes, so "
+                "stagger a non-marching axis or drop march_axis")
+
+
 class StencilCall:
     """One generated kernel for a traced update (fields of storage
     ``dtype``, computed in f32, collocated or staggered) with its outputs'
     boundary conditions (``bcs``, normalized), laid out as ``shape`` (by
-    default ``codegen.kernel_shape``). A sub-f32 kernel's launches count
+    default ``codegen.kernel_shape``) and marching ``march_axis`` (module
+    docstring; its launches count under ``"{label}@m{axis}"``, and a march
+    extent shorter than :attr:`queue_planes` falls back to the all-parallel
+    kernel, ``march_fallback``). A sub-f32 kernel's launches count
     under ``"{label}:{bf16|f16}"``. With
     ``rotations`` the kernel is the k-step one (``codegen_steps``): it
     sweeps the update ``nsteps`` times in one launch, each output rotating
@@ -188,8 +234,9 @@ class StencilCall:
                  bcs: Mapping[str, BoundaryCondition] | None = None,
                  shape: codegen.KernelShape | None = None, nsteps: int = 1,
                  rotations: Mapping[str, str] | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, march_axis: int | None = None):
         unsupported(ir)
+        check_march(ir, march_axis)
         if dtype not in STORAGE_DTYPES:
             raise NotImplementedError(
                 f"{label}: storage dtype {dtype} is not ported to the CUDA kernel "
@@ -201,12 +248,30 @@ class StencilCall:
             raise ValueError(f"{label}: {self.nsteps} sweeps per launch need rotations")
         if dtype != torch.float32:
             label = f"{label}:{dtype_tag(dtype)}"
+        self.rotations = None if rotations is None else dict(rotations)
+        self._lay_out(ir, bcs, shape, march_axis, label)
+        self.march_fallback = False
+        if march_axis is not None and ir.base_shape[march_axis] < self.queue_planes:
+            # too short to fill the queue: the all-parallel kernel, as the
+            # reference falls back
+            self._lay_out(ir, bcs, shape, None, label)
+            self.march_fallback = True
+        if self.march_axis is not None:
+            label = f"{label}@m{self.march_axis}"
         self.label = label if rotations is None else f"{label}/k{self.nsteps}"
-        self.program = codegen.lower(ir, bcs)
+        self.lib_name = "stencil_" + re.sub(r"[^A-Za-z0-9_]", "_", self.label)
+        self.launch_info: dict[tuple, Launch] = {}
+        self._lib: build.Library | None = None
+
+    def _lay_out(self, ir: StencilIR, bcs, shape, march_axis: int | None, label: str) -> None:
+        """The program, layout, source and march geometry for one march
+        axis (None: the all-parallel layout)."""
+        self.march_axis = march_axis
+        self.program = codegen.lower(ir, bcs, march_axis)
         self.classes = codegen.shape_classes(self.program)
         self.divisors = codegen.divisor_params(self.program)
+        dtype, rotations = self.dtype, self.rotations
         if rotations is None:
-            self.rotations = None
             self.shape = shape or codegen.kernel_shape(self.program)
             smem = codegen.shared_bytes(self.program, self.shape)
             if smem > codegen.SHARED_LIMIT:
@@ -215,7 +280,7 @@ class StencilCall:
                     f"{label}: its staged intermediates need {smem} bytes of shared memory "
                     f"per block, above the {codegen.SHARED_LIMIT} of static shared memory")
             self.source = codegen.cuda_source(self.program, self.shape, dtype)
-            self.lag = codegen.march_lag(self.program)
+            self.lag = codegen.march_lag(self.program, self.shape)
             # planes a chunk reads beyond its own: the taps' reach and the stages' lag
             self.halo = ir.inferred_radius + self.lag + self.shape.planes
         else:
@@ -228,9 +293,14 @@ class StencilCall:
                                                     self.nsteps, self.shape, dtype)
             self.lag = self.plan.lead
             self.halo = self.plan.reach
-        self.lib_name = "stencil_" + re.sub(r"[^A-Za-z0-9_]", "_", self.label)
-        self.launch_info: dict[tuple, Launch] = {}
-        self._lib: build.Library | None = None
+        # the plane queue: a step's planes, the taps' reach behind them over
+        # the sweeps, and how far ahead it computes (the stages' lag and the
+        # taps' reach ahead; the k-step lead holds both)
+        self.queue_planes = 0
+        if march_axis is not None:
+            lo, hi = ir.halo[march_axis]
+            ahead = self.lag + (hi if rotations is None else 0)
+            self.queue_planes = self.shape.planes + self.nsteps * lo + ahead
 
     def argtypes(self) -> list:
         """The ``ctypes`` types of the entry point's arguments."""
@@ -238,8 +308,10 @@ class StencilCall:
         argtypes = [ctypes.c_void_p] * (len(p.fields) + len(p.outputs) + len(p.reductions))
         # scalar parameters, then the reciprocals of the divisors, as f32
         argtypes += [ctypes.c_float] * (len(p.params) + len(self.divisors))
-        # base extents, two strides per shape class, xc, the grid
-        return argtypes + [ctypes.c_int64] * (3 + 2 * len(self.classes) + 4) + [ctypes.c_void_p]
+        # base extents, two strides per shape class (three where z is
+        # strided), xc, the grid
+        n_strides = len(codegen.stride_names(p))
+        return argtypes + [ctypes.c_int64] * (3 + n_strides + 4) + [ctypes.c_void_p]
 
     def _library(self) -> build.Library:
         if self._lib is None:
@@ -279,15 +351,10 @@ class StencilCall:
         arguments but the stream; ``divisor`` of each scalar divisor is
         passed after the parameters."""
         p = self.program
-        shape3 = codegen.to3(self.ir.base_shape, 1)
-        strides = []
-        for off in self.classes:
-            _, ny, nz = (n - d for n, d in zip(shape3, off))
-            strides += [ny * nz, nz]
-        launch = derive_launch(shape3, n_sm, self.shape, self.halo, self.lag,
-                               WAVES if self.rotations is None else STEPS_WAVES)
-        if xc is not None:
-            launch = Launch((*launch.grid[:2], -(-shape3[0] // xc)), launch.block, xc)
+        shape3 = p.to3(self.ir.base_shape, 1)
+        strides = [s for off in self.classes
+                   for s in self.strides3(off)[:3 if p.z_strided else 2]]
+        launch = self.derive(n_sm, xc)
         dev = next(iter(ins.values())).device
         outs = {op.name: torch.empty_like(ins[op.name]) for op in p.outputs}
         # partials at the accumulation dtype (f32), whatever the storage
@@ -299,6 +366,39 @@ class StencilCall:
                 *(t.data_ptr() for t in parts), *host, *shape3, *strides, launch.xc,
                 *launch.grid]
         return launch, outs, parts, args
+
+    def strides3(self, off3=(0, 0, 0)) -> tuple[int, int, int]:
+        """The strides along the kernel's (x, y, z) of a field of the shape
+        class ``off3``: those of its program axes as laid out, and for a
+        kernel axis no program axis lies on (extent 1) the product of the
+        extents after it."""
+        p = self.program
+        ext3 = [n - d for n, d in zip(p.to3(self.ir.base_shape, 1), off3)]
+        ext = [ext3[k] for k in p.axes3]                  # the field's own extents
+        own = [math.prod(ext[a + 1:]) for a in range(len(ext))]
+        out = [math.prod(ext3[k + 1:]) for k in range(3)]
+        for a, k in enumerate(p.axes3):
+            out[k] = own[a]
+        return tuple(out)
+
+    def derive(self, n_sm: int, xc: int | None = None) -> Launch:
+        """The launch on a card of ``n_sm`` SMs (or with chunks of ``xc``
+        planes): ``WAVES`` waves of blocks (``STEPS_WAVES`` for k steps)."""
+        shape3 = self.program.to3(self.ir.base_shape, 1)
+        waves = WAVES if self.rotations is None else STEPS_WAVES
+        launch = derive_launch(shape3, n_sm, self.shape, self.halo, self.lag, waves,
+                               self.strides3() if self.program.layout else None)
+        if xc is not None:
+            launch = Launch((*launch.grid[:2], -(-shape3[0] // xc)), launch.block, xc)
+        return launch
+
+    def cost_tile(self, n_sm: int = 132) -> tuple[int, ...]:
+        """The block extent of this call's launch per field axis (a chunk
+        along the marched axis): the tile of the cost model's
+        ``fetched_bytes_per_step`` and ``a_eff_streamed``."""
+        launch = self.derive(n_sm)
+        ext3 = (launch.xc, self.shape.tile[1], self.shape.tile[0])
+        return tuple(ext3[k] for k in self.program.axes3)
 
     def finish(self, outs, parts):
         """``(outs, reds)`` with each reduction finished from its partials."""

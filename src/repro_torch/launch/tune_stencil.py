@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil [--waves 8,16,24,32]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --steps [--waves 2,4,8] [--ks 1,2]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --dtype bfloat16 [--steps]
+    PYTHONPATH=src python -m repro_torch.launch.tune_stencil --march 0,1,2 [--ks 1,2]
 
 For the coupled solvers' kernels at their full sizes (porosity 8192^2, GP
 512^3) and the Fig. 1 step at 512^3, it builds each candidate
@@ -22,12 +23,21 @@ the layouts in ``STEPS_3D``/``STEPS_2D`` and values of ``stencil.STEPS_WAVES``;
 kernel of ``kernels/codegen.py`` on the same fields. ``--dtype bfloat16`` or
 ``float16`` times every kernel with its fields stored at 2 bytes a cell
 (computed in f32; the fields rounded once from the f32 ones), where a warp
-reads 64 bytes of a row instead of 128. It needs the card and measures
-nothing on the CPU.
+reads 64 bytes of a row instead of 128. ``--march 0,1,2`` times the marched
+variants (``march_axis``) of FIG1's step, porosity's and GP's fused kernels
+along each of those axes they have, single step over the layouts of
+``march_candidates`` (along the contiguous axis: slab layouts of several
+tiles and planes beside the strided layout) and k = 2 (``--ks``) at its
+k-step layout, beside its all-parallel twin's time in the same run, with
+``--waves`` the values of ``stencil.WAVES`` (``STEPS_WAVES`` for k steps)
+to time; each launch is held bitwise against the twin's, and
+``codegen.kernel_shape`` for a marched program is its choice. It needs the
+card and measures nothing on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import inspect
 import json
 import re
@@ -53,6 +63,10 @@ STEPS_2D = [Shape(t, p, b) for t in ((256, 1), (512, 1)) for p in (2, 4) for b i
     + [Shape((512, 1), 8, 2), Shape((1024, 1), 2, 2)]
 STEPS_KS = {"stencil": (2, 3, 4), "porosity_fused[neumann0]": (2, 3, 4),
             "gp_fused[none]": (2, 3)}
+MARCH_KERNELS = ("stencil", "porosity_fused[neumann0]", "gp_fused[none]")
+# slab layouts (tile, planes) tried along the contiguous axis, by rank
+SLABS = {3: [*codegen.SLABS[3], ((32, 8), 8), ((16, 4), 32), ((32, 2), 16)],
+         2: [*codegen.SLABS[2], ((32, 1), 32), ((128, 1), 16)]}
 
 
 def kernels(dev, dtype: torch.dtype = torch.float32) -> dict:
@@ -150,15 +164,7 @@ def tune_steps(todo: dict, waves: list, iters: int, ks: list | None = None) -> N
     fields (``single_step_ms``), the printers' comparison."""
     tuned = {}
     for n, default_ks in STEPS_KS.items():
-        k, _, f, sc = todo[n]
-        f = dict(f)
-        for o, t in k.rotations.items():
-            f[o] = f[t].clone()
-        if "dtau" in sc:
-            # the solver's own pseudo-time step: SCALARS' 1e-3 overflows
-            # within a few steps at 8192^2
-            cfg = pw.PorosityConfig(n=8192, device="cuda")
-            sc = dict(sc, dtau=pw.timestep(cfg, pw.make_grid(cfg)))
+        k, _, f, sc = solver_state(todo, n)
         todo[n] = (k, None, f, sc)
         for nsteps in (default_ks if ks is None else ks):
             tuned[(n, nsteps)] = steps_candidates(k, f, sc, nsteps)
@@ -199,11 +205,93 @@ def tune_steps(todo: dict, waves: list, iters: int, ks: list | None = None) -> N
         print(json.dumps(line), flush=True)
 
 
+def solver_state(todo: dict, n: str):
+    """A kernel's fields with each output starting as its rotation target (as
+    in the solvers, and as ``run_steps(k)`` equals k launches), porosity at
+    its own pseudo-time step (``SCALARS``' 1e-3 overflows within a few steps
+    at 8192^2)."""
+    k, plain, f, sc = todo[n]
+    f = dict(f)
+    for o, t in (k.rotations or {}).items():
+        f[o] = f[t].clone()
+    if "dtau" in sc:
+        cfg = pw.PorosityConfig(n=8192, device="cuda")
+        sc = dict(sc, dtau=pw.timestep(cfg, pw.make_grid(cfg)))
+    return k, plain, f, sc
+
+
+def march_candidates(call) -> list:
+    """A marched single-step call's layouts: its own (``kernel_shape``), the
+    all-parallel twin's, and along the contiguous axis the slabs of
+    ``SLABS`` that fit."""
+    p = call.program
+    shapes = [call.shape, codegen.kernel_shape(dataclasses.replace(p, layout=()))]
+    if p.z_strided:
+        shapes += [s for tile, planes in SLABS[p.ndim]
+                   if (s := codegen.slab_shape(p, tile, planes)) is not None]
+    return list(dict.fromkeys(shapes))
+
+
+def tune_march(todo: dict, axes: list, waves: list | None, iters: int, ks: list) -> None:
+    """Time each marched kernel's candidate layouts (one JSON line per
+    kernel, axis and k) beside its all-parallel twin; each launch must equal
+    the twin's bitwise (a ``RuntimeError`` otherwise)."""
+    tuned, twins = {}, {}
+    for n in MARCH_KERNELS:
+        k, _, f, sc = todo[n] = solver_state(todo, n)
+        for nsteps in ks:
+            twins[(n, nsteps)] = k.compiled(nsteps=nsteps, **f, **sc)
+            for a in (a for a in axes if a < k.ps.ndims):
+                call = k.marched(a).compiled(nsteps=nsteps, **f, **sc)
+                shapes = [call.shape] if nsteps > 1 else march_candidates(call)
+                tuned[(n, a, nsteps)] = [
+                    stencil.StencilCall(call.ir, k.label, k.bc, shape, nsteps,
+                                        k.rotations if nsteps > 1 else None, k.ps.dtype,
+                                        march_axis=a) for shape in shapes]
+    t0 = time.perf_counter()
+    sources = [(t.lib_name, t.source) for t in twins.values()]
+    sources += [(t.lib_name, t.source) for ts in tuned.values() for t in ts]
+    logs = build.compile_many(sources)
+    print(json.dumps({"built": len(sources), "seconds": time.perf_counter() - t0}), flush=True)
+    logs = iter(logs[len(twins):])
+    for (n, a, nsteps), calls in tuned.items():
+        attr = "WAVES" if nsteps == 1 else "STEPS_WAVES"
+        default_waves = getattr(stencil, attr)
+        k, _, f, sc = todo[n]
+        twin = twins[(n, nsteps)]
+        want, _ = twin.run(f, sc)
+        twin_ms = teff.measure(lambda: twin.run(f, sc), iters=iters, warmup=3).median_s * 1e3
+        row = {}
+        for t in calls:
+            found = ptxas(next(logs).log)
+            for w in waves or [default_waves]:
+                setattr(stencil, attr, w)
+                outs, _ = t.run(f, sc)
+                if not all(torch.equal(outs[o], want[o]) for o in k.outputs):
+                    raise RuntimeError(f"{t.label} at {t.shape}, {w} waves: not bitwise equal "
+                                       "to its all-parallel twin")
+                ms = teff.measure(lambda: t.run(f, sc), iters=iters, warmup=3).median_s * 1e3
+                row[f"{layout_name(t.shape)}/w{w}"] = {
+                    "ms": ms, "grid": list(t.derive(132).grid), "xc": t.derive(132).xc,
+                    "queue_planes": t.queue_planes, **found}
+            setattr(stencil, attr, default_waves)
+        print(json.dumps({"kernel": n, "march_axis": a, "k": nsteps, "twin_ms": twin_ms,
+                          "z_strided": calls[0].program.z_strided,
+                          "chosen": f"{layout_name(calls[0].shape)}/w{default_waves}",
+                          "candidates": row}), flush=True)
+
+
+def layout_name(sh) -> str:
+    return f"{sh.tile[0]}x{sh.tile[1]}/p{sh.planes}/b{sh.min_blocks}" + ("/slab" if sh.slab else "")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--waves", default=None,
                     help="values of stencil.WAVES (with --steps: STEPS_WAVES) to time")
     ap.add_argument("--steps", action="store_true", help="tune the k-step kernels")
+    ap.add_argument("--march", default=None,
+                    help="tune the marched kernels along these axes, e.g. 0,1,2")
     ap.add_argument("--ks", default=None,
                     help="with --steps: the k to time, e.g. 1,2 (default: STEPS_KS)")
     ap.add_argument("--iters", type=int, default=20)
@@ -216,9 +304,14 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     name, power = teff.card_info(0)
     print(json.dumps({"card": name, "power_limit": power, "dtype": args.dtype}), flush=True)
+    todo = kernels(dev, getattr(torch, args.dtype))
+    if args.march:
+        tune_march(todo, [int(a) for a in args.march.split(",")],
+                   [int(w) for w in args.waves.split(",")] if args.waves else None, args.iters,
+                   [int(x) for x in (args.ks or "1,2").split(",")])
+        return 0
     waves = [int(w) for w in (args.waves or ("2,4,8" if args.steps else "8,16,24,32"))
              .split(",")]
-    todo = kernels(dev, getattr(torch, args.dtype))
     if args.steps:
         tune_steps(todo, waves, args.iters,
                    [int(x) for x in args.ks.split(",")] if args.ks else None)

@@ -626,3 +626,103 @@ def test_lm_serve_backends_agree_on_the_card(card):
     np.testing.assert_array_equal(got, want)
     assert ops.conv1d_causal(torch.zeros(1, 2, 3, device=card), torch.ones(2, 3, device=card),
                              impl="cuda").abs().max() == 0
+
+
+# ---------------------------------------------------------------------------
+# march_axis streaming and the finite/nan_count reductions
+# ---------------------------------------------------------------------------
+MARCH_CASES = [("fig1", a) for a in (0, 1, 2)] + [("fig1+4red", a) for a in (0, 1, 2)] \
+    + [("staggered", 1)] + [(f"porosity[{bc}]", a) for bc in ("neumann", "dirichlet")
+                            for a in (0, 1)] \
+    + [(f"gp[{bc}]", a) for bc in ("none", "neumann") for a in (0, 1, 2)]
+
+
+@pytest.mark.parametrize("name,axis", MARCH_CASES)
+def test_marched_kernel_equals_torch_backend_and_k_launches(card, name, axis, rng):
+    """A marched kernel is bitwise equal to its all-parallel twin (and so to
+    the torch backend); its ``run_steps(2)`` is one launch, bitwise equal to
+    two marched launches; ``launch_info`` names the axis and its queue."""
+    kern, names, sc = _k_step_kernels(card)[name]
+    km = kern.marched(axis)
+    base = K_STEP_SHAPES[name.split("[")[0].split("+")[0]]
+    base = tuple(max(b, 21) for b in base)        # every axis fills the plane queue
+    f = {}
+    for n in names:
+        shape = (base[0] - 1, base[1]) if n == "q" else base
+        f[n] = _rand(rng, shape, card) * (0.01 if name.startswith("porosity") else 1.0)
+    for o, t in kern.rotations.items():
+        f[o] = f[t].clone()
+    _assert_same(km(**f, **sc), kern(**f, **sc), km)
+    info = km.launch_info[base]
+    assert info["march_axis"] == axis and not info["march_fallback"] and info["queue_planes"] > 0
+    want = _sequential_launches(km, f, sc, 2)
+    label = f"{km.label}@m{axis}/k2"
+    before = stencil.launches[label]
+    got = km.run_steps(2, **f, **sc)
+    torch.cuda.synchronize()
+    assert stencil.launches[label] == before + 1
+    got = got[0] if km.reductions else got
+    got = {km.outputs[0]: got} if len(km.outputs) == 1 else got
+    for o in km.outputs:
+        assert torch.equal(got[o], want[o]), o
+
+
+@pytest.mark.parametrize("tag", list(LOW))
+@pytest.mark.parametrize("axis", [0, 2])
+def test_mixed_marched_kernel_equals_torch_backend(card, tag, axis, rng):
+    ps = init_parallel_stencil(dtype=LOW[tag])
+    pp = init_parallel_stencil(backend="torch", device="cuda", dtype=LOW[tag])
+    f = {n: _rand(rng, (33, 20, 130), card).to(LOW[tag]) for n in ("T2", "T", "Ci")}
+    sc = dict(lam=1.0, dt=1e-4, _dx=32.0, _dy=19.0, _dz=129.0)
+    reds = CASES["fig1"][6]
+    k = quickstart.make_step(ps).with_reductions(reds).marched(axis)
+    _assert_same(k(**f, **sc), quickstart.make_step(pp).with_reductions(reds)(**f, **sc), k)
+
+
+def test_march_fallback_and_staggered_refusal_on_the_card(card, rng):
+    """A march extent shorter than the queue launches the all-parallel
+    kernel and says so; a field staggered along the march axis raises."""
+    k = quickstart.make_step(init_parallel_stencil()).marched(0)
+    f = {n: _rand(rng, (3, 20, 130), card) for n in ("T2", "T", "Ci")}
+    sc = dict(lam=1.0, dt=1e-4, _dx=2.0, _dy=19.0, _dz=129.0)
+    got = k(**f, **sc)
+    info = k.launch_info[(3, 20, 130)]
+    assert info["march_fallback"] and info["march_axis"] is None
+    assert torch.equal(got, quickstart.make_step(init_parallel_stencil())(**f, **sc))
+    stag, names, sc = _k_step_kernels(card)["staggered"]
+    f = {"T2": _rand(rng, (33, 20), card), "T": _rand(rng, (33, 20), card),
+         "q2": _rand(rng, (32, 20), card), "q": _rand(rng, (32, 20), card)}
+    with pytest.raises(ValueError, match="staggered"):
+        stag.marched(0)(**f, **sc)
+
+
+def health(T2, T):
+    return {"T2": fd3d.inn(T) * 2.0}
+
+
+HEALTH = {"bad": "finite(T2)", "nbad": "nan_count(T2)", "nin": "nan_count(T)"}
+
+
+@pytest.mark.parametrize("tag", ["f32", *LOW])
+@pytest.mark.parametrize("axis", [None, 2])
+def test_finite_and_nan_count_on_the_card(card, tag, axis, rng):
+    """``finite`` and ``nan_count`` fold the stored output (an f16 value
+    that rounds to inf on store counts) and the input: counts exact and
+    equal to the torch backend's, single step and k = 2."""
+    dt = LOW.get(tag, torch.float32)
+    T = torch.tensor(rng.rand(33, 20, 130).astype(np.float32))
+    T[torch.tensor(rng.rand(33, 20, 130) < 0.01)] = float("nan")
+    T[5, 5, 5], T[1, 1, 1], T[7, 7, 7] = float("inf"), -float("inf"), 40000.0
+    f = {"T2": T.to(dt).to(card), "T": T.to(dt).to(card)}
+    kern = init_parallel_stencil(dtype=dt).parallel(
+        outputs=("T2",), rotations={"T2": "T"}, reductions=HEALTH, march_axis=axis)(health)
+    plain = init_parallel_stencil(backend="torch", device="cuda", dtype=dt).parallel(
+        outputs=("T2",), rotations={"T2": "T"}, reductions=HEALTH)(health)
+    for k in (1, 2):
+        (got, reds), (want, want_reds) = kern.run_steps(k, **f), plain.run_steps(k, **f)
+        assert bool(((got == want) | (got.isnan() & want.isnan())).all())
+        assert {n: float(r) for n, r in reds.items()} == \
+            {n: float(r) for n, r in want_reds.items()}
+        assert float(reds["nin"]) == float((~torch.isfinite(f["T"])).sum())
+        assert float(reds["bad"]) == 1.0
+    assert bool(torch.isinf(plain(**f)[0][7, 7, 7])) == (dt == torch.float16)

@@ -162,8 +162,10 @@ def test_reduction_specs():
     assert reds["e"].describe() == "max_abs_diff(T2, T)" and reds["s"].combine == "sum"
     x = torch.tensor([1.0, -3.0, 2.0])
     assert float(reds["e"].fold(reds["e"].map_element(x, torch.zeros(3)))) == 3.0
-    with pytest.raises(NotImplementedError, match="finite/nan_count"):
-        Reduction("finite", "T").map_element(x)
+    # the finite/nan_count indicator: 1 for NaN and inf, 0 otherwise
+    y = torch.tensor([1.0, float("nan"), float("inf"), -float("inf")])
+    assert Reduction("finite", "T").map_element(y).tolist() == [0.0, 1.0, 1.0, 1.0]
+    assert float(Reduction("nan_count", "T").fold(Reduction("nan_count", "T").map_element(y))) == 3
 
 
 def test_float_literals_are_exact_f32():

@@ -111,11 +111,12 @@ def test_unported_features_raise_not_implemented(rng):
     ps = init_parallel_stencil(backend="torch", device="cpu")
     # bc= is ported (tests/test_torch_bc.py): declaring one no longer raises
     assert ps.parallel(outputs=("T2",), bc={"T2": "dirichlet"})(fig1).bc["T2"].kind == "dirichlet"
-    with pytest.raises(NotImplementedError, match="march_axis"):
-        ps.parallel(outputs=("T2",), march_axis=0)
+    # march_axis= and the finite/nan_count kinds are ported
+    # (tests/test_torch_streaming.py): declaring them no longer raises
+    assert ps.parallel(outputs=("T2",), march_axis=0)(fig1).march_axis == 0
     for kind in ("finite", "nan_count"):
-        with pytest.raises(NotImplementedError, match="finite/nan_count"):
-            ps.parallel(outputs=("T2",), reductions={"g": f"{kind}(T2)"})(fig1)
+        kern = ps.parallel(outputs=("T2",), reductions={"g": f"{kind}(T2)"})(fig1)
+        assert kern.reductions["g"].kind == kind
     # bf16 and f16 storage are ported (tests/test_torch_mixed.py), computed in
     # f32; f64 storage and compute narrower than f32 are not
     for dt in (torch.bfloat16, torch.float16):
