@@ -81,7 +81,14 @@ porosity's and GP's fused kernels marched along each axis on the solvers'
 own states, bitwise to their all-parallel steps. ``times_march``: each
 marched kernel's ms beside its all-parallel twin in the same run, the
 twin's bound, its plain ms, registers, spills, plane queue and the cost
-model's streamed and refetched bytes at the port's own launch tile.
+model's streamed and refetched bytes at the port's own launch tile. Along
+the contiguous axis every marched kernel, single step and k steps, is an
+async slab (field queues filled by asynchronous copies a step ahead, the
+outputs stored from a step buffer a step later); ``check_march`` rows and
+``times_march`` name each kernel's layout, and ``times_march`` times each
+contiguous-axis kernel beside its synchronous layout (the slab staged
+through registers, or strided k-step loads and stores) on the same fields,
+bitwise to each other, in turns (``sync_ms``).
 
 It prints JSON lines; the line before the last lists the kernels, the one
 before that is the card's name and power limit as nvidia-smi gives them,
@@ -175,7 +182,14 @@ LM_TOL = {"conv1d": (1e-5, 1e-6), "ssd": (1e-4, 1e-4), "attention": (1e-5, 1e-5)
 LOGITS_TOL = (1e-3, 1e-3)
 
 
+START = time.perf_counter()
+
+
 def emit(obj):
+    """Print one JSON line; a phase's line carries the seconds since the
+    script started (``t_s``), so a run shows where its time goes."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2068,7 +2082,7 @@ def check_march(torch, name, v, base, gen, ks=()) -> dict:
         require(info["march_axis"] == a and not info["march_fallback"],
                 f"{name} marched along {a} at {base} launched {info}")
         row = {"max_abs_err": errs[(a, 1)], "nonfinite": nonfinite(torch, got),
-               **{x: info[x] for x in ("grid", "xc", "queue_planes")}}
+               **{x: info[x] for x in ("grid", "xc", "queue_planes", "layout")}}
         for k in ks:
             w, w_reds = rotate_run(km, f, sc, 1, k)
             w = {o: w[t] for o, t in km.rotations.items()}
@@ -2293,6 +2307,7 @@ def time_march(torch, name, v, base, gen, spec, ks, ptx) -> dict:
     The k-step rows as ``time_k_steps`` gives them, beside the all-parallel
     k-step twin."""
     from repro_torch.core import teff
+    from repro_torch.kernels import codegen
 
     kern, plain, sc = v["kernel"], v["plain"], v["scalars"]
     f = march_fields(torch, v, base, gen)
@@ -2323,10 +2338,13 @@ def time_march(torch, name, v, base, gen, spec, ks, ptx) -> dict:
             "max_abs_err": err, "queue_planes": call.queue_planes, "xc": launch.xc,
             "grid": list(launch.grid), "tile": list(call.shape.tile), "planes": call.shape.planes,
             "z_strided": call.program.z_strided, "ptxas": ptx.get(call.lib_name),
+            "layout": codegen.layout_name(call.shape),
             "cost_tile": list(tile), "streamed_bytes": cost.a_eff_streamed(tile, 1, a),
             "refetched_bytes": cost.fetched_bytes_per_step(twin_tile, 1),
             "a_eff_bytes": cost.a_eff_bytes(1),
             "t_eff_over_copy": a_eff / (ms / 1e3) / spec.peak_bw}
+        if call.program.z_strided:
+            out[f"{name}@m{a}"].update(beside_sync(torch, km, call, f, sc, ptx))
         for k in ks:
             twin_k = teff.measure(lambda: kern.run_steps(k, **f, **sc), iters=20,
                                   warmup=3).median_s * 1e3
@@ -2336,10 +2354,49 @@ def time_march(torch, name, v, base, gen, spec, ks, ptx) -> dict:
                       "queue_planes": kc.queue_planes, "ptxas": ptx.get(kc.lib_name),
                       "streamed_bytes": cost.a_eff_streamed(kc.cost_tile(), k, a),
                       "refetched_bytes": cost.fetched_bytes_per_step(
-                          kern.compiled(nsteps=k, **f, **sc).cost_tile(), k)})
+                          kern.compiled(nsteps=k, **f, **sc).cost_tile(), k),
+                      "layout": codegen.layout_name(kc.shape)})
+            if kc.program.z_strided:
+                t.update(beside_sync(torch, km, kc, f, sc, ptx))
             out[f"{name}@m{a}/k{k}"] = t
         torch.cuda.empty_cache()
     return out
+
+
+def sync_call(km, call):
+    """``call`` (a march along the contiguous axis) in its synchronous
+    layout, for timing beside it: the slab staged through registers (one
+    step) or strided loads and stores (k steps), under a library name of
+    its own."""
+    from repro_torch.kernels import codegen, codegen_steps, stencil
+
+    p = call.program
+    shape = codegen.slab_layout(p, False) if call.rotations is None else \
+        codegen_steps.steps_shape(p, call.rotations, call.nsteps, False)
+    old = stencil.StencilCall(call.ir, km.label, km.bc, shape, call.nsteps, call.rotations,
+                              call.dtype, march_axis=call.march_axis)
+    old.lib_name += "_sync"
+    return old
+
+
+def beside_sync(torch, km, call, f, sc, ptx) -> dict:
+    """The async slab and its synchronous layout on the same fields:
+    bitwise to each other, then timed in turns (async, sync, sync, async;
+    CUDA-event medians of 20), each the mean of its two."""
+    from repro_torch.core import teff
+    from repro_torch.kernels import codegen
+
+    old = sync_call(km, call)
+    got, want = call.run(f, sc)[0], old.run(f, sc)[0]
+    require(all(same(torch, got[o], want[o]) for o in got),
+            f"{call.label}: the async slab differs from its synchronous layout")
+    ms = {"new": [], "sync": []}
+    for which in ("new", "sync", "sync", "new"):
+        c = call if which == "new" else old
+        ms[which].append(teff.measure(lambda: c.run(f, sc), iters=20, warmup=3).median_s * 1e3)
+    return {"layout": codegen.layout_name(call.shape), "ms_in_turns": sum(ms["new"]) / 2,
+            "sync_layout": codegen.layout_name(old.shape), "sync_ms": sum(ms["sync"]) / 2,
+            "sync_ptxas": ptx.get(old.lib_name)}
 
 
 def spec_sm(torch) -> int:
@@ -2365,6 +2422,14 @@ def march_calls(torch, march_v) -> list:
                           for k in (1, *ks)]
     g = march_v["stencil+guard"]
     calls.append(g["kernel"].compiled(**g["shapes"](MARCH_SMALL["fig1"]), **g["scalars"]))
+    # the synchronous layouts of the timed kernels along the contiguous axis
+    for name in (*MARCH_MAIN, "stencil+guard"):
+        v = march_v[name]
+        base = MARCH_SMALL[v["solver"]]
+        km = v["kernel"].marched(len(base) - 1)
+        for k in (1, *MARCH_MAIN.get(name, ())):
+            calls.append(sync_call(km, km.compiled(nsteps=k, **v["shapes"](base),
+                                                   **v["scalars"])))
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         h = make_health(init_parallel_stencil(dtype=dt))
         calls += [h.marched(a).compiled(nsteps=k, T2=MARCH_SMALL["fig1"], T=MARCH_SMALL["fig1"])

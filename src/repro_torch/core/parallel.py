@@ -69,7 +69,7 @@ from typing import Any, Callable, Mapping, Sequence
 import torch
 
 from .. import ir as _ir
-from ..kernels import stencil as _stencil
+from ..kernels import codegen, stencil as _stencil
 from .device import on_device, resolve_device
 
 _BACKENDS = ("cuda", "torch")
@@ -438,11 +438,15 @@ class StencilKernel:
         grid, block and chunk, the axis the launch marched (None for the
         all-parallel layout), the planes its march keeps live
         (``queue_planes``, 0 when it does not march) and whether a marched
-        kernel fell back to the all-parallel launch (``march_fallback``)."""
+        kernel fell back to the all-parallel launch (``march_fallback``), and
+        the kernel's layout (``codegen.layout_name``: tile, planes per step,
+        resident blocks, ``/slab-async`` for the march along the contiguous
+        axis)."""
         return {
             shape: {"grid": v.grid, "block": v.block, "xc": v.xc,
                     "march_axis": call.march_axis, "queue_planes": call.queue_planes,
-                    "march_fallback": call.march_fallback}
+                    "march_fallback": call.march_fallback,
+                    "layout": codegen.layout_name(call.shape)}
             for call in self._calls.values()
             for shape, v in call.launch_info.items()
         }

@@ -548,13 +548,26 @@ def march_layout(ndim: int, march_axis: int) -> tuple[int, ...]:
         out[a] = k
     return tuple(out)
 SHARED_LIMIT = 48 * 1024      # static shared memory of one block
+# An async slab's steps start, and its copies' windows begin, on multiples
+# of this many planes: a 32-byte sector of f32 along the contiguous axis, so
+# a warp's loads and stores cover whole sectors.
+ALIGN = 8
 SM_SHARED = 227 * 1024        # shared memory of an H100 SM that blocks can use
-# Slab layouts ((z, y) tile, planes per step) in order of preference, by
-# rank: 16 planes (64 bytes of f32 along the contiguous axis per cell and
-# step) in a short tile first; measured best on the H100 for FIG1 and
-# porosity, while GP's larger queues keep 8 planes (PERF.md, section 6).
-SLABS = {3: [((32, 4), 16), ((16, 4), 16), ((16, 8), 8), ((32, 4), 8), ((16, 4), 8), ((16, 8), 4)],
-         2: [((64, 1), 16), ((128, 1), 8), ((64, 1), 8), ((128, 1), 4)]}
+# Async slab layouts (``KernelShape.async_copies``: (z, y) tile, planes per
+# step) in order of preference, by rank and whether the program has stages:
+# the first that fits. Measured best on the H100 (PERF.md, section 6): FIG1
+# 16 x 4 with 16 planes; GP's stages and porosity's take 8 planes, whose
+# queues leave more blocks resident.
+SLABS = {(3, False): [((16, 4), 16), ((16, 8), 16), ((32, 4), 16), ((16, 8), 8)],
+         (3, True): [((16, 8), 8), ((32, 8), 8), ((32, 4), 8), ((16, 4), 8)],
+         (2, False): [((64, 1), 8), ((128, 1), 8), ((64, 1), 16)],
+         (2, True): [((64, 1), 8), ((128, 1), 8), ((64, 1), 16)]}
+# The synchronous slab's (``async_copies`` off): 16 planes (64 bytes of f32 along the
+# contiguous axis per cell and step) in a short tile first; measured best
+# on the H100 for FIG1 and porosity, while GP's larger queues keep 8 planes.
+SYNC_SLABS = {3: [((32, 4), 16), ((16, 4), 16), ((16, 8), 8), ((32, 4), 8), ((16, 4), 8),
+                  ((16, 8), 4)],
+              2: [((64, 1), 16), ((128, 1), 8), ((64, 1), 8), ((128, 1), 4)]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -568,16 +581,29 @@ class KernelShape:
     the core and the stages read into plane queues in shared memory, each
     step's planes loaded planes-fastest, so a warp reads whole 32-byte
     sectors of the contiguous axis instead of one word of 32 rows
-    (:func:`field_queues`)."""
+    (:func:`field_queues`), and stores each output's step of planes from
+    shared memory, planes-fastest too. With ``async_copies`` the queues
+    fill by asynchronous copies issued a step ahead (:func:`_emit_copies`)
+    and the step's outputs go out a step later, one barrier a step;
+    without, each step loads its queues through registers and stores its
+    outputs behind two barriers of its own (PERF.md, section 6)."""
 
     tile: tuple[int, int]
     planes: int
     min_blocks: int
     slab: bool = False
+    async_copies: bool = False
 
     @property
     def threads(self) -> int:
         return self.tile[0] * self.tile[1]
+
+
+def layout_name(shape: KernelShape) -> str:
+    """A layout's short name: tile, planes per step, resident blocks, and
+    ``/slab`` (synchronous staging) or ``/slab-async``."""
+    kind = ("/slab-async" if shape.async_copies else "/slab") if shape.slab else ""
+    return f"{shape.tile[0]}x{shape.tile[1]}/p{shape.planes}/b{shape.min_blocks}{kind}"
 
 
 def to3(t: Sequence, fill, layout: Sequence[int] | None = None) -> tuple:
@@ -751,35 +777,48 @@ def kernel_shape(program: TapProgram) -> KernelShape:
     per step for a staged program, whose loads the stages already hold
     back behind a barrier, but two for a staged 3-D program with
     reductions (GP's mass epilogue spills at four) and for a program
-    without stages. A march along the contiguous axis takes a slab layout
-    (``KernelShape.slab``, :data:`SLABS`; PERF.md, section 6: strided loads and
-    stores without it ran 13-18x slower than the all-parallel kernel, the
-    slab 2.8-4.2x)."""
-    if program.z_strided:
-        # a march along the contiguous axis: the first slab of SLABS that
-        # fits and keeps 512 threads resident (else the last that fits)
-        fits = [s for tile, planes in SLABS[program.ndim]
-                if (s := slab_shape(program, tile, planes)) is not None]
-        busy = [s for s in fits if s.min_blocks * s.threads >= 512]
-        if fits:
-            return (busy or fits)[-1 if not busy else 0]
+    without stages. A march along the contiguous axis takes an async slab
+    layout (``KernelShape.async_copies``, :data:`SLABS`; PERF.md, section
+    6: strided loads and stores ran 13-18x slower than the all-parallel
+    kernel, the synchronous slab 2.8-4.2x)."""
+    if program.z_strided and (slab := slab_layout(program)) is not None:
+        return slab
     planes = 4 if program.stages and not (program.ndim == 3 and program.reductions) else 2
     return KernelShape(base_tile(program), planes, 5 if program.stages else 6)
 
 
-def slab_shape(program: TapProgram, tile: tuple[int, int], planes: int) -> KernelShape | None:
+def slab_layout(program: TapProgram, async_copies: bool = True) -> KernelShape | None:
+    """A march along the contiguous axis: the first slab of :data:`SLABS`
+    that fits (None if none does); without ``async_copies`` the
+    synchronous slab, the first of :data:`SYNC_SLABS` that fits and keeps
+    512 threads resident, else the last that fits."""
+    if async_copies:
+        return next((s for tile, planes in SLABS[(program.ndim, bool(program.stages))]
+                     if (s := slab_shape(program, tile, planes)) is not None), None)
+    fits = [s for tile, planes in SYNC_SLABS[program.ndim]
+            if (s := slab_shape(program, tile, planes, False)) is not None]
+    busy = [s for s in fits if s.min_blocks * s.threads >= 512]
+    return busy[0] if busy else fits[-1] if fits else None
+
+
+def slab_shape(program: TapProgram, tile: tuple[int, int], planes: int,
+               async_copies: bool = True) -> KernelShape | None:
     """A slab layout of ``tile`` and ``planes``, as many blocks resident as
     its queues leave an SM's shared memory for (and at least 64 registers a
-    thread), or None where one block's queues exceed its static shared
-    memory."""
-    smem = shared_bytes(program, KernelShape(tile, planes, 1, True))
-    if smem > SHARED_LIMIT:
+    thread), or None where one block's queues exceed what a block can have:
+    227 KB of dynamic shared memory with ``async_copies``, 48 KB of static
+    shared memory without (or where the planes do not divide the threads,
+    which the copies are cut by)."""
+    threads = tile[0] * tile[1]
+    if async_copies and threads % planes:
+        return None
+    smem = shared_bytes(program, KernelShape(tile, planes, 1, True, async_copies))
+    if smem > (SM_SHARED if async_copies else SHARED_LIMIT):
         return None
     # resident blocks: as many as shared memory holds, but registers for 64
     # a thread at least (a slab's 2-D staggered update spilled at 32)
-    threads = tile[0] * tile[1]
     return KernelShape(tile, planes, max(1, min(SM_SHARED // smem, 65536 // (64 * threads))),
-                       True)
+                       True, async_copies)
 
 
 def base_tile(program: TapProgram, wide: tuple[int, int] = (32, 8)) -> tuple[int, int]:
@@ -792,21 +831,39 @@ def base_tile(program: TapProgram, wide: tuple[int, int] = (32, 8)) -> tuple[int
 
 
 def queue_planes(program: TapProgram, shape: KernelShape) -> int:
-    """Planes of each queue kept in shared memory: a step reads
+    """Planes of each stage's queue kept in shared memory: a step reads
     ``planes - 1 + hi - lo + 1`` of them while the next stages ``planes``
     more, with one barrier between (0 without stages or field queues). A
-    slab kernel's steps end with a barrier before their stores, so the next
-    step stages into the planes this one read."""
+    slab kernel's steps pass a barrier after the last reads of their
+    planes, so the next step stages into the planes this one read; with
+    ``async_copies`` each field queue keeps its own planes
+    (:func:`ring_planes`) and a stage's queue only the stages' reach."""
+    if shape.slab and shape.async_copies:
+        lo, hi = march_reach(program)
+        return hi - lo + shape.planes if program.stages else 0
     if not (program.stages or shape.slab):
         return 0
     return march_lag(program, shape) + (1 if shape.slab else 2) * shape.planes
 
 
+def ring_planes(box, planes: int) -> int:
+    """Planes of an async slab's field queue of ``box`` (``(lo, hi)`` on the
+    kernel's axes): a step reads its ``planes`` and the queue's reach behind
+    and ahead of them (ahead rounded up to :data:`ALIGN`) while the next
+    step's planes arrive."""
+    return 2 * planes + aligned(box[1][0]) - box[0][0]
+
+
 def march_lag(program: TapProgram, shape: KernelShape | None = None) -> int:
     """Planes a chunk stages before it writes its first: the stages' reach
-    along the march axis, and with ``shape.slab`` each field queue's."""
+    along the march axis, and with ``shape.slab`` each field queue's (an
+    async slab copies its field queues' planes behind its first step
+    before it starts, and rounds its lag up to :data:`ALIGN`, so that its
+    steps begin on whole sectors)."""
     lo, hi = march_reach(program)
     lag = hi - lo
+    if shape is not None and shape.slab and shape.async_copies:
+        return aligned(lag)
     if shape is not None and shape.slab:
         lag = max([lag] + [h[0] - l[0] for l, h in field_queues(program).values()])
     return lag
@@ -847,17 +904,39 @@ def stage_tile(program: TapProgram, s: Stage, shape: KernelShape) -> tuple[int, 
     return shape.tile[1] + hi[1] - lo[1], shape.tile[0] + hi[2] - lo[2]
 
 
+def plane_words(cells: int, planes: int) -> int:
+    """Words of one plane of a field queue of ``cells`` cells in a slab
+    kernel whose steps copy ``planes`` planes: padded so that the copies
+    of a warp, planes fastest, land in 32 different banks (at most
+    ``32 // planes`` cells of a warp share a plane)."""
+    want = (32 // planes) % 32 if planes < 32 else 1
+    return cells + (want - cells) % 32
+
+
+def out_row(shape: KernelShape) -> int:
+    """Words of one plane of an async slab's step buffer: the block's cells
+    and a pad, so that its stores, planes fastest, read 32 banks."""
+    return shape.threads + ((32 // shape.planes) % 32 if shape.planes < 32 else 1)
+
+
 def shared_bytes(program: TapProgram, shape: KernelShape | None = None) -> int:
-    """Static shared memory of one block: the stages' plane queues and the
-    reduction fold's one value per warp and reduction."""
+    """Shared memory of one block: the stages' plane queues, a slab
+    kernel's field queues and its outputs' step buffer (4 bytes a value
+    counted, whatever the storage; two step buffers with
+    ``async_copies``), and the reduction fold's one value per warp and
+    reduction. Static, but dynamic with ``async_copies``."""
     shape = shape or kernel_shape(program)
     cells = sum(math.prod(stage_tile(program, s, shape)) for s in program.stages)
-    out = 0
-    if shape.slab:
-        cells += sum(math.prod(field_tile(b, shape)) for b in field_queues(program).values())
-        out = len(program.outputs) * shape.planes * shape.threads   # at most 4 bytes each
-    return 4 * (cells * queue_planes(program, shape) + out
-                + len(program.reductions) * (shape.threads // 32))
+    words = cells * queue_planes(program, shape)
+    if shape.slab and shape.async_copies:
+        words += sum(plane_words(math.prod(field_tile(b, shape)), shape.planes)
+                     * ring_planes(b, shape.planes) for b in field_queues(program).values())
+        words += 2 * len(program.outputs) * shape.planes * out_row(shape)
+    elif shape.slab:
+        words += sum(math.prod(field_tile(b, shape)) for b in field_queues(program).values()) \
+            * queue_planes(program, shape)
+        words += len(program.outputs) * shape.planes * shape.threads   # at most 4 bytes each
+    return 4 * (words + len(program.reductions) * (shape.threads // 32))
 
 
 def _zs(e: str, c: int, zs: bool, stride: str = "S") -> str:
@@ -906,7 +985,7 @@ def _emit_ops(w, ind: str, ops: Ops, name: str, ref) -> None:
 
 
 def cuda_source(program: TapProgram, shape: KernelShape | None = None,
-                dtype: torch.dtype = torch.float32) -> str:
+                dtype: torch.dtype = torch.float32, part: str | None = None) -> str:
     """CUDA C++ source of the fused launch for fields stored as ``dtype``
     (f32, bf16 or f16; computed in f32): one ``__global__`` function and
     a plain C entry point ``launch``. The base extents, one pair of strides
@@ -932,7 +1011,15 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     cell (:func:`bc_source`), so it equals that cell's own value bitwise.
     Reductions fold every output after its boundary condition and its
     rounding to storage, in f32 registers over the march, then across the
-    block with warp shuffles."""
+    block with warp shuffles.
+
+    A slab (``shape.slab``) reads the fields the core and the stages read
+    from plane queues in shared memory and writes its outputs through a
+    step buffer there, both planes-fastest (:class:`KernelShape`). ``part``
+    ("stage" or "compute") prints a timing variant of a slab
+    (``launch/tune_stencil.py --split``): the field queues' staging alone,
+    or staging and compute without the stores; what it drops it folds into
+    a value stored only if it equals 1e38, so the compiler keeps the work."""
     if program.ndim > 3:
         raise NotImplementedError("the generated CUDA kernel handles 1-3 dimensions")
     st = storage(dtype)
@@ -949,6 +1036,19 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     lead = march_lag(program, shape)
     # a slab kernel's field queues: {field: (lo, hi)} on the kernel's axes
     fq = field_queues(program) if shape.slab else {}
+    pipe = bool(fq) and shape.async_copies
+    queues = slab_queues(fq, shape, fidx, fcls) if pipe else []
+    # how far ahead of a step's first plane each field queue's window begins
+    ahead = {q.field: q.ahead for q in queues} if pipe else {f: b[1][0] for f, b in fq.items()}
+
+    ring_of = {q.field: q.slots for q in queues}
+
+    def fslot(f, rel: str) -> str:
+        """The slot of a field queue's plane ``rel`` planes from the first of
+        the window a step reads: each queue its own ring with async copies."""
+        if pipe:
+            return f"ring(fb{fidx[f]} + {rel}, {ring_of[f]})"
+        return f"wrap(base + {rel})"
     queued = bool(stages or fq)
     dims = ("nx", "ny", "nz")
     strides = stride_names(program)
@@ -964,10 +1064,21 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     if program.layout:
         w(f"// Marched layout: program axis a on kernel axis {program.axes3}[a] (x 0, y 1,")
         w("// z 2)" + ("; z is strided, so a warp's loads are strided" if zs else "") + ".")
-    if fq:
+    if pipe:
+        w("// Slab: x is the contiguous axis. What bounds it on the H100 is bytes in")
+        w("// flight: each field the core and the stages read is copied into a plane")
+        w("// queue in shared memory by asynchronous copies (cp.async), planes fastest,")
+        w("// each thread's offsets computed once before the march, a step's copies")
+        w("// issued before the step ahead computes (double buffering); the outputs")
+        w("// of a step go out from a step buffer, planes fastest, during the next")
+        w("// step. One barrier a step (two with stages); queue planes and the step")
+        w("// buffer are padded so that copies and stores use 32 banks.")
+    elif fq:
         w("// Slab: each field the core and the stages read is staged per step into a")
         w("// plane queue in shared memory, kPlanes planes along the contiguous x per")
         w("// cell loaded together, so a warp reads whole sectors.")
+    if part:
+        w(f"// Timing variant: {part} only.")
     w("#include <cstdint>")
     w("#include <cuda_runtime.h>")
     for line in st.includes():
@@ -981,15 +1092,23 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w("constexpr int kThreads = kBlockZ * kBlockY;")
     w("constexpr int kWarps = kThreads / 32;")
     w(f"constexpr int kPlanes = {planes};  // planes per step")
-    if queued:
+    if stages or (fq and not pipe):
         w(f"constexpr int kSlots = {queue_planes(program, shape)};  // planes kept per "
-          + ("queue" if fq else "stage"))
+          + ("queue" if fq and not pipe else "stage"))
         if stages:
             w(f"constexpr int kHi = {hi_x};  // a step stages the planes this far ahead")
         w("")
         w("__device__ __forceinline__ int wrap(int s) {")
         w("  return s < 0 ? s + kSlots : s >= kSlots ? s - kSlots : s;")
         w("}")
+    if pipe:
+        w("constexpr int kGroups = kThreads / kPlanes;  // threads per plane of a copy or store")
+        w(f"constexpr int kOutRow = {out_row(shape)};  // words of a step buffer's plane")
+        smem = shared_bytes(program, shape) - 4 * n_red * (shape.threads // 32)
+        w(f"constexpr int kShared = {smem};  // dynamic bytes")
+        w("")
+        for line in ring_helper() + [""] + copy_helpers(st):
+            w(line)
     w("")
     w("// max that propagates NaN, as torch.amax does")
     w("__device__ __forceinline__ float max_nan(float a, float b) {")
@@ -1007,17 +1126,37 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w(f"__global__ void __launch_bounds__(kThreads, {shape.min_blocks}) stencil_kernel(")
     w("    " + ",\n    ".join(params) + ") {")
     tiles = [stage_tile(program, s, shape) for s in stages]
-    for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
-        w(f"  // stage {k}: footprint {s.footprint}, {op_count(s.ops)} operations")
-        w(f"  __shared__ float sm{k}[kSlots][{py * pz}];  // {py} x {pz} per plane")
-    for f, box in fq.items():
-        py, pz = field_tile(box, shape)
-        w(f"  // field {f}: cells {box[0]} to {box[1]} around a core cell")
-        w(f"  __shared__ float smf{fidx[f]}[kSlots][{py * pz}];  // {py} x {pz} per plane")
-    if fq:
-        w("  // each output's step of planes, as stored, written out planes-fastest")
+    if pipe:
+        w("  extern __shared__ float smem[];")
+        offset = 0
+        for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
+            w(f"  // stage {k}: footprint {s.footprint}, {op_count(s.ops)} operations")
+            w(f"  float (*const sm{k})[{py * pz}] = reinterpret_cast<float (*)[{py * pz}]>("
+              f"smem + {offset});  // kSlots x {py} x {pz}")
+            offset += py * pz * queue_planes(program, shape)
+        for q in queues:
+            w(f"  // field {q.field}: cells {q.lo} to {q.hi} around a core cell")
+            w(f"  float (*const smf{q.index})[{q.words}] = reinterpret_cast<float (*)[{q.words}]>("
+              f"smem + {offset});  // {q.slots} x {q.rows} x {q.cols}, padded")
+            offset += q.words * q.slots
+        w("  // each output's step of planes, as stored, in two buffers: one written")
+        w("  // while the other goes out")
         for k in range(n_out):
-            w(f"  __shared__ {st.ctype} smo{k}[kPlanes][kThreads];")
+            w(f"  {T} (*const smo{k})[kPlanes][kOutRow] = reinterpret_cast<{T} (*)[kPlanes]"
+              f"[kOutRow]>(smem + {offset});")
+            offset += 2 * planes * out_row(shape)
+    else:
+        for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
+            w(f"  // stage {k}: footprint {s.footprint}, {op_count(s.ops)} operations")
+            w(f"  __shared__ float sm{k}[kSlots][{py * pz}];  // {py} x {pz} per plane")
+        for f, box in fq.items():
+            py, pz = field_tile(box, shape)
+            w(f"  // field {f}: cells {box[0]} to {box[1]} around a core cell")
+            w(f"  __shared__ float smf{fidx[f]}[kSlots][{py * pz}];  // {py} x {pz} per plane")
+        if fq:
+            w("  // each output's step of planes, as stored, written out planes-fastest")
+            for k in range(n_out):
+                w(f"  __shared__ {st.ctype} smo{k}[kPlanes][kThreads];")
     w("  const int tz = threadIdx.x, ty = threadIdx.y;")
     w("  const int tid = ty * kBlockZ + tz;")
     block_origin(w, program)
@@ -1038,81 +1177,148 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w("  const bool yz_core = y >= cylo && y < cyhi && z >= czlo && z < czhi;")
     for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
         _emit_stage_setup(w, program, shape, k, s, py, pz, fcls)
+    if pipe:
+        _emit_copy_setup(w, queues, shape)
     for r in range(n_red):
         w(f"  float acc{r} = 0.0f;")
-    if queued:
+    if part:
+        w("  float sink = 0.0f;  // what the timing variant drops")
+    if queued and not pipe:
         w("  int base = 0;  // the queue slot of the first plane a step stages")
-    w("  #pragma unroll 1")
-    w(f"  for (int xs = x0{f' - {lead}' if lead else ''}; xs < x1; xs += kPlanes) {{")
-    for f, box in fq.items():
-        _emit_field_queue(w, program, shape, f, box, fidx, fcls, st)
-    if fq and stages:
+    first = f"x0{f' - {lead}' if lead else ''}"
+    if pipe:
+        if stages:
+            w("  int base = 0;  // the stages' queue slot of the first plane a step stages")
+        w("  // each field queue's slot of the first plane of the window a step reads")
+        w("  int " + ", ".join(f"fb{q.index} = 0" for q in queues) + ";")
+        w("  int cur = 0;  // the step buffer this step writes")
+        w(f"  int xs = {first};")
+        w("  // the planes behind the first step's, then its own")
+        _emit_copies(w, queues, shape, st, "  ", "xs", "{b}", behind=True)
+        _emit_copies(w, queues, shape, st, "  ", "xs", "{b}")
+        w("  commit_copies();")
+        w("  #pragma unroll 1")
+        w("  for (; xs < x1; xs += kPlanes) {")
+        w("    wait_copies();")
         w("    __syncthreads();")
-    for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
-        _emit_stage(w, program, shape, k, s, py, pz, fidx, fcls, st, fq)
-    if queued:
-        w("    __syncthreads();")
-    out_idx = {op.name: k for k, op in enumerate(program.outputs)}
-    reds = [fold_line(r, red, [f"v{out_idx[f]}" if f in out_idx
-                               else st.widen(f"g{fidx[f]}[at{fcls[f]}]") for f in red.operands])
-            for r, (_, red) in enumerate(program.reductions)]
-    # the core program at plane x
-    w("    auto core = [&](const int x) {")
-    ind = "      "
-    for c in range(len(classes)):
-        w(f"{ind}const int at{c} = (x - x0) * S{c}x + ty * S{c}y + {_zs('tz', c, zs)};")
-    for d in sorted({program.to3(rel, 0)[0] for _, rel in core.reads}):
-        w(f"{ind}const int q{d - lo_x} = wrap(base + (x - xs) + {d - hi_x});")
-    for j, (f, off) in enumerate(core.loads):
-        c = fcls[f]
-        if f in fq:
-            (flo, fhi), (_, fpz) = fq[f], field_tile(fq[f], shape)
-            d = program.to3(off, 0)
-            w(f"{ind}const float l{j} = smf{fidx[f]}[wrap(base + (x - xs) + {d[0] - fhi[0]})]"
-              f"[(ty + {d[1] - flo[1]}) * {fpz} + tz + {d[2] - flo[2]}];")
-            continue
-        w(f"{ind}const float l{j} = "
-          f"{st.widen(f'g{fidx[f]}[{_offset(f"at{c}", c, program.to3(off, 0), "S", zs)}]')};")
-    for j, (k, rel) in enumerate(core.reads):
-        d, lo = program.to3(rel, 0), program.to3(stages[k].lo, 0)
-        pz = tiles[k][1]
-        w(f"{ind}const float u{j} = sm{k}[q{d[0] - lo_x}][(ty + {d[1] - lo[1]}) * {pz} + tz + {d[2] - lo[2]}];")
-    ref = _printer("l", "u", "e")
-    _emit_ops(w, ind, core.ops, "e", ref)
-    for k, (op, res) in enumerate(zip(program.outputs, core.results)):
-        val = emit_value(w, ind, k, ref(res), st)
-        w(f"{ind}" + (f"smo{k}[x - xs][tid] = {val};" if fq else f"h{k}[at{fcls[op.name]}] = {val};"))
-    for line in reds:
-        w(f"{ind}{line}")
-    w("    };")
-    # every output's direct program at plane x: rings, faces and the edges
-    # of staggered extents
-    w("    auto direct = [&](const int x) {")
-    for c in range(len(classes)):
-        w(f"{ind}const int at{c} = (x - x0) * S{c}x + ty * S{c}y + {_zs('tz', c, zs)};")
-    for k in range(n_out):
-        w(f"{ind}float v{k};")
-    _emit_direct(w, program, fidx, fcls, st=st,
-                 store=(lambda k, op, val: f"smo{k}[x - xs][tid] = {val};") if fq else None)
-    for line in reds:
-        w(f"{ind}{line}")
-    w("    };")
-    w("    if (in_grid) {")
-    w("      if (yz_core && xs >= x0 && xs >= cxlo && xs + kPlanes <= x1 && xs + kPlanes <= cxhi) {")
-    w("        #pragma unroll")
-    w("        for (int p = 0; p < kPlanes; ++p) core(xs + p);")
-    w("      } else {")
-    w("        #pragma unroll 1")
-    w("        for (int x = max(xs, x0); x < min(xs + kPlanes, x1); ++x) {")
-    w("          if (yz_core && x >= cxlo && x < cxhi) core(x); else direct(x);")
-    w("        }")
-    w("      }")
-    w("    }")
-    if fq:
-        _emit_slab_store(w, program, fidx, fcls)
-    if queued:
+        w("    if (xs + kPlanes < x1) {  // the next step's planes, in flight while this one computes")
+        _emit_copies(w, queues, shape, st, "      ", "xs + kPlanes", "{b} + kPlanes")
+        w("    }")
+        w("    commit_copies();")
+        if part == "stage":
+            for q in queues:
+                w(f"    sink += smf{q.index}[{fslot(q.field, '(xs & (kPlanes - 1))')}][tid];")
+        elif not part:
+            w(f"    if (xs != {first}) {{  // the previous step's outputs")
+            _emit_step_store(w, program, shape, fcls, "      ", "xs - kPlanes", "cur ^ 1")
+            w("    }")
+    else:
+        w("  #pragma unroll 1")
+        w(f"  for (int xs = {first}; xs < x1; xs += kPlanes) {{")
+        for f, box in fq.items():
+            _emit_field_queue(w, program, shape, f, box, fidx, fcls, st)
+        if part:
+            w("    __syncthreads();")
+            for f in fq:
+                w(f"    sink += smf{fidx[f]}[wrap(base + (xs & (kPlanes - 1)))][tid];")
+    if part != "stage":
+        if fq and stages and not pipe:
+            w("    __syncthreads();")
+        for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
+            _emit_stage(w, program, shape, k, s, py, pz, fidx, fcls, st, fq, fslot, ahead)
+        if stages or (fq and not pipe):
+            w("    __syncthreads();")
+        out_idx = {op.name: k for k, op in enumerate(program.outputs)}
+
+        def operand(f):
+            # a reduction's operand at the cell: an output's value, else the
+            # field's (from its queue where an async slab holds the cell)
+            if f in out_idx:
+                return f"v{out_idx[f]}"
+            if pipe and f in fq and all(l <= 0 <= h for l, h in zip(*fq[f])):
+                (flo, fhi), (_, fpz) = fq[f], field_tile(fq[f], shape)
+                return (f"smf{fidx[f]}[{fslot(f, f'(x - xs) - {ahead[f]}')}]"
+                        f"[(ty - {flo[1]}) * {fpz} + tz - {flo[2]}]")
+            return st.widen(f"g{fidx[f]}[at{fcls[f]}]")
+
+        reds = [fold_line(r, red, [operand(f) for f in red.operands])
+                for r, (_, red) in enumerate(program.reductions)]
+        # where a slab writes an output's value: its step buffer
+        buf = (lambda k: f"smo{k}[cur][x - xs][tid]") if pipe else (lambda k: f"smo{k}[x - xs][tid]")
+        # the core program at plane x
+        w("    auto core = [&](const int x) {")
+        ind = "      "
+        for c in range(len(classes)):
+            w(f"{ind}const int at{c} = (x - x0) * S{c}x + ty * S{c}y + {_zs('tz', c, zs)};")
+        for d in sorted({program.to3(rel, 0)[0] for _, rel in core.reads}):
+            w(f"{ind}const int q{d - lo_x} = wrap(base + (x - xs) + {d - hi_x});")
+        for j, (f, off) in enumerate(core.loads):
+            c = fcls[f]
+            if f in fq:
+                (flo, fhi), (_, fpz) = fq[f], field_tile(fq[f], shape)
+                d = program.to3(off, 0)
+                w(f"{ind}const float l{j} = smf{fidx[f]}[{fslot(f, f'(x - xs) + {d[0] - ahead[f]}')}]"
+                  f"[(ty + {d[1] - flo[1]}) * {fpz} + tz + {d[2] - flo[2]}];")
+                continue
+            w(f"{ind}const float l{j} = "
+              f"{st.widen(f'g{fidx[f]}[{_offset(f"at{c}", c, program.to3(off, 0), "S", zs)}]')};")
+        for j, (k, rel) in enumerate(core.reads):
+            d, lo = program.to3(rel, 0), program.to3(stages[k].lo, 0)
+            pz = tiles[k][1]
+            w(f"{ind}const float u{j} = sm{k}[q{d[0] - lo_x}][(ty + {d[1] - lo[1]}) * {pz} + tz + {d[2] - lo[2]}];")
+        ref = _printer("l", "u", "e")
+        _emit_ops(w, ind, core.ops, "e", ref)
+        for k, (op, res) in enumerate(zip(program.outputs, core.results)):
+            val = emit_value(w, ind, k, ref(res), st)
+            w(f"{ind}" + (f"{buf(k)} = {val};" if fq else f"h{k}[at{fcls[op.name]}] = {val};"))
+        for line in reds:
+            w(f"{ind}{line}")
+        w("    };")
+        # every output's direct program at plane x: rings, faces and the edges
+        # of staggered extents
+        w("    auto direct = [&](const int x) {")
+        for c in range(len(classes)):
+            w(f"{ind}const int at{c} = (x - x0) * S{c}x + ty * S{c}y + {_zs('tz', c, zs)};")
+        for k in range(n_out):
+            w(f"{ind}float v{k};")
+        _emit_direct(w, program, fidx, fcls, st=st,
+                     store=(lambda k, op, val: f"{buf(k)} = {val};") if fq else None)
+        for line in reds:
+            w(f"{ind}{line}")
+        w("    };")
+        w("    if (in_grid) {")
+        w("      if (yz_core && xs >= x0 && xs >= cxlo && xs + kPlanes <= x1 && xs + kPlanes <= cxhi) {")
+        w("        #pragma unroll")
+        w("        for (int p = 0; p < kPlanes; ++p) core(xs + p);")
+        w("      } else {")
+        w("        #pragma unroll 1")
+        w("        for (int x = max(xs, x0); x < min(xs + kPlanes, x1); ++x) {")
+        w("          if (yz_core && x >= cxlo && x < cxhi) core(x); else direct(x);")
+        w("        }")
+        w("      }")
+        w("    }")
+        if part == "compute":
+            if not pipe:
+                w("    __syncthreads();")
+            for k in range(n_out):
+                sub = "[cur]" if pipe else ""
+                w(f"    sink += {st.widen(f'smo{k}{sub}[xs & (kPlanes - 1)][tid]')};")
+        elif fq and not pipe:
+            _emit_slab_store(w, program, fidx, fcls)
+    if pipe:
+        for q in queues:
+            w(f"    fb{q.index} = ring(fb{q.index} + kPlanes, {q.slots});")
+        w("    cur ^= 1;")
+        if stages:
+            w("    base = wrap(base + kPlanes);")
+    elif queued:
         w("    base = wrap(base + kPlanes);")
     w("  }")
+    if pipe and not part:
+        w("  __syncthreads();  // the last step's outputs")
+        _emit_step_store(w, program, shape, fcls, "  ", "xs - kPlanes", "cur ^ 1")
+    if part:
+        w(f"  if (sink == 1.0e38f) h0[0] = {st.narrow('sink')};")
     if n_red:
         w("  // Fold each reduction over the block: within each warp by shuffles,")
         w("  // then over the warps' values, into the block's own slot of its")
@@ -1146,12 +1352,17 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w('extern "C" int launch(' + ", ".join(cargs) + ") {")
     w(f"  const dim3 grid({grid_dims(program)});")
     w("  const dim3 block(kBlockZ, kBlockY, 1);")
+    if pipe:
+        w("  const cudaError_t set = cudaFuncSetAttribute(")
+        w("      stencil_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);")
+        w("  if (set != cudaSuccess) return static_cast<int>(set);")
     kargs = [f"static_cast<const {T}*>(in{k})" for k in range(len(program.fields))]
     kargs += [f"static_cast<{T}*>(out{k})" for k in range(n_out)]
     kargs += [f"static_cast<float*>(part{k})" for k in range(n_red)]
     kargs += [f"p{k}" for k in range(n_par)] + [f"r{k}" for k in divs]
     kargs += [*dims, *strides, "xc"]
-    w("  stencil_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(")
+    w(f"  stencil_kernel<<<grid, block, {'kShared' if pipe else 0}, "
+      "static_cast<cudaStream_t>(stream)>>>(")
     w("      " + ", ".join(kargs) + ");")
     w("  return static_cast<int>(cudaGetLastError());")
     w("}")
@@ -1224,11 +1435,13 @@ def _emit_stage_setup(w, program: TapProgram, shape: KernelShape, k: int, s: Sta
 
 
 def _emit_stage(w, program: TapProgram, shape: KernelShape, k: int, s: Stage, py: int, pz: int,
-                fidx, fcls, st: Storage, fq=None) -> None:
+                fidx, fcls, st: Storage, fq=None, fslot=None, ahead=None) -> None:
     """Stage ``k``'s planes ``xs + kHi .. + kPlanes - 1`` over its tile and
     halo. An element outside the frame is computed at the nearest element
     inside (so every load is in range and none waits on a branch) and
-    stored as 0."""
+    stored as 0. A slab's stage reads the field queues ``fq`` (``fslot``:
+    the slot of a plane from the first of a step's window, each window
+    ``ahead`` of the step)."""
     nt = shape.threads
     n = py * pz
     trim_x = program.to3(s.trim, 0)[0]
@@ -1259,7 +1472,7 @@ def _emit_stage(w, program: TapProgram, shape: KernelShape, k: int, s: Stage, py
                 (flo, fhi), (fpy, fpz) = fq[f], field_tile(fq[f], shape)
                 row = f"min(max(ry{k}_{i} + {d[1] - flo[1]}, 0), {fpy - 1})"
                 col = f"min(max(rz{k}_{i} + {d[2] - flo[2]}, 0), {fpz - 1})"
-                w(f"{ind}const float a{j} = smf{fidx[f]}[wrap(base + p + {hi_x + d[0] - fhi[0]})]"
+                w(f"{ind}const float a{j} = smf{fidx[f]}[{fslot(f, f'p + {hi_x + d[0] - ahead[f]}')}]"
                   f"[{row} * {fpz} + {col}];")
                 continue
             w(f"{ind}const float a{j} = "
@@ -1312,6 +1525,185 @@ def _emit_field_queue(w, program: TapProgram, shape: KernelShape, f: str, box, f
     w(f"      const float v = {st.widen(f'g{k}[{at}]')};")
     w(f"      smf{k}[wrap(base + p)][e] = q == qc && ey == eyc && ez == ezc ? v : 0.0f;")
     w("    }")
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldQueue:
+    """A field's plane queue in an async slab's shared memory (``smf{index}``):
+    the cells ``lo..hi`` (kernel axes) around each cell the block computes,
+    ``rows`` x ``cols`` of them a plane over the block's tile, ``words``
+    a plane with its pad, ``slots`` planes in its ring (``fb{index}``: the
+    slot of the first plane of the window a step reads). Its class ``cls``
+    gives its extents and strides."""
+
+    field: str
+    index: int
+    cls: int
+    lo: tuple[int, int, int]
+    hi: tuple[int, int, int]
+    rows: int
+    cols: int
+    words: int
+    slots: int
+
+    @property
+    def ahead(self) -> int:
+        """How far ahead of a step's first plane its copies begin: the
+        queue's reach ahead, rounded up to :data:`ALIGN` planes."""
+        return aligned(self.hi[0])
+
+
+def aligned(planes: int) -> int:
+    """``planes`` rounded up to a multiple of :data:`ALIGN`."""
+    return -(-planes // ALIGN) * ALIGN
+
+
+def slab_queues(boxes, shape: KernelShape, fidx, fcls) -> list[FieldQueue]:
+    """The :class:`FieldQueue` of each field of ``boxes`` (``{field: (lo,
+    hi)}``, :func:`field_queues`)."""
+    out = []
+    for f, (lo, hi) in boxes.items():
+        rows, cols = field_tile((lo, hi), shape)
+        if rows > 64 or -(-cols // (shape.threads // shape.planes)) > 64:
+            raise NotImplementedError(f"field {f}'s queue of {rows} x {cols} cells a plane is "
+                                      "wider than a copy's 64-bit masks")
+        out.append(FieldQueue(f, fidx[f], fcls[f], tuple(lo), tuple(hi), rows, cols,
+                              plane_words(rows * cols, shape.planes),
+                              ring_planes((lo, hi), shape.planes)))
+    return out
+
+
+def ring_helper() -> list[str]:
+    """The slot ``s`` of a ring of ``n`` planes, ``s`` in ``(-n, 2n)``."""
+    return ["__device__ __forceinline__ int ring(int s, int n) {",
+            "  return s < 0 ? s + n : s >= n ? s - n : s;",
+            "}"]
+
+
+def copy_helpers(st: Storage) -> list[str]:
+    """The device functions an async slab's copies go through, between
+    the markers that ``kernels/rehearse.py`` replaces with its stand-ins:
+    ``copy_async`` (for f32 a 4-byte ``cp.async`` that reads nothing and
+    zero-fills where not ``valid``; a 2-byte value is widened on its way
+    into the f32 queue, so its copy is a load and a store),
+    ``commit_copies`` and ``wait_copies`` (every copy of the thread
+    landed)."""
+    out = ["// copies: begin"]
+    if st.wide:
+        out += ["__device__ __forceinline__ void copy_async(float* dst, const float* src, "
+                "bool valid) {",
+                "  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));",
+                '  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\\n" ::"r"(s), '
+                '"l"(src),',
+                '               "r"(valid ? 4 : 0) : "memory");',
+                "}"]
+    else:
+        out += [f"__device__ __forceinline__ void copy_async(float* dst, const {st.ctype}* src, "
+                "bool valid) {",
+                "  *dst = valid ? widen(*src) : 0.0f;",
+                "}"]
+    out += ["__device__ __forceinline__ void commit_copies() {",
+            '  asm volatile("cp.async.commit_group;\\n" ::: "memory");',
+            "}",
+            "__device__ __forceinline__ void wait_copies() {",
+            '  asm volatile("cp.async.wait_group 0;\\n" ::: "memory");',
+            "}",
+            "// copies: end"]
+    return out
+
+
+def _emit_copy_setup(w, queues: Sequence[FieldQueue], shape: KernelShape) -> None:
+    """Before the march, what a thread's copies keep for every step: its
+    plane of a step and its column group (planes fastest, so a warp reads
+    ``32 // planes`` runs of the contiguous axis), and per queue the offset
+    of its first cell from the block's base and the masks of the rows and
+    columns that lie inside the field's frame."""
+    G = shape.threads // shape.planes
+    w("  const int cp_p = tid % kPlanes, cp_g = tid / kPlanes;  // a copy's plane, column group")
+    for q in queues:
+        k, c, (_, ly, lz) = q.index, q.cls, q.lo
+        w(f"  // field {q.field}: columns cp_g + kGroups j of its {q.rows} x {q.cols} cells")
+        w(f"  const int fo{k} = {ly} * S{c}y + (cp_g + {lz}) * S{c}z;")
+        w(f"  uint64_t rm{k} = 0, cm{k} = 0;")
+        w(f"  for (int r = 0; r < {q.rows}; ++r) rm{k} |= uint64_t(y0 + {ly} + r >= 0 && "
+          f"y0 + {ly} + r < m{c}y) << r;")
+        w(f"  for (int j = 0; j < {-(-q.cols // G)}; ++j) {{")
+        w(f"    const int zj = z0 + {lz} + cp_g + kGroups * j;")
+        w(f"    cm{k} |= uint64_t(zj >= 0 && zj < m{c}z) << j;")
+        w("  }")
+
+
+def _emit_copies(w, queues: Sequence[FieldQueue], shape: KernelShape, st: Storage, ind: str,
+                 xs: str, slot: str, behind: bool = False) -> None:
+    """Issue the copies of the step of planes that begins at plane ``xs``:
+    each field queue's window of ``kPlanes`` planes from ``xs`` + its
+    ``ahead`` into its slots from ``slot`` (``{b}`` stands for the queue's
+    base, ``fb{index}``), each thread its plane of every
+    row at its columns (``behind``: the planes from its reach behind
+    ``xs`` up to the window, which a chunk's first step reads). A cell
+    outside the field's frame, or a plane the chunk does not read, is
+    zero-filled and read from nowhere. The rows go by in a loop unrolled by
+    two: unrolled fully, ptxas kept every row's offset in a register (168
+    registers for FIG1 on the H100), not at all, the loop's own arithmetic
+    showed (PERF.md, section 6)."""
+    G = shape.threads // shape.planes
+    for q in queues:
+        k, c, lo = q.index, q.cls, q.lo[0]
+        if behind and q.ahead <= lo:
+            continue
+        w(f"{ind}{{  // field {q.field}" + (", the planes behind" if behind else ""))
+        sub = ind + "  "
+        if behind:
+            w(f"{sub}for (int q = {xs} + {lo} + cp_p; q < {xs} + {q.ahead}; q += kPlanes) {{")
+            sub += "  "
+            at = f"{slot.format(b=f'fb{k}')} + q - ({xs}) - {q.ahead}"
+        else:
+            w(f"{sub}const int q = {xs} + {q.ahead} + cp_p;")
+            at = f"{slot.format(b=f'fb{k}')} + cp_p"
+        w(f"{sub}const uint64_t vm = q >= 0 && q < min(m{c}x, x1 + {q.hi[0]}) ? rm{k} : 0;")
+        w(f"{sub}const {st.ctype}* src = g{k} + (q - x0) * S{c}x + fo{k};")
+        w(f"{sub}float* dst = &smf{k}[ring({at}, {q.slots})][cp_g];")
+        w(f"{sub}#pragma unroll 2")
+        w(f"{sub}for (int r = 0; r < {q.rows}; ++r, src += S{c}y, dst += {q.cols}) {{")
+        w(f"{sub}  const bool vr = (vm >> r) & 1;")
+        for j in range(-(-q.cols // G)):
+            inner = sub + "  "
+            partial = G * (j + 1) > q.cols
+            if partial:
+                w(f"{inner}if (cp_g < {q.cols - G * j}) {{")
+                inner += "  "
+            src = f"src + {G * j} * S{c}z" if j else "src"
+            w(f"{inner}const bool v{j} = vr && ((cm{k} >> {j}) & 1);")
+            w(f"{inner}copy_async(dst{f' + {G * j}' if j else ''}, v{j} ? {src} : g{k}, v{j});")
+            if partial:
+                w(f"{sub}  }}")
+        w(f"{sub}}}")
+        if behind:
+            w(f"{ind}  }}")
+        w(f"{ind}}}")
+
+
+def _emit_step_store(w, program: TapProgram, shape: KernelShape, fcls, ind: str, xp: str,
+                     buf: str) -> None:
+    """Store each output's step of planes that begins at plane ``xp`` from
+    step buffer ``buf``: each thread takes the copies' plane ``cp_p`` of
+    cells ``cp_g + kGroups j``, planes fastest (coalesced along the
+    contiguous x), within the chunk and the output's own extent; four cells
+    at a time, so their shared-memory reads are in flight together."""
+    w(f"{ind}{{")
+    w(f"{ind}  const int x = {xp} + cp_p;")
+    used = sorted({fcls[op.name] for op in program.outputs})
+    for c in used:
+        w(f"{ind}  const bool xv{c} = x >= x0 && x < x1 && x < m{c}x;")
+    w(f"{ind}  #pragma unroll 4")
+    w(f"{ind}  for (int e = cp_g; e < kThreads; e += kGroups) {{")
+    w(f"{ind}    const int ey = e / kBlockZ, ez = e % kBlockZ;")
+    for k, op in enumerate(program.outputs):
+        c = fcls[op.name]
+        w(f"{ind}    if (xv{c} && y0 + ey < m{c}y && z0 + ez < m{c}z) "
+          f"h{k}[(x - x0) * S{c}x + ey * S{c}y + ez * S{c}z] = smo{k}[{buf}][cp_p][e];")
+    w(f"{ind}  }}")
+    w(f"{ind}}}")
 
 
 def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,

@@ -37,6 +37,17 @@ its outputs' direct programs. A barrier ends each phase but the last, and
 every queue holds one step of planes more than its readers need, so the
 next step never writes a plane still being read.
 
+Marching the contiguous axis (``z_strided``), a warp's loads and stores of
+device memory would be strided, so the launch is a slab, as the single-step
+one is (``codegen.KernelShape.async_copies``, printed by the same emitters):
+every field a phase reads from device memory (sweep 0's, and the fields
+that do not rotate at every sweep) comes through a field queue that
+asynchronous copies fill a step ahead, planes fastest, over the union of
+the phases' regions and taps (:func:`field_boxes`); the last phase writes
+its step of planes into a step buffer in shared memory, which goes out
+planes fastest during the next step. The chunk's lead is rounded up to
+whole 32-byte sectors of f32 (``codegen.ALIGN``).
+
 Fields stored as bf16 or f16 are widened on load and computed in f32, as in
 the single-step kernel. Each sweep's outputs are rounded to storage before
 they enter their queue (the reference's k-step launch rounds each
@@ -54,14 +65,21 @@ from typing import Mapping
 
 import torch
 
-from .codegen import (KernelShape, Storage, TapProgram, _combine, _emit_core_box, _emit_direct,
-                      _emit_ops, _emit_strides, _offset, _printer, _zs, base_tile, block_origin,
-                      divisor_params, emit_value, fold_line, grid_dims, shape_classes, storage,
-                      stride_names)
+from .codegen import (KernelShape, Storage, TapProgram, _combine, _emit_copies, _emit_copy_setup,
+                      _emit_core_box, _emit_direct, _emit_ops, _emit_step_store, _emit_strides,
+                      _offset, _printer, _zs, aligned, base_tile, block_origin, copy_helpers,
+                      divisor_params, emit_value, fold_line, grid_dims, out_row, plane_words,
+                      ring_helper, ring_planes, shape_classes, slab_queues, storage, stride_names)
 
 # Shared memory a block can use on the H100 (232,448 bytes), above 48 KB
 # only as dynamic shared memory after cudaFuncSetAttribute.
 SHARED_LIMIT = 227 * 1024
+# Layouts ((z, y) tile, planes per step) of a k-step kernel marching the
+# contiguous axis, in order of preference by rank: the first whose queues
+# fit; measured best on the H100 at k = 2 for FIG1, porosity and GP
+# (PERF.md, section 6).
+SLABS = {3: [((16, 8), 8), ((32, 4), 8), ((16, 4), 8), ((16, 4), 4)],
+         2: [((64, 1), 8), ((128, 1), 8), ((64, 1), 4)]}
 
 Box = tuple[tuple[int, int], tuple[int, int], tuple[int, int]]   # (lo, hi) per x, y, z
 
@@ -183,6 +201,8 @@ def plan(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     for key in reversed(order[:-1]):
         need[key] = min(need[r] - b for r, b in readers[key])
     lead = max(lag[key] - need[key] for key in order)
+    if program.z_strided and shape.slab:
+        lead = aligned(lead)       # steps begin on whole sectors of the contiguous axis
     phases = []
     for key in order:
         slots = 0 if key == order[-1] else \
@@ -203,19 +223,76 @@ def queue_words(pl: Plan, ph: Phase, shape: KernelShape, itemsize: int = 4) -> i
     return cells if ph.stage is not None else -(-cells * itemsize // 4)
 
 
+def field_boxes(program: TapProgram, pl: Plan) -> dict:
+    """A k-step kernel marching the contiguous axis (``z_strided``): per
+    field that a phase reads from device memory (sweep 0's fields, and the
+    fields that do not rotate at every sweep), ``(lo, hi)`` on the kernel's
+    axes: the cells around a written cell of the step at which any phase
+    reads it (its planes ``lag`` ahead, its tile widened by ``ext``, the
+    taps of its core, direct and stage programs, an intermediate sweep's
+    previous value, the last sweep's reduction operands), widened as the
+    plan widens a sweep's reach for ``neumann0`` faces. What its field
+    queue holds (``codegen.slab_queues``)."""
+    to3 = program.to3
+    src_of = {t for _, t in pl.rotations}
+    outs = {op.name for op in program.outputs}
+    face = [0, 0, 0]
+    for op in program.outputs:
+        if op.bc is not None and op.bc.kind == "neumann0":
+            for a in op.bc.resolved_axes(program.ndim):
+                face[program.axes3[a]] = max(face[program.axes3[a]], op.bc.depth)
+    boxes: dict = {}
+    last = pl.phases[-1]
+    for ph in pl.phases:
+        ylo, yhi, zlo, zhi = ph.ext
+        taps = []
+        if ph.stage is not None:
+            taps += program.stages[ph.stage].loads
+        else:
+            taps += program.core.loads
+            taps += [t for op in program.outputs for t in op.loads]
+            if ph is last:
+                taps += [(f, (0,) * program.ndim) for _, r in program.reductions
+                         for f in r.operands if f not in outs]
+            else:
+                taps += [(t, (0,) * program.ndim) for _, t in pl.rotations]
+        for f, off in taps:
+            if ph.sweep and f in src_of:
+                continue                 # from the previous sweep's queue
+            d = to3(off, 0)
+            lo = (ph.lag + d[0] - face[0], d[1] - ylo - face[1], d[2] - zlo - face[2])
+            hi = (ph.lag + d[0] + face[0], d[1] + yhi, d[2] + zhi)
+            b = boxes.get(f)
+            boxes[f] = (lo, hi) if b is None else (tuple(map(min, b[0], lo)),
+                                                   tuple(map(max, b[1], hi)))
+    return boxes
+
+
 def shared_bytes(program: TapProgram, pl: Plan, shape: KernelShape,
                  dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of one block (the phases' queues, each output's
-    at its storage width) and the reduction fold's static words."""
+    at its storage width; marching the contiguous axis also the field
+    queues of f32 and two step buffers of the outputs, 4 bytes a value
+    counted) and the reduction fold's static words."""
     isz = storage(dtype).itemsize
     words = 0
     for ph in pl.phases:
         per = len(program.outputs) if ph.stage is None else 1
         words += per * queue_words(pl, ph, shape, isz)
+    if program.z_strided and shape.slab:
+        words += sum(plane_words(math.prod(_tile(b, shape)), shape.planes)
+                     * ring_planes(b, shape.planes) for b in field_boxes(program, pl).values())
+        words += 2 * len(program.outputs) * shape.planes * out_row(shape)
     return 4 * (words + len(program.reductions) * (shape.threads // 32))
 
 
-def steps_shape(program: TapProgram, rotations: Mapping[str, str], nsteps: int) -> KernelShape:
+def _tile(box, shape: KernelShape) -> tuple[int, int]:
+    lo, hi = box
+    return shape.tile[1] + hi[1] - lo[1], shape.tile[0] + hi[2] - lo[2]
+
+
+def steps_shape(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
+                async_copies: bool = True) -> KernelShape:
     """The layout of a program's k-step kernel: the fastest without register
     spills over the candidates of ``launch/tune_stencil.py --steps`` on the
     H100 (PERF.md). Two planes per step; a 32 x 16 tile for a 3-D
@@ -228,7 +305,15 @@ def steps_shape(program: TapProgram, rotations: Mapping[str, str], nsteps: int) 
     faces at k = 4). A bf16 or f16 kernel takes its f32 twin's layout: its
     2-byte queues need less shared memory, but more blocks would cap its
     registers below what its f32 twin was held to without spills
-    (porosity's k = 4 kernel spilled at 4 blocks on the H100, PERF.md)."""
+    (porosity's k = 4 kernel spilled at 4 blocks on the H100, PERF.md).
+    Marching the contiguous axis, the first of :data:`SLABS` that fits:
+    its field queues copy a step's planes per cell, so it takes the
+    single-step slab's short tiles and 8 planes a step (without
+    ``async_copies``, the strided layout: strided loads and stores)."""
+    if program.z_strided and async_copies:
+        for tile, planes in SLABS[program.ndim]:
+            if (sh := slab_shape(program, rotations, nsteps, tile, planes)) is not None:
+                return sh
     tile = base_tile(program, (32, 8) if program.stages else (32, 16))
     for planes in (2, 1):
         trial = KernelShape(tile, planes, 4)
@@ -236,6 +321,20 @@ def steps_shape(program: TapProgram, rotations: Mapping[str, str], nsteps: int) 
         if smem <= SHARED_LIMIT:
             break
     return KernelShape(tile, planes, max(1, min(4, SHARED_LIMIT // max(smem, 1))))
+
+
+def slab_shape(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
+               tile: tuple[int, int], planes: int) -> KernelShape | None:
+    """A k-step layout marching the contiguous axis of ``tile`` and
+    ``planes``, as many blocks resident as its queues leave shared memory
+    for (at most four), or None where they do not fit a block."""
+    trial = KernelShape(tile, planes, 4, True, True)
+    if trial.threads % planes:
+        return None
+    smem = shared_bytes(program, plan(program, rotations, nsteps, trial), trial)
+    if smem > SHARED_LIMIT:
+        return None
+    return KernelShape(tile, planes, max(1, min(4, SHARED_LIMIT // smem)), True, True)
 
 
 def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
@@ -267,6 +366,12 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     oidx = {op.name: i for i, op in enumerate(program.outputs)}
     dims = ("nx", "ny", "nz")
     strides = stride_names(program)
+    # marching the contiguous axis: the fields read from device memory come
+    # through field queues, the last phase's outputs go out through a step
+    # buffer (the single-step slab's emitters)
+    slab = zs and shape.slab
+    queues = slab_queues(field_boxes(program, pl), shape, fidx, fcls) if slab else []
+    fq = {q.field: q for q in queues}
     lines = []
     w = lines.append
     w("// Generated by repro_torch.kernels.codegen_steps from a traced @parallel update.")
@@ -284,6 +389,12 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     if program.layout:
         w(f"// Marched layout: program axis a on kernel axis {program.axes3}[a] (x 0, y 1,")
         w("// z 2)" + ("; z is strided, so a warp's loads are strided" if zs else "") + ".")
+    if slab:
+        w("// x is the contiguous axis, so what bounds the march is bytes in flight:")
+        w("// the fields read from device memory are copied into field queues in")
+        w("// shared memory by asynchronous copies, planes fastest, a step ahead, and")
+        w("// the last phase's outputs go out from a step buffer, planes fastest,")
+        w("// during the next step.")
     w("#include <cstdint>")
     w("#include <cuda_runtime.h>")
     for line in st.includes():
@@ -300,6 +411,13 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     w(f"constexpr int kLead = {pl.lead};")
     w(f"constexpr int kShared = {smem - 4 * n_red * (shape.threads // 32)};  // dynamic bytes")
     w("")
+    if slab:
+        w("constexpr int kGroups = kThreads / kPlanes;  // threads per plane of a copy or store")
+        w(f"constexpr int kOutRow = {out_row(shape)};  // words of a step buffer's plane")
+        w("")
+        for line in ring_helper() + [""] + copy_helpers(st):
+            w(line)
+        w("")
     w("__device__ __forceinline__ int slot(int x, int q) {")
     w("  const int r = x % q;")
     w("  return r < 0 ? r + q : r;")
@@ -352,6 +470,19 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
                 w(f"  {T}* const {name} = reinterpret_cast<{T}*>(smem + {offset});  "
                   f"// {ph.slots} x {py} x {pz}")
             offset += queue_words(pl, ph, shape, st.itemsize)
+    for q in queues:
+        w(f"  // field {q.field}: cells {q.lo} to {q.hi} around a written cell")
+        w(f"  float (*const smf{q.index})[{q.words}] = reinterpret_cast<float (*)[{q.words}]>("
+          f"smem + {offset});  // {q.slots} x {q.rows} x {q.cols}, padded")
+        offset += q.words * q.slots
+    if slab:
+        w("  // each output's step of planes, as stored, in two buffers: one written")
+        w("  // while the other goes out")
+        for i in range(n_out):
+            w(f"  {T} (*const smo{i})[kPlanes][kOutRow] = reinterpret_cast<{T} (*)[kPlanes]"
+              f"[kOutRow]>(smem + {offset});")
+            offset += 2 * shape.planes * out_row(shape)
+        _emit_copy_setup(w, queues, shape)
     for r in range(n_red):
         w(f"  float acc{r} = 0.0f;")
     by_key = {(ph.sweep, ph.stage): ph for ph in pl.phases}
@@ -377,17 +508,46 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
         return st.widen(f"g{fidx[f]}[({X} - x0 + {dx}) * S{c}x + ({Y} - y0 + {dy}) * S{c}y + "
                         f"{_zs(f'({Z} - z0 + {dz})', c, zs)}]")
 
+    def field_at(f, X, Y, Z, off):
+        """A field read from device memory: from its field queue where it has one."""
+        if f not in fq:
+            return global_at(f, X, Y, Z, off)
+        q, (dx, dy, dz) = fq[f], off
+        return (f"smf{q.index}[ring(fb{q.index} + {X} + {dx - q.ahead} - xs, {q.slots})]"
+                f"[({Y} - y0 + {dy - q.lo[1]}) * {q.cols} + {Z} - z0 + {dz - q.lo[2]}]")
+
     def access_for(sweep):
         def access(f, coords, off):
             if sweep > 0 and f in src_of:
                 return queue_at(by_key[(sweep - 1, None)], src_of[f], *coords, off)
-            return global_at(f, *coords, off)
+            return field_at(f, *coords, off)
         return access
 
     last = pl.phases[-1]
     nt = shape.threads
-    w("  #pragma unroll 1")
-    w(f"  for (int xs = x0 - kLead; xs < x1; xs += kPlanes) {{")
+    if slab:
+        w("  // each field queue's slot of the first plane of the window a step reads")
+        w("  int " + ", ".join(f"fb{q.index} = 0" for q in queues) + ";")
+        w("  int cur = 0;  // the step buffer this step writes")
+        w("  int xs = x0 - kLead;")
+        w("  // the planes behind the first step's, then its own")
+        _emit_copies(w, queues, shape, st, "  ", "xs", "{b}", behind=True)
+        _emit_copies(w, queues, shape, st, "  ", "xs", "{b}")
+        w("  commit_copies();")
+        w("  #pragma unroll 1")
+        w("  for (; xs < x1; xs += kPlanes) {")
+        w("    wait_copies();")
+        w("    __syncthreads();")
+        w("    if (xs + kPlanes < x1) {  // the next step's planes, in flight while this one computes")
+        _emit_copies(w, queues, shape, st, "      ", "xs + kPlanes", "{b} + kPlanes")
+        w("    }")
+        w("    commit_copies();")
+        w("    if (xs != x0 - kLead) {  // the previous step's outputs")
+        _emit_step_store(w, program, shape, fcls, "      ", "xs - kPlanes", "cur ^ 1")
+        w("    }")
+    else:
+        w("  #pragma unroll 1")
+        w(f"  for (int xs = x0 - kLead; xs < x1; xs += kPlanes) {{")
     for ph in pl.phases:
         py, pz = pl.region(ph, shape)
         n = py * pz
@@ -396,7 +556,7 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
         ylo, yhi, zlo, zhi = ph.ext
         if ph.stage is None:
             body = _out_body(program, ph, is_last, access, fidx, fcls, classes, qname, oidx,
-                             by_key, queue_at, global_at, rot, st)
+                             by_key, queue_at, global_at, rot, st, slab)
             fast = [f"xa >= cxlo", "xa + kPlanes <= cxhi", f"y0 - {ylo} >= cylo",
                     f"y0 + {by + yhi} <= cyhi", f"z0 - {zlo} >= czlo", f"z0 + {bz + zhi} <= czhi"]
             if is_last:
@@ -445,6 +605,9 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
                 for i, op in enumerate(program.outputs):
                     w(f"{ind}{qname[(ph.name, op.name)]}[sl + e] = "
                       f"{st.narrow(f'rv{i}[p * {ni} + ie]')};")
+            elif slab:
+                for i in range(n_out):
+                    w(f"{ind}smo{i}[cur][p][e] = {st.narrow(f'rv{i}[p * {ni} + ie]')};")
             else:
                 _emit_cell_coords(w, ind, ph, py, pz)
                 for i, op in enumerate(program.outputs):
@@ -476,7 +639,14 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
         w("    }")
         if not is_last:
             w("    __syncthreads();")
+    if slab:
+        for q in queues:
+            w(f"    fb{q.index} = ring(fb{q.index} + kPlanes, {q.slots});")
+        w("    cur ^= 1;")
     w("  }")
+    if slab:
+        w("  __syncthreads();  // the last step's outputs")
+        _emit_step_store(w, program, shape, fcls, "  ", "xs - kPlanes", "cur ^ 1")
     if n_red:
         w("  // Fold each reduction over the block: within each warp by shuffles,")
         w("  // then over the warps' values, into the block's own slot of its")
@@ -539,13 +709,16 @@ def _emit_cell_coords(w, ind: str, ph: Phase, py: int, pz: int) -> None:
 
 
 def _out_body(program: TapProgram, ph: Phase, is_last: bool, access, fidx, fcls, classes,
-              qname, oidx, by_key, queue_at, global_at, rot, st: Storage):
+              qname, oidx, by_key, queue_at, global_at, rot, st: Storage, slab: bool = False):
     """The printer of an outputs phase at one cell: ``body(w, ind, fast)``
     prints the core program (``fast``: the cell is known to lie in the
     core) or the core/direct split. Each output is rounded to storage
-    before it is stored, to device memory or to its queue."""
+    before it is stored, to device memory or to its queue (``slab``: the
+    last phase's to the step buffer)."""
     if is_last:
         def store(i, op, val):
+            if slab:
+                return f"smo{i}[cur][p][e] = {val};"
             return f"h{i}[at{fcls[op.name]}] = {val};"
 
         def prev(op, coords):

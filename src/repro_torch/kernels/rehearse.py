@@ -82,6 +82,7 @@ struct Fiber {
   Barrier* wait = nullptr;
   int wait_gen = 0;
   bool done = false;
+  std::vector<std::function<void()>> copies;  // issued, not yet waited for
 };
 static ucontext_t g_main;
 static std::vector<Fiber>* g_fibers;
@@ -148,6 +149,23 @@ inline __half __float2half_rn(float f) {
   if (rem > half || (rem == half && (r & 1u))) ++r;
   return {uint16_t(sign | r)};
 }
+// An async slab's copies: each is queued and performed only at the thread's
+// wait_copies(), its destination NaN until then, so a read before the wait
+// shows as a wrong value.
+inline float copy_value(float v) { return v; }
+inline float copy_value(__nv_bfloat16 v) { return __bfloat162float(v); }
+inline float copy_value(__half v) { return __half2float(v); }
+template <class T> inline void copy_async(float* dst, const T* src, bool valid) {
+  const uint32_t nan = 0x7fc00000u;
+  std::memcpy(dst, &nan, 4);
+  (*g_fibers)[g_cur].copies.push_back([=] { *dst = valid ? copy_value(*src) : 0.0f; });
+}
+inline void commit_copies() {}
+inline void wait_copies() {
+  auto& copies = (*g_fibers)[g_cur].copies;
+  for (auto& c : copies) c();
+  copies.clear();
+}
 static void fiber_main() {
   (*g_body)();
   (*g_fibers)[g_cur].done = true;
@@ -173,6 +191,7 @@ static void run_grid(dim3 grid, dim3 block, std::function<void()> body) {
           f.idx = {unsigned(t) % block.x, unsigned(t) / block.x, 0};
           f.wait = nullptr;
           f.done = false;
+          f.copies.clear();
           getcontext(&f.ctx);
           f.ctx.uc_stack.ss_sp = f.stack.data();
           f.ctx.uc_stack.ss_size = f.stack.size();
@@ -220,6 +239,9 @@ def _host_text(text: str, shared_floats: int = 0) -> str:
                             f"float g_smem[{shared_floats}];\n"
                             "void nan_smem() { std::memset(g_smem, 0xff, sizeof g_smem); }\n"
                             "const int g_smem_hook = (g_block_start = nan_smem, 0);\n", 1)
+    if "// copies: begin\n" in text:       # the shim's stand-ins take their place
+        a, b = text.index("// copies: begin\n"), text.index("// copies: end\n")
+        text = text[:a] + text[b + len("// copies: end\n"):]
     for header in ("cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h"):
         text = text.replace(f"#include <{header}>\n", "")
     text = _SET_SHARED.sub("", text)
@@ -247,7 +269,8 @@ def source(call: stencil.StencilCall) -> str:
     codegen._c_expr = _cpu_division
     try:
         if call.rotations is None:
-            return _host_text(codegen.cuda_source(call.program, call.shape, call.dtype))
+            return _host_text(codegen.cuda_source(call.program, call.shape, call.dtype),
+                              codegen.shared_bytes(call.program, call.shape) // 4)
         text = codegen_steps.cuda_source(call.program, call.rotations, call.nsteps, call.shape,
                                          call.dtype)
         return _host_text(text, codegen_steps.shared_bytes(call.program, call.plan,
@@ -321,15 +344,17 @@ def convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def run(call: stencil.StencilCall, fields: Mapping[str, torch.Tensor],
-        scalars: Mapping[str, Any], n_sm: int = 132, xc: int | None = None):
+        scalars: Mapping[str, Any], n_sm: int = 132, xc: int | None = None,
+        text: str | None = None):
     """``(outs, reds)`` of the printed kernel on CPU tensors, launched as
     ``StencilCall.run`` launches it on a card with ``n_sm`` SMs, or with
-    chunks of ``xc`` planes."""
+    chunks of ``xc`` planes; ``text`` runs that C++ (an edited
+    :func:`source`) instead of the call's own."""
     ins = {f: fields[f].contiguous() for f in call.program.fields}
     _, outs, parts, args = call.arguments(ins, scalars, n_sm, xc, divisor=float)
     for part in parts:
         part.fill_(float("nan"))      # a block that writes no partial shows
-    fn = library(call).launch
+    fn = (library(call) if text is None else _compile(text, call.lib_name)).launch
     fn.argtypes = call.argtypes()
     fn.restype = ctypes.c_int
     fn(*args, None)

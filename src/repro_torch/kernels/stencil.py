@@ -53,10 +53,13 @@ which refetch fewer lag and halo planes, measured slower on the H100 for
 their last wave (``launch/tune_stencil.py --march``). A march along a
 non-contiguous axis is a permutation of the kernel's x and y, its loads
 still coalesced along z. A march along the contiguous axis puts a strided
-axis on z; its single-step kernel is a slab (``codegen.KernelShape.slab``):
-each step loads its planes of every field into shared memory and stores
-its outputs from there, planes-fastest, so warps move whole sectors (the
-k-step kernel reads and writes strided). The port's plane queue
+axis on z; its kernels, single step and k steps, are async slabs
+(``codegen.KernelShape.async_copies``): every field they read from device
+memory is copied a step ahead into a plane queue in shared memory by
+asynchronous copies, planes fastest, and their outputs go out from a step
+buffer there a step later, planes fastest too, so warps move whole sectors
+with every thread's copies of a step in flight at once; such a launch
+takes its shared memory dynamically, up to 227 KB a block. The port's plane queue
 (:attr:`StencilCall.queue_planes`) is the planes of the march axis one step
 of a block touches: its planes, the taps' reach behind and ahead over its
 sweeps, and the stages' lag (the k-step lead). A march extent shorter than
@@ -94,6 +97,11 @@ WAVES = 24
 # planes that grows with k (8 measured best or within 3% of it on the H100,
 # PERF.md).
 STEPS_WAVES = 8
+# The same for the slabs that march the contiguous axis, single step and k
+# steps: a chunk first copies the planes behind its first step and waits for
+# its first window, so chunks longer than WAVES cuts measured faster on the
+# H100 (PERF.md).
+SLAB_WAVES = 16
 _MAX_GRID_YZ = 65535
 _INT32_MAX = 2 ** 31 - 1
 
@@ -274,11 +282,12 @@ class StencilCall:
         if rotations is None:
             self.shape = shape or codegen.kernel_shape(self.program)
             smem = codegen.shared_bytes(self.program, self.shape)
-            if smem > codegen.SHARED_LIMIT:
+            limit = codegen.SM_SHARED if self.shape.async_copies else codegen.SHARED_LIMIT
+            if smem > limit:
                 # the counterpart of the reference's preflight_vmem
                 raise NotImplementedError(
                     f"{label}: its staged intermediates need {smem} bytes of shared memory "
-                    f"per block, above the {codegen.SHARED_LIMIT} of static shared memory")
+                    f"per block, above the {limit} a block can have")
             self.source = codegen.cuda_source(self.program, self.shape, dtype)
             self.lag = codegen.march_lag(self.program, self.shape)
             # planes a chunk reads beyond its own: the taps' reach and the stages' lag
@@ -383,9 +392,10 @@ class StencilCall:
 
     def derive(self, n_sm: int, xc: int | None = None) -> Launch:
         """The launch on a card of ``n_sm`` SMs (or with chunks of ``xc``
-        planes): ``WAVES`` waves of blocks (``STEPS_WAVES`` for k steps)."""
+        planes): ``WAVES`` waves of blocks (``STEPS_WAVES`` for k steps,
+        ``SLAB_WAVES`` for an async slab)."""
         shape3 = self.program.to3(self.ir.base_shape, 1)
-        waves = WAVES if self.rotations is None else STEPS_WAVES
+        waves = waves_of(self.shape, self.rotations is not None)
         launch = derive_launch(shape3, n_sm, self.shape, self.halo, self.lag, waves,
                                self.strides3() if self.program.layout else None)
         if xc is not None:
@@ -406,6 +416,15 @@ class StencilCall:
             return outs, None
         return outs, {name: r.finish(part)
                       for (name, r), part in zip(self.program.reductions, parts)}
+
+
+def waves_attr(shape: codegen.KernelShape, steps: bool) -> str:
+    """The name of the module constant that sets a layout's waves."""
+    return "SLAB_WAVES" if shape.async_copies else "STEPS_WAVES" if steps else "WAVES"
+
+
+def waves_of(shape: codegen.KernelShape, steps: bool) -> int:
+    return globals()[waves_attr(shape, steps)]
 
 
 def unsupported(ir: StencilIR) -> None:

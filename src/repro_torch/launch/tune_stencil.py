@@ -26,17 +26,24 @@ kernel of ``kernels/codegen.py`` on the same fields. ``--dtype bfloat16`` or
 reads 64 bytes of a row instead of 128. ``--march 0,1,2`` times the marched
 variants (``march_axis``) of FIG1's step, porosity's and GP's fused kernels
 along each of those axes they have, single step over the layouts of
-``march_candidates`` (along the contiguous axis: slab layouts of several
-tiles and planes beside the strided layout) and k = 2 (``--ks``) at its
-k-step layout, beside its all-parallel twin's time in the same run, with
-``--waves`` the values of ``stencil.WAVES`` (``STEPS_WAVES`` for k steps)
-to time; each launch is held bitwise against the twin's, and
-``codegen.kernel_shape`` for a marched program is its choice. It needs the
-card and measures nothing on the CPU.
+``march_candidates`` (along the contiguous axis: the async slabs of
+``SLABS`` beside the synchronous slab and the strided layout) and k = 2
+(``--ks``; along the contiguous axis the async slabs of ``STEPS_SLABS``),
+beside its all-parallel twin's time in the same run, with ``--waves`` the
+values of the layout's waves constant (``stencil.waves_attr``: ``WAVES``,
+``STEPS_WAVES`` or ``SLAB_WAVES``) to time; each launch is held bitwise
+against the twin's, and ``codegen.kernel_shape`` (``codegen.SLABS``,
+``codegen_steps.SLABS``) for a marched program is its choice. ``--split``
+times each kernel's march along the contiguous axis in parts, the
+synchronous slab and the async slabs of ``SPLIT_SLABS`` (staging alone,
+staging and compute, the whole kernel: ``codegen.cuda_source``'s
+``part``), beside the twin, in turns. It needs the card and measures
+nothing on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import inspect
 import json
@@ -64,9 +71,17 @@ STEPS_2D = [Shape(t, p, b) for t in ((256, 1), (512, 1)) for p in (2, 4) for b i
 STEPS_KS = {"stencil": (2, 3, 4), "porosity_fused[neumann0]": (2, 3, 4),
             "gp_fused[none]": (2, 3)}
 MARCH_KERNELS = ("stencil", "porosity_fused[neumann0]", "gp_fused[none]")
-# slab layouts (tile, planes) tried along the contiguous axis, by rank
-SLABS = {3: [*codegen.SLABS[3], ((32, 8), 8), ((16, 4), 32), ((32, 2), 16)],
-         2: [*codegen.SLABS[2], ((32, 1), 32), ((128, 1), 16)]}
+# async slab layouts (tile, planes) tried along the contiguous axis, by rank
+SLABS = {3: [*dict.fromkeys([*codegen.SLABS[(3, False)], *codegen.SLABS[(3, True)],
+                             ((32, 8), 16), ((32, 4), 32), ((16, 4), 32), ((32, 2), 16)])],
+         2: [*dict.fromkeys([*codegen.SLABS[(2, True)], ((128, 1), 16), ((256, 1), 8),
+                             ((32, 1), 32), ((64, 1), 32)])]}
+
+
+# k-step layouts (tile, planes) tried along the contiguous axis, by rank
+STEPS_SLABS = {3: [*codegen_steps.SLABS[3], ((32, 4), 16), ((16, 8), 16), ((32, 4), 4),
+                   ((32, 8), 8)],
+               2: [*codegen_steps.SLABS[2], ((128, 1), 16), ((64, 1), 16), ((256, 1), 8)]}
 
 
 def kernels(dev, dtype: torch.dtype = torch.float32) -> dict:
@@ -222,13 +237,25 @@ def solver_state(todo: dict, n: str):
 
 def march_candidates(call) -> list:
     """A marched single-step call's layouts: its own (``kernel_shape``), the
-    all-parallel twin's, and along the contiguous axis the slabs of
+    all-parallel twin's, and along the contiguous axis the synchronous
+    slab (``codegen.slab_layout(..., False)``) and the async slabs of
     ``SLABS`` that fit."""
     p = call.program
     shapes = [call.shape, codegen.kernel_shape(dataclasses.replace(p, layout=()))]
     if p.z_strided:
+        shapes.append(codegen.slab_layout(p, False))
         shapes += [s for tile, planes in SLABS[p.ndim]
                    if (s := codegen.slab_shape(p, tile, planes)) is not None]
+    return list(dict.fromkeys(shapes))
+
+
+def steps_march_candidates(call) -> list:
+    """A k-step call marching the contiguous axis: its own layout and those
+    of ``STEPS_SLABS`` that fit."""
+    shapes = [call.shape] + [
+        s for tile, planes in STEPS_SLABS[call.program.ndim]
+        if (s := codegen_steps.slab_shape(call.program, call.rotations, call.nsteps, tile,
+                                          planes)) is not None]
     return list(dict.fromkeys(shapes))
 
 
@@ -243,7 +270,8 @@ def tune_march(todo: dict, axes: list, waves: list | None, iters: int, ks: list)
             twins[(n, nsteps)] = k.compiled(nsteps=nsteps, **f, **sc)
             for a in (a for a in axes if a < k.ps.ndims):
                 call = k.marched(a).compiled(nsteps=nsteps, **f, **sc)
-                shapes = [call.shape] if nsteps > 1 else march_candidates(call)
+                shapes = march_candidates(call) if nsteps == 1 else \
+                    steps_march_candidates(call) if call.program.z_strided else [call.shape]
                 tuned[(n, a, nsteps)] = [
                     stencil.StencilCall(call.ir, k.label, k.bc, shape, nsteps,
                                         k.rotations if nsteps > 1 else None, k.ps.dtype,
@@ -255,8 +283,6 @@ def tune_march(todo: dict, axes: list, waves: list | None, iters: int, ks: list)
     print(json.dumps({"built": len(sources), "seconds": time.perf_counter() - t0}), flush=True)
     logs = iter(logs[len(twins):])
     for (n, a, nsteps), calls in tuned.items():
-        attr = "WAVES" if nsteps == 1 else "STEPS_WAVES"
-        default_waves = getattr(stencil, attr)
         k, _, f, sc = todo[n]
         twin = twins[(n, nsteps)]
         want, _ = twin.run(f, sc)
@@ -264,6 +290,8 @@ def tune_march(todo: dict, axes: list, waves: list | None, iters: int, ks: list)
         row = {}
         for t in calls:
             found = ptxas(next(logs).log)
+            attr = stencil.waves_attr(t.shape, nsteps > 1)
+            default_waves = getattr(stencil, attr)
             for w in waves or [default_waves]:
                 setattr(stencil, attr, w)
                 outs, _ = t.run(f, sc)
@@ -277,12 +305,82 @@ def tune_march(todo: dict, axes: list, waves: list | None, iters: int, ks: list)
             setattr(stencil, attr, default_waves)
         print(json.dumps({"kernel": n, "march_axis": a, "k": nsteps, "twin_ms": twin_ms,
                           "z_strided": calls[0].program.z_strided,
-                          "chosen": f"{layout_name(calls[0].shape)}/w{default_waves}",
+                          "chosen": f"{layout_name(calls[0].shape)}/w"
+                                    f"{stencil.waves_of(calls[0].shape, nsteps > 1)}",
                           "candidates": row}), flush=True)
 
 
-def layout_name(sh) -> str:
-    return f"{sh.tile[0]}x{sh.tile[1]}/p{sh.planes}/b{sh.min_blocks}" + ("/slab" if sh.slab else "")
+PARTS = ("stage", "compute")
+# async slab layouts split besides the chosen one, by rank
+SPLIT_SLABS = {3: [((32, 4), 16)], 2: [((64, 1), 16)]}
+
+
+def variant(call, source: str, suffix: str):
+    """``call`` launching ``source``, built under a name of its own."""
+    out = copy.copy(call)
+    out.source, out.lib_name = source, f"{call.lib_name}_{suffix}"
+    out.launch_info, out._lib = {}, None
+    return out
+
+
+def part_call(call, part: str):
+    """``call`` printed as a timing variant (``codegen.cuda_source``'s
+    ``part``: "stage" or "compute")."""
+    return variant(call, codegen.cuda_source(call.program, call.shape, call.dtype, part=part),
+                   part)
+
+
+def relaid(kern, call, shape):
+    """``kern``'s single-step ``call`` laid out as ``shape``, built under a
+    name of its own."""
+    out = stencil.StencilCall(call.ir, kern.label, kern.bc, shape, dtype=call.dtype,
+                              march_axis=call.march_axis)
+    out.lib_name += "_" + layout_name(shape).replace("/", "_")
+    return out
+
+
+def tune_split(todo: dict, iters: int, rounds: int = 2) -> None:
+    """Time each kernel's march along the contiguous axis in parts (one JSON
+    line per kernel), the synchronous slab and the async one: the
+    field queues' staging alone, staging and compute, the whole kernel,
+    beside the all-parallel twin, in turns over ``rounds`` rounds. Each
+    whole kernel is held bitwise to the twin; the parts keep nothing."""
+    runs = {}
+    for n in MARCH_KERNELS:
+        k, _, f, sc = todo[n] = solver_state(todo, n)
+        call = k.marched(k.ps.ndims - 1).compiled(**f, **sc)
+        p = call.program
+        slabs = {"sync": codegen.slab_layout(p, False), "async": call.shape}
+        slabs.update({layout_name(sh): sh for tile, planes in SPLIT_SLABS[p.ndim]
+                      if (sh := codegen.slab_shape(p, tile, planes)) is not None})
+        runs[n] = {"twin": k.compiled(**f, **sc)}
+        for name, sh in slabs.items():
+            c = runs[n][name] = relaid(k, call, sh)
+            runs[n].update({f"{name}_{part}": part_call(c, part) for part in PARTS})
+    t0 = time.perf_counter()
+    calls = [c for r in runs.values() for c in r.values()]
+    logs = build.compile_many([(c.lib_name, c.source) for c in calls])
+    print(json.dumps({"built": len(calls), "seconds": time.perf_counter() - t0}), flush=True)
+    found = {c.lib_name: ptxas(b.log) for c, b in zip(calls, logs)}
+    for n, r in runs.items():
+        k, _, f, sc = todo[n]
+        want, _ = r["twin"].run(f, sc)
+        for v in (v for v in r if v != "twin" and not v.endswith(PARTS)):
+            got, _ = r[v].run(f, sc)
+            if not all(torch.equal(got[o], want[o]) for o in k.outputs):
+                raise RuntimeError(f"{n}: the {v} slab is not bitwise equal to its twin")
+        ms = {v: [] for v in r}
+        for _ in range(rounds):
+            for v, c in r.items():
+                ms[v].append(teff.measure(lambda: c.run(f, sc), iters=iters,
+                                          warmup=3).median_s * 1e3)
+        print(json.dumps({"kernel": n, "march_axis": k.ps.ndims - 1,
+                          "layouts": {v: layout_name(c.shape) for v, c in r.items()},
+                          "ms": ms, "ptxas": {v: found[c.lib_name] for v, c in r.items()}}),
+              flush=True)
+
+
+layout_name = codegen.layout_name
 
 
 def main(argv=None) -> int:
@@ -292,6 +390,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", action="store_true", help="tune the k-step kernels")
     ap.add_argument("--march", default=None,
                     help="tune the marched kernels along these axes, e.g. 0,1,2")
+    ap.add_argument("--split", action="store_true",
+                    help="with --march: time the contiguous-axis march in parts")
     ap.add_argument("--ks", default=None,
                     help="with --steps: the k to time, e.g. 1,2 (default: STEPS_KS)")
     ap.add_argument("--iters", type=int, default=20)
@@ -305,6 +405,9 @@ def main(argv=None) -> int:
     name, power = teff.card_info(0)
     print(json.dumps({"card": name, "power_limit": power, "dtype": args.dtype}), flush=True)
     todo = kernels(dev, getattr(torch, args.dtype))
+    if args.split:
+        tune_split(todo, args.iters)
+        return 0
     if args.march:
         tune_march(todo, [int(a) for a in args.march.split(",")],
                    [int(w) for w in args.waves.split(",")] if args.waves else None, args.iters,

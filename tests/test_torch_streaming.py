@@ -143,7 +143,7 @@ def test_printed_marched_kernel_bitwise(cxx, march, k, rng):
     kern = _port(march, reductions=REDS)
     call = _rehearse_k(kern, f, SC3, k)
     assert call.march_axis == march and not call.march_fallback
-    assert call.shape.slab == (march == 2 and k == 1)
+    assert call.shape.slab == call.shape.async_copies == (march == 2)
     assert call.label.endswith(f"@m{march}" + (f"/k{k}" if k > 1 else ""))
     assert call.program.axes3[march] == 0 and call.queue_planes > 0
 
@@ -166,7 +166,8 @@ def test_printed_marched_kernel_bitwise_narrow(cxx, dtype, march, rng):
     ("gp", "none", 0, (13, 8, 9)), ("gp", "none", 1, (7, 13, 9)), ("gp", "neumann", 2, (7, 8, 20)),
 ])
 def test_printed_marched_coupled_bitwise(cxx, solver, bc, march, base, rng):
-    """Along the contiguous axis (porosity 1, GP 2) the kernel is a slab."""
+    """Along the contiguous axis (porosity 1, GP 2) the kernel is a slab,
+    single step and k steps."""
     reds = {"err": "max_abs_diff(Pe2, Pe)"} if solver == "porosity" else {"m": "sum_sq(re2)"}
     kern = _solver_kernel(solver, base[0], 0, reds, bc=bc).marched(march)
     names = list(inspect.signature(kern.fn).parameters)
@@ -181,7 +182,7 @@ def test_printed_marched_coupled_bitwise(cxx, solver, bc, march, base, rng):
     _hold(kern, *_outs(kern, kern(**f, **sc)), want, want_reds)
     for k in (1, 2):
         call = _rehearse_k(kern, f, sc, k)
-        assert call.march_axis == march and call.shape.slab == (k == 1 and march == len(base) - 1)
+        assert call.march_axis == march and call.shape.slab == (march == len(base) - 1)
 
 
 def _coupled2d(ps, fd, march=None, **kw):
@@ -293,7 +294,8 @@ def test_one_dimensional_kernel(cxx, march, rng):
 def test_fallback_short_march_extent(cxx, rng):
     """A march extent shorter than the plane queue launches the all-parallel
     kernel: k = 4 sweeps of FIG1 need 12 planes along the march axis, one
-    step of its slab kernel along the contiguous axis 20."""
+    step of its slab kernel along the contiguous axis a step's planes, its
+    lag, 1 behind and 1 ahead."""
     f = _t(_fields3(rng, (20, 8, 10)))
     kern = _port(1)
     call = _rehearse_k(kern, f, SC3, 4)
@@ -301,9 +303,11 @@ def test_fallback_short_march_extent(cxx, rng):
     assert "@m" not in call.label
     single = kern.compiled(**f, **SC3)           # one step needs 4 planes: it marches
     assert single.march_axis == 1 and single.queue_planes == 4 and not single.march_fallback
-    slab = _port(2).compiled(**f, **SC3)         # 16 planes a step, 2 ahead, 1 behind, 1 ahead
+    long = _port(2).compiled(**_t(_fields3(rng, (20, 8, 40))), **SC3)
+    assert long.queue_planes == long.shape.planes + long.lag + 2 and long.march_axis == 2
+    short = _t(_fields3(rng, (20, 8, long.queue_planes - 1)))
+    slab = _port(2).compiled(**short, **SC3)
     assert slab.march_fallback and slab.march_axis is None
-    assert _port(2).compiled(**_t(_fields3(rng, (20, 8, 24))), **SC3).queue_planes == 20
 
 
 def test_fallback_tiny_axis(cxx, rng):
