@@ -266,6 +266,10 @@ def main() -> int:
     # every marched variant (march_axis) and the health guard (finite, nan_count)
     march_v = march_variants(torch, step, step_plain, (generic, generic_plain), coupled, ksteps)
     calls_march = march_calls(torch, march_v)
+    # the one-cell layouts of the single steps that take the pair layout at 2 bytes
+    kern_of = {n: kern for n, kern, _, _ in single}
+    calls_cells = [cell_twin(kern_of[n.split(":")[0]], c) for n, c in calls_mixed.items()
+                   if "/k" not in n and c.shape.vec > 1]
     t0 = time.perf_counter()
     lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
     sources = ([("diffusion3d", build.read_source(diffusion3d.SOURCE))]
@@ -273,8 +277,13 @@ def main() -> int:
                + [(c.lib_name, c.source) for c in calls]
                + [(c.lib_name, c.source) for c in calls_k.values()]
                + [(c.lib_name, c.source) for c in calls_mixed.values()]
-               + [(c.lib_name, c.source) for c in calls_march])
+               + [(c.lib_name, c.source) for c in calls_march]
+               + [(c.lib_name, c.source) for c in calls_cells])
     builds = build.compile_many(sources)
+    cell_ptx = {str(b.library): ptxas_summary(b.log)
+                for b in builds[len(builds) - len(calls_cells):]}
+    builds = builds[:len(builds) - len(calls_cells)]
+    sources = sources[:len(sources) - len(calls_cells)]
     call_names = ["stencil", "stencil+err", "stencil+4red", "generic", *coupled]
     variant_of = {c.source: name for name, c in zip(call_names, calls)}
     variant_of.update({c.source: f"{name}/k{k}" for (name, k), c in calls_k.items()})
@@ -299,6 +308,10 @@ def main() -> int:
             f"ptxas spills registers in a generated kernel: {ptxas}")
     require(all(not p["spills"] for p in march_ptx.values()),
             f"ptxas spills registers in a marched or guarded kernel: {march_ptx}")
+    require(all(not p["spills"] for p in cell_ptx.values()),
+            f"ptxas spills registers in a one-cell layout: {cell_ptx}")
+    require(all(calls_mixed[f"{n}:{t}"].shape.vec > 1 for t in MIXED_TAGS for n in PAIR_VARIANTS),
+            "a kernel redesigned for 2-byte fields did not take the pair layout")
 
     # ---- 3. kernels against their plain versions ------------------------
     gen = torch.Generator(device="cpu").manual_seed(20260714)
@@ -418,6 +431,7 @@ def main() -> int:
     # k single-step launches); the hand kernel (k = 1-4) against its plain
     # version at storage dtype, in place and not
     mixed_v = {}
+    check_pair_conversions(torch, dev)
     for tag, name in MIXED_TAGS.items():
         dt = getattr(torch, name)
         err_at.update(check_fig1_mixed(torch, variants, (generic, generic_plain), dt, tag,
@@ -430,6 +444,8 @@ def main() -> int:
                 if shapes is COUPLED_FULL:
                     err_at[f"{n}:{tag}"] = d
             torch.cuda.empty_cache()
+        for n, d in check_pairs(torch, coupled_t, tag, cgen).items():
+            err_at[f"{n}:{tag}"] = max(err_at[f"{n}:{tag}"], d)
         for shapes in (STEPS_SMALL, STEPS_FULL):
             for n, v in ksteps_t.items():
                 for k in STEPS_KS[v["solver"]]:
@@ -618,12 +634,18 @@ def main() -> int:
     mixed_times = {}
     for tag, (dt, coupled_t, ksteps_t) in mixed_v.items():
         mixed_times.update(time_mixed(torch, tag, dt, step, step_plain, coupled_t, ksteps_t,
-                                      cgen, spec, ptxas))
+                                      cgen, spec, ptxas, cell_ptx))
     f32_ms = {"stencil": ms["stencil"], "stencil+err": ms["stencil+err"],
               "diffusion3d": ms["diffusion3d"], **{n: t["ms"] for n, t in coupled_times.items()},
               **{n: t["ms"] for n, t in k_times.items()}}
+    pair_targets = {f"{n}:{tag}": {"ms": mixed_times[f"{n}:{tag}"]["ms_in_turns"],
+                                   "cell_ms": mixed_times[f"{n}:{tag}"]["cell_ms"],
+                                   "target_ms": target,
+                                   "met": mixed_times[f"{n}:{tag}"]["ms_in_turns"] <= target}
+                    for n, target in PAIR_TARGETS_MS.items() for tag in MIXED_TAGS}
     emit({"phase": "times_mixed", "card": spec.name, "power_limit": spec.power_limit,
           "copy_bandwidth_GBps": spec.peak_bw / 1e9, "kernels": mixed_times,
+          "pair_targets": pair_targets,
           "off_main_path": sorted(set(mixed_times) - set(mixed_runs["launches"])),
           "f32_ms": f32_ms,
           "over_f32": {k: t["ms"] / f32_ms[k.split(":")[0]] for k, t in mixed_times.items()}})
@@ -681,14 +703,15 @@ def main() -> int:
     kernels += [{"name": k, "route": "cuda",
                  "source": ("src/repro_torch/kernels/csrc/diffusion3d.cu"
                             if k.startswith("diffusion3d") else
-                            "src/repro_torch/kernels/codegen_steps.py" if "/k" in k else gen_src),
+                            "src/repro_torch/kernels/codegen_steps.py" if "/k" in k else
+                            PAIR_SOURCE if "ms_in_turns" in t else gen_src),
                  "replaces": ("src/repro/kernels/diffusion3d.py:75"
                               if k.startswith("diffusion3d") else
                               "src/repro/kernels/stencil.py:1052"),
                  "launches": mixed_runs["launches"][k],
                  "max_abs_err": max(err_at[k], t.get("max_abs_err", 0.0)),
                  **{x: t[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
-                 "library_ms": None}
+                 "library_ms": None, **pair_keys(t)}
                 # the f16 hand kernel is timed but off the main path
                 for k, t in mixed_times.items() if k in mixed_runs["launches"]]
     kernels += march_rows(march_runs, march_times, err_at)
@@ -1061,7 +1084,8 @@ def time_coupled(torch, v, base, gen) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / ms, "a_eff_bytes": a_eff, "ops": ops,
             "ops_per_cell": k.compiled(**f, **sc).program.ops_per_cell(),
-            "t_eff_GBps": a_eff / (ms / 1e3) / 1e9}
+            "t_eff_GBps": a_eff / (ms / 1e3) / 1e9,
+            "layout": k.launch_info[tuple(base)]["layout"]}
 
 
 def time_gp_on_state(torch, v, gen) -> dict:
@@ -1868,6 +1892,7 @@ def mixed_main_path(torch, spec, coupled_runs) -> dict:
             finite = bool(torch.isfinite(r["phi"]).all() and torch.isfinite(r["Pe"]).all())
             row = {"phase": "main_path_mixed", "config": "porosity", "dtype": name, "run": run,
                    "shape": [n_pw, n_pw], "steps": steps, "launches": counts,
+                   "layout": porosity_layout(name, n_pw),
                    "ms_per_step": ms, "a_eff_bytes_per_step": a_eff,
                    "t_eff_GBps": a_eff / (ms / 1e3) / 1e9,
                    "t_eff_over_copy": a_eff / (ms / 1e3) / spec.peak_bw,
@@ -1917,6 +1942,7 @@ def mixed_main_path(torch, spec, coupled_runs) -> dict:
         finite = bool(torch.isfinite(c["re"]).all() and torch.isfinite(c["im"]).all())
         row = {"phase": "main_path_mixed", "config": "gp", "dtype": name,
                "shape": list(COUPLED_FULL["gp"]), "steps": GP_STEPS, "launches": counts,
+               "layout": kern.launch_info[tuple(COUPLED_FULL["gp"])]["layout"],
                "ms_per_step": t / GP_STEPS * 1e3, "mass0": mass0, "mass": mass,
                "drift": abs(mass - mass0) / mass0, "finite": finite}
         emit(row)
@@ -1928,14 +1954,27 @@ def mixed_main_path(torch, spec, coupled_runs) -> dict:
     return {"launches": launches, "runs": rows}
 
 
+def porosity_layout(dtype_name: str, n: int) -> str:
+    """The layout porosity's fused kernel takes at ``n``^2, fields stored as
+    ``dtype_name`` (what ``porosity_waves.solve`` launches)."""
+    from repro_torch.examples import porosity_waves as pw
+    from repro_torch.kernels import codegen
+
+    cfg = pw.PorosityConfig(n=n, device="cuda", dtype=dtype_name)
+    kern = pw.make_step(pw.make_grid(cfg), cfg).kernels[0]
+    call = kern.compiled(**{f: (n, n) for f in ("phi2", "Pe2", "phi", "Pe")}, dtau=1e-3)
+    return codegen.layout_name(call.shape)
+
+
 def time_mixed(torch, tag, dtype, step, step_plain, coupled_t, ksteps_t, gen, spec,
-               ptxas) -> dict:
+               ptxas, cell_ptx) -> dict:
     """CUDA-event medians (20) of each kernel of the mixed main path at
     ``dtype`` beside its plain version at the same dtype and its bound at
     storage bytes (2 per cell of each field): FIG1's step and its ``err``
     variant, the hand step (a new buffer; in place beside it), every coupled
-    variant (those off the mixed main path too), and the k-step kernels of
-    MIXED_K_VARIANTS and the hand kernel (k = 2-4). Registers and spills
+    variant (those off the mixed main path too; each of PAIR_VARIANTS beside
+    its one-cell layout in turns, ``beside_cells``), and the k-step kernels
+    of MIXED_K_VARIANTS and the hand kernel (k = 2-4). Registers and spills
     from ptxas."""
     from repro_torch.configs import FIG1
     from repro_torch.core import teff
@@ -1959,6 +1998,13 @@ def time_mixed(torch, tag, dtype, step, step_plain, coupled_t, ksteps_t, gen, sp
                                 "a_eff_bytes": a_eff, "ops": ops,
                                 "t_eff_over_copy": a_eff / (ms / 1e3) / spec.peak_bw,
                                 "ptxas": ptxas[f"{name}:{tag}"]}
+        if k.compiled(**f, **sc).shape.vec > 1:
+            t = out[f"{name}:{tag}"]
+            t.update(beside_cells(torch, k, f, sc, cell_ptx))
+            # no more than 2% slower than the one-cell layout
+            require(t["ms_in_turns"] <= 1.02 * t["cell_ms"],
+                    f"{name}:{tag}: the pair layout ({t['ms_in_turns']} ms) is slower than its "
+                    f"one-cell layout ({t['cell_ms']} ms)")
     hand = time_hand_steps(torch, 1, gen, spec, dtype)       # in place
     new_ms = teff.measure(lambda: diffusion3d.diffusion3d_step(f["T2"], f["T"], f["Ci"], *args,
                                                                alias=False),
@@ -1972,6 +2018,13 @@ def time_mixed(torch, tag, dtype, step, step_plain, coupled_t, ksteps_t, gen, sp
     for name, v in coupled_t.items():
         t = time_coupled(torch, v, COUPLED_FULL[v["solver"]], gen)
         t["ptxas"] = ptxas[f"{name}:{tag}"]
+        if name in PAIR_VARIANTS or "/v" in t["layout"]:
+            t.update(beside_cells(torch, v["kernel"], coupled_fields(
+                torch, v, COUPLED_FULL[v["solver"]], gen), v["scalars"], cell_ptx))
+            t["faster_than_cells"] = t["ms_in_turns"] < t["cell_ms"]
+            require(t["faster_than_cells"] or name not in PAIR_TARGETS_MS,
+                    f"{name}:{tag}: the pair layout ({t['ms_in_turns']} ms) is not faster than "
+                    f"its one-cell layout ({t['cell_ms']} ms)")
         out[f"{name}:{tag}"] = t
         torch.cuda.empty_cache()
     for name in MIXED_K_VARIANTS:
@@ -1986,6 +2039,264 @@ def time_mixed(torch, tag, dtype, step, step_plain, coupled_t, ksteps_t, gen, sp
         t["ptxas"] = ptxas[f"diffusion3d/k{k}:{tag}"]
         out[f"diffusion3d/k{k}:{tag}"] = t
     return out
+
+
+# ---- the pair layout of the all-parallel kernel for 2-byte fields -----------------
+# The kernels redesigned for bf16 and f16 fields (several adjacent cells of the
+# contiguous axis a thread, kernels/codegen_pairs.py), each held and timed
+# beside the one-cell layout of the same program; small shapes whose
+# contiguous extent is odd, which the pairs do not fit (the one-cell layout).
+PAIR_VARIANTS = ("porosity_fused[none]", "porosity_fused[neumann0]", "porosity_fused[dirichlet]",
+                 "porosity_fused[periodic]", "porosity_fused[neumann0]+err", "gp_fused[none]",
+                 "gp_fused[neumann0]", "gp_fused[dirichlet]", "gp_fused[periodic]",
+                 "gp_fused[none]+mass")
+COUPLED_ODD = {"porosity": (33, 21), "gp": (13, 17, 129)}
+# the pair layout's targets at bf16 (ms on the H100)
+PAIR_TARGETS_MS = {"porosity_fused[neumann0]": 0.36, "gp_fused[none]": 1.00}
+PAIR_SOURCE = "src/repro_torch/kernels/codegen_pairs.py"
+# f32 words the packed conversions are held on: every bf16 and f16 value, the
+# midpoints between bf16 neighbours and the words beside them, edges, random
+CONVERT_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+namespace {
+// each pair of adjacent elements converted one at a time and packed
+__global__ void convert_kernel(const float* x, const uint16_t* h, uint16_t* one, uint16_t* two,
+                               float* wone, float* wtwo, int64_t n, int half) {
+  const int64_t i = 2 * (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (i + 1 >= n) return;
+  if (half) {
+    one[i] = __half_as_ushort(__float2half_rn(x[i]));
+    one[i + 1] = __half_as_ushort(__float2half_rn(x[i + 1]));
+    *reinterpret_cast<__half2*>(two + i) = __floats2half2_rn(x[i], x[i + 1]);
+    wone[i] = __half2float(__ushort_as_half(h[i]));
+    wone[i + 1] = __half2float(__ushort_as_half(h[i + 1]));
+    const float2 w = __half22float2(*reinterpret_cast<const __half2*>(h + i));
+    wtwo[i] = w.x, wtwo[i + 1] = w.y;
+  } else {
+    one[i] = __bfloat16_as_ushort(__float2bfloat16_rn(x[i]));
+    one[i + 1] = __bfloat16_as_ushort(__float2bfloat16_rn(x[i + 1]));
+    *reinterpret_cast<__nv_bfloat162*>(two + i) = __floats2bfloat162_rn(x[i], x[i + 1]);
+    wone[i] = __bfloat162float(__ushort_as_bfloat16(h[i]));
+    wone[i + 1] = __bfloat162float(__ushort_as_bfloat16(h[i + 1]));
+    const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(h + i));
+    wtwo[i] = w.x, wtwo[i + 1] = w.y;
+  }
+}
+}  // namespace
+extern "C" int launch(const void* x, const void* h, void* one, void* two, void* wone,
+                      void* wtwo, int64_t n, int64_t half, void* stream) {
+  const unsigned blocks = static_cast<unsigned>((n / 2 + 255) / 256);
+  convert_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const uint16_t*>(h), static_cast<uint16_t*>(one),
+      static_cast<uint16_t*>(two), static_cast<float*>(wone), static_cast<float*>(wtwo), n,
+      static_cast<int>(half));
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+"""
+
+
+def convert_words(torch):
+    """The f32 words of the conversion check (an even count)."""
+    u16 = torch.arange(1 << 16, dtype=torch.int64)
+    words = [u16 << 16, (u16 << 16) | 0x8000, ((u16 << 16) | 0x8000) + 1,
+             ((u16 << 16) | 0x8000) - 1,
+             torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.float16)
+             .float().view(torch.int32).to(torch.int64) & 0xffffffff,
+             torch.tensor([0, 0x80000000, 0x7f800000, 0xff800000, 0x7fc00000, 0xffc00001,
+                           0x7f800001, 0x477fefff, 0x477ff000, 0x477ff001, 0x47800000,
+                           0x33000000, 0x33000001, 0x1, 0x807fffff, 0x7f7fffff]),
+             torch.randint(0, 1 << 32, (1 << 20,), generator=torch.Generator().manual_seed(7))]
+    w = torch.cat(words) & 0xffffffff
+    w = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+    return torch.cat([w, w.flip(0)]).view(torch.float32)
+
+
+def pair_keys(t) -> dict:
+    """The kernels-line keys of a pair-layout kernel's times (none for the
+    others): its layout, its ms and its one-cell layout's in turns, the share
+    of its bound, ptxas's registers and spills."""
+    if "ms_in_turns" not in t:
+        return {}
+    return {"layout": t["layout"], "ms_in_turns": t["ms_in_turns"],
+            "cell_layout": t["cell_layout"], "cell_ms": t["cell_ms"],
+            "share_of_bound": t["bound_ms"] / t["ms_in_turns"],
+            "registers": t["ptxas"]["registers"], "spills": len(t["ptxas"]["spills"]),
+            "cell_registers": (t["cell_ptxas"] or {}).get("registers")}
+
+
+def check_pair_conversions(torch, dev) -> dict:
+    """The packed conversions of the pair layout against the one-cell ones
+    on the card, bit for bit, NaN payloads, +-inf and the f16 overflow edge
+    included (each word in both halves of a pair), and the one-cell ones
+    against PyTorch's conversions (NaN as NaN)."""
+    import ctypes
+
+    from repro_torch.kernels import build, stencil
+
+    lib = build.Library("pair_conversions", CONVERT_SOURCE,
+                        [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_void_p])
+    x = convert_words(torch).to(dev)
+    row = {"phase": "check_pair_conversions", "words": x.numel()}
+    for tag, name in MIXED_TAGS.items():
+        dt = getattr(torch, name)
+        h = torch.arange(1 << 16, dtype=torch.int32, device=dev).to(torch.int16)
+        h = torch.cat([h, h.flip(0)])
+        n = max(x.numel(), h.numel())
+        xs = torch.zeros(n, device=dev)
+        xs[:x.numel()] = x
+        hs = torch.zeros(n, dtype=torch.int16, device=dev)
+        hs[:h.numel()] = h
+        outs = [torch.empty(n, dtype=torch.int16, device=dev) for _ in range(2)]
+        wides = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(2)]
+        lib.launch(xs.data_ptr(), hs.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+                   wides[0].data_ptr(), wides[1].data_ptr(), n, int(dt == torch.float16),
+                   stencil.stream_of(dev))
+        torch.cuda.synchronize()
+        one, two = outs[0][:x.numel()], outs[1][:x.numel()]
+        wone, wtwo = wides[0][:h.numel()], wides[1][:h.numel()]
+        ref = x.to(dt)
+        nan = torch.isnan(x)
+        r = {"narrow_packed_bitwise": bool(torch.equal(one, two)),
+             "widen_packed_bitwise": bool(torch.equal(wone.view(torch.int32),
+                                                      wtwo.view(torch.int32))),
+             "narrow_vs_torch": bool(torch.equal(one[~nan], ref.view(torch.int16)[~nan]))
+             and bool(torch.isnan(one.view(dt)[nan]).all()),
+             "nan_words": int(nan.sum())}
+        row[tag] = r
+        require(all(v for k, v in r.items() if k != "nan_words"),
+                f"the packed {tag} conversions differ from the one-cell ones: {r}")
+    emit(row)
+    return row
+
+
+def cell_twin(kern, call):
+    """A pair-layout ``call`` laid out in the one-cell layout of the same
+    program (``codegen.kernel_shape``), under a library name of its own."""
+    from repro_torch.kernels import codegen, stencil
+
+    old = stencil.StencilCall(call.ir, kern.label, kern.bc, codegen.kernel_shape(call.program),
+                              dtype=call.dtype)
+    old.lib_name += "_cells"
+    return old
+
+
+def launch_at(torch, call, ins, sc, xc=None):
+    """``(outs, reds)`` of one launch of ``call`` on ``ins`` with chunks of
+    ``xc`` planes (None: its own launch's), not counted in the launches."""
+    from repro_torch.kernels import stencil
+
+    dev = next(iter(ins.values())).device
+    c, outs, parts, args = call.prepare(ins, sc, spec_sm(torch), xc)
+    with torch.cuda.device(dev):
+        c._library().launch(*args, stencil.stream_of(dev))
+    return call.finish(outs, parts)
+
+
+def seeded(torch, fields):
+    """``fields`` with NaN, inf and -inf at a few cells of each."""
+    out = {}
+    for n, t in fields.items():
+        t = t.clone()
+        flat = t.view(-1)
+        for j, val in enumerate((float("nan"), float("inf"), float("-inf"))):
+            flat[(flat.numel() // 7) * (j + 1) + j] = val
+        out[n] = t
+    return out
+
+
+def bits(torch, t):
+    """A tensor's bit patterns (2- or 4-byte elements)."""
+    return t.reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def beside_cells_bits(torch, k, call, f, sc) -> dict:
+    """The pair layout and its one-cell layout launched with the same chunks
+    on ``f``: outputs and reductions bit for bit, NaN payloads included."""
+    old = cell_twin(k, call)
+    xc = call.derive(spec_sm(torch)).xc
+    (go, gr), (wo, wr) = launch_at(torch, call, f, sc, xc), launch_at(torch, old, f, sc, xc)
+    same_cells = call.shape.cells == old.shape.cells
+    out = {"outputs": all(bool(torch.equal(bits(torch, go[o]), bits(torch, wo[o])))
+                          for o in k.outputs),
+           "reductions": {n: bool(torch.equal(bits(torch, gr[n].float()),
+                                              bits(torch, wr[n].float())))
+                          for n in (gr or {}) if same_cells or k.reductions[n].combine == "max"}}
+    out["bitwise"] = out["outputs"] and all(out["reductions"].values())
+    return out
+
+
+def check_pairs(torch, coupled_t, tag, gen) -> dict:
+    """Each redesigned kernel at ``tag``: at an odd contiguous extent and on
+    fields at an odd offset (views) the one-cell layout, bitwise to the
+    torch backend; on fields seeded with NaN, +-inf, at the small and the
+    full shape, the pair layout bitwise to its one-cell layout (NaN bit
+    patterns too) and to the torch backend (NaN where it has NaN). Returns
+    the largest error of each against the torch backend."""
+    errs = {}
+    for name in PAIR_VARIANTS:
+        v = coupled_t[name]
+        k, p, sc, solver = v["kernel"], v["plain"], v["scalars"], v["solver"]
+        odd = COUPLED_ODD[solver]
+        errs[name] = check_coupled(torch, f"{name}:{tag}@odd", v, odd, gen)
+        base = COUPLED_SMALL[solver]
+        f = coupled_fields(torch, v, base, gen)
+        views = {}
+        for n, t in f.items():
+            views[n] = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(
+                t.shape)
+            views[n].copy_(t)
+        got, want = split_result(k, k(**views, **sc)), split_result(p, p(**f, **sc))
+        row = {"phase": "check_pairs", "variant": f"{name}:{tag}",
+               "odd_extent": {"shape": list(odd), "layout": k.launch_info[odd]["layout"]},
+               "odd_offset": {"shape": list(base), "layout": k.launch_info[base]["layout"],
+                              "max_abs_diff": hold_to(torch, k, *got, *want,
+                                                      f"{name}:{tag} on views at an odd offset")}}
+        require("/v" not in row["odd_extent"]["layout"] + row["odd_offset"]["layout"],
+                f"{name}:{tag}: an odd extent or offset took the pair layout: {row}")
+        for b in (base, COUPLED_FULL[solver]):
+            f = seeded(torch, coupled_fields(torch, v, b, gen))
+            call = k.compiled(**f, **sc)
+            require(call.shape.vec > 1, f"{name}:{tag} at {b}: not the pair layout")
+            cmp = beside_cells_bits(torch, k, call, f, sc)
+            got, want = split_result(k, k(**f, **sc)), split_result(p, p(**f, **sc))
+            nan_same = all(same(torch, got[0][o], want[0][o]) for o in k.outputs)
+            row[f"seeded_{'x'.join(map(str, b))}"] = {
+                "layout": k.launch_info[tuple(b)]["layout"], "vs_cells": cmp,
+                "vs_torch_backend": nan_same, "nonfinite": nonfinite(torch, got[0])}
+            require(cmp["bitwise"] and nan_same,
+                    f"{name}:{tag} at {b} with NaN and inf: {row}")
+            del f, got, want
+        emit(row)
+        torch.cuda.empty_cache()
+    return errs
+
+
+def beside_cells(torch, k, f, sc, ptx) -> dict:
+    """A pair-layout kernel ``k`` and its one-cell layout on the fields
+    ``f``: bitwise to each other with the same chunks, then each launched as
+    it launches, timed in turns (pairs, cells, cells, pairs; CUDA-event
+    medians of 20), each the mean of its two."""
+    from repro_torch.core import teff
+    from repro_torch.kernels import build, codegen
+
+    call = k.compiled(**f, **sc)
+    old = cell_twin(k, call)
+    cmp = beside_cells_bits(torch, k, call, f, sc)
+    require(cmp["bitwise"], f"{call.label}: the pair layout differs from its one-cell layout")
+    ms = {"pairs": [], "cells": []}
+    for which in ("pairs", "cells", "cells", "pairs"):
+        c = call if which == "pairs" else old
+        ms[which].append(teff.measure(lambda: c.run(f, sc), iters=20, warmup=3).median_s * 1e3)
+    return {"layout": codegen.layout_name(call.shape), "ms_in_turns": sum(ms["pairs"]) / 2,
+            "cell_layout": codegen.layout_name(old.shape), "cell_ms": sum(ms["cells"]) / 2,
+            "cell_ptxas": ptx.get(str(build.library_path(old.lib_name, old.source))),
+            "vs_cells": cmp}
 
 
 # ---- march_axis streaming and the finite/nan_count reductions ------------------

@@ -446,7 +446,7 @@ class StencilKernel:
             shape: {"grid": v.grid, "block": v.block, "xc": v.xc,
                     "march_axis": call.march_axis, "queue_planes": call.queue_planes,
                     "march_fallback": call.march_fallback,
-                    "layout": codegen.layout_name(call.shape)}
+                    "layout": v.layout or codegen.layout_name(call.shape)}
             for call in self._calls.values()
             for shape, v in call.launch_info.items()
         }

@@ -39,7 +39,10 @@ Fields may be stored narrower than they are computed (:class:`Storage`):
 a bf16 or f16 kernel widens every load to f32, runs the same program in f32
 and rounds each output to its storage type on store (round to nearest
 even); reductions fold the stored value, widened to f32. The torch form
-does the same on tensors.
+does the same on tensors. At 2 bytes the programs of :data:`PAIRS` print
+the pair layout of ``kernels/codegen_pairs.py`` (several adjacent cells of
+the contiguous axis a thread, moved as one word), the same program laid
+out again.
 
 The torch form lets the CPU tests check the lowering, which is the hard
 part, without ``nvcc``: it must agree bitwise with the ``torch`` backend of
@@ -88,6 +91,11 @@ class Storage:
     header: str = ""
     to_float: str = ""
     from_float: str = ""
+    # two adjacent cells as one word, and its packed conversions (the pair
+    # layout, ``kernels/codegen_pairs.py``)
+    pair: str = ""
+    to_float2: str = ""
+    from_float2: str = ""
 
     @property
     def wide(self) -> bool:
@@ -127,9 +135,10 @@ class Storage:
 _STORAGES = {
     torch.float32: Storage(torch.float32),
     torch.bfloat16: Storage(torch.bfloat16, "__nv_bfloat16", "cuda_bf16.h", "__bfloat162float",
-                            "__float2bfloat16_rn"),
+                            "__float2bfloat16_rn", "__nv_bfloat162", "__bfloat1622float2",
+                            "__floats2bfloat162_rn"),
     torch.float16: Storage(torch.float16, "__half", "cuda_fp16.h", "__half2float",
-                           "__float2half_rn"),
+                           "__float2half_rn", "__half2", "__half22float2", "__floats2half2_rn"),
 }
 
 
@@ -593,16 +602,26 @@ class KernelShape:
     min_blocks: int
     slab: bool = False
     async_copies: bool = False
+    # cells of the contiguous axis a thread owns: above 1, the pair layout
+    # for 2-byte fields (``kernels/codegen_pairs.py``)
+    vec: int = 1
 
     @property
     def threads(self) -> int:
         return self.tile[0] * self.tile[1]
 
+    @property
+    def cells(self) -> tuple[int, int]:
+        """The block's cells along (z, y)."""
+        return self.tile[0] * self.vec, self.tile[1]
+
 
 def layout_name(shape: KernelShape) -> str:
     """A layout's short name: tile, planes per step, resident blocks, and
-    ``/slab`` (synchronous staging) or ``/slab-async``."""
+    ``/slab`` (synchronous staging) or ``/slab-async``, or ``/v{vec}`` (the
+    pair layout, ``vec`` cells a thread)."""
     kind = ("/slab-async" if shape.async_copies else "/slab") if shape.slab else ""
+    kind += f"/v{shape.vec}" if shape.vec > 1 else ""
     return f"{shape.tile[0]}x{shape.tile[1]}/p{shape.planes}/b{shape.min_blocks}{kind}"
 
 
@@ -691,8 +710,8 @@ def _combine(kind: str, acc: str, val: str) -> str:
     return f"max_nan({acc}, {val})" if kind == "max" else f"({acc} + {val})"
 
 
-def fold_line(r: int, red: Reduction, vals: Sequence[str]) -> str:
-    """The statement folding reduction ``r`` at one cell into ``acc{r}``:
+def fold_line(r: int, red: Reduction, vals: Sequence[str], acc: str | None = None) -> str:
+    """The statement folding reduction ``r`` at one cell into ``acc{r}`` (or ``acc``):
     its elementwise map of the operands' f32 values ``vals`` (an output's
     stored value, widened), then its combine. The ``finite`` and
     ``nan_count`` indicator is 1 for NaN and inf (``|v| < inf`` is false for
@@ -710,7 +729,8 @@ def fold_line(r: int, red: Reduction, vals: Sequence[str]) -> str:
         m = f"fabsf({vals[0]}) < {float_literal(math.inf)} ? 0.0f : 1.0f"
     else:
         raise NotImplementedError(f"reduction kind {red.kind!r} is not ported to the CUDA kernel")
-    return f"acc{r} = {_combine(red.combine, f'acc{r}', f'({m})')};"
+    acc = acc or f"acc{r}"
+    return f"{acc} = {_combine(red.combine, acc, f'({m})')};"
 
 
 def stride_names(program: TapProgram) -> list[str]:
@@ -769,8 +789,30 @@ def march_reach(program: TapProgram) -> tuple[int, int]:
             max(program.to3(s.hi, 0)[0] for s in program.stages))
 
 
-def kernel_shape(program: TapProgram) -> KernelShape:
-    """The layout of the program's kernel: the fastest on the H100 without
+# The pair layout for fields stored at 2 bytes (``KernelShape.vec``,
+# ``kernels/codegen_pairs.py``), by rank, whether the program has stages and
+# whether it has reductions: the fastest without spills on the H100
+# (``launch/tune_stencil.py --dtype bfloat16``; PERF.md, section 6). The
+# all-parallel programs not listed keep the one-cell layout at every
+# storage width.
+PAIRS = {(2, True, False): KernelShape((128, 1), 2, 6, vec=4),
+         (2, True, True): KernelShape((128, 1), 2, 6, vec=4),
+         (3, True, False): KernelShape((16, 8), 2, 7, vec=2),
+         (3, True, True): KernelShape((16, 8), 4, 6, vec=2),
+         (3, False, False): KernelShape((16, 8), 2, 10, vec=2),
+         (3, False, True): KernelShape((16, 8), 4, 10, vec=2)}
+
+
+def pair_shape(program: TapProgram) -> KernelShape | None:
+    """The program's pair layout (:data:`PAIRS`), or None."""
+    return PAIRS.get((program.ndim, bool(program.stages), bool(program.reductions)))
+
+
+def kernel_shape(program: TapProgram, dtype: torch.dtype = torch.float32) -> KernelShape:
+    """The layout of the program's kernel for fields stored as ``dtype``:
+    for 2-byte storage of an all-parallel program in :data:`PAIRS`, its pair
+    layout (``kernels/stencil.py`` takes it where the fields' extents and
+    addresses allow, :func:`codegen_pairs.fits`); else the fastest on the H100 without
     register spills over the candidates of ``launch/tune_stencil.py``
     (PERF.md, section 6). Six resident blocks of 256 threads (40 registers), but
     five (48) for a program with stages, which can spill at 40; four planes
@@ -783,6 +825,8 @@ def kernel_shape(program: TapProgram) -> KernelShape:
     kernel, the synchronous slab 2.8-4.2x)."""
     if program.z_strided and (slab := slab_layout(program)) is not None:
         return slab
+    if not storage(dtype).wide and not program.layout and (pair := pair_shape(program)):
+        return pair
     planes = 4 if program.stages and not (program.ndim == 3 and program.reductions) else 2
     return KernelShape(base_tile(program), planes, 5 if program.stages else 6)
 
@@ -926,6 +970,9 @@ def shared_bytes(program: TapProgram, shape: KernelShape | None = None) -> int:
     ``async_copies``), and the reduction fold's one value per warp and
     reduction. Static, but dynamic with ``async_copies``."""
     shape = shape or kernel_shape(program)
+    if shape.vec > 1:
+        from . import codegen_pairs
+        return codegen_pairs.shared_bytes(program, shape)
     cells = sum(math.prod(stage_tile(program, s, shape)) for s in program.stages)
     words = cells * queue_planes(program, shape)
     if shape.slab and shape.async_copies:
@@ -1016,14 +1063,24 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     A slab (``shape.slab``) reads the fields the core and the stages read
     from plane queues in shared memory and writes its outputs through a
     step buffer there, both planes-fastest (:class:`KernelShape`). ``part``
-    ("stage" or "compute") prints a timing variant of a slab
-    (``launch/tune_stencil.py --split``): the field queues' staging alone,
-    or staging and compute without the stores; what it drops it folds into
-    a value stored only if it equals 1e38, so the compiler keeps the work."""
+    prints a timing variant (``launch/tune_stencil.py --split``): of a slab,
+    "stage" (the field queues' staging alone) or "compute" (staging and
+    compute without the stores); of the all-parallel kernel, "load" (every
+    load of the stages and the core program, widened, and the barriers; no
+    operation, no staging, no store) or "compute" (all but the core cells'
+    stores, their rounded values kept). What a part drops it folds into a
+    value stored only if it equals 1e38, so the compiler keeps the work; the
+    cells outside the core (faces, rings) run whole in every part."""
     if program.ndim > 3:
         raise NotImplementedError("the generated CUDA kernel handles 1-3 dimensions")
     st = storage(dtype)
     shape = shape or kernel_shape(program)
+    if shape.vec > 1:
+        if st.wide or shape.slab or program.layout:
+            raise ValueError(f"the pair layout {layout_name(shape)} serves 2-byte fields of an "
+                             "all-parallel launch")
+        from . import codegen_pairs
+        return codegen_pairs.cuda_source(program, shape, st, part)
     (bz, by), planes = shape.tile, shape.planes
     fidx = {f: k for k, f in enumerate(program.fields)}
     classes = shape_classes(program)
@@ -1225,7 +1282,8 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
         if fq and stages and not pipe:
             w("    __syncthreads();")
         for k, (s, (py, pz)) in enumerate(zip(stages, tiles)):
-            _emit_stage(w, program, shape, k, s, py, pz, fidx, fcls, st, fq, fslot, ahead)
+            _emit_stage(w, program, shape, k, s, py, pz, fidx, fcls, st, fq, fslot, ahead,
+                        loads_only=part == "load")
         if stages or (fq and not pipe):
             w("    __syncthreads();")
         out_idx = {op.name: k for k, op in enumerate(program.outputs)}
@@ -1262,16 +1320,24 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
                 continue
             w(f"{ind}const float l{j} = "
               f"{st.widen(f'g{fidx[f]}[{_offset(f"at{c}", c, program.to3(off, 0), "S", zs)}]')};")
-        for j, (k, rel) in enumerate(core.reads):
+        for j, (k, rel) in enumerate(core.reads if part != "load" else ()):
             d, lo = program.to3(rel, 0), program.to3(stages[k].lo, 0)
             pz = tiles[k][1]
             w(f"{ind}const float u{j} = sm{k}[q{d[0] - lo_x}][(ty + {d[1] - lo[1]}) * {pz} + tz + {d[2] - lo[2]}];")
         ref = _printer("l", "u", "e")
-        _emit_ops(w, ind, core.ops, "e", ref)
+        if part == "load":
+            w(f"{ind}sink += {' + '.join(f'l{j}' for j in range(len(core.loads)))};")
+        else:
+            _emit_ops(w, ind, core.ops, "e", ref)
         for k, (op, res) in enumerate(zip(program.outputs, core.results)):
+            if part == "load":
+                continue
             val = emit_value(w, ind, k, ref(res), st)
+            if part == "compute" and not fq:
+                w(f"{ind}sink += v{k};")
+                continue
             w(f"{ind}" + (f"{buf(k)} = {val};" if fq else f"h{k}[at{fcls[op.name]}] = {val};"))
-        for line in reds:
+        for line in reds if part != "load" else ():
             w(f"{ind}{line}")
         w("    };")
         # every output's direct program at plane x: rings, faces and the edges
@@ -1297,7 +1363,7 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
         w("        }")
         w("      }")
         w("    }")
-        if part == "compute":
+        if part == "compute" and fq:
             if not pipe:
                 w("    __syncthreads();")
             for k in range(n_out):
@@ -1343,6 +1409,17 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w("")
     w("}  // namespace")
     w("")
+    _emit_entry(w, program, st, pipe)
+    return "\n".join(lines) + "\n"
+
+
+def _emit_entry(w, program: TapProgram, st: Storage, pipe: bool) -> None:
+    """The plain C entry point ``launch`` and ``error_string``."""
+    n_out, n_red, n_par = len(program.outputs), len(program.reductions), len(program.params)
+    divs = divisor_params(program)
+    dims = ("nx", "ny", "nz")
+    strides = stride_names(program)
+    T = st.ctype
     cargs = [f"const void* in{k}" for k in range(len(program.fields))]
     cargs += [f"void* out{k}" for k in range(n_out)]
     cargs += [f"void* part{k}" for k in range(n_red)]
@@ -1370,7 +1447,6 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w('extern "C" const char* error_string(int err) {')
     w("  return cudaGetErrorString(static_cast<cudaError_t>(err));")
     w("}")
-    return "\n".join(lines) + "\n"
 
 
 def emit_value(w, ind: str, k: int, expr: str, st: Storage) -> str:
@@ -1435,13 +1511,15 @@ def _emit_stage_setup(w, program: TapProgram, shape: KernelShape, k: int, s: Sta
 
 
 def _emit_stage(w, program: TapProgram, shape: KernelShape, k: int, s: Stage, py: int, pz: int,
-                fidx, fcls, st: Storage, fq=None, fslot=None, ahead=None) -> None:
+                fidx, fcls, st: Storage, fq=None, fslot=None, ahead=None,
+                loads_only: bool = False) -> None:
     """Stage ``k``'s planes ``xs + kHi .. + kPlanes - 1`` over its tile and
     halo. An element outside the frame is computed at the nearest element
     inside (so every load is in range and none waits on a branch) and
     stored as 0. A slab's stage reads the field queues ``fq`` (``fslot``:
     the slot of a plane from the first of a step's window, each window
-    ``ahead`` of the step)."""
+    ``ahead`` of the step). ``loads_only`` (a timing variant) folds the
+    loads into ``sink`` and computes and stages nothing."""
     nt = shape.threads
     n = py * pz
     trim_x = program.to3(s.trim, 0)[0]
@@ -1450,7 +1528,8 @@ def _emit_stage(w, program: TapProgram, shape: KernelShape, k: int, s: Stage, py
     w("    for (int p = 0; p < kPlanes; ++p) {")
     w("      const int q = xs + kHi + p;")
     w(f"      const int qc = min(max(q, 0), static_cast<int>(nx) - {trim_x + 1});")
-    w(f"      float* const dst = sm{k}[wrap(base + p)];")
+    if not loads_only:
+        w(f"      float* const dst = sm{k}[wrap(base + p)];")
     for i in range(-(-n // nt)):
         ind = "      "
         if (i + 1) * nt > n:
@@ -1477,6 +1556,10 @@ def _emit_stage(w, program: TapProgram, shape: KernelShape, k: int, s: Stage, py
                 continue
             w(f"{ind}const float a{j} = "
               f"{st.widen(f'g{fidx[f]}[{_offset(f"e{c}", c, d, "S", program.z_strided)}]')};")
+        if loads_only:
+            w(f"{ind}sink += {' + '.join(f'a{j}' for j in range(len(s.loads)))};")
+            w("      }")
+            continue
         ref = _printer("a", "?", "t")
         _emit_ops(w, ind, s.ops, "t", ref)
         w(f"{ind}dst[e{k}_{i}] = q == qc && in{k}_{i} ? {ref(s.result)} : 0.0f;")

@@ -69,6 +69,7 @@ static dim3 gridDim, blockDim;
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 typedef void* cudaStream_t;
 using std::min;
 using std::max;
@@ -148,6 +149,24 @@ inline __half __float2half_rn(float f) {
   uint32_t r = mant >> shift;
   if (rem > half || (rem == half && (r & 1u))) ++r;
   return {uint16_t(sign | r)};
+}
+// A word of two adjacent cells, and the packed conversions: each half
+// converted as the one-cell conversion converts it.
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+struct __half2 { __half x, y; };
+struct alignas(8) float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline float2 __bfloat1622float2(__nv_bfloat162 v) {
+  return {__bfloat162float(v.x), __bfloat162float(v.y)};
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float2 __half22float2(__half2 v) { return {__half2float(v.x), __half2float(v.y)}; }
+inline __half2 __floats2half2_rn(float a, float b) {
+  return {__float2half_rn(a), __float2half_rn(b)};
 }
 // An async slab's copies: each is queued and performed only at the thread's
 // wait_copies(), its destination NaN until then, so a read before the wait
@@ -322,21 +341,45 @@ extern "C" void widen(const uint16_t* h, float* out, int64_t n, int half) {
   for (int64_t i = 0; i < n; ++i)
     out[i] = half ? __half2float(__half{h[i]}) : __bfloat162float(__nv_bfloat16{h[i]});
 }
+extern "C" void narrow_pairs(const float* x, uint16_t* out, int64_t n, int half) {
+  for (int64_t i = 0; i + 1 < n; i += 2) {
+    if (half) {
+      const __half2 p = __floats2half2_rn(x[i], x[i + 1]);
+      out[i] = p.x.x, out[i + 1] = p.y.x;
+    } else {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(x[i], x[i + 1]);
+      out[i] = p.x.x, out[i + 1] = p.y.x;
+    }
+  }
+}
+extern "C" void widen_pairs(const uint16_t* h, float* out, int64_t n, int half) {
+  for (int64_t i = 0; i + 1 < n; i += 2) {
+    const float2 f = half ? __half22float2(__half2{__half{h[i]}, __half{h[i + 1]}})
+                          : __bfloat1622float2(__nv_bfloat162{__nv_bfloat16{h[i]},
+                                                              __nv_bfloat16{h[i + 1]}});
+    out[i] = f.x, out[i + 1] = f.y;
+  }
+}
 '''
 
 
-def convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def convert(x: torch.Tensor, dtype: torch.dtype, pairs: bool = False) -> torch.Tensor:
     """The rehearsal's own conversions on a CPU tensor: f32 to ``dtype``
     (bf16 or f16) with ``__float2bfloat16_rn``/``__float2half_rn``, or a
-    bf16/f16 tensor to f32 with ``__bfloat162float``/``__half2float``."""
+    bf16/f16 tensor to f32 with ``__bfloat162float``/``__half2float``; with
+    ``pairs`` (an even number of elements) the packed conversions of each
+    two adjacent elements, ``__floats2bfloat162_rn``/``__floats2half2_rn``
+    and ``__bfloat1622float2``/``__half22float2``."""
     lib = _compile(_SHIM + _CONVERT, "convert")
     src = x.contiguous()
+    if pairs and src.numel() % 2:
+        raise ValueError("the packed conversions take an even number of elements")
     if src.dtype == torch.float32:
         out = torch.empty(src.shape, dtype=dtype)
-        fn, half = lib.narrow, dtype == torch.float16
+        fn, half = lib.narrow_pairs if pairs else lib.narrow, dtype == torch.float16
     else:
         out = torch.empty(src.shape, dtype=torch.float32)
-        fn, half = lib.widen, src.dtype == torch.float16
+        fn, half = lib.widen_pairs if pairs else lib.widen, src.dtype == torch.float16
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
     fn.restype = None
     fn(src.data_ptr(), out.data_ptr(), src.numel(), int(half))
@@ -351,7 +394,7 @@ def run(call: stencil.StencilCall, fields: Mapping[str, torch.Tensor],
     chunks of ``xc`` planes; ``text`` runs that C++ (an edited
     :func:`source`) instead of the call's own."""
     ins = {f: fields[f].contiguous() for f in call.program.fields}
-    _, outs, parts, args = call.arguments(ins, scalars, n_sm, xc, divisor=float)
+    call, outs, parts, args = call.prepare(ins, scalars, n_sm, xc, divisor=float)
     for part in parts:
         part.fill_(float("nan"))      # a block that writes no partial shows
     fn = (library(call) if text is None else _compile(text, call.lib_name)).launch

@@ -42,6 +42,13 @@ f16, compute f32: :func:`default_compute_dtype`): the kernel widens each
 load, computes in f32 and rounds each output to its storage type on store
 (round to nearest even); reductions fold the stored values in f32
 (:func:`accum_dtype`), so a bf16 step moves half the bytes of an f32 one.
+At 2 bytes the single step of a program in ``codegen.PAIRS`` takes the pair
+layout (``kernels/codegen_pairs.py``: 2 or 4 cells of the contiguous axis a
+thread, moved as one word) where its fields' extents and strides allow,
+decided when the :class:`StencilCall` is built, and each launch whose
+fields' addresses are not aligned to its words takes the one-cell layout of
+the same program instead (:meth:`StencilCall.layout_call`);
+``launch_info`` names the layout each launch took.
 
 A marched call (``march_axis=a``, the counterpart of the reference's
 streamed launch, ``src/repro/kernels/stencil.py:826-833``) lays the
@@ -83,7 +90,7 @@ import torch
 
 from ..ir.bc import BoundaryCondition
 from ..ir.trace import StencilIR
-from . import build, codegen, codegen_steps
+from . import build, codegen, codegen_pairs, codegen_steps
 
 # Launches of the generated kernels, by kernel name; ``run`` adds one where it
 # launches, and nowhere else.
@@ -115,6 +122,7 @@ class Launch:
     grid: tuple[int, int, int]
     block: tuple[int, int, int]
     xc: int
+    layout: str = ""      # codegen.layout_name of the layout launched
 
     @property
     def n_blocks(self) -> int:
@@ -134,7 +142,7 @@ def derive_launch(shape3: tuple[int, int, int], n_sm: int, kernel: codegen.Kerne
     offsets (``strides3``: the strides of the kernel's (x, y, z), by default
     those of a C-contiguous (nx, ny, nz) grid)."""
     nx, ny, nz = shape3
-    (bz, by), step = kernel.tile, kernel.planes
+    (bz, by), step = kernel.cells, kernel.planes
     gz, gy = -(-nz // bz), -(-ny // by)
     target = (waves or WAVES) * kernel.min_blocks * n_sm
     chunks = min(nx, max(1, -(-target // (gz * gy))))
@@ -251,6 +259,8 @@ class StencilCall:
                 "(ROADMAP queue 1, item 3: f64 storage)")
         self.ir = ir
         self.dtype = dtype
+        self._made = (label, bcs)
+        self._cells: StencilCall | None = None
         self.nsteps = int(nsteps)
         if rotations is None and self.nsteps != 1:
             raise ValueError(f"{label}: {self.nsteps} sweeps per launch need rotations")
@@ -280,7 +290,15 @@ class StencilCall:
         self.divisors = codegen.divisor_params(self.program)
         dtype, rotations = self.dtype, self.rotations
         if rotations is None:
-            self.shape = shape or codegen.kernel_shape(self.program)
+            self.shape = shape or codegen.kernel_shape(self.program, dtype)
+            if self.shape.vec > 1 and not codegen_pairs.fits(
+                    self.program, self.shape.vec, [self.extents3(o) for o in self.classes],
+                    [self.strides3(o) for o in self.classes]):
+                if shape is not None:
+                    raise ValueError(f"{label}: the pair layout {codegen.layout_name(shape)} "
+                                     f"does not fit the extents {tuple(ir.base_shape)}")
+                # an extent the pairs do not divide: the one-cell layout
+                self.shape = codegen.kernel_shape(self.program)
             smem = codegen.shared_bytes(self.program, self.shape)
             limit = codegen.SM_SHARED if self.shape.async_copies else codegen.SHARED_LIMIT
             if smem > limit:
@@ -344,13 +362,38 @@ class StencilCall:
                 return codegen.evaluate_torch(p, ins, scalars)
             return codegen.evaluate_steps_torch(p, self.rotations, self.nsteps, ins, scalars)
         dev = check_cuda_fields(ins, self.ir.field_shapes, self.dtype)
-        launch, outs, parts, args = self.arguments(
+        call, outs, parts, args = self.prepare(
             ins, scalars, torch.cuda.get_device_properties(dev).multi_processor_count)
-        self.launch_info[tuple(self.ir.base_shape)] = launch
         with torch.cuda.device(dev):
-            self._library().launch(*args, stream_of(dev))
+            call._library().launch(*args, stream_of(dev))
         launches[self.label] += 1
         return self.finish(outs, parts)
+
+    def layout_call(self, ins: Mapping[str, torch.Tensor]) -> "StencilCall":
+        """The call that launches on ``ins``: this one, or, for the pair
+        layout on fields whose addresses are not aligned to its words (a
+        view at an odd offset), the one-cell layout of the same program
+        (``codegen.kernel_shape``), counted under this call's label."""
+        vec = self.shape.vec
+        if vec == 1 or codegen_pairs.aligned_ptrs((t.data_ptr() for t in ins.values()), vec,
+                                                  self.dtype.itemsize):
+            return self
+        if self._cells is None:
+            label, bcs = self._made
+            self._cells = StencilCall(self.ir, label, bcs, codegen.kernel_shape(self.program),
+                                      dtype=self.dtype)
+        return self._cells
+
+    def prepare(self, ins: Mapping[str, torch.Tensor], scalars: Mapping[str, Any], n_sm: int,
+                xc: int | None = None, divisor=codegen.reciprocal):
+        """``(call, outs, parts, args)`` of one launch on ``ins``: the call
+        that launches (:meth:`layout_call`) and its :meth:`arguments`; the
+        launch is recorded in ``launch_info`` with the layout it takes."""
+        call = self.layout_call(ins)
+        launch, outs, parts, args = call.arguments(ins, scalars, n_sm, xc, divisor)
+        self.launch_info[tuple(self.ir.base_shape)] = dataclasses.replace(
+            launch, layout=codegen.layout_name(call.shape))
+        return call, outs, parts, args
 
     def arguments(self, ins: Mapping[str, torch.Tensor], scalars: Mapping[str, Any],
                   n_sm: int, xc: int | None = None, divisor=codegen.reciprocal):
@@ -375,6 +418,11 @@ class StencilCall:
                 *(t.data_ptr() for t in parts), *host, *shape3, *strides, launch.xc,
                 *launch.grid]
         return launch, outs, parts, args
+
+    def extents3(self, off3=(0, 0, 0)) -> tuple[int, int, int]:
+        """The extents along the kernel's (x, y, z) of a field of the shape
+        class ``off3``."""
+        return tuple(n - d for n, d in zip(self.program.to3(self.ir.base_shape, 1), off3))
 
     def strides3(self, off3=(0, 0, 0)) -> tuple[int, int, int]:
         """The strides along the kernel's (x, y, z) of a field of the shape
@@ -407,7 +455,7 @@ class StencilCall:
         along the marched axis): the tile of the cost model's
         ``fetched_bytes_per_step`` and ``a_eff_streamed``."""
         launch = self.derive(n_sm)
-        ext3 = (launch.xc, self.shape.tile[1], self.shape.tile[0])
+        ext3 = (launch.xc, self.shape.cells[1], self.shape.cells[0])
         return tuple(ext3[k] for k in self.program.axes3)
 
     def finish(self, outs, parts):

@@ -4,6 +4,7 @@
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --steps [--waves 2,4,8] [--ks 1,2]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --dtype bfloat16 [--steps]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --march 0,1,2 [--ks 1,2]
+    PYTHONPATH=src python -m repro_torch.launch.tune_stencil --split [--dtype bfloat16] [--sass DIR]
 
 For the coupled solvers' kernels at their full sizes (porosity 8192^2, GP
 512^3) and the Fig. 1 step at 512^3, it builds each candidate
@@ -22,8 +23,11 @@ the layouts in ``STEPS_3D``/``STEPS_2D`` and values of ``stencil.STEPS_WAVES``;
 ``--ks 1`` times the k-step printer's single sweep beside the single-step
 kernel of ``kernels/codegen.py`` on the same fields. ``--dtype bfloat16`` or
 ``float16`` times every kernel with its fields stored at 2 bytes a cell
-(computed in f32; the fields rounded once from the f32 ones), where a warp
-reads 64 bytes of a row instead of 128. ``--march 0,1,2`` times the marched
+(computed in f32; the fields rounded once from the f32 ones), the pair
+layouts of ``PAIRS_2D``/``PAIRS_3D`` (``KernelShape.vec``: 2 or 4 cells of
+the contiguous axis a thread, ``kernels/codegen_pairs.py``) beside the
+one-cell layouts; ``codegen.PAIRS`` is its choice (``--kernels`` picks
+kernels by name). ``--march 0,1,2`` times the marched
 variants (``march_axis``) of FIG1's step, porosity's and GP's fused kernels
 along each of those axes they have, single step over the layouts of
 ``march_candidates`` (along the contiguous axis: the async slabs of
@@ -34,11 +38,15 @@ values of the layout's waves constant (``stencil.waves_attr``: ``WAVES``,
 ``STEPS_WAVES`` or ``SLAB_WAVES``) to time; each launch is held bitwise
 against the twin's, and ``codegen.kernel_shape`` (``codegen.SLABS``,
 ``codegen_steps.SLABS``) for a marched program is its choice. ``--split``
-times each kernel's march along the contiguous axis in parts, the
-synchronous slab and the async slabs of ``SPLIT_SLABS`` (staging alone,
-staging and compute, the whole kernel: ``codegen.cuda_source``'s
-``part``), beside the twin, in turns. It needs the card and measures
-nothing on the CPU.
+times the all-parallel kernel of FIG1's step, porosity's and GP's fused
+kernels in parts (loads and conversions alone, and compute, the whole
+kernel: ``codegen.cuda_source``'s ``part``), at ``--dtype`` beside the f32
+twin and a pair layout beside its one-cell layout, in turns; ``--sass DIR`` writes each library's SASS there and counts
+the instructions per cell of its march loop (``sass_loop``). ``--split
+--march 2`` times each kernel's march along the contiguous axis in parts,
+the synchronous slab and the async slabs of ``SPLIT_SLABS`` (staging alone,
+staging and compute, the whole kernel), beside the twin, in turns. It needs
+the card and measures nothing on the CPU.
 """
 from __future__ import annotations
 
@@ -47,7 +55,12 @@ import copy
 import dataclasses
 import inspect
 import json
+import math
+import os
+import pathlib
 import re
+import shutil
+import subprocess
 import sys
 import time
 
@@ -135,11 +148,34 @@ def kernels(dev, dtype: torch.dtype = torch.float32) -> dict:
                 sc) for n, (k, p, f, sc) in out.items()}
 
 
+# pair layouts (``KernelShape.vec``) tried for 2-byte fields, by rank: 2 and 4
+# cells a thread, planes per step, resident blocks
+PAIRS_3D = [Shape(t, p, b, vec=v) for v, t, bs in ((2, (16, 8), (6, 7, 8, 10)),
+                                                   (4, (8, 8), (8, 10, 12, 16)))
+            for p in (2, 4) for b in bs] + [
+    Shape((16, 8), 1, 8, vec=2), Shape((16, 8), 1, 10, vec=2), Shape((16, 8), 8, 6, vec=2),
+    Shape((8, 8), 8, 8, vec=4), Shape((16, 16), 4, 4, vec=2), Shape((16, 16), 2, 3, vec=2),
+    Shape((16, 16), 4, 3, vec=2), Shape((8, 16), 2, 6, vec=4), Shape((8, 16), 2, 5, vec=4),
+    Shape((8, 16), 1, 6, vec=4), Shape((8, 16), 1, 8, vec=4), Shape((8, 8), 1, 10, vec=4),
+    Shape((8, 8), 1, 12, vec=4), Shape((8, 8), 1, 14, vec=4), Shape((16, 8), 1, 7, vec=2)]
+PAIRS_2D = [Shape(t, p, b, vec=v) for v, t, bs in ((2, (128, 1), (6, 8, 10)),
+                                                   (4, (64, 1), (8, 10, 12, 16))) for p in (2, 4)
+            for b in bs] + [Shape((256, 1), 4, 4, vec=2), Shape((128, 1), 4, 8, vec=4),
+                            Shape((128, 1), 2, 6, vec=4), Shape((64, 1), 8, 12, vec=4),
+                            Shape((128, 1), 8, 6, vec=2), Shape((32, 1), 2, 24, vec=4)]
+
+
 def candidates(call) -> list:
+    """The one-cell layouts of the call's rank, and for 2-byte fields the
+    pair layouts beside them."""
     p = call.program
     if p.ndim == 3:
-        return STAGED_3D if p.stages else PLAIN_3D
-    return STAGED_2D if p.stages else PLAIN_2D
+        cells = STAGED_3D if p.stages else PLAIN_3D
+    else:
+        cells = STAGED_2D if p.stages else PLAIN_2D
+    if call.dtype.itemsize == 2:
+        return [*cells, *(PAIRS_3D if p.ndim == 3 else PAIRS_2D)]
+    return cells
 
 
 def ptxas(log: str) -> dict:
@@ -380,6 +416,125 @@ def tune_split(todo: dict, iters: int, rounds: int = 2) -> None:
               flush=True)
 
 
+# the all-parallel kernel's timing parts (``codegen.cuda_source``'s ``part``)
+PARALLEL_PARTS = ("load", "compute")
+
+
+def cuobjdump() -> str | None:
+    """The toolkit's ``cuobjdump``, or None."""
+    path = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return path if os.access(path, os.X_OK) else None
+
+
+def write_sass(library, path) -> bool:
+    """Write the SASS of a built library to ``path`` (False without
+    ``cuobjdump``)."""
+    exe = cuobjdump()
+    if exe is None:
+        return False
+    out = subprocess.run([exe, "-sass", str(library)], capture_output=True, text=True)
+    pathlib.Path(path).write_text(out.stdout + out.stderr)
+    return True
+
+
+_SASS_LINE = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)"
+                        r"(?:\.[A-Z0-9_.]+)?\s*([^;]*);")
+
+
+def sass_loop(text: str, cells: int) -> dict:
+    """Instructions of a single-step kernel's march loop in SASS
+    (``cuobjdump -sass``): the loop is the widest backward branch; its
+    stage part runs from its start to the first barrier, less the spans
+    of the forward branches there (a stage's partial last iteration, which
+    only some threads run); its core is the longest branch-free block after
+    the barrier with the most stores (the unrolled core program over a
+    step's planes; without stages the loop has no barrier). Per cell: a
+    thread's stage part and core block over its ``cells`` a step (planes
+    times cells a thread), by opcode
+    (``loads``, ``stores``: global; ``shared``; ``fp``: f32 arithmetic;
+    ``convert``)."""
+    ins = [(int(m.group(1), 16), m.group(3), m.group(4)) for m in map(_SASS_LINE.match,
+                                                                   text.splitlines()) if m]
+    branches = [(a, int(t, 16)) for a, op, arg in ins if op == "BRA"
+                for t in re.findall(r"0x([0-9a-f]+)\s*$", arg)]
+    back = [(t, a) for a, t in branches if t < a]
+    if not back:
+        return {}
+    lo, hi = max(back, key=lambda b: b[1] - b[0])
+    body = [(a, op) for a, op, _ in ins if lo <= a <= hi]
+    bar = next((a for a, op in body if op == "BAR"), lo)
+    skipped = set()
+    for a, t in branches:
+        if lo <= a < bar and a < t <= bar:
+            skipped.update(range(a + 16, t, 16))
+    stage = [op for a, op in body if a < bar and a not in skipped and op != "BAR"]
+    # basic blocks after the barrier: each ends after a branch or before a target
+    bounds = sorted({a + 16 for a, _ in branches if bar < a <= hi}
+                    | {t for _, t in branches if bar < t <= hi} | {bar + 16, hi + 16})
+    blocks = [[op for a, op in body if b0 <= a < b1] for b0, b1 in zip(bounds, bounds[1:])]
+    core = max(blocks, key=lambda b: (b.count("STG"), len(b)))
+    kinds = {"loads": ("LDG", "LD"), "stores": ("STG", "ST"), "shared": ("LDS", "STS"),
+             "fp": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "MUFU"),
+             "convert": ("F2F", "F2FP", "PRMT", "HADD2", "I2F", "F2I")}
+    per_cell = {"all": (len(stage) + len(core)) / cells}
+    for k, ops in kinds.items():
+        per_cell[k] = sum(op in ops for op in stage + core) / cells
+    return {"loop": len(body), "stage": len(stage), "core_block": len(core),
+            "per_cell": per_cell}
+
+
+def tune_split_parallel(todos: dict, iters: int, rounds: int = 2, sass: str | None = None) -> None:
+    """Time each kernel's all-parallel launch in parts (one JSON line per
+    kernel and storage dtype; ``todos``: ``{dtype name: kernels()}``): its
+    loads and conversions alone, those and the compute without the core
+    cells' stores, the whole kernel, in turns over ``rounds`` rounds; a
+    pair layout also in its one-cell layout (dtype ``.../cells``). Each
+    whole kernel is held bitwise to the ``torch`` backend; the parts keep
+    nothing. With ``sass`` each library's SASS goes to that directory."""
+    runs = {}
+    for dt, todo in todos.items():
+        for n in MARCH_KERNELS:
+            k, _, f, sc = todo[n] = solver_state(todo, n)
+            call = k.compiled(**f, **sc)
+            layouts = {dt: call}
+            if call.shape.vec > 1:
+                layouts[f"{dt}/cells"] = relaid(k, call, codegen.kernel_shape(call.program))
+            for tag, c in layouts.items():
+                runs[(n, tag)] = {"whole": c,
+                                  **{part: part_call(c, part) for part in PARALLEL_PARTS}}
+    t0 = time.perf_counter()
+    calls = [c for r in runs.values() for c in r.values()]
+    logs = build.compile_many([(c.lib_name, c.source) for c in calls])
+    print(json.dumps({"built": len(calls), "seconds": time.perf_counter() - t0}), flush=True)
+    found = {c.lib_name: ptxas(b.log) for c, b in zip(calls, logs)}
+    counts = {}
+    if sass:
+        pathlib.Path(sass).mkdir(parents=True, exist_ok=True)
+        for (n, dt), r in runs.items():
+            for v, c in r.items():
+                path = pathlib.Path(sass) / f"{n}_{dt.replace('/', '_')}_{v}.sass"
+                if write_sass(build.library_path(c.lib_name, c.source), path) and v == "whole":
+                    counts[(n, dt)] = sass_loop(path.read_text(), c.shape.planes * c.shape.vec)
+    for (n, dt), r in runs.items():
+        k, plain, f, sc = todos[dt.split("/")[0]][n]
+        want = plain(**f, **sc)
+        want = want[0] if k.reductions else want
+        want = {k.outputs[0]: want} if len(k.outputs) == 1 else want
+        got, _ = r["whole"].run(f, sc)
+        if not all(torch.equal(got[o], want[o]) for o in k.outputs):
+            raise RuntimeError(f"{n} ({dt}): not bitwise equal to the torch backend")
+        ms = {v: [] for v in r}
+        for _ in range(rounds):
+            for v, c in r.items():
+                ms[v].append(teff.measure(lambda: c.run(f, sc), iters=iters,
+                                          warmup=3).median_s * 1e3)
+        print(json.dumps({"kernel": n, "dtype": dt, "layout": layout_name(r["whole"].shape),
+                          "cells": math.prod(r["whole"].ir.base_shape), "ms": ms,
+                          "libraries": {v: c.lib_name for v, c in r.items()},
+                          "ptxas": {v: found[c.lib_name] for v, c in r.items()},
+                          "sass": counts.get((n, dt))}), flush=True)
+
+
 layout_name = codegen.layout_name
 
 
@@ -391,9 +546,14 @@ def main(argv=None) -> int:
     ap.add_argument("--march", default=None,
                     help="tune the marched kernels along these axes, e.g. 0,1,2")
     ap.add_argument("--split", action="store_true",
-                    help="with --march: time the contiguous-axis march in parts")
+                    help="time the all-parallel kernel in parts (with --march: the "
+                         "contiguous-axis march)")
+    ap.add_argument("--sass", default=None,
+                    help="with --split: write each library's SASS into this directory")
     ap.add_argument("--ks", default=None,
                     help="with --steps: the k to time, e.g. 1,2 (default: STEPS_KS)")
+    ap.add_argument("--kernels", default=None,
+                    help="only these kernels (names as printed, comma-separated)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "float16"],
                     help="the fields' storage dtype (compute stays f32)")
@@ -405,8 +565,16 @@ def main(argv=None) -> int:
     name, power = teff.card_info(0)
     print(json.dumps({"card": name, "power_limit": power, "dtype": args.dtype}), flush=True)
     todo = kernels(dev, getattr(torch, args.dtype))
-    if args.split:
+    if args.kernels:
+        todo = {n: todo[n] for n in args.kernels.split(",")}
+    if args.split and args.march:
         tune_split(todo, args.iters)
+        return 0
+    if args.split:
+        todos = {args.dtype: todo}
+        if args.dtype != "float32":     # beside the f32 twin
+            todos["float32"] = kernels(dev, torch.float32)
+        tune_split_parallel(todos, args.iters, sass=args.sass)
         return 0
     if args.march:
         tune_march(todo, [int(a) for a in args.march.split(",")],
@@ -419,11 +587,18 @@ def main(argv=None) -> int:
         tune_steps(todo, waves, args.iters,
                    [int(x) for x in args.ks.split(",")] if args.ks else None)
         return 0
-    tuned = {}
+    tuned, chosen = {}, {}
     for n, (k, _, f, sc) in todo.items():
         call = k.compiled(**f, **sc)
-        tuned[n] = [stencil.StencilCall(call.ir, k.label, k.bc, shape, dtype=call.dtype)
-                    for shape in candidates(call)]
+        chosen[n] = call.shape
+        tuned[n] = []
+        for shape in candidates(call):
+            try:
+                tuned[n].append(stencil.StencilCall(call.ir, k.label, k.bc, shape,
+                                                    dtype=call.dtype))
+            except (ValueError, NotImplementedError):   # pairs the extents do not fit
+                continue
+
     t0 = time.perf_counter()
     logs = iter(build.compile_many([(t.lib_name, t.source) for ts in tuned.values()
                                     for t in ts]))
@@ -444,13 +619,9 @@ def main(argv=None) -> int:
                     raise RuntimeError(f"{t.label} at {t.shape}, {w} waves: not bitwise equal "
                                        "to the torch backend")
                 ms = teff.measure(lambda: t.run(f, sc), iters=args.iters, warmup=3).median_s * 1e3
-                sh = t.shape
-                row[f"{sh.tile[0]}x{sh.tile[1]}/p{sh.planes}/b{sh.min_blocks}/w{w}"] = {
-                    "ms": ms, **found}
+                row[f"{layout_name(t.shape)}/w{w}"] = {"ms": ms, **found}
         stencil.WAVES = default_waves
-        chosen = codegen.kernel_shape(tuned[n][0].program)
-        print(json.dumps({"kernel": n, "chosen": f"{chosen.tile[0]}x{chosen.tile[1]}/p"
-                          f"{chosen.planes}/b{chosen.min_blocks}/w{default_waves}",
+        print(json.dumps({"kernel": n, "chosen": f"{layout_name(chosen[n])}/w{default_waves}",
                           "candidates": row}), flush=True)
     return 0
 

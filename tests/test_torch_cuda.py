@@ -455,6 +455,88 @@ def test_mixed_coupled_kernels_equal_torch_backend(card, bc, tag, rng):
             _assert_same(k(**args, **sc), p(**args, **sc), k)
 
 
+# -- the pair layout at 2 bytes (kernels/codegen_pairs.py) -----------------------
+def _pair_kernels(bc, dt):
+    """Porosity's and GP's fused kernels (GP with its mass epilogue, which a
+    periodic bc refuses) and their torch twins, at storage ``dt``."""
+    reds = {"m_re": "sum_sq(re2)", "m_im": "sum_sq(im2)"}
+    out = []
+    for b in ("cuda", "torch"):
+        cfg = pw.PorosityConfig(n=64, device="cuda", backend=b, bc=bc,
+                                dtype=str(dt).removeprefix("torch."))
+        k = pw.make_step(pw.Grid((64, 300), (10.0, 10.0)), cfg).kernels[0]
+        g = gp.make_step(gp.Grid((13, 17, 130), (8.0, 8.0, 8.0)),
+                         gp.GPConfig(n=13, device="cuda", backend=b, bc=bc)).kernels[0]
+        g = g.with_dtype(dt)
+        out.append((k, g if bc == "periodic" else g.with_reductions(reds)))
+    return out
+
+
+def _pair_fields(rng, card, dt):
+    por = {n: torch.tensor((rng.rand(64, 300) * 0.01 + 0.005).astype(np.float32), device=card)
+           .to(dt) for n in ("phi2", "Pe2", "phi", "Pe")}
+    gpf = {n: torch.tensor(rng.rand(13, 17, 130).astype(np.float32), device=card).to(dt)
+           for n in ("re2", "im2", "re", "im", "V")}
+    return por, gpf
+
+
+@pytest.mark.parametrize("tag,bc", [("bf16", "neumann"), ("f16", "periodic"), ("bf16", "dirichlet")])
+def test_pair_layout_equals_torch_backend_and_one_cell_layout(card, tag, bc, rng):
+    """Porosity's and GP's fused kernels take the pair layout at even
+    contiguous extents: bitwise to the torch backend (sums rtol 1e-5), and
+    with NaN, inf and -inf in the fields to the one-cell layout launched
+    with the same chunks, bit for bit (NaN payloads and sums too)."""
+    from repro_torch.kernels import codegen
+
+    dt = LOW[tag]
+    (kp, kg), (pp, pg) = _pair_kernels(bc, dt)
+    por, gpf = _pair_fields(rng, card, dt)
+    for k, p, f, sc in ((kp, pp, por, dict(dtau=1e-3)),
+                        (kg, pg, gpf, dict(g=0.5, dt=1e-3, _dx2=3.0, _dy2=2.0, _dz2=5.0))):
+        _assert_same(k(**f, **sc), p(**f, **sc), k)
+        call = k.compiled(**f, **sc)
+        assert call.shape.vec > 1 and "/v" in next(iter(k.launch_info.values()))["layout"]
+        for t in f.values():
+            flat = t.view(-1)
+            flat[7], flat[1000], flat[2001] = float("nan"), float("inf"), float("-inf")
+        one = stencil.StencilCall(call.ir, k.label, k.bc, codegen.kernel_shape(call.program),
+                                  dtype=dt)
+        xc = call.derive(torch.cuda.get_device_properties(card).multi_processor_count).xc
+        res = []
+        for c in (call, one):
+            c_, outs, parts, args = c.prepare(f, sc, torch.cuda.get_device_properties(
+                card).multi_processor_count, xc)
+            c_._library().launch(*args, stencil.stream_of(card))
+            res.append(c.finish(outs, parts))
+        for o in k.outputs:
+            assert torch.equal(res[0][0][o].view(torch.int16), res[1][0][o].view(torch.int16)), o
+        for n in res[0][1] or {}:
+            assert torch.equal(res[0][1][n].reshape(1).view(torch.int32),
+                               res[1][1][n].reshape(1).view(torch.int32)), n
+
+
+@pytest.mark.parametrize("tag", list(LOW))
+def test_pair_layout_refuses_odd_extents_and_offsets(card, tag, rng):
+    """An odd contiguous extent, and fields at an odd offset of their
+    storage, launch the one-cell layout, bitwise to the torch backend, and
+    ``launch_info`` says so."""
+    dt = LOW[tag]
+    (kp, _), (pp, _) = _pair_kernels("neumann", dt)
+    odd = {n: torch.tensor((rng.rand(33, 21) * 0.01 + 0.005).astype(np.float32), device=card)
+           .to(dt) for n in ("phi2", "Pe2", "phi", "Pe")}
+    _assert_same(kp(**odd, dtau=1e-3), pp(**odd, dtau=1e-3), kp)
+    assert "/v" not in kp.launch_info[(33, 21)]["layout"]
+    f, _ = _pair_fields(rng, card, dt)
+    views = {}
+    for n, t in f.items():
+        views[n] = torch.empty(t.numel() + 1, dtype=dt, device=card)[1:].view(t.shape)
+        views[n].copy_(t)
+    _assert_same(kp(**views, dtau=1e-3), pp(**f, dtau=1e-3), kp)
+    assert "/v" not in kp.launch_info[(64, 300)]["layout"]
+    _assert_same(kp(**f, dtau=1e-3), pp(**f, dtau=1e-3), kp)
+    assert "/v" in kp.launch_info[(64, 300)]["layout"]
+
+
 @pytest.mark.parametrize("name", ["fig1+4red", "staggered", "porosity[neumann]+err",
                                   "porosity[dirichlet]", "gp[neumann]", "gp[none]+mass"])
 @pytest.mark.parametrize("tag,k", [("bf16", 3), ("f16", 2)])

@@ -58,6 +58,11 @@ def _sweep() -> torch.Tensor:
 
 @pytest.mark.parametrize("tag", list(LOW))
 def test_conversion_shims_equal_torch_bitwise(cxx, tag):
+    """The one-cell conversions, and the packed ones of the pair layout
+    (``__floats2bfloat162_rn``, ``__bfloat1622float2`` and their f16 twins,
+    each half converted alone), on the sweep both ways round in each pair:
+    NaN, +-inf and the f16 overflow edge included, each half equal to the
+    one-cell conversion bit for bit, NaN payloads too."""
     dt = LOW[tag]
     x = _sweep()
     got, want = rehearse.convert(x, dt), x.to(dt)
@@ -69,6 +74,12 @@ def test_conversion_shims_equal_torch_bitwise(cxx, tag):
     nan = torch.isnan(want)
     assert torch.equal(wide[~nan].view(torch.int32), want[~nan].view(torch.int32))
     assert bool(torch.isnan(wide[nan]).all())
+    for swept in (x, x.flip(0)):        # every word in both halves of a pair
+        assert torch.equal(rehearse.convert(swept, dt, pairs=True).view(torch.int16),
+                           rehearse.convert(swept, dt).view(torch.int16))
+    for h in (every, every.flip(0)):
+        assert torch.equal(rehearse.convert(h, dt, pairs=True).view(torch.int32),
+                           rehearse.convert(h, dt).view(torch.int32))
 
 
 def _assert_same(kern, got, reds, want, want_reds):
