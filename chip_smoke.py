@@ -40,8 +40,12 @@ GP's fused kernel is timed on the solver's own state too, and a
 met. ``times_k_steps`` gives each k-step kernel's ms per launch and per step
 beside its bound per step (the launch's bytes over 3.35 TB/s or its
 operations, halo cone included, over 67 TFLOP/s, whichever is larger),
-the share of it, T_eff per step over the copy bandwidth, shared memory,
-registers and spills.
+the share of it, T_eff per step over the copy bandwidth, the layout
+(tile, threads, planes per step, resident blocks), shared memory,
+registers and spills, the halo cone (``halo_compute_overhead``), the
+lead's share of a chunk, and whether a step of the launch takes no longer
+than the single step of the same variant and dtype timed in the same run
+(``at_most_single_step``; a k-step kernel is launched either way).
 
 Then all of it with the fields stored bf16 and f16 (computed in f32): every
 generated variant above (``check_mixed`` for FIG1's three and the generic
@@ -617,9 +621,7 @@ def main() -> int:
         for k in STEPS_KS[v["solver"]]:
             t = time_k_steps(torch, name, v, k, STEPS_FULL[v["solver"]], cgen, spec)
             err_at[f"{name}/k{k}"] = max(err_at[f"{name}/k{k}"], t["max_abs_err"])
-            t["single_step_ms"] = single_ms[name]
-            t["ptxas"] = ptxas[f"{name}/k{k}"]
-            k_times[f"{name}/k{k}"] = t
+            k_times[f"{name}/k{k}"] = k_step_row(t, ptxas[f"{name}/k{k}"], single_ms[name])
             torch.cuda.empty_cache()
     for k in HAND_KS:
         t = time_hand_steps(torch, k, cgen, spec)
@@ -1619,7 +1621,28 @@ def time_k_steps(torch, name, v, k, base, gen, spec) -> dict:
             "t_eff_per_step_GBps": a_eff * k / (ms / 1e3) / 1e9,
             "t_eff_per_step_over_copy": a_eff * k / (ms / 1e3) / spec.peak_bw,
             "smem_bytes": codegen_steps.shared_bytes(prog, plan, shape, call.dtype),
-            "tile": list(shape.tile), "planes": shape.planes, "lead": plan.lead}
+            "tile": list(shape.tile), "planes": shape.planes, "threads": shape.threads,
+            "blocks_by_shared": codegen_steps.resident_blocks(prog, call.rotations, k, shape),
+            "layout": codegen.layout_name(shape), "lead": plan.lead,
+            "lead_share": plan.lead / (call.derive(torch.cuda.get_device_properties(
+                0).multi_processor_count).xc + plan.lead)}
+
+
+def k_step_row(t, log: dict, single_ms) -> dict:
+    """A ``time_k_steps`` row with ptxas's registers and spills (``log``:
+    ``ptxas_summary``), the blocks resident an SM, and, beside the single
+    step's ms (``single_ms``,
+    None where the single step is not timed), whether a step of the launch
+    takes no longer (``at_most_single_step``)."""
+    t["ptxas"] = log
+    t["registers"] = log.get("registers")
+    # resident blocks an SM: shared memory, threads and registers
+    regs = -(-(t["registers"] or 8) // 8) * 8
+    t["blocks"] = min(t["blocks_by_shared"], 65536 // (t["threads"] * regs))
+    t["spilled"] = bool(log.get("spills"))
+    t["single_step_ms"] = single_ms
+    t["at_most_single_step"] = None if single_ms is None else t["ms_per_step"] <= single_ms
+    return t
 
 
 def time_hand_steps(torch, k, gen, spec, dtype=None) -> dict:
@@ -2031,8 +2054,9 @@ def time_mixed(torch, tag, dtype, step, step_plain, coupled_t, ksteps_t, gen, sp
         v = ksteps_t[name]
         for k in STEPS_KS[v["solver"]]:
             t = time_k_steps(torch, name, v, k, STEPS_FULL[v["solver"]], gen, spec)
-            t["ptxas"] = ptxas[f"{name}/k{k}:{tag}"]
-            out[f"{name}/k{k}:{tag}"] = t
+            # beside the single step at the same dtype (the pair layout where it applies)
+            out[f"{name}/k{k}:{tag}"] = k_step_row(t, ptxas[f"{name}/k{k}:{tag}"],
+                                                   out[f"{name}:{tag}"]["ms"])
             torch.cuda.empty_cache()
     for k in HAND_KS:
         t = time_hand_steps(torch, k, gen, spec, dtype)

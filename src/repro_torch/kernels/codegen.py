@@ -605,10 +605,14 @@ class KernelShape:
     # cells of the contiguous axis a thread owns: above 1, the pair layout
     # for 2-byte fields (``kernels/codegen_pairs.py``)
     vec: int = 1
+    # threads of a block where they are not one a cell of the tile: the
+    # all-parallel k-step kernel (``kernels/codegen_steps.py``), whose
+    # threads walk each phase's region, its tile and halo, in rounds
+    block: int = 0
 
     @property
     def threads(self) -> int:
-        return self.tile[0] * self.tile[1]
+        return self.block or self.tile[0] * self.tile[1]
 
     @property
     def cells(self) -> tuple[int, int]:
@@ -619,9 +623,11 @@ class KernelShape:
 def layout_name(shape: KernelShape) -> str:
     """A layout's short name: tile, planes per step, resident blocks, and
     ``/slab`` (synchronous staging) or ``/slab-async``, or ``/v{vec}`` (the
-    pair layout, ``vec`` cells a thread)."""
+    pair layout, ``vec`` cells a thread), or ``/t{block}`` (threads of a
+    block apart from the tile's cells)."""
     kind = ("/slab-async" if shape.async_copies else "/slab") if shape.slab else ""
     kind += f"/v{shape.vec}" if shape.vec > 1 else ""
+    kind += f"/t{shape.block}" if shape.block else ""
     return f"{shape.tile[0]}x{shape.tile[1]}/p{shape.planes}/b{shape.min_blocks}{kind}"
 
 

@@ -7,7 +7,8 @@ as ``nvcc --fmad=false`` builds it) behind a few definitions that stand in
 for CUDA's: the grid's blocks run one after another, each CUDA thread of a
 block is a fiber (``ucontext``) on one OS thread, ``__syncthreads`` suspends
 it until all of the block's threads have arrived, and ``__shfl_xor_sync``
-exchanges through such a barrier of the warp's threads. So the staging, the
+exchanges through such a barrier of the warp's threads, and ``__ldg`` counts
+each load that falls outside every input field. So the staging, the
 barriers, the march and the reduction fold run as the card runs them, phase
 by phase, on one core; a fault in the printed indexing shows here as a value
 that differs from the ``torch`` backend, and a barrier that not every thread
@@ -54,6 +55,7 @@ _SHIM = r'''
 #include <cstring>
 #include <algorithm>
 #include <functional>
+#include <utility>
 #include <vector>
 #include <ucontext.h>
 struct U3 { unsigned x, y, z; };
@@ -113,6 +115,28 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   return r;
 }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+// The inputs' bytes, as run() registers them: a load through __ldg that
+// lies outside all of them (on a card a fault, or a read of another
+// allocation) reads nothing and is counted, and run() raises.
+static std::vector<std::pair<const char*, const char*>> g_inputs;
+static long g_stray = 0;
+template <class T> inline T __ldg(const T* p) {
+  const char* a = reinterpret_cast<const char*>(p);
+  bool inside = g_inputs.empty();
+  for (const auto& r : g_inputs) inside = inside || (a >= r.first && a + sizeof(T) <= r.second);
+  if (inside) return *p;
+  ++g_stray;
+  return T{};
+}
+extern "C" void rehearse_inputs(int n, const int64_t* lo, const int64_t* hi) {
+  g_inputs.clear();
+  for (int i = 0; i < n; ++i)
+    g_inputs.emplace_back(reinterpret_cast<const char*>(lo[i]),
+                          reinterpret_cast<const char*>(hi[i]));
+  g_stray = 0;
+}
+extern "C" long rehearse_stray() { return g_stray; }
+template <class T> inline const T* pinned(const T* p) { return p; }
 // bf16 and f16 as their bits; CUDA's conversions as integer arithmetic.
 struct __nv_bfloat16 { uint16_t x; };
 struct __half { uint16_t x; };
@@ -258,9 +282,10 @@ def _host_text(text: str, shared_floats: int = 0) -> str:
                             f"float g_smem[{shared_floats}];\n"
                             "void nan_smem() { std::memset(g_smem, 0xff, sizeof g_smem); }\n"
                             "const int g_smem_hook = (g_block_start = nan_smem, 0);\n", 1)
-    if "// copies: begin\n" in text:       # the shim's stand-ins take their place
-        a, b = text.index("// copies: begin\n"), text.index("// copies: end\n")
-        text = text[:a] + text[b + len("// copies: end\n"):]
+    for part in ("copies", "pinned"):      # the shim's stand-ins take their place
+        if f"// {part}: begin\n" in text:
+            a, b = text.index(f"// {part}: begin\n"), text.index(f"// {part}: end\n")
+            text = text[:a] + text[b + len(f"// {part}: end\n"):]
     for header in ("cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h"):
         text = text.replace(f"#include <{header}>\n", "")
     text = _SET_SHARED.sub("", text)
@@ -392,16 +417,40 @@ def run(call: stencil.StencilCall, fields: Mapping[str, torch.Tensor],
     """``(outs, reds)`` of the printed kernel on CPU tensors, launched as
     ``StencilCall.run`` launches it on a card with ``n_sm`` SMs, or with
     chunks of ``xc`` planes; ``text`` runs that C++ (an edited
-    :func:`source`) instead of the call's own."""
-    ins = {f: fields[f].contiguous() for f in call.program.fields}
+    :func:`source`) instead of the call's own. Each input field lies in
+    the middle of a NaN buffer (:func:`_guarded`), and a load through
+    ``__ldg`` outside every field raises."""
+    ins = {f: _guarded(fields[f]) for f in call.program.fields}
     call, outs, parts, args = call.prepare(ins, scalars, n_sm, xc, divisor=float)
     for part in parts:
         part.fill_(float("nan"))      # a block that writes no partial shows
-    fn = (library(call) if text is None else _compile(text, call.lib_name)).launch
+    lib = library(call) if text is None else _compile(text, call.lib_name)
+    bounds = [(t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in ins.values()]
+    lo, hi = ((ctypes.c_int64 * len(bounds))(*b) for b in zip(*bounds))
+    lib.rehearse_inputs(len(bounds), lo, hi)
+    fn = lib.launch
     fn.argtypes = call.argtypes()
     fn.restype = ctypes.c_int
     fn(*args, None)
+    lib.rehearse_stray.restype = ctypes.c_long
+    stray = lib.rehearse_stray()
+    if stray:
+        raise RuntimeError(f"the rehearsed {call.lib_name} made {stray} loads outside its "
+                           "input fields")
     return call.finish(outs, parts)
+
+
+def _guarded(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` at the same address modulo 256 bytes (so
+    it takes the same layout), with NaN of at least its own size on either
+    side: a load past the field's ends by up to its size lands in no other
+    input, so :func:`run` counts it."""
+    src = t.contiguous()
+    n, item = src.numel(), src.element_size()
+    lanes = 256 // item
+    buf = torch.full((3 * n + lanes,), float("nan"), dtype=src.dtype)
+    shift = ((src.data_ptr() - buf.data_ptr()) // item - n) % lanes
+    return buf[n + shift:2 * n + shift].view(src.shape).copy_(src)
 
 
 def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1,

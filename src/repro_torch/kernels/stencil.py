@@ -313,7 +313,7 @@ class StencilCall:
         else:
             self.rotations = dict(rotations)
             self.shape = shape or codegen_steps.steps_shape(self.program, self.rotations,
-                                                            self.nsteps)
+                                                            self.nsteps, dtype=dtype)
             self.plan = codegen_steps.plan(self.program, self.rotations, self.nsteps,
                                            self.shape)
             self.source = codegen_steps.cuda_source(self.program, self.rotations,

@@ -5,6 +5,7 @@
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --dtype bfloat16 [--steps]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --march 0,1,2 [--ks 1,2]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --split [--dtype bfloat16] [--sass DIR]
+    PYTHONPATH=src python -m repro_torch.launch.tune_stencil --steps --split [--sass DIR]
 
 For the coupled solvers' kernels at their full sizes (porosity 8192^2, GP
 512^3) and the Fig. 1 step at 512^3, it builds each candidate
@@ -19,7 +20,7 @@ are this tool's choice: the fastest candidate without spills. With
 FIG1's step and porosity's fused kernel (k = 2, 3, 4) and GP's (k = 2, 3)
 the same way, each launch held bitwise against k single-step launches, over
 the layouts in ``STEPS_3D``/``STEPS_2D`` and values of ``stencil.STEPS_WAVES``;
-``codegen_steps.steps_shape`` and ``stencil.STEPS_WAVES`` are its choice.
+``codegen_steps.PARALLEL`` (through ``steps_shape``) and ``stencil.STEPS_WAVES`` are its choice.
 ``--ks 1`` times the k-step printer's single sweep beside the single-step
 kernel of ``kernels/codegen.py`` on the same fields. ``--dtype bfloat16`` or
 ``float16`` times every kernel with its fields stored at 2 bytes a cell
@@ -42,7 +43,10 @@ times the all-parallel kernel of FIG1's step, porosity's and GP's fused
 kernels in parts (loads and conversions alone, and compute, the whole
 kernel: ``codegen.cuda_source``'s ``part``), at ``--dtype`` beside the f32
 twin and a pair layout beside its one-cell layout, in turns; ``--sass DIR`` writes each library's SASS there and counts
-the instructions per cell of its march loop (``sass_loop``). ``--split
+the instructions per cell of its march loop (``sass_loop``). ``--steps --split`` prints each k-step kernel's chosen
+layout (``steps_layout``: registers, spills, resident blocks, shared bytes, halo cone, the lead's share of a chunk),
+timed and held bitwise to k single steps, and with ``--sass DIR`` its SASS instructions per cell by barrier segment
+(``sass_steps``). ``--split
 --march 2`` times each kernel's march along the contiguous axis in parts,
 the synchronous slab and the async slabs of ``SPLIT_SLABS`` (staging alone,
 staging and compute, the whole kernel), beside the twin, in turns. It needs
@@ -77,10 +81,18 @@ PLAIN_3D = [Shape((32, 8), p, b) for p in (1, 2, 4) for b in (6, 8)]
 STAGED_2D = [Shape((256, 1), p, b) for p in (2, 4) for b in (4, 5, 6)] + [Shape((128, 1), 4, 8)]
 PLAIN_2D = [Shape((256, 1), p, b) for p in (1, 2, 4) for b in (6, 8)]
 SCALARS = dict(dtau=1e-3, g=0.5, dt=1e-3, _dx2=3.0, _dy2=2.0, _dz2=5.0)
-STEPS_3D = [Shape(t, p, b) for t in ((32, 8), (32, 16)) for p in (2, 4) for b in (2, 4)] \
-    + [Shape((32, 16), 8, 2), Shape((32, 32), 2, 2)]
-STEPS_2D = [Shape(t, p, b) for t in ((256, 1), (512, 1)) for p in (2, 4) for b in (2, 4)] \
-    + [Shape((512, 1), 8, 2), Shape((1024, 1), 2, 2)]
+# all-parallel k-step layouts: (z, y) cells, planes per step, resident blocks,
+# threads of a block
+STEPS_3D = [Shape(t, p, b, block=n) for t, p, b, n in (
+    ((32, 32), 1, 2, 256), ((32, 32), 1, 3, 256), ((32, 32), 1, 4, 256), ((32, 32), 2, 2, 256),
+    ((32, 16), 1, 2, 256), ((32, 16), 1, 4, 256), ((32, 16), 2, 4, 256), ((64, 16), 1, 2, 256),
+    ((32, 32), 1, 2, 512), ((32, 16), 2, 2, 256), ((32, 32), 2, 2, 512), ((32, 32), 2, 3, 256),
+    ((32, 16), 1, 2, 512), ((32, 8), 2, 4, 256), ((32, 16), 2, 3, 256), ((32, 24), 2, 2, 256),
+    ((32, 24), 2, 3, 256), ((32, 16), 2, 2, 512), ((32, 24), 2, 2, 512))]
+STEPS_2D = [Shape(t, p, b, block=n) for t, p, b, n in (
+    ((224, 1), 1, 4, 256), ((224, 1), 2, 4, 256), ((224, 1), 4, 4, 256), ((224, 1), 2, 2, 256),
+    ((224, 1), 4, 2, 256), ((224, 1), 2, 6, 256), ((224, 1), 2, 8, 256), ((480, 1), 2, 2, 512),
+    ((480, 1), 4, 2, 512))]
 STEPS_KS = {"stencil": (2, 3, 4), "porosity_fused[neumann0]": (2, 3, 4),
             "gp_fused[none]": (2, 3)}
 MARCH_KERNELS = ("stencil", "porosity_fused[neumann0]", "gp_fused[none]")
@@ -185,12 +197,13 @@ def ptxas(log: str) -> dict:
 
 
 def steps_candidates(kern, fields, scalars, nsteps: int) -> list:
-    """The k-step calls of ``kern`` over the layouts of ``STEPS_3D`` or
-    ``STEPS_2D`` whose queues fit a block's shared memory; at ``nsteps`` 1
-    the k-step printer's single sweep."""
+    """The k-step calls of ``kern`` over its chosen layout and those of
+    ``STEPS_3D`` or ``STEPS_2D`` whose queues fit a block's shared memory;
+    at ``nsteps`` 1 the k-step printer's single sweep."""
     ir = kern.compiled(**fields, **scalars).ir
+    chosen = kern.compiled(nsteps=max(nsteps, 2), **fields, **scalars).shape
     calls = []
-    for shape in STEPS_3D if ir.ndim == 3 else STEPS_2D:
+    for shape in dict.fromkeys([chosen, *(STEPS_3D if ir.ndim == 3 else STEPS_2D)]):
         try:
             calls.append(stencil.StencilCall(ir, kern.label, kern.bc, shape, nsteps,
                                              kern.rotations, kern.ps.dtype))
@@ -202,8 +215,8 @@ def steps_candidates(kern, fields, scalars, nsteps: int) -> list:
 def steps_choice(call) -> str:
     """The layout ``codegen_steps.steps_shape`` gives the call's program and
     k, with the current ``stencil.STEPS_WAVES``, as the candidates are named."""
-    sh = codegen_steps.steps_shape(call.program, call.rotations, call.nsteps)
-    return f"{sh.tile[0]}x{sh.tile[1]}/p{sh.planes}/b{sh.min_blocks}/w{stencil.STEPS_WAVES}"
+    sh = codegen_steps.steps_shape(call.program, call.rotations, call.nsteps, dtype=call.dtype)
+    return f"{layout_name(sh)}/w{stencil.STEPS_WAVES}"
 
 
 def tune_steps(todo: dict, waves: list, iters: int, ks: list | None = None) -> None:
@@ -215,6 +228,8 @@ def tune_steps(todo: dict, waves: list, iters: int, ks: list | None = None) -> N
     fields (``single_step_ms``), the printers' comparison."""
     tuned = {}
     for n, default_ks in STEPS_KS.items():
+        if n not in todo:
+            continue
         k, _, f, sc = solver_state(todo, n)
         todo[n] = (k, None, f, sc)
         for nsteps in (default_ks if ks is None else ks):
@@ -244,8 +259,7 @@ def tune_steps(todo: dict, waves: list, iters: int, ks: list | None = None) -> N
                     raise RuntimeError(f"{t.label} at {t.shape}, {w} waves: not bitwise equal "
                                        f"to {nsteps} single-step launches")
                 ms = teff.measure(lambda: t.run(f, sc), iters=iters, warmup=3).median_s * 1e3
-                sh = t.shape
-                row[f"{sh.tile[0]}x{sh.tile[1]}/p{sh.planes}/b{sh.min_blocks}/w{w}"] = {
+                row[f"{layout_name(t.shape)}/w{w}"] = {
                     "ms": ms, "ms_per_step": ms / nsteps, **found}
         stencil.STEPS_WAVES = default_waves
         line = {"kernel": n, "k": nsteps, "chosen": steps_choice(calls[0]), "candidates": row}
@@ -537,6 +551,125 @@ def tune_split_parallel(todos: dict, iters: int, rounds: int = 2, sass: str | No
 
 layout_name = codegen.layout_name
 
+_INTEGER = ("IADD3", "IMAD", "LEA", "SHF", "LOP3", "ISETP", "IMNMX", "SEL", "IABS", "SGXT",
+            "P2R", "R2P", "PLOP3", "VIADD", "IADD", "ISCADD", "MOV")
+
+
+def steps_layout(call, n_sm: int = 132, registers: int | None = None) -> dict:
+    """A k-step call's layout: tile, threads, planes, resident blocks (shared
+    memory, threads and ``registers`` a thread), the
+    plan's lead and its share of a chunk (the planes a chunk computes
+    before its first written one, over all it computes), the halo cone
+    (cells every phase computes over the tile's, per sweep and phase,
+    less 1) and each phase's region, lag, slots and a thread's cells a
+    step (planes times rounds of the block's threads)."""
+    pl, sh = call.plan, call.shape
+    xc = call.derive(n_sm).xc
+    tile = sh.tile[0] * sh.tile[1]
+    phases, cone = [], 0
+    for ph in pl.phases:
+        n = math.prod(pl.region(ph, sh))
+        cone += n
+        if not call.program.layout:
+            r, width = codegen_steps.rounds(pl, ph, sh)
+        else:
+            r, width = -(-n // sh.threads), sh.threads
+        phases.append({"phase": ph.name, "region": list(pl.region(ph, sh)), "lag": ph.lag,
+                       "slots": ph.slots, "rounds": r, "width": width,
+                       "cells_per_thread": sh.planes * r,
+                       "barrier": ph.barrier})
+    blocks = codegen_steps.resident_blocks(call.program, call.rotations, call.nsteps, sh,
+                                           registers) if sh.block else sh.min_blocks
+    return {"layout": layout_name(sh), "tile": list(sh.tile), "threads": sh.threads,
+            "planes": sh.planes, "blocks": blocks,
+            "smem_bytes": codegen_steps.shared_bytes(call.program, pl, sh, call.dtype),
+            "lead": pl.lead, "xc": xc, "lead_share": pl.lead / (xc + pl.lead),
+            "halo_cone": cone / (len(pl.phases) * tile) - 1, "phases": phases}
+
+
+def sass_steps(text: str, phases: list) -> list:
+    """Instructions of a k-step kernel's march loop in SASS, by barrier
+    segment (the phases between two barriers; ``phases`` as
+    :func:`steps_layout` gives them): the loop is the widest backward
+    branch; in each segment the longest branch-free block (the fast
+    cells, unrolled) counted by class over the cells a thread computes in
+    it a step (``fp``: f32 arithmetic; ``integer``; ``shared``: loads and
+    stores; ``loads``, ``stores``: device memory), and the segment's
+    instructions in all."""
+    ins = [(int(m.group(1), 16), m.group(3), m.group(4))
+           for m in map(_SASS_LINE.match, text.splitlines()) if m]
+    branches = [(a, int(t, 16)) for a, op, arg in ins if op == "BRA"
+                for t in re.findall(r"0x([0-9a-f]+)\s*$", arg)]
+    back = [(t, a) for a, t in branches if t < a]
+    if not back:
+        return []
+    lo, hi = max(back, key=lambda b: b[1] - b[0])
+    body = [(a, op) for a, op, _ in ins if lo <= a <= hi]
+    bars = [a for a, op in body if op == "BAR"]
+    edges = [lo, *[b + 16 for b in bars], hi + 16]
+    groups, cur = [], []
+    for ph in phases:
+        cur.append(ph)
+        if ph["barrier"]:
+            groups.append(cur)
+            cur = []
+    groups.append(cur)
+    kinds = {"fp": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "MUFU"),
+             "integer": _INTEGER, "shared": ("LDS", "STS"), "loads": ("LDG",),
+             "stores": ("STG",)}
+    out = []
+    for (s0, s1), group in zip(zip(edges, edges[1:]), groups):
+        seg = [(a, op) for a, op in body if s0 <= a < s1]
+        cuts = sorted({a + 16 for a, _ in branches if s0 <= a < s1}
+                      | {t for _, t in branches if s0 < t < s1} | {s0, s1})
+        blocks = [[op for a, op in seg if b0 <= a < b1] for b0, b1 in zip(cuts, cuts[1:])]
+        fast = max(blocks, key=len) if blocks else []
+        cells = sum(ph["cells_per_thread"] for ph in group)
+        out.append({"phases": [ph["phase"] for ph in group], "instructions": len(seg),
+                    "fast_block": len(fast), "cells_per_thread": cells,
+                    "per_cell": {"all": len(fast) / cells, **{
+                        k: sum(op in ops for op in fast) / cells for k, ops in kinds.items()}}})
+    return out
+
+
+def tune_steps_split(todo: dict, iters: int, sass: str | None = None) -> None:
+    """One JSON line per k-step kernel and k of ``STEPS_KS`` in its
+    chosen layout: its median ms (held bitwise to k single-step launches),
+    ptxas's registers and spills, :func:`steps_layout`, and with ``sass``
+    its SASS (written to that directory) counted by :func:`sass_steps`."""
+    runs = {}
+    for n, ks in STEPS_KS.items():
+        if n not in todo:
+            continue
+        k, _, f, sc = todo[n] = solver_state(todo, n)
+        for nsteps in ks:
+            runs[(n, nsteps)] = k.compiled(nsteps=nsteps, **f, **sc)
+    t0 = time.perf_counter()
+    logs = build.compile_many([(c.lib_name, c.source) for c in runs.values()])
+    print(json.dumps({"built": len(runs), "seconds": time.perf_counter() - t0}), flush=True)
+    for ((n, nsteps), call), log in zip(runs.items(), logs):
+        k, _, f, sc = todo[n]
+        cur = dict(f)
+        for _ in range(nsteps):
+            res = k(**cur, **sc)
+            res = res[0] if k.reductions else res
+            outs = {k.outputs[0]: res} if len(k.outputs) == 1 else res
+            for o, t in k.rotations.items():
+                cur[o], cur[t] = cur[t], outs[o]
+        got, _ = call.run(f, sc)
+        if not all(torch.equal(got[o], cur[t]) for o, t in k.rotations.items()):
+            raise RuntimeError(f"{call.label}: not bitwise equal to {nsteps} single-step launches")
+        ms = teff.measure(lambda: call.run(f, sc), iters=iters, warmup=3).median_s * 1e3
+        found = ptxas(log.log)
+        lay = steps_layout(call, registers=found["registers"])
+        line = {"kernel": n, "k": nsteps, "ms": ms, "ms_per_step": ms / nsteps, **found, **lay}
+        if sass:
+            pathlib.Path(sass).mkdir(parents=True, exist_ok=True)
+            path = pathlib.Path(sass) / f"{n}_k{nsteps}.sass"
+            if write_sass(build.library_path(call.lib_name, call.source), path):
+                line["sass"] = sass_steps(path.read_text(), lay["phases"])
+        print(json.dumps(line), flush=True)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -569,6 +702,9 @@ def main(argv=None) -> int:
         todo = {n: todo[n] for n in args.kernels.split(",")}
     if args.split and args.march:
         tune_split(todo, args.iters)
+        return 0
+    if args.split and args.steps:
+        tune_steps_split(todo, args.iters, args.sass)
         return 0
     if args.split:
         todos = {args.dtype: todo}

@@ -10,9 +10,11 @@ fused kernels with every bc and epilogue, at bf16 and f16) must equal the
 ``torch`` backend bitwise (sums within 1e-5), and the one-cell layout
 launched with the same chunks bitwise, sums too. An odd contiguous extent
 or a field at an address off a word's alignment (a view at an odd offset)
-takes the one-cell layout, which ``launch_info`` names. Every source that is
-not a pair layout is byte-identical to the printers' before the pair layout:
-``tests/test_torch_pairs_sources.json`` holds the digests of
+takes the one-cell layout, which ``launch_info`` names. Every source but
+the all-parallel k-step kernels' (``kernels/codegen_steps.py``, redesigned
+after the pair layout) is byte-identical to the printers' before that
+redesign, the pair layouts, the marched kernels and the slab k-step ones
+included: ``tests/test_torch_pairs_sources.json`` holds the digests of
 :func:`printed_sources` as those printers gave them, written by
 
     PYTHONPATH=src python tests/test_torch_pairs.py tests/test_torch_pairs_sources.json
@@ -257,11 +259,13 @@ def test_pair_rules():
 
 
 def test_sources_byte_identical_outside_the_pair_layout():
-    """Every f32 source, every k-step and marched one, and every 2-byte
-    single step that does not take the pairs (the flux-split kernels')
-    equals the printers' before the pair layout; the pairs are exactly the
-    3-D and the staged single steps at bf16 and f16: porosity's and GP's
-    fused kernels, GP's two launches and FIG1's three."""
+    """Every single-step source (the pair layouts among them: exactly the
+    3-D and the staged single steps at bf16 and f16, porosity's and GP's
+    fused kernels, GP's two launches and FIG1's three), every marched one
+    and every k-step kernel marching the contiguous axis (a slab) equals
+    the printers' before the all-parallel k-step kernel was redesigned;
+    the changed sources are exactly those all-parallel k-step kernels
+    (``run_steps(2)`` of every variant that rotates, at every dtype)."""
     with open(os.path.join(os.path.dirname(__file__), "test_torch_pairs_sources.json")) as fh:
         before = json.load(fh)
     sources = printed_sources()
@@ -269,9 +273,10 @@ def test_sources_byte_identical_outside_the_pair_layout():
     assert set(now) == set(before)
     pairs = {k for k, (_, pair) in sources.items() if pair}
     assert pairs == {f"{n}|{t}|step" for n in REDESIGNED + [n for n, _, _ in OTHERS] for t in LOW}
-    changed = [k for k in now if k not in pairs and now[k] != before[k]]
-    assert not changed, changed
-    assert len(now) - len(pairs) == 261
+    k_steps = {k for k in now if k.endswith("|k2")}
+    changed = {k for k in now if now[k] != before[k]}
+    assert changed == k_steps, sorted(changed ^ k_steps)
+    assert len(now) - len(k_steps) == 258 and len(k_steps) == 33
 
 
 def test_timing_parts_of_the_all_parallel_kernel():

@@ -441,4 +441,4 @@ def test_tune_steps_builds_candidates_and_choice(name, base, k):
     assert all("cudaFuncSetAttribute" in c.source for c in calls)
     sh = codegen_steps.steps_shape(calls[0].program, kern.rotations, k)
     assert tune_stencil.steps_choice(calls[0]) == \
-        f"{sh.tile[0]}x{sh.tile[1]}/p{sh.planes}/b{sh.min_blocks}/w{tune_stencil.stencil.STEPS_WAVES}"
+        f"{tune_stencil.layout_name(sh)}/w{tune_stencil.stencil.STEPS_WAVES}"
