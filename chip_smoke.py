@@ -53,7 +53,11 @@ kernel, ``check_coupled`` and ``check_k_steps`` rows with a ``dtype``) held
 bitwise against the ``torch`` backend at the same dtype at the small shapes
 and at full size, k-step ones against k single-step launches, and the hand
 kernel (``check_hand_steps``, k = 1-4, in place and not, computing at the
-storage dtype) against its plain version at that dtype. An f16 field that
+storage dtype) against its plain version at that dtype; the hand kernel's
+packed bf16/f16 arithmetic against f32-then-round over every pair of 16-bit
+operands (``check_packed_ops``), and its 2-byte single step on fields two
+bytes off a word, its one-cell layout, against the pair layout and the
+plain version (``check_hand_off_word``). An f16 field that
 leaves its range must hold inf and NaN where the plain version does; the
 rows count them. The mixed main path (``main_path_mixed``) drives FIG1 at
 512^3 through ``init_parallel_stencil(dtype=...)`` and ``solve_until``
@@ -62,7 +66,8 @@ at storage bytes), porosity 8192^2 ``--dtype`` through the twin's
 ``solve``, GP's fused kernel on its state, and the k-step main path at each
 dtype, with the launch counts set to 0 before each run and read after;
 ``times_mixed`` gives each kernel's ms beside its bound at storage bytes,
-its plain ms, registers and spills.
+its plain ms, registers and spills, the hand single step in its pair
+layout beside its one-cell layout in turns, and ``hand_targets``.
 
 Then ``march_axis`` streaming and the ``finite``/``nan_count`` reductions.
 ``check_march``: every generated variant above that can march (FIG1's
@@ -304,8 +309,9 @@ def main() -> int:
              for name, b in zip(call_names + [f"{n}/k{k}" for n, k in calls_k] + list(calls_mixed),
                                 builds[-n_gen - len(calls_march):len(builds) - len(calls_march)])}
     hand = hand_ptxas(builds[0].log)
-    # the single step (two instances merged) and k = 2-4, for f32, bf16 and f16
-    require(len(hand) == 3 * (1 + len(HAND_KS)),
+    # the single step (two instances merged) and k = 2-4, for f32, bf16 and
+    # f16; the pair layout's single step for bf16 and f16
+    require(len(hand) == 3 * (1 + len(HAND_KS)) + len(MIXED_TAGS),
             f"ptxas's lines of the hand kernel's instances not all found: {sorted(hand)}")
     ptxas.update(hand)
     require(all(not p["spills"] for p in ptxas.values()),
@@ -424,7 +430,7 @@ def main() -> int:
                 d = check_k_steps(torch, name, v, k, shapes[v["solver"]], cgen)
                 if shapes is STEPS_FULL:
                     err_at[f"{name}/k{k}"] = d
-        for base in ((13, 17, 130), (33, 20, 130), STEPS_FULL["fig1"]):
+        for base in ((13, 17, 130), (33, 20, 131), (33, 20, 130), STEPS_FULL["fig1"]):
             err_at.update(check_hand_steps(torch, base, cgen))
         torch.cuda.empty_cache()
     check_ring_rule(torch, ksteps, cgen)
@@ -436,6 +442,7 @@ def main() -> int:
     # version at storage dtype, in place and not
     mixed_v = {}
     check_pair_conversions(torch, dev)
+    check_packed_ops(torch, dev)
     for tag, name in MIXED_TAGS.items():
         dt = getattr(torch, name)
         err_at.update(check_fig1_mixed(torch, variants, (generic, generic_plain), dt, tag,
@@ -457,8 +464,9 @@ def main() -> int:
                     if shapes is STEPS_FULL:
                         err_at[f"{n}/k{k}:{tag}"] = d
             torch.cuda.empty_cache()
-        for base in ((13, 17, 130), (33, 20, 130), STEPS_FULL["fig1"]):
+        for base in ((13, 17, 130), (33, 20, 131), (33, 20, 130), STEPS_FULL["fig1"]):
             err_at.update(check_hand_steps(torch, base, cgen, dt, (1, *HAND_KS)))
+        err_at.update(check_hand_off_word(torch, cgen, dt))
         check_ring_rule(torch, ksteps_t, cgen)
         torch.cuda.empty_cache()
 
@@ -647,7 +655,7 @@ def main() -> int:
                     for n, target in PAIR_TARGETS_MS.items() for tag in MIXED_TAGS}
     emit({"phase": "times_mixed", "card": spec.name, "power_limit": spec.power_limit,
           "copy_bandwidth_GBps": spec.peak_bw / 1e9, "kernels": mixed_times,
-          "pair_targets": pair_targets,
+          "pair_targets": pair_targets, "hand_targets": hand_targets(k_times, mixed_times),
           "off_main_path": sorted(set(mixed_times) - set(mixed_runs["launches"])),
           "f32_ms": f32_ms,
           "over_f32": {k: t["ms"] / f32_ms[k.split(":")[0]] for k, t in mixed_times.items()}})
@@ -699,7 +707,7 @@ def main() -> int:
                               "src/repro/kernels/stencil.py:1052"),
                  "launches": k_runs["launches"][k], "max_abs_err": err_at[k],
                  **{x: t[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by", "ms_per_step",
-                                      "bound_ms_per_step")},
+                                      "bound_ms_per_step", "layout")},
                  "library_ms": None}
                 for k, t in k_times.items()]
     kernels += [{"name": k, "route": "cuda",
@@ -1422,6 +1430,7 @@ def check_hand_steps(torch, base, gen, dtype=None, ks=HAND_KS) -> dict:
             T2 = T.clone()
             got = diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=alias)
             torch.cuda.synchronize()
+            row["layout"] = diffusion3d.last_layout
             diffs.append(finite_diff(torch, got, b))
             row[f"alias={alias}"] = {"max_abs_diff": diffs[-1],
                                      "in_place": got.data_ptr() == T2.data_ptr()}
@@ -1444,6 +1453,46 @@ def check_hand_steps(torch, base, gen, dtype=None, ks=HAND_KS) -> dict:
                 f"diffusion3d{tag} nsteps={k} differs from its plain version at {base}")
         errs[f"diffusion3d{'/k' + str(k) if k > 1 else ''}{tag}"] = max(d, *diffs)
     return errs
+
+
+def off_word(torch, t):
+    """A copy of a 2-byte tensor two bytes off a 4-byte word: the hand
+    kernel's pair layout refuses it (``diffusion3d.pairs_fit``)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def check_hand_off_word(torch, gen, dtype) -> dict:
+    """The hand single step at 2 bytes on fields two bytes off a word (the
+    one-cell layout where nz is even: ``diffusion3d_kernel<*, S>``), in place
+    and not, bitwise against its plain version and against the pair layout
+    on the same values, at a small shape and at FIG1's."""
+    from repro_torch.kernels import diffusion3d, ref, stencil
+
+    tag = stencil.dtype_tag(dtype)
+    err = 0.0
+    for base in ((33, 20, 130), STEPS_FULL["fig1"]):
+        T = torch.rand(base, generator=gen, device=gen.device).to(dtype)
+        Ci = (torch.rand(base, generator=gen, device=gen.device) + 0.5).to(dtype)
+        T2 = torch.rand(base, generator=gen, device=gen.device).to(dtype)
+        want = ref.diffusion3d_step(T2, T, Ci, *HAND_MIXED_ARGS)
+        pairs = diffusion3d.diffusion3d_step(T2, T, Ci, *HAND_MIXED_ARGS, alias=False)
+        pairs_layout = diffusion3d.last_layout
+        row = {"phase": "check_hand_off_word", "dtype": str(dtype), "shape": list(base),
+               "pairs_layout": pairs_layout}
+        for alias in (False, True):
+            f = [off_word(torch, t) for t in (T2, T, Ci)]
+            got = diffusion3d.diffusion3d_step(*f, *HAND_MIXED_ARGS, alias=alias)
+            torch.cuda.synchronize()
+            row[f"alias={alias}"] = {"layout": diffusion3d.last_layout,
+                                     "max_abs_diff": finite_diff(torch, got, want),
+                                     "in_place": got.data_ptr() == f[0].data_ptr()}
+            err = max(err, row[f"alias={alias}"]["max_abs_diff"])
+            require(same(torch, got, want) and same(torch, got, pairs)
+                    and diffusion3d.last_layout == "cells" and pairs_layout == "pairs",
+                    f"diffusion3d:{tag} off a word at {base} alias={alias}: {row}")
+        emit(row)
+    return {f"diffusion3d/cells:{tag}": err}
 
 
 def check_ring_rule(torch, ksteps, gen) -> None:
@@ -1576,6 +1625,7 @@ def k_steps_main_path(torch, ksteps, dtype=None, hand=True) -> dict:
                 f"diffusion3d{tag} nsteps={k} differs from single steps")
         launches[f"diffusion3d/k{k}{tag}"] = diffusion3d.launches
         row["launches"][f"diffusion3d/k{k}{tag}"] = diffusion3d.launches
+        row.setdefault("layouts", {})[str(k)] = diffusion3d.last_layout
         row["ms_per_step"][str(k)] = wall / STEPS_RUN * 1e3
     emit(row)
     rows.append(row)
@@ -1649,7 +1699,9 @@ def time_hand_steps(torch, k, gen, spec, dtype=None) -> dict:
     """The hand kernel's k steps at FIG1 in place, beside k plain steps and
     the bound (T, Ci and the output once: 12 bytes per cell in f32, 6 in
     bf16 or f16; 16 operations per cell-sweep over the cone,
-    ``teff.halo_compute_overhead`` of its 16 x 32 tile)."""
+    ``teff.halo_compute_overhead`` of its tile), with its layout
+    (``diffusion3d.layout``: tile, threads, resident blocks, where Ci
+    comes from)."""
     from repro_torch.core import teff
     from repro_torch.kernels import diffusion3d, ref
 
@@ -1660,7 +1712,7 @@ def time_hand_steps(torch, k, gen, spec, dtype=None) -> dict:
     args = (1.0, 1e-4, 511.0, 511.0, 511.0) if dtype == torch.float32 else HAND_MIXED_ARGS
     cells = math.prod(base)
     interior = math.prod(n - 2 for n in base)
-    (bz, by), _ = diffusion3d._STEPS_SHAPE
+    by, bz = diffusion3d.tile_rows(k, dtype.itemsize), diffusion3d._TILE_Z
     overhead = teff.halo_compute_overhead((by, bz), 1, k) if k > 1 else 0.0
     a_eff, ops = 3.0 * dtype.itemsize * cells, 16.0 * interior * k * (1 + overhead)
     bound_ms, bound_by = bound_of(a_eff, ops)
@@ -1680,7 +1732,8 @@ def time_hand_steps(torch, k, gen, spec, dtype=None) -> dict:
             "halo_compute_overhead": overhead,
             "t_eff_per_step_GBps": a_eff * k / (ms / 1e3) / 1e9,
             "t_eff_per_step_over_copy": a_eff * k / (ms / 1e3) / spec.peak_bw,
-            "smem_bytes": diffusion3d.shared_bytes(k, dtype.itemsize), "alias": True}
+            "smem_bytes": diffusion3d.shared_bytes(k, dtype.itemsize), "alias": True,
+            "layout": diffusion3d.last_layout}
 
 
 # the storage types as the compiler mangles them, and their tags
@@ -1689,9 +1742,11 @@ MANGLED = {"f": "", "13__nv_bfloat16": ":bf16", "6__half": ":f16"}
 
 def hand_ptxas(log: str) -> dict:
     """ptxas's summary of each instance of the hand kernel: the k-step ones
-    (``diffusion3d_steps_kernel<K, S>``) as ``diffusion3d/k{K}`` and the
+    (``diffusion3d_steps_kernel<K, S>``) as ``diffusion3d/k{K}``, the
     single step's two (``diffusion3d_kernel<kCopyRing, S>``, merged) as
-    ``diffusion3d``, each with the storage tag of S (``:bf16``, ``:f16``)."""
+    ``diffusion3d`` and, at 2 bytes, the pair layout's two
+    (``diffusion3d_pairs_kernel<kCopyRing, S>``) as ``diffusion3d/pairs``,
+    each with the storage tag of S (``:bf16``, ``:f16``)."""
     out = {}
     types = "|".join(MANGLED)
     for part in re.split(r"(?=ptxas info\s*: Compiling entry function)", log):
@@ -1699,9 +1754,9 @@ def hand_ptxas(log: str) -> dict:
         m = re.search(rf"diffusion3d_steps_kernelILi(\d+)E({types})E", head)
         if m:
             out[f"diffusion3d/k{m.group(1)}{MANGLED[m.group(2)]}"] = ptxas_summary(part)
-        m = re.search(rf"diffusion3d_kernelILb[01]E({types})E", head)
+        m = re.search(rf"diffusion3d_(pairs_)?kernelILb[01]E({types})E", head)
         if m:
-            key = f"diffusion3d{MANGLED[m.group(1)]}"
+            key = f"diffusion3d{'/pairs' if m.group(1) else ''}{MANGLED[m.group(2)]}"
             one = ptxas_summary(part)
             if key in out:
                 one = {"registers": max(out[key]["registers"] or 0, one["registers"] or 0),
@@ -1859,6 +1914,7 @@ def mixed_main_path(torch, spec, coupled_runs) -> dict:
                "ms_per_step": ms,
                "hand_ms_per_step": t_hand / MIXED_STEPS * 1e3 if hand else
                "not run: FIG1's scalars rounded to this dtype overflow it",
+               "hand_layout": diffusion3d.last_layout if hand else None,
                "solve": {"iters": res.iters, "err": res.err, "host_syncs": res.host_syncs,
                          "ms_per_step": t_solve / max(res.iters, 1) * 1e3, "tol": 1e-7},
                "a_eff_bytes": a_eff, "t_eff_GBps": a_eff / (ms / 1e3) / 1e9,
@@ -2036,7 +2092,7 @@ def time_mixed(torch, tag, dtype, step, step_plain, coupled_t, ksteps_t, gen, sp
                             iters=10, warmup=2).median_s * 1e3
     out[f"diffusion3d:{tag}"] = {**hand, "ms": new_ms, "in_place_ms": hand["ms"],
                                  "plain_ms": plain_ms, "share_of_bound": hand["bound_ms"] / new_ms,
-                                 "ptxas": ptxas[f"diffusion3d:{tag}"]}
+                                 **hand_beside_cells(torch, f, args, ptxas, tag)}
     del f
     for name, v in coupled_t.items():
         t = time_coupled(torch, v, COUPLED_FULL[v["solver"]], gen)
@@ -2062,6 +2118,62 @@ def time_mixed(torch, tag, dtype, step, step_plain, coupled_t, ksteps_t, gen, sp
         t = time_hand_steps(torch, k, gen, spec, dtype)
         t["ptxas"] = ptxas[f"diffusion3d/k{k}:{tag}"]
         out[f"diffusion3d/k{k}:{tag}"] = t
+    return out
+
+
+def hand_beside_cells(torch, f, args, ptxas, tag) -> dict:
+    """The hand single step at 2 bytes into a new buffer in its pair layout
+    (``f``, FIG1's fields) and in its one-cell layout (the same values two
+    bytes off a word), bitwise to each other, timed in turns (pairs, cells,
+    cells, pairs; CUDA-event medians of 20), each the mean of its two; the
+    pair layout must be the faster."""
+    from repro_torch.core import teff
+    from repro_torch.kernels import diffusion3d
+
+    cells = [off_word(torch, f[n]) for n in ("T2", "T", "Ci")]
+    runs = {"pairs": lambda: diffusion3d.diffusion3d_step(f["T2"], f["T"], f["Ci"], *args,
+                                                          alias=False),
+            "cells": lambda: diffusion3d.diffusion3d_step(*cells, *args, alias=False)}
+    got = {}
+    for which, fn in runs.items():
+        got[which] = fn()
+        got[which + "_layout"] = diffusion3d.last_layout
+    require(got["pairs_layout"] == "pairs" and got["cells_layout"] == "cells"
+            and same(torch, got["pairs"], got["cells"]),
+            f"diffusion3d:{tag}: the pair layout differs from the one-cell layout")
+    ms = {"pairs": [], "cells": []}
+    for which in ("pairs", "cells", "cells", "pairs"):
+        ms[which].append(teff.measure(runs[which], iters=20, warmup=3).median_s * 1e3)
+    t = {"layout": "pairs", "ms_in_turns": sum(ms["pairs"]) / 2, "cell_layout": "cells",
+         "cell_ms": sum(ms["cells"]) / 2, "ptxas": ptxas[f"diffusion3d/pairs:{tag}"],
+         "cell_ptxas": ptxas[f"diffusion3d:{tag}"]}
+    require(t["ms_in_turns"] < t["cell_ms"],
+            f"diffusion3d:{tag}: the pair layout ({t['ms_in_turns']} ms) is not faster than "
+            f"the one-cell layout ({t['cell_ms']} ms)")
+    return t
+
+
+# the hand kernel's targets on the H100 (ms): the 2-byte single step into a
+# new buffer in its pair layout, the k-step form per step beside the
+# in-place single step it replaces
+HAND_TARGETS_MS = {"diffusion3d:bf16": (0.40, 0.4808)}
+HAND_STEP_TARGETS_MS = {"": 0.5838, ":bf16": 0.5549}
+
+
+def hand_targets(k_times, mixed_times) -> dict:
+    """Which of the hand kernel's targets the run met: each single step
+    (aim, firm) and each k-step form's ms per step below its single step."""
+    out = {}
+    for name, (aim, firm) in HAND_TARGETS_MS.items():
+        ms = mixed_times[name]["ms_in_turns"]
+        out[name] = {"ms": ms, "aim_ms": aim, "firm_ms": firm, "aim_met": ms <= aim,
+                     "firm_met": ms <= firm}
+    times = {**k_times, **mixed_times}
+    for tag, limit in HAND_STEP_TARGETS_MS.items():
+        for k in HAND_KS:
+            t = times[f"diffusion3d/k{k}{tag}"]
+            out[f"diffusion3d/k{k}{tag}"] = {"ms_per_step": t["ms_per_step"],
+                                             "below_ms": limit, "met": t["ms_per_step"] < limit}
     return out
 
 
@@ -2123,6 +2235,121 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 """
+
+
+# The packed 2-byte arithmetic the hand kernel computes with
+# (csrc/diffusion3d.cu, Packed<S>) held to f32-then-round, the plain
+# version's arithmetic, over every pair of 16-bit operands: block a of the
+# grid takes operand a, each thread every 512th pair (b, b + 1) of the other
+# operand; a - b is a + (-b) as the kernel computes it. A result equals its
+# reference bit for bit, or both are NaN.
+PACKED_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+namespace {
+__device__ __forceinline__ float wide(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float wide(__half v) { return __half2float(v); }
+template <typename V> struct Ops;
+template <> struct Ops<__nv_bfloat162> {
+  using S = __nv_bfloat16;
+  static __device__ S of(uint16_t u) { return __ushort_as_bfloat16(u); }
+  static __device__ uint16_t bits(S v) { return __bfloat16_as_ushort(v); }
+  static __device__ S narrow(float f) { return __float2bfloat16_rn(f); }
+  static __device__ bool nan(uint16_t u) { return (u & 0x7fffu) > 0x7f80u; }
+  static __device__ __nv_bfloat162 pack(S a, S b) { return __halves2bfloat162(a, b); }
+  static __device__ S lo(__nv_bfloat162 v) { return __low2bfloat16(v); }
+  static __device__ S hi(__nv_bfloat162 v) { return __high2bfloat16(v); }
+};
+template <> struct Ops<__half2> {
+  using S = __half;
+  static __device__ S of(uint16_t u) { return __ushort_as_half(u); }
+  static __device__ uint16_t bits(S v) { return __half_as_ushort(v); }
+  static __device__ S narrow(float f) { return __float2half_rn(f); }
+  static __device__ bool nan(uint16_t u) { return (u & 0x7fffu) > 0x7c00u; }
+  static __device__ __half2 pack(S a, S b) { return __halves2half2(a, b); }
+  static __device__ S lo(__half2 v) { return __low2half(v); }
+  static __device__ S hi(__half2 v) { return __high2half(v); }
+};
+template <typename O>
+__device__ __forceinline__ unsigned long long differs(typename O::S got, float want) {
+  const uint16_t g = O::bits(got), w = O::bits(O::narrow(want));
+  return g != w && !(O::nan(g) && O::nan(w));
+}
+// counts[0..2]: mismatches of a + b, a - b, a * b; first[0..2]: the first
+// (a << 16 | b) of each found
+template <typename V>
+__global__ void packed_kernel(unsigned long long* counts, unsigned* first) {
+  using O = Ops<V>;
+  const uint16_t ua = static_cast<uint16_t>(blockIdx.x);
+  const typename O::S sa = O::of(ua);
+  const V a = O::pack(sa, sa);
+  const float fa = wide(sa);
+  unsigned long long n[3] = {0, 0, 0};
+  for (unsigned b = 2 * threadIdx.x; b < 65536u; b += 2 * blockDim.x) {
+    const typename O::S s0 = O::of(static_cast<uint16_t>(b)), s1 = O::of(static_cast<uint16_t>(b + 1));
+    const V v = O::pack(s0, s1);
+    const float f0 = wide(s0), f1 = wide(s1);
+    const V r[3] = {__hadd2_rn(a, v), __hadd2_rn(a, __hneg2(v)), __hmul2_rn(a, v)};
+    const float w0[3] = {fa + f0, fa - f0, fa * f0}, w1[3] = {fa + f1, fa - f1, fa * f1};
+    #pragma unroll
+    for (int op = 0; op < 3; ++op) {
+      const unsigned long long d0 = differs<O>(O::lo(r[op]), w0[op]);
+      const unsigned long long d1 = differs<O>(O::hi(r[op]), w1[op]);
+      if (d0 | d1) atomicCAS(first + op, 0xffffffffu, (unsigned(ua) << 16) | (d0 ? b : b + 1));
+      n[op] += d0 + d1;
+    }
+  }
+  for (int op = 0; op < 3; ++op) {
+    if (n[op]) atomicAdd(counts + op, n[op]);
+  }
+}
+}  // namespace
+extern "C" int launch(void* counts, void* first, int64_t half, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (half) {
+    packed_kernel<__half2><<<65536, 256, 0, st>>>(
+        static_cast<unsigned long long*>(counts), static_cast<unsigned*>(first));
+  } else {
+    packed_kernel<__nv_bfloat162><<<65536, 256, 0, st>>>(
+        static_cast<unsigned long long*>(counts), static_cast<unsigned*>(first));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+"""
+
+
+def check_packed_ops(torch, dev) -> dict:
+    """The hand kernel's packed bf16 and f16 arithmetic (``__hadd2_rn``,
+    ``__hadd2_rn`` of ``__hneg2``, ``__hmul2_rn``) against f32-then-round
+    on the card over all 2^32 operand pairs of each type and operation
+    (``PACKED_SOURCE``); any mismatch fails the run."""
+    import ctypes
+
+    from repro_torch.kernels import build, stencil
+
+    lib = build.Library("packed_ops", PACKED_SOURCE,
+                        [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p])
+    row = {"phase": "check_packed_ops", "pairs": 1 << 32}
+    for tag, name in MIXED_TAGS.items():
+        counts = torch.zeros(3, dtype=torch.int64, device=dev)
+        first = torch.full((3,), -1, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        lib.launch(counts.data_ptr(), first.data_ptr(), int(name == "float16"),
+                   stencil.stream_of(dev))
+        torch.cuda.synchronize()
+        row[tag] = {op: {"mismatches": int(n), "first": f"{int(f) & 0xffffffff:#010x}"}
+                    for op, n, f in zip(("add", "sub", "mul"), counts.tolist(), first.tolist())}
+        row[tag]["seconds"] = time.perf_counter() - t0
+    emit(row)
+    require(all(v["mismatches"] == 0 for tag in MIXED_TAGS for k, v in row[tag].items()
+                if k != "seconds"),
+            f"the packed 2-byte arithmetic differs from f32-then-round: {row}")
+    return row
 
 
 def convert_words(torch):

@@ -21,7 +21,13 @@ to nearest even, NaN kept quiet, f16 subnormals, and f16 overflow to inf
 from 65520 on. ``tests/test_torch_rehearse_mixed.py`` holds each bitwise
 to PyTorch's conversions on every bf16 and f16 value, their midpoints and
 random words (:func:`convert`), since a wrong one would make every
-rehearsal of a bf16 or f16 kernel lie.
+rehearsal of a bf16 or f16 kernel lie. The packed 2-byte arithmetic of the
+hand kernel (``__hadd2_rn``, ``__hmul2_rn``, ``__hneg2``) computes each
+half in f32 and rounds it, and its word moves (``__halves2bfloat162``,
+``__low2bfloat16``, ``__high2bfloat16`` and the ``__half2`` ones) move bits;
+the same tests hold them to PyTorch's operations (:func:`packed_op`,
+:func:`word_moves`). An asynchronous copy from outside the input fields is
+counted as a stray ``__ldg`` is.
 
 One thing is patched: the kernel divides a tensor by a host scalar as
 PyTorch's CUDA kernels do, by a product with the scalar's reciprocal, while
@@ -120,11 +126,14 @@ inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; 
 // allocation) reads nothing and is counted, and run() raises.
 static std::vector<std::pair<const char*, const char*>> g_inputs;
 static long g_stray = 0;
-template <class T> inline T __ldg(const T* p) {
-  const char* a = reinterpret_cast<const char*>(p);
+static bool inside_inputs(const void* p, size_t size) {
+  const char* a = static_cast<const char*>(p);
   bool inside = g_inputs.empty();
-  for (const auto& r : g_inputs) inside = inside || (a >= r.first && a + sizeof(T) <= r.second);
-  if (inside) return *p;
+  for (const auto& r : g_inputs) inside = inside || (a >= r.first && a + size <= r.second);
+  return inside;
+}
+template <class T> inline T __ldg(const T* p) {
+  if (inside_inputs(p, sizeof(T))) return *p;
   ++g_stray;
   return T{};
 }
@@ -192,6 +201,38 @@ inline float2 __half22float2(__half2 v) { return {__half2float(v.x), __half2floa
 inline __half2 __floats2half2_rn(float a, float b) {
   return {__float2half_rn(a), __float2half_rn(b)};
 }
+// The word moves and the packed arithmetic of 2-byte values: each half of
+// an operation the f32 operation on the widened halves, rounded to the
+// type, which is what the card's __hadd2_rn and __hmul2_rn give (chip_smoke.py
+// holds them to it over every pair of operands); __hneg2 flips each sign.
+inline __nv_bfloat162 __halves2bfloat162(__nv_bfloat16 a, __nv_bfloat16 b) { return {a, b}; }
+inline __nv_bfloat16 __low2bfloat16(__nv_bfloat162 v) { return v.x; }
+inline __nv_bfloat16 __high2bfloat16(__nv_bfloat162 v) { return v.y; }
+inline __half2 __halves2half2(__half a, __half b) { return {a, b}; }
+inline __half __low2half(__half2 v) { return v.x; }
+inline __half __high2half(__half2 v) { return v.y; }
+inline __nv_bfloat162 __hadd2_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {__float2bfloat16_rn(__bfloat162float(a.x) + __bfloat162float(b.x)),
+          __float2bfloat16_rn(__bfloat162float(a.y) + __bfloat162float(b.y))};
+}
+inline __nv_bfloat162 __hmul2_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {__float2bfloat16_rn(__bfloat162float(a.x) * __bfloat162float(b.x)),
+          __float2bfloat16_rn(__bfloat162float(a.y) * __bfloat162float(b.y))};
+}
+inline __nv_bfloat162 __hneg2(__nv_bfloat162 v) {
+  return {{uint16_t(v.x.x ^ 0x8000u)}, {uint16_t(v.y.x ^ 0x8000u)}};
+}
+inline __half2 __hadd2_rn(__half2 a, __half2 b) {
+  return {__float2half_rn(__half2float(a.x) + __half2float(b.x)),
+          __float2half_rn(__half2float(a.y) + __half2float(b.y))};
+}
+inline __half2 __hmul2_rn(__half2 a, __half2 b) {
+  return {__float2half_rn(__half2float(a.x) * __half2float(b.x)),
+          __float2half_rn(__half2float(a.y) * __half2float(b.y))};
+}
+inline __half2 __hneg2(__half2 v) {
+  return {{uint16_t(v.x.x ^ 0x8000u)}, {uint16_t(v.y.x ^ 0x8000u)}};
+}
 // An async slab's copies: each is queued and performed only at the thread's
 // wait_copies(), its destination NaN until then, so a read before the wait
 // shows as a wrong value.
@@ -201,6 +242,10 @@ inline float copy_value(__half v) { return __half2float(v); }
 template <class T> inline void copy_async(float* dst, const T* src, bool valid) {
   const uint32_t nan = 0x7fc00000u;
   std::memcpy(dst, &nan, 4);
+  if (valid && !inside_inputs(src, sizeof(T))) {   // counted as a stray __ldg is
+    ++g_stray;
+    valid = false;
+  }
   (*g_fibers)[g_cur].copies.push_back([=] { *dst = valid ? copy_value(*src) : 0.0f; });
 }
 inline void commit_copies() {}
@@ -377,6 +422,47 @@ extern "C" void narrow_pairs(const float* x, uint16_t* out, int64_t n, int half)
     }
   }
 }
+template <class V, class S> V word(const uint16_t* h, int64_t i) { return V{S{h[i]}, S{h[i + 1]}}; }
+// each pair (a[i], a[i + 1]) op (b[i], b[i + 1]) as one packed operation;
+// op 0: __hadd2_rn, 1: __hadd2_rn of __hneg2 (a - b), 2: __hmul2_rn
+extern "C" void packed_op(const uint16_t* a, const uint16_t* b, uint16_t* out, int64_t n,
+                          int op, int half) {
+  for (int64_t i = 0; i + 1 < n; i += 2) {
+    if (half) {
+      const __half2 x = word<__half2, __half>(a, i), y = word<__half2, __half>(b, i);
+      const __half2 r = op == 0 ? __hadd2_rn(x, y) : op == 1 ? __hadd2_rn(x, __hneg2(y))
+                                                             : __hmul2_rn(x, y);
+      out[i] = __low2half(r).x, out[i + 1] = __high2half(r).x;
+    } else {
+      using B = __nv_bfloat162;
+      const B x = word<B, __nv_bfloat16>(a, i), y = word<B, __nv_bfloat16>(b, i);
+      const B r = op == 0 ? __hadd2_rn(x, y) : op == 1 ? __hadd2_rn(x, __hneg2(y))
+                                                       : __hmul2_rn(x, y);
+      out[i] = __low2bfloat16(r).x, out[i + 1] = __high2bfloat16(r).x;
+    }
+  }
+}
+// the z neighbours of each word w of a row as the pair kernel moves them:
+// below (w - 1's high half, w's low half), above (w's high half, w + 1's low)
+extern "C" void word_moves(const uint16_t* h, uint16_t* below, uint16_t* above, int64_t n,
+                           int half) {
+  for (int64_t i = 2; i + 3 < n; i += 2) {
+    if (half) {
+      const __half2 p = word<__half2, __half>(h, i - 2), c = word<__half2, __half>(h, i),
+                    q = word<__half2, __half>(h, i + 2);
+      const __half2 m = __halves2half2(__high2half(p), __low2half(c));
+      const __half2 u = __halves2half2(__high2half(c), __low2half(q));
+      below[i] = m.x.x, below[i + 1] = m.y.x, above[i] = u.x.x, above[i + 1] = u.y.x;
+    } else {
+      using B = __nv_bfloat162;
+      const B p = word<B, __nv_bfloat16>(h, i - 2), c = word<B, __nv_bfloat16>(h, i),
+              q = word<B, __nv_bfloat16>(h, i + 2);
+      const B m = __halves2bfloat162(__high2bfloat16(p), __low2bfloat16(c));
+      const B u = __halves2bfloat162(__high2bfloat16(c), __low2bfloat16(q));
+      below[i] = m.x.x, below[i + 1] = m.y.x, above[i] = u.x.x, above[i + 1] = u.y.x;
+    }
+  }
+}
 extern "C" void widen_pairs(const uint16_t* h, float* out, int64_t n, int half) {
   for (int64_t i = 0; i + 1 < n; i += 2) {
     const float2 f = half ? __half22float2(__half2{__half{h[i]}, __half{h[i + 1]}})
@@ -409,6 +495,43 @@ def convert(x: torch.Tensor, dtype: torch.dtype, pairs: bool = False) -> torch.T
     fn.restype = None
     fn(src.data_ptr(), out.data_ptr(), src.numel(), int(half))
     return out
+
+
+PACKED_OPS = ("add", "sub", "mul")
+
+
+def packed_op(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    """The rehearsal's packed 2-byte arithmetic on CPU tensors of bf16 or
+    f16 (an even number of elements): each adjacent pair of ``a`` with the
+    same pair of ``b`` as one ``__hadd2_rn`` (``add``), ``__hadd2_rn`` of
+    ``__hneg2`` (``sub``) or ``__hmul2_rn`` (``mul``)."""
+    lib = _compile(_SHIM + _CONVERT, "convert")
+    x, y = a.contiguous(), b.contiguous()
+    if x.numel() % 2 or x.shape != y.shape or x.dtype != y.dtype:
+        raise ValueError("the packed operations take two tensors of one even size and dtype")
+    out = torch.empty_like(x)
+    fn = lib.packed_op
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+    fn.restype = None
+    fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), PACKED_OPS.index(op),
+       int(x.dtype == torch.float16))
+    return out
+
+
+def word_moves(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The z neighbours of a 2-byte row (even length) as the pair kernel
+    moves them out of its aligned words: ``below[i] = h[i - 1]`` and
+    ``above[i] = h[i + 1]`` for every cell of a word with words on both
+    sides (0 elsewhere)."""
+    lib = _compile(_SHIM + _CONVERT, "convert")
+    x = h.contiguous()
+    below, above = torch.zeros_like(x), torch.zeros_like(x)
+    fn = lib.word_moves
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int]
+    fn.restype = None
+    fn(x.data_ptr(), below.data_ptr(), above.data_ptr(), x.numel(),
+       int(x.dtype == torch.float16))
+    return below, above
 
 
 def run(call: stencil.StencilCall, fields: Mapping[str, torch.Tensor],
@@ -454,25 +577,42 @@ def _guarded(t: torch.Tensor) -> torch.Tensor:
 
 
 def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1,
-                     n_sm: int = 132, xc: int | None = None) -> torch.Tensor:
+                     n_sm: int = 132, xc: int | None = None, alias: bool = False,
+                     text: str | None = None) -> torch.Tensor:
     """The hand kernel ``csrc/diffusion3d.cu`` on CPU tensors (f32, bf16 or
     f16), launched as ``diffusion3d.diffusion3d_step`` launches it on a card
-    with ``n_sm`` SMs (or with chunks of ``xc`` planes), into a new tensor."""
+    with ``n_sm`` SMs (or with chunks of ``xc`` planes; the layout, one
+    cell or a pair a thread, by ``diffusion3d.pairs_fit``), into a new
+    tensor or, with ``alias``, into T2's own buffer. ``text`` runs that
+    source (an edited ``csrc/diffusion3d.cu``) instead of the repo's. T2, T
+    and Ci each lie in the middle of a NaN buffer, and a load through
+    ``__ldg`` or an asynchronous copy outside them raises."""
     from . import diffusion3d, ref
 
-    text = _host_text(build.read_source(diffusion3d.SOURCE),
-                      diffusion3d.shared_bytes(diffusion3d.MAX_STEPS) // 4)
-    fn = _compile(text, "diffusion3d").launch
+    text = build.read_source(diffusion3d.SOURCE) if text is None else text
+    # room for every variant of the source's k-step layout (tune_stencil's)
+    shared = max(diffusion3d.shared_bytes(k, 4, ci, 32)
+                 for k in range(2, diffusion3d.MAX_STEPS + 1) for ci in (False, True))
+    lib = _compile(_host_text(text, shared // 4), "diffusion3d")
+    fn = lib.launch
     fn.argtypes = diffusion3d._ARGTYPES
     fn.restype = ctypes.c_int
-    launch = diffusion3d.column_launch(tuple(T.shape), n_sm, nsteps, T.element_size())
+    ins = [_guarded(t) for t in (T2, T, Ci)]
+    out = ins[0] if alias else torch.empty_like(T)
+    pairs = nsteps == 1 and diffusion3d.pairs_fit(T.shape[2], out, *ins)
+    launch = diffusion3d.column_launch(tuple(T.shape), n_sm, nsteps, T.element_size(), pairs)
     if xc is not None:
         launch = stencil.Launch((*launch.grid[:2], -(-T.shape[0] // xc)), launch.block, xc)
-    out = torch.empty_like(T)
-    ins = [t.contiguous() for t in (T2, T, Ci)]
+    bounds = [(t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in ins]
+    lo, hi = ((ctypes.c_int64 * len(bounds))(*b) for b in zip(*bounds))
+    lib.rehearse_inputs(len(bounds), lo, hi)
     err = fn(out.data_ptr(), *(t.data_ptr() for t in ins),
              *ref.stored_scalars(T.dtype, lam, dt, inv_dx, inv_dy, inv_dz), *T.shape,
              launch.xc, int(nsteps), stencil.STORAGE_DTYPES.index(T.dtype), *launch.grid, None)
     if err:
         raise RuntimeError(f"the rehearsed diffusion3d launch refused nsteps={nsteps}")
-    return out
+    lib.rehearse_stray.restype = ctypes.c_long
+    stray = lib.rehearse_stray()
+    if stray:
+        raise RuntimeError(f"the rehearsed diffusion3d made {stray} loads outside its fields")
+    return out.clone() if alias else out

@@ -6,6 +6,7 @@
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --march 0,1,2 [--ks 1,2]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --split [--dtype bfloat16] [--sass DIR]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --steps --split [--sass DIR]
+    PYTHONPATH=src python -m repro_torch.launch.tune_stencil --hand [--against DIR] [--sass DIR]
 
 For the coupled solvers' kernels at their full sizes (porosity 8192^2, GP
 512^3) and the Fig. 1 step at 512^3, it builds each candidate
@@ -49,8 +50,13 @@ timed and held bitwise to k single steps, and with ``--sass DIR`` its SASS instr
 (``sass_steps``). ``--split
 --march 2`` times each kernel's march along the contiguous axis in parts,
 the synchronous slab and the async slabs of ``SPLIT_SLABS`` (staging alone,
-staging and compute, the whole kernel), beside the twin, in turns. It needs
-the card and measures nothing on the CPU.
+staging and compute, the whole kernel), beside the twin, in turns. ``--hand``
+times the hand kernel ``csrc/diffusion3d.cu`` at 512^3 (:func:`tune_hand`):
+another checkout's (``--against``) beside this one in turns, then each
+variant of its k-step layout (:data:`HAND_VARIANTS`) and ``--waves``, each
+launch bitwise to the plain version, with ``--sass DIR`` its SASS a cell by
+class and barrier segment (:func:`sass_hand`). It needs the card and
+measures nothing on the CPU.
 """
 from __future__ import annotations
 
@@ -671,6 +677,279 @@ def tune_steps_split(todo: dict, iters: int, sass: str | None = None) -> None:
         print(json.dumps(line), flush=True)
 
 
+# ---- the hand kernel (csrc/diffusion3d.cu) ------------------------------------
+HAND_DTYPES = ("float32", "bfloat16", "float16")
+HAND_SHAPE = (512, 512, 512)
+# scalars: FIG1's spacings at f32; at 2 bytes ones at which every product
+# rounds and nothing overflows f16 (chip_smoke.HAND_MIXED_ARGS; FIG1's
+# inverse spacings squared do)
+HAND_ARGS = {"float32": (1.0, 1e-4, 511.0, 511.0, 511.0),
+             "bfloat16": (0.7, 1e-3, 8.3, 9.1, 10.7), "float16": (0.7, 1e-3, 8.3, 9.1, 10.7)}
+# the hand kernel's times by a checkout's own wrapper (``root``/src), the
+# API every version of it has: the single step into a new buffer and in
+# place, and k = 2-4 in place, at each storage dtype; one JSON line of ms
+HAND_TIMES = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[1] + "/src")
+from repro_torch.core import teff
+from repro_torch.kernels import diffusion3d
+shape, args, iters = json.loads(sys.argv[2]), json.loads(sys.argv[3]), int(sys.argv[4])
+gen = torch.Generator(device="cuda").manual_seed(11)
+out = {}
+for name, sc in args.items():
+    dt = getattr(torch, name)
+    T = torch.rand(shape, generator=gen, device="cuda").to(dt)
+    Ci = (torch.rand(shape, generator=gen, device="cuda") + 0.5).to(dt)
+    T2 = T.clone()
+    out[name + "/k1"] = teff.measure(lambda: diffusion3d.diffusion3d_step(
+        T2, T, Ci, *sc, alias=False), iters=iters, warmup=3).median_s * 1e3
+    for k in (1, 2, 3, 4):
+        out[name + "/k%d/in_place" % k] = teff.measure(lambda: diffusion3d.diffusion3d_step(
+            T2, T, Ci, *sc, nsteps=k, alias=True), iters=iters, warmup=3).median_s * 1e3
+    del T, T2, Ci
+print(json.dumps(out))
+"""
+
+
+def hand_times(root: str, iters: int) -> dict:
+    """:data:`HAND_TIMES` run by the checkout at ``root`` in a process of its
+    own (its build directory, its wrapper and source)."""
+    done = subprocess.run([sys.executable, "-c", HAND_TIMES, str(root), json.dumps(HAND_SHAPE),
+                           json.dumps(HAND_ARGS), str(iters)], capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"hand times at {root} failed:\n{done.stderr[-4000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def hand_variant(text: str, ci: bool | None = None, cap: int | None = None,
+                 rows: int | None = None) -> str:
+    """The hand kernel's source with a choice of its k-step layout fixed,
+    each None keeping the source's own: ``ci`` (True every k-step instance
+    stages Ci through its ring, False each sweep reads it: ``stage_ci``),
+    ``cap`` (``kMaxResident``), ``rows`` (the tile's rows, ``tile_rows``)."""
+    subs = []
+    if ci is not None:
+        subs.append((r"(constexpr bool stage_ci\(int k, int bytes\) \{\n  return )[^;]*;",
+                     rf"\g<1>{'true' if ci else 'false'};"))
+    if cap is not None:
+        subs.append((r"constexpr int kMaxResident = \d+;", f"constexpr int kMaxResident = {cap};"))
+    if rows is not None:
+        subs.append((r"(constexpr int tile_rows\(int k, int bytes\) \{\n  return )[^;]*;",
+                     rf"\g<1>{rows};"))
+    for pattern, repl in subs:
+        text, n = re.subn(pattern, repl, text)
+        if n != 1:
+            raise RuntimeError(f"{pattern!r} not found in the hand kernel's source")
+    return text
+
+
+# elements past the allocator's address a new output buffer is also timed at
+# (the single step into a buffer of its own, beside in place)
+HAND_PADS = (0, 2048, 32768, 1 << 20)
+# the hand kernel's k-step variants tuned beside its own: each changes one
+# choice of the source (hand_variant's keywords)
+HAND_VARIANTS = {"own": {}, "ci-ldg": {"ci": False}, "b3": {"cap": 3},
+                 "rows16": {"rows": 16}, "rows24": {"rows": 24}, "rows32": {"rows": 32}}
+
+
+def hand_ptxas(log: str, dtype: str, k: int, pairs: bool = False) -> dict:
+    """ptxas's registers and spill bytes of the hand kernel's instance at
+    ``dtype`` and k steps; k = 1: the single step of the pair layout or the
+    one-cell one, in place and (``copy_``) the instance that copies T2's
+    ring into a buffer of its own."""
+    mangled = HAND_MANGLED[dtype]
+    names = ({"": f"diffusion3d_steps_kernelILi{k}E{mangled}E"} if k > 1 else
+             {pre: f"diffusion3d_{'pairs_' if pairs else ''}kernelILb{b}E{mangled}E"
+              for pre, b in (("", 0), ("copy_", 1))})
+    out = {}
+    for part in re.split(r"(?=ptxas info\s*: Compiling entry function)", log):
+        for pre, name in names.items():
+            if name in part.split("\n", 1)[0]:
+                out.update({pre + key: v for key, v in ptxas(part).items()})
+    return out
+
+
+def sass_function(text: str, name: str) -> str:
+    """The SASS of the one function of ``cuobjdump -sass`` output whose
+    mangled name matches the regular expression ``name``."""
+    parts = re.split(r"(?=\n\s*Function : )", text)
+    found = [p for p in parts if re.search(r"Function : \S*" + name, p)]
+    if len(found) != 1:
+        raise RuntimeError(f"{len(found)} functions match {name!r} in the SASS")
+    return found[0]
+
+
+_SASS_STORE = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?STG(\S*)")
+HAND_MANGLED = {"float32": "f", "bfloat16": "13__nv_bfloat16", "float16": "6__half"}
+_HAND_KINDS = {"fp32": ("FADD", "FMUL", "FFMA"), "packed": ("HADD2", "HMUL2", "HFMA2"),
+               "convert": ("F2F", "F2FP"), "moves": ("PRMT",), "integer": _INTEGER,
+               "shared": ("LDS", "STS", "LDGSTS"), "loads": ("LDG",), "stores": ("STG",)}
+
+
+def sass_hand(text: str, dtype: str, k: int) -> list:
+    """SASS instructions a cell of the hand kernel's instance at ``dtype``
+    and k steps, by class (F2F/F2FP conversions, HADD2/HMUL2/HFMA2 packed
+    arithmetic, PRMT word moves, ...), in its march loop (the widest
+    backward branch): k = 1 the single step's loop of each layout (in place)
+    over its cells a thread an iteration; k > 1 each barrier segment (the
+    landing of the step's staged planes, each sweep, the first with the next
+    step's copies, then the last sweep) over its cells a thread a step."""
+    from ..kernels import diffusion3d
+
+    mangled = HAND_MANGLED[dtype]
+    if k == 1:        # cells an iteration: counted from its stores below
+        kernels = [("diffusion3d_kernelILb0E", ["cells"], [None])]
+        if dtype != "float32":
+            kernels.append(("diffusion3d_pairs_kernelILb0E", ["pairs"], [None]))
+    else:
+        rows = diffusion3d.tile_rows(k, torch.finfo(getattr(torch, dtype)).bits // 8)
+        h_rounds = [-(-(32 + 2 * h) * (rows + 2 * h) // 256) for h in range(k + 1)]
+        kernels = [(f"diffusion3d_steps_kernelILi{k}E",
+                    ["land"] + [f"sweep{k - 1 - h}" for h in range(k - 1, -1, -1)],
+                    [2 * h_rounds[k]] + [2 * h_rounds[h] for h in range(k - 1, -1, -1)])]
+    out = []
+    for kern, names, cells in kernels:
+        fn = sass_function(text, f"{kern}{mangled}E")
+        ins = [(int(m.group(1), 16), m.group(3), m.group(4))
+               for m in map(_SASS_LINE.match, fn.splitlines()) if m]
+        back = [(int(t, 16), a) for a, op, arg in ins if op == "BRA"
+                for t in re.findall(r"0x([0-9a-f]+)\s*$", arg) if int(t, 16) < a]
+        lo, hi = max(back, key=lambda b: b[1] - b[0])
+        body = [(a, op) for a, op, _ in ins if lo <= a <= hi]
+        bars = [a for a, op in body if op == "BAR"]
+        edges = [lo, *[b + 16 for b in bars], hi + 16]
+        for name, n, (s0, s1) in zip(names, cells, zip(edges, edges[1:])):
+            ops = [op for a, op in body if s0 <= a < s1]
+            if n is None:     # the single step's loop, unrolled: a store a cell (a word
+                # a pair of cells: the pair layout's 2-byte stores are its edge words)
+                pairs = name == "pairs"
+                n = (2 if pairs else 1) * max(1, sum(
+                    1 for m in map(_SASS_STORE.match, fn.splitlines())
+                    if m and s0 <= int(m.group(1), 16) < s1
+                    and not (pairs and ".U16" in m.group(2))))
+            out.append({"kernel": kern, "segment": name, "instructions": len(ops),
+                        "cells_per_thread": n, "per_cell": {
+                            "all": len(ops) / n, **{c: sum(op in kinds for op in ops) / n
+                                                    for c, kinds in _HAND_KINDS.items()}}})
+    return out
+
+
+def off_word(t: torch.Tensor) -> torch.Tensor:
+    """A copy of a 2-byte tensor two bytes off a 4-byte word."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def tune_hand(iters: int, waves: list | None, against: str | None, sass: str | None,
+              ks: list | None) -> None:
+    """One JSON line per timing of the hand kernel at 512^3: with
+    ``against`` (a checkout of another version, e.g. the parent commit)
+    both versions' :data:`HAND_TIMES` in turns (other, this, this, other);
+    then for each dtype and k (``ks``, default 1-4) each variant of this
+    source in place (:data:`HAND_VARIANTS`: the Ci choice, the resident
+    cap, the tile's rows; those two blocks of
+    which would not fit are skipped; with the source's own choices
+    ``waves``, the values of ``PAIR_WAVES`` or ``STEPS_WAVES`` to time),
+    each launch held bitwise against the plain version, with its shared
+    memory and ptxas's registers and spills; with ``sass`` each instance's
+    SASS counted a cell by segment (:func:`sass_hand`)."""
+    from ..kernels import diffusion3d, ref
+
+    root = pathlib.Path(__file__).resolve().parents[3]
+    if against:
+        runs = []
+        for where in (against, root, root, against):
+            runs.append({"root": str(where), "ms": hand_times(str(where), iters)})
+            print(json.dumps({"hand_turn": len(runs), **runs[-1]}), flush=True)
+        mine = {k: (runs[1]["ms"][k] + runs[2]["ms"][k]) / 2 for k in runs[1]["ms"]}
+        other = {k: (runs[0]["ms"][k] + runs[3]["ms"][k]) / 2 for k in runs[0]["ms"]}
+        print(json.dumps({"hand_in_turns": {k: {"this": mine[k], "other": other[k],
+                                                "ratio": mine[k] / other[k]} for k in mine}}),
+              flush=True)
+    text = build.read_source(diffusion3d.SOURCE)
+    variants = {n: hand_variant(text, **kw) for n, kw in HAND_VARIANTS.items()}
+    names = {n: f"diffusion3d_{n.replace('-', '_')}" for n in variants}
+    t0 = time.perf_counter()
+    logs = dict(zip(variants, build.compile_many([(names[n], v)
+                                                  for n, v in variants.items()])))
+    print(json.dumps({"built": len(variants), "seconds": time.perf_counter() - t0}), flush=True)
+    libs = {n: build.Library(names[n], v, diffusion3d._ARGTYPES) for n, v in variants.items()}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for dtype in HAND_DTYPES:
+        dt = getattr(torch, dtype)
+        item = dt.itemsize
+        T = torch.rand(HAND_SHAPE, generator=gen, device="cuda").to(dt)
+        Ci = (torch.rand(HAND_SHAPE, generator=gen, device="cuda") + 0.5).to(dt)
+        T2 = T.clone()
+        args = HAND_ARGS[dtype]
+        for k in ks or (1, 2, 3, 4):
+            want = ref.diffusion3d_steps(T2, T, Ci, *args, nsteps=k)
+            row = {}
+            for n in (["own"] if k == 1 else variants):
+                kw = HAND_VARIANTS[n]
+                ci = kw.get("ci", diffusion3d.stage_ci(k, item))
+                cap = kw.get("cap", diffusion3d.MAX_RESIDENT)
+                rows = kw.get("rows", diffusion3d.tile_rows(k, item))
+                if k > 1 and 2 * diffusion3d.shared_bytes(k, item, ci, rows) > 232448:
+                    continue                       # one block: the two-block rule refuses it
+                for pairs in ([False, True] if k == 1 and item == 2 else [False]):
+                    # in place, as the main path runs it; the one-cell layout at 2
+                    # bytes on fields two bytes off a word, which the pair rule refuses
+                    fs = ([off_word(t) for t in (T2, T, Ci)] if k == 1 and item == 2
+                          and not pairs else [T2.clone(), T, Ci])
+                    if k == 1 and diffusion3d.pairs_fit(HAND_SHAPE[2], *fs) != pairs:
+                        raise RuntimeError("the fields do not take the layout timed")
+                    for w in (waves or [None]) if n == "own" else [None]:
+                        launch = diffusion3d.column_launch(HAND_SHAPE, n_sm, k, item, pairs, w,
+                                                           ci, cap, rows)
+
+                        def run(launch=launch, n=n, fs=fs):
+                            diffusion3d.launch_on(libs[n], launch, fs[0], *fs, args, k)
+
+                        fs[0].copy_(T2)
+                        run()
+                        if not torch.equal(fs[0], want):
+                            raise RuntimeError(f"hand {dtype} k={k} {n} pairs={pairs} waves={w}:"
+                                               " not bitwise equal to the plain version")
+                        ms = teff.measure(run, iters=iters, warmup=3).median_s * 1e3
+                        tag = f"{n}{'/pairs' if pairs else '/cells' if k == 1 else ''}/w{w or '-'}"
+                        # and into a buffer of its own (T2's ring copied), at the
+                        # allocator's address and at addresses ``pad`` elements past it
+                        for pad in (HAND_PADS if k == 1 else ()):
+                            buf = torch.empty(fs[0].numel() + pad, dtype=dt, device="cuda")
+                            own_out = buf[pad:].view(HAND_SHAPE)
+
+                            def run_new(launch=launch, n=n, fs=fs, own_out=own_out):
+                                diffusion3d.launch_on(libs[n], launch, own_out, *fs, args, 1)
+
+                            run_new()
+                            if not torch.equal(own_out, want):
+                                raise RuntimeError(f"hand {dtype} {n} pairs={pairs} waves={w}:"
+                                                   " not bitwise equal into a new buffer")
+                            row[f"{tag}/new_buffer+{pad}"] = {
+                                "ms": teff.measure(run_new, iters=iters, warmup=3).median_s * 1e3,
+                                "offset_mod_2^28": (own_out.data_ptr() - fs[1].data_ptr())
+                                % (1 << 28)}
+                            del buf, own_out
+                        row[tag] = {"ms": ms, "ms_per_step": ms / k,
+                                    "smem_bytes": diffusion3d.shared_bytes(k, item, ci, rows),
+                                    **hand_ptxas(logs[n].log, dtype, k, pairs)}
+            print(json.dumps({"hand": dtype, "k": k, "in_place": True, "variants": row}),
+                  flush=True)
+        del T, T2, Ci
+        torch.cuda.empty_cache()
+    if sass:
+        pathlib.Path(sass).mkdir(parents=True, exist_ok=True)
+        path = pathlib.Path(sass) / "diffusion3d.sass"
+        if write_sass(build.library_path(names["own"], variants["own"]), path):
+            text = path.read_text()
+            for dtype in HAND_DTYPES:
+                for k in ks or (1, 2, 3, 4):
+                    print(json.dumps({"hand_sass": dtype, "k": k,
+                                      "per_cell": sass_hand(text, dtype, k)}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--waves", default=None,
@@ -687,6 +966,10 @@ def main(argv=None) -> int:
                     help="with --steps: the k to time, e.g. 1,2 (default: STEPS_KS)")
     ap.add_argument("--kernels", default=None,
                     help="only these kernels (names as printed, comma-separated)")
+    ap.add_argument("--hand", action="store_true",
+                    help="tune the hand diffusion3d kernel (csrc/diffusion3d.cu)")
+    ap.add_argument("--against", default=None,
+                    help="with --hand: a checkout of another version to time in turns")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "float16"],
                     help="the fields' storage dtype (compute stays f32)")
@@ -697,6 +980,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     name, power = teff.card_info(0)
     print(json.dumps({"card": name, "power_limit": power, "dtype": args.dtype}), flush=True)
+    if args.hand:
+        tune_hand(args.iters, [int(w) for w in args.waves.split(",")] if args.waves else None,
+                  args.against, args.sass, [int(x) for x in args.ks.split(",")] if args.ks
+                  else None)
+        return 0
     todo = kernels(dev, getattr(torch, args.dtype))
     if args.kernels:
         todo = {n: todo[n] for n in args.kernels.split(",")}

@@ -594,6 +594,31 @@ def test_mixed_diffusion3d_equals_plain(card, shape, k, tag, rng):
         diffusion3d.diffusion3d_step(T.float(), T, Ci, *args, nsteps=k)
 
 
+@pytest.mark.parametrize("shape", [(33, 20, 130), (33, 20, 131), (512, 64, 130)])
+@pytest.mark.parametrize("tag", list(LOW))
+def test_mixed_diffusion3d_both_layouts(card, shape, tag, rng):
+    """The 2-byte single step in its pair layout (nz even, fields on 4-byte
+    words) and its one-cell layout (nz odd, or the same values two bytes off
+    a word), each bitwise to the plain version, in place and not, and named
+    in ``diffusion3d.last_layout``."""
+    dt = LOW[tag]
+    T, Ci, T2 = (_rand(rng, shape, card).to(dt) for _ in range(3))
+    args = (0.7, 1e-3, 8.3, 9.1, 10.7)
+    want = ref.diffusion3d_step(T2, T, Ci, *args)
+    pairs = shape[2] % 2 == 0
+    for alias in (False, True):
+        got = diffusion3d.diffusion3d_step(T2.clone(), T, Ci, *args, alias=alias)
+        assert diffusion3d.last_layout == ("pairs" if pairs else "cells")
+        assert torch.equal(got, want)
+        off = []
+        for t in (T2, T, Ci):
+            buf = torch.empty(t.numel() + 1, dtype=dt, device=card)
+            off.append(buf[1:].view(shape).copy_(t))
+        got = diffusion3d.diffusion3d_step(*off, *args, alias=alias)
+        assert diffusion3d.last_layout == "cells" and torch.equal(got, want)
+        assert (got.data_ptr() == off[0].data_ptr()) == alias
+
+
 def test_mixed_solve_until_on_the_card(card):
     """FIG1 at bf16 through solve_until on both backends: the same steps,
     error and fields; porosity --dtype bfloat16 alike."""

@@ -160,3 +160,53 @@ def test_hand_diffusion3d_source_equals_plain(cxx, shape, k, tag, rng):
     T2 = torch.tensor(rng.rand(*shape).astype(np.float32)).to(dt)
     assert torch.equal(rehearse.diffusion3d_step(T2, T, Ci, *args, nsteps=k),
                        ref.diffusion3d_steps(T2, T, Ci, *args, nsteps=k))
+
+
+def _operands(dt) -> tuple[torch.Tensor, torch.Tensor]:
+    """Operand pairs of every class: each 16-bit value (zeros, subnormals,
+    normals, the largest finite values, +-inf, NaN) against 48 others drawn
+    from the same words, half of them from the classes' edges."""
+    every = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(torch.int16)
+    edges = torch.tensor([0, 1, 2, 0x7f, 0x80, 0x3ff, 0x400, 0x3c00, 0x3f80, 0x7bff, 0x7c00,
+                          0x7e00, 0x7f7f, 0x7f80, 0x7fc0, 0x4000, 0x3800, 0x0401, 0x0081,
+                          0x5bf8, 0x6000, 0x2400, 0x1c00, 0x4b80], dtype=torch.int32)
+    edges = torch.cat([edges, edges | 0x8000]).to(torch.int16)
+    rand = torch.randint(-(1 << 15), 1 << 15, (24,), generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32).to(torch.int16)
+    others = torch.cat([edges, rand])
+    a = every.repeat_interleave(others.numel())
+    b = others.repeat(every.numel())
+    return a.view(dt), b.view(dt)
+
+
+@pytest.mark.parametrize("op", rehearse.PACKED_OPS)
+@pytest.mark.parametrize("tag", list(LOW))
+def test_packed_arithmetic_shims_equal_torch_bitwise(cxx, op, tag):
+    """The packed 2-byte arithmetic the hand kernel computes with
+    (``__hadd2_rn``, ``__hadd2_rn`` of ``__hneg2``, ``__hmul2_rn``), each
+    half PyTorch's operation at that dtype (f32 then rounded), NaN as NaN,
+    over every operand class in both halves of a pair."""
+    dt = LOW[tag]
+    a, b = _operands(dt)
+    want = {"add": a + b, "sub": a - b, "mul": a * b}[op]
+    for x, y, w in ((a, b, want), (b.flip(0), a.flip(0), None)):
+        w = {"add": x + y, "sub": x - y, "mul": x * y}[op] if w is None else w
+        got = rehearse.packed_op(x, y, op)
+        nan = torch.isnan(w)
+        assert torch.equal(got[~nan].view(torch.int16), w[~nan].view(torch.int16))
+        assert bool(torch.isnan(got[nan]).all())
+
+
+@pytest.mark.parametrize("tag", list(LOW))
+def test_word_move_shims_are_exact(cxx, tag):
+    """The pair kernel's z neighbours out of aligned words
+    (``__halves2bfloat162`` of ``__high2bfloat16`` and ``__low2bfloat16``,
+    and their f16 twins): every 16-bit value moved bit for bit, NaN
+    payloads and signed zeros included."""
+    dt = LOW[tag]
+    h = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(torch.int16)
+    h = torch.cat([h, h.flip(0)]).view(dt)
+    below, above = rehearse.word_moves(h)
+    bits = h.view(torch.int16)
+    assert torch.equal(below.view(torch.int16)[2:-2], bits[1:-3])
+    assert torch.equal(above.view(torch.int16)[2:-2], bits[3:-1])
