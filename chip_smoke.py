@@ -99,6 +99,20 @@ contiguous-axis kernel beside its synchronous layout (the slab staged
 through registers, or strided k-step loads and stores) on the same fields,
 bitwise to each other, in turns (``sync_ms``).
 
+Then the checkpointed main path (``main_path_checkpoint``): porosity's
+--tol run at 8192^2 (cap 400 steps, a check every 10, a save every 10
+checks) uninterrupted without and with checkpoints, then in a child process
+under ``REPRO_FAULT_PLAN={"kill_at_step": 200}`` (exit code 113, LATEST at
+200) and resumed here, all bitwise equal; the same kill and resume at bf16
+through ``solve_until`` to its cap; GP's drift-guarded run at 512^3
+checkpointed against its plain run. Each row gives the bytes per save, the
+device-to-host snapshot, the loop's stall per save, the write seconds and
+the ms per step with and without checkpoints. ``main_path_telemetry``
+runs FIG1's ``solve_until`` at 512^3 with telemetry off and twice into a
+JSONL log, which must validate under the port's schema, and prints the
+warm solve's roofline fraction (the least time of its A_eff at the copy
+bandwidth over the measured step, which must lie in (0, 1]) and T_eff.
+
 It prints JSON lines; the line before the last lists the kernels, the one
 before that is the card's name and power limit as nvidia-smi gives them,
 and the last line is {"ok": true, "device": {...}}. Any failure exits
@@ -109,7 +123,10 @@ import json
 import math
 import os
 import re
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -539,6 +556,11 @@ def main() -> int:
 
     # ---- 4f. the main path marched -------------------------------------------------
     march_runs = march_main_path(torch, spec, march_v)
+    torch.cuda.empty_cache()
+
+    # ---- 4g. checkpoints, a planned kill and a resume; telemetry -------------------
+    checkpoint_main_path(torch)
+    telemetry_main_path(torch, step, spec)
     torch.cuda.empty_cache()
 
     # ---- 5. times at FIG1 ---------------------------------------------------
@@ -3052,6 +3074,323 @@ def march_rows(march_runs, march_times, err_at) -> list:
              **{x: march_times[k][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
              "library_ms": None}
             for k, n in march_runs["launches"].items() if k != "stencil"]
+
+
+# Checkpoints, fault injection and telemetry. Porosity's --tol run (PW_TOL,
+# which never converges at 8192^2) with its cap raised to CKPT_CAP so that a
+# planned kill at CKPT_KILL lands mid-run, a check every 10 steps and a save
+# every 10 checks (100 steps, 1.07 GB of f32 carry a save); the same at bf16
+# through solve_until to its cap (until="above", tol=inf: a 2-byte --tol run
+# may stop at its first check, below one storage ulp); GP's drift-guarded
+# run at 512^3 with one save of its 2.68 GB carry; FIG1's solve_until at
+# 512^3 into a telemetry log. The files go to a temporary directory that is
+# removed afterwards.
+CKPT_CAP, CKPT_KILL, CKPT_CHECK, CKPT_KEEP = 400, 200, 10, 2
+CKPT_SAVE_EVERY = {"porosity": 10, "gp": 5}
+KILL_EXIT_CODE = 113      # repro_torch.distributed.fault.KILL_EXIT_CODE
+
+
+def sync(torch, device) -> None:
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def timed(torch, device, fn):
+    """``fn()`` and its wall seconds, the device drained at both ends."""
+    sync(torch, device)
+    t0 = time.perf_counter()
+    r = fn()
+    sync(torch, device)
+    return r, time.perf_counter() - t0
+
+
+def child(args, plan: dict | None = None) -> subprocess.CompletedProcess:
+    """Run ``python args`` from the repository root with the port
+    importable, under the fault plan ``plan``; waits for it (it is killed
+    at the time limit)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), ROOT]))
+    for k in ("REPRO_FAULT_PLAN", "REPRO_TELEMETRY"):
+        env.pop(k, None)
+    if plan is not None:
+        env["REPRO_FAULT_PLAN"] = json.dumps(plan)
+    return subprocess.run([sys.executable, *args], env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+
+
+def porosity_solve(ck_dir, dtype="float32", n=COUPLED_FULL["porosity"][0], device="cuda",
+                   blocking=False):
+    """Porosity's fused kernel with its residual epilogue through
+    ``iterate.solve_until`` to ``CKPT_CAP`` steps, checkpointed under
+    ``ck_dir`` unless it is None: at f32 the twin's --tol solve (PW_TOL),
+    at bf16 ``until="above"`` with tol=inf. The parent and the killed
+    bf16 child both run this."""
+    from repro_torch.core import iterate
+    from repro_torch.examples import porosity_waves as pw
+
+    cfg = pw.PorosityConfig(n=n, dtype=dtype, device=device)
+    grid, phi, Pe = pw.init_state(cfg)
+    kern = pw.make_step(grid, cfg).kernels[0].with_reductions({"err": "max_abs_diff(Pe2, Pe)"})
+    ck = None if ck_dir is None else iterate.Checkpointing(
+        ck_dir, save_every=CKPT_SAVE_EVERY["porosity"], keep=CKPT_KEEP, blocking=blocking)
+    stop = dict(tol=PW_TOL) if dtype == "float32" else dict(tol=float("inf"), until="above")
+    return iterate.solve_until(kern, dict(phi2=phi, Pe2=Pe, phi=phi, Pe=Pe),
+                               dict(dtau=pw.timestep(cfg, grid)), max_iters=CKPT_CAP,
+                               check_every=CKPT_CHECK, checkpoint=ck, **stop)
+
+
+def save_stats(records) -> dict:
+    """What the in-memory telemetry of a checkpointed solve says about its
+    saves: bytes, the device-to-host snapshot, the write on the writer
+    thread, and the loop's stall per save (the gap between one chunk's end
+    and the next one's start: waiting for the previous write, the snapshot,
+    the records)."""
+    def spans(name):
+        return [r for r in records if r["kind"] == "span" and r["name"] == name]
+
+    chunks = spans("solve.chunk")
+    stall_ms = [(b["ts"] - a["ts"] - a["dur_s"]) * 1e3 for a, b in zip(chunks, chunks[1:])]
+    snap_ms = [r["dur_s"] * 1e3 for r in spans("checkpoint.snapshot")]
+    warm = chunks[1:] or chunks
+    return {"saves": len(spans("checkpoint.write")),
+            "bytes_per_save": sorted({r["value"] for r in records if r["kind"] == "counter"
+                                      and r["name"] == "checkpoint.bytes_written"}),
+            "snapshot_ms": snap_ms, "median_snapshot_ms": float(sorted(snap_ms)[len(snap_ms) // 2]),
+            "stall_ms": stall_ms,
+            "median_stall_ms": (float(sorted(stall_ms)[len(stall_ms) // 2]) if stall_ms
+                                else None),
+            "write_s": [r["dur_s"] for r in spans("checkpoint.write")],
+            "chunk_ms_per_step": (sum(c["dur_s"] for c in warm)
+                                  / sum(c["attrs"]["steps"] for c in warm) * 1e3)}
+
+
+def checkpoint_main_path(torch, n_pw=COUPLED_FULL["porosity"][0], n_gp=COUPLED_FULL["gp"][0],
+                         device="cuda") -> dict:
+    """The checkpointed main path (``main_path_checkpoint`` lines):
+    porosity's --tol run (a) uninterrupted without checkpoints, (d) the
+    same with them (in-memory telemetry for the save figures), (e) the
+    same with blocking saves (chunks beside no write), (b) in a
+    child process under ``REPRO_FAULT_PLAN={"kill_at_step": 200}``, which
+    must exit 113 with LATEST at 200, and (c) resumed here: (a), (c), (d)
+    and (e) bitwise equal. Then the same kill and resume at bf16, and GP's
+    guarded run checkpointed against its plain run. The launch counts are
+    set to 0 just before (a) and (d) and read just after."""
+    from repro_torch import telemetry
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.examples import gross_pitaevskii as gp, porosity_waves as pw
+    from repro_torch.kernels import stencil
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {}
+    try:
+        # ---- porosity f32 through the twin ---------------------------------
+        kw = dict(n=n_pw, nt=CKPT_CAP, tol=PW_TOL, check_every=CKPT_CHECK, device=device)
+        ck_kw = dict(save_every=CKPT_SAVE_EVERY["porosity"])
+        stencil.launches.clear()
+        plain, wall_plain = timed(torch, device, lambda: pw.solve(pw.PorosityConfig(**kw)))
+        launches_plain = dict(stencil.launches)
+        require(plain["iters"] > CKPT_KILL,
+                f"porosity --tol stopped at {plain['iters']}, before the kill at {CKPT_KILL}")
+        col = telemetry.configure(None)
+        try:
+            stencil.launches.clear()
+            full, wall_ck = timed(torch, device, lambda: pw.solve(pw.PorosityConfig(
+                **kw, checkpoint_dir=os.path.join(root, "pw_full"), **ck_kw)))
+            launches_ck = dict(stencil.launches)
+        finally:
+            telemetry.reset()
+        stats = save_stats(col.records)
+        shutil.rmtree(os.path.join(root, "pw_full"))
+        # (e) the same with blocking saves: no chunk runs beside a write
+        col = telemetry.configure(None)
+        try:
+            blocking = porosity_solve(os.path.join(root, "pw_blocking"), n=n_pw, device=device,
+                                      blocking=True)
+        finally:
+            telemetry.reset()
+        shutil.rmtree(os.path.join(root, "pw_blocking"))
+        blocking_stats = {k: v for k, v in save_stats(col.records).items()
+                          if k in ("stall_ms", "write_s", "chunk_ms_per_step")}
+        ck = os.path.join(root, "pw_kill")
+        p, child_s = timed(torch, device, lambda: child(
+            ["-m", "repro_torch.examples.porosity_waves", "--device", device, "--n", str(n_pw),
+             "--nt", str(CKPT_CAP), "--tol", repr(PW_TOL), "--check-every", str(CKPT_CHECK),
+             "--checkpoint-dir", ck, "--save-every", str(ck_kw["save_every"])],
+            {"kill_at_step": CKPT_KILL}))
+        latest = CheckpointManager(ck).latest_step()
+        require(p.returncode == KILL_EXIT_CODE,
+                f"porosity child exited {p.returncode}, not {KILL_EXIT_CODE}: {p.stderr[-3000:]}")
+        require(latest == CKPT_KILL, f"LATEST is {latest} after the kill at {CKPT_KILL}")
+        resumed, wall_resume = timed(torch, device, lambda: pw.solve(pw.PorosityConfig(
+            **kw, checkpoint_dir=ck, **ck_kw)))
+        shutil.rmtree(ck)
+        same_full = {k: bool(torch.equal(plain[k], full[k]) and torch.equal(
+            plain[k], blocking.fields[k])) for k in ("phi", "Pe")}
+        same_resumed = {k: bool(torch.equal(plain[k], resumed[k])) for k in ("phi", "Pe")}
+        out["porosity"] = row = {
+            "phase": "main_path_checkpoint", "solver": "porosity", "dtype": "float32",
+            "shape": [n_pw, n_pw], "config": dict(kw, **ck_kw), "kill_at_step": CKPT_KILL,
+            "iters": {"plain": plain["iters"], "checkpointed": full["iters"],
+                      "resumed": resumed["iters"]},
+            "residual": {"plain": plain["residual"], "checkpointed": full["residual"],
+                         "resumed": resumed["residual"]},
+            "resumed_from": resumed["resumed_from"], "child": {"rc": p.returncode,
+                                                               "latest": latest,
+                                                               "wall_s": child_s},
+            "bitwise": {"checkpointed": same_full, "resumed": same_resumed},
+            "launches": {"plain": launches_plain, "checkpointed": launches_ck},
+            "wall_s": {"plain": wall_plain, "checkpointed": wall_ck, "resume": wall_resume},
+            "ms_per_step": {"plain": wall_plain / plain["iters"] * 1e3,
+                            "checkpointed": wall_ck / full["iters"] * 1e3},
+            **stats, "blocking_saves": blocking_stats}
+        emit(row)
+        require(all(same_full.values()) and all(same_resumed.values()),
+                f"porosity: checkpointed or resumed fields differ from the plain run: {row['bitwise']}")
+        require(plain["iters"] == full["iters"] == resumed["iters"]
+                and plain["residual"] == full["residual"] == resumed["residual"],
+                f"porosity: iters or residual differ: {row['iters']} {row['residual']}")
+        require(resumed["resumed_from"] == CKPT_KILL, "porosity did not resume from the kill")
+        require(launches_ck == launches_plain,
+                f"porosity: checkpoints changed the launches: {launches_ck} vs {launches_plain}")
+        require(stats["saves"] == plain["iters"] // (CKPT_CHECK * ck_kw["save_every"]),
+                f"porosity: {stats['saves']} saves")
+        require(not str(device).startswith("cuda")
+                or set(launches_plain) == {"update", "update[err]"},
+                f"porosity: launches {launches_plain}")
+        del plain, full, resumed, blocking
+        if str(device).startswith("cuda"):
+            torch.cuda.empty_cache()
+
+        # ---- porosity bf16: the same kill and resume -----------------------
+        stencil.launches.clear()
+        plain, wall_plain = timed(torch, device, lambda: porosity_solve(None, "bfloat16", n_pw,
+                                                                        device))
+        launches_plain = dict(stencil.launches)
+        ck = os.path.join(root, "pw_bf16")
+        p, child_s = timed(torch, device, lambda: child(
+            ["-c", "import sys, chip_smoke; chip_smoke.porosity_solve("
+                   "sys.argv[1], 'bfloat16', int(sys.argv[2]), sys.argv[3])", ck, str(n_pw),
+             device],
+            {"kill_at_step": CKPT_KILL}))
+        latest = CheckpointManager(ck).latest_step()
+        require(p.returncode == KILL_EXIT_CODE,
+                f"bf16 child exited {p.returncode}, not {KILL_EXIT_CODE}: {p.stderr[-3000:]}")
+        require(latest == CKPT_KILL, f"bf16: LATEST is {latest} after the kill at {CKPT_KILL}")
+        with open(os.path.join(ck, f"step_{CKPT_KILL:09d}", "manifest.json")) as fh:
+            dtypes = {t["path"]: t["dtype"] for t in json.load(fh)["tensors"]}
+        col = telemetry.configure(None)
+        try:
+            resumed, wall_resume = timed(torch, device, lambda: porosity_solve(
+                ck, "bfloat16", n_pw, device))
+        finally:
+            telemetry.reset()
+        shutil.rmtree(ck)
+        same = {k: bool(torch.equal(plain.fields[k], resumed.fields[k])) for k in plain.fields}
+        out["porosity_bf16"] = row = {
+            "phase": "main_path_checkpoint", "solver": "porosity", "dtype": "bfloat16",
+            "shape": [n_pw, n_pw], "kill_at_step": CKPT_KILL, "until": "above", "tol": "inf",
+            "iters": {"plain": plain.iters, "resumed": resumed.iters},
+            "err": {"plain": plain.err, "resumed": resumed.err},
+            "resumed_from": resumed.resumed_from, "saved_steps": list(resumed.saved_steps),
+            "child": {"rc": p.returncode, "latest": latest, "wall_s": child_s},
+            "manifest_dtypes": dtypes, "bitwise": same, "launches": launches_plain,
+            "wall_s": {"plain": wall_plain, "resume": wall_resume},
+            **save_stats(col.records)}
+        emit(row)
+        require(all(same.values()), f"bf16 porosity: resumed fields differ: {same}")
+        require(plain.iters == resumed.iters == CKPT_CAP and plain.err == resumed.err
+                and resumed.resumed_from == CKPT_KILL, f"bf16 porosity: {row['iters']}")
+        require(dtypes["fields/phi"] == dtypes["fields/Pe"] == "bfloat16",
+                f"bf16 porosity: manifest dtypes {dtypes}")
+        del plain, resumed
+        if str(device).startswith("cuda"):
+            torch.cuda.empty_cache()
+
+        # ---- GP drift-guarded, checkpointed against plain ------------------
+        kw = dict(n=n_gp, nt=GP_TOL_CAP, tol=GP_TOL, check_every=CKPT_CHECK, device=device)
+        plain, wall_plain = timed(torch, device, lambda: gp.solve(gp.GPConfig(**kw)))
+        ck = os.path.join(root, "gp")
+        col = telemetry.configure(None)
+        try:
+            ckd, wall_ck = timed(torch, device, lambda: gp.solve(gp.GPConfig(
+                **kw, checkpoint_dir=ck, save_every=CKPT_SAVE_EVERY["gp"])))
+        finally:
+            telemetry.reset()
+        latest = CheckpointManager(ck).latest_step()
+        shutil.rmtree(ck)
+        same = {k: bool(torch.equal(plain[k], ckd[k])) for k in ("re", "im")}
+        out["gp"] = row = {
+            "phase": "main_path_checkpoint", "solver": "gp", "dtype": "float32",
+            "shape": [n_gp] * 3, "config": dict(kw, save_every=CKPT_SAVE_EVERY["gp"]),
+            "iters": [plain["iters"], ckd["iters"]], "drift": [plain["drift"], ckd["drift"]],
+            "latest": latest, "bitwise": same,
+            "wall_s": {"plain": wall_plain, "checkpointed": wall_ck},
+            **save_stats(col.records)}
+        emit(row)
+        require(all(same.values()) and plain["iters"] == ckd["iters"] == latest
+                and plain["drift"] == ckd["drift"], f"GP: checkpointed run differs: {row}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def telemetry_main_path(torch, step, spec, cfg=None, device="cuda") -> dict:
+    """FIG1 through ``solve_until`` with telemetry off, then twice into a
+    JSONL log (the first call may trace, the second is warm): the same
+    iterations, host syncs, launches and fields each time; the log must
+    validate under the port's schema and hold the warm solve's roofline
+    record, against ``spec`` (``device_spec()``) on the card."""
+    from repro_torch.configs import FIG1
+    from repro_torch.core import iterate
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import stencil
+    from repro_torch.telemetry import Collector, schema
+
+    cfg = cfg or FIG1
+    _, f, sc = quickstart.initial_state(cfg, device)
+    kern = step.with_reductions(ERR)
+    root = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        path = os.path.join(root, "fig1.jsonl")
+        col = Collector(path, meta={"config": "FIG1", "shape": list(cfg.shape)})
+        runs, launches = [], []
+        for sel in (False, col, col):
+            stencil.launches.clear()
+            runs.append(timed(torch, device, lambda: iterate.solve_until(
+                kern, f, sc, tol=1e-7, max_iters=1000, check_every=10, telemetry=sel)))
+            launches.append(dict(stencil.launches))
+        col.close()
+        counts = schema.validate_file(path)
+        recs = schema.load_records(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    roof = [r["attrs"] for r in recs if r["kind"] == "event" and r["name"] == "roofline"]
+    spans = [r["attrs"] for r in recs if r["kind"] == "span" and r["name"] == "solve_until"]
+    (r0, w0) = runs[0]
+    row = {"phase": "main_path_telemetry", "config": "FIG1", "shape": list(cfg.shape),
+           "records": counts, "cold": [s["cold"] for s in spans],
+           "iters": [r.iters for r, _ in runs], "host_syncs": [r.host_syncs for r, _ in runs],
+           "launches": launches, "wall_s": [w for _, w in runs],
+           "roofline": roof[-1] if roof else None,
+           "card": getattr(spec, "name", None), "power_limit": getattr(spec, "power_limit", None),
+           "copy_bandwidth_GBps": spec.peak_bw / 1e9 if spec else None}
+    if roof:
+        r = roof[-1]
+        row.update(roofline_fraction=r["roofline_fraction"], bounded=r["bounded"],
+                   t_eff_measured_GBs=r["t_eff_measured"] / 1e9,
+                   t_eff_model_GBs=r["t_eff_model"] / 1e9,
+                   t_eff_over_copy=(r["t_eff_measured"] / spec.peak_bw if spec else None))
+    emit(row)
+    require(roof and not spans[-1]["cold"], "the warm FIG1 solve left no roofline record")
+    require(roof[-1]["bounded"] and 0 < roof[-1]["roofline_fraction"] <= 1,
+            f"FIG1's roofline fraction is no share of the roofline: {roof[-1]}")
+    for r, _ in runs[1:]:
+        require((r.iters, r.err, r.host_syncs) == (r0.iters, r0.err, r0.host_syncs)
+                and torch.equal(r.fields["T"], r0.fields["T"]),
+                "FIG1 solve_until differs with telemetry on")
+    require(r0.host_syncs == r0.iters // 10, "host_syncs != iters // check_every")
+    require(launches[1] == launches[2] == launches[0],
+            f"telemetry changed the launches: {launches}")
+    return row
 
 
 def make_generic(ps):

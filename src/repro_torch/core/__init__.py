@@ -3,11 +3,11 @@ from . import teff
 from .fd import fd1d, fd2d, fd3d
 from .fields import FieldSet
 from .grid import Grid
-from .iterate import SolveResult, make_solver, solve_until
+from .iterate import Checkpointing, SolveResult, make_solver, solve_until
 from .parallel import ParallelStencil, StencilKernel, init_parallel_stencil
 
 __all__ = [
     "Grid", "FieldSet", "fd1d", "fd2d", "fd3d",
     "ParallelStencil", "StencilKernel", "init_parallel_stencil",
-    "SolveResult", "make_solver", "solve_until", "teff",
+    "Checkpointing", "SolveResult", "make_solver", "solve_until", "teff",
 ]

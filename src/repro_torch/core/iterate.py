@@ -16,16 +16,69 @@ checks, and the error is folded at the kernel's ``acc_dtype`` (f32).
 runs while ``err <= tol`` (drift guard). Steps are taken in multiples of
 ``check_every``: ``iters`` may overshoot ``max_iters`` by at most
 ``check_every - 1``.
+
+Fault tolerance (``checkpoint=``): the paper's pseudo-transient solvers run
+for days, and at that scale runs die to preemption, not math. The
+checkpointing driver runs the same check loop in chunks of ``save_every``
+checks and hands the double-buffer carry (the field buffers, the last
+reductions and the error) to a :class:`~repro_torch.checkpoint.
+CheckpointManager` between chunks. An async save stalls the loop only for
+the device-to-host copy; the write runs behind the next chunk. Per-step
+arithmetic never sees a chunk boundary, so a checkpointed solve equals the
+plain one bitwise, and a run killed between chunks resumes from ``LATEST``
+bitwise equal to the uninterrupted run.
+
+Telemetry (``telemetry=`` / ``REPRO_TELEMETRY=1``): device-derived metrics
+(steps, the error trajectory, reduction values) are read only at host syncs
+the solve already makes: the chunk boundary of the checkpointing driver
+and the final result of the plain loop. With telemetry off a solve makes
+the same launches and host syncs as without it; the disabled path costs
+one attribute check.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Mapping
+import time
+from typing import Any, Callable, Mapping, Optional, Union
 
 import torch
 
-__all__ = ["SolveResult", "make_solver", "solve_until"]
+from .. import telemetry as _telemetry
+from ..telemetry import attrib as _attrib
+
+__all__ = ["Checkpointing", "SolveResult", "make_solver", "solve_until"]
+
+
+@dataclasses.dataclass
+class Checkpointing:
+    """Checkpoint policy for :func:`solve_until`.
+
+    ``path`` is the checkpoint root directory (or an existing
+    :class:`~repro_torch.checkpoint.CheckpointManager`). ``save_every``
+    counts CHECKS between saves: the snapshot follows a check's host sync,
+    so it never costs an extra pass over the fields; per step it costs the
+    device-to-host copy over ``save_every * check_every`` steps.
+    ``resume=True`` restores from ``LATEST`` when one exists (a fresh
+    directory starts from the given initial fields). ``blocking=False``
+    writes on a background thread. ``monitor`` (a
+    :class:`~repro_torch.distributed.fault.StepMonitor`) bumps a heartbeat
+    file per chunk and raises :class:`~repro_torch.distributed.fault.
+    RankFailure` when a peer's heartbeat goes stale."""
+
+    path: Union[str, Any]          # root dir or CheckpointManager
+    save_every: int = 1            # checks between saves
+    keep: int = 3
+    resume: bool = True
+    blocking: bool = False
+    monitor: Optional[Any] = None  # fault.StepMonitor
+
+    def manager(self):
+        from ..checkpoint import CheckpointManager
+
+        if isinstance(self.path, str):
+            return CheckpointManager(self.path, keep=self.keep)
+        return self.path
 
 
 @dataclasses.dataclass
@@ -37,6 +90,12 @@ class SolveResult:
     err: float                        # last error value
     iters: int                        # steps taken
     host_syncs: int                   # device-to-host reads of the error
+    resumed_from: Optional[int] = None     # checkpoint step a resume started at
+    saved_steps: tuple[int, ...] = ()      # steps checkpointed this run
+    # per-rank EWMA step stats from the run's StepMonitor (own rank plus
+    # every peer heartbeat), {rank: {"ewma_s", "last_s", "n"}}; None when
+    # the solve ran without a monitor
+    step_stats: Optional[dict[int, dict[str, float]]] = None
 
     def output(self, kernel) -> Any:
         """The solver's answer: the rotation target of each output holds
@@ -67,15 +126,21 @@ def _resolve_error(kernel, error) -> Callable[[Mapping[str, Any]], Any]:
     return error
 
 
+def _f32(x: float) -> float:
+    """``x`` rounded to f32: the error is an f32 value, so tol is compared
+    at f32, as the reference's device loop does."""
+    return float(torch.tensor(float(x), dtype=torch.float32))
+
+
+def _keep_going(err: float, tol: float, until: str) -> bool:
+    """The check loop's continue test (a NaN error stops it either way)."""
+    return err > tol if until == "below" else err <= tol
+
+
 def make_solver(kernel, scalars: Mapping[str, Any] | None = None, *,
                 check_every: int = 1, error: str | Callable | None = None,
-                until: str = "below", checkpoint=None):
+                until: str = "below"):
     """Build ``solver(fields, tol, max_iters) -> SolveResult``."""
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoint= is not ported yet (ROADMAP queue 1, item 6: the "
-            "checkpointed solve_until)"
-        )
     if not kernel.reductions:
         raise ValueError(
             "solve_until needs a kernel with fused reductions "
@@ -107,16 +172,14 @@ def make_solver(kernel, scalars: Mapping[str, Any] | None = None, *,
 
     def solver(fields: Mapping[str, torch.Tensor], tol: float, max_iters: int) -> SolveResult:
         kernel.check_rotations(fields)
-        # the error is an f32 value: compare it with tol rounded to f32, as
-        # the reference's device loop does
-        tol = float(torch.tensor(float(tol), dtype=torch.float32))
+        tol = _f32(tol)
         # the fields are carried at the kernel's storage dtype (rounded once
         # here if given wider); the error is a reduction at its acc_dtype
         cur = {n: v.to(kernel.ps.dtype) for n, v in fields.items()}
         reds: dict[str, torch.Tensor] = {}
         err = math.inf if until == "below" else -math.inf
         it = syncs = 0
-        while (err > tol if until == "below" else err <= tol) and it < max_iters:
+        while _keep_going(err, tol, until) and it < max_iters:
             for _ in range(check_every - 1):
                 cur = rotate(cur, plain(**cur, **scalars))
             res, reds = kernel(**cur, **scalars)
@@ -129,11 +192,138 @@ def make_solver(kernel, scalars: Mapping[str, Any] | None = None, *,
     return solver
 
 
+def _cache_size(kernel) -> int:
+    """What a solve's first call traces and builds (the checked kernel and
+    its plain twin): a change across a call marks it cold."""
+    return kernel.cache_size() + kernel.with_reductions(None).cache_size()
+
+
+def _roofline(col, kernel, fields, scalars, per_step_s, check_every):
+    """Roofline-gap attribution of an instrumented solve: the measured
+    seconds per step against the least time of the step's traffic and
+    flops (:func:`~repro_torch.telemetry.attrib.least_per_step_s`), with
+    the check's partials at the launch's own tile on the card and the
+    whole grid on the ``torch`` backend."""
+    sc = dict(scalars or {})
+    cost = kernel.cost_model(**fields, **sc)
+    tile = march = None
+    if kernel.ps.backend == "cuda":
+        call = kernel.compiled(**fields, **sc)
+        props = torch.cuda.get_device_properties(kernel.ps.device)
+        tile, march = call.cost_tile(props.multi_processor_count), call.march_axis
+    _attrib.attribute(col, kernel.label, per_step_s, cost, tile=tile,
+                      march_axis=march, check_every=int(check_every), fused_checks=True,
+                      hw=_attrib.default_hardware(kernel.ps.device.type))
+
+
+def _solve_checkpointed(kernel, fields, scalars, *, tol, max_iters, check_every, error,
+                        until, ckpt: Checkpointing, col=_telemetry.NULL) -> SolveResult:
+    """The chunked driver behind ``solve_until(checkpoint=...)``.
+
+    Each chunk is the plain path's check loop capped at ``save_every``
+    checks, so per-step arithmetic never sees the chunk boundary. Between
+    chunks the carry goes to the checkpoint writer, and the FaultPlan and
+    heartbeat hooks fire. ``host_syncs`` counts the error reads, as on the
+    plain path; the snapshots' copies come on top."""
+    from ..distributed import fault
+
+    mgr = ckpt.manager()
+    save_every = int(ckpt.save_every)
+    if save_every < 1:
+        raise ValueError(f"save_every must be >= 1, got {save_every}")
+    solver = make_solver(kernel, scalars, check_every=check_every, error=error, until=until)
+    block = save_every * int(check_every)
+    tol32 = _f32(tol)
+    # storage-dtype carry (as in the plain solver): checkpoints hold the
+    # storage dtype too, so a resume continues from exactly these bits
+    cur = {n: v.to(kernel.ps.dtype) for n, v in fields.items()}
+    dev = next(iter(cur.values())).device
+    reds = {n: torch.zeros((), dtype=kernel.ps.acc_dtype, device=dev) for n in kernel.reductions}
+    err = math.inf if until == "below" else -math.inf
+    done, syncs, resumed_from = 0, 0, None
+
+    if ckpt.resume and mgr.latest_step() is not None:
+        # the error rides on the host: it is a Python float in the loop
+        like = {"fields": cur, "reds": reds, "err": torch.zeros((), dtype=torch.float32)}
+        tree, extra = mgr.restore(like)
+        cur, reds, err = tree["fields"], tree["reds"], float(tree["err"])
+        done = int(extra.get("iters", extra["step"]))
+        resumed_from = done
+        if col.enabled:
+            ev = {"step": done, "err": err}
+            if extra.get("skipped_corrupt"):
+                # torn steps the fallback walked past (step, reason)
+                ev["skipped_corrupt"] = [s for s, _ in extra["skipped_corrupt"]]
+            col.event("solve.resume", **ev)
+
+    plan = fault.FaultPlan.active()
+    monitor = ckpt.monitor
+    saved: list[int] = []
+    chunks: list[tuple[float, int]] = []   # (seconds, steps) per chunk
+    converged = done > 0 and not _keep_going(err, tol32, until)
+    while not converged and done < max_iters:
+        take = min(block, max_iters - done)
+        w0, t0 = time.time(), time.perf_counter()
+        res = solver(cur, tol, take)      # ends with the last check's host sync
+        dt = time.perf_counter() - t0
+        cur, reds, err, n = res.fields, res.reds, res.err, res.iters
+        syncs += res.host_syncs
+        done += n
+        converged = not _keep_going(err, tol32, until)
+        chunks.append((dt, n))
+        if col.enabled:
+            # read only what this boundary has synced: iters, err, and the
+            # reductions of the check that just finished
+            per = dt / max(n, 1)
+            col.span_end("solve.chunk", w0, dt,
+                         {"steps": n, "iters": done, "err": err, "per_step_s": per,
+                          "cold": len(chunks) == 1})
+            col.count("solve.steps", n)
+            col.event("solve.trajectory", iters=done, err=err, per_step_s=per,
+                      reds={k: float(v) for k, v in reds.items()})
+        if monitor is not None:
+            monitor.record(done, dt / max(n, 1))
+            health = monitor.check_peers()
+            if health["dead"]:
+                mgr.wait()
+                raise fault.RankFailure(health["dead"])
+        # async: stalls only for the device-to-host snapshot; the write
+        # overlaps the next chunk's device work
+        mgr.save(done, {"fields": cur, "reds": reds,
+                        "err": torch.tensor(err, dtype=torch.float32)},
+                 blocking=ckpt.blocking,
+                 extra={"iters": done, "err": err, "tol": tol32,
+                        "check_every": int(check_every), "save_every": save_every,
+                        "until": until, "converged": converged})
+        saved.append(done)
+        if plan is not None and plan.fires_at(done):
+            # a planned kill or hang lands after this save has completed and
+            # before the next chunk: LATEST then names the step it names
+            mgr.wait()
+            plan.on_step(done)
+    mgr.wait()                           # surface async write failures
+    stats = monitor.snapshot() if monitor is not None else None
+    if col.enabled:
+        col.gauge("solve.iters", done)
+        col.gauge("solve.err", err)
+        # seconds per step for the roofline gap: warm chunks only (the first
+        # may trace and build) unless the run was one chunk
+        warm = chunks[1:] if len(chunks) > 1 else chunks
+        steps = sum(n for _, n in warm)
+        if steps:
+            _roofline(col, kernel, cur, scalars, sum(dt for dt, _ in warm) / steps,
+                      check_every)
+    return SolveResult(fields=cur, reds=reds, err=err, iters=done, host_syncs=syncs,
+                       resumed_from=resumed_from, saved_steps=tuple(saved),
+                       step_stats=stats)
+
+
 def solve_until(kernel, fields: Mapping[str, torch.Tensor],
                 scalars: Mapping[str, Any] | None = None, *, tol: float,
                 max_iters: int, check_every: int = 1,
                 error: str | Callable | None = None, until: str = "below",
-                checkpoint=None) -> SolveResult:
+                checkpoint: Union[Checkpointing, str, None] = None,
+                telemetry: Any = None) -> SolveResult:
     """Iterate ``kernel`` until its fused error scalar crosses ``tol`` (or
     ``max_iters`` steps), checking every ``check_every`` steps.
 
@@ -142,8 +332,41 @@ def solve_until(kernel, fields: Mapping[str, torch.Tensor],
     argument to its initial tensor, ``scalars`` the non-field arguments.
     ``error`` picks the convergence scalar: a reduction name (default: the
     single declared reduction) or a callable over the reduction dict.
-    ``checkpoint=`` is not ported yet and raises ``NotImplementedError``.
+
+    ``checkpoint`` (a directory path or :class:`Checkpointing`) makes the
+    solve survivable: the loop runs in chunks of ``save_every`` checks, the
+    carry is checkpointed after each, and an interrupted run restarted with
+    the same arguments resumes from the last atomic checkpoint.
+
+    ``telemetry`` selects a collector: ``None`` inherits the process
+    singleton (env ``REPRO_TELEMETRY``), ``False`` forces it off,
+    ``True``/a ``Collector`` forces it on. Device values are read only at
+    the host syncs the solve makes anyway.
     """
-    solver = make_solver(kernel, scalars, check_every=check_every, error=error,
-                         until=until, checkpoint=checkpoint)
-    return solver(fields, tol, max_iters)
+    col = _telemetry.resolve(telemetry)
+    if checkpoint is not None:
+        if isinstance(checkpoint, str):
+            checkpoint = Checkpointing(checkpoint)
+        return _solve_checkpointed(kernel, dict(fields), scalars, tol=tol,
+                                   max_iters=max_iters, check_every=check_every,
+                                   error=error, until=until, ckpt=checkpoint, col=col)
+    solver = make_solver(kernel, scalars, check_every=check_every, error=error, until=until)
+    if not col.enabled:
+        return solver(fields, tol, max_iters)
+    # instrumented plain path: the same loop, timed on the host clock (its
+    # last error read waits for the device); a call that traced or built a
+    # kernel is cold and stays out of the roofline attribution
+    before = _cache_size(kernel)
+    w0, t0 = time.time(), time.perf_counter()
+    res = solver(fields, tol, max_iters)
+    dt = time.perf_counter() - t0
+    cold = _cache_size(kernel) > before
+    col.span_end("solve_until", w0, dt,
+                 {"kernel": kernel.label, "iters": res.iters, "err": res.err,
+                  "check_every": int(check_every), "cold": cold})
+    col.count("solve.steps", res.iters)
+    col.gauge("solve.iters", res.iters)
+    col.gauge("solve.err", res.err)
+    if res.iters and not cold:
+        _roofline(col, kernel, res.fields, scalars, dt / res.iters, check_every)
+    return res

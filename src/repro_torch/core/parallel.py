@@ -432,6 +432,12 @@ class StencilKernel:
                     "staggering"
                 )
 
+    def cache_size(self) -> int:
+        """Field sets traced plus CUDA libraries loaded for this kernel: it
+        grows when a call traces or builds, so a caller can tell a cold call
+        from a warm one."""
+        return len(self._ir_cache) + sum(c._lib is not None for c in self._calls.values())
+
     @property
     def launch_info(self) -> dict:
         """Launch parameters of the generated kernels, by grid shape: the

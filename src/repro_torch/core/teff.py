@@ -7,19 +7,26 @@ step under perfect reuse (Fig. 1: read T and Ci, write T2, so n_IO = 3).
 
 The yardstick is this card's own device-to-device copy bandwidth, measured
 at run time (:func:`measure_device_bandwidth`); :func:`device_spec` records
-it beside the card's name and power limit. No hardware constant is built in.
-Timing needs the card: :func:`measure` times with CUDA events and raises
-without one.
+it beside the card's name and power limit. The one constant is the compute
+peak of the roofline's other term: the H100 data sheet's f32 rate outside
+the tensor cores (:data:`H100_F32_FLOPS`). Timing needs the card:
+:func:`measure` times with CUDA events and raises without one.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import subprocess
+import time
 from typing import Callable
 
 import numpy as np
 import torch
+
+
+# NVIDIA's H100 SXM data sheet: f32 operations outside the tensor cores, at
+# the full 700 W power limit. The roofline's compute term on the card.
+H100_F32_FLOPS = 67e12
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +34,7 @@ class HardwareSpec:
     name: str
     power_limit: str   # as nvidia-smi reports it, e.g. "700.00 W"
     peak_bw: float     # bytes/s: the measured device-to-device copy bandwidth
+    peak_flops: float = math.inf   # flop/s; inf: no compute term
 
 
 def a_eff(n_points: int, n_read: int, n_write: int, itemsize: int) -> int:
@@ -173,9 +181,25 @@ def card_info(index: int = 0) -> tuple[str, str]:
 
 
 def device_spec(index: int = 0, nbytes: int = 1 << 30) -> HardwareSpec:
-    """The card's :class:`HardwareSpec`, built at run time."""
+    """The card's :class:`HardwareSpec`, built at run time. Its compute
+    peak is :data:`H100_F32_FLOPS` on an H100; another card has no data
+    sheet rate here, so its roofline keeps the memory term only."""
     _require_card()
     name, power = card_info(index)
     with torch.cuda.device(index):
         bw = measure_device_bandwidth(nbytes)
-    return HardwareSpec(name=name, power_limit=power, peak_bw=bw)
+    flops = H100_F32_FLOPS if "H100" in name else math.inf
+    return HardwareSpec(name=name, power_limit=power, peak_bw=bw, peak_flops=flops)
+
+
+def measure_host_bandwidth(nbytes: int = 1 << 28) -> float:
+    """A rough STREAM-copy estimate of this host's memory bandwidth in
+    bytes/s (read + write): the roofline of the plain path on the CPU."""
+    a = np.ones(nbytes // 8, dtype=np.float64)
+    b = np.empty_like(a)
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        np.copyto(b, a)
+    dt = (time.perf_counter() - t0) / reps
+    return 2 * a.nbytes / dt

@@ -5,6 +5,7 @@
     PYTHONPATH=src python -m repro_torch.examples.gross_pitaevskii --device cuda \
         [--n 48] [--nt 200] [--backend cuda|torch] [--two-launch]
         [--bc none|neumann|dirichlet|periodic] [--tol 1e-3] [--check-every 10]
+        [--checkpoint-dir DIR [--save-every 10] [--resume|--no-resume]]
 
 Explicit symplectic Euler on (re, im): re with the current im, im with the
 new re, which keeps the Schroedinger flow norm-stable. Mass (sum |psi|^2)
@@ -17,7 +18,9 @@ computed inside the launch on ``--backend cuda`` (the default on the card;
 ``none`` keeps the initial boundary ring). With ``--tol`` the fused kernel
 gains ``sum_sq(re2)``/``sum_sq(im2)`` epilogues and ``solve_until(until=
 "above")`` runs until the relative mass drift exceeds ``tol`` or ``--nt``
-steps are done.
+steps are done; ``--checkpoint-dir`` checkpoints that run every
+``--save-every`` checks, and a killed run restarted with the same flags
+resumes from the last checkpoint.
 """
 from __future__ import annotations
 
@@ -42,7 +45,9 @@ class GPConfig:
     bc: str = "none"           # none | neumann | dirichlet | periodic
     tol: float | None = None   # mass-drift tripwire (None: fixed nt)
     check_every: int = 10      # drift cadence in --tol mode
-    checkpoint_dir: str | None = None  # not ported yet
+    checkpoint_dir: str | None = None  # survivable --tol runs
+    save_every: int = 10       # checkpoint cadence, in checks
+    resume: bool = True        # restore from LATEST when present
 
     @property
     def resolved_backend(self) -> str:
@@ -141,19 +146,11 @@ def timestep(grid: Grid) -> float:
     return 0.2 * min(grid.spacing) ** 2   # explicit stability
 
 
-def _check_ported(cfg: GPConfig) -> None:
-    if cfg.checkpoint_dir is not None:
-        raise NotImplementedError(
-            "--checkpoint-dir is not ported yet (ROADMAP queue 1, item 6: "
-            "checkpointed solve_until)"
-        )
-
-
 def solve_guarded(cfg: GPConfig, state=None) -> dict:
     """Drift-guarded run: the mass folds into the fused launch as ``sum_sq``
     epilogues, and ``solve_until(until="above")`` stops once the relative
-    drift exceeds ``cfg.tol``, or after ``cfg.nt`` steps."""
-    _check_ported(cfg)
+    drift exceeds ``cfg.tol``, or after ``cfg.nt`` steps; checkpointed under
+    ``cfg.checkpoint_dir`` when it is set."""
     if not cfg.fused:
         raise ValueError(
             "--tol drives the fused coupled kernel; the two-launch scheme "
@@ -175,23 +172,28 @@ def solve_guarded(cfg: GPConfig, state=None) -> dict:
     def drift_of(reds):
         return torch.abs((reds["m_re"] + reds["m_im"]) - mass0) / mass0
 
+    ckpt = None
+    if cfg.checkpoint_dir is not None:
+        ckpt = iterate.Checkpointing(cfg.checkpoint_dir, save_every=cfg.save_every,
+                                     resume=cfg.resume)
     res = iterate.solve_until(
         rkern, dict(re2=re, im2=im, re=re, im=im, V=V),
         dict(g=cfg.g, dt=dt, _dx2=inv2[0], _dy2=inv2[1], _dz2=inv2[2]),
         tol=cfg.tol, max_iters=cfg.nt, check_every=cfg.check_every,
-        error=drift_of, until="above")
+        error=drift_of, until="above", checkpoint=ckpt)
+    if res.resumed_from is not None:
+        print(f"GP: resumed from checkpoint step {res.resumed_from} in {cfg.checkpoint_dir}")
     re, im = res.fields["re"], res.fields["im"]
     mass = float(res.reds["m_re"] + res.reds["m_im"])
     return {"grid": grid, "re": re, "im": im, "V": V,
             "mass0": mass0, "mass": mass, "drift": float(res.err),
             "iters": int(res.iters), "host_syncs": res.host_syncs,
-            "tripped": bool(res.err > cfg.tol)}
+            "resumed_from": res.resumed_from, "tripped": bool(res.err > cfg.tol)}
 
 
 def solve(cfg: GPConfig = GPConfig(), state=None) -> dict:
     """Run ``cfg.nt`` steps (or the drift-guarded run with ``cfg.tol``) from
     ``init_state`` or from ``state = (re, im, V)``."""
-    _check_ported(cfg)
     if cfg.tol is not None:
         return solve_guarded(cfg, state)
     grid, re, im, V = init_state(cfg) if state is None else (make_grid(cfg), *state)
@@ -226,12 +228,23 @@ def main(argv=None):
     ap.add_argument("--check-every", type=int, default=10,
                     help="drift cadence (steps per check) in --tol mode")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="checkpoints of the --tol run (not ported yet)")
+                    help="directory for atomic async checkpoints of the --tol guarded run "
+                         "(restartable: see --resume)")
+    ap.add_argument("--save-every", type=int, default=10,
+                    help="checkpoint cadence in CHECKS (default 10)")
+    ap.add_argument("--resume", dest="resume", action="store_true", default=True,
+                    help="resume from the LATEST checkpoint (default)")
+    ap.add_argument("--no-resume", dest="resume", action="store_false",
+                    help="ignore existing checkpoints; start fresh")
     args = ap.parse_args(argv)
+    if args.checkpoint_dir is not None and args.tol is None:
+        ap.error("--checkpoint-dir requires --tol (checkpoints ride the drift-guarded "
+                 "solve loop)")
     cfg = GPConfig(n=args.n, nt=args.nt, g=args.g, device=args.device,
                    backend=args.backend, fused=not args.two_launch, bc=args.bc,
                    tol=args.tol, check_every=args.check_every,
-                   checkpoint_dir=args.checkpoint_dir)
+                   checkpoint_dir=args.checkpoint_dir, save_every=args.save_every,
+                   resume=args.resume)
     r = solve(cfg)
     print(f"GP: {r['iters']} steps on {r['grid'].shape} [{cfg.resolved_backend}"
           f"{'/fused' if cfg.fused else '/two-launch'}/bc={cfg.bc} on {cfg.device}] "

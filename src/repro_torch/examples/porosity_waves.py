@@ -10,6 +10,7 @@ Pseudo-transient two-field compaction model (Raess et al. 2022, 2-D):
         [--n 128] [--nt 500] [--backend cuda|torch] [--flux-split]
         [--bc neumann|dirichlet|periodic] [--tol 1e-6] [--check-every 10]
         [--dtype float32|bfloat16|float16]
+        [--checkpoint-dir DIR [--save-every 10] [--resume|--no-resume]]
 
 The coupled (phi, Pe) update runs as one fused ``@parallel`` launch per
 step, its staggered Darcy fluxes in-kernel (``d_xa``/``av_xa``). With
@@ -24,6 +25,10 @@ steady state, checking every ``--check-every`` steps; ``--nt`` caps it.
 ``--dtype`` is the fields' storage dtype: bf16 and f16 fields are rounded
 once from the f32 initial state, and every step computes in f32 and rounds
 on store, so each step moves half the bytes of an f32 one.
+``--checkpoint-dir`` (with ``--tol``) makes the solve survivable: the
+carry is checkpointed atomically every ``--save-every`` checks, and a
+killed run restarted with the same flags resumes from the last checkpoint
+(``--no-resume`` starts afresh).
 """
 from __future__ import annotations
 
@@ -53,7 +58,9 @@ class PorosityConfig:
     bc: str = "neumann"        # neumann | dirichlet | periodic | none
     tol: float | None = None   # steady-state residual (None: fixed nt)
     check_every: int = 10      # residual cadence in --tol mode
-    checkpoint_dir: str | None = None  # not ported yet
+    checkpoint_dir: str | None = None  # survivable --tol solves
+    save_every: int = 10       # checks between checkpoints
+    resume: bool = True        # restore from LATEST when present
 
     @property
     def resolved_backend(self) -> str:
@@ -63,14 +70,6 @@ class PorosityConfig:
     @property
     def storage(self) -> torch.dtype:
         return getattr(torch, self.dtype)
-
-
-def _check_ported(cfg: PorosityConfig) -> None:
-    if cfg.checkpoint_dir is not None:
-        raise NotImplementedError(
-            "--checkpoint-dir is not ported yet (ROADMAP queue 1, item 6: "
-            "checkpointed solve_until)"
-        )
 
 
 def boundary_conditions(cfg: PorosityConfig) -> dict | None:
@@ -100,7 +99,6 @@ def make_grid(cfg: PorosityConfig) -> Grid:
 
 def init_state(cfg: PorosityConfig):
     """Gaussian porosity anomaly low in the domain, zero overpressure."""
-    _check_ported(cfg)
     grid = make_grid(cfg)
     x, y = grid.meshgrid(device=cfg.device)
     phi = cfg.phi0 + cfg.dphi * cfg.phi0 * torch.exp(
@@ -122,7 +120,6 @@ def make_step(grid: Grid, cfg: PorosityConfig):
     its boundary condition included. ``step.kernels`` holds the
     :class:`StencilKernel`s (the fused one rotates ``{phi2: phi, Pe2:
     Pe}``)."""
-    _check_ported(cfg)
     dx, dy = grid.spacing
     phi0, npow, eta, rho_g = cfg.phi0, cfg.npow, cfg.eta, cfg.rho_g
     bc = boundary_conditions(cfg)
@@ -179,11 +176,12 @@ def make_step(grid: Grid, cfg: PorosityConfig):
     return step
 
 
-def solve_steady(cfg: PorosityConfig, grid: Grid, phi, Pe) -> tuple:
+def solve_steady(cfg: PorosityConfig, grid: Grid, phi, Pe) -> iterate.SolveResult:
     """Iterate the fused kernel from the given state until ``max|Pe2 - Pe|
     < cfg.tol``, checked every ``cfg.check_every`` steps by the launch's own
-    ``max_abs_diff`` epilogue, capped at ``cfg.nt`` steps. Returns (phi,
-    Pe, iters, err, host_syncs)."""
+    ``max_abs_diff`` epilogue, capped at ``cfg.nt`` steps; checkpointed
+    under ``cfg.checkpoint_dir`` when it is set. Returns the
+    :class:`~repro_torch.core.iterate.SolveResult`."""
     if cfg.flux_split:
         raise ValueError(
             "--tol drives the fused coupled kernel; the flux-split scheme "
@@ -199,27 +197,36 @@ def solve_steady(cfg: PorosityConfig, grid: Grid, phi, Pe) -> tuple:
     dtau = timestep(cfg, grid)
     kern = make_step(grid, cfg).kernels[0]
     rkern = kern.with_reductions({"err": "max_abs_diff(Pe2, Pe)"})
+    ckpt = None
+    if cfg.checkpoint_dir is not None:
+        # async atomic checkpoints of the carry every save_every checks; a
+        # killed run restarted with the same flags resumes from LATEST
+        ckpt = iterate.Checkpointing(cfg.checkpoint_dir, save_every=cfg.save_every,
+                                     resume=cfg.resume)
     res = iterate.solve_until(
         rkern, dict(phi2=phi, Pe2=Pe, phi=phi, Pe=Pe), dict(dtau=dtau),
-        tol=cfg.tol, max_iters=cfg.nt, check_every=cfg.check_every)
-    # the rotation targets hold the newest state after the last rotation
-    return res.fields["phi"], res.fields["Pe"], int(res.iters), float(res.err), \
-        res.host_syncs
+        tol=cfg.tol, max_iters=cfg.nt, check_every=cfg.check_every, checkpoint=ckpt)
+    if res.resumed_from is not None:
+        print(f"porosity wave: resumed from checkpoint step {res.resumed_from} "
+              f"in {cfg.checkpoint_dir}")
+    return res
 
 
 def solve(cfg: PorosityConfig = PorosityConfig(), state=None) -> dict:
     """Run ``cfg.nt`` pseudo-time steps (or, with ``cfg.tol``, iterate to
     steady state) from ``init_state`` or from ``state = (phi, Pe)``;
     returns the fields and diagnostics."""
-    _check_ported(cfg)
-    iters, err, syncs = cfg.nt, None, 0
+    iters, err, syncs, resumed_from = cfg.nt, None, 0, None
     if state is None:
         grid, phi, Pe = init_state(cfg)
     else:
         grid, (phi, Pe) = make_grid(cfg), state
     peak0_y = int(torch.argmax(torch.amax(phi, dim=0)))
     if cfg.tol is not None:
-        phi, Pe, iters, err, syncs = solve_steady(cfg, grid, phi, Pe)
+        res = solve_steady(cfg, grid, phi, Pe)
+        # the rotation targets hold the newest state after the last rotation
+        phi, Pe = res.fields["phi"], res.fields["Pe"]
+        iters, err, syncs, resumed_from = res.iters, res.err, res.host_syncs, res.resumed_from
     else:
         dtau = timestep(cfg, grid)
         step = make_step(grid, cfg)
@@ -243,6 +250,7 @@ def solve(cfg: PorosityConfig = PorosityConfig(), state=None) -> dict:
         "iters": iters,
         "residual": err,
         "host_syncs": syncs,
+        "resumed_from": resumed_from,
     }
 
 
@@ -269,12 +277,24 @@ def main(argv=None):
     ap.add_argument("--check-every", type=int, default=10,
                     help="residual cadence (steps per check) in --tol mode")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="checkpoints of the --tol solve (not ported yet)")
+                    help="directory for atomic async checkpoints of the --tol solve "
+                         "(restartable: see --resume)")
+    ap.add_argument("--save-every", type=int, default=10,
+                    help="checkpoint cadence in CHECKS (default 10: one save every "
+                         "10 * --check-every steps)")
+    ap.add_argument("--resume", dest="resume", action="store_true", default=True,
+                    help="resume from the LATEST checkpoint when one exists (default)")
+    ap.add_argument("--no-resume", dest="resume", action="store_false",
+                    help="ignore existing checkpoints; start fresh")
     args = ap.parse_args(argv)
+    if args.checkpoint_dir is not None and args.tol is None:
+        ap.error("--checkpoint-dir requires --tol (checkpoints ride the steady-state "
+                 "solve loop)")
     cfg = PorosityConfig(n=args.n, nt=args.nt, npow=args.npow, device=args.device,
                          backend=args.backend, dtype=args.dtype,
                          flux_split=args.flux_split, bc=args.bc, tol=args.tol,
-                         check_every=args.check_every, checkpoint_dir=args.checkpoint_dir)
+                         check_every=args.check_every, checkpoint_dir=args.checkpoint_dir,
+                         save_every=args.save_every, resume=args.resume)
     r = solve(cfg)
     steps = (f"{r['iters']} steps (tol={cfg.tol:g}, residual={r['residual']:.2e}, "
              f"{r['host_syncs']} host syncs)" if cfg.tol is not None

@@ -833,3 +833,42 @@ def test_finite_and_nan_count_on_the_card(card, tag, axis, rng):
         assert float(reds["nin"]) == float((~torch.isfinite(f["T"])).sum())
         assert float(reds["bad"]) == 1.0
     assert bool(torch.isinf(plain(**f)[0][7, 7, 7])) == (dt == torch.float16)
+
+
+def test_checkpointed_porosity_resumes_bitwise_on_the_card(card, tmp_path):
+    """Porosity's fused kernel at 64^2 through the twin's checkpointed --tol
+    solve: a run stopped at step 40 and resumed equals the uninterrupted
+    run bitwise, and both equal the plain solve."""
+    kw = dict(n=64, device="cuda", tol=1e-12, check_every=5, save_every=2)
+    full = pw.solve(pw.PorosityConfig(nt=80, **kw))
+    ck = str(tmp_path / "ck")
+    part = pw.solve(pw.PorosityConfig(nt=40, checkpoint_dir=ck, **kw))
+    assert part["iters"] == 40 and part["resumed_from"] is None
+    resumed = pw.solve(pw.PorosityConfig(nt=80, checkpoint_dir=ck, **kw))
+    assert resumed["resumed_from"] == 40 and resumed["iters"] == full["iters"] == 80
+    assert resumed["residual"] == full["residual"]
+    for n in ("phi", "Pe"):
+        assert resumed[n].is_cuda and torch.equal(resumed[n], full[n])
+
+
+def test_bf16_checkpoint_of_card_tensors_restores_bitwise(card, tmp_path):
+    """A bf16 card tensor goes through the pinned snapshot, is written as
+    2-byte records under '<V2', and comes back on the card bitwise."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    gen = torch.Generator(device=card).manual_seed(7)
+    tree = {"fields": {"T": torch.randn(33, 130, generator=gen, device=card).bfloat16(),
+                       "h": torch.randn(5, generator=gen, device=card).half()},
+            "err": torch.tensor(0.5)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(4, tree, blocking=False)
+    mgr.wait()
+    with open(tmp_path / "step_000000004" / "t_000001.npy", "rb") as f:
+        assert b"'descr': '<V2'" in f.read(128)
+    like = {"fields": {n: torch.zeros_like(t) for n, t in tree["fields"].items()},
+            "err": torch.zeros(())}
+    got, extra = mgr.restore(like)
+    assert extra["step"] == 4 and float(got["err"]) == 0.5
+    for n, t in tree["fields"].items():
+        assert got["fields"][n].is_cuda and got["fields"][n].dtype == t.dtype
+        assert torch.equal(got["fields"][n].view(torch.int16), t.view(torch.int16))

@@ -13,6 +13,8 @@ steps in two frameworks), the flux-split scheme against the fused one atol
 reference's interpret-mode Pallas path appears in one case per solver, at
 n <= 12.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,13 +87,20 @@ def test_porosity_steady_state_matches_reference(bc):
         np.testing.assert_allclose(_np(got[n]), _np(want[n]), atol=2e-6)
 
 
-def test_porosity_refusals():
+def test_porosity_refusals(tmp_path):
     # --dtype bfloat16/float16 are ported (tests/test_torch_mixed.py); f64
     # storage is not
     with pytest.raises(NotImplementedError, match="f64 storage"):
         pw.solve(pw.PorosityConfig(n=12, nt=1, device="cpu", dtype="float64"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pw.solve(pw.PorosityConfig(n=12, nt=1, device="cpu", tol=1e-3, checkpoint_dir="ck"))
+    # --checkpoint-dir is ported (tests/test_torch_checkpoint.py): the
+    # checkpointed --tol solve equals the plain one
+    kw = dict(n=12, nt=20, device="cpu", tol=1e-3, check_every=5)
+    ck = pw.solve(pw.PorosityConfig(**kw, checkpoint_dir=str(tmp_path), save_every=2))
+    plain = pw.solve(pw.PorosityConfig(**kw))
+    assert ck["iters"] == plain["iters"] and torch.equal(ck["Pe"], plain["Pe"])
+    assert os.path.isfile(tmp_path / "LATEST")
+    with pytest.raises(SystemExit):
+        pw.main(["--device", "cpu", "--checkpoint-dir", str(tmp_path)])   # needs --tol
     with pytest.raises(ValueError, match="flux-split"):
         pw.solve(pw.PorosityConfig(n=12, nt=1, device="cpu", tol=1e-3, flux_split=True))
     with pytest.raises(ValueError, match="periodic"):
@@ -166,9 +175,15 @@ def test_gp_drift_guard_matches_reference(tol):
     assert abs(got["drift"] - want["drift"]) < 1e-5
 
 
-def test_gp_refusals():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gp.solve(gp.GPConfig(n=12, nt=1, device="cpu", tol=1e-3, checkpoint_dir="ck"))
+def test_gp_refusals(tmp_path):
+    # --checkpoint-dir is ported: the checkpointed guarded run equals the plain one
+    kw = dict(n=12, nt=10, device="cpu", tol=1e-3, check_every=5)
+    ck = gp.solve(gp.GPConfig(**kw, checkpoint_dir=str(tmp_path), save_every=1))
+    plain = gp.solve(gp.GPConfig(**kw))
+    assert ck["iters"] == plain["iters"] and torch.equal(ck["re"], plain["re"])
+    assert ck["drift"] == plain["drift"] and os.path.isfile(tmp_path / "LATEST")
+    with pytest.raises(SystemExit):
+        gp.main(["--device", "cpu", "--checkpoint-dir", str(tmp_path)])   # needs --tol
     with pytest.raises(ValueError, match="two-launch"):
         gp.solve(gp.GPConfig(n=12, nt=1, device="cpu", tol=1e-3, fused=False))
     with pytest.raises(ValueError, match="periodic"):
