@@ -113,12 +113,36 @@ JSONL log, which must validate under the port's schema, and prints the
 warm solve's roofline fraction (the least time of its A_eff at the copy
 bandwidth over the measured step, which must lie in (0, 1]) and T_eff.
 
+Then the distributed runtime. ``main_path_distributed``: FIG1 512^3 on a
+gang of 4 rank processes on the one card (2 x 2, gloo, halos staged
+through pinned host buffers; every kernel the ranks launch is built here
+first), through ``elastic_solve_until`` with ``overlapped_step`` to the
+error one process reaches after 50 steps: the gathered fields, the
+iterations and the error bitwise equal to one process's ``solve_until``;
+``sequential_step`` against ``overlapped_step`` bitwise; ``multi_step(k=2)``
+on 2-deep ghost rings against two single steps on the owned interior; the
+bf16 and int8 wires within their bounds; each rank's ms per step of both
+steps, its exchange's parts and its bytes on the wire, beside the card's
+name and power limit (four processes take turns on one card: these times
+measure the protocol, not the paper's scaling). ``main_path_distributed_gp``:
+GP 512^3 on 2 ranks along x, fields bitwise, sums within 1e-5.
+``main_path_multihost``: the launcher's supervised drill (``python -m
+repro_torch.launch.multihost --demo --world 4 --backend gloo --kill-rank 1
+--kill-at 20 --device cuda`` at 130^3) must exit 113, replan to 2 ranks,
+resume at 20 and equal an uninterrupted run within 1e-5. ``nccl``: a
+world-1 NCCL group runs the periodic self-wrap and the check's all-reduce,
+bitwise to the same solve without a group, and two NCCL ranks on this one
+card are refused with a pointed error. ``times_distributed`` times every
+(kernel, shape) the gangs launched beside its torch-backend twin.
+
 It prints JSON lines; the line before the last lists the kernels, the one
 before that is the card's name and power limit as nvidia-smi gives them,
 and the last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line. Without a card, or without the repository
 beside it, it exits non-zero at once.
 """
+import collections
+import dataclasses
 import json
 import math
 import os
@@ -563,6 +587,13 @@ def main() -> int:
     telemetry_main_path(torch, step, spec)
     torch.cuda.empty_cache()
 
+    # ---- 4h. the distributed runtime: rank gangs, the recovery drill, NCCL -----------
+    dist_runs = distributed_main_path(torch, spec)
+    torch.cuda.empty_cache()
+    drill = multihost_main_path(torch, spec)
+    nccl_main_path(torch, spec)
+    torch.cuda.empty_cache()
+
     # ---- 5. times at FIG1 ---------------------------------------------------
     grid, f, sc = quickstart.initial_state(FIG1, "cuda")
     args = (sc["lam"], sc["dt"], sc["_dx"], sc["_dy"], sc["_dz"])
@@ -747,6 +778,7 @@ def main() -> int:
                 # the f16 hand kernel is timed but off the main path
                 for k, t in mixed_times.items() if k in mixed_runs["launches"]]
     kernels += march_rows(march_runs, march_times, err_at)
+    kernels += dist_times(torch, spec, {**dist_runs["launches"], **drill["launches"]})
     print(f"{card_name}, {card_power}", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3391,6 +3423,725 @@ def telemetry_main_path(torch, step, spec, cfg=None, device="cuda") -> dict:
     require(launches[1] == launches[2] == launches[0],
             f"telemetry changed the launches: {launches}")
     return row
+
+
+# ---------------------------------------------------------------------------
+# the distributed runtime: gangs of rank processes on the one card
+# ---------------------------------------------------------------------------
+DIST_SEED = 20261018
+DIST_MESH = (2, 2)        # FIG1's 510 interior cells split 2 x 2 (510 is not 4 x 127.5)
+DIST_CHECK, DIST_STOP, DIST_CAP = 10, 50, 100
+DIST_TIMED = 20           # steps each rank times of sequential_step and overlapped_step
+GP_MESH, GP_STEPS = (2,), 10
+GP_SUMS = {"m_re": "sum_sq(re2)", "m_im": "sum_sq(im2)"}
+DIST_SUM_RTOL = 1e-5      # a sum of 512^3 f32 squares folded in another order
+BF16_REL = 2.0 ** -8      # one bf16 rounding to nearest: 8 significant bits
+DRILL_N, DRILL_WORLD, DRILL_KILL_AT, DRILL_ITERS = 130, 4, 20, 40
+DRILL_ATOL = 1e-5         # the reference's cross-mesh tolerance for the drill
+NCCL_N, NCCL_STEPS = 66, 20
+GANG_CMD = "import sys, chip_smoke; sys.exit(chip_smoke.gang_worker())"
+
+
+def dist_fig1(torch, n=None, device="cuda"):
+    """FIG1's global state, seeded: the Fig. 1 initial T plus 0.01 U[0, 1)
+    drawn on ``device`` from a generator seeded with DIST_SEED (the parent
+    and every rank make the same bits), T2 a copy, Ci; and the scalars.
+    ``n`` cuts the grid to n^3 (CPU rehearsals)."""
+    from repro_torch.configs import FIG1
+    from repro_torch.examples import quickstart
+
+    cfg = FIG1 if n is None else dataclasses.replace(FIG1, nx=n, ny=n, nz=n)
+    _, f, sc = quickstart.initial_state(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(DIST_SEED)
+    T = f["T"] + 0.01 * torch.rand(f["T"].shape, generator=gen, device=device)
+    return {"T2": T.clone(), "T": T, "Ci": f["Ci"]}, sc
+
+
+def fig1_kernels(device, backend=None):
+    """FIG1's @parallel step and its checked twin (``ERR``)."""
+    from repro_torch.core import init_parallel_stencil
+    from repro_torch.core.device import default_backend
+    from repro_torch.examples import quickstart
+
+    step = quickstart.make_step(init_parallel_stencil(
+        backend=backend or default_backend(device), device=device))
+    return step, step.with_reductions(ERR)
+
+
+def gp_kernel(n=None, device="cuda", backend=None):
+    """GP's fused update (bc none; radius 2) with its two ``sum_sq``
+    epilogues at 512^3 (``n^3`` when given): ``(kernel, config, scalars)``;
+    the solver's own state is ``gross_pitaevskii.init_state(config)``."""
+    from repro_torch.examples import gross_pitaevskii as gp
+
+    cfg = gp.GPConfig(n=n or COUPLED_FULL["gp"][0], device=device, backend=backend)
+    grid = gp.make_grid(cfg)
+    kern = gp.make_step(grid, cfg).kernels[0].with_reductions(GP_SUMS)
+    inv2 = tuple(1.0 / d ** 2 for d in grid.spacing)
+    sc = dict(g=cfg.g, dt=gp.timestep(grid), _dx2=inv2[0], _dy2=inv2[1], _dz2=inv2[2])
+    return kern, cfg, sc
+
+
+def shape_counts(counter) -> dict:
+    """``stencil.shape_launches`` as ``{"label@AxBxC": n}``."""
+    return {f"{label}@{'x'.join(map(str, shape))}": n for (label, shape), n in counter.items()}
+
+
+def sent_bytes(mesh, shape, depths, itemsize) -> int:
+    """Bytes this rank sends in one exchange of one field: its slab toward
+    each neighbour it has (an edge rank of a non-periodic axis has one)."""
+    total = 0
+    for i in range(len(mesh.shape)):
+        for side, direction in ((0, 1), (1, -1)):
+            if mesh.neighbor(i, direction) is not None:
+                total += (depths[i][side] * itemsize
+                          * math.prod(s for a, s in enumerate(shape) if a != i))
+    return total
+
+
+def gang_worker() -> int:
+    """One rank of a chip_smoke gang, started by ``run_gang`` through the
+    multihost ``Supervisor``: ``CHIP_GANG_MODE`` ``fig1`` (FIG1 on 2 x 2
+    ranks) or ``gp`` (GP on 2 ranks along x), on ``CHIP_GANG_DEVICE`` at
+    ``CHIP_GANG_N`` (the full size when unset), over gloo. Prints one
+    ``GANG {json}`` line."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch import multihost
+
+    ctx = multihost.initialize(backend="gloo", timeout_s=120, collective_timeout_s=300)
+    device = os.environ.get("CHIP_GANG_DEVICE", "cuda")
+    n = int(os.environ["CHIP_GANG_N"]) if os.environ.get("CHIP_GANG_N") else None
+    if device == "cpu":
+        torch.set_num_threads(1)
+    rank_fn = {"fig1": fig1_rank, "gp": gp_rank}[os.environ["CHIP_GANG_MODE"]]
+    out = rank_fn(torch, device, n)
+    print("GANG " + json.dumps(out), flush=True)
+    multihost.shutdown()
+    return 0
+
+
+def timed_steps(torch, device, fn, cur, k, timer=None):
+    """``k`` steps of ``fn`` (FIG1's rotation), the device drained at both
+    ends: ``(fields, seconds)``."""
+    def run():
+        nonlocal cur
+        for _ in range(k):
+            out, fresh = fn(cur, timer)
+            cur = dict(fresh, T2=fresh["T"], T=out)
+        return cur
+    return timed(torch, device, run)
+
+
+def fig1_rank(torch, device, n) -> dict:
+    """FIG1 on 2 x 2 ranks: the main path (``elastic_solve_until`` with
+    ``overlapped_step``, to the parent's tol, launch counts set to 0 just
+    before and read just after), held on rank 0 to the single-process
+    ``solve_until``; then a step of ``sequential_step`` against
+    ``overlapped_step``, each timed over DIST_TIMED steps with its
+    exchange's parts, the checked overlapped step (its reductions
+    folded over the owned cells, combined and read on the host, as a
+    check of the main path does) and the plain one with the device
+    drained after it; the bytes on the wire,
+    ``multi_step(k=2)`` on 2-deep ghost rings (a check: its launches are
+    counted apart), and the bf16 and int8 wires."""
+    import torch.distributed as dist
+
+    from repro_torch.core import iterate
+    from repro_torch.distributed import compression, elastic, halo, overlap
+    from repro_torch.kernels import stencil
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(DIST_MESH, ("x", "y"))
+    step, chk = fig1_kernels(device)
+    fields, sc = dist_fig1(torch, n, device)
+    tol = float(os.environ["CHIP_GANG_TOL"])
+    out = {"rank": mesh.rank, "coords": list(mesh.coords)}
+
+    timer = halo.ExchangeTimer()
+    stencil.launches.clear()
+    stencil.shape_launches.clear()
+    res, wall = timed(torch, device, lambda: elastic.elastic_solve_until(
+        chk, fields, sc, factors=DIST_MESH, tol=tol, max_iters=DIST_CAP, exchange=("T",),
+        check_every=DIST_CHECK, step="overlapped", gather_to=0, timer=timer))
+    out["launches"] = shape_counts(stencil.shape_launches)
+    parts = timer.seconds()
+    # wall: the whole call, cutting the blocks and the final gather to rank 0
+    # (three 257 x 257 x 512 blocks a rank through gloo) included
+    out["solve"] = {"iters": res.iters, "err": res.err, "host_syncs": res.host_syncs,
+                    "wall_s": wall, "wall_ms_per_step": wall / res.iters * 1e3,
+                    "exchanges": timer.exchanges,
+                    "parts_ms_per_exchange": {k: v / timer.exchanges * 1e3
+                                              for k, v in parts.items()}}
+    if mesh.position == 0:
+        want = iterate.solve_until(chk, fields, sc, tol=tol, max_iters=DIST_CAP,
+                                   check_every=DIST_CHECK)
+        out["single"] = {"iters": want.iters, "err": want.err,
+                         "bitwise": {k: bool(torch.equal(res.fields[k], want.fields[k].cpu()))
+                                     for k in ("T2", "T", "Ci")}}
+        del want
+    del res
+
+    local = {k: halo.local_block(v, DIST_MESH, mesh.coords, 1) for k, v in fields.items()}
+
+    def fresh_copy():
+        return {k: v.clone() for k, v in local.items()}
+
+    a, b = fresh_copy(), fresh_copy()
+    seq, _ = overlap.sequential_step(step, a, sc, ("T",), mesh)
+    ovl, _ = overlap.overlapped_step(step, b, sc, ("T",), mesh)
+    out["ovl_equals_seq"] = bool(torch.equal(seq, ovl) and torch.equal(a["T"], b["T"]))
+    out["ms_per_step"], out["parts_ms_per_exchange"] = {}, {}
+    for name, fn in (("sequential", overlap.sequential_step),
+                     ("overlapped", overlap.overlapped_step)):
+        def one(cur, t, fn=fn):
+            return fn(step, cur, sc, ("T",), mesh, timer=t)
+        cur, _ = timed_steps(torch, device, one, fresh_copy(), 2)          # warm
+        dist.barrier()
+        cur, wall = timed_steps(torch, device, one, cur, DIST_TIMED)
+        out["ms_per_step"][name] = wall / DIST_TIMED * 1e3
+        t = halo.ExchangeTimer()
+        timed_steps(torch, device, one, cur, DIST_TIMED, t)
+        out["parts_ms_per_exchange"][name] = {k: v / t.exchanges * 1e3
+                                              for k, v in t.seconds().items()}
+
+    def checked(cur, t):
+        (o, reds), fresh = overlap.overlapped_step(chk, cur, sc, ("T",), mesh, timer=t)
+        float(reds["err"])            # the check's host read
+        return o, fresh
+
+    def drained(cur, t):
+        # the plain step with the device drained after it, as the check's
+        # host read drains it: what the fold and the all-reduce add is the rest
+        res = overlap.overlapped_step(step, cur, sc, ("T",), mesh, timer=t)
+        sync(torch, device)
+        return res
+    for name, fn in (("overlapped_checked", checked), ("overlapped_drained", drained)):
+        cur, _ = timed_steps(torch, device, fn, fresh_copy(), 2)           # warm
+        dist.barrier()
+        _, wall = timed_steps(torch, device, fn, cur, DIST_TIMED)
+        out["ms_per_step"][name] = wall / DIST_TIMED * 1e3
+    ir = step.stencil_ir(**local, **sc)
+    depths = ir.field_halo["T"][:2]
+    shp = tuple(local["T"].shape)
+    out["bytes"] = {
+        "local_shape": list(shp),
+        "sent_by_this_rank": sent_bytes(mesh, shp, depths, 4),
+        **{f"exchange_byte_counts[{c}]": halo.exchange_byte_counts(
+            {"T": shp}, {"T": 4}, {"T": True}, 2, radius=1, depths={"T": depths}, compress=c)
+           for c in (None, "bf16", "int8")}}
+
+    # the k-step path, a check off the main path: its launches are its own
+    lk = {k: halo.local_block(v, DIST_MESH, mesh.coords, 2) for k, v in fields.items()}
+    stencil.shape_launches.clear()
+    out_k, _ = overlap.multi_step(step, lk, sc, ("T",), mesh, 2)
+    sync(torch, device)
+    out["check_launches"] = shape_counts(stencil.shape_launches)
+    gk = elastic.fetch_global({"T": out_k}, mesh, 2, to=0)
+    if mesh.position == 0:
+        one = step(**fields, **sc)
+        two = step(T2=fields["T"], T=one, Ci=fields["Ci"], **sc).cpu()
+        own = (slice(2, -2), slice(2, -2))
+        out["k2_owned_bitwise"] = bool(torch.equal(gk["T"][own], two[own]))
+    del lk, out_k, gk
+
+    out["compress"] = {}
+    exact = local["T"]              # blocks cut from the global hold the exact ghosts
+    for fmt in ("bf16", "int8"):
+        got = halo.exchange_many(fresh_copy(), ("T",), mesh, radius=1, compress=fmt)["T"]
+        diff = (got.double() - exact.double()).abs()
+        if fmt == "bf16":
+            ok = bool((diff <= exact.double().abs() * BF16_REL).all())
+        else:
+            # x ghost rows (axis 0, exchanged first: each message is the
+            # neighbour's interior row, which equals the exact ghost row),
+            # off the y ghost columns the y exchange overwrites
+            ok = True
+            for at, direction in ((0, -1), (-1, 1)):
+                if mesh.neighbor(0, direction) is None:
+                    continue
+                row = exact[at].reshape(-1)
+                _, s, meta = compression.quantize_int8(row)
+                bound = compression.int8_error_bound(row, s, meta).reshape(exact[at].shape)
+                ok &= bool((diff[at][1:-1] <= bound[1:-1]).all())
+        out["compress"][fmt] = {"max_abs_err": float(diff.max()), "within_bound": ok,
+                                "interior_exact": bool(torch.equal(got[1:-1, 1:-1],
+                                                                   exact[1:-1, 1:-1]))}
+    return out
+
+
+def gp_rank(torch, device, n) -> dict:
+    """GP's fused update on 2 ranks along x (radius 2, re and im exchanged
+    to their read depths, V's ghosts cut from the global state): GP_STEPS
+    overlapped steps with the sum_sq epilogues folded and summed across
+    ranks, launch counts set to 0 just before; rank 0 holds the gathered
+    fields to GP_STEPS single-process steps bitwise, the sums within
+    DIST_SUM_RTOL. Then GP_STEPS more of each driver from the same start,
+    timed: ``sequential_step``, and ``overlapped_step`` with its
+    exchange's parts."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import elastic, halo, overlap
+    from repro_torch.kernels import stencil
+    from repro_torch.launch.mesh import make_mesh
+
+    from repro_torch.examples import gross_pitaevskii as gp
+
+    mesh = make_mesh(GP_MESH, ("x",))
+    kern, cfg, sc = gp_kernel(n, device)
+    _, re, im, V = gp.init_state(cfg)
+    fields = dict(re2=re, im2=im, re=re, im=im, V=V)
+    cur = {k: halo.local_block(v, GP_MESH, mesh.coords, 2) for k, v in fields.items()}
+    r, depths, _ = overlap._kernel_geometry(kern, cur, sc, ("re", "im"), mesh)
+    out = {"rank": mesh.rank, "coords": list(mesh.coords), "radius": r,
+           "depths": {k: [list(p) for p in v] for k, v in depths.items()}}
+
+    def one(fn=overlap.overlapped_step, timer=None):
+        nonlocal cur
+        (o, r_), fresh = fn(kern, cur, sc, ("re", "im"), mesh, timer=timer)
+        cur = dict(fresh, re2=fresh["re"], im2=fresh["im"], re=o["re2"], im=o["im2"])
+        return r_
+
+    stencil.launches.clear()
+    stencil.shape_launches.clear()
+    walls = []
+    for _ in range(GP_STEPS):
+        reds, wall = timed(torch, device, one)
+        walls.append(wall * 1e3)
+    out["launches"] = shape_counts(stencil.shape_launches)
+    # each step ends in its check's all-reduce and a host read; the first
+    # step starts the side stream, the pinned buffers and gloo's pairs
+    out["ms_per_step"] = {"first": walls[0],
+                          "median_after": sorted(walls[1:])[(len(walls) - 1) // 2]}
+    out["sums"] = {k: float(v) for k, v in reds.items()}
+    shp = tuple(cur["re"].shape)
+    out["bytes"] = {"local_shape": list(shp),
+                    "sent_by_this_rank": sum(sent_bytes(mesh, shp, depths[f], 4)
+                                             for f in ("re", "im")),
+                    "exchange_byte_counts": halo.exchange_byte_counts(
+                        {f: shp for f in ("re", "im")}, {"re": 4, "im": 4},
+                        {"re": True, "im": True}, 1, radius=r, depths=depths)}
+    g = elastic.fetch_global({"re": cur["re"], "im": cur["im"]}, mesh, r, to=0)
+    if mesh.position == 0:
+        ref = dict(fields)
+        for _ in range(GP_STEPS):
+            o, want = kern(**ref, **sc)
+            ref = dict(ref, re2=ref["re"], im2=ref["im"], re=o["re2"], im=o["im2"])
+        out["single"] = {"bitwise": {k: bool(torch.equal(g[k], ref[k].cpu()))
+                                     for k in ("re", "im")},
+                         "sums": {k: float(v) for k, v in want.items()}}
+        del ref, want
+    del g
+    start = {k: halo.local_block(v, GP_MESH, mesh.coords, 2) for k, v in fields.items()}
+    del fields
+    out["drivers_ms_per_step"], out["parts_ms_per_exchange"] = {}, {}
+    for name, fn in (("sequential", overlap.sequential_step),
+                     ("overlapped", overlap.overlapped_step)):
+        cur = {k: v.clone() for k, v in start.items()}
+        timer = halo.ExchangeTimer()
+        timed(torch, device, lambda: one(fn))                              # warm
+        dist.barrier()
+        walls = [timed(torch, device, lambda: one(fn, timer))[1] * 1e3
+                 for _ in range(GP_STEPS)]
+        out["drivers_ms_per_step"][name] = sorted(walls)[(len(walls) - 1) // 2]
+        out["parts_ms_per_exchange"][name] = {k: v / timer.exchanges * 1e3
+                                              for k, v in timer.seconds().items()}
+    return out
+
+
+def run_gang(mode: str, world: int, env: dict, deadline_s: float = 420.0) -> tuple:
+    """Start ``world`` rank processes of ``gang_worker`` in ``mode`` through
+    the multihost ``Supervisor`` (fresh interpreters, each rank's output in
+    a log), wait for them, and return ``(rows by rank, seconds)``; any
+    rank's failure (or the deadline) fails the run."""
+    from repro_torch.launch import multihost
+
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_gang_{mode}_")
+    try:
+        sup = multihost.Supervisor(
+            lambda rank, w, attempt: [sys.executable, "-c", GANG_CMD], world,
+            heartbeat_dir=root, run_id=mode, attempt_deadline_s=deadline_s,
+            env={"PYTHONPATH": os.pathsep.join([os.path.join(ROOT, "src"), ROOT]),
+                 "CHIP_GANG_MODE": mode, **env})
+        rc = sup.run_attempt(0, world)
+        logs = []
+        for rank in range(world):
+            with open(sup.log_path(0, rank)) as f:
+                logs.append(f.read())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(rc == 0, f"the {mode} gang failed ({sup.reports[-1].reason}):\n"
+            + "\n".join(f"--- rank {r}\n{t[-3000:]}" for r, t in enumerate(logs)))
+    rows = [json.loads(ln[5:]) for t in logs for ln in t.splitlines() if ln.startswith("GANG ")]
+    require(len(rows) == world, f"the {mode} gang printed {len(rows)} result lines")
+    return sorted(rows, key=lambda r: r["rank"]), sup.reports[-1].duration_s
+
+
+def dist_calls(n_fig1=None, n_gp=None, n_drill=DRILL_N) -> list:
+    """Every generated kernel the gangs and the drill launch, at their
+    shapes: FIG1's rank block, shell slabs and 2-deep k-step block, GP's
+    rank block and slabs, the drill's rank blocks; and the checked FIG1
+    and GP kernels at the rank blocks (``check_cost``)."""
+    from repro_torch.core import init_parallel_stencil
+    from repro_torch.distributed import overlap
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import RankMesh
+
+    step, chk = fig1_kernels("cuda")
+    n = n_fig1 or 512
+    b1, b2 = (n - 2) // 2 + 2, (n - 4) // 2 + 4
+    sc = dict.fromkeys(("lam", "dt", "_dx", "_dy", "_dz"), 1.0)
+    mesh = RankMesh(DIST_MESH, ("x", "y"), 0, (0, 1, 2, 3))
+    block = {k: (b1, b1, n) for k in ("T2", "T", "Ci")}
+    # the checked kernels at the rank blocks: timed by check_cost
+    calls = [step.compiled(**block, **sc), chk.compiled(**block, **sc),
+             step.compiled(nsteps=2, **{k: (b2, b2, n) for k in block}, **sc)]
+    calls += [step.compiled(**shp, **sc)
+              for _, _, shp in overlap.shell_slabs(step, block, sc, ("T",), mesh)]
+    kern, _, gsc = gp_kernel(n_gp)
+    g = n_gp or COUPLED_FULL["gp"][0]
+    gblock = {k: ((g - 4) // 2 + 4, g, g) for k in ("re2", "im2", "re", "im", "V")}
+    plain = kern.with_reductions(None)
+    calls += [plain.compiled(**gblock, **gsc), kern.compiled(**gblock, **gsc)]
+    calls += [plain.compiled(**shp, **gsc) for _, _, shp in overlap.shell_slabs(
+        plain, gblock, gsc, ("re", "im"), RankMesh(GP_MESH, ("x",), 0, (0, 1)))]
+    demo = multihost.demo_kernel(init_parallel_stencil()).with_reductions(None)
+    for w in (DRILL_WORLD, 2, 1):
+        shp = ((n_drill - 2) // w + 2, n_drill, n_drill)
+        calls.append(demo.compiled(T2=shp, T=shp, dt=1.0))
+    return calls
+
+
+def distributed_main_path(torch, spec, n_fig1=None, n_gp=None, device="cuda") -> dict:
+    """``main_path_distributed``: FIG1 on a gang of 4 rank processes (2 x 2,
+    gloo, halos staged through host memory) and GP on 2, each rank
+    running the generated kernels on the one card; every kernel they
+    launch is built here before the ranks start. Returns the gangs' rows
+    and launch counts for the kernels line."""
+    from repro_torch.core import iterate
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    if device == "cuda":
+        calls = dist_calls()
+        build.compile_many([(c.lib_name, c.source) for c in calls])
+        emit({"phase": "build_distributed", "wall_s": time.perf_counter() - t0,
+              "sources": sorted({c.lib_name for c in calls}),
+              "shapes": sorted({"x".join(map(str, c.ir.base_shape)) for c in calls})})
+    _, chk = fig1_kernels(device)
+    fields, sc = dist_fig1(torch, n_fig1, device)
+    stop = iterate.solve_until(chk, fields, sc, tol=0.0, max_iters=DIST_STOP,
+                               check_every=DIST_CHECK)
+    tol = stop.err                    # the gang must stop right here, as one process does
+    del fields, stop
+    env = {"CHIP_GANG_DEVICE": device}
+    if n_fig1:
+        env["CHIP_GANG_N"] = str(n_fig1)
+    fig1, fig1_s = run_gang("fig1", math.prod(DIST_MESH), dict(env, CHIP_GANG_TOL=repr(tol)))
+    card = {"card": getattr(spec, "name", None), "power_limit": getattr(spec, "power_limit", None)}
+    note = ("the rank processes take turns on one card and their halos cross host memory: "
+            "these times measure the protocol and its cost, not the paper's scaling")
+    r0 = fig1[0]
+    row = {"phase": "main_path_distributed", "config": "FIG1",
+           "shape": [n_fig1 or 512] * 3, "mesh": list(DIST_MESH),
+           "transport": "gloo, host-staged", **card, "note": note, "gang_s": fig1_s,
+           "tol": tol, "iters": [r["solve"]["iters"] for r in fig1],
+           "err": [r["solve"]["err"] for r in fig1], "single": r0["single"],
+           "ovl_equals_seq": [r["ovl_equals_seq"] for r in fig1],
+           "k2_owned_bitwise": r0["k2_owned_bitwise"],
+           "compress": {r["rank"]: r["compress"] for r in fig1},
+           "ranks": [{k: r[k] for k in ("rank", "coords", "ms_per_step",
+                                        "parts_ms_per_exchange", "bytes", "launches",
+                                        "check_launches")}
+                     | {"solve": r["solve"]} for r in fig1]}
+    emit(row)
+    for r in fig1:
+        require(r["solve"]["iters"] == r0["single"]["iters"] == DIST_STOP,
+                f"rank {r['rank']} stopped at {r['solve']['iters']}, one process at "
+                f"{r0['single']['iters']} (expected {DIST_STOP})")
+        require(r["solve"]["err"] == r0["single"]["err"], "the gang's err differs from one "
+                f"process's: {r['solve']['err']} against {r0['single']['err']}")
+        require(r["ovl_equals_seq"], f"rank {r['rank']}: overlapped_step != sequential_step")
+        for fmt, c in r["compress"].items():
+            require(c["within_bound"] and c["interior_exact"] and c["max_abs_err"] > 0,
+                    f"rank {r['rank']}: the {fmt} wire is off its bound: {c}")
+    require(all(r0["single"]["bitwise"].values()),
+            f"the gathered FIG1 fields differ from one process's: {r0['single']['bitwise']}")
+    n = n_fig1 or 512
+    b1, b2 = (n - 2) // 2 + 2, (n - 4) // 2 + 4
+    for key in (f"step@{b1}x{b1}x{n}", f"step@3x{b1}x{n}", f"step@{b1}x3x{n}"):
+        require(device != "cuda" or all(r["launches"].get(key, 0) > 0 for r in fig1),
+                f"kernel {key} was not launched on the distributed main path")
+    k2 = f"step/k2@{b2}x{b2}x{n}"
+    require(device != "cuda" or all(r["check_launches"].get(k2, 0) > 0 for r in fig1),
+            f"the multi_step(k=2) check did not launch {k2}")
+    require(r0["k2_owned_bitwise"], "multi_step(k=2) differs from two single steps")
+
+    gp_rows, gp_s = run_gang("gp", math.prod(GP_MESH),
+                             dict(env, **({"CHIP_GANG_N": str(n_gp)} if n_gp else {})))
+    g0 = gp_rows[0]
+    sums = {k: [g0["sums"][k], g0["single"]["sums"][k]] for k in GP_SUMS}
+    emit({"phase": "main_path_distributed_gp", "config": "GP fused, bc none",
+          "shape": [n_gp or COUPLED_FULL["gp"][0]] * 3, "mesh": list(GP_MESH),
+          "transport": "gloo, host-staged", **card, "note": note, "gang_s": gp_s,
+          "steps": GP_STEPS, "radius": g0["radius"], "depths": g0["depths"],
+          "fields_bitwise": g0["single"]["bitwise"], "sums": sums,
+          "sum_rtol": DIST_SUM_RTOL,
+          "ranks": [{k: r[k] for k in ("rank", "ms_per_step", "drivers_ms_per_step",
+                                       "parts_ms_per_exchange", "bytes", "launches")}
+                    for r in gp_rows]})
+    require(all(g0["single"]["bitwise"].values()),
+            f"GP on 2 ranks differs from one process: {g0['single']['bitwise']}")
+    for k, (a, b) in sums.items():
+        require(math.isclose(a, b, rel_tol=DIST_SUM_RTOL),
+                f"GP's {k} on 2 ranks {a} against one process's {b}")
+    g = n_gp or COUPLED_FULL["gp"][0]
+    for key in (f"update@{(g - 4) // 2 + 4}x{g}x{g}", f"update@6x{g}x{g}"):
+        require(device != "cuda" or all(r["launches"].get(key, 0) > 0 for r in gp_rows),
+                f"kernel {key} was not launched on GP's distributed path")
+    # the kernels line counts the main paths' launches only; the k-step
+    # kernel ran in its check alone: a row with 0 main-path launches
+    launches = collections.Counter({k2: 0})
+    for r in fig1 + gp_rows:
+        launches.update(r["launches"])
+    return {"fig1": fig1, "gp": gp_rows, "launches": dict(launches)}
+
+
+def multihost_main_path(torch, spec, n=DRILL_N, device="cuda") -> dict:
+    """``main_path_multihost``: the supervised recovery drill through the
+    launcher's CLI, ``python -m repro_torch.launch.multihost --demo --world
+    4 --backend gloo --kill-rank 1 --kill-at 20`` (the demo worker's
+    kernel on ``device``'s backend, a reduced DRILL_N^3 grid: the drill's
+    job is recovery). The supervisor must see exit 113, replan to 2 ranks
+    and resume from the global checkpoint at 20; the result is held to an
+    uninterrupted run in this process within DRILL_ATOL. Every rank of
+    every attempt prints its launches after each chunk; the last line of
+    each counts: attempt 0's through its last checkpoint (DRILL_KILL_AT),
+    before the kill (the stragglers' launches after it, until they are
+    terminated, are not counted)."""
+    import numpy as np
+
+    from repro_torch.core import init_parallel_stencil
+    from repro_torch.core.device import default_backend
+    from repro_torch.distributed import elastic
+    from repro_torch.launch import multihost
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_drill_")
+    try:
+        args = ["-m", "repro_torch.launch.multihost", "--demo", "--world", str(DRILL_WORLD),
+                "--backend", "gloo", "--kill-rank", "1", "--kill-at", str(DRILL_KILL_AT),
+                "--device", device, "--n", str(n), "--max-iters", str(DRILL_ITERS),
+                "--workdir", root, "--run-id", "drill", "--deadline", "300"]
+        p, wall = timed(torch, device, lambda: child(args))
+        require(p.returncode == 0, f"the drill failed: {p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        lines = p.stdout.splitlines()
+        report = json.loads("\n".join(lines[lines.index("{"):]))
+        logs = {}
+        for a in report["attempts"]:
+            for rank in range(a["world"]):
+                with open(os.path.join(root, "hb", f"{a['run_id']}.rank{rank}.log")) as f:
+                    logs[(a["attempt"], rank)] = f.read()
+        got = np.load(os.path.join(root, "out.npy"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches, through = collections.Counter(), {}
+    for (attempt, rank), text in logs.items():
+        last = [ln for ln in text.splitlines() if ln.startswith("LAUNCHES ")][-1:]
+        if last:
+            done, counts = last[0][9:].split(" ", 1)
+            through[f"{attempt}/{rank}"] = int(done)
+            launches.update(json.loads(counts))
+    demo = multihost.demo_kernel(init_parallel_stencil(backend=default_backend(device),
+                                                       device=device))
+    T0 = multihost.demo_initial(n).to(device)
+    want = elastic.elastic_solve_until(demo, dict(T2=T0, T=T0), dict(dt=1e-3), factors=(1,),
+                                       tol=0.0, max_iters=DRILL_ITERS, exchange=("T",),
+                                       check_every=multihost.DEMO_CHECK_EVERY)
+    diff = float(np.abs(got - want.fields["T"].cpu().numpy()).max())
+    resumed = "resumed_from=20" in logs.get((1, 0), "")
+    emit({"phase": "main_path_multihost", "shape": [n] * 3, "command": " ".join(args[:-6]),
+          "wall_s": wall, "restarts": report["restarts"], "final_world": report["final_world"],
+          "exit_codes": report["exit_codes"],
+          "attempts": [{k: a[k] for k in ("attempt", "world", "exit_codes", "reason",
+                                          "duration_s")} for a in report["attempts"]],
+          "resumed_from_20": resumed, "max_abs_diff_vs_uninterrupted": diff,
+          "atol": DRILL_ATOL, "launches": dict(launches),
+          "launches_through_step": through,
+          "card": getattr(spec, "name", None), "power_limit": getattr(spec, "power_limit", None)})
+    require(report["exit_codes"][0] == KILL_EXIT_CODE and report["exit_codes"][-1] == 0,
+            f"the drill's exit codes: {report['exit_codes']}")
+    require(report["restarts"] == 1 and report["final_world"] == 2,
+            f"the drill did not replan 4 -> 2: {report}")
+    require(resumed, "the drill's second attempt did not resume from the checkpoint at 20")
+    require(diff <= DRILL_ATOL, f"the drill's result is {diff} off the uninterrupted run")
+    want_through = {f"{a['attempt']}/{rank}": DRILL_KILL_AT if a["attempt"] == 0 else DRILL_ITERS
+                    for a in report["attempts"] for rank in range(a["world"])}
+    require(through == want_through,
+            f"the drill's ranks counted their launches through {through}, not {want_through}")
+    blocks = {f"kern@{(n - 2) // w + 2}x{n}x{n}" for w in (DRILL_WORLD, 2)}
+    require(device != "cuda" or all(launches.get(k, 0) > 0 for k in blocks),
+            f"the drill's ranks did not launch {sorted(blocks)}: {dict(launches)}")
+    return {"launches": dict(launches)}
+
+
+def nccl_main_path(torch, spec, device="cuda") -> dict:
+    """A world-1 NCCL group on the card: FIG1 (NCCL_N^3) through
+    ``elastic_solve_until`` with ``overlapped_step`` and periodic x and y
+    (self-wrap exchanges; the check's all-reduce through NCCL), bitwise
+    equal to the same solve with no process group; a periodic exchange
+    against the wrap done by hand. Then ``initialize(backend="nccl")`` for
+    2 ranks on this one card must refuse with the pointed error."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import elastic, halo
+    from repro_torch.ir import Reduction
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_mesh
+
+    _, chk = fig1_kernels(device)
+    fields, sc = dist_fig1(torch, NCCL_N, device)
+
+    def solve():
+        return elastic.elastic_solve_until(
+            chk, fields, sc, factors=(1, 1), tol=0.0, max_iters=NCCL_STEPS, exchange=("T",),
+            check_every=5, periodic=True, step="overlapped")
+
+    ctx = multihost.initialize(coordinator=multihost.default_coordinator(), num_processes=1,
+                               process_id=0, backend="nccl", timeout_s=60)
+    try:
+        mesh = make_mesh((1, 1), ("x", "y"))
+        backend = mesh.backend
+        probe = float(Reduction("max_abs", "T").all_reduce(torch.tensor(3.5, device=device)))
+        t = fields["T"][:10, :9, :4].clone()
+        w = halo.halo_exchange(t.clone(), mesh, radius=1, periodic=True)
+        by_hand = t.clone()
+        by_hand[0], by_hand[-1] = t[-2], t[1]
+        by_hand[:, 0], by_hand[:, -1] = by_hand[:, -2].clone(), by_hand[:, 1].clone()
+        wrap_ok = bool(torch.equal(w, by_hand))
+        with_nccl = solve()
+    finally:
+        dist.destroy_process_group()
+    without = solve()
+    refusal = None
+    try:
+        multihost.initialize(coordinator=multihost.default_coordinator(), num_processes=2,
+                             process_id=0, backend="nccl", timeout_s=30)
+    except multihost.RendezvousError as e:
+        refusal = str(e)
+    same = (with_nccl.iters == without.iters and with_nccl.err == without.err
+            and all(torch.equal(with_nccl.fields[k], without.fields[k]) for k in ("T", "T2")))
+    emit({"phase": "nccl", "world": ctx.world, "backend": backend, "device": ctx.device,
+          "all_reduce_probe": probe, "periodic_self_wrap_ok": wrap_ok,
+          "solve": {"shape": [NCCL_N] * 3, "iters": with_nccl.iters, "err": with_nccl.err,
+                    "bitwise_vs_no_group": same},
+          "two_ranks_one_card_refused": refusal,
+          "card": getattr(spec, "name", None), "power_limit": getattr(spec, "power_limit", None)})
+    require(backend == "nccl" and probe == 3.5, f"the NCCL group did not run: {backend}")
+    require(wrap_ok, "the periodic self-wrap under NCCL differs from the wrap by hand")
+    require(same, "FIG1 through the NCCL group differs from the same solve without one")
+    require(refusal is not None and "share a card" in refusal,
+            f"two NCCL ranks on one card were not refused as they should be: {refusal}")
+    return {}
+
+
+def dist_times(torch, spec, launches, n_fig1=None, n_gp=None, n_drill=DRILL_N) -> list:
+    """A kernels-line row per (kernel, shape) the gangs and the drill
+    launched: the generated kernel at that shape on random fields against
+    its torch-backend twin (bitwise), CUDA-event medians of both, and the
+    bound of its bytes and operations."""
+    from repro_torch.core import init_parallel_stencil, teff
+    from repro_torch.launch import multihost
+
+    step, _ = fig1_kernels("cuda")
+    step_plain, _ = fig1_kernels("cuda", backend="torch")
+    gk, _, gsc = gp_kernel()
+    gp_plain = gp_kernel(backend="torch")[0].with_reductions(None)
+    demo = multihost.demo_kernel(init_parallel_stencil()).with_reductions(None)
+    demo_plain = multihost.demo_kernel(init_parallel_stencil(backend="torch", device="cuda"))
+    demo_plain = demo_plain.with_reductions(None)
+    kinds = {"step": (step, step_plain, ("T2", "T", "Ci"),
+                      dict(lam=1.0, dt=1e-4, _dx=511.0, _dy=511.0, _dz=511.0)),
+             "update": (gk.with_reductions(None), gp_plain, ("re2", "im2", "re", "im", "V"),
+                        dict(gsc, dt=1e-4)),
+             "kern": (demo, demo_plain, ("T2", "T"), dict(dt=1e-3))}
+    gen = torch.Generator(device="cpu").manual_seed(DIST_SEED)
+    rows = []
+    for key, n in sorted(launches.items()):
+        label, shape = key.split("@")
+        shape = tuple(int(s) for s in shape.split("x"))
+        k_steps = 2 if label.endswith("/k2") else 1
+        kern, plain, names, sc = kinds[label.split("/")[0]]
+        f = {m: torch.rand(shape, generator=gen).to("cuda") for m in names}
+        if "T2" in f:
+            # the k-step kernel equals k rotated steps where an output and
+            # its rotation target agree on the write ring, as in the runs
+            f["T2"] = f["T"].clone()
+        run = (lambda: kern.run_steps(k_steps, **f, **sc)) if k_steps > 1 else (
+            lambda: kern(**f, **sc))
+        run_plain = (lambda: plain.run_steps(k_steps, **f, **sc)) if k_steps > 1 else (
+            lambda: plain(**f, **sc))
+        got, want = run(), run_plain()
+        got = got if isinstance(got, dict) else {"out": got}
+        want = want if isinstance(want, dict) else {"out": want}
+        err = max(max_abs_diff(got[o], want[o]) for o in got)
+        require(err == 0.0, f"{key} differs from its torch-backend twin by {err}")
+        a_eff, ops = tap_cost(kern.compiled(nsteps=k_steps, **f, **sc))
+        if k_steps > 1:
+            ops *= k_steps
+        bound_ms, bound_by = bound_of(a_eff, ops)
+        ms = teff.measure(run, iters=20, warmup=3).median_s * 1e3
+        plain_ms = teff.measure(run_plain, iters=10, warmup=2).median_s * 1e3
+        rows.append({"name": key, "route": "cuda",
+                     "source": ("src/repro_torch/kernels/codegen_steps.py" if k_steps > 1
+                                else "src/repro_torch/kernels/codegen.py"),
+                     "replaces": "src/repro/kernels/stencil.py:1052", "launches": n,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+        del f, got, want
+    emit({"phase": "times_distributed", "card": getattr(spec, "name", None),
+          "power_limit": getattr(spec, "power_limit", None), "kernels": rows,
+          "check_cost": check_cost(torch, gen)})
+    return rows
+
+
+def check_cost(torch, gen) -> list:
+    """What a check adds to a rank's step, at the rank blocks of the FIG1
+    gang (mesh position (0, 0) of 2 x 2) and of GP's (position 0 of 2):
+    the distributed step launches the plain kernel and folds the
+    reductions over the owned cells in PyTorch operations
+    (``apply_reductions``, what ``overlap.owned_reductions`` runs before
+    its all-reduce); one process launches the kernel with its fused
+    epilogue over the whole block. CUDA-event medians of the plain launch,
+    the fused launch and the fold alone, on random fields."""
+    from repro_torch.core import teff
+    from repro_torch.distributed import halo
+
+    _, chk = fig1_kernels("cuda")
+    gk, _, gsc = gp_kernel()
+    b1, g = (512 - 2) // 2 + 2, COUPLED_FULL["gp"][0]
+    cases = [("FIG1 step[err]", chk, ("T2", "T", "Ci"), (b1, b1, 512), DIST_MESH, (0, 0),
+              dict(lam=1.0, dt=1e-4, _dx=511.0, _dy=511.0, _dz=511.0)),
+             ("GP update[m_re, m_im]", gk, ("re2", "im2", "re", "im", "V"),
+              ((g - 4) // 2 + 4, g, g), GP_MESH, (0,), dict(gsc, dt=1e-4))]
+    out = []
+    for name, kern, names, shape, factors, index, sc in cases:
+        f = {m: torch.rand(shape, generator=gen).to("cuda") for m in names}
+        plain = kern.with_reductions(None)
+        outs = plain(**f, **sc)
+        outs = {kern.outputs[0]: outs} if len(kern.outputs) == 1 else outs
+        r = max(kern.stencil_ir(**f, **sc).inferred_radius, 1)
+        own = halo.owned_slices(shape, factors, index, r)
+        ms = {"plain_ms": lambda: plain(**f, **sc), "fused_ms": lambda: kern(**f, **sc),
+              "owned_fold_ms": lambda: kern.apply_reductions(
+                  {n: v[own] for n, v in outs.items()}, {n: v[own] for n, v in f.items()})}
+        row = {"kernel": name, "shape": list(shape)}
+        row.update({k: teff.measure(fn, iters=20, warmup=3).median_s * 1e3
+                    for k, fn in ms.items()})
+        row["fused_added_ms"] = row["fused_ms"] - row["plain_ms"]
+        out.append(row)
+        del f, outs
+    return out
 
 
 def make_generic(ps):

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Sequence
 
 import torch
 
@@ -61,6 +62,11 @@ class Grid:
     def interior_shape(self) -> tuple[int, ...]:
         return tuple(s - 2 * self.radius for s in self.shape)
 
+    @property
+    def interior_slice(self) -> tuple[slice, ...]:
+        r = self.radius
+        return tuple(slice(r, s - r) for s in self.shape)
+
     def coords(self, dtype=torch.float32, device="cuda") -> tuple[torch.Tensor, ...]:
         """Per-axis coordinate vectors (including boundary points).
 
@@ -81,3 +87,32 @@ class Grid:
     def stable_diffusion_dt(self, diffusivity: float, safety: float = 6.1) -> float:
         """The paper's explicit-diffusion time-step bound (Fig. 1, line 33)."""
         return min(d ** 2 for d in self.spacing) / diffusivity / safety
+
+    def subgrid(self, factors: Sequence[int]) -> "Grid":
+        """Local grid for one rank of a block domain decomposition.
+
+        The local array keeps one halo layer of width ``radius`` on every
+        face (interior sizes must divide evenly).
+        """
+        if len(factors) != self.ndim:
+            raise ValueError("one decomposition factor per axis required")
+        r = self.radius
+        local = []
+        for s, f in zip(self.shape, factors):
+            inner = s - 2 * r
+            if inner % f:
+                raise ValueError(f"interior extent {inner} not divisible by {f}")
+            local.append(inner // f + 2 * r)
+        return Grid(tuple(local), tuple(l / f for l, f in zip(self.length, factors)), r)
+
+
+def volume_bytes(shape: Sequence[int], dtype: torch.dtype) -> int:
+    return math.prod(shape) * dtype.itemsize
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0 or unit == "TiB":
+            return f"{n:.2f} {unit}"
+        n /= 1024.0
+    return f"{n:.2f} TiB"

@@ -139,8 +139,14 @@ def _keep_going(err: float, tol: float, until: str) -> bool:
 
 def make_solver(kernel, scalars: Mapping[str, Any] | None = None, *,
                 check_every: int = 1, error: str | Callable | None = None,
-                until: str = "below"):
-    """Build ``solver(fields, tol, max_iters) -> SolveResult``."""
+                until: str = "below", step: Callable | None = None):
+    """Build ``solver(fields, tol, max_iters) -> SolveResult``.
+
+    ``step(kern, fields) -> (result, fields)`` takes one step of ``kern``,
+    the plain kernel or the checked one (whose result is ``(outs,
+    reds)``), and returns the fields the rotation starts from. By default
+    it is the kernel call itself; the distributed solver exchanges the
+    ghost rings first (``distributed.elastic.make_elastic_solver``)."""
     if not kernel.reductions:
         raise ValueError(
             "solve_until needs a kernel with fused reductions "
@@ -162,6 +168,9 @@ def make_solver(kernel, scalars: Mapping[str, Any] | None = None, *,
     scalars = dict(scalars or {})
     plain = kernel.with_reductions(None)
     single = len(kernel.outputs) == 1
+    if step is None:
+        def step(kern, cur):
+            return kern(**cur, **scalars), cur
 
     def rotate(cur, res):
         outs = {kernel.outputs[0]: res} if single else res
@@ -181,11 +190,14 @@ def make_solver(kernel, scalars: Mapping[str, Any] | None = None, *,
         it = syncs = 0
         while _keep_going(err, tol, until) and it < max_iters:
             for _ in range(check_every - 1):
-                cur = rotate(cur, plain(**cur, **scalars))
-            res, reds = kernel(**cur, **scalars)
+                res, cur = step(plain, cur)
+                cur = rotate(cur, res)
+            (res, reds), cur = step(kernel, cur)
             cur = rotate(cur, res)
             it += check_every
-            err = float(err_fn(reds))   # the check's one host sync
+            # the check's one host sync; the error is compared at f32, as the
+            # reference's device loop holds it, whatever err_fn computes in
+            err = _f32(err_fn(reds))
             syncs += 1
         return SolveResult(fields=cur, reds=reds, err=err, iters=it, host_syncs=syncs)
 
@@ -216,49 +228,61 @@ def _roofline(col, kernel, fields, scalars, per_step_s, check_every):
                       hw=_attrib.default_hardware(kernel.ps.device.type))
 
 
-def _solve_checkpointed(kernel, fields, scalars, *, tol, max_iters, check_every, error,
-                        until, ckpt: Checkpointing, col=_telemetry.NULL) -> SolveResult:
-    """The chunked driver behind ``solve_until(checkpoint=...)``.
+def _resume(mgr, fields: Mapping[str, torch.Tensor], reds: Mapping[str, torch.Tensor],
+           col=_telemetry.NULL) -> Optional[tuple]:
+    """The carry of ``mgr``'s ``LATEST`` checkpoint, shaped like ``fields``
+    and ``reds``: ``(fields, reds, err, iters)``, or None when there is
+    none (a fresh directory)."""
+    if mgr.latest_step() is None:
+        return None
+    # the error rides on the host: it is a Python float in the loop
+    like = {"fields": fields, "reds": reds, "err": torch.zeros((), dtype=torch.float32)}
+    tree, extra = mgr.restore(like)
+    err, done = float(tree["err"]), int(extra.get("iters", extra["step"]))
+    if col.enabled:
+        ev = {"step": done, "err": err}
+        if extra.get("skipped_corrupt"):
+            # torn steps the fallback walked past (step, reason)
+            ev["skipped_corrupt"] = [s for s, _ in extra["skipped_corrupt"]]
+        col.event("solve.resume", **ev)
+    return tree["fields"], tree["reds"], err, done
 
-    Each chunk is the plain path's check loop capped at ``save_every``
-    checks, so per-step arithmetic never sees the chunk boundary. Between
-    chunks the carry goes to the checkpoint writer, and the FaultPlan and
-    heartbeat hooks fire. ``host_syncs`` counts the error reads, as on the
-    plain path; the snapshots' copies come on top."""
+
+def _run_chunks(solver, cur: dict, reds: dict, *, tol: float, max_iters: int,
+               check_every: int, until: str, ckpt: Optional[Checkpointing] = None,
+               mgr=None, start: Optional[tuple] = None, col=_telemetry.NULL,
+               gather: Optional[Callable] = None, extra: Optional[dict] = None,
+               after_save: Optional[Callable] = None,
+               on_chunk: Optional[Callable] = None) -> tuple[SolveResult, list]:
+    """The chunked check loop behind ``solve_until(checkpoint=...)`` and
+    the distributed ``elastic_solve_until``.
+
+    Each chunk is ``solver`` (:func:`make_solver`) capped at ``save_every``
+    checks (the whole run without ``ckpt``), so per-step arithmetic never
+    sees a chunk boundary. ``start`` is ``(err, iters)`` of a resumed
+    carry. Between chunks the heartbeat monitor and the checkpoint save
+    run, then ``on_chunk(iters)``, then the FaultPlan's step hook: a
+    planned kill or hang lands after the save it follows has completed.
+    ``gather(cur)`` gives the fields a save writes (None: this process
+    writes nothing), ``extra`` what its manifest adds, ``after_save()``
+    runs on every process after it. Returns the result (its ``fields``
+    the carry) and ``(seconds, steps)`` per chunk. ``host_syncs`` counts
+    the error reads; the snapshots' copies come on top."""
     from ..distributed import fault
 
-    mgr = ckpt.manager()
-    save_every = int(ckpt.save_every)
+    save_every = int(ckpt.save_every) if ckpt is not None else 1
     if save_every < 1:
         raise ValueError(f"save_every must be >= 1, got {save_every}")
-    solver = make_solver(kernel, scalars, check_every=check_every, error=error, until=until)
-    block = save_every * int(check_every)
+    block = save_every * int(check_every) if ckpt is not None else max_iters + check_every
     tol32 = _f32(tol)
-    # storage-dtype carry (as in the plain solver): checkpoints hold the
-    # storage dtype too, so a resume continues from exactly these bits
-    cur = {n: v.to(kernel.ps.dtype) for n, v in fields.items()}
-    dev = next(iter(cur.values())).device
-    reds = {n: torch.zeros((), dtype=kernel.ps.acc_dtype, device=dev) for n in kernel.reductions}
     err = math.inf if until == "below" else -math.inf
-    done, syncs, resumed_from = 0, 0, None
-
-    if ckpt.resume and mgr.latest_step() is not None:
-        # the error rides on the host: it is a Python float in the loop
-        like = {"fields": cur, "reds": reds, "err": torch.zeros((), dtype=torch.float32)}
-        tree, extra = mgr.restore(like)
-        cur, reds, err = tree["fields"], tree["reds"], float(tree["err"])
-        done = int(extra.get("iters", extra["step"]))
+    done, resumed_from = 0, None
+    if start is not None:
+        err, done = start
         resumed_from = done
-        if col.enabled:
-            ev = {"step": done, "err": err}
-            if extra.get("skipped_corrupt"):
-                # torn steps the fallback walked past (step, reason)
-                ev["skipped_corrupt"] = [s for s, _ in extra["skipped_corrupt"]]
-            col.event("solve.resume", **ev)
-
     plan = fault.FaultPlan.active()
-    monitor = ckpt.monitor
-    saved: list[int] = []
+    monitor = ckpt.monitor if ckpt is not None else None
+    syncs, saved = 0, []
     chunks: list[tuple[float, int]] = []   # (seconds, steps) per chunk
     converged = done > 0 and not _keep_going(err, tol32, until)
     while not converged and done < max_iters:
@@ -285,37 +309,67 @@ def _solve_checkpointed(kernel, fields, scalars, *, tol, max_iters, check_every,
             monitor.record(done, dt / max(n, 1))
             health = monitor.check_peers()
             if health["dead"]:
-                mgr.wait()
+                if mgr is not None:
+                    mgr.wait()
                 raise fault.RankFailure(health["dead"])
-        # async: stalls only for the device-to-host snapshot; the write
-        # overlaps the next chunk's device work
-        mgr.save(done, {"fields": cur, "reds": reds,
-                        "err": torch.tensor(err, dtype=torch.float32)},
-                 blocking=ckpt.blocking,
-                 extra={"iters": done, "err": err, "tol": tol32,
-                        "check_every": int(check_every), "save_every": save_every,
-                        "until": until, "converged": converged})
-        saved.append(done)
-        if plan is not None and plan.fires_at(done):
-            # a planned kill or hang lands after this save has completed and
-            # before the next chunk: LATEST then names the step it names
-            mgr.wait()
+        fires = plan is not None and plan.fires_at(done)
+        if mgr is not None:
+            # async: stalls only for the device-to-host snapshot; the write
+            # overlaps the next chunk's device work
+            fields = cur if gather is None else gather(cur)
+            if fields is not None:
+                mgr.save(done, {"fields": fields, "reds": reds,
+                                "err": torch.tensor(err, dtype=torch.float32)},
+                         blocking=ckpt.blocking,
+                         extra={"iters": done, "err": err, "tol": tol32,
+                                "check_every": int(check_every), "save_every": save_every,
+                                "until": until, **(extra or {}), "converged": converged})
+                if fires:
+                    mgr.wait()
+            saved.append(done)
+            if after_save is not None:
+                after_save()
+        if on_chunk is not None:
+            on_chunk(done)
+        if fires:
+            # LATEST now names the step the kill or hang lands after
             plan.on_step(done)
-    mgr.wait()                           # surface async write failures
+    if mgr is not None:
+        mgr.wait()                       # surface async write failures
     stats = monitor.snapshot() if monitor is not None else None
+    return SolveResult(fields=cur, reds=reds, err=err, iters=done, host_syncs=syncs,
+                       resumed_from=resumed_from, saved_steps=tuple(saved),
+                       step_stats=stats), chunks
+
+
+def _solve_checkpointed(kernel, fields, scalars, *, tol, max_iters, check_every, error,
+                        until, ckpt: Checkpointing, col=_telemetry.NULL) -> SolveResult:
+    """``solve_until(checkpoint=...)``: :func:`_run_chunks` over the plain
+    solver, resumed from ``LATEST`` when ``ckpt.resume``."""
+    mgr = ckpt.manager()
+    solver = make_solver(kernel, scalars, check_every=check_every, error=error, until=until)
+    # storage-dtype carry (as in the plain solver): checkpoints hold the
+    # storage dtype too, so a resume continues from exactly these bits
+    cur = {n: v.to(kernel.ps.dtype) for n, v in fields.items()}
+    dev = next(iter(cur.values())).device
+    reds = {n: torch.zeros((), dtype=kernel.ps.acc_dtype, device=dev) for n in kernel.reductions}
+    got = _resume(mgr, cur, reds, col) if ckpt.resume else None
+    if got is not None:
+        cur, reds = got[0], got[1]
+    res, chunks = _run_chunks(solver, cur, reds, tol=tol, max_iters=max_iters,
+                             check_every=check_every, until=until, ckpt=ckpt, mgr=mgr,
+                             start=got[2:] if got is not None else None, col=col)
     if col.enabled:
-        col.gauge("solve.iters", done)
-        col.gauge("solve.err", err)
+        col.gauge("solve.iters", res.iters)
+        col.gauge("solve.err", res.err)
         # seconds per step for the roofline gap: warm chunks only (the first
         # may trace and build) unless the run was one chunk
         warm = chunks[1:] if len(chunks) > 1 else chunks
         steps = sum(n for _, n in warm)
         if steps:
-            _roofline(col, kernel, cur, scalars, sum(dt for dt, _ in warm) / steps,
+            _roofline(col, kernel, res.fields, scalars, sum(dt for dt, _ in warm) / steps,
                       check_every)
-    return SolveResult(fields=cur, reds=reds, err=err, iters=done, host_syncs=syncs,
-                       resumed_from=resumed_from, saved_steps=tuple(saved),
-                       step_stats=stats)
+    return res
 
 
 def solve_until(kernel, fields: Mapping[str, torch.Tensor],

@@ -285,12 +285,17 @@ class FaultPlan:
     :class:`TransientIOError` (consumed by :meth:`on_io`), exercising
     the retry paths. ``kill_at_io`` dies mid-write: the N-th guarded
     I/O operation (1-based) ``os._exit``s the process INSIDE the write
-    path — the window where a SIGKILL tears an in-flight checkpoint."""
+    path — the window where a SIGKILL tears an in-flight checkpoint.
+    ``kill_at_rendezvous`` dies on entry to the N-th rendezvous attempt
+    (consumed by :meth:`on_rendezvous` in the multihost launcher's
+    ``initialize``): the mid-init death that leaves peers waiting on the
+    coordinator."""
 
     kill_at_step: Optional[int] = None
     hang_at_step: Optional[int] = None
     hang_s: float = 5.0
     rank: int = 0                 # rank this plan applies to (default all == 0)
+    kill_at_rendezvous: Optional[int] = None  # die entering the N-th rendezvous attempt
     corrupt_checkpoint: Optional[int] = None
     io_errors: int = 0
     kill_at_io: Optional[int] = None
@@ -367,6 +372,16 @@ class FaultPlan:
             self._killed = True
             # a real preemption does not unwind the stack or flush
             # buffers; os._exit is the closest in-process equivalent
+            os._exit(KILL_EXIT_CODE)
+
+    def on_rendezvous(self, attempt: int, rank: int = 0) -> None:
+        """Called by the multihost launcher's ``initialize`` on entry to
+        each rendezvous attempt (1-based). ``kill_at_rendezvous`` dies
+        there: a process killed mid bring-up, leaving its peers to hit
+        the rendezvous timeout."""
+        if rank != self.rank:
+            return
+        if self.kill_at_rendezvous is not None and attempt >= self.kill_at_rendezvous:
             os._exit(KILL_EXIT_CODE)
 
     def on_io(self, path: str = "") -> None:

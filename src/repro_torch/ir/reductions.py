@@ -114,6 +114,23 @@ class Reduction:
         """Combine per-block partials into the launch's scalar."""
         return self.fold(partials)
 
+    def all_reduce(self, value: torch.Tensor, group=None) -> torch.Tensor:
+        """Finish across ranks: ONE ``dist.all_reduce`` (``MAX`` or ``SUM``)
+        of the rank partials over ``group`` (a ``torch.distributed``
+        process group; None: the default group). Rank-local values are
+        valid partials, the combines being associative. A CUDA value on a
+        gloo group crosses through the host; without an initialized
+        process group (a world of one rank) the value is returned as is."""
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            return value
+        op = dist.ReduceOp.MAX if self.combine == "max" else dist.ReduceOp.SUM
+        staged = value.is_cuda and dist.get_backend(group) == "gloo"
+        buf = value.detach().to("cpu" if staged else value.device, copy=True)
+        dist.all_reduce(buf, op=op, group=group)
+        return buf.to(value.device) if staged else buf
+
     def describe(self) -> str:
         return (f"{self.kind}({self.field})" if self.other is None
                 else f"{self.kind}({self.field}, {self.other})")

@@ -92,9 +92,10 @@ from ..ir.bc import BoundaryCondition
 from ..ir.trace import StencilIR
 from . import build, codegen, codegen_pairs, codegen_steps
 
-# Launches of the generated kernels, by kernel name; ``run`` adds one where it
-# launches, and nowhere else.
+# Launches of the generated kernels, by kernel name, and by (kernel name,
+# grid shape); ``run`` adds one to each where it launches, and nowhere else.
 launches: collections.Counter = collections.Counter()
+shape_launches: collections.Counter = collections.Counter()
 
 # Blocks per launch, in waves of the card's resident capacity: with more,
 # shorter chunks the last wave idles less of the card, against the lag
@@ -367,6 +368,7 @@ class StencilCall:
         with torch.cuda.device(dev):
             call._library().launch(*args, stream_of(dev))
         launches[self.label] += 1
+        shape_launches[self.label, tuple(self.ir.base_shape)] += 1
         return self.finish(outs, parts)
 
     def layout_call(self, ins: Mapping[str, torch.Tensor]) -> "StencilCall":

@@ -78,6 +78,27 @@ def test_grid_matches_reference(shape, length):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("shape,length,radius,factors", [
+    ((18, 34, 10), (1.0, 2.0, 0.5), 1, (2, 4, 1)), ((512, 512, 512), (), 1, (2, 2, 1)),
+    ((20, 12, 9), (), 2, (2, 1, 1))])
+def test_grid_decomposition_matches_reference(shape, length, radius, factors):
+    from repro.core.grid import human_bytes as r_human, volume_bytes as r_volume
+    from repro_torch.core.grid import human_bytes, volume_bytes
+
+    g, r = Grid(shape, length, radius), RGrid(shape, length, radius)
+    assert g.interior_slice == r.interior_slice
+    sub, rsub = g.subgrid(factors), r.subgrid(factors)
+    assert (sub.shape, sub.length, sub.radius) == (rsub.shape, rsub.length, rsub.radius)
+    with pytest.raises(ValueError, match="not divisible"):
+        g.subgrid((7, 1, 1))
+    with pytest.raises(ValueError, match="one decomposition factor"):
+        g.subgrid((2, 2))
+    assert volume_bytes(shape, torch.float32) == r_volume(shape, jnp.float32)
+    assert volume_bytes(shape, torch.bfloat16) == r_volume(shape, jnp.bfloat16)
+    for n in (0, 1023, 1024, 3 * 2 ** 20 + 5, 2 ** 45, 2 ** 52):
+        assert human_bytes(n) == r_human(n)
+
+
 def test_grid_validation():
     with pytest.raises(ValueError, match="too small"):
         Grid((2, 8))

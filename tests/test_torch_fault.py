@@ -133,10 +133,10 @@ def test_fault_plan_env_roundtrip():
 
 
 @pytest.mark.parametrize("raw,match", [('{"kill_at": 3}', "unknown keys"),
-                                       # serving and rendezvous injections
-                                       # have no consumer in this package
+                                       # serving injections have no consumer
+                                       # in this package
                                        ('{"reject_after": 1}', "unknown keys"),
-                                       ('{"kill_at_rendezvous": 1}', "unknown keys"),
+                                       ('{"kill_worker_after": 1}', "unknown keys"),
                                        ("{nope", "not valid JSON"),
                                        ("[1, 2]", "JSON object")])
 def test_fault_plan_rejects_bad_env(raw, match):

@@ -87,6 +87,31 @@ def test_solve_until_cap_and_until_above(rng):
     assert capped.iters == 15 and capped.host_syncs == 3   # overshoot < check_every
 
 
+@pytest.mark.parametrize("checkpointed", [False, True])
+def test_stop_rule_compares_the_error_at_f32(checkpointed, rng, tmp_path):
+    """A callable ``error=`` that computes in f64 and lands between ``tol``
+    and the f32 value above it. Both packages round the error to f32
+    before the comparison, so both stop at the check whose reduction
+    reaches ``tol`` (each package's own f32 value of the reduction there)."""
+    arrays, sc = _setup(rng)
+    port, ref = _kernels({"err": "max_abs_diff(T2, T)"})
+    k, c = 20, 1.0 + 2.0 ** -30          # c is 1.0 at f32, above 1 at f64
+    f = fields_from_numpy(arrays, device="cpu")
+    jf = {n: jnp.asarray(a) for n, a in arrays.items()}
+    tol_port = iterate.solve_until(port, f, sc, tol=0.0, max_iters=k, check_every=5).err
+    tol_ref = float(r_iterate.solve_until(ref, jf, sc, tol=0.0, max_iters=k,
+                                          check_every=5).err)
+    assert tol_port * c > tol_port       # the f64 error lies above tol ...
+    assert np.float32(tol_port * c) == np.float32(tol_port)   # ... its f32 value on it
+    ckpt = iterate.Checkpointing(str(tmp_path / "ck"), save_every=1) if checkpointed else None
+    res = iterate.solve_until(port, f, sc, tol=tol_port, max_iters=400, check_every=5,
+                              error=lambda reds: float(reds["err"]) * c, checkpoint=ckpt)
+    want = r_iterate.solve_until(ref, jf, sc, tol=tol_ref, max_iters=400, check_every=5,
+                                 error=lambda reds: reds["err"] * c)
+    assert res.iters == int(want.iters) == k
+    assert res.err == tol_port
+
+
 def test_solve_until_argument_errors(rng):
     port, _ = _kernels(None)
     arrays, sc = _setup(rng, (6, 6, 6))
