@@ -135,6 +135,30 @@ bitwise to the same solve without a group, and two NCCL ranks on this one
 card are refused with a pointed error. ``times_distributed`` times every
 (kernel, shape) the gangs launched beside its torch-backend twin.
 
+Then the simulation server (``repro_torch.serve``). ``check_batched``: the
+batched kernel (the sample axis of the generated kernel: one launch a step
+for a whole batch) at B = 16 x 128^3 f32, the serving demo's diffusion step
+plain and checked with its ``finite`` guard, with dead samples and both
+parities, bitwise to its plain version (``codegen.evaluate_batch_torch``):
+every buffer, a dead sample's two buffers unchanged, each per-sample
+reduction; then at bf16 and porosity's and GP's fused updates batched at
+small sizes. ``main_path_serve``: a ``SimulationServer`` (``max_batch``
+16, chunks of 64 steps, a check every 4) takes a burst of 48 healthy
+requests at 128^3 and 8 at 64^3 (two buckets), one ``dt = 5.0`` request,
+which must fail with ``SampleQuarantined``, and one hopeless deadline,
+which must fail with ``DeadlineExceeded``; every healthy result (fields,
+error, iterations) must equal its solo ``solve_until`` on the card and the
+batched plain version bitwise; one chunk runs under
+``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside a chunk;
+one state read a chunk); a ``ProcessWorkerPool`` of 2 worker processes on
+the card, each first one killed after 2 requests, serves 8 spooled 128^3
+requests, each bitwise to its solo solve, and must count a respawn.
+``times_serve``: each batched kernel's ms per launch at B = 16 x 128^3
+beside its bound (the live samples' bytes over 3.35 TB/s), its plain
+version's ms and the same work as 16 single-sample launches, and the
+burst's wall seconds, requests a second, p50/p99 latency and host syncs a
+chunk.
+
 It prints JSON lines; the line before the last lists the kernels, the one
 before that is the card's name and power limit as nvidia-smi gives them,
 and the last line is {"ok": true, "device": {...}}. Any failure exits
@@ -320,6 +344,10 @@ def main() -> int:
     kern_of = {n: kern for n, kern, _, _ in single}
     calls_cells = [cell_twin(kern_of[n.split(":")[0]], c) for n, c in calls_mixed.items()
                    if "/k" not in n and c.shape.vec > 1]
+    # the simulation server's kernels: the batched ones and their solo twins
+    from repro_torch.serve.procworker import demo_kernel
+    serve_kern, serve_plain = demo_kernel("cuda"), demo_kernel("cuda", backend="torch")
+    calls_serve = serve_sources(torch, serve_kern, coupled)
     t0 = time.perf_counter()
     lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
     sources = ([("diffusion3d", build.read_source(diffusion3d.SOURCE))]
@@ -328,8 +356,15 @@ def main() -> int:
                + [(c.lib_name, c.source) for c in calls_k.values()]
                + [(c.lib_name, c.source) for c in calls_mixed.values()]
                + [(c.lib_name, c.source) for c in calls_march]
-               + [(c.lib_name, c.source) for c in calls_cells])
+               + [(c.lib_name, c.source) for c in calls_cells]
+               + [(c.lib_name, c.source) for c in calls_serve])
     builds = build.compile_many(sources)
+    serve_ptx = {src: ptxas_summary(b.log)
+                 for b, (_, src) in zip(builds[-len(calls_serve):], sources[-len(calls_serve):])}
+    builds, sources = builds[:-len(calls_serve)], sources[:-len(calls_serve)]
+    require(all(not p["spills"] for p in serve_ptx.values()),
+            f"ptxas spills registers in a serving kernel: "
+            f"{ {c.label: serve_ptx[c.source] for c in calls_serve} }")
     cell_ptx = {str(b.library): ptxas_summary(b.log)
                 for b in builds[len(builds) - len(calls_cells):]}
     builds = builds[:len(builds) - len(calls_cells)]
@@ -594,6 +629,11 @@ def main() -> int:
     nccl_main_path(torch, spec)
     torch.cuda.empty_cache()
 
+    # ---- 4i. the simulation server: batched ensemble solves ---------------------------
+    err_at["serve"] = serve_kernel_checks(torch, serve_kern, coupled)
+    serve_run = serve_main_path(torch, spec, serve_kern, serve_plain)
+    torch.cuda.empty_cache()
+
     # ---- 5. times at FIG1 ---------------------------------------------------
     grid, f, sc = quickstart.initial_state(FIG1, "cuda")
     args = (sc["lam"], sc["dt"], sc["_dx"], sc["_dy"], sc["_dz"])
@@ -720,6 +760,13 @@ def main() -> int:
     for k, n in march_runs["launches"].items():
         require(n > 0, f"kernel {k} was not launched on the marched main path")
 
+    # ---- 5g. times of the batched kernels and of the burst ------------------------
+    serve_t = serve_times(torch, spec, serve_kern, serve_plain, serve_ptx)
+    emit({"phase": "times_serve", "card": spec.name, "power_limit": spec.power_limit,
+          "shape": [SERVE_POLICY["max_batch"], SERVE_N, SERVE_N, SERVE_N], "kernels": serve_t,
+          "burst": {k: serve_run[k] for k in ("healthy", "wall_s", "requests_per_s", "p50_s",
+                                              "p99_s", "chunks", "host_syncs_per_chunk")}})
+
     # ---- 6. the kernels line -------------------------------------------------
     fig1 = SHAPES[-1]
     gen_src = "src/repro_torch/kernels/codegen.py"
@@ -779,6 +826,13 @@ def main() -> int:
                 for k, t in mixed_times.items() if k in mixed_runs["launches"]]
     kernels += march_rows(march_runs, march_times, err_at)
     kernels += dist_times(torch, spec, {**dist_runs["launches"], **drill["launches"]})
+    kernels += [{"name": k, "route": "cuda", "source": gen_src,
+                 "replaces": "src/repro/kernels/stencil.py:1052",
+                 "launches": serve_run["launches"][k], "max_abs_err": err_at["serve"],
+                 **{x: t[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by", "singles_ms",
+                                      "layout")},
+                 "library_ms": None}
+                for k, t in serve_t.items()]
     print(f"{card_name}, {card_power}", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4142,6 +4196,383 @@ def check_cost(torch, gen) -> list:
         out.append(row)
         del f, outs
     return out
+
+
+# ---- the simulation server (batched ensemble solves) ------------------------
+SERVE_N = 128              # the main bucket's grid extent (T, T2: 8.39 MB each)
+SERVE_SMALL_N = 64         # the second bucket
+SERVE_HEALTHY = {SERVE_N: 48, SERVE_SMALL_N: 8}
+SERVE_POLICY = dict(max_batch=16, chunk_steps=64, check_every=4, queue_capacity=128)
+SERVE_TOL, SERVE_MAX_ITERS = 1e-5, 2000
+SERVE_POOL_REQUESTS = 8
+# batched coupled kernels held to their plain versions (off the serving path):
+# (variant, base shape, samples)
+SERVE_COUPLED = (("porosity_fused[neumann0]+err", (512, 512), 8),
+                 ("gp_fused[none]+mass", (64, 64, 64), 4))
+
+
+def serve_spike(n, amp):
+    import numpy as np
+
+    T = np.zeros((n, n, n), np.float32)
+    T[n // 2, n // 2, n // 2] = amp
+    return T
+
+
+def serve_requests(healthy=None):
+    """The burst's healthy requests, (n, amplitude, dt) each: a spike of
+    amplitude 1 + 0.1 i and dt = 0.08 + 0.005 (i % 4), 48 at 128^3 then 8 at
+    64^3 (``healthy``: {n: count} instead)."""
+    return [(n, 1.0 + 0.1 * i, 0.08 + 0.005 * (i % 4))
+            for n, count in (healthy or SERVE_HEALTHY).items() for i in range(count)]
+
+
+def serve_kernels(kern, n=SERVE_N) -> dict:
+    """The batched calls of the serving main path at ``n``^3 (the plain step
+    and the checked step with the guard, as ``iterate.make_batched_solver``
+    makes them) and the solo calls a single-request ``solve_until`` and the
+    pool's workers launch."""
+    from repro_torch.core import iterate
+    from repro_torch.ir import Reduction
+
+    checked = kern.with_reductions(dict(kern.reductions, **{
+        iterate.GUARD_NAME: Reduction("finite", kern.outputs[0])}))
+    shp = {f: (n, n, n) for f in ("T2", "T")}
+    return {"batched": kern.with_reductions(None).batched_call(**shp, dt=1.0),
+            "batched_checked": checked.batched_call(**shp, dt=1.0),
+            "solo": kern.with_reductions(None).compiled(**shp, dt=1.0),
+            "solo_checked": kern.compiled(**shp, dt=1.0),
+            "kernels": {"batched": kern.with_reductions(None), "batched_checked": checked}}
+
+
+def check_batched(torch, call, bufs, scalars, live, odd, flip, what) -> dict:
+    """One launch of a batched kernel on the card against its plain version
+    (``codegen.evaluate_batch_torch``) on copies of the same buffers: every
+    buffer bitwise, a dead sample's two buffers bitwise unchanged, each
+    per-sample max reduction bitwise and each sum within SUM_RTOL."""
+    from repro_torch.kernels import codegen
+
+    got = {n: t.clone() for n, t in bufs.items()}
+    want = {n: t.clone() for n, t in bufs.items()}
+    r_got = call.run_batch(got, scalars, live, odd, flip)
+    r_want = codegen.evaluate_batch_torch(call.program, call.batched, want, scalars, live,
+                                          odd, flip)
+    dead = [b for b, a in enumerate(live.tolist()) if not a]
+    row = {"phase": "check_batched", "case": what, "label": call.label,
+           "shape": [int(live.shape[0]), *call.ir.base_shape], "dead": dead,
+           "max_abs_err": max(max_abs_diff(got[n].float(), want[n].float()) for n in got)}
+    require(all(same(torch, got[n], want[n]) for n in got),
+            f"{what}: the batched kernel differs from its plain version")
+    require(all(torch.equal(got[n][dead], bufs[n][dead]) for n in got),
+            f"{what}: a dead sample's buffers changed")
+    require(any(not torch.equal(got[n], bufs[n]) for n in got), f"{what}: nothing was written")
+    reds = {}
+    for name, r in call.program.reductions:
+        a, b = r_got[name].cpu(), r_want[name].cpu()
+        reds[name] = {"kernel": a.tolist(), "plain": b.tolist()}
+        if r.combine == "max":
+            require(torch.equal(a, b), f"{what}: per-sample {name} differs")
+        else:
+            require(torch.allclose(a, b, rtol=SUM_RTOL, atol=0.0), f"{what}: {name} outside rtol")
+        require(all(float(a[d]) == 0.0 for d in dead), f"{what}: a dead sample's {name} is not 0")
+    row["reductions"] = reds if len(dead) < len(live) else None
+    emit(row)
+    return row
+
+
+def serve_sources(torch, kern, coupled=None) -> list:
+    """The calls the serving phases launch, to build with every other source:
+    :func:`serve_kernels` at both buckets' extents (one source serves
+    every extent), the bf16 batched kernel, and the batched coupled kernels
+    of ``SERVE_COUPLED``."""
+    calls = serve_kernels(kern)
+    out = [calls[k] for k in ("batched", "batched_checked", "solo", "solo_checked")]
+    out.append(serve_kernels(kern.with_dtype(torch.bfloat16), SERVE_N // 2)["batched_checked"])
+    for name, base, _ in (SERVE_COUPLED if coupled is not None else ()):
+        v = coupled[name]
+        out.append(v["kernel"].batched_call(**v["shapes"](base), **v["scalars"]))
+    return out
+
+
+def serve_kernel_checks(torch, kern, coupled=None, n=SERVE_N, device="cuda") -> float:
+    """The batched kernel held to its plain version on the card: the serving
+    path's two variants at B = 16 x 128^3 f32 with a mask of dead samples and
+    both parities, then at bf16 (one-cell layout) and, when ``coupled`` is
+    given, porosity's fused update (2-D, staggered fluxes in-kernel, neumann0)
+    and GP's (3-D, radius 2) batched at small sizes. Returns the largest
+    error (0.0: bitwise)."""
+    gen = torch.Generator(device=device).manual_seed(20261018)
+    calls = serve_kernels(kern, n)
+    b = SERVE_POLICY["max_batch"]
+    live = torch.tensor([i % 5 not in (2, 4) for i in range(b)], device=device)
+    odd = torch.tensor([i % 3 == 1 for i in range(b)], device=device)
+    scalars = [{"dt": 0.08 + 0.001 * i} if live[i] else None for i in range(b)]
+    bufs = {f: torch.rand((b, n, n, n), generator=gen, device=device) for f in ("T2", "T")}
+    err = 0.0
+    for name in ("batched", "batched_checked"):
+        for flip in (0, 1):
+            err = max(err, check_batched(torch, calls[name], bufs, scalars, live, odd, flip,
+                                         f"{name}[flip {flip}]")["max_abs_err"])
+    del bufs
+    bf = serve_kernels(kern.with_dtype(torch.bfloat16), n // 2)["batched_checked"]
+    bufs = {f: torch.rand((b, n // 2, n // 2, n // 2), generator=gen,
+                          device=device).to(torch.bfloat16) for f in ("T2", "T")}
+    check_batched(torch, bf, bufs, scalars, live, odd, 1, "batched_checked:bf16")
+    if coupled is not None:
+        for name, base, nb in SERVE_COUPLED:
+            v = coupled[name]
+            shapes = v["shapes"](base)
+            call = v["kernel"].batched_call(**shapes, **v["scalars"])
+            fields = [coupled_fields(torch, v, base, gen) for _ in range(nb)]
+            bufs = {f: torch.stack([x[f] for x in fields]) for f in shapes}
+            lv = torch.tensor([i != 1 for i in range(nb)], device=device)
+            od = torch.tensor([i % 2 == 0 for i in range(nb)], device=device)
+            sc = [dict(v["scalars"]) if lv[i] else None for i in range(nb)]
+            check_batched(torch, call, bufs, sc, lv, od, 1, name)
+            del bufs, fields
+    return err
+
+
+def serve_solo(torch, kern, n, amp, dt):
+    from repro_torch.core import iterate
+
+    T = torch.from_numpy(serve_spike(n, amp)).to(kern.ps.device)
+    return iterate.solve_until(kern, {"T": T, "T2": T.clone()}, {"dt": dt}, tol=SERVE_TOL,
+                               max_iters=SERVE_MAX_ITERS, check_every=SERVE_POLICY["check_every"])
+
+
+def chunk_without_syncs(torch, kern, n=SERVE_N) -> dict:
+    """One serving chunk of a full batch under ``torch.cuda.
+    set_sync_debug_mode("error")``: any host synchronisation inside the
+    chunk raises. Then the chunk boundary's one read."""
+    from repro_torch.serve import RequestQueue, ServePolicy, SolveRequest
+    from repro_torch.serve.engine import BatchEngine
+
+    pol = ServePolicy(**SERVE_POLICY)
+    eng = BatchEngine(kern, pol)
+    q = RequestQueue(64)
+    tickets = [q.submit(SolveRequest(fields={"T": serve_spike(n, a), "T2": serve_spike(n, a)},
+                                     scalars={"dt": dt}, tol=SERVE_TOL, max_iters=SERVE_MAX_ITERS))
+               for _, a, dt in serve_requests()[:pol.max_batch]]
+    state = eng.start(tickets)
+    eng.run_chunk(state)            # warm
+    cuda = kern.ps.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.run_chunk(state)
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode(0)
+    eng.harvest(state)
+    return {"chunks": state.chunks, "host_syncs": state.host_syncs, "steps_per_chunk": pol.chunk}
+
+
+def serve_main_path(torch, spec, kern, kern_plain, healthy=None) -> dict:
+    """The simulation server on the card (module docstring): the burst of
+    56 healthy requests over two buckets, a quarantine and a deadline, each
+    healthy result bitwise to its solo ``solve_until`` and to the batched
+    plain version; then the process pool across a worker kill. Returns the
+    launches of the burst, its times and the solo results."""
+    import numpy as np
+
+    from repro_torch import telemetry
+    from repro_torch.core import iterate
+    from repro_torch.distributed import fault
+    from repro_torch.kernels import stencil
+    from repro_torch.serve import (DeadlineExceeded, ProcessWorkerPool, SampleQuarantined,
+                                   ServePolicy, SimulationServer, SolveRequest)
+
+    pol = ServePolicy(**SERVE_POLICY)
+    healthy = healthy or SERVE_HEALTHY
+    reqs = serve_requests(healthy)
+    big, device = max(healthy), kern.ps.device.type
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def request(n, amp, dt, **kw):
+        T = serve_spike(n, amp)
+        return SolveRequest(fields={"T": T, "T2": T.copy()}, scalars={"dt": dt},
+                            **{"tol": SERVE_TOL, "max_iters": SERVE_MAX_ITERS, **kw})
+
+    # a warm-up request per bucket: loads the kernels and the CUDA modules
+    with SimulationServer(kern, pol) as server:
+        for n in healthy:
+            server.solve(request(n, 1.0, 0.08), timeout=300.0)
+    no_syncs = chunk_without_syncs(torch, kern, big)
+    # every request made before the clock starts: the burst arrives at once
+    burst = [request(*r) for r in reqs] + [
+        request(big, 1.0, 5.0),
+        request(big, 1.0, 0.08, tol=1e-12, max_iters=10 ** 6, deadline_s=0.05)]
+    col = telemetry.configure(path=None)
+    stencil.launches.clear()
+    t0 = time.perf_counter()
+    with SimulationServer(kern, pol) as server:
+        *tickets, bad, late = [server.submit(r) for r in burst]
+        outs = [t.result(timeout=600.0) for t in tickets]
+        sync()
+        wall = time.perf_counter() - t0
+        errors = {}
+        for t, want in ((bad, SampleQuarantined), (late, DeadlineExceeded)):
+            try:
+                t.result(timeout=600.0)
+                errors[want.__name__] = None
+            except want as e:
+                errors[want.__name__] = str(e)
+    launches = {k: v for k, v in stencil.launches.items() if k.endswith("/batched")}
+    counters = {f"{n}{dict(lb) if lb else ''}": v for (n, lb), v in col.counters.items()
+                if n.startswith("serve.")}
+    lat = sorted(r["dur_s"] for r in col.records if r["kind"] == "span"
+                 and r["name"] == "serve.request" and r["attrs"]["outcome"] == "ok")
+    chunks = sum(1 for r in col.records if r["kind"] == "span" and r["name"] == "serve.chunk")
+    telemetry.reset()
+    require(all(errors.values()), f"the quarantine and the deadline did not fail: {errors}")
+    require(len(lat) == len(reqs), f"{len(lat)} latencies for {len(reqs)} healthy requests")
+    calls = serve_kernels(kern, big)
+    for k in (calls["batched"].label, calls["batched_checked"].label):
+        require(launches.get(k, 0) > 0 or kern.ps.backend != "cuda",
+                f"kernel {k} was not launched on the serving main path")
+
+    # every healthy result bitwise to its solo solve_until on the card
+    solo = [serve_solo(torch, kern, *r) for r in reqs]
+    iters = [o["iters"] for o in outs]
+    for r, o, s in zip(reqs, outs, solo):
+        require(o["iters"] == s.iters and o["err"] == s.err
+                and all(torch.equal(o["fields"][f], s.fields[f]) for f in ("T", "T2")),
+                f"request {r}: the served result differs from its solo solve_until "
+                f"(iters {o['iters']} / {s.iters}, err {o['err']} / {s.err})")
+    # and to the batched plain version (the torch backend, batches of 16)
+    k = 0
+    for n, count in healthy.items():
+        group = [r for r in reqs if r[0] == n]
+        for i in range(0, count, pol.max_batch):
+            part = group[i:i + pol.max_batch]
+            T0 = np.stack([serve_spike(n, a) for _, a, _ in part])
+            res = iterate.solve_batch(kern_plain, {"T": T0, "T2": T0.copy()},
+                                      {"dt": [dt for _, _, dt in part]}, tol=SERVE_TOL,
+                                      max_iters=SERVE_MAX_ITERS,
+                                      check_every=pol.check_every)
+            fields = res.fields
+            for j in range(len(part)):
+                o = outs[k + j]
+                require(int(res.iters[j]) == o["iters"] and float(res.err[j]) == o["err"]
+                        and all(torch.equal(fields[f][j], o["fields"][f]) for f in ("T", "T2")),
+                        f"request {part[j]}: the served result differs from the batched "
+                        "plain version")
+            k += len(part)
+            del res, fields
+    del outs
+
+    # the process pool: 2 workers on the card, each first-generation worker
+    # killed after 2 requests; every request resolves, bitwise to solo
+    spool = tempfile.mkdtemp(prefix="serve_pool_")
+    plan = fault.FaultPlan(kill_worker_after=2)
+    t1 = time.perf_counter()
+    try:
+        pool = ProcessWorkerPool(spool, workers=2, device=device, heartbeat_timeout_s=120.0,
+                                 max_worker_restarts=4, env={fault.PLAN_ENV: plan.to_env()})
+        with pool:
+            ptk = [pool.submit({"T": serve_spike(n, a), "T2": serve_spike(n, a)}, {"dt": dt},
+                               tol=SERVE_TOL, max_iters=SERVE_MAX_ITERS,
+                               check_every=pol.check_every)
+                   for n, a, dt in reqs[:SERVE_POOL_REQUESTS]]
+            pres = [t.result(timeout=300.0) for t in ptk]
+        restarts, recovered = pool.restarts, pool.recovered
+    finally:
+        shutil.rmtree(spool, ignore_errors=True)
+    pool_s = time.perf_counter() - t1
+    for r, (fields, meta), s in zip(reqs, pres, solo):
+        require(meta["iters"] == s.iters and meta["err"] == s.err
+                and all(np.array_equal(fields[f], s.fields[f].cpu().numpy()) for f in ("T", "T2")),
+                f"pool request {r}: differs from its solo solve_until")
+    require(restarts >= 1, "the pool counted no respawn after the planned worker kills")
+    ranks = sorted({meta["rank"] for _, meta in pres})
+    n_ok = len(lat)
+    run = {"phase": "main_path_serve", "card": spec.name, "power_limit": spec.power_limit,
+           "policy": SERVE_POLICY, "buckets": {f"{n}^3": c for n, c in healthy.items()},
+           "healthy": n_ok, "iters": iters, "typed_failures": errors,
+           "bitwise_to_solo": True, "bitwise_to_batched_plain": True,
+           "wall_s": wall, "requests_per_s": n_ok / wall,
+           "p50_s": lat[len(lat) // 2], "p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+           "chunks": chunks, "host_syncs": counters.get("serve.host_syncs", 0),
+           "host_syncs_per_chunk": counters.get("serve.host_syncs", 0) / max(chunks, 1),
+           "chunk_without_syncs": no_syncs, "launches": launches, "counters": counters,
+           "pool": {"requests": len(pres), "restarts": restarts, "recovered": recovered,
+                    "ranks": ranks, "wall_s": pool_s, "bitwise_to_solo": True}}
+    emit(run)
+    return run
+
+
+def sample_step_cost(call) -> tuple[int, int]:
+    """(bytes, f32 operations) one live sample's in-place step needs: each
+    cell of a field that the update reads (the core box, the cells it
+    writes, shifted by each of its loads) once and each output's core-box
+    cells written once, at the storage width; the tap program at each core
+    cell. For a program without stages, staggered fields or a bc in the
+    launch, as the serving kernel is (the 7-point update reads no edge or
+    corner of T and writes only T2's interior)."""
+    import numpy as np
+
+    prog, ir = call.program, call.ir
+    require(not prog.stages and not any(any(o) for o in prog.offsets)
+            and all(o.bc is None for o in prog.outputs),
+            f"{call.label}: sample_step_cost counts plain all-parallel updates only")
+    base = tuple(ir.base_shape)
+    core = [(lo, n - hi) for (lo, hi), n in zip(ir.halo, base)]
+    n_core = math.prod(b - a for a, b in core)
+    cells = len(prog.outputs) * n_core
+    for f in ir.read_fields:
+        read = np.zeros(base, bool)
+        for name, shift in prog.core.loads:
+            if name == f:
+                read[tuple(slice(a + d, b + d) for (a, b), d in zip(core, shift))] = True
+        cells += int(read.sum())
+    return cells * call.dtype.itemsize, n_core * prog.ops_per_cell()
+
+
+def serve_times(torch, spec, kern, kern_plain, ptxas_of=None) -> dict:
+    """CUDA-event medians (20) at B = 16 x 128^3, every sample live: each
+    batched kernel's ms per launch beside its bound (the live samples'
+    bytes, :func:`sample_step_cost`, over 3.35 TB/s), its plain version's
+    ms, and the same step as 16 single-sample launches of the solo
+    kernel."""
+    from repro_torch.core import teff
+    from repro_torch.kernels import codegen
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, n = SERVE_POLICY["max_batch"], SERVE_N
+    calls = serve_kernels(kern)
+    bufs = {f: 0.1 * torch.rand((b, n, n, n), generator=gen, device="cuda") for f in ("T2", "T")}
+    live = torch.ones(b, dtype=torch.bool, device="cuda")
+    odd = torch.tensor([i % 2 == 1 for i in range(b)], device="cuda")
+    scalars = [{"dt": 0.08 + 0.005 * (i % 4)} for i in range(b)]
+    solo = calls["kernels"]       # the same update and reductions, one sample a launch
+    rows = {}
+    for name in ("batched", "batched_checked"):
+        call = calls[name]
+        params = call.batch_params(scalars, "cuda")
+        ms = teff.measure(lambda: call.run_batch(bufs, scalars, live, odd, 0, params),
+                          iters=20, warmup=3).median_s * 1e3
+        plain_ms = teff.measure(lambda: codegen.evaluate_batch_torch(
+            call.program, call.batched, bufs, scalars, live, odd, 0), iters=20,
+            warmup=3).median_s * 1e3
+        one = solo[name]
+
+        def singles():
+            for i in range(b):
+                one(T2=bufs["T2"][i], T=bufs["T"][i], dt=scalars[i]["dt"])
+        singles_ms = teff.measure(singles, iters=20, warmup=3).median_s * 1e3
+        nbytes, ops = (b * x for x in sample_step_cost(call))
+        by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+        rows[call.label] = {"ms": ms, "plain_ms": plain_ms, "singles_ms": singles_ms,
+                            "bound_ms": max(by_bytes, by_ops) * 1e3,
+                            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                            "bytes": nbytes, "bound_over_ms": max(by_bytes, by_ops) * 1e3 / ms,
+                            "layout": codegen.layout_name(call.shape),
+                            "ptxas": (ptxas_of or {}).get(call.source)}
+    del bufs
+    torch.cuda.empty_cache()
+    return rows
 
 
 def make_generic(ps):

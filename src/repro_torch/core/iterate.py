@@ -40,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import weakref
 from typing import Any, Callable, Mapping, Optional, Union
 
 import torch
@@ -47,7 +48,9 @@ import torch
 from .. import telemetry as _telemetry
 from ..telemetry import attrib as _attrib
 
-__all__ = ["Checkpointing", "SolveResult", "make_solver", "solve_until"]
+__all__ = ["Checkpointing", "SolveResult", "make_solver", "solve_until",
+           "GUARD_NAME", "BatchCarry", "BatchedSolveResult", "batchable_kernel",
+           "make_batched_solver", "batched_solver", "init_batch_carry", "solve_batch"]
 
 
 @dataclasses.dataclass
@@ -424,3 +427,353 @@ def solve_until(kernel, fields: Mapping[str, torch.Tensor],
     if res.iters and not cold:
         _roofline(col, kernel, res.fields, scalars, dt / res.iters, check_every)
     return res
+
+
+# ---------------------------------------------------------------------------
+# batch-axis solves: many independent samples through one launch per step
+# ---------------------------------------------------------------------------
+#
+# The serving scenario is many small independent solves, per-request scalars
+# and initial conditions on a common grid, not one giant grid. A batched
+# solver stacks them on a leading sample axis and advances the whole
+# ensemble with ONE launch of the generated kernel per step
+# (``kernels/codegen.py``'s sample axis: the reference runs the kernel's jnp
+# twin under ``jax.vmap`` instead). Per-sample fused reductions come back as
+# ``(B,)`` vectors, and a per-sample ACTIVE mask freezes finished samples: a
+# converged, bad or out-of-budget sample's buffers stop changing bitwise
+# while stragglers continue, which is what lets a serving layer refill
+# finished slots between chunks (continuous batching).
+#
+# Each rotation pair (output, target) keeps ONE pair of buffers; a
+# per-sample parity says which buffer holds which field, a live sample's
+# launch writes its output in place into its own buffer (whose ring keeps
+# the output's previous values, as the single step's contract says) and its
+# parity flips, a dead sample's blocks return at once: its two buffers keep
+# their bits and cost no bytes.
+#
+# Numerical health rides in the same launches: a ``finite`` reduction over
+# the first output turns NaN/Inf into a per-sample indicator at check
+# boundaries with no extra pass over the fields; the solver retires
+# poisoned samples (quarantine) instead of letting one diverging request
+# wedge the batch (a NaN error would otherwise compare False against tol and
+# look converged). The per-sample state is updated on the device with
+# ``(B,)`` tensor operations between launches: a chunk makes no host
+# synchronisation (the serving engine reads the state once per chunk).
+
+
+GUARD_NAME = "__finite"   # reserved reduction name for the health guard
+
+
+@dataclasses.dataclass
+class BatchCarry:
+    """The device-resident state of a batched solve; every leaf carries a
+    leading sample axis of extent B.
+
+    ``bufs`` holds each field stacked ``(B, *grid)``: a field outside the
+    rotations in its own buffer, each rotation pair (``pairs``: output to
+    target) in two buffers under its two names, where sample ``b`` keeps
+    each field in its own buffer while ``odd[b]`` is false and in its
+    partner's while it is true. The solver advances the buffers in place."""
+
+    bufs: dict[str, torch.Tensor]   # {name: (B, *grid)}
+    reds: dict[str, torch.Tensor]   # {name: (B,)} last check's reductions
+    err: torch.Tensor               # (B,) f32 last error (+-inf before the first)
+    steps: torch.Tensor             # (B,) i32 per-sample steps taken
+    active: torch.Tensor            # (B,) bool: still iterating
+    converged: torch.Tensor         # (B,) bool: crossed its own tol
+    bad: torch.Tensor               # (B,) bool: non-finite detected
+    odd: torch.Tensor               # (B,) bool: each pair's buffers swapped
+    pairs: dict[str, str]           # output -> target
+
+    @property
+    def size(self) -> int:
+        return int(self.err.shape[0])
+
+    def sample(self, b: int, odd: bool) -> dict[str, torch.Tensor]:
+        """Views of sample ``b``'s fields at parity ``odd`` (a host bool:
+        the caller's read of ``self.odd``)."""
+        from ..kernels.codegen import sample_fields
+
+        return sample_fields(self.bufs, self.pairs, b, odd)
+
+    @property
+    def fields(self) -> dict[str, torch.Tensor]:
+        """Every field stacked ``(B, *grid)`` as each sample sees it (new
+        tensors, computed on the device)."""
+        partner = {**self.pairs, **{t: o for o, t in self.pairs.items()}}
+        out = {}
+        for n, v in self.bufs.items():
+            if n in partner:
+                swap = self.odd.view((-1,) + (1,) * (v.dim() - 1))
+                out[n] = torch.where(swap, self.bufs[partner[n]], v)
+            else:
+                out[n] = v.clone()
+        return out
+
+    def read(self) -> dict:
+        """The per-sample state on the host in ONE device-to-host copy (the
+        read a serving chunk makes): ``active``, ``converged``, ``bad``,
+        ``odd`` (bool), ``steps`` (int), ``err`` and each of ``reds`` (f32),
+        numpy arrays of B."""
+        host = torch.stack([self.active.double(), self.converged.double(), self.bad.double(),
+                            self.odd.double(), self.steps.double(), self.err.double(),
+                            *(v.double() for v in self.reds.values())]).cpu().numpy()
+        out = {k: host[i] > 0 for i, k in enumerate(("active", "converged", "bad", "odd"))}
+        out["steps"] = host[4].astype("int64")
+        out["err"] = host[5].astype("float32")
+        out["reds"] = {n: host[6 + i].astype("float32") for i, n in enumerate(self.reds)}
+        return out
+
+
+@dataclasses.dataclass
+class BatchedSolveResult:
+    """Final state of :func:`solve_batch` (leading sample axis B).
+
+    ``converged[b]``: sample crossed its own tol; ``bad[b]``: the finite
+    guard tripped (NaN/Inf detected at a check boundary; the sample's
+    buffers hold the detecting check's state and may contain non-finite
+    values); ``expired[b]``: neither, the sample ran out of its step
+    budget. The solve reads nothing back to the host: the caller's read of
+    a result is its one (``serve.engine.BatchState.host_syncs`` counts a
+    server's, one a chunk)."""
+
+    fields: dict[str, torch.Tensor]
+    reds: dict[str, torch.Tensor]
+    err: torch.Tensor
+    iters: torch.Tensor
+    converged: torch.Tensor
+    bad: torch.Tensor
+
+    @property
+    def expired(self) -> torch.Tensor:
+        return ~(self.converged | self.bad)
+
+    def output(self, kernel) -> Any:
+        tgts = {o: self.fields[t] for o, t in kernel.rotations.items()}
+        if len(kernel.outputs) == 1:
+            return tgts[kernel.outputs[0]]
+        return tgts
+
+
+def batchable_kernel(kernel):
+    """The kernel variant a batched solve runs: marching disabled (the
+    sample axis is the parallel axis that feeds the card; the batched
+    kernel is all-parallel), on the kernel's own backend: ``cuda`` launches
+    the batched kernel, ``torch`` runs each live sample's plain step."""
+    return kernel.marched(None)
+
+
+def _per_sample(scalars, b: int) -> list:
+    """Per-sample scalar dicts from ``{name: (B,) vector or number}``, or a
+    list of B dicts (None for a dead slot) as it is. Values stay Python
+    numbers, so each sample's parameters are evaluated on the host as a
+    single-sample call evaluates them."""
+    if isinstance(scalars, (list, tuple)):
+        if len(scalars) != b:
+            raise ValueError(f"{len(scalars)} scalar sets for a batch of {b}")
+        return list(scalars)
+    cols = {}
+    for n, v in (scalars or {}).items():
+        vals = v.tolist() if hasattr(v, "tolist") else v
+        if isinstance(vals, (list, tuple)):
+            if len(vals) != b:
+                raise ValueError(f"scalar {n!r} has {len(vals)} values for a batch of {b}")
+            cols[n] = list(vals)
+        else:
+            cols[n] = [vals] * b
+    return [{n: c[i] for n, c in cols.items()} for i in range(b)]
+
+
+def _device_vector(v, b: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``v`` (a number or ``(B,)`` values) as a ``(B,)`` tensor on
+    ``device``, copied from page-locked memory without a host sync."""
+    if isinstance(v, torch.Tensor) and v.device == device:
+        return torch.broadcast_to(v.to(dtype), (b,)).contiguous()
+    host = torch.as_tensor(v.tolist() if hasattr(v, "tolist") else v, dtype=dtype)
+    host = torch.broadcast_to(host, (b,)).contiguous()
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host
+
+
+def _stepper(kern, bufs: Mapping[str, torch.Tensor], host: list):
+    """``step(live, odd, flip) -> reductions`` of one launch of ``kern``
+    over the batch; on ``backend="cuda"`` the batched kernel with its
+    scalars' array copied to the card once."""
+    first = next((sc for sc in host if sc is not None), None)
+    if kern.ps.backend != "cuda" or first is None:
+        return lambda live, odd, flip: kern.run_batch(bufs, host, live, odd, flip)
+    call = kern.batched_call(**{n: tuple(t.shape[1:]) for n, t in bufs.items()}, **first)
+    params = call.batch_params(host, kern.ps.device)
+    return lambda live, odd, flip: call.run_batch(bufs, host, live, odd, flip, params)
+
+
+def make_batched_solver(kernel, *, check_every: int = 1, error: str | Callable | None = None,
+                        until: str = "below", guard: bool = True):
+    """Build the batched driver ``solver(carry, scalars, tol, budget,
+    max_steps) -> carry``.
+
+    ``carry`` is a :class:`BatchCarry`; ``scalars`` maps every scalar
+    argument to a ``(B,)`` vector or a number (or is a list of B scalar
+    dicts, None for a dead slot): each sample runs its own parameters.
+    ``tol`` is a ``(B,)`` per-sample tolerance, ``budget`` a ``(B,)``
+    per-sample step cap (a deadline expressed in steps), and ``max_steps``
+    bounds this CALL: it runs ``ceil(max_steps / check_every)`` check
+    blocks whatever the samples' state (a dead sample costs no bytes; the
+    reference stops early when none is live, which would need a host read).
+
+    Semantics per check block (``check_every - 1`` plain launches and one
+    checked launch, each one launch for the whole batch):
+
+    * every ACTIVE sample advances; the others keep their buffers bitwise;
+    * the per-sample error, rounded to f32, is compared against the
+      sample's own tol (``until`` as in :func:`solve_until`); ``error`` is a
+      reduction name or a callable over the dict of ``(B,)`` reductions;
+    * with ``guard=True`` a ``finite`` reduction over the first output
+      retires samples that went NaN/Inf (``bad``) the moment a check sees
+      them; it takes precedence over the tol test;
+    * a sample whose ``steps`` reached its budget goes inactive without
+      ``converged`` or ``bad`` (the caller reads that as expiry).
+
+    The state between launches is updated with ``(B,)`` tensor operations
+    on the device: a call makes no host synchronisation."""
+    if not kernel.reductions:
+        raise ValueError(
+            "batched solves need a kernel with fused reductions "
+            "(declare reductions={'err': 'max_abs_diff(T2, T)'}-style on @parallel)")
+    err_fn = _resolve_error(kernel, error)   # against the DECLARED set
+    kernel = batchable_kernel(kernel)
+    rot = kernel.rotations
+    if not rot or set(kernel.outputs) - set(rot):
+        raise ValueError(
+            "batched solves rotate double buffers between steps and need rotations "
+            "covering every output (pass rotations={'T2': 'T'}-style mapping to @parallel)")
+    check_every = int(check_every)
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    if until not in ("below", "above"):
+        raise ValueError(f"until must be 'below' or 'above', got {until!r}")
+    plain = kernel.with_reductions(None)
+    if guard:
+        from ..ir import Reduction
+
+        if GUARD_NAME in kernel.reductions:
+            raise ValueError(f"reduction name {GUARD_NAME!r} is reserved for the batched "
+                             "health guard")
+        checked = kernel.with_reductions(
+            dict(kernel.reductions, **{GUARD_NAME: Reduction("finite", kernel.outputs[0])}))
+    else:
+        checked = kernel
+    red_names = tuple(kernel.reductions)
+
+    def solver(carry: BatchCarry, scalars, tol, budget, max_steps) -> BatchCarry:
+        b, dev = carry.size, carry.err.device
+        host = _per_sample(scalars, b)
+        tol = _device_vector(tol, b, torch.float32, dev)
+        budget = _device_vector(budget, b, torch.int32, dev)
+        step_plain = _stepper(plain, carry.bufs, host)
+        step_checked = _stepper(checked, carry.bufs, host)
+        active, odd, steps = carry.active, carry.odd, carry.steps
+        err, reds, converged, bad = carry.err, carry.reds, carry.converged, carry.bad
+        for _ in range(-(-int(max_steps) // check_every)):
+            for j in range(check_every - 1):
+                step_plain(active, odd, j & 1)
+            new_reds = step_checked(active, odd, (check_every - 1) & 1)
+            if check_every % 2:
+                odd = odd ^ active          # the live samples' buffers swapped
+            new_err = err_fn({n: new_reds[n] for n in red_names}).to(torch.float32)
+            nonfin = ~torch.isfinite(new_err)
+            if guard:
+                nonfin = nonfin | (new_reds[GUARD_NAME] > 0)
+            reds = {n: torch.where(active, new_reds[n], reds[n]) for n in red_names}
+            err = torch.where(active, new_err, err)
+            steps = steps + active.to(torch.int32) * check_every
+            newly_bad = active & nonfin
+            crossed = (err <= tol) if until == "below" else (err > tol)
+            newly_conv = active & ~newly_bad & crossed
+            bad = bad | newly_bad
+            converged = converged | newly_conv
+            active = active & ~newly_bad & ~newly_conv & (steps < budget)
+        return BatchCarry(carry.bufs, reds, err, steps, active, converged, bad, odd,
+                          carry.pairs)
+
+    return solver
+
+
+# batched solvers, memoized on the kernel (the counterpart of the
+# reference's jitted_batched_solver cache)
+_BATCH_SOLVERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def batched_solver(kernel, *, check_every: int = 1, error=None, until: str = "below",
+                   guard: bool = True):
+    """The batched driver for (kernel, policy), memoized on the kernel."""
+    err_key = error if (error is None or isinstance(error, str)) else id(error)
+    key = (int(check_every), err_key, until, bool(guard))
+    cache = _BATCH_SOLVERS.setdefault(kernel, {})
+    if key not in cache:
+        cache[key] = make_batched_solver(kernel, check_every=check_every, error=error,
+                                         until=until, guard=guard)
+    return cache[key]
+
+
+def init_batch_carry(kernel, fields: Mapping[str, Any], until: str = "below",
+                     active: Any = None) -> BatchCarry:
+    """A fresh :class:`BatchCarry` from stacked initial fields ``{name: (B,
+    *grid)}`` (tensors or numpy arrays, copied to the kernel's device at its
+    storage dtype; every sample at parity 0). ``active`` preselects live
+    samples (default: all)."""
+    import numpy as np
+
+    kernel.check_rotations({n: tuple(v.shape if hasattr(v, "shape") else np.shape(v))[1:]
+                            for n, v in fields.items()})
+    st, dev = kernel.ps.dtype, kernel.ps.device
+    bufs = {}
+    for n, v in fields.items():
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+        bufs[n] = t.to(device=dev, dtype=st, copy=True).contiguous()
+    b = next(iter(bufs.values())).shape[0]
+    for n, v in bufs.items():
+        if v.shape[0] != b:
+            raise ValueError(f"field {n!r} has batch extent {v.shape[0]} != {b}; all "
+                             "stacked fields must share the leading sample axis")
+    err0 = torch.full((b,), math.inf if until == "below" else -math.inf,
+                      dtype=torch.float32, device=dev)
+    act = (torch.ones(b, dtype=torch.bool, device=dev) if active is None
+           else _device_vector(active, b, torch.bool, dev))
+    zeros = torch.zeros(b, dtype=torch.bool, device=dev)
+    return BatchCarry(
+        bufs=bufs,
+        reds={n: torch.zeros(b, dtype=torch.float32, device=dev) for n in kernel.reductions},
+        err=err0, steps=torch.zeros(b, dtype=torch.int32, device=dev), active=act,
+        converged=zeros, bad=zeros.clone(), odd=zeros.clone(), pairs=dict(kernel.rotations))
+
+
+def solve_batch(kernel, fields: Mapping[str, Any], scalars: Mapping[str, Any] | None = None,
+                *, tol: Any, max_iters: Any, check_every: int = 1,
+                error: str | Callable | None = None, until: str = "below",
+                guard: bool = True) -> BatchedSolveResult:
+    """Solve B independent samples to their own convergence, one launch per
+    step for the whole batch (see :func:`make_batched_solver` for the
+    semantics).
+
+    ``fields`` maps every field argument to a stacked ``(B, *grid)`` array;
+    ``scalars`` maps every scalar argument to a ``(B,)`` vector or a Python
+    number (broadcast to all samples). ``tol`` and ``max_iters`` are
+    likewise per-sample vectors or broadcast scalars. The solve runs until
+    every sample converged, tripped the finite guard, or exhausted its own
+    ``max_iters``: finished samples freeze bitwise while stragglers
+    continue."""
+    import numpy as np
+
+    carry = init_batch_carry(kernel, fields, until=until)
+    b = carry.size
+    budget = np.broadcast_to(np.asarray(max_iters, np.int64), (b,))
+    solver = batched_solver(kernel, check_every=check_every, error=error, until=until,
+                            guard=guard)
+    # the call's cap: the largest per-sample budget, rounded up to a whole check
+    cap = -(-int(budget.max()) // check_every) * check_every
+    out = solver(carry, _per_sample(scalars, b), np.broadcast_to(np.asarray(tol, np.float64), (b,)),
+                 budget, cap)
+    return BatchedSolveResult(fields=out.fields, reds=out.reds, err=out.err, iters=out.steps,
+                              converged=out.converged, bad=out.bad)

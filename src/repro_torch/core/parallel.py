@@ -339,14 +339,15 @@ class StencilKernel:
         reds = self.apply_reductions(outs, fields) if self.reductions else None
         return outs, reds
 
-    def _call(self, ir: _ir.StencilIR, nsteps: int = 1) -> _stencil.StencilCall:
-        key = (id(ir), nsteps)
+    def _call(self, ir: _ir.StencilIR, nsteps: int = 1,
+              batched: bool = False) -> _stencil.StencilCall:
+        key = (id(ir), nsteps, batched)
         call = self._calls.get(key)
         if call is None:
             call = self._calls[key] = _stencil.StencilCall(
                 ir, self.label, self.bc, nsteps=nsteps,
                 rotations=self.rotations if nsteps > 1 else None, dtype=self.ps.dtype,
-                march_axis=self.march_axis)
+                march_axis=self.march_axis, batched=self.rotations if batched else None)
         return call
 
     def compiled(self, nsteps: int = 1, **kwargs) -> _stencil.StencilCall:
@@ -357,6 +358,47 @@ class StencilKernel:
         if nsteps > 1:
             self.check_rotations(kwargs)
         return self._call(self.stencil_ir(**kwargs), nsteps)
+
+    def batched_call(self, **kwargs) -> _stencil.StencilCall:
+        """The batched kernel for one sample's field set (arguments as for
+        :meth:`stencil_ir`): the sample axis of the generated kernel, which
+        :meth:`run_batch` launches on ``backend="cuda"``."""
+        self.check_rotations(kwargs)
+        if self.march_axis is not None:
+            raise ValueError("a batched launch is all-parallel: use kernel.marched(None)")
+        return self._call(self.stencil_ir(**kwargs), batched=True)
+
+    def run_batch(self, bufs: Mapping[str, torch.Tensor], scalars: Sequence, live: torch.Tensor,
+                  odd: torch.Tensor, flip: int = 0, params: torch.Tensor | None = None):
+        """One step of every live sample of a batch, in place: ``bufs``
+        holds each field stacked ``(B, *grid)`` (a rotation pair's two
+        buffers under its two names), ``scalars[b]`` sample ``b``'s scalars
+        (None for a dead slot), ``live`` and ``odd`` ``(B,)`` bool tensors;
+        sample ``b`` steps at parity ``odd[b] != flip``
+        (``codegen.sample_fields``), each output written into its own
+        buffer. Returns each reduction as a ``(B,)`` f32 tensor (0 for a
+        dead sample), or None.
+
+        ``backend="cuda"`` makes one launch of the batched kernel
+        (:meth:`batched_call`; ``params``: its ``batch_params``);
+        ``backend="torch"`` runs the ``torch`` backend's step on each live
+        sample."""
+        for n, t in bufs.items():
+            if not on_device(t, self.ps.device) or t.dtype != self.ps.dtype:
+                raise ValueError(f"buffer {n!r} is {t.dtype} on {t.device}; the kernel runs "
+                                 f"{self.ps.dtype} on {self.ps.device}")
+        first = next((sc for sc in scalars if sc is not None), None)
+        if first is None:                   # no live slot: nothing to run
+            return ({n: torch.zeros(len(scalars), dtype=torch.float32, device=self.ps.device)
+                     for n in self.reductions} if self.reductions else None)
+        shapes = {n: tuple(t.shape[1:]) for n, t in bufs.items()}
+        if self.ps.backend == "cuda":
+            call = self.batched_call(**shapes, **first)
+            return call.run_batch(bufs, scalars, live, odd, flip, params)
+        self.check_rotations(shapes)
+        ir = self._trace(shapes, tuple(first))
+        return codegen.step_samples(lambda ins, sc: self._run_torch(ins, sc, ir), self.rotations,
+                                    bufs, scalars, live, odd, flip, tuple(self.reductions))
 
     def _run_cuda(self, fields, scalars, ir: _ir.StencilIR):
         return self._call(ir).run(fields, scalars)

@@ -289,7 +289,20 @@ class FaultPlan:
     ``kill_at_rendezvous`` dies on entry to the N-th rendezvous attempt
     (consumed by :meth:`on_rendezvous` in the multihost launcher's
     ``initialize``): the mid-init death that leaves peers waiting on the
-    coordinator."""
+    coordinator.
+
+    Serving-path injections (consumed by ``repro_torch.serve``):
+    ``nan_at_step`` poisons sample ``nan_sample`` of every submitted batch
+    with NaN once its step counter passes the threshold (the quarantine
+    path); ``reject_after`` makes the request queue shed every admission
+    after the N-th (backpressure without real overload);
+    ``kill_worker_after`` kills the worker process after it completes N
+    batches (a spool worker: N requests); ``batch_errors`` makes the next N
+    batch executions raise :class:`TransientIOError` before touching the
+    device (the batch retry path); ``wedge_worker_after`` stops the worker
+    cold after N completed batches: the process stays alive but never
+    progresses or bumps its heartbeat again, the stale-heartbeat recovery
+    path that an exit-code watcher alone cannot see."""
 
     kill_at_step: Optional[int] = None
     hang_at_step: Optional[int] = None
@@ -299,9 +312,17 @@ class FaultPlan:
     corrupt_checkpoint: Optional[int] = None
     io_errors: int = 0
     kill_at_io: Optional[int] = None
+    nan_at_step: Optional[int] = None
+    nan_sample: int = 0
+    reject_after: Optional[int] = None
+    kill_worker_after: Optional[int] = None
+    wedge_worker_after: Optional[int] = None
+    batch_errors: int = 0
     _saves_seen: int = dataclasses.field(default=0, repr=False)
     _killed: bool = dataclasses.field(default=False, repr=False)
     _io_seen: int = dataclasses.field(default=0, repr=False)
+    _submits_seen: int = dataclasses.field(default=0, repr=False)
+    _batches_done: int = dataclasses.field(default=0, repr=False)
 
     # ---------------- construction ----------------
     @classmethod
@@ -394,6 +415,39 @@ class FaultPlan:
         if self.io_errors > 0:
             self.io_errors -= 1
             raise TransientIOError(f"injected transient I/O error ({path})")
+
+    # ---------------- serving-path hooks ----------------
+    def on_submit(self) -> bool:
+        """Called by the request queue per admission attempt. True: shed
+        this request (deterministic overload)."""
+        self._submits_seen += 1
+        return self.reject_after is not None and self._submits_seen > self.reject_after
+
+    def on_batch(self) -> None:
+        """Called by the batch engine before each batch execution; burns
+        the transient-batch-failure budget (the retry path)."""
+        if self.batch_errors > 0:
+            self.batch_errors -= 1
+            raise TransientIOError("injected transient batch failure")
+
+    def serve_nan_due(self, step: int) -> Optional[int]:
+        """The sample index to poison with NaN once a batch's step counter
+        passes ``nan_at_step`` (None: no injection)."""
+        if self.nan_at_step is not None and step >= self.nan_at_step:
+            return self.nan_sample
+        return None
+
+    def worker_batch_done(self) -> None:
+        """Called by the worker after each completed batch; dies when the
+        scheduled batch count is reached (the worker-kill injection), or
+        wedges: alive but never progressing or heartbeating again, so only
+        staleness detection can recover the worker."""
+        self._batches_done += 1
+        if self.kill_worker_after is not None and self._batches_done >= self.kill_worker_after:
+            os._exit(KILL_EXIT_CODE)
+        if self.wedge_worker_after is not None and self._batches_done >= self.wedge_worker_after:
+            while True:
+                time.sleep(60)
 
     def after_save(self, ckpt_dir: str) -> None:
         """Called after each completed checkpoint write with its final

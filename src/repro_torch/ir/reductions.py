@@ -114,6 +114,12 @@ class Reduction:
         """Combine per-block partials into the launch's scalar."""
         return self.fold(partials)
 
+    def finish_rows(self, partials: torch.Tensor) -> torch.Tensor:
+        """Combine a batched launch's partials, one row of blocks a sample
+        (``(B, blocks)``), into a ``(B,)`` vector: each sample's value."""
+        return (torch.amax(partials, dim=1) if self.combine == "max"
+                else torch.sum(partials, dim=1))
+
     def all_reduce(self, value: torch.Tensor, group=None) -> torch.Tensor:
         """Finish across ranks: ONE ``dist.all_reduce`` (``MAX`` or ``SUM``)
         of the rank partials over ``group`` (a ``torch.distributed``

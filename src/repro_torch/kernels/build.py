@@ -12,7 +12,9 @@ and an unchanged one is loaded as it is. :func:`read_source` inlines the
 headers a source includes from ``csrc/`` (``#include "name.cuh"``), so the
 hash covers them too and the compiled text stands alone. The library is
 written to a temporary name and moved into place with ``os.replace``, so
-two processes building the same source never see a half-written file.
+two processes building the same source never see a half-written file; the
+threads of one process build and load one at a time (a lock), so serving
+workers may meet a kernel's first build together.
 
 The flags are per source (:func:`flags`). ``--fmad=false`` keeps every
 multiply and add rounded on its own, as PyTorch's elementwise operators
@@ -33,6 +35,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Sequence
@@ -60,6 +63,7 @@ class Build:
 # Builds and loaded libraries of this process, by library path.
 BUILDS: dict[Path, Build] = {}
 _LOADED: dict[Path, ctypes.CDLL] = {}
+_LOCK = threading.RLock()     # one build or load at a time in a process
 
 
 def nvcc() -> str:
@@ -94,6 +98,11 @@ def library_path(name: str, source: str) -> Path:
 def compile_many(sources: Sequence[tuple[str, str]]) -> list[Build]:
     """Compile ``(name, source text)`` pairs, one ``nvcc`` each, all started
     together; sources already built are not rebuilt."""
+    with _LOCK:
+        return _compile_many(sources)
+
+
+def _compile_many(sources: Sequence[tuple[str, str]]) -> list[Build]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pending, builds = [], {}
     for name, source in sources:
@@ -137,10 +146,11 @@ class Library:
 
     def __init__(self, name: str, source: str, argtypes: Sequence):
         path = library_path(name, source)
-        if path not in _LOADED:
-            compile_many([(name, source)])
-            _LOADED[path] = ctypes.CDLL(str(path))
-        lib = _LOADED[path]
+        with _LOCK:
+            if path not in _LOADED:
+                compile_many([(name, source)])
+                _LOADED[path] = ctypes.CDLL(str(path))
+            lib = _LOADED[path]
         self.name = name
         self._launch = lib.launch
         self._launch.argtypes = list(argtypes)

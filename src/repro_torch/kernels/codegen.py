@@ -534,6 +534,71 @@ def evaluate_steps_torch(program: TapProgram, rotations: Mapping[str, str], nste
     return evaluate_torch(program, cur, scalars)
 
 
+def check_batched(program: TapProgram, pairs: Mapping[str, str]) -> None:
+    """``ValueError`` unless the program can run batched with ``pairs``
+    (output to target): every output rotates into a field of its own that
+    is not an output, and no output is read by the update (a batched
+    launch writes each output in place, so a read of it at a shift could
+    see a neighbour's new value)."""
+    outs = [op.name for op in program.outputs]
+    if set(pairs) != set(outs) or len(set(pairs.values())) != len(pairs) \
+            or set(pairs.values()) & set(outs) or not set(pairs.values()) <= set(program.fields):
+        raise ValueError(f"a batched launch needs every output {outs} rotating into a field "
+                         f"of its own that is not an output; got rotations {dict(pairs)}")
+    loads = [f for f, _ in program.core.loads]
+    loads += [f for s in program.stages for f, _ in s.loads]
+    loads += [f for op in program.outputs for f, _ in op.loads]
+    read = sorted(set(loads) & set(outs))
+    if read:
+        raise ValueError(f"the update reads its outputs {read}; a batched launch writes each "
+                         "output in place, so it cannot read one")
+
+
+def sample_fields(bufs: Mapping[str, torch.Tensor], pairs: Mapping[str, str], b: int,
+                  odd: bool) -> dict[str, torch.Tensor]:
+    """Sample ``b``'s fields in a batch's buffers (``(B, *grid)`` each):
+    at parity 0 each field lies in its own buffer, at parity 1 each field of
+    a rotation pair (``pairs``: output to target) in its partner's."""
+    partner = {**pairs, **{t: o for o, t in pairs.items()}}
+    return {f: (bufs[partner[f]] if odd and f in partner else bufs[f])[b] for f in bufs}
+
+
+def step_samples(step, pairs: Mapping[str, str], bufs: Mapping[str, torch.Tensor],
+                 scalars: Sequence[Mapping[str, Any]], live: torch.Tensor, odd: torch.Tensor,
+                 flip: int = 0, reductions: Sequence[str] = ()):
+    """A batched step sample by sample: ``step(fields, scalars) -> (outs,
+    reds)`` on each live sample ``b``'s fields (:func:`sample_fields` at
+    parity ``odd[b] != flip``) with its scalars ``scalars[b]``, each output
+    copied into its own buffer; a dead sample is not touched. Returns the
+    ``reductions`` as ``(B,)`` f32 tensors, 0 for a dead sample (None
+    without reductions)."""
+    flags = list(zip(live.tolist(), odd.tolist()))
+    dev = next(iter(bufs.values())).device
+    reds = ({n: torch.zeros(len(flags), dtype=torch.float32, device=dev) for n in reductions}
+            if reductions else None)
+    for b, (alive, par) in enumerate(flags):
+        if not alive:
+            continue
+        ins = sample_fields(bufs, pairs, b, bool(par) != bool(flip))
+        outs, r = step(ins, scalars[b])
+        for o, t in outs.items():
+            ins[o].copy_(t)
+        for n, v in (r or {}).items():
+            reds[n][b] = v
+    return reds
+
+
+def evaluate_batch_torch(program: TapProgram, pairs: Mapping[str, str],
+                         bufs: Mapping[str, torch.Tensor], scalars: Sequence[Mapping[str, Any]],
+                         live: torch.Tensor, odd: torch.Tensor, flip: int = 0):
+    """The batched kernel's plain version (:func:`cuda_source`'s
+    ``batched``): :func:`evaluate_torch` on each live sample of the stacked
+    buffers with its own scalars (:func:`step_samples`)."""
+    return step_samples(
+        lambda ins, sc: evaluate_torch(program, {f: ins[f] for f in program.fields}, sc),
+        pairs, bufs, scalars, live, odd, flip, [n for n, _ in program.reductions])
+
+
 # ----------------------------------------------------------------- CUDA form
 # The kernel works on (x, y, z) and marches x. The all-parallel layout keeps
 # z contiguous: a 3-D grid marches its first axis, a 2-D grid (n0, n1) is
@@ -767,16 +832,53 @@ def grid_dims(program: TapProgram) -> str:
     return ", ".join(f"static_cast<unsigned>({d})" for d in dims)
 
 
-def _emit_strides(w, c: int, zs: bool) -> None:
+def _emit_strides(w, c: int, zs: bool, sample: bool = False) -> None:
     """Shape class ``c``'s 32-bit strides inside a block and its 64-bit
-    block base."""
-    if zs:
+    block base (with ``sample``, in sample ``bs`` of a stack of fields of
+    ``m{c}x * s{c}x`` cells each)."""
+    if sample:
+        w(f"  const int S{c}x = static_cast<int>(s{c}x), S{c}y = static_cast<int>(s{c}y);")
+        w(f"  const int64_t b{c} = bs * (m{c}x * s{c}x) + x0 * s{c}x + y0 * s{c}y + z0;")
+    elif zs:
         w(f"  const int S{c}x = static_cast<int>(s{c}x), S{c}y = static_cast<int>(s{c}y), "
           f"S{c}z = static_cast<int>(s{c}z);")
         w(f"  const int64_t b{c} = x0 * s{c}x + y0 * s{c}y + z0 * s{c}z;")
     else:
         w(f"  const int S{c}x = static_cast<int>(s{c}x), S{c}y = static_cast<int>(s{c}y);")
         w(f"  const int64_t b{c} = x0 * s{c}x + y0 * s{c}y + z0;")
+
+
+def _emit_sample(w, program: TapProgram, divs: Sequence[int]) -> None:
+    """A batched kernel's block origin (:func:`cuda_source`'s ``batched``):
+    its sample ``bs`` and chunk from ``blockIdx.z`` (samples slowest, so
+    the blocks of one sample run together), a dead sample's early return
+    with its block's partials 0, the parity ``par`` of the sample's pairs
+    at this launch, and its scalars: the parameters, then the divisors'
+    reciprocals, one row of ``prm`` a sample."""
+    n_par = len(program.params)
+    w("  // blockIdx.z runs over (sample, chunk), samples slowest")
+    w("  const int chunks = static_cast<int>((nx + xc - 1) / xc);")
+    w("  const int64_t bs = static_cast<int>(blockIdx.z) / chunks;  // the sample")
+    w("  const int z0 = blockIdx.x * kBlockZ, y0 = blockIdx.y * kBlockY;")
+    w("  const int x0 = (static_cast<int>(blockIdx.z) - static_cast<int>(bs) * chunks) * "
+      "static_cast<int>(xc);")
+    w("  if (!live[bs]) {  // a dead sample: no byte of its buffers moves")
+    if program.reductions:
+        w("    if (tid == 0) {")
+        w("      const int64_t bid = (static_cast<int64_t>(blockIdx.z) * gridDim.y + "
+          "blockIdx.y) * gridDim.x + blockIdx.x;")
+        for r in range(len(program.reductions)):
+            w(f"      part{r}[bid] = 0.0f;")
+        w("    }")
+    w("    return;")
+    w("  }")
+    w("  const bool par = odd[bs] != (flip != 0);  // its pairs' buffers swapped")
+    if n_par or divs:
+        w(f"  const float* const prs = prm + bs * {n_par + len(divs)};  // its scalars")
+    for k in range(n_par):
+        w(f"  const float p{k} = prs[{k}];")
+    for i, k in enumerate(divs):
+        w(f"  const float r{k} = prs[{n_par + i}];")
 
 
 def shape_classes(program: TapProgram) -> tuple[tuple[int, int, int], ...]:
@@ -835,6 +937,34 @@ def kernel_shape(program: TapProgram, dtype: torch.dtype = torch.float32) -> Ker
         return pair
     planes = 4 if program.stages and not (program.ndim == 3 and program.reductions) else 2
     return KernelShape(base_tile(program), planes, 5 if program.stages else 6)
+
+
+# The one-cell layout of a batched kernel (:func:`cuda_source`'s
+# ``batched``) by rank, whether the program has stages, whether it has
+# reductions and whether its fields are stored at 4 bytes (``wide``): the
+# fastest without spills at 16 samples a launch on the H100 at f32 and
+# bf16 (``launch/tune_stencil.py --batched [--dtype bfloat16]``: the
+# serving demo's diffusion step at 128^3 plain and with its check and
+# guard, porosity's fused update with its check at 1024^2, GP's with its
+# mass sums at 128^3; PERF.md, section 6). The guarded diffusion step
+# spills at 6 blocks (40 registers) at f32 but not at 8 (32); at bf16 the
+# other way round.
+BATCHED = {(3, False, False, True): KernelShape((32, 8), 2, 6),
+           (3, False, True, True): KernelShape((32, 8), 2, 8),
+           (2, True, True, True): KernelShape((128, 1), 2, 5),
+           (3, True, True, True): KernelShape((32, 8), 4, 5),
+           (3, False, False, False): KernelShape((32, 8), 2, 6),
+           (3, False, True, False): KernelShape((32, 8), 2, 6),
+           (2, True, True, False): KernelShape((128, 1), 4, 8),
+           (3, True, True, False): KernelShape((32, 8), 4, 5)}
+
+
+def batch_shape(program: TapProgram, dtype: torch.dtype = torch.float32) -> KernelShape:
+    """The layout of a batched kernel for fields stored as ``dtype``: the
+    one-cell all-parallel layout at every storage width, :data:`BATCHED`'s
+    for its kind of program, else :func:`kernel_shape`'s one-cell layout."""
+    key = (program.ndim, bool(program.stages), bool(program.reductions), storage(dtype).wide)
+    return BATCHED.get(key, kernel_shape(program))
 
 
 def slab_layout(program: TapProgram, async_copies: bool = True) -> KernelShape | None:
@@ -1038,7 +1168,8 @@ def _emit_ops(w, ind: str, ops: Ops, name: str, ref) -> None:
 
 
 def cuda_source(program: TapProgram, shape: KernelShape | None = None,
-                dtype: torch.dtype = torch.float32, part: str | None = None) -> str:
+                dtype: torch.dtype = torch.float32, part: str | None = None,
+                batched: Mapping[str, str] | None = None) -> str:
     """CUDA C++ source of the fused launch for fields stored as ``dtype``
     (f32, bf16 or f16; computed in f32): one ``__global__`` function and
     a plain C entry point ``launch``. The base extents, one pair of strides
@@ -1076,11 +1207,22 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     operation, no staging, no store) or "compute" (all but the core cells'
     stores, their rounded values kept). What a part drops it folds into a
     value stored only if it equals 1e38, so the compiler keeps the work; the
-    cells outside the core (faces, rings) run whole in every part."""
+    cells outside the core (faces, rings) run whole in every part.
+
+    ``batched`` (the kernel's rotations, each output to its target) prints
+    the sample axis of a batched solve (:func:`_emit_sample`): fields
+    stacked ``(B, *grid)``, each rotation's two buffers swapped per sample
+    by a parity, each output written in place into its own buffer, each
+    sample's scalars read from a ``(B, params)`` array, dead samples
+    skipped, and the partials indexed by (sample, block). It takes the
+    one-cell all-parallel layout only."""
     if program.ndim > 3:
         raise NotImplementedError("the generated CUDA kernel handles 1-3 dimensions")
     st = storage(dtype)
     shape = shape or kernel_shape(program)
+    if batched is not None and (shape.vec > 1 or shape.slab or program.layout or part):
+        raise ValueError(f"a batched launch takes the one-cell all-parallel layout, not "
+                         f"{layout_name(shape)}" + (" marched" if program.layout else ""))
     if shape.vec > 1:
         if st.wide or shape.slab or program.layout:
             raise ValueError(f"the pair layout {layout_name(shape)} serves 2-byte fields of an "
@@ -1142,6 +1284,11 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
         w("// cell loaded together, so a warp reads whole sectors.")
     if part:
         w(f"// Timing variant: {part} only.")
+    if batched is not None:
+        w("// Batched: fields are stacked (B, *grid) and blockIdx.z runs over (sample,")
+        w("// chunk). Each rotation's two buffers swap per sample by its parity; a live")
+        w("// sample's output is written in place into its own buffer, a dead sample's")
+        w("// blocks return at once. Scalars are per sample, partials per (sample, block).")
     w("#include <cstdint>")
     w("#include <cuda_runtime.h>")
     for line in st.includes():
@@ -1179,12 +1326,21 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w("}")
     w("")
     T = st.ctype
-    params = [f"const {T}* __restrict__ in{k}" for k in range(len(program.fields))]
-    params += [f"{T}* __restrict__ out{k}" for k in range(n_out)]
-    params += [f"float* __restrict__ part{k}" for k in range(n_red)]
     divs = divisor_params(program)
-    params += [f"const float p{k}" for k in range(n_par)]
-    params += [f"const float r{k}" for k in divs]
+    if batched is None:
+        params = [f"const {T}* __restrict__ in{k}" for k in range(len(program.fields))]
+        params += [f"{T}* __restrict__ out{k}" for k in range(n_out)]
+        params += [f"float* __restrict__ part{k}" for k in range(n_red)]
+        params += [f"const float p{k}" for k in range(n_par)]
+        params += [f"const float r{k}" for k in divs]
+    else:
+        paired = set(batched) | set(batched.values())
+        params = [p for k, f in enumerate(program.fields)
+                  for p in ([f"{T}* in{k}", f"{T}* alt{k}"] if f in paired
+                            else [f"const {T}* __restrict__ in{k}"])]
+        params += [f"float* __restrict__ part{k}" for k in range(n_red)]
+        params += ["const float* __restrict__ prm", "const bool* __restrict__ live",
+                   "const bool* __restrict__ odd", "const int flip"]
     params += [f"const int64_t {n}" for n in (*dims, *strides, "xc")]
     w(f"__global__ void __launch_bounds__(kThreads, {shape.min_blocks}) stencil_kernel(")
     w("    " + ",\n    ".join(params) + ") {")
@@ -1222,7 +1378,10 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
                 w(f"  __shared__ {st.ctype} smo{k}[kPlanes][kThreads];")
     w("  const int tz = threadIdx.x, ty = threadIdx.y;")
     w("  const int tid = ty * kBlockZ + tz;")
-    block_origin(w, program)
+    if batched is None:
+        block_origin(w, program)
+    else:
+        _emit_sample(w, program, divs)
     w("  const int x1 = min(x0 + static_cast<int>(xc), static_cast<int>(nx));")
     w("  const int y = y0 + ty, z = z0 + tz;")
     for c, off in enumerate(classes):
@@ -1230,11 +1389,24 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
             w(f"  // shape class {c}: base extents less {off}")
         for ax, n, d in zip("xyz", dims, off):
             w(f"  const int m{c}{ax} = static_cast<int>({n})" + (f" - {d};" if d else ";"))
-        _emit_strides(w, c, zs)
-    for f, k in fidx.items():
-        w(f"  const {T}* __restrict__ g{k} = in{k} + b{fcls[f]};")
-    for k, op in enumerate(program.outputs):
-        w(f"  {T}* __restrict__ h{k} = out{k} + b{fcls[op.name]};")
+        _emit_strides(w, c, zs, sample=batched is not None)
+    if batched is None:
+        for f, k in fidx.items():
+            w(f"  const {T}* __restrict__ g{k} = in{k} + b{fcls[f]};")
+        for k, op in enumerate(program.outputs):
+            w(f"  {T}* __restrict__ h{k} = out{k} + b{fcls[op.name]};")
+    else:
+        # an output's buffer is read (its ring) and written in place: no
+        # __restrict__ on either pointer; a target is only read this launch
+        for f, k in fidx.items():
+            if f not in paired:
+                w(f"  const {T}* __restrict__ g{k} = in{k} + b{fcls[f]};")
+            else:
+                restrict = "" if f in batched else " __restrict__"
+                w(f"  const {T}*{restrict} g{k} = (par ? alt{k} : in{k}) + b{fcls[f]};")
+        for k, op in enumerate(program.outputs):
+            j = fidx[op.name]
+            w(f"  {T}* const h{k} = (par ? alt{j} : in{j}) + b{fcls[op.name]};")
     _emit_core_box(w, program, fcls)
     w("  const bool in_grid = y < ny && z < nz;")
     w("  const bool yz_core = y >= cylo && y < cyhi && z >= czlo && z < czhi;")
@@ -1415,34 +1587,60 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     w("")
     w("}  // namespace")
     w("")
-    _emit_entry(w, program, st, pipe)
+    _emit_entry(w, program, st, pipe, batched)
     return "\n".join(lines) + "\n"
 
 
-def _emit_entry(w, program: TapProgram, st: Storage, pipe: bool) -> None:
-    """The plain C entry point ``launch`` and ``error_string``."""
+def _emit_entry(w, program: TapProgram, st: Storage, pipe: bool,
+                batched: Mapping[str, str] | None = None) -> None:
+    """The plain C entry point ``launch`` and ``error_string`` (with
+    ``batched``, the batched kernel's: each paired field's two buffers,
+    the partials, the scalars' array, the live and parity flags, the
+    launch's flip, then ``nb`` samples after the grid)."""
     n_out, n_red, n_par = len(program.outputs), len(program.reductions), len(program.params)
     divs = divisor_params(program)
     dims = ("nx", "ny", "nz")
     strides = stride_names(program)
     T = st.ctype
-    cargs = [f"const void* in{k}" for k in range(len(program.fields))]
-    cargs += [f"void* out{k}" for k in range(n_out)]
-    cargs += [f"void* part{k}" for k in range(n_red)]
-    cargs += [f"float p{k}" for k in range(n_par)] + [f"float r{k}" for k in divs]
-    cargs += [f"int64_t {n}" for n in (*dims, *strides, "xc", "gz", "gy", "gx")]
+    if batched is None:
+        cargs = [f"const void* in{k}" for k in range(len(program.fields))]
+        cargs += [f"void* out{k}" for k in range(n_out)]
+        cargs += [f"void* part{k}" for k in range(n_red)]
+        cargs += [f"float p{k}" for k in range(n_par)] + [f"float r{k}" for k in divs]
+        cargs += [f"int64_t {n}" for n in (*dims, *strides, "xc", "gz", "gy", "gx")]
+    else:
+        paired = set(batched) | set(batched.values())
+        cargs = [a for k, f in enumerate(program.fields)
+                 for a in ([f"void* in{k}", f"void* alt{k}"] if f in paired
+                           else [f"const void* in{k}"])]
+        cargs += [f"void* part{k}" for k in range(n_red)]
+        cargs += ["const void* prm", "const void* live", "const void* odd", "int flip"]
+        cargs += [f"int64_t {n}" for n in (*dims, *strides, "xc", "gz", "gy", "gx", "nb")]
     cargs += ["void* stream"]
     w('extern "C" int launch(' + ", ".join(cargs) + ") {")
-    w(f"  const dim3 grid({grid_dims(program)});")
+    if batched is None:
+        w(f"  const dim3 grid({grid_dims(program)});")
+    else:
+        w("  if (gx * nb > 65535) return static_cast<int>(cudaErrorInvalidValue);")
+        w("  const dim3 grid(static_cast<unsigned>(gz), static_cast<unsigned>(gy), "
+          "static_cast<unsigned>(gx * nb));")
     w("  const dim3 block(kBlockZ, kBlockY, 1);")
     if pipe:
         w("  const cudaError_t set = cudaFuncSetAttribute(")
         w("      stencil_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);")
         w("  if (set != cudaSuccess) return static_cast<int>(set);")
-    kargs = [f"static_cast<const {T}*>(in{k})" for k in range(len(program.fields))]
-    kargs += [f"static_cast<{T}*>(out{k})" for k in range(n_out)]
-    kargs += [f"static_cast<float*>(part{k})" for k in range(n_red)]
-    kargs += [f"p{k}" for k in range(n_par)] + [f"r{k}" for k in divs]
+    if batched is None:
+        kargs = [f"static_cast<const {T}*>(in{k})" for k in range(len(program.fields))]
+        kargs += [f"static_cast<{T}*>(out{k})" for k in range(n_out)]
+        kargs += [f"static_cast<float*>(part{k})" for k in range(n_red)]
+        kargs += [f"p{k}" for k in range(n_par)] + [f"r{k}" for k in divs]
+    else:
+        kargs = [a for k, f in enumerate(program.fields)
+                 for a in ([f"static_cast<{T}*>(in{k})", f"static_cast<{T}*>(alt{k})"]
+                           if f in paired else [f"static_cast<const {T}*>(in{k})"])]
+        kargs += [f"static_cast<float*>(part{k})" for k in range(n_red)]
+        kargs += ["static_cast<const float*>(prm)", "static_cast<const bool*>(live)",
+                  "static_cast<const bool*>(odd)", "flip"]
     kargs += [*dims, *strides, "xc"]
     w(f"  stencil_kernel<<<grid, block, {'kShared' if pipe else 0}, "
       "static_cast<cudaStream_t>(stream)>>>(")

@@ -358,7 +358,8 @@ def source(call: stencil.StencilCall) -> str:
     codegen._c_expr = _cpu_division
     try:
         if call.rotations is None:
-            return _host_text(codegen.cuda_source(call.program, call.shape, call.dtype),
+            return _host_text(codegen.cuda_source(call.program, call.shape, call.dtype,
+                                                  batched=call.batched),
                               codegen.shared_bytes(call.program, call.shape) // 4)
         text = codegen_steps.cuda_source(call.program, call.rotations, call.nsteps, call.shape,
                                          call.dtype)
@@ -545,22 +546,47 @@ def run(call: stencil.StencilCall, fields: Mapping[str, torch.Tensor],
     ``__ldg`` outside every field raises."""
     ins = {f: _guarded(fields[f]) for f in call.program.fields}
     call, outs, parts, args = call.prepare(ins, scalars, n_sm, xc, divisor=float)
+    _launch(call, library(call) if text is None else _compile(text, call.lib_name), ins,
+            parts, args)
+    return call.finish(outs, parts)
+
+
+def _launch(call: stencil.StencilCall, lib, ins: Mapping[str, torch.Tensor], parts,
+            args) -> None:
+    """One rehearsed launch of ``call``'s entry point: its partials NaN
+    first (a block that writes none shows), ``ins`` registered as the
+    inputs, and a load outside them raising."""
     for part in parts:
-        part.fill_(float("nan"))      # a block that writes no partial shows
-    lib = library(call) if text is None else _compile(text, call.lib_name)
+        part.fill_(float("nan"))
     bounds = [(t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in ins.values()]
     lo, hi = ((ctypes.c_int64 * len(bounds))(*b) for b in zip(*bounds))
     lib.rehearse_inputs(len(bounds), lo, hi)
     fn = lib.launch
     fn.argtypes = call.argtypes()
     fn.restype = ctypes.c_int
-    fn(*args, None)
+    if fn(*args, None):
+        raise RuntimeError(f"the rehearsed {call.lib_name} refused its launch")
     lib.rehearse_stray.restype = ctypes.c_long
     stray = lib.rehearse_stray()
     if stray:
         raise RuntimeError(f"the rehearsed {call.lib_name} made {stray} loads outside its "
                            "input fields")
-    return call.finish(outs, parts)
+
+
+def run_batch(call: stencil.StencilCall, bufs: Mapping[str, torch.Tensor], scalars,
+              live: torch.Tensor, odd: torch.Tensor, flip: int = 0, n_sm: int = 132,
+              xc: int | None = None):
+    """``(bufs, reds)`` of the printed batched kernel (``call.batched``)
+    on CPU buffers, launched as ``StencilCall.run_batch`` launches it on a
+    card with ``n_sm`` SMs (or with chunks of ``xc`` planes): copies of
+    ``bufs``, each in the middle of a NaN buffer, advanced in place, and
+    each reduction as a ``(B,)`` vector."""
+    ins = {n: _guarded(t) for n, t in bufs.items()}
+    params = call.batch_params(scalars, divisor=float)
+    launch, parts, args = call.batch_arguments(ins, params, live.contiguous(),
+                                               odd.contiguous(), flip, n_sm, xc)
+    _launch(call, library(call), ins, parts, args)
+    return ins, call.finish_batch(parts, launch.samples)
 
 
 def _guarded(t: torch.Tensor) -> torch.Tensor:

@@ -110,6 +110,14 @@ STEPS_WAVES = 8
 # its first window, so chunks longer than WAVES cuts measured faster on the
 # H100 (PERF.md).
 SLAB_WAVES = 16
+# The same for a batched launch (``StencilCall(batched=)``), whose blocks
+# are those of every sample's grid, for fields stored at 4 bytes: 16
+# measured best for a serving chunk's three plain launches and one check,
+# and within 4% of the best for each batched program of
+# ``launch/tune_stencil.py --batched`` (PERF.md); at 2 bytes 8, the best
+# or within 2% of it for each.
+BATCH_WAVES = 16
+BATCH_WAVES_NARROW = 8
 _MAX_GRID_YZ = 65535
 _INT32_MAX = 2 ** 31 - 1
 
@@ -124,15 +132,16 @@ class Launch:
     block: tuple[int, int, int]
     xc: int
     layout: str = ""      # codegen.layout_name of the layout launched
+    samples: int = 1      # a batched launch's samples: its grid z holds gx of each
 
     @property
     def n_blocks(self) -> int:
-        return math.prod(self.grid)
+        return math.prod(self.grid) * self.samples
 
 
 def derive_launch(shape3: tuple[int, int, int], n_sm: int, kernel: codegen.KernelShape,
                   halo: int = 0, lag: int = 0, waves: int | None = None,
-                  strides3: tuple[int, int, int] | None = None) -> Launch:
+                  strides3: tuple[int, int, int] | None = None, samples: int = 1) -> Launch:
     """Blocks of the kernel's tile of (z, y) threads, each block marching a
     chunk of ``xc`` planes along x after staging ``lag`` planes ahead; the
     chunk and its lag fill whole steps of the kernel's planes (the last
@@ -141,12 +150,14 @@ def derive_launch(shape3: tuple[int, int, int], n_sm: int, kernel: codegen.Kerne
     so the last wave idles the card for a small share of the run, and so
     that a chunk and ``halo`` planes on either side stay within 32-bit
     offsets (``strides3``: the strides of the kernel's (x, y, z), by default
-    those of a C-contiguous (nx, ny, nz) grid)."""
+    those of a C-contiguous (nx, ny, nz) grid). A batched launch of
+    ``samples`` grids counts the blocks of all of them against the waves,
+    and its grid z (chunks times samples) within CUDA's 65535."""
     nx, ny, nz = shape3
     (bz, by), step = kernel.cells, kernel.planes
     gz, gy = -(-nz // bz), -(-ny // by)
     target = (waves or WAVES) * kernel.min_blocks * n_sm
-    chunks = min(nx, max(1, -(-target // (gz * gy))))
+    chunks = min(nx, max(1, -(-target // (gz * gy * samples))))
     xc = -(-(-(-nx // chunks) + lag) // step) * step - lag
     if strides3 is None:
         plane = ny * nz
@@ -160,9 +171,10 @@ def derive_launch(shape3: tuple[int, int, int], n_sm: int, kernel: codegen.Kerne
         raise ValueError(f"grid {shape3}: a plane of {plane} cells exceeds 32-bit offsets")
     xc = min(xc, max_xc)
     gx = -(-nx // xc)
-    if gy > _MAX_GRID_YZ or gx > _MAX_GRID_YZ:
-        raise ValueError(f"grid {shape3} exceeds the CUDA grid limits")
-    return Launch((gz, gy, gx), (bz, by, 1), xc)
+    if gy > _MAX_GRID_YZ or gx * samples > _MAX_GRID_YZ:
+        raise ValueError(f"grid {shape3}" + (f" x {samples} samples" if samples > 1 else "")
+                         + " exceeds the CUDA grid limits")
+    return Launch((gz, gy, gx), (bz, by, 1), xc, samples=samples)
 
 
 # Storage dtypes the generated and hand kernels take, each computed in f32.
@@ -212,6 +224,16 @@ def check_cuda_fields(tensors: Mapping[str, torch.Tensor], shape,
     return dev
 
 
+_SM_COUNTS: dict = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's SMs (cached: every launch asks)."""
+    if dev not in _SM_COUNTS:
+        _SM_COUNTS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SM_COUNTS[dev]
+
+
 def stream_of(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -245,13 +267,19 @@ class StencilCall:
     into its ``rotations`` target, and its launches count under
     ``"{label}/k{nsteps}"`` (at ``nsteps`` 1 it is the k-step printer's
     single sweep, which ``launch/tune_stencil.py`` times against the
-    single-step kernel)."""
+    single-step kernel).
+
+    With ``batched`` (the kernel's rotations) it is the batched kernel of a
+    batched solve (:meth:`run_batch`): the sample axis of
+    ``codegen.cuda_source``, in the one-cell all-parallel layout at every
+    storage width; its launches count under ``"{label}/batched"``."""
 
     def __init__(self, ir: StencilIR, label: str,
                  bcs: Mapping[str, BoundaryCondition] | None = None,
                  shape: codegen.KernelShape | None = None, nsteps: int = 1,
                  rotations: Mapping[str, str] | None = None,
-                 dtype: torch.dtype = torch.float32, march_axis: int | None = None):
+                 dtype: torch.dtype = torch.float32, march_axis: int | None = None,
+                 batched: Mapping[str, str] | None = None):
         unsupported(ir)
         check_march(ir, march_axis)
         if dtype not in STORAGE_DTYPES:
@@ -262,6 +290,9 @@ class StencilCall:
         self.dtype = dtype
         self._made = (label, bcs)
         self._cells: StencilCall | None = None
+        self.batched = None if batched is None else dict(batched)
+        if self.batched is not None and (rotations is not None or march_axis is not None):
+            raise ValueError(f"{label}: a batched launch is a single all-parallel step")
         self.nsteps = int(nsteps)
         if rotations is None and self.nsteps != 1:
             raise ValueError(f"{label}: {self.nsteps} sweeps per launch need rotations")
@@ -277,9 +308,12 @@ class StencilCall:
             self.march_fallback = True
         if self.march_axis is not None:
             label = f"{label}@m{self.march_axis}"
+        if self.batched is not None:
+            label = f"{label}/batched"
         self.label = label if rotations is None else f"{label}/k{self.nsteps}"
         self.lib_name = "stencil_" + re.sub(r"[^A-Za-z0-9_]", "_", self.label)
         self.launch_info: dict[tuple, Launch] = {}
+        self._batch_launches: dict[tuple, Launch] = {}
         self._lib: build.Library | None = None
 
     def _lay_out(self, ir: StencilIR, bcs, shape, march_axis: int | None, label: str) -> None:
@@ -290,7 +324,14 @@ class StencilCall:
         self.classes = codegen.shape_classes(self.program)
         self.divisors = codegen.divisor_params(self.program)
         dtype, rotations = self.dtype, self.rotations
-        if rotations is None:
+        if self.batched is not None:
+            codegen.check_batched(self.program, self.batched)
+            self.shape = shape or codegen.batch_shape(self.program, dtype)
+            self.source = codegen.cuda_source(self.program, self.shape, dtype,
+                                              batched=self.batched)
+            self.lag = codegen.march_lag(self.program, self.shape)
+            self.halo = ir.inferred_radius + self.lag + self.shape.planes
+        elif rotations is None:
             self.shape = shape or codegen.kernel_shape(self.program, dtype)
             if self.shape.vec > 1 and not codegen_pairs.fits(
                     self.program, self.shape.vec, [self.extents3(o) for o in self.classes],
@@ -333,6 +374,12 @@ class StencilCall:
     def argtypes(self) -> list:
         """The ``ctypes`` types of the entry point's arguments."""
         p = self.program
+        if self.batched is not None:
+            paired = set(self.batched) | set(self.batched.values())
+            n_ptr = len(p.fields) + len(paired) + len(p.reductions) + 3
+            n_strides = len(codegen.stride_names(p))
+            return ([ctypes.c_void_p] * n_ptr + [ctypes.c_int]
+                    + [ctypes.c_int64] * (3 + n_strides + 5) + [ctypes.c_void_p])
         argtypes = [ctypes.c_void_p] * (len(p.fields) + len(p.outputs) + len(p.reductions))
         # scalar parameters, then the reciprocals of the divisors, as f32
         argtypes += [ctypes.c_float] * (len(p.params) + len(self.divisors))
@@ -363,13 +410,105 @@ class StencilCall:
                 return codegen.evaluate_torch(p, ins, scalars)
             return codegen.evaluate_steps_torch(p, self.rotations, self.nsteps, ins, scalars)
         dev = check_cuda_fields(ins, self.ir.field_shapes, self.dtype)
-        call, outs, parts, args = self.prepare(
-            ins, scalars, torch.cuda.get_device_properties(dev).multi_processor_count)
+        call, outs, parts, args = self.prepare(ins, scalars, sm_count(dev))
         with torch.cuda.device(dev):
             call._library().launch(*args, stream_of(dev))
         launches[self.label] += 1
         shape_launches[self.label, tuple(self.ir.base_shape)] += 1
         return self.finish(outs, parts)
+
+    def run_batch(self, bufs: Mapping[str, torch.Tensor], scalars, live: torch.Tensor,
+                  odd: torch.Tensor, flip: int = 0, params: torch.Tensor | None = None):
+        """One step of every live sample of a batch, in place (a batched
+        call: ``batched`` set). ``bufs`` holds each field stacked ``(B,
+        *grid)``, a rotation pair's two buffers under its two names
+        (``codegen.sample_fields`` says where each sample's fields lie);
+        ``scalars[b]`` are sample ``b``'s scalars (None for a dead slot);
+        ``live`` and ``odd`` are ``(B,)`` bool tensors beside the buffers,
+        and the launch takes parity ``odd[b] != flip``; ``params`` is
+        :meth:`batch_params` of the scalars, made here if not given.
+        Returns each reduction as a ``(B,)`` f32 tensor (0 for a dead
+        sample), or None.
+
+        Buffers on the CPU take the kernel's plain version
+        (``codegen.evaluate_batch_torch``); on the card the kernel
+        launches once for the whole batch, or raises."""
+        if self.batched is None:
+            raise ValueError(f"{self.label} is not a batched call")
+        if all(t.device.type == "cpu" for t in bufs.values()):
+            return codegen.evaluate_batch_torch(self.program, self.batched, bufs, scalars,
+                                                live, odd, flip)
+        nb = next(iter(bufs.values())).shape[0]
+        base = tuple(self.ir.base_shape)
+        dev = check_cuda_fields(bufs, {n: (nb, *self.ir.field_shapes[n]) for n in bufs},
+                                self.dtype)
+        for n, t in (("live", live), ("odd", odd)):
+            if t.dtype != torch.bool or tuple(t.shape) != (nb,) or t.device != dev:
+                raise ValueError(f"{n} must be a ({nb},) bool tensor on {dev}")
+        if params is None:
+            params = self.batch_params(scalars, dev)
+        launch, parts, args = self.batch_arguments(bufs, params, live, odd, flip, sm_count(dev))
+        if self.launch_info.get(base) != launch:
+            self.launch_info[base] = launch
+        with torch.cuda.device(dev):
+            self._library().launch(*args, stream_of(dev))
+        launches[self.label] += 1
+        shape_launches[self.label, base] += 1
+        return self.finish_batch(parts, nb)
+
+    def batch_params(self, scalars, device=None, divisor=codegen.reciprocal) -> torch.Tensor:
+        """The ``(B, params)`` f32 array a batched launch reads its scalars
+        from: each sample's parameters evaluated on the host from its own
+        scalars (``scalars[b]``; a zero row for None), then ``divisor`` of
+        each scalar divisor, as a single-sample launch passes them. On a
+        CUDA ``device`` it is copied there from page-locked memory without
+        a host synchronisation."""
+        p = self.program
+        rows = []
+        for sc in scalars:
+            if sc is None:
+                rows.append([0.0] * (len(p.params) + len(self.divisors)))
+                continue
+            host = [float(v) for v in p.host_values(sc)]
+            rows.append(host + [divisor(host[k]) for k in self.divisors])
+        arr = torch.tensor(rows, dtype=torch.float32).reshape(len(rows), -1)
+        if device is None or torch.device(device).type == "cpu":
+            return arr
+        return arr.pin_memory().to(device, non_blocking=True)
+
+    def batch_arguments(self, bufs: Mapping[str, torch.Tensor], params: torch.Tensor,
+                        live: torch.Tensor, odd: torch.Tensor, flip: int, n_sm: int,
+                        xc: int | None = None):
+        """``(launch, parts, args)`` of one batched launch: per-(sample,
+        block) partials beside the buffers and the entry point's arguments
+        but the stream."""
+        p = self.program
+        nb = next(iter(bufs.values())).shape[0]
+        partner = {**self.batched, **{t: o for o, t in self.batched.items()}}
+        key = (nb, n_sm, xc)
+        launch = self._batch_launches.get(key)
+        if launch is None:
+            launch = self._batch_launches[key] = dataclasses.replace(
+                self.derive(n_sm, xc, samples=nb), layout=codegen.layout_name(self.shape))
+        dev = next(iter(bufs.values())).device
+        parts = [torch.empty(launch.n_blocks, dtype=torch.float32, device=dev)
+                 for _ in p.reductions]
+        ptrs = [ptr for f in p.fields for ptr in
+                ([bufs[f].data_ptr(), bufs[partner[f]].data_ptr()] if f in partner
+                 else [bufs[f].data_ptr()])]
+        strides = [s for off in self.classes for s in self.strides3(off)[:2]]
+        args = [*ptrs, *(t.data_ptr() for t in parts), params.data_ptr(), live.data_ptr(),
+                odd.data_ptr(), int(flip), *p.to3(self.ir.base_shape, 1), *strides, launch.xc,
+                *launch.grid, nb]
+        return launch, parts, args
+
+    def finish_batch(self, parts, nb: int):
+        """Each reduction of a batched launch as a ``(B,)`` vector, finished
+        from its sample's row of partials."""
+        if not self.program.reductions:
+            return None
+        return {name: r.finish_rows(part.view(nb, -1))
+                for (name, r), part in zip(self.program.reductions, parts)}
 
     def layout_call(self, ins: Mapping[str, torch.Tensor]) -> "StencilCall":
         """The call that launches on ``ins``: this one, or, for the pair
@@ -440,16 +579,19 @@ class StencilCall:
             out[k] = own[a]
         return tuple(out)
 
-    def derive(self, n_sm: int, xc: int | None = None) -> Launch:
+    def derive(self, n_sm: int, xc: int | None = None, samples: int = 1) -> Launch:
         """The launch on a card of ``n_sm`` SMs (or with chunks of ``xc``
         planes): ``WAVES`` waves of blocks (``STEPS_WAVES`` for k steps,
-        ``SLAB_WAVES`` for an async slab)."""
+        ``SLAB_WAVES`` for an async slab), over ``samples`` grids for a
+        batched call (``BATCH_WAVES``, ``BATCH_WAVES_NARROW`` at 2 bytes)."""
         shape3 = self.program.to3(self.ir.base_shape, 1)
-        waves = waves_of(self.shape, self.rotations is not None)
+        waves = waves_of(self.shape, self.rotations is not None,
+                         self.dtype.itemsize if self.batched is not None else 0)
         launch = derive_launch(shape3, n_sm, self.shape, self.halo, self.lag, waves,
-                               self.strides3() if self.program.layout else None)
+                               self.strides3() if self.program.layout else None, samples)
         if xc is not None:
-            launch = Launch((*launch.grid[:2], -(-shape3[0] // xc)), launch.block, xc)
+            launch = dataclasses.replace(launch, grid=(*launch.grid[:2], -(-shape3[0] // xc)),
+                                         xc=xc)
         return launch
 
     def cost_tile(self, n_sm: int = 132) -> tuple[int, ...]:
@@ -468,13 +610,16 @@ class StencilCall:
                       for (name, r), part in zip(self.program.reductions, parts)}
 
 
-def waves_attr(shape: codegen.KernelShape, steps: bool) -> str:
-    """The name of the module constant that sets a layout's waves."""
+def waves_attr(shape: codegen.KernelShape, steps: bool, batched: int = 0) -> str:
+    """The name of the module constant that sets a layout's waves
+    (``batched``: a batched launch's storage bytes a cell, else 0)."""
+    if batched:
+        return "BATCH_WAVES" if batched == 4 else "BATCH_WAVES_NARROW"
     return "SLAB_WAVES" if shape.async_copies else "STEPS_WAVES" if steps else "WAVES"
 
 
-def waves_of(shape: codegen.KernelShape, steps: bool) -> int:
-    return globals()[waves_attr(shape, steps)]
+def waves_of(shape: codegen.KernelShape, steps: bool, batched: int = 0) -> int:
+    return globals()[waves_attr(shape, steps, batched)]
 
 
 def unsupported(ir: StencilIR) -> None:

@@ -8,8 +8,9 @@ or temperature decode steps over a batch of prompts. The twin of
 
 On ``--device cuda`` (the default) prefill runs the hand-written CUDA
 kernels (conv1d, SSD, attention); ``--device cpu`` runs their plain
-versions. The simulation server that the reference's ``__main__`` forwards
-to without ``--arch`` is not ported yet (ROADMAP queue 1, item 8).
+versions. Without ``--arch`` it forwards to the simulation server's demo,
+``python -m repro_torch.serve --demo`` (on ``--device``), as the
+reference forwards to ``repro.serve``.
 """
 from __future__ import annotations
 
@@ -97,20 +98,26 @@ def serve(arch: str, scfg: ServeConfig, rc: Optional[RunConfig] = None, smoke: b
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="LM serving driver of the PyTorch/CUDA port.")
-    ap.add_argument("--arch", choices=list(configs.ARCH_IDS))
+    ap = argparse.ArgumentParser(
+        description="LM serving driver of the PyTorch/CUDA port. For simulation serving "
+                    "use `python -m repro_torch.serve --demo` (repro_torch.serve).")
+    ap.add_argument("--arch", choices=list(configs.ARCH_IDS),
+                    help="run the LM driver for this arch; without it, forwards to "
+                         "repro_torch.serve")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    args = ap.parse_args(argv)
+    args, rest = ap.parse_known_args(argv)
     if args.arch is None:
-        print("repro_torch.launch.serve: pass --arch; the simulation server that the "
-              "reference runs without it is not ported yet (ROADMAP queue 1, item 8)",
-              file=sys.stderr)
-        return 2
+        # the simulation-serving entry point lives in repro_torch.serve
+        from ..serve.__main__ import main as serve_main
+
+        return serve_main((rest or ["--demo"]) + ["--device", args.device])
+    if rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
     gen, _ = serve(args.arch, ServeConfig(batch=args.batch, prompt_len=args.prompt_len,
                                           gen_len=args.gen_len,
                                           temperature=args.temperature),

@@ -7,6 +7,7 @@
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --split [--dtype bfloat16] [--sass DIR]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --steps --split [--sass DIR]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --hand [--against DIR] [--sass DIR]
+    PYTHONPATH=src python -m repro_torch.launch.tune_stencil --batched [--dtype bfloat16]
 
 For the coupled solvers' kernels at their full sizes (porosity 8192^2, GP
 512^3) and the Fig. 1 step at 512^3, it builds each candidate
@@ -55,8 +56,10 @@ times the hand kernel ``csrc/diffusion3d.cu`` at 512^3 (:func:`tune_hand`):
 another checkout's (``--against``) beside this one in turns, then each
 variant of its k-step layout (:data:`HAND_VARIANTS`) and ``--waves``, each
 launch bitwise to the plain version, with ``--sass DIR`` its SASS a cell by
-class and barrier segment (:func:`sass_hand`). It needs the card and
-measures nothing on the CPU.
+class and barrier segment (:func:`sass_hand`). ``--batched`` times the
+batched kernels of a batched solve (the sample axis) in each layout and
+number of waves, and a serving chunk (:func:`tune_batched`). It needs the
+card and measures nothing on the CPU.
 """
 from __future__ import annotations
 
@@ -115,6 +118,27 @@ STEPS_SLABS = {3: [*codegen_steps.SLABS[3], ((32, 4), 16), ((16, 8), 16), ((32, 
                2: [*codegen_steps.SLABS[2], ((128, 1), 16), ((64, 1), 16), ((256, 1), 8)]}
 
 
+def random_fields(kern, base, porosity, gen, dev, lead: tuple = ()) -> dict:
+    """Seeded fields of a coupled kernel at ``base`` (porosity's fluxes one
+    cell shorter along their axis), each with the ``lead`` axes in front:
+    porosities 0.005-0.015, porosity's pressures within 0.005 of 0, GP's in
+    [0, 1)."""
+    out = {}
+    for f, shape in field_shapes(kern, base).items():
+        u = torch.rand([*lead, *shape], generator=gen, device=dev)
+        out[f] = 0.005 + 0.01 * u if f.startswith("phi") else (
+            (u - 0.5) * 0.01 if porosity else u)
+    return out
+
+
+def field_shapes(kern, base) -> dict:
+    """Each field's shape at ``base``: porosity's fluxes one cell shorter
+    along their axis."""
+    return {f: tuple(b - o for b, o in zip(base, {"qx": (1, 0), "qy": (0, 1)}.get(
+                f, (0,) * len(base))))
+            for f in inspect.signature(kern.fn).parameters if f not in SCALARS}
+
+
 def kernels(dev, dtype: torch.dtype = torch.float32) -> dict:
     """``name: (kernel, plain twin, fields, scalars)`` at full size, the
     fields stored as ``dtype``."""
@@ -129,15 +153,7 @@ def kernels(dev, dtype: torch.dtype = torch.float32) -> dict:
         return pair
 
     def fields(kern, base, porosity):
-        out = {}
-        for f in inspect.signature(kern.fn).parameters:
-            if f in SCALARS:
-                continue
-            off = {"qx": (1, 0), "qy": (0, 1)}.get(f, (0,) * len(base))
-            u = torch.rand([b - o for b, o in zip(base, off)], generator=gen, device=dev)
-            out[f] = 0.005 + 0.01 * u if f.startswith("phi") else (
-                (u - 0.5) * 0.01 if porosity else u)
-        return out
+        return random_fields(kern, base, porosity, gen, dev)
 
     out = {}
     pw_n, gp_n = 8192, 512
@@ -950,6 +966,179 @@ def tune_hand(iters: int, waves: list | None, against: str | None, sass: str | N
                                       "per_cell": sass_hand(text, dtype, k)}), flush=True)
 
 
+# batched layouts (``StencilCall(batched=)``) tried, by rank and whether the
+# program has stages: (z, y) cells, planes per step, resident blocks (at
+# most 2048 threads an SM)
+BATCHED_3D = [Shape(t, p, b) for t in ((32, 8), (32, 4), (64, 4), (64, 2)) for p in (1, 2)
+              for b in (4, 5, 6, 8)]
+BATCHED_STAGED_3D = [Shape(t, p, b) for t in ((32, 8), (32, 4), (64, 4)) for p in (2, 4)
+                     for b in (3, 4, 5, 6)]
+BATCHED_2D = [Shape(t, p, b) for t in ((128, 1), (256, 1), (512, 1)) for p in (2, 4)
+              for b in (3, 4, 5, 6, 8) if b * t[0] <= 2048]
+BATCH = 16
+BATCH_WAVES_TRIED = (4, 8, 16, 24)
+
+
+def batched_kernels(dev) -> dict:
+    """``name: (kernel, base shape, porosity)`` on ``dev`` of the batched programs at
+    ``BATCH`` samples a launch: the serving demo's diffusion step (128^3)
+    plain and with its ``max_abs_diff`` check and the finite guard that
+    ``iterate.make_batched_solver`` adds, porosity's fused update with its
+    check (1024^2) and GP's with its mass sums (128^3)."""
+    from ..core import iterate
+    from ..ir import Reduction
+    from ..serve.procworker import demo_kernel
+
+    serve = demo_kernel(dev)
+    out = {"serve": (serve.with_reductions(None), (128,) * 3, False),
+           "serve+guard": (serve.with_reductions(dict(serve.reductions, **{
+               iterate.GUARD_NAME: Reduction("finite", serve.outputs[0])})), (128,) * 3, False)}
+    for name, mod, cfg, base, red, kw in (
+            ("porosity_fused[neumann0]+err", pw, pw.PorosityConfig, (1024, 1024),
+             {"err": "max_abs_diff(Pe2, Pe)"}, {"bc": "neumann"}),
+            ("gp_fused[none]+mass", gp, gp.GPConfig, (128,) * 3,
+             {"m_re": "sum_sq(re2)", "m_im": "sum_sq(im2)"}, {})):
+        c = cfg(n=base[0], device=torch.device(dev).type, **kw)
+        out[name] = (mod.make_step(mod.make_grid(c), c).kernels[0].with_reductions(red), base,
+                     name.startswith("porosity"))
+    return out
+
+
+def batched_candidates(program) -> list:
+    if program.ndim == 3:
+        return BATCHED_STAGED_3D if program.stages else BATCHED_3D
+    return BATCHED_2D
+
+
+def tune_batched(iters: int, names: list | None = None, dtype: torch.dtype = torch.float32,
+                 chunk: bool = True) -> None:
+    """Each batched program (:func:`batched_kernels`) at ``BATCH`` samples
+    in every layout of :func:`batched_candidates` and each of
+    ``BATCH_WAVES_TRIED``: the CUDA-event median ms of ``run_batch`` (the
+    launch and the finish of its per-sample reductions) on all-live samples
+    of both parities, the chunk planes ``xc``, ptxas's registers and spills,
+    each launch held to the plain version (``codegen.evaluate_batch_torch``:
+    fields bitwise, max reductions bitwise, sums within 1e-5; one that
+    differs is marked ``differs`` and not timed); one JSON line a program,
+    beside ``codegen.batch_shape`` and ``stencil.BATCH_WAVES``
+    (``BATCH_WAVES_NARROW`` at 2 bytes), which are this tool's choice. With
+    ``chunk``, then one serving chunk of the demo (:func:`serve_chunk`). The
+    fields are stored as ``dtype`` (rounded once from the f32 ones)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20261018)
+    todo = batched_kernels(dev)
+    todo = {n: (k.with_dtype(dtype), base, por) for n, (k, base, por) in todo.items()
+            if not names or n in names}
+    tuned = {}
+    for n, (k, base, _) in todo.items():
+        call = k.batched_call(**field_shapes(k, base), **scalars_of(k))
+        tuned[n] = (call, [stencil.StencilCall(call.ir, k.label, k.bc, shape,
+                                               batched=k.rotations, dtype=dtype)
+                           for shape in batched_candidates(call.program)])
+    t0 = time.perf_counter()
+    logs = iter(build.compile_many([(t.lib_name, t.source) for _, ts in tuned.values()
+                                    for t in ts]))
+    print(json.dumps({"built": sum(len(ts) for _, ts in tuned.values()),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    attr = stencil.waves_attr(None, False, dtype.itemsize)
+    default_waves = getattr(stencil, attr)
+    for n, (k, base, porosity) in todo.items():
+        call, variants = tuned[n]
+        bufs = random_fields(k, base, porosity, gen, dev, (BATCH,))
+        if n.startswith("serve"):
+            bufs = {f: 0.1 * t for f, t in bufs.items()}
+            scalars = [{"dt": 0.08 + 0.005 * (i % 4)} for i in range(BATCH)]
+        else:
+            scalars = [scalars_of(k)] * BATCH
+        bufs = {f: t.to(dtype) for f, t in bufs.items()}
+        live = torch.ones(BATCH, dtype=torch.bool, device=dev)
+        odd = torch.tensor([i % 2 == 1 for i in range(BATCH)], device=dev)
+        want = {f: t.clone() for f, t in bufs.items()}
+        r_want = codegen.evaluate_batch_torch(call.program, call.batched, want, scalars, live, odd)
+        row = {}
+        for t in variants:
+            found = ptxas(next(logs).log)
+            params = t.batch_params(scalars, dev)
+            for w in BATCH_WAVES_TRIED:
+                setattr(stencil, attr, w)
+                t._batch_launches.clear()
+                got = {f: x.clone() for f, x in bufs.items()}
+                r_got = t.run_batch(got, scalars, live, odd, 0, params)
+                if not all(torch.equal(got[f], want[f]) for f in got) or not all(
+                        torch.equal(r_got[m], r_want[m]) if r.combine == "max" else
+                        torch.allclose(r_got[m], r_want[m], rtol=1e-5, atol=0.0)
+                        for m, r in t.program.reductions):
+                    # recorded, not timed: the sweep goes on to the other layouts
+                    row[f"{layout_name(t.shape)}/w{w}"] = {"differs": True, **found}
+                    continue
+                ms = teff.measure(lambda: t.run_batch(got, scalars, live, odd, 0, params),
+                                  iters=iters, warmup=3).median_s * 1e3
+                launch = t.derive(stencil.sm_count(dev), samples=BATCH)
+                row[f"{layout_name(t.shape)}/w{w}"] = {"ms": ms, "xc": launch.xc,
+                                                       "blocks": launch.n_blocks, **found}
+                del got
+        setattr(stencil, attr, default_waves)
+        del bufs, want
+        print(json.dumps({"kernel": n, "dtype": str(dtype), "samples": BATCH, "base": list(base),
+                          "chosen": f"{layout_name(call.shape)}/w{default_waves}",
+                          "candidates": row}), flush=True)
+    if chunk:
+        print(json.dumps({"chunk": serve_chunk()}), flush=True)
+
+
+def serve_chunk(rounds: int = 5) -> dict:
+    """One serving chunk at B = 16 x 128^3 through ``BatchEngine.run_chunk``
+    in the chosen layout (:func:`tune_batched`'s ``chunk``), samples that
+    never converge: the wall ms of each of ``rounds`` chunks to a
+    synchronisation, the host's ms to enqueue a chunk, and a chunk's device
+    ms between two CUDA events."""
+    import numpy as np
+
+    from ..serve import RequestQueue, ServePolicy, SolveRequest
+    from ..serve.engine import BatchEngine
+    from ..serve.procworker import demo_kernel
+
+    n = 128
+    kern = demo_kernel("cuda")
+    pol = ServePolicy(max_batch=BATCH, chunk_steps=64, check_every=4)
+    eng, q = BatchEngine(kern, pol), RequestQueue(64)
+    tickets = []
+    for i in range(BATCH):
+        T = np.zeros((n, n, n), np.float32)
+        T[n // 2, n // 2, n // 2] = 1.0 + 0.1 * i
+        tickets.append(q.submit(SolveRequest(fields={"T": T, "T2": T.copy()},
+                                             scalars={"dt": 0.08 + 0.005 * (i % 4)},
+                                             tol=1e-12, max_iters=10 ** 6)))
+    state = eng.start(tickets)
+    eng.run_chunk(state)
+    torch.cuda.synchronize()
+    walls, enqueue, device = [], [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        eng.run_chunk(state)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        eng.run_chunk(state)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    eng.harvest(state)
+    return {"samples": BATCH, "base": [n] * 3, "steps": pol.chunk_steps,
+            "check_every": pol.check_every, "wall_ms": walls,
+            "host_enqueue_ms": enqueue, "device_ms": device}
+
+
+def scalars_of(kern) -> dict:
+    """The kernel's scalars from :data:`SCALARS`."""
+    names = inspect.signature(kern.fn).parameters
+    return {n: v for n, v in SCALARS.items() if n in names}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--waves", default=None,
@@ -970,6 +1159,8 @@ def main(argv=None) -> int:
                     help="tune the hand diffusion3d kernel (csrc/diffusion3d.cu)")
     ap.add_argument("--against", default=None,
                     help="with --hand: a checkout of another version to time in turns")
+    ap.add_argument("--batched", action="store_true",
+                    help="tune the batched kernels (sample axis) and time a serving chunk")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16", "float16"],
                     help="the fields' storage dtype (compute stays f32)")
@@ -980,6 +1171,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     name, power = teff.card_info(0)
     print(json.dumps({"card": name, "power_limit": power, "dtype": args.dtype}), flush=True)
+    if args.batched:
+        tune_batched(args.iters, args.kernels.split(",") if args.kernels else None,
+                     getattr(torch, args.dtype), args.dtype == "float32")
+        return 0
     if args.hand:
         tune_hand(args.iters, [int(w) for w in args.waves.split(",")] if args.waves else None,
                   args.against, args.sass, [int(x) for x in args.ks.split(",")] if args.ks

@@ -133,10 +133,13 @@ def test_fault_plan_env_roundtrip():
 
 
 @pytest.mark.parametrize("raw,match", [('{"kill_at": 3}', "unknown keys"),
-                                       # serving injections have no consumer
-                                       # in this package
-                                       ('{"reject_after": 1}', "unknown keys"),
-                                       ('{"kill_worker_after": 1}', "unknown keys"),
+                                       # the serving injections are known keys
+                                       # (repro_torch.serve consumes them); an
+                                       # unknown key beside one is refused
+                                       ('{"reject_after": 1, "reject_afterr": 1}',
+                                        "unknown keys"),
+                                       ('{"kill_worker_after": 1, "kill_workers": 1}',
+                                        "unknown keys"),
                                        ("{nope", "not valid JSON"),
                                        ("[1, 2]", "JSON object")])
 def test_fault_plan_rejects_bad_env(raw, match):

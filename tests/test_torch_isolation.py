@@ -40,6 +40,9 @@ g = gross_pitaevskii.solve(gross_pitaevskii.GPConfig(n=8, nt=2, device="cpu",
 assert bool(torch.isfinite(p["phi"]).all()) and bool(torch.isfinite(g["re"]).all())
 assert torch.equal(bc.BoundaryCondition("periodic").apply(g["re"]),
                    boundary.periodic(g["re"]))
+import repro_torch.serve
+from repro_torch.serve.__main__ import main as serve_main
+assert serve_main(["--demo", "--device", "cpu", "--n", "8", "--requests", "2"]) == 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m in sys.modules if sys.modules[m] is not None)
 print("imported", len(names), "modules")

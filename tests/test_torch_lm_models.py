@@ -292,7 +292,8 @@ def test_serve_draws_its_own_weights_and_samples_with_temperature():
     b, _ = t_serve.serve("zamba2-1.2b", scfg, smoke=True, device="cpu", log_fn=lambda *x: None)
     assert a.shape == (2, 4) and np.array_equal(a, b)      # seeded generators
     assert a.min() >= 0 and a.max() < 256
-    assert t_serve.main([]) == 2                           # no --arch: not ported
+    # no --arch: forwards to the simulation server's demo (repro_torch.serve)
+    assert t_serve.main(["--device", "cpu", "--demo", "--n", "8", "--requests", "2"]) == 0
     assert smoke_variant(configs.get_arch("zamba2-1.2b")).n_layers == 2
 
 
