@@ -137,12 +137,15 @@ card are refused with a pointed error. ``times_distributed`` times every
 
 Then the simulation server (``repro_torch.serve``). ``check_batched``: the
 batched kernel (the sample axis of the generated kernel: one launch a step
-for a whole batch) at B = 16 x 128^3 f32, the serving demo's diffusion step
-plain and checked with its ``finite`` guard, with dead samples and both
-parities, bitwise to its plain version (``codegen.evaluate_batch_torch``):
-every buffer, a dead sample's two buffers unchanged, each per-sample
-reduction; then at bf16 and porosity's and GP's fused updates batched at
-small sizes. ``main_path_serve``: a ``SimulationServer`` (``max_batch``
+for a whole batch; for the serving step the column march of
+``kernels/codegen_columns.py``) at B = 16 x 128^3 f32, the serving demo's
+diffusion step plain and checked with its ``finite`` guard, with dead
+samples and both parities, bitwise to its plain version
+(``codegen.evaluate_batch_torch``): every buffer, a dead sample's two
+buffers unchanged, each per-sample reduction; then at bf16 and f16 (both
+parities), on a ragged 5 x 67 x 45 x 77 grid cut inside its columns at
+f32 and bf16, and porosity's and GP's fused updates batched at small
+sizes. ``main_path_serve``: a ``SimulationServer`` (``max_batch``
 16, chunks of 64 steps, a check every 4) takes a burst of 48 healthy
 requests at 128^3 and 8 at 64^3 (two buckets), one ``dt = 5.0`` request,
 which must fail with ``SampleQuarantined``, and one hopeless deadline,
@@ -153,9 +156,15 @@ batched plain version bitwise; one chunk runs under
 one state read a chunk); a ``ProcessWorkerPool`` of 2 worker processes on
 the card, each first one killed after 2 requests, serves 8 spooled 128^3
 requests, each bitwise to its solo solve, and must count a respawn.
-``times_serve``: each batched kernel's ms per launch at B = 16 x 128^3
-beside its bound (the live samples' bytes over 3.35 TB/s), its plain
-version's ms and the same work as 16 single-sample launches, and the
+``times_serve``: each batched kernel's ms per launch, the kernel alone,
+in turns with its one-cell twin (the layout before the column march) at
+B = 16 x 128^3, 1 x 512^3 (beside the solo kernel), 64 x 128^3 and 8 x
+64^3, each first held bitwise to its plain version, beside its bound (the
+live samples' bytes over 3.35 TB/s) and ptxas's registers; at 16 x 128^3
+also through ``run_batch``, its plain version's ms and the same work as
+16 single-sample launches; a serving chunk of 64 steps at 16 x 128^3 in
+the column march and in the one-cell layout, in turns
+(``tune_stencil.serve_chunk``: wall, host enqueue and device ms); and the
 burst's wall seconds, requests a second, p50/p99 latency and host syncs a
 chunk.
 
@@ -761,9 +770,15 @@ def main() -> int:
         require(n > 0, f"kernel {k} was not launched on the marched main path")
 
     # ---- 5g. times of the batched kernels and of the burst ------------------------
-    serve_t = serve_times(torch, spec, serve_kern, serve_plain, serve_ptx)
+    serve_t, serve_split = serve_times(torch, spec, serve_kern, serve_plain, serve_ptx)
+    from repro_torch.launch.tune_stencil import serve_chunk
+    chunk = serve_chunk()
+    require(all("/col" in lay for lay in chunk["column"]["layouts"].values())
+            and not any("/col" in lay for lay in chunk["one_cell"]["layouts"].values()),
+            f"the serving chunk's layouts are not the two compared: {chunk}")
     emit({"phase": "times_serve", "card": spec.name, "power_limit": spec.power_limit,
           "shape": [SERVE_POLICY["max_batch"], SERVE_N, SERVE_N, SERVE_N], "kernels": serve_t,
+          "split": serve_split, "chunk": chunk,
           "burst": {k: serve_run[k] for k in ("healthy", "wall_s", "requests_per_s", "p50_s",
                                               "p99_s", "chunks", "host_syncs_per_chunk")}})
 
@@ -826,11 +841,14 @@ def main() -> int:
                 for k, t in mixed_times.items() if k in mixed_runs["launches"]]
     kernels += march_rows(march_runs, march_times, err_at)
     kernels += dist_times(torch, spec, {**dist_runs["launches"], **drill["launches"]})
-    kernels += [{"name": k, "route": "cuda", "source": gen_src,
+    kernels += [{"name": k, "route": "cuda",
+                 "source": ("src/repro_torch/kernels/codegen_columns.py" if "/col" in t["layout"]
+                            else gen_src),
                  "replaces": "src/repro/kernels/stencil.py:1052",
                  "launches": serve_run["launches"][k], "max_abs_err": err_at["serve"],
-                 **{x: t[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by", "singles_ms",
-                                      "layout")},
+                 **{x: t[x] for x in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "singles_ms", "layout", "one_cell_ms",
+                                      "one_cell_call_ms")},
                  "library_ms": None}
                 for k, t in serve_t.items()]
     print(f"{card_name}, {card_power}", flush=True)
@@ -4205,6 +4223,14 @@ SERVE_HEALTHY = {SERVE_N: 48, SERVE_SMALL_N: 8}
 SERVE_POLICY = dict(max_batch=16, chunk_steps=64, check_every=4, queue_capacity=128)
 SERVE_TOL, SERVE_MAX_ITERS = 1e-5, 2000
 SERVE_POOL_REQUESTS = 8
+# a grid that the column march's tile does not divide, its samples (False:
+# dead), cut into chunks inside each column
+SERVE_RAGGED = (67, 45, 77)
+SERVE_RAGGED_LIVE = (True, False, True, True, True)
+# the shapes (samples, grid extent) the batched kernels are timed at beside
+# their one-cell twins: the main bucket first, then one 512^3 sample beside
+# the solo step, the bucket at 64 samples and the small bucket
+SERVE_SPLIT = ((16, SERVE_N), (1, 512), (64, SERVE_N), (8, SERVE_SMALL_N))
 # batched coupled kernels held to their plain versions (off the serving path):
 # (variant, base shape, samples)
 SERVE_COUPLED = (("porosity_fused[neumann0]+err", (512, 512), 8),
@@ -4228,21 +4254,32 @@ def serve_requests(healthy=None):
 
 
 def serve_kernels(kern, n=SERVE_N) -> dict:
-    """The batched calls of the serving main path at ``n``^3 (the plain step
-    and the checked step with the guard, as ``iterate.make_batched_solver``
-    makes them) and the solo calls a single-request ``solve_until`` and the
-    pool's workers launch."""
+    """The batched calls of the serving main path at ``n``^3 (or at the grid
+    ``n``; the plain step and the checked step with the guard, as
+    ``iterate.make_batched_solver`` makes them), their twins in the one-cell
+    layout the serving step took before the column march
+    (``tune_stencil.one_cell``, ``cells`` and ``cells_checked``), and the
+    solo calls a single-request ``solve_until`` and the pool's workers
+    launch."""
     from repro_torch.core import iterate
     from repro_torch.ir import Reduction
+    from repro_torch.kernels import stencil
+    from repro_torch.launch.tune_stencil import one_cell
 
     checked = kern.with_reductions(dict(kern.reductions, **{
         iterate.GUARD_NAME: Reduction("finite", kern.outputs[0])}))
-    shp = {f: (n, n, n) for f in ("T2", "T")}
-    return {"batched": kern.with_reductions(None).batched_call(**shp, dt=1.0),
-            "batched_checked": checked.batched_call(**shp, dt=1.0),
-            "solo": kern.with_reductions(None).compiled(**shp, dt=1.0),
-            "solo_checked": kern.compiled(**shp, dt=1.0),
-            "kernels": {"batched": kern.with_reductions(None), "batched_checked": checked}}
+    grid = (n, n, n) if isinstance(n, int) else tuple(n)
+    shp = {f: grid for f in ("T2", "T")}
+    out = {"batched": kern.with_reductions(None).batched_call(**shp, dt=1.0),
+           "batched_checked": checked.batched_call(**shp, dt=1.0),
+           "solo": kern.with_reductions(None).compiled(**shp, dt=1.0),
+           "solo_checked": kern.compiled(**shp, dt=1.0),
+           "kernels": {"batched": kern.with_reductions(None), "batched_checked": checked}}
+    for name, twin in (("batched", "cells"), ("batched_checked", "cells_checked")):
+        c, k = out[name], out["kernels"][name]
+        out[twin] = stencil.StencilCall(c.ir, k.label, k.bc, one_cell(c.program, c.dtype),
+                                        batched=k.rotations, dtype=c.dtype)
+    return out
 
 
 def check_batched(torch, call, bufs, scalars, live, odd, flip, what) -> dict:
@@ -4283,11 +4320,14 @@ def check_batched(torch, call, bufs, scalars, live, odd, flip, what) -> dict:
 def serve_sources(torch, kern, coupled=None) -> list:
     """The calls the serving phases launch, to build with every other source:
     :func:`serve_kernels` at both buckets' extents (one source serves
-    every extent), the bf16 batched kernel, and the batched coupled kernels
-    of ``SERVE_COUPLED``."""
+    every extent) with their one-cell twins, the bf16 and f16 batched
+    kernels, and the batched coupled kernels of ``SERVE_COUPLED``."""
     calls = serve_kernels(kern)
-    out = [calls[k] for k in ("batched", "batched_checked", "solo", "solo_checked")]
-    out.append(serve_kernels(kern.with_dtype(torch.bfloat16), SERVE_N // 2)["batched_checked"])
+    out = [calls[k] for k in ("batched", "batched_checked", "solo", "solo_checked", "cells",
+                              "cells_checked")]
+    for dt in (torch.bfloat16, torch.float16):
+        narrow = serve_kernels(kern.with_dtype(dt), SERVE_N // 2)
+        out += [narrow["batched"], narrow["batched_checked"]]
     for name, base, _ in (SERVE_COUPLED if coupled is not None else ()):
         v = coupled[name]
         out.append(v["kernel"].batched_call(**v["shapes"](base), **v["scalars"]))
@@ -4314,10 +4354,31 @@ def serve_kernel_checks(torch, kern, coupled=None, n=SERVE_N, device="cuda") -> 
             err = max(err, check_batched(torch, calls[name], bufs, scalars, live, odd, flip,
                                          f"{name}[flip {flip}]")["max_abs_err"])
     del bufs
-    bf = serve_kernels(kern.with_dtype(torch.bfloat16), n // 2)["batched_checked"]
-    bufs = {f: torch.rand((b, n // 2, n // 2, n // 2), generator=gen,
-                          device=device).to(torch.bfloat16) for f in ("T2", "T")}
-    check_batched(torch, bf, bufs, scalars, live, odd, 1, "batched_checked:bf16")
+    # 2 bytes, both parities; then a grid the tile does not divide, cut into
+    # chunks inside each column, at 4 and 2 bytes
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        narrow = serve_kernels(kern.with_dtype(dt), n // 2)
+        bufs = {f: torch.rand((b, n // 2, n // 2, n // 2), generator=gen,
+                              device=device).to(dt) for f in ("T2", "T")}
+        for name in ("batched", "batched_checked"):
+            for flip in (0, 1):
+                check_batched(torch, narrow[name], bufs, scalars, live, odd, flip,
+                              f"{name}:{tag}[flip {flip}]")
+        del bufs
+    nr = len(SERVE_RAGGED_LIVE)
+    lv = torch.tensor(SERVE_RAGGED_LIVE, device=device)
+    od = torch.tensor([i % 2 == 0 for i in range(nr)], device=device)
+    sc = [{"dt": 0.09 + 0.002 * i} if a else None for i, a in enumerate(SERVE_RAGGED_LIVE)]
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        ragged = serve_kernels(kern.with_dtype(dt), SERVE_RAGGED)
+        bufs = {f: torch.rand((nr, *SERVE_RAGGED), generator=gen, device=device).to(dt)
+                for f in ("T2", "T")}
+        for name in ("batched", "batched_checked"):
+            launch = ragged[name].derive(132 if device == "cpu" else spec_sm(torch), samples=nr)
+            require(launch.xc < SERVE_RAGGED[0] and SERVE_RAGGED[2] % ragged[name].shape.tile[0],
+                    f"the ragged case is not cut inside its columns: {launch}")
+            check_batched(torch, ragged[name], bufs, sc, lv, od, 1, f"{name}:{tag}:ragged")
+        del bufs
     if coupled is not None:
         for name, base, nb in SERVE_COUPLED:
             v = coupled[name]
@@ -4503,76 +4564,94 @@ def serve_main_path(torch, spec, kern, kern_plain, healthy=None) -> dict:
     return run
 
 
-def sample_step_cost(call) -> tuple[int, int]:
-    """(bytes, f32 operations) one live sample's in-place step needs: each
-    cell of a field that the update reads (the core box, the cells it
-    writes, shifted by each of its loads) once and each output's core-box
-    cells written once, at the storage width; the tap program at each core
-    cell. For a program without stages, staggered fields or a bc in the
-    launch, as the serving kernel is (the 7-point update reads no edge or
-    corner of T and writes only T2's interior)."""
-    import numpy as np
-
-    prog, ir = call.program, call.ir
-    require(not prog.stages and not any(any(o) for o in prog.offsets)
-            and all(o.bc is None for o in prog.outputs),
-            f"{call.label}: sample_step_cost counts plain all-parallel updates only")
-    base = tuple(ir.base_shape)
-    core = [(lo, n - hi) for (lo, hi), n in zip(ir.halo, base)]
-    n_core = math.prod(b - a for a, b in core)
-    cells = len(prog.outputs) * n_core
-    for f in ir.read_fields:
-        read = np.zeros(base, bool)
-        for name, shift in prog.core.loads:
-            if name == f:
-                read[tuple(slice(a + d, b + d) for (a, b), d in zip(core, shift))] = True
-        cells += int(read.sum())
-    return cells * call.dtype.itemsize, n_core * prog.ops_per_cell()
-
-
-def serve_times(torch, spec, kern, kern_plain, ptxas_of=None) -> dict:
-    """CUDA-event medians (20) at B = 16 x 128^3, every sample live: each
-    batched kernel's ms per launch beside its bound (the live samples'
-    bytes, :func:`sample_step_cost`, over 3.35 TB/s), its plain version's
-    ms, and the same step as 16 single-sample launches of the solo
-    kernel."""
+def serve_times(torch, spec, kern, kern_plain, ptxas_of=None) -> tuple:
+    """CUDA-event medians (20), every sample live, at each (samples, extent)
+    of ``SERVE_SPLIT``: each batched kernel (the column march) in turns
+    with its one-cell twin (column, one-cell, one-cell, column), first held
+    to its plain version, the kernel alone (``StencilCall.batch_launcher``),
+    and each once through ``run_batch`` (``call_ms``: the wrapper's host
+    work, the finish of the reductions too), beside its bound (the live
+    samples' bytes, ``teff.sample_step_cost``, over 3.35 TB/s), with ptxas's
+    registers of both; at one 512^3 sample also the solo kernel on that
+    sample. Returns
+    ``(rows, split)``: ``rows`` the kernels at B = 16 x 128^3 with their
+    plain version's ms and the same step as 16 single-sample launches of
+    the solo kernel, ``split`` every shape's turns."""
     from repro_torch.core import teff
     from repro_torch.kernels import codegen
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    b, n = SERVE_POLICY["max_batch"], SERVE_N
-    calls = serve_kernels(kern)
-    bufs = {f: 0.1 * torch.rand((b, n, n, n), generator=gen, device="cuda") for f in ("T2", "T")}
-    live = torch.ones(b, dtype=torch.bool, device="cuda")
-    odd = torch.tensor([i % 2 == 1 for i in range(b)], device="cuda")
-    scalars = [{"dt": 0.08 + 0.005 * (i % 4)} for i in range(b)]
-    solo = calls["kernels"]       # the same update and reductions, one sample a launch
-    rows = {}
-    for name in ("batched", "batched_checked"):
-        call = calls[name]
-        params = call.batch_params(scalars, "cuda")
-        ms = teff.measure(lambda: call.run_batch(bufs, scalars, live, odd, 0, params),
-                          iters=20, warmup=3).median_s * 1e3
-        plain_ms = teff.measure(lambda: codegen.evaluate_batch_torch(
-            call.program, call.batched, bufs, scalars, live, odd, 0), iters=20,
-            warmup=3).median_s * 1e3
-        one = solo[name]
+    dev = torch.device("cuda")
+    ptx = ptxas_of or {}
 
-        def singles():
-            for i in range(b):
-                one(T2=bufs["T2"][i], T=bufs["T"][i], dt=scalars[i]["dt"])
-        singles_ms = teff.measure(singles, iters=20, warmup=3).median_s * 1e3
-        nbytes, ops = (b * x for x in sample_step_cost(call))
-        by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
-        rows[call.label] = {"ms": ms, "plain_ms": plain_ms, "singles_ms": singles_ms,
-                            "bound_ms": max(by_bytes, by_ops) * 1e3,
-                            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                            "bytes": nbytes, "bound_over_ms": max(by_bytes, by_ops) * 1e3 / ms,
-                            "layout": codegen.layout_name(call.shape),
-                            "ptxas": (ptxas_of or {}).get(call.source)}
-    del bufs
-    torch.cuda.empty_cache()
-    return rows
+    def timed(fn):
+        return teff.measure(fn, iters=20, warmup=3).median_s * 1e3
+
+    rows, split = {}, []
+    for nb, n in SERVE_SPLIT:
+        calls = serve_kernels(kern, n)
+        bufs = {f: 0.1 * torch.rand((nb, n, n, n), generator=gen, device="cuda")
+                for f in ("T2", "T")}
+        live = torch.ones(nb, dtype=torch.bool, device="cuda")
+        odd = torch.tensor([i % 2 == 1 for i in range(nb)], device="cuda")
+        scalars = [{"dt": 0.08 + 0.005 * (i % 4)} for i in range(nb)]
+        pairs = (("batched", "cells"), ("batched_checked", "cells_checked"))
+        # held to the plain version first: the timed launches below step the
+        # buffers in place
+        for name, twin in pairs:
+            for tag in (name, twin)[:2 if (nb, n) == SERVE_SPLIT[0] else 1]:
+                check_batched(torch, calls[tag], bufs, scalars, live, odd, 0, f"{tag}@{nb}x{n}^3")
+        for name, twin in pairs:
+            call, cell = calls[name], calls[twin]
+            params = call.batch_params(scalars, "cuda")
+            turns = {"column": [], "one_cell": []}
+            alone = {"column": call.batch_launcher(bufs, params, live, odd),
+                     "one_cell": cell.batch_launcher(bufs, params, live, odd)}
+            for v in ("column", "one_cell", "one_cell", "column"):
+                turns[v].append(timed(alone[v]))
+            call_ms = {v: timed(lambda: c.run_batch(bufs, scalars, live, odd, 0, params))
+                       for v, c in (("column", call), ("one_cell", cell))}
+            nbytes, ops = (nb * x for x in teff.sample_step_cost(call))
+            by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+            bound = max(by_bytes, by_ops) * 1e3
+            ms, cell_ms = (sum(turns[v]) / 2 for v in ("column", "one_cell"))
+            launch = call.derive(spec_sm(torch), samples=nb)
+            entry = {"kernel": call.label, "samples": nb, "base": [n] * 3, "bound_ms": bound,
+                     "ms": turns["column"], "share": bound / ms, "layout":
+                     codegen.layout_name(call.shape), "grid": list(launch.grid), "xc": launch.xc,
+                     "ptxas": ptx.get(call.source), "call_ms": call_ms["column"],
+                     "one_cell_ms": turns["one_cell"], "one_cell_share": bound / cell_ms,
+                     "one_cell_call_ms": call_ms["one_cell"],
+                     "one_cell_layout": codegen.layout_name(cell.shape),
+                     "one_cell_ptxas": ptx.get(cell.source)}
+            if nb == 1:     # the solo kernel through its wrapper, which allocates its output
+                solo = calls["solo" if name == "batched" else "solo_checked"]
+                one = {f: t[0] for f, t in bufs.items()}
+                entry["solo_ms"] = timed(lambda: solo.run(one, scalars[0]))
+                entry["solo_share"] = bound / entry["solo_ms"]
+            split.append(entry)
+            if (nb, n) != SERVE_SPLIT[0]:
+                continue
+            plain_ms = timed(lambda: codegen.evaluate_batch_torch(
+                call.program, call.batched, bufs, scalars, live, odd, 0))
+            one_k = calls["kernels"][name]
+
+            def singles():
+                for i in range(nb):
+                    one_k(T2=bufs["T2"][i], T=bufs["T"][i], dt=scalars[i]["dt"])
+            rows[call.label] = {"ms": ms, "call_ms": call_ms["column"], "plain_ms": plain_ms,
+                                "singles_ms": timed(singles),
+                                "bound_ms": bound,
+                                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                                "bytes": nbytes, "bound_over_ms": bound / ms,
+                                "layout": codegen.layout_name(call.shape), "ptxas": ptx.get(
+                                    call.source), "one_cell_ms": cell_ms,
+                                "one_cell_call_ms": call_ms["one_cell"],
+                                "one_cell_layout": codegen.layout_name(cell.shape),
+                                "one_cell_ptxas": ptx.get(cell.source)}
+        del bufs
+        torch.cuda.empty_cache()
+    return rows, split
 
 
 def make_generic(ps):

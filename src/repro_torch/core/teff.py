@@ -27,6 +27,8 @@ import torch
 # NVIDIA's H100 SXM data sheet: f32 operations outside the tensor cores, at
 # the full 700 W power limit. The roofline's compute term on the card.
 H100_F32_FLOPS = 67e12
+# The same data sheet's memory rate: the bytes term of a kernel's bound.
+H100_BYTES_PER_S = 3.35e12
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +110,32 @@ def a_eff_from_ir(ir, itemsize: int, nsteps: int = 1, field_itemsizes=None) -> f
     its storage width (``field_itemsizes``, ``{field: itemsize}``, defaulting
     to ``itemsize``: 2 for bf16 or f16 fields), over the steps per launch."""
     return ir.io_bytes(itemsize, field_itemsizes=field_itemsizes) / max(int(nsteps), 1)
+
+
+def sample_step_cost(call) -> tuple[int, int]:
+    """(bytes, f32 operations) one live sample's in-place step of a batched
+    :class:`~repro_torch.kernels.stencil.StencilCall` needs: each cell of a
+    field that the update reads (the core box, the cells it writes, shifted
+    by each of its loads) once and each output's core-box cells written
+    once, at the storage width; the tap program at each core cell. For a
+    program without stages, staggered fields or a bc in the launch, as the
+    serving kernel is (its 7-point update reads no edge or corner of T and
+    writes only T2's interior); ``ValueError`` for any other."""
+    prog, ir = call.program, call.ir
+    if prog.stages or any(any(o) for o in prog.offsets) or any(o.bc for o in prog.outputs):
+        raise ValueError(f"{call.label}: the batched step cost counts plain all-parallel "
+                         "updates only")
+    base = tuple(ir.base_shape)
+    core = [(lo, n - hi) for (lo, hi), n in zip(ir.halo, base)]
+    n_core = math.prod(b - a for a, b in core)
+    cells = len(prog.outputs) * n_core
+    for f in ir.read_fields:
+        read = np.zeros(base, bool)
+        for name, shift in prog.core.loads:
+            if name == f:
+                read[tuple(slice(a + d, b + d) for (a, b), d in zip(core, shift))] = True
+        cells += int(read.sum())
+    return cells * call.dtype.itemsize, n_core * prog.ops_per_cell()
 
 
 def t_eff(a_eff_bytes: float, seconds: float) -> float:

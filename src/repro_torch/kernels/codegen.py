@@ -674,6 +674,11 @@ class KernelShape:
     # all-parallel k-step kernel (``kernels/codegen_steps.py``), whose
     # threads walk each phase's region, its tile and halo, in rounds
     block: int = 0
+    # the batched column march (``kernels/codegen_columns.py``), and the
+    # planes its loads run ahead of the plane it computes, beyond the taps'
+    # reach
+    column: bool = False
+    ahead: int = 0
 
     @property
     def threads(self) -> int:
@@ -689,10 +694,12 @@ def layout_name(shape: KernelShape) -> str:
     """A layout's short name: tile, planes per step, resident blocks, and
     ``/slab`` (synchronous staging) or ``/slab-async``, or ``/v{vec}`` (the
     pair layout, ``vec`` cells a thread), or ``/t{block}`` (threads of a
-    block apart from the tile's cells)."""
+    block apart from the tile's cells), or ``/col`` (the batched column
+    march) and ``/a{ahead}`` (its loads that many planes further ahead)."""
     kind = ("/slab-async" if shape.async_copies else "/slab") if shape.slab else ""
     kind += f"/v{shape.vec}" if shape.vec > 1 else ""
     kind += f"/t{shape.block}" if shape.block else ""
+    kind += "/col" + (f"/a{shape.ahead}" if shape.ahead else "") if shape.column else ""
     return f"{shape.tile[0]}x{shape.tile[1]}/p{shape.planes}/b{shape.min_blocks}{kind}"
 
 
@@ -939,30 +946,31 @@ def kernel_shape(program: TapProgram, dtype: torch.dtype = torch.float32) -> Ker
     return KernelShape(base_tile(program), planes, 5 if program.stages else 6)
 
 
-# The one-cell layout of a batched kernel (:func:`cuda_source`'s
-# ``batched``) by rank, whether the program has stages, whether it has
-# reductions and whether its fields are stored at 4 bytes (``wide``): the
-# fastest without spills at 16 samples a launch on the H100 at f32 and
-# bf16 (``launch/tune_stencil.py --batched [--dtype bfloat16]``: the
-# serving demo's diffusion step at 128^3 plain and with its check and
-# guard, porosity's fused update with its check at 1024^2, GP's with its
-# mass sums at 128^3; PERF.md, section 6). The guarded diffusion step
-# spills at 6 blocks (40 registers) at f32 but not at 8 (32); at bf16 the
-# other way round.
-BATCHED = {(3, False, False, True): KernelShape((32, 8), 2, 6),
-           (3, False, True, True): KernelShape((32, 8), 2, 8),
+# The layout of a batched kernel (:func:`cuda_source`'s ``batched``) by
+# rank, whether the program has stages, whether it has reductions and
+# whether its fields are stored at 4 bytes (``wide``): the fastest without
+# spills at 16 samples a launch on the H100 at f32 and bf16
+# (``launch/tune_stencil.py --batched [--dtype bfloat16]``: the serving
+# demo's diffusion step at 128^3 plain and with its check and guard,
+# porosity's fused update with its check at 1024^2, GP's with its mass sums
+# at 128^3; PERF.md, section 6). A 3-D program without stages takes the
+# column march (``kernels/codegen_columns.py``), its guarded check at 4 or
+# 5 resident blocks (it spills at 6); the others the one-cell layout.
+BATCHED = {(3, False, False, True): KernelShape((64, 4), 2, 8, column=True),
+           (3, False, True, True): KernelShape((32, 8), 2, 4, column=True, ahead=4),
            (2, True, True, True): KernelShape((128, 1), 2, 5),
            (3, True, True, True): KernelShape((32, 8), 4, 5),
-           (3, False, False, False): KernelShape((32, 8), 2, 6),
-           (3, False, True, False): KernelShape((32, 8), 2, 6),
+           (3, False, False, False): KernelShape((64, 4), 2, 8, column=True),
+           (3, False, True, False): KernelShape((32, 8), 2, 5, column=True),
            (2, True, True, False): KernelShape((128, 1), 4, 8),
            (3, True, True, False): KernelShape((32, 8), 4, 5)}
 
 
 def batch_shape(program: TapProgram, dtype: torch.dtype = torch.float32) -> KernelShape:
-    """The layout of a batched kernel for fields stored as ``dtype``: the
-    one-cell all-parallel layout at every storage width, :data:`BATCHED`'s
-    for its kind of program, else :func:`kernel_shape`'s one-cell layout."""
+    """The layout of a batched kernel for fields stored as ``dtype``:
+    :data:`BATCHED`'s for its kind of program (the column march or the
+    one-cell layout, one cell a thread at every storage width), else
+    :func:`kernel_shape`'s one-cell layout."""
     key = (program.ndim, bool(program.stages), bool(program.reductions), storage(dtype).wide)
     return BATCHED.get(key, kernel_shape(program))
 
@@ -1109,6 +1117,9 @@ def shared_bytes(program: TapProgram, shape: KernelShape | None = None) -> int:
     if shape.vec > 1:
         from . import codegen_pairs
         return codegen_pairs.shared_bytes(program, shape)
+    if shape.column:
+        from . import codegen_columns
+        return codegen_columns.shared_bytes(program, shape)
     cells = sum(math.prod(stage_tile(program, s, shape)) for s in program.stages)
     words = cells * queue_planes(program, shape)
     if shape.slab and shape.async_copies:
@@ -1215,14 +1226,22 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
     by a parity, each output written in place into its own buffer, each
     sample's scalars read from a ``(B, params)`` array, dead samples
     skipped, and the partials indexed by (sample, block). It takes the
-    one-cell all-parallel layout only."""
+    one-cell all-parallel layout, or with ``shape.column`` the column march
+    of ``kernels/codegen_columns.py``."""
     if program.ndim > 3:
         raise NotImplementedError("the generated CUDA kernel handles 1-3 dimensions")
     st = storage(dtype)
     shape = shape or kernel_shape(program)
+    if shape.column:
+        if batched is None or part:
+            raise ValueError(f"the column march {layout_name(shape)} is a batched layout "
+                             "and has no timing parts")
+        from . import codegen_columns
+        return codegen_columns.cuda_source(program, shape, st, batched)
     if batched is not None and (shape.vec > 1 or shape.slab or program.layout or part):
-        raise ValueError(f"a batched launch takes the one-cell all-parallel layout, not "
-                         f"{layout_name(shape)}" + (" marched" if program.layout else ""))
+        raise ValueError(f"a batched launch takes the one-cell all-parallel layout or the "
+                         f"column march, not {layout_name(shape)}"
+                         + (" marched" if program.layout else ""))
     if shape.vec > 1:
         if st.wide or shape.slab or program.layout:
             raise ValueError(f"the pair layout {layout_name(shape)} serves 2-byte fields of an "
@@ -1563,32 +1582,39 @@ def cuda_source(program: TapProgram, shape: KernelShape | None = None,
         _emit_step_store(w, program, shape, fcls, "  ", "xs - kPlanes", "cur ^ 1")
     if part:
         w(f"  if (sink == 1.0e38f) h0[0] = {st.narrow('sink')};")
-    if n_red:
-        w("  // Fold each reduction over the block: within each warp by shuffles,")
-        w("  // then over the warps' values, into the block's own slot of its")
-        w("  // partials. No float atomics, so the value is the same on every run.")
-        w(f"  __shared__ float red[kWarps * {n_red}];")
-        w("  const int lane = tid & 31, warp = tid >> 5;")
-        w("  const int64_t bid = (static_cast<int64_t>(blockIdx.z) * gridDim.y + "
-          "blockIdx.y) * gridDim.x + blockIdx.x;")
-        for r, (_, red) in enumerate(program.reductions):
-            shfl = f"__shfl_xor_sync(0xffffffffu, acc{r}, o)"
-            w(f"  for (int o = 16; o > 0; o >>= 1) acc{r} = {_combine(red.combine, f'acc{r}', shfl)};")
-            w(f"  if (lane == 0) red[{r} * kWarps + warp] = acc{r};")
-        w("  __syncthreads();")
-        w("  if (warp == 0) {")
-        for r, (_, red) in enumerate(program.reductions):
-            shfl = f"__shfl_xor_sync(0xffffffffu, a{r}, o)"
-            w(f"    float a{r} = lane < kWarps ? red[{r} * kWarps + lane] : 0.0f;")
-            w(f"    for (int o = 16; o > 0; o >>= 1) a{r} = {_combine(red.combine, f'a{r}', shfl)};")
-            w(f"    if (lane == 0) part{r}[bid] = a{r};")
-        w("  }")
+    emit_block_fold(w, program)
     w("}")
     w("")
     w("}  // namespace")
     w("")
     _emit_entry(w, program, st, pipe, batched)
     return "\n".join(lines) + "\n"
+
+
+def emit_block_fold(w, program: TapProgram) -> None:
+    """Fold each reduction's ``acc{r}`` over the block into its partial."""
+    n_red = len(program.reductions)
+    if not n_red:
+        return
+    w("  // Fold each reduction over the block: within each warp by shuffles,")
+    w("  // then over the warps' values, into the block's own slot of its")
+    w("  // partials. No float atomics, so the value is the same on every run.")
+    w(f"  __shared__ float red[kWarps * {n_red}];")
+    w("  const int lane = tid & 31, warp = tid >> 5;")
+    w("  const int64_t bid = (static_cast<int64_t>(blockIdx.z) * gridDim.y + "
+      "blockIdx.y) * gridDim.x + blockIdx.x;")
+    for r, (_, red) in enumerate(program.reductions):
+        shfl = f"__shfl_xor_sync(0xffffffffu, acc{r}, o)"
+        w(f"  for (int o = 16; o > 0; o >>= 1) acc{r} = {_combine(red.combine, f'acc{r}', shfl)};")
+        w(f"  if (lane == 0) red[{r} * kWarps + warp] = acc{r};")
+    w("  __syncthreads();")
+    w("  if (warp == 0) {")
+    for r, (_, red) in enumerate(program.reductions):
+        shfl = f"__shfl_xor_sync(0xffffffffu, a{r}, o)"
+        w(f"    float a{r} = lane < kWarps ? red[{r} * kWarps + lane] : 0.0f;")
+        w(f"    for (int o = 16; o > 0; o >>= 1) a{r} = {_combine(red.combine, f'a{r}', shfl)};")
+        w(f"    if (lane == 0) part{r}[bid] = a{r};")
+    w("  }")
 
 
 def _emit_entry(w, program: TapProgram, st: Storage, pipe: bool,
@@ -1994,7 +2020,8 @@ def _emit_step_store(w, program: TapProgram, shape: KernelShape, fcls, ind: str,
 
 
 def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
-                 store=None, st: Storage = _STORAGES[torch.float32]) -> None:
+                 store=None, st: Storage = _STORAGES[torch.float32],
+                 in_place: bool = False) -> None:
     """Each output's direct program at a cell (x, y, z) outside the core.
     By default (the single-step kernel) its loads are indexed from the
     block's base (``at{class}``; a source cell across the domain in 64
@@ -2003,10 +2030,14 @@ def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
     tap ``off`` of a field at the cell ``coords``, three C expressions, its
     value in f32), ``prev(op, coords)`` and ``store(k, op, value)``. The
     value ``v{k}`` is rounded to storage ``st`` before it is stored and
-    folded."""
+    folded. ``in_place`` (each output written into the buffer it reads its
+    previous value from, the batched column march): a cell that keeps its
+    own previous value is not stored, so it keeps its bits, and is loaded
+    only where a reduction folds it."""
     axes3 = program.axes3
     zs = program.z_strided
     ref = _printer("l", "?", "e")
+    folded = {f for _, red in program.reductions for f in red.operands}
     for k, op in enumerate(program.outputs):
         co = fcls[op.name]
         modes, rings = program.to3(op.modes, "all"), program.to3(op.rings, 0)
@@ -2019,6 +2050,8 @@ def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
         if staggered:
             w(f"{ind}if (x < m{co}x && y < m{co}y && z < m{co}z) {{  // its own extent")
             ind += "  "
+        if in_place:
+            w(f"{ind}bool keep{k} = false;  // the cell keeps its own value: no store")
         w(f"{ind}{{  // output {op.name}" + (f", bc {bc.kind}" if bc else ""))
         body = ind + "  "
         ctype = "int64_t" if access is None else "int"
@@ -2066,10 +2099,21 @@ def _emit_direct(w, program: TapProgram, fidx, fcls, access=None, prev=None,
         _emit_ops(w, inner, op.ops, "e", ref)
         w(f"{inner}v{k} = {st.rounded(ref(op.result))};")
         w(f"{body}}} else {{")
-        w(f"{inner}v{k} = {before};")
+        if not in_place:
+            w(f"{inner}v{k} = {before};")
+        else:
+            keep = f"keep{k} = true;" + (f" v{k} = {before};" if op.name in folded else "")
+            if mapped:
+                same = " && ".join(f"{X} == {ax}" for X, ax in zip(coords, "xyz"))
+                w(f"{inner}if ({same}) {{ {keep} }} else {{ v{k} = {before}; }}")
+            else:
+                w(f"{inner}{keep}")
         w(f"{body}}}")
         w(f"{ind}}}")
         val = st.narrow(f"v{k}")
-        w(f"{ind}" + (f"h{k}[at{co}] = {val};" if store is None else store(k, op, val)))
+        if in_place:
+            w(f"{ind}if (!keep{k}) h{k}[at{co}] = {val};")
+        else:
+            w(f"{ind}" + (f"h{k}[at{co}] = {val};" if store is None else store(k, op, val)))
         if staggered:
             w("      }")

@@ -118,6 +118,13 @@ SLAB_WAVES = 16
 # or within 2% of it for each.
 BATCH_WAVES = 16
 BATCH_WAVES_NARROW = 8
+# The same for the batched column march (``codegen.KernelShape.column``,
+# ``kernels/codegen_columns.py``): 8 measured best for the guarded serving
+# step at 4 bytes and within 2% of the best for the plain one; 4 at 2
+# bytes, where the guarded step ran 13% slower at 8 (``launch/tune_stencil.py
+# --batched``, PERF.md).
+BATCH_COLUMN_WAVES = 8
+BATCH_COLUMN_WAVES_NARROW = 4
 _MAX_GRID_YZ = 65535
 _INT32_MAX = 2 ** 31 - 1
 
@@ -271,8 +278,10 @@ class StencilCall:
 
     With ``batched`` (the kernel's rotations) it is the batched kernel of a
     batched solve (:meth:`run_batch`): the sample axis of
-    ``codegen.cuda_source``, in the one-cell all-parallel layout at every
-    storage width; its launches count under ``"{label}/batched"``."""
+    ``codegen.cuda_source``, one cell a thread at every storage width, a 3-D
+    program without stages in the column march (``codegen.BATCHED``,
+    ``kernels/codegen_columns.py``); its launches count under
+    ``"{label}/batched"``."""
 
     def __init__(self, ir: StencilIR, label: str,
                  bcs: Mapping[str, BoundaryCondition] | None = None,
@@ -456,6 +465,22 @@ class StencilCall:
         shape_launches[self.label, base] += 1
         return self.finish_batch(parts, nb)
 
+    def batch_launcher(self, bufs: Mapping[str, torch.Tensor], params: torch.Tensor,
+                       live: torch.Tensor, odd: torch.Tensor, flip: int = 0):
+        """A function of no arguments that launches the batched kernel on
+        the card with arguments made once here: the kernel's device time
+        without :meth:`run_batch`'s host work (its checks, the partials'
+        allocation, the finish of the reductions), for timing. Its launches
+        are not counted and its partials are not read."""
+        dev = next(iter(bufs.values())).device
+        _, _, args = self.batch_arguments(bufs, params, live, odd, flip, sm_count(dev))
+        lib, stream = self._library(), stream_of(dev)
+
+        def launch():
+            with torch.cuda.device(dev):
+                lib.launch(*args, stream)
+        return launch
+
     def batch_params(self, scalars, device=None, divisor=codegen.reciprocal) -> torch.Tensor:
         """The ``(B, params)`` f32 array a batched launch reads its scalars
         from: each sample's parameters evaluated on the host from its own
@@ -613,6 +638,8 @@ class StencilCall:
 def waves_attr(shape: codegen.KernelShape, steps: bool, batched: int = 0) -> str:
     """The name of the module constant that sets a layout's waves
     (``batched``: a batched launch's storage bytes a cell, else 0)."""
+    if batched and shape is not None and shape.column:
+        return "BATCH_COLUMN_WAVES" if batched == 4 else "BATCH_COLUMN_WAVES_NARROW"
     if batched:
         return "BATCH_WAVES" if batched == 4 else "BATCH_WAVES_NARROW"
     return "SLAB_WAVES" if shape.async_copies else "STEPS_WAVES" if steps else "WAVES"

@@ -7,7 +7,7 @@
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --split [--dtype bfloat16] [--sass DIR]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --steps --split [--sass DIR]
     PYTHONPATH=src python -m repro_torch.launch.tune_stencil --hand [--against DIR] [--sass DIR]
-    PYTHONPATH=src python -m repro_torch.launch.tune_stencil --batched [--dtype bfloat16]
+    PYTHONPATH=src python -m repro_torch.launch.tune_stencil --batched [--dtype bfloat16] [--sass DIR]
 
 For the coupled solvers' kernels at their full sizes (porosity 8192^2, GP
 512^3) and the Fig. 1 step at 512^3, it builds each candidate
@@ -58,12 +58,23 @@ variant of its k-step layout (:data:`HAND_VARIANTS`) and ``--waves``, each
 launch bitwise to the plain version, with ``--sass DIR`` its SASS a cell by
 class and barrier segment (:func:`sass_hand`). ``--batched`` times the
 batched kernels of a batched solve (the sample axis) in each layout and
-number of waves, and a serving chunk (:func:`tune_batched`). It needs the
-card and measures nothing on the CPU.
+number of waves (:func:`tune_batched`): for the serving step, plain and
+guarded, the column march's candidates (:data:`COLUMN_3D`: tile, planes
+unrolled, resident blocks, loads ahead; waves :data:`COLUMN_WAVES_TRIED`)
+beside its one-cell layout before the redesign (:data:`ONE_CELL`), each
+timed alone and through ``run_batch``; then the split (:func:`batch_split`) of the
+serving step at :data:`BATCH_SPLIT`'s shapes (B = 1 x 512^3 beside the solo
+step, 16 and 64 x 128^3, 8 x 64^3), the one-cell layout beside the
+chosen one, with ``--sass DIR`` the march loop's SASS a cell
+(:func:`sass_loop`, :func:`sass_column_loop`) and its ``LDG.E`` against
+``LDG.E.CONSTANT`` loads (:func:`sass_loads`); then at f32 a serving chunk
+in the column march and in the one-cell layout, in turns
+(:func:`serve_chunk`). It needs the card and measures nothing on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import inspect
@@ -969,14 +980,27 @@ def tune_hand(iters: int, waves: list | None, against: str | None, sass: str | N
 # batched layouts (``StencilCall(batched=)``) tried, by rank and whether the
 # program has stages: (z, y) cells, planes per step, resident blocks (at
 # most 2048 threads an SM)
-BATCHED_3D = [Shape(t, p, b) for t in ((32, 8), (32, 4), (64, 4), (64, 2)) for p in (1, 2)
-              for b in (4, 5, 6, 8)]
 BATCHED_STAGED_3D = [Shape(t, p, b) for t in ((32, 8), (32, 4), (64, 4)) for p in (2, 4)
                      for b in (3, 4, 5, 6)]
 BATCHED_2D = [Shape(t, p, b) for t in ((128, 1), (256, 1), (512, 1)) for p in (2, 4)
               for b in (3, 4, 5, 6, 8) if b * t[0] <= 2048]
+# the column march of a 3-D program without stages (``kernels/codegen_columns.py``):
+# (z, y) cells, planes of the march unrolled, resident blocks, planes the loads
+# run ahead
+COLUMN_3D = [Shape(t, p, b, column=True, ahead=a) for t in ((32, 8), (64, 4))
+             for p, b, a in ((2, 8, 0), (2, 8, 2), (2, 6, 0), (2, 5, 0), (2, 4, 0), (2, 4, 2),
+                             (2, 4, 4), (4, 4, 2))]
+# the one-cell layouts the serving step took before the column march (the
+# fastest of that sweep), by reductions and whether the fields are stored at
+# 4 bytes: the baseline the split and chip_smoke time the column march beside
+ONE_CELL = {(False, True): Shape((32, 8), 2, 6), (True, True): Shape((32, 8), 2, 8),
+            (False, False): Shape((32, 8), 2, 6), (True, False): Shape((32, 8), 2, 6)}
 BATCH = 16
 BATCH_WAVES_TRIED = (4, 8, 16, 24)
+COLUMN_WAVES_TRIED = (4, 8, 16)
+# the split's (samples, grid extent): one 512^3 sample beside the solo step,
+# the serving bucket at 16 and 64 samples, the small bucket
+BATCH_SPLIT = ((1, 512), (16, 128), (64, 128), (8, 64))
 
 
 def batched_kernels(dev) -> dict:
@@ -1004,133 +1028,366 @@ def batched_kernels(dev) -> dict:
     return out
 
 
-def batched_candidates(program) -> list:
-    if program.ndim == 3:
-        return BATCHED_STAGED_3D if program.stages else BATCHED_3D
-    return BATCHED_2D
+def one_cell(program, dtype: torch.dtype) -> Shape:
+    """The one-cell batched layout of a 3-D program without stages before
+    the column march (:data:`ONE_CELL`)."""
+    return ONE_CELL[(bool(program.reductions), dtype.itemsize == 4)]
+
+
+def batched_candidates(program, dtype: torch.dtype = torch.float32) -> list:
+    """The layouts :func:`tune_batched` times: for a 3-D program without
+    stages its one-cell baseline and the column march's candidates, else
+    the one-cell layouts of its rank."""
+    if program.ndim == 3 and not program.stages:
+        return [one_cell(program, dtype), *COLUMN_3D]
+    return BATCHED_STAGED_3D if program.ndim == 3 else BATCHED_2D
+
+
+def waves_tried(shape) -> tuple:
+    return COLUMN_WAVES_TRIED if shape.column else BATCH_WAVES_TRIED
+
+
+def serve_batch(k, base, porosity, gen, dev, nb: int, dtype: torch.dtype, serve: bool = True):
+    """``(bufs, scalars, live, odd)`` of ``nb`` all-live samples of both
+    parities: the serving step's (``serve``) fields at a tenth of
+    ``random_fields``' and its dt per sample, another program's at their
+    own."""
+    bufs = random_fields(k, base, porosity, gen, dev, (nb,))
+    if serve:
+        bufs = {f: 0.1 * t for f, t in bufs.items()}
+        scalars = [{"dt": 0.08 + 0.005 * (i % 4)} for i in range(nb)]
+    else:
+        scalars = [scalars_of(k)] * nb
+    live = torch.ones(nb, dtype=torch.bool, device=dev)
+    odd = torch.tensor([i % 2 == 1 for i in range(nb)], device=dev)
+    return {f: t.to(dtype) for f, t in bufs.items()}, scalars, live, odd
+
+
+def batch_bound_ms(call, nb: int) -> float:
+    """The least time the card could take for one launch of the batched
+    ``call`` over ``nb`` live samples: the bytes of each sample's step over
+    3.35 TB/s (``teff.H100_BYTES_PER_S``), for a plain all-parallel update
+    the cells it reads and writes (``teff.sample_step_cost``), for any other
+    every field it reads and writes once (``teff.a_eff_from_ir``)."""
+    try:
+        nbytes = teff.sample_step_cost(call)[0]
+    except ValueError:
+        nbytes = teff.a_eff_from_ir(call.ir, call.dtype.itemsize)
+    return nb * nbytes / teff.H100_BYTES_PER_S * 1e3
+
+
+def held_to_plain(t, bufs, scalars, live, odd, want, r_want, params) -> bool:
+    """One launch of batched call ``t`` on copies of ``bufs`` against the
+    plain version's ``want`` and ``r_want``: fields bitwise, max reductions
+    bitwise, sums within 1e-5."""
+    got = {f: x.clone() for f, x in bufs.items()}
+    r_got = t.run_batch(got, scalars, live, odd, 0, params)
+    return all(torch.equal(got[f], want[f]) for f in got) and all(
+        torch.equal(r_got[m], r_want[m]) if r.combine == "max" else
+        torch.allclose(r_got[m], r_want[m], rtol=1e-5, atol=0.0)
+        for m, r in t.program.reductions)
 
 
 def tune_batched(iters: int, names: list | None = None, dtype: torch.dtype = torch.float32,
-                 chunk: bool = True) -> None:
+                 chunk: bool = True, sass: str | None = None) -> None:
     """Each batched program (:func:`batched_kernels`) at ``BATCH`` samples
-    in every layout of :func:`batched_candidates` and each of
-    ``BATCH_WAVES_TRIED``: the CUDA-event median ms of ``run_batch`` (the
-    launch and the finish of its per-sample reductions) on all-live samples
-    of both parities, the chunk planes ``xc``, ptxas's registers and spills,
-    each launch held to the plain version (``codegen.evaluate_batch_torch``:
-    fields bitwise, max reductions bitwise, sums within 1e-5; one that
-    differs is marked ``differs`` and not timed); one JSON line a program,
-    beside ``codegen.batch_shape`` and ``stencil.BATCH_WAVES``
-    (``BATCH_WAVES_NARROW`` at 2 bytes), which are this tool's choice. With
-    ``chunk``, then one serving chunk of the demo (:func:`serve_chunk`). The
-    fields are stored as ``dtype`` (rounded once from the f32 ones)."""
+    in every layout of :func:`batched_candidates` and each of its waves
+    (``BATCH_WAVES_TRIED``; for the column march ``COLUMN_WAVES_TRIED``):
+    the CUDA-event median ms of the kernel alone (``StencilCall.batch_launcher``) and
+    of ``run_batch`` (``call_ms``: the launch and the wrapper's host work,
+    the finish of its per-sample reductions too) on all-live samples of both
+    parities, the chunk planes ``xc``, ptxas's registers and spills, each
+    launch held to
+    the plain version (``codegen.evaluate_batch_torch``: fields bitwise, max
+    reductions bitwise, sums within 1e-5; one that differs is marked
+    ``differs`` and not timed); one JSON line a program, beside
+    ``codegen.batch_shape`` and its waves (``stencil.BATCH_WAVES``,
+    ``BATCH_WAVES_NARROW`` at 2 bytes, ``BATCH_COLUMN_WAVES``), which are
+    this tool's choice. Then the split (:func:`batch_split`), with ``sass``
+    the SASS counts of its kernels' march loops, and with ``chunk`` one
+    serving chunk of the demo (:func:`serve_chunk`). The fields are stored
+    as ``dtype`` (rounded once from the f32 ones)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261018)
     todo = batched_kernels(dev)
     todo = {n: (k.with_dtype(dtype), base, por) for n, (k, base, por) in todo.items()
             if not names or n in names}
-    tuned = {}
+    tuned, best = {}, {}
     for n, (k, base, _) in todo.items():
         call = k.batched_call(**field_shapes(k, base), **scalars_of(k))
         tuned[n] = (call, [stencil.StencilCall(call.ir, k.label, k.bc, shape,
                                                batched=k.rotations, dtype=dtype)
-                           for shape in batched_candidates(call.program)])
+                           for shape in batched_candidates(call.program, dtype)])
     t0 = time.perf_counter()
     logs = iter(build.compile_many([(t.lib_name, t.source) for _, ts in tuned.values()
                                     for t in ts]))
     print(json.dumps({"built": sum(len(ts) for _, ts in tuned.values()),
                       "seconds": time.perf_counter() - t0}), flush=True)
-    attr = stencil.waves_attr(None, False, dtype.itemsize)
-    default_waves = getattr(stencil, attr)
     for n, (k, base, porosity) in todo.items():
         call, variants = tuned[n]
-        bufs = random_fields(k, base, porosity, gen, dev, (BATCH,))
-        if n.startswith("serve"):
-            bufs = {f: 0.1 * t for f, t in bufs.items()}
-            scalars = [{"dt": 0.08 + 0.005 * (i % 4)} for i in range(BATCH)]
-        else:
-            scalars = [scalars_of(k)] * BATCH
-        bufs = {f: t.to(dtype) for f, t in bufs.items()}
-        live = torch.ones(BATCH, dtype=torch.bool, device=dev)
-        odd = torch.tensor([i % 2 == 1 for i in range(BATCH)], device=dev)
+        bufs, scalars, live, odd = serve_batch(k, base, porosity, gen, dev, BATCH, dtype,
+                                               n.startswith("serve"))
         want = {f: t.clone() for f, t in bufs.items()}
         r_want = codegen.evaluate_batch_torch(call.program, call.batched, want, scalars, live, odd)
         row = {}
         for t in variants:
             found = ptxas(next(logs).log)
             params = t.batch_params(scalars, dev)
-            for w in BATCH_WAVES_TRIED:
+            attr = stencil.waves_attr(t.shape, False, dtype.itemsize)
+            default_waves = getattr(stencil, attr)
+            for w in waves_tried(t.shape):
                 setattr(stencil, attr, w)
                 t._batch_launches.clear()
-                got = {f: x.clone() for f, x in bufs.items()}
-                r_got = t.run_batch(got, scalars, live, odd, 0, params)
-                if not all(torch.equal(got[f], want[f]) for f in got) or not all(
-                        torch.equal(r_got[m], r_want[m]) if r.combine == "max" else
-                        torch.allclose(r_got[m], r_want[m], rtol=1e-5, atol=0.0)
-                        for m, r in t.program.reductions):
+                if not held_to_plain(t, bufs, scalars, live, odd, want, r_want, params):
                     # recorded, not timed: the sweep goes on to the other layouts
                     row[f"{layout_name(t.shape)}/w{w}"] = {"differs": True, **found}
                     continue
-                ms = teff.measure(lambda: t.run_batch(got, scalars, live, odd, 0, params),
-                                  iters=iters, warmup=3).median_s * 1e3
+                ms = teff.measure(t.batch_launcher(bufs, params, live, odd), iters=iters,
+                                  warmup=3).median_s * 1e3
+                call_ms = teff.measure(lambda: t.run_batch(bufs, scalars, live, odd, 0, params),
+                                       iters=iters, warmup=3).median_s * 1e3
                 launch = t.derive(stencil.sm_count(dev), samples=BATCH)
-                row[f"{layout_name(t.shape)}/w{w}"] = {"ms": ms, "xc": launch.xc,
+                row[f"{layout_name(t.shape)}/w{w}"] = {"ms": ms, "call_ms": call_ms,
+                                                       "xc": launch.xc,
                                                        "blocks": launch.n_blocks, **found}
-                del got
-        setattr(stencil, attr, default_waves)
+            setattr(stencil, attr, default_waves)
+            t._batch_launches.clear()
         del bufs, want
+        fastest = min(((v["ms"], k) for k, v in row.items()
+                       if "ms" in v and not v["spill_bytes"] and "/col" in k), default=None)
+        if fastest is not None and n.startswith("serve"):
+            t = next(t for t in variants if fastest[1].startswith(layout_name(t.shape) + "/w"))
+            best[n] = (t.shape, int(fastest[1].rsplit("/w", 1)[1]))
+        waves = stencil.waves_of(call.shape, False, dtype.itemsize)
         print(json.dumps({"kernel": n, "dtype": str(dtype), "samples": BATCH, "base": list(base),
-                          "chosen": f"{layout_name(call.shape)}/w{default_waves}",
+                          "bound_ms": batch_bound_ms(call, BATCH),
+                          "chosen": f"{layout_name(call.shape)}/w{waves}",
                           "candidates": row}), flush=True)
+    if not names or any(n.startswith("serve") for n in names):
+        batch_split(iters, dtype, sass, best)
     if chunk:
         print(json.dumps({"chunk": serve_chunk()}), flush=True)
 
 
+def sass_loads(text: str) -> dict:
+    """Global loads of a kernel's SASS by kind: ``LDG.E`` (through L1) and
+    ``LDG.E.CONSTANT`` (the read-only path, ``__ldg``)."""
+    ops = re.findall(r"\bLDG\.E(?:\.[A-Z0-9_]+)*", text)
+    return {"LDG.E": sum(".CONSTANT" not in o for o in ops),
+            "LDG.E.CONSTANT": sum(".CONSTANT" in o for o in ops)}
+
+
+_SASS_OP = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_.]+)\s*([^;]*);")
+
+
+def sass_column_loop(text: str, planes: int) -> dict:
+    """The column march's core loop in SASS (``cuobjdump -sass``): of the
+    backward branches, the widest loop that stores and loads only through
+    the read-only path (the loops of the planes outside the core load the
+    direct program's taps through L1), and its instructions and global
+    loads a cell, over the ``planes`` it unrolls."""
+    ins = [(int(m.group(1), 16), m.group(2), m.group(3))
+           for m in map(_SASS_OP.match, text.splitlines()) if m]
+    loops = [(int(t, 16), a) for a, op, arg in ins if op.startswith("BRA")
+             for t in re.findall(r"0x([0-9a-f]+)\s*$", arg) if int(t, 16) < a]
+    best = []
+    for lo, hi in loops:
+        body = [op for a, op, _ in ins if lo <= a <= hi]
+        plain = any(op.startswith("LDG") and "CONSTANT" not in op for op in body)
+        if any(op.startswith("STG") for op in body) and not plain and len(body) > len(best):
+            best = body
+    if not best:
+        return {}
+    return {"instructions": len(best) / planes,
+            "loads": sum(op.startswith("LDG") for op in best) / planes,
+            "integer": sum(op.split(".")[0] in _INTEGER for op in best) / planes,
+            "fp": sum(op.split(".")[0] in ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL")
+                      for op in best) / planes}
+
+
+def batch_split(iters: int, dtype: torch.dtype = torch.float32, sass: str | None = None,
+                best: dict | None = None) -> None:
+    """The serving step, plain and guarded, at each of ``BATCH_SPLIT``'s
+    (samples, extent), all samples live: the CUDA-event median ms (the
+    kernel alone, and ``call_ms`` through ``run_batch``) of the
+    one-cell layout it took before the column march (:data:`ONE_CELL`, at
+    ``BATCH_WAVES``) and of ``codegen.batch_shape``'s layout at its waves
+    (or ``best[name]``'s ``(layout, waves)``, the sweep's fastest without
+    spills), in turns over two rounds, each beside its bound
+    (:func:`batch_bound_ms` of the live samples) and launch; at one 512^3
+    sample also the solo step of the same program (``kernel.compiled``).
+    Every launch is held to the plain version first. With ``sass`` each
+    library's SASS goes to that directory, and the line counts its march
+    loop's instructions a cell (:func:`sass_loop`) and its global loads by
+    kind (:func:`sass_loads`)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20261019)
+    todo = {n: v for n, v in batched_kernels(dev).items() if n.startswith("serve")}
+    calls, waves = {}, {}
+    for n, (k, _, _) in todo.items():
+        k = k.with_dtype(dtype)
+        shp = field_shapes(k, (8, 8, 8))
+        new = k.batched_call(**shp, **scalars_of(k))
+        if best and n in best:
+            new = stencil.StencilCall(new.ir, k.label, k.bc, best[n][0], batched=k.rotations,
+                                      dtype=dtype)
+        waves[n] = best[n][1] if best and n in best else \
+            stencil.waves_of(new.shape, False, dtype.itemsize)
+        old = stencil.StencilCall(new.ir, k.label, k.bc, one_cell(new.program, dtype),
+                                  batched=k.rotations, dtype=dtype)
+        calls[n] = {"one_cell": old, "column": new}
+    t0 = time.perf_counter()
+    flat = [c for cs in calls.values() for c in cs.values()]
+    builds = build.compile_many([(c.lib_name, c.source) for c in flat])
+    found = {c.lib_name: ptxas(b.log) for c, b in zip(flat, builds)}
+    print(json.dumps({"split_built": len(flat), "seconds": time.perf_counter() - t0}), flush=True)
+    counts = {}
+    if sass and cuobjdump():
+        pathlib.Path(sass).mkdir(parents=True, exist_ok=True)
+        for n, cs in calls.items():
+            for v, c in cs.items():
+                path = pathlib.Path(sass) / f"batched_{n}_{v}_{dtype_name(dtype)}.sass"
+                write_sass(build.library_path(c.lib_name, c.source), path)
+                text = path.read_text()
+                loop = (sass_column_loop(text, c.shape.planes) if c.shape.column
+                        else sass_loop(text, c.shape.planes)["per_cell"])
+                counts[(n, v)] = {"per_cell": loop, **sass_loads(text)}
+    n_sm = stencil.sm_count(dev)
+    for nb, n in BATCH_SPLIT:
+        for name, (k, _, _) in todo.items():
+            k = k.with_dtype(dtype)
+            runs = {}
+            for v, proto in calls[name].items():
+                runs[v] = stencil.StencilCall(k.batched_call(**field_shapes(k, (n,) * 3), dt=1.0).ir,
+                                              k.label, k.bc, proto.shape, batched=k.rotations,
+                                              dtype=dtype)
+            attr = stencil.waves_attr(runs["column"].shape, False, dtype.itemsize)
+            default_waves = getattr(stencil, attr)
+            setattr(stencil, attr, waves[name])
+            bufs, scalars, live, odd = serve_batch(k, (n,) * 3, False, gen, dev, nb, dtype)
+            want = {f: t.clone() for f, t in bufs.items()}
+            first = runs["column"]
+            r_want = codegen.evaluate_batch_torch(first.program, first.batched, want, scalars,
+                                                  live, odd)
+            params = first.batch_params(scalars, dev)
+            for v, t in runs.items():
+                if not held_to_plain(t, bufs, scalars, live, odd, want, r_want, params):
+                    raise RuntimeError(f"{t.label} {v} at {nb} x {n}^3 differs from its plain "
+                                       "version")
+            del want
+            ms = {v: [] for v in runs}
+            call_ms = {v: [] for v in runs}
+            for _ in range(2):
+                for v, t in runs.items():
+                    ms[v].append(teff.measure(t.batch_launcher(bufs, params, live, odd),
+                                              iters=iters, warmup=3).median_s * 1e3)
+                    call_ms[v].append(teff.measure(
+                        lambda: t.run_batch(bufs, scalars, live, odd, 0, params), iters=iters,
+                        warmup=3).median_s * 1e3)
+            bound = batch_bound_ms(first, nb)
+            row = {"kernel": name, "dtype": str(dtype), "samples": nb, "base": [n] * 3,
+                   "bound_ms": bound}
+            for v, t in runs.items():
+                launch = t.derive(n_sm, samples=nb)
+                row[v] = {"layout": layout_name(t.shape), "ms": ms[v], "call_ms": call_ms[v],
+                          "share": bound / min(ms[v]), "grid": list(launch.grid),
+                          "xc": launch.xc, "blocks": launch.n_blocks,
+                          "ptxas": found[calls[name][v].lib_name],
+                          "sass": counts.get((name, v))}
+            if nb == 1:
+                solo = k.with_reductions(k.reductions).compiled(**field_shapes(k, (n,) * 3),
+                                                                dt=1.0)
+                fields = {f: t[0] for f, t in bufs.items()}
+                sc = scalars[0]
+                solo_ms = [teff.measure(lambda: solo.run(fields, sc), iters=iters,
+                                        warmup=3).median_s * 1e3 for _ in range(2)]
+                row["solo"] = {"layout": layout_name(solo.shape), "ms": solo_ms,
+                               "share": bound / min(solo_ms)}
+            row["column"]["waves"] = waves[name]
+            setattr(stencil, attr, default_waves)
+            print(json.dumps({"batch_split": row}), flush=True)
+            del bufs
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+@contextlib.contextmanager
+def one_cell_batched():
+    """``codegen.BATCHED`` with the serving step's one-cell layouts
+    (:data:`ONE_CELL`) in place of the column march while the block runs:
+    the batched calls made inside keep them."""
+    keys = [k for k in codegen.BATCHED if k[:2] == (3, False)]
+    saved = {k: codegen.BATCHED[k] for k in keys}
+    codegen.BATCHED.update({k: ONE_CELL[k[2:]] for k in keys})
+    try:
+        yield
+    finally:
+        codegen.BATCHED.update(saved)
+
+
 def serve_chunk(rounds: int = 5) -> dict:
-    """One serving chunk at B = 16 x 128^3 through ``BatchEngine.run_chunk``
-    in the chosen layout (:func:`tune_batched`'s ``chunk``), samples that
-    never converge: the wall ms of each of ``rounds`` chunks to a
-    synchronisation, the host's ms to enqueue a chunk, and a chunk's device
-    ms between two CUDA events."""
+    """One serving chunk at B = 16 x 128^3 through ``BatchEngine.run_chunk``,
+    samples that never converge, in two engines: the column march
+    (``codegen.BATCHED``) and the one-cell layout it replaced
+    (:func:`one_cell_batched`), in turns (column, one-cell, then the other
+    way round). For each, by layout: the wall ms of each of ``rounds``
+    chunks to a synchronisation, the host's ms to enqueue a chunk, a
+    chunk's device ms between two CUDA events, and the layouts its plain
+    and checked launches took."""
     import numpy as np
 
+    from ..core import iterate
+    from ..ir import Reduction
     from ..serve import RequestQueue, ServePolicy, SolveRequest
     from ..serve.engine import BatchEngine
     from ..serve.procworker import demo_kernel
 
     n = 128
-    kern = demo_kernel("cuda")
     pol = ServePolicy(max_batch=BATCH, chunk_steps=64, check_every=4)
-    eng, q = BatchEngine(kern, pol), RequestQueue(64)
-    tickets = []
-    for i in range(BATCH):
-        T = np.zeros((n, n, n), np.float32)
-        T[n // 2, n // 2, n // 2] = 1.0 + 0.1 * i
-        tickets.append(q.submit(SolveRequest(fields={"T": T, "T2": T.copy()},
-                                             scalars={"dt": 0.08 + 0.005 * (i % 4)},
-                                             tol=1e-12, max_iters=10 ** 6)))
-    state = eng.start(tickets)
-    eng.run_chunk(state)
-    torch.cuda.synchronize()
-    walls, enqueue, device = [], [], []
-    for _ in range(rounds):
-        t0 = time.perf_counter()
-        eng.run_chunk(state)
+    engines = {}
+    for v, ctx in (("column", contextlib.nullcontext), ("one_cell", one_cell_batched)):
+        kern = demo_kernel("cuda")
+        q = RequestQueue(64)
+        tickets = []
+        for i in range(BATCH):
+            T = np.zeros((n, n, n), np.float32)
+            T[n // 2, n // 2, n // 2] = 1.0 + 0.1 * i
+            tickets.append(q.submit(SolveRequest(fields={"T": T, "T2": T.copy()},
+                                                 scalars={"dt": 0.08 + 0.005 * (i % 4)},
+                                                 tol=1e-12, max_iters=10 ** 6)))
+        with ctx():     # the first chunk makes the engine's batched calls
+            eng = BatchEngine(kern, pol)
+            state = eng.start(tickets)
+            eng.run_chunk(state)
+        # the calls the chunk launched (memoized on the kernel's variants)
+        checked = kern.with_reductions(dict(kern.reductions, **{
+            iterate.GUARD_NAME: Reduction("finite", "T2")}))
+        layouts = {name: layout_name(k.batched_call(T2=(n,) * 3, T=(n,) * 3, dt=0.1).shape)
+                   for name, k in (("plain", kern.with_reductions(None)), ("checked", checked))}
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        eng.run_chunk(state)
-        enqueue.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        torch.cuda.synchronize()
-        device.append(start.elapsed_time(end))
-    eng.harvest(state)
+        engines[v] = (eng, state, {"layouts": layouts, "wall_ms": [], "host_enqueue_ms": [],
+                                   "device_ms": []})
+    for r in range(rounds):
+        for v in (("column", "one_cell") if r % 2 == 0 else ("one_cell", "column")):
+            eng, state, out = engines[v]
+            t0 = time.perf_counter()
+            eng.run_chunk(state)
+            torch.cuda.synchronize()
+            out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            eng.run_chunk(state)
+            out["host_enqueue_ms"].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            torch.cuda.synchronize()
+            out["device_ms"].append(start.elapsed_time(end))
+    for eng, state, _ in engines.values():
+        eng.harvest(state)
     return {"samples": BATCH, "base": [n] * 3, "steps": pol.chunk_steps,
-            "check_every": pol.check_every, "wall_ms": walls,
-            "host_enqueue_ms": enqueue, "device_ms": device}
+            "check_every": pol.check_every, **{v: e[2] for v, e in engines.items()}}
 
 
 def scalars_of(kern) -> dict:
@@ -1150,7 +1407,8 @@ def main(argv=None) -> int:
                     help="time the all-parallel kernel in parts (with --march: the "
                          "contiguous-axis march)")
     ap.add_argument("--sass", default=None,
-                    help="with --split: write each library's SASS into this directory")
+                    help="with --split or --batched: write each library's SASS into this "
+                         "directory")
     ap.add_argument("--ks", default=None,
                     help="with --steps: the k to time, e.g. 1,2 (default: STEPS_KS)")
     ap.add_argument("--kernels", default=None,
@@ -1173,7 +1431,7 @@ def main(argv=None) -> int:
     print(json.dumps({"card": name, "power_limit": power, "dtype": args.dtype}), flush=True)
     if args.batched:
         tune_batched(args.iters, args.kernels.split(",") if args.kernels else None,
-                     getattr(torch, args.dtype), args.dtype == "float32")
+                     getattr(torch, args.dtype), args.dtype == "float32", args.sass)
         return 0
     if args.hand:
         tune_hand(args.iters, [int(w) for w in args.waves.split(",")] if args.waves else None,

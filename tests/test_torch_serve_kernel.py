@@ -12,11 +12,14 @@ folded per sample. Every case must equal ``codegen.evaluate_batch_torch``
 dead sample's two buffers unchanged, max reductions bitwise, sums within
 1e-5 (a sum reassociates over the blocks).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import fd2d, fd3d, init_parallel_stencil
+from repro_torch.ir.bc import BoundaryCondition
 from repro_torch.kernels import codegen, rehearse, stencil
 
 from test_torch_coupled import _field_shapes, _scalars, _variant
@@ -143,8 +146,17 @@ def test_batched_launch_counts_every_sample():
     call = kern.batched_call(T2=(128, 128, 128), T=(128, 128, 128), dt=0.1, h=1.0, c=0.0)
     one, sixteen = call.derive(132), call.derive(132, samples=16)
     assert sixteen.samples == 16 and sixteen.grid[:2] == one.grid[:2]
-    # BATCH_WAVES waves of resident blocks over all samples, not over each one
-    waves = sixteen.n_blocks / (stencil.BATCH_WAVES * call.shape.min_blocks * 132)
+    # the column march: BATCH_COLUMN_WAVES waves of resident blocks over all
+    # samples, not over each one
+    assert call.shape.column and stencil.waves_of(call.shape, False, 4) == \
+        stencil.BATCH_COLUMN_WAVES
+    waves = sixteen.n_blocks / (stencil.BATCH_COLUMN_WAVES * call.shape.min_blocks * 132)
+    assert 0.5 < waves < 2.0 and sixteen.grid[2] < one.grid[2]
+    # the one-cell layout: BATCH_WAVES waves of resident blocks over all samples
+    cells = stencil.StencilCall(call.ir, kern.label, kern.bc, codegen.KernelShape((32, 8), 2, 6),
+                                batched=kern.rotations)
+    one, sixteen = cells.derive(132), cells.derive(132, samples=16)
+    waves = sixteen.n_blocks / (stencil.BATCH_WAVES * cells.shape.min_blocks * 132)
     assert 0.5 < waves < 2.0 and sixteen.grid[2] < one.grid[2]
     with pytest.raises(ValueError, match="grid limits"):
         stencil.derive_launch((4, 8, 32), 132, call.shape, samples=70000)
@@ -153,12 +165,14 @@ def test_batched_launch_counts_every_sample():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_batched_layout_by_kind_and_storage_width(dtype):
     """A batched program takes the layout measured for its kind (rank,
-    stages, reductions) at its storage width; the guarded 3-D step takes 8
-    resident blocks at 4 bytes and 6 at 2; a kind not measured takes the
-    single step's one-cell layout."""
+    stages, reductions) at its storage width; the guarded 3-D step takes the
+    column march at 4 resident blocks at 4 bytes and 5 at 2; a kind not
+    measured takes the single step's one-cell layout."""
     guarded = diffusion_kernel(dtype, reductions=GUARDED)
     call = guarded.batched_call(T2=(8, 8, 8), T=(8, 8, 8), dt=0.1, h=1.0, c=0.0)
-    assert call.shape.vec == 1 and call.shape.min_blocks == (8 if dtype == torch.float32 else 6)
+    assert call.shape == codegen.BATCHED[(3, False, True, dtype.itemsize == 4)]
+    assert call.shape.vec == 1 and call.shape.column
+    assert call.shape.min_blocks == (4 if dtype == torch.float32 else 5)
     ps = init_parallel_stencil(backend="torch", device="cpu", dtype=dtype, ndims=1)
 
     @ps.parallel(outputs=("U2",), rotations={"U2": "U"})
@@ -198,3 +212,144 @@ def test_batched_refusals():
                             torch.bfloat16, batched=kern.rotations)
     with pytest.raises(ValueError, match="rotating into a field"):
         codegen.check_batched(call.program, {"T2": "T2"})
+
+
+# ---- the column march (kernels/codegen_columns.py) -------------------------
+def column_call(kern, shp, dtype=torch.float32, planes=1, ahead=0, read_first=False):
+    """The batched call of ``kern`` at ``shp`` in the column march, its y and
+    z taps through ``__ldg``, its loads ``ahead`` planes further ahead;
+    ``read_first`` lists T before T2, as a batched solve's buffers do."""
+    fields = {"T": shp, "T2": shp} if read_first else {"T2": shp, "T": shp}
+    call = kern.batched_call(**fields, dt=0.1, h=1.0, c=0.0)
+    return stencil.StencilCall(call.ir, kern.label, kern.bc,
+                               codegen.KernelShape((32, 8), planes, 6, column=True, ahead=ahead),
+                               batched=kern.rotations, dtype=dtype)
+
+
+@pytest.mark.parametrize("ahead", [0, 2, 4], ids=["ldg-0", "ldg-2", "ldg-4"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_column_march_ragged_extents_chunks_and_dead_slots(cxx, rng, ahead, b):
+    """Extents the 32 x 8 tile does not divide, chunks that end inside each
+    column (xc = 4 of 37 planes), B = 1 and an odd B with a dead slot, both
+    parities, loads 0, 2 or 4 planes further ahead (4: the guarded f32
+    step's layout), the read field listed first; the guarded check's max
+    partials bitwise, its sum within 1e-5."""
+    kern = diffusion_kernel(reductions=GUARDED)
+    shp = (37, 29, 45)
+    call = column_call(kern, shp, planes=2, ahead=ahead, read_first=b == 3)
+    assert call.shape.column and "__ldg(" in call.source
+    bufs = batch(rng, {"T2": shp, "T": shp}, b)
+    scalars = [{"dt": 0.05 + 0.01 * i, "h": 10.0 / (23 + i), "c": 0.1 * i} for i in range(b)]
+    live = torch.tensor([i != 1 for i in range(b)])
+    odd = torch.tensor([i % 2 == 0 for i in range(b)])
+    for flip in (0, 1):
+        check(call, kern, bufs, [s if live[i] else None for i, s in enumerate(scalars)],
+              live, odd, flip, xc=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("ahead", [0, 2], ids=["ldg", "ldg-2"])
+def test_column_march_two_byte_storage(cxx, rng, dtype, ahead):
+    """bf16 and f16 fields: each load widened, each store rounded, the
+    guarded check folding the stored values, bitwise to the plain version,
+    the loads 0 or 2 planes further ahead."""
+    kern = diffusion_kernel(dtype, reductions=GUARDED)
+    shp = (11, 12, 37)
+    call = column_call(kern, shp, dtype, ahead=ahead)
+    bufs = batch(rng, {"T2": shp, "T": shp}, 3, dtype)
+    scalars = [{"dt": 0.1, "h": 0.7, "c": 0.2}, None, {"dt": 0.12, "h": 1.3, "c": 0.0}]
+    check(call, kern, bufs, scalars, torch.tensor([True, False, True]),
+          torch.tensor([True, False, False]), 1, xc=5)
+
+
+@pytest.mark.parametrize("bc", ["neumann0", "dirichlet", "periodic",
+                                BoundaryCondition("neumann0", axes=(0,)),
+                                BoundaryCondition("dirichlet", value=0.5, axes=(1,))],
+                         ids=["neumann0", "dirichlet", "periodic", "neumann0-x", "dirichlet-y"])
+def test_column_march_boundary_conditions(cxx, rng, bc):
+    """An output's bc in the launch: a face cell takes its value at its
+    source cell (neumann0, periodic: across its own sample) or its value
+    (dirichlet), through the direct program beside the ring; a bc along x
+    alone leaves the (y, z) ring to the core loop, kept by predication."""
+    periodic = getattr(bc, "kind", bc) == "periodic"
+    kern = diffusion_kernel(reductions=None if periodic else GUARDED, bc={"T2": bc})
+    shp = (9, 10, 35)
+    call = column_call(kern, shp)
+    assert ("const bool kin" in call.source) == (getattr(bc, "axes", None) == (0,))
+    bufs = batch(rng, {"T2": shp, "T": shp}, 3)
+    bufs["T"][1] += 5.0
+    scalars = [{"dt": 0.1, "h": 1.0, "c": 0.0}, {"dt": 0.07, "h": 0.9, "c": 0.1}, None]
+    check(call, kern, bufs, scalars, torch.tensor([True, True, False]),
+          torch.tensor([False, True, False]), 0, xc=3)
+
+
+def test_column_march_ring_keeps_its_bits_without_a_store(cxx, rng):
+    """The kept ring of T2 is neither loaded nor stored by the plain step:
+    signaling-NaN payloads there keep their bits at bf16, where a load
+    widened and a store rounded (the one-cell layout's copy of the ring onto
+    itself) quiets them; with a reduction that reads T2 the guarded check
+    still folds them. The interior is bitwise the plain version's (which
+    widens the whole field to f32 and back, so its ring NaNs are PyTorch's
+    own and not compared)."""
+    shp = (6, 9, 34)
+    ring = torch.ones(shp, dtype=torch.bool)
+    ring[1:-1, 1:-1, 1:-1] = False
+    for reductions in (None, GUARDED):
+        kern = diffusion_kernel(torch.bfloat16, reductions=reductions)
+        bufs = batch(rng, {"T2": shp, "T": shp}, 2, torch.bfloat16)
+        bits = bufs["T2"].view(torch.int16)
+        bits[:, ring] = torch.tensor(0x7F81 + np.arange(int(ring.sum())) % 60,
+                                     dtype=torch.int16)
+        scalars = [{"dt": 0.1, "h": 1.0, "c": 0.0}] * 2
+        live, odd = torch.ones(2, dtype=torch.bool), torch.zeros(2, dtype=torch.bool)
+        call = column_call(kern, shp, dtype=torch.bfloat16)
+        assert "if (!keep0) h0[at0]" in call.source
+        got, reds = rehearse.run_batch(call, bufs, scalars, live, odd, 0, xc=4)
+        want = {n: t.clone() for n, t in bufs.items()}
+        call.run_batch(want, scalars, live, odd, 0)                # the plain version
+        assert torch.equal(got["T"].view(torch.int16), want["T"].view(torch.int16))
+        assert torch.equal(got["T2"].view(torch.int16)[:, ~ring],
+                           want["T2"].view(torch.int16)[:, ~ring])
+        assert torch.equal(got["T2"].view(torch.int16)[:, ring], bits[:, ring])
+        if reductions:
+            assert reds["__finite"].tolist() == [1.0, 1.0]      # some cell is not finite
+    cells = stencil.StencilCall(call.ir, kern.label, kern.bc, codegen.KernelShape((32, 8), 2, 6),
+                                batched=kern.rotations, dtype=torch.bfloat16)
+    old, _ = rehearse.run_batch(cells, bufs, scalars, live, odd, 0, xc=4)
+    assert not torch.equal(old["T2"].view(torch.int16)[:, ring], bits[:, ring])
+
+
+def test_column_march_refusals():
+    kern = diffusion_kernel()
+    shp = (8, 8, 8)
+    call = kern.batched_call(T2=shp, T=shp, dt=0.1, h=1.0, c=0.0)
+    col = codegen.KernelShape((32, 8), 1, 6, column=True)
+    with pytest.raises(ValueError, match="batched layout"):
+        codegen.cuda_source(call.program, col)
+    with pytest.raises(ValueError, match="one cell a thread"):
+        codegen.cuda_source(call.program, dataclasses.replace(col, vec=2),
+                            batched=kern.rotations)
+    gp = _variant("gp_fused[none]+mass", (7, 8, 35))
+    staged = gp.batched_call(**_field_shapes(gp, (7, 8, 35)), **_scalars(gp))
+    with pytest.raises(ValueError, match="without stages"):
+        codegen.cuda_source(staged.program, col, batched=gp.rotations)
+
+
+def test_one_cell_batched_layouts_hold_only_inside():
+    """``tune_stencil.one_cell_batched``, how the serving chunk is timed in
+    the layout the column march replaced: calls made inside take the
+    one-cell layouts and keep them, ``codegen.BATCHED`` is restored after,
+    and a kernel made after takes the column march again."""
+    from repro_torch.launch import tune_stencil
+
+    before = dict(codegen.BATCHED)
+    kern = diffusion_kernel(reductions=GUARDED)
+    shp = (8, 8, 8)
+    with tune_stencil.one_cell_batched():
+        inside = kern.batched_call(T2=shp, T=shp, dt=0.1, h=1.0, c=0.0)
+    assert codegen.BATCHED == before
+    assert inside.shape == tune_stencil.ONE_CELL[(True, True)] and not inside.shape.column
+    assert kern.batched_call(T2=shp, T=shp, dt=0.1, h=1.0, c=0.0) is inside
+    fresh = diffusion_kernel(reductions=GUARDED).batched_call(T2=shp, T=shp, dt=0.1, h=1.0,
+                                                              c=0.0)
+    assert fresh.shape == codegen.BATCHED[(3, False, True, True)] and fresh.shape.column
