@@ -168,6 +168,21 @@ the column march and in the one-cell layout, in turns
 burst's wall seconds, requests a second, p50/p99 latency and host syncs a
 chunk.
 
+Then the launch autotuner (``main_path_autotune``, ``kernels/autotune.py``):
+FIG1 512^3 tuned at f32 over k = 1, 2, 4, all-parallel and marched along
+axis 0 (at most AUTOTUNE_CANDIDATES layouts a (k, march), the table's first,
+priced by the cost model first), every candidate built together, held
+bitwise to k single steps of the table layout and timed, the winner cached
+in a fresh file under ``build/``; the tuner again must hit its memory cache
+and, with that cleared, its file, launching nothing; the winner applied
+through ``parallel(tile=)``, ``.marched`` and ``run_steps`` for 96 steps,
+bitwise to the table layout's 96 steps, both timed in turns, and its
+``stencil_roofline`` record (a fraction above 1.05 fails); a second f32
+search pruned at the ratio that keeps the first's winner (the priced-out
+candidates untimed, its winner the first's or within 3% of it); then FIG1
+tuned at bf16, one step a launch, into an entry of its own. Its rows in the
+kernels line are the two winners beside the ``torch`` backend.
+
 It prints JSON lines; the line before the last lists the kernels, the one
 before that is the card's name and power limit as nvidia-smi gives them,
 and the last line is {"ok": true, "device": {...}}. Any failure exits
@@ -643,6 +658,10 @@ def main() -> int:
     serve_run = serve_main_path(torch, spec, serve_kern, serve_plain)
     torch.cuda.empty_cache()
 
+    # ---- 4j. the launch autotuner: FIG1 tuned, both caches hit, the winner applied ---
+    tuned = autotune_main_path(torch, spec)
+    torch.cuda.empty_cache()
+
     # ---- 5. times at FIG1 ---------------------------------------------------
     grid, f, sc = quickstart.initial_state(FIG1, "cuda")
     args = (sc["lam"], sc["dt"], sc["_dx"], sc["_dy"], sc["_dz"])
@@ -851,6 +870,7 @@ def main() -> int:
                                       "one_cell_call_ms")},
                  "library_ms": None}
                 for k, t in serve_t.items()]
+    kernels += autotune_rows(torch, tuned)
     print(f"{card_name}, {card_power}", flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4652,6 +4672,258 @@ def serve_times(torch, spec, kern, kern_plain, ptxas_of=None) -> tuple:
         del bufs
         torch.cuda.empty_cache()
     return rows, split
+
+
+# ---------------------------------------------------------------------------
+# the launch autotuner: FIG1 tuned on the card, the winner applied
+# ---------------------------------------------------------------------------
+# At most this many layouts a (k, march), the table's first, every one
+# timed: the tuner prunes nothing by default, since the cost model prices
+# FIG1's single step at 512^3 3.2-3.4 times its k = 4 launches a step (it
+# counts every refetched halo plane, which L2 keeps on the card) where they
+# measure 5-8% apart. A second f32 search prunes at the ratio that keeps
+# the first one's winner: every candidate priced above it goes untimed, and
+# its winner is the first's or one the first measured within AUTOTUNE_SLACK
+# of it. The phase took 14.7 s, builds included, on the H100 (80GB HBM3,
+# 700 W).
+AUTOTUNE_CANDIDATES = 5
+AUTOTUNE_SLACK = 1.03
+AUTOTUNE_KS, AUTOTUNE_MARCHES = (1, 2, 4), (None, 0)
+AUTOTUNE_STEPS = 96       # the winner's run: a multiple of every k tried
+ROOFLINE_SLACK = 1.05     # a measured step may beat the copy-bandwidth bound by this much
+
+
+def autotune_main_path(torch, spec, cfg=None, device="cuda") -> dict:
+    """The launch autotuner's main path (``kernels/autotune.py``): FIG1 at
+    ``cfg``'s size (512^3) tuned at f32 over k = 1, 2, 4 and the
+    all-parallel and axis-0 marches, every candidate held bitwise to k
+    single steps of the table layout, into a fresh cache file under
+    ``build/``; the tuner again (a memory hit) and with its memory cleared
+    (a disk hit), neither launching a kernel; the winner applied through
+    ``parallel(tile=)``, ``.marched`` and ``run_steps`` for AUTOTUNE_STEPS
+    steps, bitwise to the table layout's run, both timed in turns, with
+    its roofline record against ``spec``; then the tuner at bf16 (one step
+    a launch), whose cache entry must be its own. Between them a second
+    f32 search, in memory, prunes at the ratio that keeps the first's
+    winner: the candidates priced above it go untimed, and its winner is
+    the first's or one the first measured within AUTOTUNE_SLACK of it. The
+    launch counts are set to 0 before and read after; every time is the
+    card's (on the CPU, a rehearsal, the host clock's)."""
+    from repro_torch import telemetry
+    from repro_torch.configs import FIG1
+    from repro_torch.core import init_parallel_stencil, teff
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import autotune, codegen, stencil
+    from repro_torch.launch.roofline import stencil_roofline
+
+    def key_of(r):
+        """A winner as the report names a candidate."""
+        return (None if r.tile is None else codegen.layout_name(r.tile), r.nsteps, r.march_axis)
+
+    cfg = cfg or FIG1
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    measure = teff.measure if cuda else (lambda fn, iters, warmup: teff.measure_host(
+        fn, iters=iters, warmup=warmup))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="autotune_", dir=os.path.join(ROOT, "build"))
+    cache = os.path.join(root, "tune.json")
+    col = telemetry.configure(None)         # the decisions, read back from memory
+    autotune._CACHE.clear()
+    stencil.launches.clear()
+    stencil.layout_launches.clear()
+    kw = dict(cache_path=cache, hw=spec, max_candidates=AUTOTUNE_CANDIDATES, device=device)
+    try:
+        report = []
+        t_tune = time.perf_counter()
+        win = autotune.autotune_diffusion3d(cfg.shape, "float32", nsteps_candidates=AUTOTUNE_KS,
+                                            march_candidates=AUTOTUNE_MARCHES, report=report,
+                                            **kw)
+        tune_s = time.perf_counter() - t_tune
+        tuned = sum(stencil.launches.values())
+        again = autotune.autotune_diffusion3d(cfg.shape, "float32", nsteps_candidates=AUTOTUNE_KS,
+                                              march_candidates=AUTOTUNE_MARCHES, **kw)
+        after_memory = sum(stencil.launches.values())
+        autotune._CACHE.clear()
+        disk = autotune.autotune_diffusion3d(cfg.shape, "float32", nsteps_candidates=AUTOTUNE_KS,
+                                             march_candidates=AUTOTUNE_MARCHES, **kw)
+        after_disk = sum(stencil.launches.values())
+        decisions = [r["attrs"]["cache"] for r in col.records
+                     if r["kind"] == "event" and r["name"] == "autotune.decision"]
+
+        # a prune that removes candidates: at the ratio that keeps the winner
+        # (priced as in the first search), in memory only
+        preds = {(r["tile"], r["nsteps"], r["march_axis"]): r["predicted_s"] for r in report}
+        ratio = preds[key_of(win)] / min(preds.values()) * (1 + 1e-9)
+        report_pruned = []
+        pruned = autotune.autotune_diffusion3d(
+            cfg.shape, "float32", nsteps_candidates=AUTOTUNE_KS,
+            march_candidates=AUTOTUNE_MARCHES, report=report_pruned, hw=spec,
+            prune_ratio=ratio, max_candidates=AUTOTUNE_CANDIDATES, device=device)
+
+        # the winner applied, beside the table layout at the same k and march
+        ps = init_parallel_stencil(device=device) if cuda else \
+            init_parallel_stencil(backend="torch", device=device)
+        kern = autotune.diffusion3d_kernel(ps, win.tile).marched(win.march_axis)
+        table = autotune.diffusion3d_kernel(ps).marched(win.march_axis)
+        _, f, sc = quickstart.initial_state(cfg, device)
+        k = win.nsteps
+
+        def run(kn):
+            cur = dict(f)
+            for _ in range(AUTOTUNE_STEPS // k):
+                out = kn.run_steps(k, **cur, **sc)
+                cur["T2"], cur["T"] = cur["T"], out
+            return cur["T"]
+
+        got, want = run(kern), run(table)
+        bitwise = bool(torch.equal(got, want))
+        finite = bool(torch.isfinite(got).all())
+        del got, want
+        turns = {"table": [], "winner": []}
+        for name in ("table", "winner", "winner", "table"):
+            kn = kern if name == "winner" else table
+            turns[name].append(measure(lambda: kn.run_steps(k, **f, **sc), iters=20,
+                                       warmup=3).median_s * 1e3 / k)
+        ms = {n: sum(v) / len(v) for n, v in turns.items()}
+        call = kern.compiled(nsteps=k, **f, **sc)
+        n_sm = stencil.sm_count(torch.device(device)) if cuda else 132
+        roof = stencil_roofline(kern.cost_model(**f, **sc), nsteps=k, hw=spec,
+                                measured_s=ms["winner"] / 1e3, tile=call.cost_tile(n_sm),
+                                march_axis=call.march_axis)
+
+        # bf16: one step a launch, an entry of its own
+        report16 = []
+        win16 = autotune.autotune_diffusion3d(cfg.shape, "bfloat16", nsteps_candidates=(1,),
+                                              report=report16, **kw)
+        with open(cache) as fh:
+            entries = json.load(fh)["entries"]
+        launches = dict(stencil.launches)
+        layout_launches = dict(stencil.layout_launches)
+    finally:
+        telemetry.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+
+    def rows(rep):
+        return [{"layout": r["tile"], "k": r["nsteps"], "march_axis": r["march_axis"],
+                 "predicted_ms_per_step": (None if r["predicted_s"] is None
+                                           else r["predicted_s"] * 1e3),
+                 "measured_ms_per_step": (None if r["measured_s"] is None
+                                          else r["measured_s"] * 1e3),
+                 "pruned": r["pruned"], "bitwise": r["bitwise"]} for r in rep]
+
+    def winner(r):
+        return {"layout": None if r.tile is None else codegen.layout_name(r.tile),
+                "k": r.nsteps, "march_axis": r.march_axis, "ms_per_step": r.per_step_s * 1e3,
+                "candidates_tried": r.candidates_tried,
+                "candidates_pruned": r.candidates_pruned}
+
+    label, layout = call.label, codegen.layout_name(call.shape)
+    measured = {(r["tile"], r["nsteps"], r["march_axis"]): r["measured_s"] for r in report}
+    pruned_key = key_of(pruned)
+    priced_out = sum(p > ratio * min(preds.values()) for p in preds.values())
+    row = {"phase": "main_path_autotune", "config": "FIG1", "shape": list(cfg.shape),
+           "card": getattr(spec, "name", None), "power_limit": getattr(spec, "power_limit", None),
+           "candidates": rows(report), "winner": winner(win), "tune_s": tune_s,
+           "decisions": decisions, "launches_tuning": tuned,
+           "launches_memory_hit": after_memory - tuned, "launches_disk_hit": after_disk - tuned,
+           "applied": {"steps": AUTOTUNE_STEPS, "bitwise_to_table": bitwise,
+                       "table_layout": codegen.layout_name(table.compiled(nsteps=k, **f,
+                                                                          **sc).shape),
+                       "ms_per_step_turns": turns, "ms_per_step": ms,
+                       "winner_over_table": ms["winner"] / ms["table"]},
+           "roofline": roof, "bf16": {"candidates": rows(report16), "winner": winner(win16)},
+           "pruned_search": {"prune_ratio": ratio, "candidates": rows(report_pruned),
+                             "winner": winner(pruned),
+                             "reference_ratio_2_would_prune": sum(
+                                 p > 2.0 * min(preds.values()) for p in preds.values())},
+           "cache_entries": len(entries), "launches": launches,
+           "layout_launches": {f"{lb} {ly}": n for (lb, ly), n in layout_launches.items()},
+           "wall_s": wall}
+    emit(row)
+    require(win.candidates_tried >= 1 and len(report) == win.candidates_tried
+            + win.candidates_pruned, f"the f32 tune reported {len(report)} candidates: {win}")
+    require(all(r["bitwise"] for r in report + report16 if not r["pruned"]),
+            "a timed candidate was not held bitwise to the table layout")
+    require(again == win and disk == win, f"the cached winners differ: {win} {again} {disk}")
+    require(decisions[:3] == ["miss", "memory_hit", "disk_hit"],
+            f"the tuner's cache decisions were {decisions}")
+    require(after_memory == tuned and after_disk == tuned,
+            "a cache hit launched a kernel")
+    require(bitwise and finite, f"the winner's {AUTOTUNE_STEPS} steps are not bitwise equal to "
+                                "the table layout's")
+    require(0 < roof["frac_of_roofline"] <= ROOFLINE_SLACK,
+            f"the winner's roofline fraction {roof['frac_of_roofline']} exceeds {ROOFLINE_SLACK}")
+    require(len(entries) == 2 and len({tuple(json.loads(key)[-2]) for key in entries}) == 2,
+            f"the bf16 tune did not take a cache entry of its own: {list(entries)}")
+    require(pruned.candidates_pruned == priced_out
+            and pruned.candidates_pruned + pruned.candidates_tried == len(report_pruned)
+            and all(r["measured_s"] is None for r in report_pruned if r["pruned"]),
+            f"the pruned search timed what its ratio {ratio} prunes, or pruned "
+            f"{pruned.candidates_pruned} where the prices prune {priced_out}")
+    require(not cuda or (pruned_key in measured
+                         and measured[pruned_key] <= AUTOTUNE_SLACK * win.per_step_s),
+            f"the pruned search's winner {pruned_key} is not within {AUTOTUNE_SLACK} of the "
+            f"unpruned winner's {win.per_step_s} s a step")
+    require(layout_launches.get((label, layout), 0) > 0 or not cuda,
+            f"the winner {label} {layout} was not launched: {layout_launches}")
+    return {"row": row, "label": label, "win": win, "win16": win16, "ms": ms, "kern": kern,
+            "layout_launches": layout_launches, "fields": f, "scalars": sc, "k": k}
+
+
+def autotune_rows(torch, tuned) -> list:
+    """The kernels line's rows of the autotuner's path, the f32 and the
+    bf16 winner: each launch of its k steps on the FIG1 state at its
+    storage dtype, beside the ``torch`` backend's k steps on the same
+    fields (``max_abs_err``, ``plain_ms``) and its bound (the fields read
+    and written once over 3.35 TB/s, or k steps of operations over 67
+    TFLOP/s). ``launches`` counts the launches of the row's own label and
+    layout on the tuner's path; ``label_launches`` those of every layout
+    of its label."""
+    from repro_torch.core import init_parallel_stencil, teff
+    from repro_torch.kernels import autotune, codegen
+
+    rows = []
+    for tag, win, dtype in (("f32", tuned["win"], torch.float32),
+                            ("bf16", tuned["win16"], torch.bfloat16)):
+        k = win.nsteps
+        f = {n: t.to(dtype) for n, t in tuned["fields"].items()}
+        sc = tuned["scalars"]
+        kern = autotune.diffusion3d_kernel(init_parallel_stencil(dtype=dtype),
+                                           win.tile).marched(win.march_axis)
+        plain = autotune.diffusion3d_kernel(init_parallel_stencil(
+            backend="torch", device="cuda", dtype=dtype))
+        err = max_abs_diff(kern.run_steps(k, **f, **sc).float(),
+                           plain.run_steps(k, **f, **sc).float())
+        require(err == 0.0, f"the autotuned {tag} kernel differs from the torch backend: {err}")
+        ms = teff.measure(lambda: kern.run_steps(k, **f, **sc), iters=20, warmup=3).median_s * 1e3
+        plain_ms = teff.measure(lambda: plain.run_steps(k, **f, **sc), iters=5,
+                                warmup=1).median_s * 1e3
+        call = kern.compiled(nsteps=k, **f, **sc)
+        interior = math.prod(n - 2 for n in call.ir.base_shape)
+        nbytes = 3 * math.prod(call.ir.base_shape) * dtype.itemsize
+        by_bytes = nbytes / PEAK_BYTES_PER_S
+        by_ops = k * len(call.program.outputs[0].ops) * interior / PEAK_F32_PER_S
+        rows.append({"name": f"autotune:{call.label}", "route": "cuda",
+                     "source": ("src/repro_torch/kernels/codegen_steps.py" if k > 1 else
+                                "src/repro_torch/kernels/codegen_pairs.py" if call.shape.vec > 1
+                                else "src/repro_torch/kernels/codegen.py"),
+                     "replaces": "src/repro/kernels/stencil.py:1052",
+                     "launches": tuned["layout_launches"].get(
+                         (call.label, codegen.layout_name(call.shape)), 0),
+                     "label_launches": sum(n for (lb, _), n in tuned["layout_launches"].items()
+                                           if lb == call.label),
+                     "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops) * 1e3,
+                     "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                     "library_ms": None, "layout": codegen.layout_name(call.shape), "k": k,
+                     "march_axis": win.march_axis, "ms_per_step": ms / k})
+        require(rows[-1]["launches"] > 0,
+                f"the {tag} winner {call.label} {rows[-1]['layout']} was not launched on the "
+                f"autotuner's path: {tuned['layout_launches']}")
+        del f
+    return rows
 
 
 def make_generic(ps):

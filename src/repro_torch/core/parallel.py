@@ -50,6 +50,20 @@ its ``rotations`` target: on ``backend="cuda"`` in one launch of a generated
 k-step kernel (k launches for a periodic condition), on ``backend="torch"``
 as k rotated single steps.
 
+``tile=`` (a ``kernels.codegen.KernelShape``: (z, y) threads, planes per
+step, resident blocks) lays out every launch of the generated kernel on
+``backend="cuda"`` as the caller asks, in place of the layout the port
+chose on the H100 (``codegen.kernel_shape``, ``codegen_steps.steps_shape``):
+single steps, ``run_steps(k)`` and the ``marched`` variants alike, the
+counterpart of the reference's per-kernel ``tile=`` block. A layout that
+cannot serve a call (a y tile where the launch has one row, a rule of the
+k-step plan, shared memory) raises ``ValueError`` naming it; nothing falls
+back to the table's layout. The ``torch`` backend accepts it and computes
+the same values, as the reference's ``jnp`` backend ignores its tile; the
+batched call of a batched solve keeps ``codegen.batch_shape``.
+``kernels.autotune`` times candidate layouts on the card and returns the
+fastest as a tile.
+
 ``march_axis=a`` (or ``kernel.marched(a)``) streams the update along axis
 ``a``: each thread of the generated kernel walks its column along that
 axis, so the planes it has read stay on chip for its next steps
@@ -125,6 +139,7 @@ class ParallelStencil:
         reductions: Mapping[str, Any] | None = None,
         bc: Mapping[str, Any] | None = None,
         march_axis: int | None = None,
+        tile: codegen.KernelShape | None = None,
     ) -> Callable[[Callable], "StencilKernel"]:
         """``rotations`` maps each output to the input it becomes on the next
         time step (``{"T2": "T"}``), as ``solve_until`` needs.
@@ -133,13 +148,13 @@ class ParallelStencil:
         ``(outputs, {name: 0-d tensor})``, each folded over the outputs
         after their boundary conditions. ``bc`` maps outputs to
         :class:`~repro_torch.ir.BoundaryCondition` or kind strings.
-        ``march_axis`` streams the update along that axis (module
-        docstring)."""
+        ``march_axis`` streams the update along that axis, and ``tile``
+        lays out its launches (module docstring)."""
         march_axis = _check_march(march_axis, self.ndims)
 
         def deco(fn: Callable) -> StencilKernel:
             return StencilKernel(self, fn, tuple(outputs), rotations, reductions, bc,
-                                 march_axis)
+                                 march_axis, tile)
 
         return deco
 
@@ -165,8 +180,12 @@ class StencilKernel:
                  rotations: Mapping[str, str] | None = None,
                  reductions: Mapping[str, Any] | None = None,
                  bc: Mapping[str, Any] | None = None,
-                 march_axis: int | None = None):
+                 march_axis: int | None = None,
+                 tile: codegen.KernelShape | None = None):
+        if tile is not None and not isinstance(tile, codegen.KernelShape):
+            raise TypeError(f"tile takes a kernels.codegen.KernelShape, got {tile!r}")
         self.ps = ps
+        self.tile = tile
         self.fn = fn
         self.outputs = outputs
         self.rotations = dict(rotations) if rotations else None
@@ -195,12 +214,12 @@ class StencilKernel:
 
     def _variant(self, ps: ParallelStencil, reductions, march_axis) -> "StencilKernel":
         return StencilKernel(ps, self.fn, self.outputs, self.rotations, reductions, self.bc,
-                             march_axis)
+                             march_axis, self.tile)
 
     def marched(self, march_axis: int | None) -> "StencilKernel":
         """A variant of this kernel streaming along ``march_axis`` (``None``:
-        the all-parallel variant), with this kernel's reductions, dtype and
-        backend. Memoized on this kernel, so each variant traces and builds
+        the all-parallel variant), with this kernel's reductions, dtype,
+        tile and backend. Memoized on this kernel, so each variant traces and builds
         once."""
         march_axis = _check_march(march_axis, self.ps.ndims)
         if march_axis == self.march_axis:
@@ -344,10 +363,13 @@ class StencilKernel:
         key = (id(ir), nsteps, batched)
         call = self._calls.get(key)
         if call is None:
+            # a tile lays out solo launches; the batched call keeps batch_shape
+            tile = None if batched else self.tile
             call = self._calls[key] = _stencil.StencilCall(
-                ir, self.label, self.bc, nsteps=nsteps,
+                ir, self.label, self.bc, shape=tile, nsteps=nsteps,
                 rotations=self.rotations if nsteps > 1 else None, dtype=self.ps.dtype,
-                march_axis=self.march_axis, batched=self.rotations if batched else None)
+                march_axis=self.march_axis, batched=self.rotations if batched else None,
+                strict=tile is not None)
         return call
 
     def compiled(self, nsteps: int = 1, **kwargs) -> _stencil.StencilCall:

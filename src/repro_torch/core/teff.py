@@ -9,8 +9,9 @@ The yardstick is this card's own device-to-device copy bandwidth, measured
 at run time (:func:`measure_device_bandwidth`); :func:`device_spec` records
 it beside the card's name and power limit. The one constant is the compute
 peak of the roofline's other term: the H100 data sheet's f32 rate outside
-the tensor cores (:data:`H100_F32_FLOPS`). Timing needs the card:
-:func:`measure` times with CUDA events and raises without one.
+the tensor cores (:data:`H100_F32_FLOPS`). Timing the card needs the card:
+:func:`measure` times with CUDA events and raises without one;
+:func:`measure_host` times CPU work by the host clock.
 """
 from __future__ import annotations
 
@@ -37,6 +38,12 @@ class HardwareSpec:
     power_limit: str   # as nvidia-smi reports it, e.g. "700.00 W"
     peak_bw: float     # bytes/s: the measured device-to-device copy bandwidth
     peak_flops: float = math.inf   # flop/s; inf: no compute term
+
+    @property
+    def ridge_intensity(self) -> float:
+        """The operations per byte at which the compute term overtakes the
+        bytes term (inf without a compute peak)."""
+        return self.peak_flops / self.peak_bw
 
 
 def a_eff(n_points: int, n_read: int, n_write: int, itemsize: int) -> int:
@@ -105,6 +112,12 @@ def a_eff_checked(a_eff_step: float, check_bytes: float, check_every: int = 1,
     return a_eff_step + (0.0 if fused else check_bytes / m)
 
 
+def io_counts_from_ir(ir) -> tuple[int, int]:
+    """(n_read, n_write) from a traced ``repro_torch.ir.StencilIR``: the
+    fields the update reads and the outputs it writes, not a hand count."""
+    return ir.io_counts()
+
+
 def a_eff_from_ir(ir, itemsize: int, nsteps: int = 1, field_itemsizes=None) -> float:
     """A_eff derived from the stencil IR's read and write sets, each field at
     its storage width (``field_itemsizes``, ``{field: itemsize}``, defaulting
@@ -156,6 +169,29 @@ class Measurement:
     def t_eff(self, a_eff_bytes: float) -> float:
         return t_eff(a_eff_bytes, self.median_s)
 
+    # jitter over the raw samples: the median alone hides straggling ones
+    @property
+    def mean_s(self) -> float:
+        return float(np.mean(self.samples_s))
+
+    @property
+    def p50_s(self) -> float:
+        return float(np.percentile(self.samples_s, 50))
+
+    @property
+    def p90_s(self) -> float:
+        return float(np.percentile(self.samples_s, 90))
+
+    @property
+    def max_s(self) -> float:
+        return float(max(self.samples_s))
+
+    def percentiles(self) -> dict[str, float]:
+        """``{"mean_s", "p50_s", "p90_s", "max_s"}``: the jitter summary a
+        row carries beside the median."""
+        return {"mean_s": self.mean_s, "p50_s": self.p50_s, "p90_s": self.p90_s,
+                "max_s": self.max_s}
+
 
 def _require_card() -> None:
     if not torch.cuda.is_available():
@@ -180,12 +216,29 @@ def measure(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    samples = [s.elapsed_time(e) / 1e3 / inner for s, e in events]
+    return _summary([s.elapsed_time(e) / 1e3 / inner for s, e in events])
+
+
+def _summary(samples: list) -> Measurement:
     med = float(np.median(samples))
     rng = np.random.RandomState(0)
     boots = [float(np.median(rng.choice(samples, size=len(samples)))) for _ in range(200)]
     return Measurement(med, (float(np.percentile(boots, 2.5)),
                              float(np.percentile(boots, 97.5))), samples)
+
+
+def measure_host(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> Measurement:
+    """Median host-clock time per call of ``fn``, for work that runs on the
+    CPU (the ``torch`` backend on ``device="cpu"``): a CPU time, never a
+    device one."""
+    for _ in range(warmup):
+        fn()
+    samples = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        samples.append(time.perf_counter() - t0)
+    return _summary(samples)
 
 
 def measure_device_bandwidth(nbytes: int = 1 << 30, iters: int = 20) -> float:

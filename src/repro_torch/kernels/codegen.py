@@ -703,6 +703,42 @@ def layout_name(shape: KernelShape) -> str:
     return f"{shape.tile[0]}x{shape.tile[1]}/p{shape.planes}/b{shape.min_blocks}{kind}"
 
 
+class LayoutRefused(NotImplementedError):
+    """A printer's refusal of one layout (its shared memory, its rounds of
+    threads, a queue wider than a copy's masks): another layout may serve
+    the same launch, where a plain ``NotImplementedError`` says the kernel
+    does not port the update at all."""
+
+
+def layout_refusal(program: TapProgram, shape: KernelShape, steps: bool) -> str | None:
+    """Why ``shape`` cannot lay out a solo launch of ``program`` (a single
+    step, or with ``steps`` the k-step kernel), or None: the rules a layout
+    chosen by the caller (``parallel(tile=)``, the autotuner) is held to
+    before anything is printed. The printers' own refusals (shared memory,
+    rounds of threads: :class:`LayoutRefused`) come after these."""
+    threads = shape.threads
+    if shape.column:
+        return "the column march is a batched layout"
+    if min(shape.tile) < 1 or shape.planes < 1 or shape.min_blocks < 1:
+        return "tile, planes and resident blocks must be positive"
+    if 1 not in program.axes3 and shape.tile[1] != 1:
+        return (f"a tile of {shape.tile[1]} rows along y, where this launch of a "
+                f"{program.ndim}-d update has one")
+    if threads % 32 or threads > 1024:
+        return f"{threads} threads a block: whole warps, at most 1024"
+    if threads * shape.min_blocks > 2048:
+        return f"{shape.min_blocks} resident blocks of {threads} threads exceed an SM's 2048"
+    if shape.slab and not program.z_strided:
+        return "a slab serves a march along the contiguous axis"
+    if shape.slab and threads % shape.planes:
+        return f"a slab's {shape.planes} planes must divide its {threads} threads"
+    if shape.block and (not steps or program.layout):
+        return "threads apart from the tile's cells serve the all-parallel k-step kernel"
+    if shape.vec > 1 and steps:
+        return "the pair layout serves single steps"
+    return None
+
+
 def to3(t: Sequence, fill, layout: Sequence[int] | None = None) -> tuple:
     """A rank-1..3 tuple laid out on the kernel's (x, y, z) axes (by
     ``layout``, the kernel axis of each entry; by default the all-parallel
@@ -1878,7 +1914,7 @@ def slab_queues(boxes, shape: KernelShape, fidx, fcls) -> list[FieldQueue]:
     for f, (lo, hi) in boxes.items():
         rows, cols = field_tile((lo, hi), shape)
         if rows > 64 or -(-cols // (shape.threads // shape.planes)) > 64:
-            raise NotImplementedError(f"field {f}'s queue of {rows} x {cols} cells a plane is "
+            raise LayoutRefused(f"field {f}'s queue of {rows} x {cols} cells a plane is "
                                       "wider than a copy's 64-bit masks")
         out.append(FieldQueue(f, fidx[f], fcls[f], tuple(lo), tuple(hi), rows, cols,
                               plane_words(rows * cols, shape.planes),

@@ -83,11 +83,12 @@ from typing import Mapping
 
 import torch
 
-from .codegen import (KernelShape, Storage, TapProgram, _combine, _emit_copies, _emit_copy_setup,
-                      _emit_core_box, _emit_direct, _emit_ops, _emit_step_store, _emit_strides,
-                      _offset, _printer, _zs, aligned, base_tile, block_origin, copy_helpers,
-                      divisor_params, emit_value, fold_line, grid_dims, out_row, plane_words,
-                      ring_helper, ring_planes, shape_classes, slab_queues, storage, stride_names)
+from .codegen import (KernelShape, LayoutRefused, Storage, TapProgram, _combine, _emit_copies,
+                      _emit_copy_setup, _emit_core_box, _emit_direct, _emit_ops, _emit_step_store,
+                      _emit_strides, _offset, _printer, _zs, aligned, base_tile, block_origin,
+                      copy_helpers, divisor_params, emit_value, fold_line, grid_dims, out_row,
+                      plane_words, ring_helper, ring_planes, shape_classes, slab_queues, storage,
+                      stride_names)
 
 # Shared memory a block can use on the H100 (232,448 bytes), above 48 KB
 # only as dynamic shared memory after cudaFuncSetAttribute.
@@ -190,7 +191,7 @@ def plan(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
                 face[axes3[a]] = max(face[axes3[a]], op.bc.depth)
     (bz, by) = shape.tile
     if 2 * face[1] > by or 2 * face[2] > bz:
-        raise NotImplementedError(
+        raise LayoutRefused(
             f"a neumann0 face of depth {max(face)} needs a tile of at least two face "
             f"depths, got {shape.tile}")
     sweep_reach = _add(reach, ((face[0], face[0]), (face[1], 0), (face[2], 0)))
@@ -398,7 +399,7 @@ def cuda_source(program: TapProgram, rotations: Mapping[str, str], nsteps: int,
     pl = plan(program, rotations, nsteps, shape)
     smem = shared_bytes(program, pl, shape, dtype)
     if smem > SHARED_LIMIT:
-        raise NotImplementedError(
+        raise LayoutRefused(
             f"{nsteps} sweeps of this update need {smem} bytes of shared memory per "
             f"block, above the {SHARED_LIMIT} a block can have on the H100; take fewer "
             "steps per launch")
@@ -965,7 +966,7 @@ def _parallel_source(program: TapProgram, rotations: Mapping[str, str], nsteps: 
     pl = plan(program, rotations, nsteps, shape)
     smem = shared_bytes(program, pl, shape, dtype)
     if smem > SHARED_LIMIT:
-        raise NotImplementedError(
+        raise LayoutRefused(
             f"{nsteps} sweeps of this update need {smem} bytes of shared memory per "
             f"block, above the {SHARED_LIMIT} a block can have on the H100; take fewer "
             "steps per launch")
@@ -1134,7 +1135,7 @@ def _parallel_source(program: TapProgram, rotations: Mapping[str, str], nsteps: 
         py, pz = pl.region(ph, shape)
         nr, wd = rounds(pl, ph, shape)
         if nr > 32:
-            raise NotImplementedError(f"{ph.name}: {nr} rounds of a block's threads; take a "
+            raise LayoutRefused(f"{ph.name}: {nr} rounds of a block's threads; take a "
                                       "smaller tile or more threads")
         n = py * pz
         (ylo_b, yhi_b), (zlo_b, zhi_b), (xlo_b, xhi_b) = inside(ph)

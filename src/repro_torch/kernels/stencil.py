@@ -92,10 +92,12 @@ from ..ir.bc import BoundaryCondition
 from ..ir.trace import StencilIR
 from . import build, codegen, codegen_pairs, codegen_steps
 
-# Launches of the generated kernels, by kernel name, and by (kernel name,
-# grid shape); ``run`` adds one to each where it launches, and nowhere else.
+# Launches of the generated kernels, by kernel name, by (kernel name, grid
+# shape) and by (kernel name, ``codegen.layout_name`` of the layout launched);
+# ``run`` adds one to each where it launches, and nowhere else.
 launches: collections.Counter = collections.Counter()
 shape_launches: collections.Counter = collections.Counter()
+layout_launches: collections.Counter = collections.Counter()
 
 # Blocks per launch, in waves of the card's resident capacity: with more,
 # shorter chunks the last wave idles less of the card, against the lag
@@ -281,20 +283,38 @@ class StencilCall:
     ``codegen.cuda_source``, one cell a thread at every storage width, a 3-D
     program without stages in the column march (``codegen.BATCHED``,
     ``kernels/codegen_columns.py``); its launches count under
-    ``"{label}/batched"``."""
+    ``"{label}/batched"``.
+
+    With ``strict`` (a ``shape`` the caller chose: ``parallel(tile=)``, the
+    autotuner) every launch takes ``shape`` or raises ``ValueError`` naming
+    it: a layout that :func:`codegen.layout_refusal` or a printer refuses
+    (``codegen.LayoutRefused``) raises here, and a pair layout on fields
+    not aligned to its words raises at the launch instead of taking the
+    one-cell layout. What the kernel does not port at all
+    (``NotImplementedError``) propagates as it is."""
 
     def __init__(self, ir: StencilIR, label: str,
                  bcs: Mapping[str, BoundaryCondition] | None = None,
                  shape: codegen.KernelShape | None = None, nsteps: int = 1,
                  rotations: Mapping[str, str] | None = None,
                  dtype: torch.dtype = torch.float32, march_axis: int | None = None,
-                 batched: Mapping[str, str] | None = None):
+                 batched: Mapping[str, str] | None = None, strict: bool = False):
         unsupported(ir)
         check_march(ir, march_axis)
         if dtype not in STORAGE_DTYPES:
             raise NotImplementedError(
                 f"{label}: storage dtype {dtype} is not ported to the CUDA kernel "
                 "(ROADMAP queue 1, item 3: f64 storage)")
+        self.strict = strict and shape is not None
+        try:
+            self._init(ir, label, bcs, shape, nsteps, rotations, dtype, march_axis, batched)
+        except codegen.LayoutRefused as e:     # a printer's shared-memory or rounds rule
+            if not self.strict:
+                raise
+            raise ValueError(f"{label}: the layout {codegen.layout_name(shape)} cannot serve "
+                             f"this call: {e}") from e
+
+    def _init(self, ir, label, bcs, shape, nsteps, rotations, dtype, march_axis, batched):
         self.ir = ir
         self.dtype = dtype
         self._made = (label, bcs)
@@ -333,6 +353,10 @@ class StencilCall:
         self.classes = codegen.shape_classes(self.program)
         self.divisors = codegen.divisor_params(self.program)
         dtype, rotations = self.dtype, self.rotations
+        if self.strict and (why := codegen.layout_refusal(self.program, shape,
+                                                          rotations is not None)):
+            raise ValueError(f"{label}: the layout {codegen.layout_name(shape)} cannot serve "
+                             f"this call: {why}")
         if self.batched is not None:
             codegen.check_batched(self.program, self.batched)
             self.shape = shape or codegen.batch_shape(self.program, dtype)
@@ -354,7 +378,7 @@ class StencilCall:
             limit = codegen.SM_SHARED if self.shape.async_copies else codegen.SHARED_LIMIT
             if smem > limit:
                 # the counterpart of the reference's preflight_vmem
-                raise NotImplementedError(
+                raise codegen.LayoutRefused(
                     f"{label}: its staged intermediates need {smem} bytes of shared memory "
                     f"per block, above the {limit} a block can have")
             self.source = codegen.cuda_source(self.program, self.shape, dtype)
@@ -422,8 +446,10 @@ class StencilCall:
         call, outs, parts, args = self.prepare(ins, scalars, sm_count(dev))
         with torch.cuda.device(dev):
             call._library().launch(*args, stream_of(dev))
+        base = tuple(self.ir.base_shape)
         launches[self.label] += 1
-        shape_launches[self.label, tuple(self.ir.base_shape)] += 1
+        shape_launches[self.label, base] += 1
+        layout_launches[self.label, self.launch_info[base].layout] += 1
         return self.finish(outs, parts)
 
     def run_batch(self, bufs: Mapping[str, torch.Tensor], scalars, live: torch.Tensor,
@@ -463,6 +489,7 @@ class StencilCall:
             self._library().launch(*args, stream_of(dev))
         launches[self.label] += 1
         shape_launches[self.label, base] += 1
+        layout_launches[self.label, launch.layout] += 1
         return self.finish_batch(parts, nb)
 
     def batch_launcher(self, bufs: Mapping[str, torch.Tensor], params: torch.Tensor,
@@ -539,11 +566,15 @@ class StencilCall:
         """The call that launches on ``ins``: this one, or, for the pair
         layout on fields whose addresses are not aligned to its words (a
         view at an odd offset), the one-cell layout of the same program
-        (``codegen.kernel_shape``), counted under this call's label."""
+        (``codegen.kernel_shape``), counted under this call's label
+        (``ValueError`` for a ``strict`` call)."""
         vec = self.shape.vec
         if vec == 1 or codegen_pairs.aligned_ptrs((t.data_ptr() for t in ins.values()), vec,
                                                   self.dtype.itemsize):
             return self
+        if self.strict:
+            raise ValueError(f"{self.label}: the layout {codegen.layout_name(self.shape)} needs "
+                             f"fields aligned to {vec * self.dtype.itemsize}-byte words")
         if self._cells is None:
             label, bcs = self._made
             self._cells = StencilCall(self.ir, label, bcs, codegen.kernel_shape(self.program),

@@ -94,39 +94,17 @@ from ..core import init_parallel_stencil, teff
 from ..examples import gross_pitaevskii as gp, porosity_waves as pw, quickstart
 from ..configs import FIG1
 from ..kernels import build, codegen, codegen_steps, stencil
+# the layouts this tool times, one definition shared with the run-time autotuner
+# (``kernels/autotune.py``: ``candidates``, ``STEPS_3D``/``STEPS_2D``, ``PAIRS_3D``/``PAIRS_2D``,
+# ``SLABS``, ``STEPS_SLABS``)
+from ..kernels.autotune import (candidates, march_candidates, steps_candidates,
+                                steps_march_candidates)
 
 Shape = codegen.KernelShape
-STAGED_3D = [Shape((32, 8), p, b) for p in (1, 2, 4) for b in (4, 5, 6)]
-PLAIN_3D = [Shape((32, 8), p, b) for p in (1, 2, 4) for b in (6, 8)]
-STAGED_2D = [Shape((256, 1), p, b) for p in (2, 4) for b in (4, 5, 6)] + [Shape((128, 1), 4, 8)]
-PLAIN_2D = [Shape((256, 1), p, b) for p in (1, 2, 4) for b in (6, 8)]
 SCALARS = dict(dtau=1e-3, g=0.5, dt=1e-3, _dx2=3.0, _dy2=2.0, _dz2=5.0)
-# all-parallel k-step layouts: (z, y) cells, planes per step, resident blocks,
-# threads of a block
-STEPS_3D = [Shape(t, p, b, block=n) for t, p, b, n in (
-    ((32, 32), 1, 2, 256), ((32, 32), 1, 3, 256), ((32, 32), 1, 4, 256), ((32, 32), 2, 2, 256),
-    ((32, 16), 1, 2, 256), ((32, 16), 1, 4, 256), ((32, 16), 2, 4, 256), ((64, 16), 1, 2, 256),
-    ((32, 32), 1, 2, 512), ((32, 16), 2, 2, 256), ((32, 32), 2, 2, 512), ((32, 32), 2, 3, 256),
-    ((32, 16), 1, 2, 512), ((32, 8), 2, 4, 256), ((32, 16), 2, 3, 256), ((32, 24), 2, 2, 256),
-    ((32, 24), 2, 3, 256), ((32, 16), 2, 2, 512), ((32, 24), 2, 2, 512))]
-STEPS_2D = [Shape(t, p, b, block=n) for t, p, b, n in (
-    ((224, 1), 1, 4, 256), ((224, 1), 2, 4, 256), ((224, 1), 4, 4, 256), ((224, 1), 2, 2, 256),
-    ((224, 1), 4, 2, 256), ((224, 1), 2, 6, 256), ((224, 1), 2, 8, 256), ((480, 1), 2, 2, 512),
-    ((480, 1), 4, 2, 512))]
 STEPS_KS = {"stencil": (2, 3, 4), "porosity_fused[neumann0]": (2, 3, 4),
             "gp_fused[none]": (2, 3)}
 MARCH_KERNELS = ("stencil", "porosity_fused[neumann0]", "gp_fused[none]")
-# async slab layouts (tile, planes) tried along the contiguous axis, by rank
-SLABS = {3: [*dict.fromkeys([*codegen.SLABS[(3, False)], *codegen.SLABS[(3, True)],
-                             ((32, 8), 16), ((32, 4), 32), ((16, 4), 32), ((32, 2), 16)])],
-         2: [*dict.fromkeys([*codegen.SLABS[(2, True)], ((128, 1), 16), ((256, 1), 8),
-                             ((32, 1), 32), ((64, 1), 32)])]}
-
-
-# k-step layouts (tile, planes) tried along the contiguous axis, by rank
-STEPS_SLABS = {3: [*codegen_steps.SLABS[3], ((32, 4), 16), ((16, 8), 16), ((32, 4), 4),
-                   ((32, 8), 8)],
-               2: [*codegen_steps.SLABS[2], ((128, 1), 16), ((64, 1), 16), ((256, 1), 8)]}
 
 
 def random_fields(kern, base, porosity, gen, dev, lead: tuple = ()) -> dict:
@@ -193,56 +171,10 @@ def kernels(dev, dtype: torch.dtype = torch.float32) -> dict:
                 sc) for n, (k, p, f, sc) in out.items()}
 
 
-# pair layouts (``KernelShape.vec``) tried for 2-byte fields, by rank: 2 and 4
-# cells a thread, planes per step, resident blocks
-PAIRS_3D = [Shape(t, p, b, vec=v) for v, t, bs in ((2, (16, 8), (6, 7, 8, 10)),
-                                                   (4, (8, 8), (8, 10, 12, 16)))
-            for p in (2, 4) for b in bs] + [
-    Shape((16, 8), 1, 8, vec=2), Shape((16, 8), 1, 10, vec=2), Shape((16, 8), 8, 6, vec=2),
-    Shape((8, 8), 8, 8, vec=4), Shape((16, 16), 4, 4, vec=2), Shape((16, 16), 2, 3, vec=2),
-    Shape((16, 16), 4, 3, vec=2), Shape((8, 16), 2, 6, vec=4), Shape((8, 16), 2, 5, vec=4),
-    Shape((8, 16), 1, 6, vec=4), Shape((8, 16), 1, 8, vec=4), Shape((8, 8), 1, 10, vec=4),
-    Shape((8, 8), 1, 12, vec=4), Shape((8, 8), 1, 14, vec=4), Shape((16, 8), 1, 7, vec=2)]
-PAIRS_2D = [Shape(t, p, b, vec=v) for v, t, bs in ((2, (128, 1), (6, 8, 10)),
-                                                   (4, (64, 1), (8, 10, 12, 16))) for p in (2, 4)
-            for b in bs] + [Shape((256, 1), 4, 4, vec=2), Shape((128, 1), 4, 8, vec=4),
-                            Shape((128, 1), 2, 6, vec=4), Shape((64, 1), 8, 12, vec=4),
-                            Shape((128, 1), 8, 6, vec=2), Shape((32, 1), 2, 24, vec=4)]
-
-
-def candidates(call) -> list:
-    """The one-cell layouts of the call's rank, and for 2-byte fields the
-    pair layouts beside them."""
-    p = call.program
-    if p.ndim == 3:
-        cells = STAGED_3D if p.stages else PLAIN_3D
-    else:
-        cells = STAGED_2D if p.stages else PLAIN_2D
-    if call.dtype.itemsize == 2:
-        return [*cells, *(PAIRS_3D if p.ndim == 3 else PAIRS_2D)]
-    return cells
-
-
 def ptxas(log: str) -> dict:
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
     return {"registers": max(regs, default=None),
             "spill_bytes": sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))}
-
-
-def steps_candidates(kern, fields, scalars, nsteps: int) -> list:
-    """The k-step calls of ``kern`` over its chosen layout and those of
-    ``STEPS_3D`` or ``STEPS_2D`` whose queues fit a block's shared memory;
-    at ``nsteps`` 1 the k-step printer's single sweep."""
-    ir = kern.compiled(**fields, **scalars).ir
-    chosen = kern.compiled(nsteps=max(nsteps, 2), **fields, **scalars).shape
-    calls = []
-    for shape in dict.fromkeys([chosen, *(STEPS_3D if ir.ndim == 3 else STEPS_2D)]):
-        try:
-            calls.append(stencil.StencilCall(ir, kern.label, kern.bc, shape, nsteps,
-                                             kern.rotations, kern.ps.dtype))
-        except NotImplementedError:     # its queues exceed a block's shared memory
-            continue
-    return calls
 
 
 def steps_choice(call) -> str:
@@ -316,30 +248,6 @@ def solver_state(todo: dict, n: str):
         cfg = pw.PorosityConfig(n=8192, device="cuda")
         sc = dict(sc, dtau=pw.timestep(cfg, pw.make_grid(cfg)))
     return k, plain, f, sc
-
-
-def march_candidates(call) -> list:
-    """A marched single-step call's layouts: its own (``kernel_shape``), the
-    all-parallel twin's, and along the contiguous axis the synchronous
-    slab (``codegen.slab_layout(..., False)``) and the async slabs of
-    ``SLABS`` that fit."""
-    p = call.program
-    shapes = [call.shape, codegen.kernel_shape(dataclasses.replace(p, layout=()))]
-    if p.z_strided:
-        shapes.append(codegen.slab_layout(p, False))
-        shapes += [s for tile, planes in SLABS[p.ndim]
-                   if (s := codegen.slab_shape(p, tile, planes)) is not None]
-    return list(dict.fromkeys(shapes))
-
-
-def steps_march_candidates(call) -> list:
-    """A k-step call marching the contiguous axis: its own layout and those
-    of ``STEPS_SLABS`` that fit."""
-    shapes = [call.shape] + [
-        s for tile, planes in STEPS_SLABS[call.program.ndim]
-        if (s := codegen_steps.slab_shape(call.program, call.rotations, call.nsteps, tile,
-                                          planes)) is not None]
-    return list(dict.fromkeys(shapes))
 
 
 def tune_march(todo: dict, axes: list, waves: list | None, iters: int, ks: list) -> None:

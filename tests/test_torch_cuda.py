@@ -872,3 +872,76 @@ def test_bf16_checkpoint_of_card_tensors_restores_bitwise(card, tmp_path):
     for n, t in tree["fields"].items():
         assert got["fields"][n].is_cuda and got["fields"][n].dtype == t.dtype
         assert torch.equal(got["fields"][n].view(torch.int16), t.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# the launch autotuner and parallel(tile=) on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autotune_diffusion3d_on_the_card(card, dtype, tmp_path):
+    """The real timer at 64^3: every candidate timed is held bitwise to k
+    single steps of the table layout; the memory and the disk hit return
+    the winner and launch nothing; the winner's tile serves
+    ``parallel(tile=)``, bitwise to the table layout."""
+    from repro_torch import telemetry
+    from repro_torch.kernels import autotune, codegen
+
+    autotune._CACHE.clear()
+    cache = str(tmp_path / "tune.json")
+    kw = dict(nsteps_candidates=(1, 2), march_candidates=(None, 0), iters=3,
+              cache_path=cache, max_candidates=2, device="cuda")
+    col = telemetry.configure(None)
+    try:
+        report = []
+        win = autotune.autotune_diffusion3d((64, 64, 64), dtype, report=report, **kw)
+        torch.cuda.synchronize()
+        before = sum(stencil.launches.values())
+        assert autotune.autotune_diffusion3d((64, 64, 64), dtype, **kw) == win
+        autotune._CACHE.clear()
+        assert autotune.autotune_diffusion3d((64, 64, 64), dtype, **kw) == win
+        assert sum(stencil.launches.values()) == before
+        decisions = [r["attrs"]["cache"] for r in col.records
+                     if r["kind"] == "event" and r["name"] == "autotune.decision"]
+    finally:
+        telemetry.reset()
+        autotune._CACHE.clear()
+    assert decisions == ["miss", "memory_hit", "disk_hit"]
+    assert len(report) == win.candidates_tried >= 4
+    assert all(r["bitwise"] and r["measured_s"] > 0 for r in report)
+    assert isinstance(win.tile, codegen.KernelShape) and win.per_step_s > 0
+    dt = getattr(torch, dtype)
+    ps = init_parallel_stencil(dtype=dt)
+    kern = autotune.diffusion3d_kernel(ps, win.tile).marched(win.march_axis)
+    table = autotune.diffusion3d_kernel(ps)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    T = torch.rand((64, 64, 64), generator=g, device="cuda").to(dt)
+    f = {"T2": T.clone(), "T": T, "Ci": (torch.rand((64, 64, 64), generator=g,
+                                                    device="cuda") + 0.5).to(dt)}
+    sc = dict(lam=1.0, dt=1e-5, _dx=63.0, _dy=63.0, _dz=63.0)
+    assert torch.equal(kern.run_steps(win.nsteps, **f, **sc),
+                       _sequential_launches(table, f, sc, win.nsteps)["T2"])
+
+
+def test_parallel_tile_launches_the_layout_asked_for(card, rng):
+    from repro_torch.kernels import autotune, codegen
+
+    ps = init_parallel_stencil()
+    f = {n: _rand(rng, (33, 20, 130), card) for n in ("T2", "T", "Ci")}
+    f["T2"] = f["T"].clone()
+    sc = dict(lam=1.0, dt=1e-4, _dx=32.0, _dy=19.0, _dz=129.0)
+    table = autotune.diffusion3d_kernel(ps)
+    for tile, k, march in ((codegen.KernelShape((32, 8), 1, 8), 1, None),
+                           (codegen.KernelShape((32, 8), 4, 6), 1, 0),
+                           (codegen.KernelShape((32, 16), 1, 2, block=256), 2, None),
+                           (codegen.KernelShape((32, 16), 1, 4), 2, 1)):
+        kern = autotune.diffusion3d_kernel(ps, tile).marched(march)
+        counted = (kern.compiled(nsteps=k, **f, **sc).label, codegen.layout_name(tile))
+        before = stencil.layout_launches[counted]
+        got = kern.run_steps(k, **f, **sc)
+        torch.cuda.synchronize()
+        assert kern.launch_info[(33, 20, 130)]["layout"] == codegen.layout_name(tile)
+        assert stencil.layout_launches[counted] == before + 1
+        assert torch.equal(got, _sequential_launches(table, f, sc, k)["T2"])
+    with pytest.raises(ValueError, match="cannot serve"):
+        autotune.diffusion3d_kernel(ps, codegen.KernelShape((32, 16), 1, 2, block=256))(
+            **f, **sc)

@@ -43,6 +43,17 @@ assert torch.equal(bc.BoundaryCondition("periodic").apply(g["re"]),
 import repro_torch.serve
 from repro_torch.serve.__main__ import main as serve_main
 assert serve_main(["--demo", "--device", "cpu", "--n", "8", "--requests", "2"]) == 0
+import repro_torch.kernels.autotune, repro_torch.launch.roofline, repro_torch.data.physics
+from repro_torch.core import Grid, init_parallel_stencil
+from repro_torch.data import physics
+from repro_torch.kernels import autotune
+from repro_torch.launch import roofline
+kern = autotune.diffusion3d_kernel(init_parallel_stencil(backend="torch", device="cpu"))
+f = {n: (8, 8, 16) for n in ("T2", "T", "Ci")}
+sc = dict(lam=1.0, dt=1e-4, _dx=7.0, _dy=7.0, _dz=15.0)
+assert autotune.tile_candidates(kern, f, sc, 2, None, 3)[0] == kern.compiled(nsteps=2, **f, **sc).shape
+assert roofline.stencil_roofline(kern.cost_model(**f, **sc))["dominant"] == "memory"
+assert physics.random_porosity(torch.Generator().manual_seed(0), Grid((6, 5)), device="cpu").shape == (6, 5)
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m in sys.modules if sys.modules[m] is not None)
 print("imported", len(names), "modules")
