@@ -11,7 +11,18 @@ explicit kernel, then solve_until) and Zamba2-1.2B serving at full width
 and depth (batch 4, a 1024-token prompt, 32 generated tokens, random
 weights from a seed) through ``repro_torch.launch.serve``, whose prefill
 runs the conv1d, SSD and attention kernels; the serving run's prefill
-logits are held against the same run on the plain versions. The paper's two coupled solvers follow
+logits are held against the same run on the plain versions. Then the other
+LM families (``main_path_lm_families``, ``LM_FAMILIES``): stablelm-3b,
+qwen3-32b and moonshot-v1-16b-a3b (8 layers each, for 80 GB at f32),
+phi-3-vision-4.2b, seamless-m4t-medium and mamba2-130m at their published
+widths, each served at batch 4 with a 1024-position prompt and 16
+generated tokens, on the kernels and then on the plain versions with the
+same weights and prompt: launches exactly as listed, logits within
+``LOGITS_TOL``, the greedy tokens that agree, peak memory, and for the MoE
+the routing choices that differ between the two runs and the smallest
+gap between the k-th and (k+1)-th gate probability; the phase must take at
+most 150 s. ``times_lm_families`` times each kernel at those shapes beside
+its bound, plain version and library call. The paper's two coupled solvers follow
 through ``repro_torch.examples.porosity_waves`` (2-D, 8192^2: staggered
 Darcy fluxes, every boundary condition, the flux-split scheme, a fixed run
 and a ``--tol`` run) and ``repro_torch.examples.gross_pitaevskii`` (3-D,
@@ -278,6 +289,37 @@ LM_TOL = {"conv1d": (1e-5, 1e-6), "ssd": (1e-4, 1e-4), "attention": (1e-5, 1e-5)
 # plain versions after 38 Mamba2 layers and 6 shared-block applications,
 # each a few f32 roundings apart.
 LOGITS_TOL = (1e-3, 1e-3)
+# main_path_lm_families: the dense, MoE, VLM, enc-dec and SSM stacks at their
+# published widths, each served at batch 4 with a 1024-position prompt (a
+# VLM's 576 patch embeddings + 448 tokens; an enc-dec's 1024 frames + 1024
+# tokens) and 16 generated tokens, on the kernels and then on the plain
+# versions with the same weights and prompt. The depth cuts (overrides) keep
+# the f32 weights on one 80 GB card: qwen3-32b whole is 131 GB, moonshot
+# 112 GB. Each entry: (overrides, the kernels' launches a request, exactly;
+# attention's split by mode where it has two).
+LM_FAMILIES = {
+    "stablelm-3b": ({}, {"attention": 32, "conv1d": 0, "ssd": 0}),
+    "qwen3-32b": ({"n_layers": 8}, {"attention": 8, "conv1d": 0, "ssd": 0}),
+    "moonshot-v1-16b-a3b": ({"n_layers": 8}, {"attention": 8, "conv1d": 0, "ssd": 0}),
+    "phi-3-vision-4.2b": ({}, {"attention": 32, "conv1d": 0, "ssd": 0}),
+    "seamless-m4t-medium": ({}, {"attention": 24, "conv1d": 0, "ssd": 0,
+                                 "attention:noncausal": 12, "attention:causal": 12}),
+    "mamba2-130m": ({}, {"attention": 0, "conv1d": 24, "ssd": 24}),
+}
+LM_FAMILY_SERVE = dict(batch=4, prompt_len=1024, gen_len=16)
+LM_FAMILIES_BUDGET_S = 150.0
+# the kernel cases at each family's prefill shapes: case label -> (arch, the
+# launch count of that family's run that counts them)
+LM_FAMILY_CASES = {
+    "attention_stablelm": ("stablelm-3b", "attention"),
+    "attention_qwen3": ("qwen3-32b", "attention"),
+    "attention_moonshot": ("moonshot-v1-16b-a3b", "attention"),
+    "attention_phi3": ("phi-3-vision-4.2b", "attention"),
+    "attention_seamless_enc": ("seamless-m4t-medium", "attention:noncausal"),
+    "attention_seamless_dec": ("seamless-m4t-medium", "attention:causal"),
+    "conv1d_mamba2": ("mamba2-130m", "conv1d"),
+    "ssd_mamba2": ("mamba2-130m", "ssd"),
+}
 
 
 START = time.perf_counter()
@@ -495,6 +537,8 @@ def main() -> int:
                         f"{row[part]}" for part in case["parts"] if not row[part]["ok"]]
         if label.endswith("zamba2"):
             err_at[kernel] = max(row[part]["max_abs_err"] for part in case["parts"])
+        if label in LM_FAMILY_CASES:
+            err_at[label] = max(row[part]["max_abs_err"] for part in case["parts"])
         del got, want
     require(not lm_failures, "; ".join(lm_failures))
 
@@ -619,6 +663,9 @@ def main() -> int:
     lm = lm_main_path(torch, dev)
     lm_counts = lm["launches"]
     torch.cuda.empty_cache()
+    # the dense, MoE, VLM, enc-dec and SSM stacks at their published widths
+    families = lm_families_main_path(torch, dev)
+    torch.cuda.empty_cache()
 
     # ---- 4c. the coupled solvers' main paths ----------------------------------
     coupled_runs = coupled_main_path(torch, coupled)
@@ -701,31 +748,21 @@ def main() -> int:
     del grid, f
     # ---- 5b. times of the LM kernels at the Zamba2 prefill shapes --------------
     torch.backends.cudnn.allow_tf32 = False      # the library conv in f32, as the kernel
-    lm_times = {}
-    for label, case in lm_cases.items():
-        if not label.endswith("zamba2"):
-            continue
-        kernel = case["name"]
-        t = {"ms": teff.measure(case["kernel"], iters=20, warmup=3).median_s * 1e3,
-             "plain_ms": teff.measure(case["plain"], iters=20, warmup=3).median_s * 1e3,
-             "library_ms": (teff.measure(case["library"], iters=20, warmup=3).median_s * 1e3
-                            if case["library"] else None),
-             "bytes": case["bytes"], "flops": case["flops"]}
-        # bound_ms at the rate of the units the kernel runs its products on
-        # (attention, SSD: 3xTF32 tensor cores; conv1d: f32 CUDA cores);
-        # the f32 CUDA-core bound beside it
-        rate = PEAK_3XTF32_PER_S if case["tensor_cores"] else PEAK_F32_PER_S
-        by_bytes, by_ops = case["bytes"] / PEAK_BYTES_PER_S, case["flops"] / rate
-        t["bound_ms"] = max(by_bytes, by_ops) * 1e3
-        t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-        t["bound_rate"] = "3xTF32 tensor cores" if case["tensor_cores"] else "f32 CUDA cores"
-        t["bound_f32_cuda_cores_ms"] = max(by_bytes, case["flops"] / PEAK_F32_PER_S) * 1e3
-        t["library"] = case["library_name"]
-        lm_times[kernel] = t
+    lm_times = {case["name"]: lm_case_times(torch, teff, case)
+                for label, case in lm_cases.items() if label.endswith("zamba2")}
     emit({"phase": "times_lm", "card": spec.name, "power_limit": spec.power_limit,
           "shapes": {c["name"]: c["shape"] for k, c in lm_cases.items() if k.endswith("zamba2")},
           "launches_per_request": lm_counts, "kernels": lm_times,
           "prefill_ms": lm["prefill_ms"], "decode_tok_per_s": lm["decode_tok_per_s"]})
+    family_times = {}
+    for label, (arch, counter) in LM_FAMILY_CASES.items():
+        t = family_times[label] = lm_case_times(torch, teff, lm_cases[label])
+        t.update(arch=arch, shape=lm_cases[label]["shape"],
+                 launches_per_request=families[arch]["launches"][counter])
+    emit({"phase": "times_lm_families", "card": spec.name, "power_limit": spec.power_limit,
+          "kernels": family_times,
+          "serving": {a: {k: r[k] for k in ("prefill_ms", "decode_tok_per_s", "peak_gb")}
+                      for a, r in families.items()}})
     del lm_cases
 
     # ---- 5c. times of the coupled kernels at full size --------------------------
@@ -826,6 +863,13 @@ def main() -> int:
                  **{x: lm_times[k][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "bound_f32_cuda_cores_ms", "library_ms")}}
                 for k, rep in lm_rows]
+    kernels += [{"name": f"{label.split('_')[0]}[{label.split('_', 1)[1]}]", "route": "cuda",
+                 "source": f"src/repro_torch/kernels/csrc/{label.split('_')[0]}.cu",
+                 "replaces": dict(lm_rows)[label.split("_")[0]],
+                 "launches": t["launches_per_request"], "max_abs_err": err_at[label],
+                 **{x: t[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "bound_f32_cuda_cores_ms", "library_ms")}}
+                for label, t in family_times.items()]
     kernels += [{"name": k, "route": "cuda", "source": gen_src,
                  "replaces": "src/repro/kernels/stencil.py:1052",
                  "launches": coupled_runs["launches"][k], "max_abs_err": err_at[k],
@@ -960,10 +1004,161 @@ def lm_main_path(torch, dev, smoke: bool = False, serve_kw=LM_SERVE) -> dict:
     return lm
 
 
+def lm_case_times(torch, teff, case) -> dict:
+    """One LM kernel case timed (CUDA events, median of 20) beside its plain
+    version and its library call, with its bound: at the rate of the units
+    the kernel runs its products on (attention, SSD: 3xTF32 tensor cores;
+    conv1d: f32 CUDA cores), the f32 CUDA-core bound beside it."""
+    t = {"ms": teff.measure(case["kernel"], iters=20, warmup=3).median_s * 1e3,
+         "plain_ms": teff.measure(case["plain"], iters=20, warmup=3).median_s * 1e3,
+         "library_ms": (teff.measure(case["library"], iters=20, warmup=3).median_s * 1e3
+                        if case["library"] else None),
+         "bytes": case["bytes"], "flops": case["flops"]}
+    rate = PEAK_3XTF32_PER_S if case["tensor_cores"] else PEAK_F32_PER_S
+    by_bytes, by_ops = case["bytes"] / PEAK_BYTES_PER_S, case["flops"] / rate
+    t["bound_ms"] = max(by_bytes, by_ops) * 1e3
+    t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    t["bound_rate"] = "3xTF32 tensor cores" if case["tensor_cores"] else "f32 CUDA cores"
+    t["bound_f32_cuda_cores_ms"] = max(by_bytes, case["flops"] / PEAK_F32_PER_S) * 1e3
+    t["library"] = case["library_name"]
+    return t
+
+
+class RouteLog:
+    """Records every MoE routing of a run: the sorted expert choices of each
+    token and the smallest gap between the k-th and (k+1)-th gate
+    probability, by wrapping ``models.moe.route`` while the block is open
+    (``moe_apply`` calls it by its module name)."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.route = route = self.moe.route
+
+        def recorded(p, xt, k):
+            probs, ranked, idx = route(p, xt, k)
+            self.calls.append((idx.sort(-1).values, (ranked[:, k - 1] - ranked[:, k]).min()))
+            return probs, ranked, idx
+
+        self.moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def min_gap(self, n) -> float:
+        return min(float(g) for _, g in self.calls[:n])
+
+    def differ(self, other, n) -> int:
+        """(token, layer) choices of the first ``n`` calls that differ."""
+        return sum(int((a != b).any(-1).sum()) for (a, _), (b, _)
+                   in zip(self.calls[:n], other.calls[:n]))
+
+
+def lm_families_main_path(torch, dev, smoke: bool = False, serve_kw=LM_FAMILY_SERVE,
+                          families=LM_FAMILIES, budget_s=LM_FAMILIES_BUDGET_S) -> dict:
+    """Serve each config of ``families`` through ``repro_torch.launch.serve``
+    (cut with its overrides), on the kernels (the launch counts set to 0
+    just before, read just after), then on the plain versions with the same
+    weights and prompt; check and free each model before the next. Every
+    config is served and printed before a failure is raised."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.kernels import attention, conv1d, ssd
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import RunConfig, build as build_model, moe, synth_batch
+
+    lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
+    scfg = lm_serve.ServeConfig(**serve_kw)
+    plain_rc = RunConfig(param_dtype="float32", attn_impl="ref", ssd_impl="ref",
+                         conv_impl="ref")
+    on_card = dev.type == "cuda"
+    out, failures = {}, []
+    t_phase = time.perf_counter()
+    for arch, (overrides, want) in families.items():
+        t0 = time.perf_counter()
+        base = configs.get_smoke(arch) if smoke else configs.get_arch(arch)
+        cfg = configs.apply_overrides(base, overrides)
+        model = build_model(cfg, RunConfig(param_dtype="float32"), dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(scfg.seed))
+        batch = synth_batch(model, torch.Generator(device=dev).manual_seed(scfg.seed + 1),
+                            scfg.prompt_len, scfg.batch)
+        extras = {k: v for k, v in batch.items() if k != "tokens"}
+        n_params = sum(t.numel() for t in flat_tensors(params))
+        kw = dict(smoke=smoke, device=dev, params=params, tokens=batch["tokens"],
+                  extras=extras, overrides=overrides, log_fn=lambda *a: None)
+        logs = [RouteLog(moe), RouteLog(moe)]
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        for m in lm_kernels.values():
+            m.launches = 0
+        attention.launches_by_mode.clear()
+        with logs[0]:
+            toks, info = lm_serve.serve(arch, scfg, **kw)
+        counts = {n: m.launches for n, m in lm_kernels.items()}
+        counts.update({f"attention:{k}": v for k, v in attention.launches_by_mode.items()})
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        with logs[1]:
+            toks_ref, info_ref = lm_serve.serve(arch, scfg, rc=plain_rc, **kw)
+        plain_peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+        logits, logits_ref = info["prefill_logits"], info_ref["prefill_logits"]
+        row = {"phase": "main_path_lm_families", "arch": arch, "family": cfg.family,
+               "smoke": smoke, "overrides": overrides, "serve": serve_kw,
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "prompt": {k: list(v.shape) for k, v in batch.items()},
+               "params": n_params, "param_count": cfg.param_count(),
+               "weight_gb": n_params * 4 / 1e9, "peak_gb": peak, "plain_peak_gb": plain_peak,
+               "launches": counts, "prefill_ms": info["t_prefill_s"] * 1e3,
+               "decode_tok_per_s": info["tok_per_s"],
+               "plain_prefill_ms": info_ref["t_prefill_s"] * 1e3,
+               "plain_decode_tok_per_s": info_ref["tok_per_s"],
+               "logits": {"shape": list(logits.shape),
+                          "finite": bool(torch.isfinite(logits).all()),
+                          "min": float(logits.min()), "max": float(logits.max()),
+                          "vs_plain": close_report(torch, logits, logits_ref, *LOGITS_TOL),
+                          "rtol": LOGITS_TOL[0], "atol": LOGITS_TOL[1]},
+               "tokens": {"agree_with_plain": int((toks == toks_ref).sum()),
+                          "of": int(toks.size), "first_row": toks[0].tolist()}}
+        if cfg.is_moe:
+            row["routing"] = {"prefill_choices_differ": logs[0].differ(logs[1], cfg.n_layers),
+                              "of": cfg.n_layers * scfg.batch * scfg.prompt_len,
+                              "min_gap_k_to_k1": min(logs[0].min_gap(cfg.n_layers),
+                                                     logs[1].min_gap(cfg.n_layers)),
+                              "calls": [len(logs[0].calls), len(logs[1].calls)]}
+        row["wall_s"] = time.perf_counter() - t0
+        emit(row)
+        out[arch] = row
+        if not (row["logits"]["finite"] and list(logits.shape) == [scfg.batch, cfg.vocab]):
+            failures.append(f"{arch}: prefill logits not finite or of the wrong shape")
+        if not (toks.shape == (scfg.batch, scfg.gen_len) and 0 <= toks.min()
+                and toks.max() < cfg.vocab):
+            failures.append(f"{arch}: generated tokens out of range")
+        if not row["logits"]["vs_plain"]["ok"]:
+            failures.append(f"{arch}: prefill logits of the kernels and the plain versions "
+                            f"differ: {row['logits']}")
+        if on_card and not smoke and {k: counts.get(k, 0) for k in want} != want:
+            failures.append(f"{arch}: launches {counts}, want {want}")
+        del model, params, batch, extras, kw, logs, logits, logits_ref, info, info_ref
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "main_path_lm_families_wall", "wall_s": wall, "budget_s": budget_s,
+          "configs": list(families)})
+    if on_card and wall > budget_s:
+        failures.append(f"main_path_lm_families took {wall:.1f} s, over {budget_s} s")
+    require(not failures, "; ".join(failures))
+    return out
+
+
 def lm_kernel_cases(torch, dev, gen):
     """Inputs, kernel, plain version, library call, bytes and operations of
-    each LM kernel, at small shapes on the kernels' tile edges and at the
-    Zamba2 prefill shape."""
+    each LM kernel, at small shapes on the kernels' tile edges, at the
+    Zamba2 prefill shape and at each other family's (LM_FAMILY_CASES)."""
     import torch.nn.functional as F
     from repro_torch.kernels import attention, conv1d, ref, ssd
 
@@ -972,7 +1167,8 @@ def lm_kernel_cases(torch, dev, gen):
 
     cases = {}
     for label, (B, L, C, K) in {"odd": (2, 70, 300, 3),
-                                "zamba2": (4, 1024, 4224, 4)}.items():
+                                "zamba2": (4, 1024, 4224, 4),
+                                "mamba2": (4, 1024, 1792, 4)}.items():
         x, w, b = randn(B, L, C), randn(K, C, scale=K ** -0.5), randn(C, scale=0.1)
         cases[f"conv1d_{label}"] = {
             "name": "conv1d", "shape": {"x": [B, L, C], "K": K}, "parts": ["out"],
@@ -995,7 +1191,8 @@ def lm_kernel_cases(torch, dev, gen):
             "chunk96": (1, 96, 2, 64, 1, 64, 96, True),
             # an odd L at Zamba2's H, P, N: pick_chunk gives 1, the kernels 64
             "L1023_h0": (1, 1023, 64, 64, 1, 64, 64, True),
-            "zamba2": (4, 1024, 64, 64, 1, 64, 64, False)}.items():
+            "zamba2": (4, 1024, 64, 64, 1, 64, 64, False),
+            "mamba2": (4, 1024, 24, 64, 1, 128, 64, False)}.items():
         x = randn(B, L, H, P, scale=0.5)
         u = torch.rand((B, L, H), generator=gen)
         dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).to(dev)
@@ -1034,7 +1231,15 @@ def lm_kernel_cases(torch, dev, gen):
             "L1024_D128_rep2": (1, 4, 2, 1024, 128, True, None),
             # 4096 keys: the output sums over 128 key tiles
             "L4096": (1, 4, 4, 4096, 64, True, None),
-            "zamba2": (4, 32, 32, 1024, 64, True, None)}.items():
+            "zamba2": (4, 32, 32, 1024, 64, True, None),
+            # the other families' prefill shapes (head dims 80, 96, 128; GQA
+            # rep 8; the enc-dec's non-causal encoder and causal decoder)
+            "stablelm": (4, 32, 32, 1024, 80, True, None),
+            "qwen3": (4, 64, 8, 1024, 128, True, None),
+            "moonshot": (4, 16, 16, 1024, 128, True, None),
+            "phi3": (4, 32, 32, 1024, 96, True, None),
+            "seamless_enc": (4, 16, 16, 1024, 64, False, None),
+            "seamless_dec": (4, 16, 16, 1024, 64, True, None)}.items():
         q, k, v = randn(B, Hq, L, D), randn(B, Hkv, L, D), randn(B, Hkv, L, D)
         i = torch.arange(L)
         allowed = torch.ones(L, L, dtype=torch.bool)
@@ -1050,10 +1255,11 @@ def lm_kernel_cases(torch, dev, gen):
                 (attention.flash_attention(q, k, v, causal=c, window=wd),),
             "plain": lambda q=q, k=k, v=v, c=causal, wd=window:
                 (ref.attention(q, k, v, causal=c, window=wd),),
-            "library_name": "F.scaled_dot_product_attention(is_causal=True)",
-            "library": (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True)) if causal and window is None and Hq == Hkv
-            else None,
+            "library_name": f"F.scaled_dot_product_attention(is_causal={causal}"
+                            + (", enable_gqa=True)" if Hq != Hkv else ")"),
+            "library": (lambda q=q, k=k, v=v, c=causal, g=Hq != Hkv:
+                        F.scaled_dot_product_attention(q, k, v, is_causal=c, enable_gqa=g))
+            if window is None else None,
             "bytes": 4 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D),
             "flops": 4 * B * Hq * D * pairs, "tensor_cores": True}
     return cases

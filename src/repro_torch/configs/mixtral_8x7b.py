@@ -1,0 +1,14 @@
+"""mixtral-8x7b [arXiv:2401.04088; hf].
+
+32L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=32000, MoE 8 experts
+top-2, sliding-window attention (4096), which makes decode sub-quadratic.
+"""
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mixtral-8x7b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=14336, vocab=32000, n_experts=8, top_k=2,
+    window=4096, rope_theta=1e6,
+    notes="8 experts top-2, sliding-window attention",
+)

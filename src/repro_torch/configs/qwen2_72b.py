@@ -1,0 +1,13 @@
+"""qwen2-72b [arXiv:2407.10671; hf].
+
+80L d_model=8192 64H (GQA kv=8) d_ff=29568 vocab=152064, QKV bias.
+"""
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-72b", family="dense",
+    n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8,
+    d_ff=29568, vocab=152064, qkv_bias=True,
+    rope_theta=1e6,
+    notes="GQA + QKV bias; full attention -> long_500k skipped",
+)

@@ -11,5 +11,5 @@ CONFIG = ArchConfig(
     n_layers=38, d_model=2048, n_heads=32, n_kv_heads=32,
     d_ff=8192, vocab=32000, ssm_state=64, attn_every=6,
     ssm_head_dim=64, ssm_expand=2,
-    notes="Mamba2 + shared attn block",
+    notes="Mamba2 + shared attn block; sub-quadratic -> long_500k runs",
 )

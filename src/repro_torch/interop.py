@@ -56,8 +56,10 @@ def params_from_numpy(tree: Mapping, *, device="cuda") -> dict:
 
 
 def cache_from_numpy(cache: Mapping, *, device="cuda") -> dict:
-    """The reference's serving cache (``conv``, ``ssm``, ``k``, ``v``) as the
-    port's."""
+    """The reference's serving cache as the port's, key for key: ``k``/``v``
+    (attention families), ``mk``/``mv`` beside them (the enc-dec's
+    cross-attention memory), ``conv``/``ssm`` (the SSM family; all four of
+    ``conv``, ``ssm``, ``k``, ``v`` for the hybrid)."""
     return _tree_from_numpy(cache, resolve_device(device))
 
 

@@ -14,6 +14,7 @@ is ``ops.decode_attention``, plain PyTorch, as in the reference.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -27,8 +28,10 @@ from .stencil import stream_of
 SOURCE = build.CSRC_DIR / "attention.cu"
 
 # Launches of the CUDA kernel; :func:`flash_attention` adds one where it
-# launches, and nowhere else.
+# launches, and nowhere else: to ``launches``, and to ``launches_by_mode``
+# under "causal", "window" or "noncausal".
 launches = 0
+launches_by_mode: collections.Counter = collections.Counter()
 
 # Head dimensions the kernel takes: whole 16-dim groups (one float4 of q and
 # k per thread makes two 8-deep mma k-steps), at most 128.
@@ -72,4 +75,6 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
                          0 if window is None else int(window), float(scale),
                          stream_of(dev))
     launches += 1
+    launches_by_mode["window" if window is not None else
+                     "causal" if causal else "noncausal"] += 1
     return out

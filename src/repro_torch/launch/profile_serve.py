@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         [--arch zamba2-1.2b] [--batch 4] [--prompt-len 1024] [--decode-steps 8] \\
-        [--smoke] [--device cuda|cpu]
+        [--smoke] [--device cuda|cpu] [--override field=value ...]
 
 For each implementation (``cuda``: the hand-written kernels; ``ref``: their
 plain versions) it builds the model with random weights from a seed, warms
@@ -15,9 +15,12 @@ saw in each and its share of the host time (the device's busy share), and
 the kernels with the most device time, grouped as the port's own kernels,
 matrix products and everything else.
 
-The weights take 4.7 GB at full size. ``--device cpu --smoke`` runs the
-same phases at the smoke size on the CPU (the trace then holds host time
-only, and no device number is printed).
+Any arch of ``configs.ARCH_IDS`` runs, with the prefill batch of its
+family (a VLM's patch embeddings, an enc-dec's frames); ``--override
+n_layers=8`` cuts a config that does not fit the card (Zamba2's weights
+take 4.7 GB at f32). ``--device cpu --smoke`` runs the same phases at the
+smoke size on the CPU (the trace then holds host time only, and no device
+number is printed).
 """
 from __future__ import annotations
 
@@ -85,9 +88,12 @@ def _trace(fn, top: int, dev: torch.device) -> dict:
 
 
 def profile(arch: str, batch: int, prompt_len: int, decode_steps: int, impl: str,
-            seed: int = 0, top: int = 8, smoke: bool = False, device="cuda") -> dict:
+            seed: int = 0, top: int = 8, smoke: bool = False, device="cuda",
+            overrides=None) -> dict:
     dev = resolve_device(device)
     cfg = configs.get_smoke(arch) if smoke else configs.get_arch(arch)
+    if overrides:
+        cfg = configs.apply_overrides(cfg, overrides)
     model = build(cfg, RunConfig(param_dtype="float32", attn_impl=impl, ssd_impl=impl,
                                  conv_impl=impl), dev)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
@@ -139,10 +145,13 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--override", action="append", default=[], metavar="FIELD=VALUE")
     args = ap.parse_args(argv)
+    overrides = dict(o.split("=", 1) for o in args.override)
     for impl in ("cuda", "ref"):
         print(json.dumps(profile(args.arch, args.batch, args.prompt_len, args.decode_steps,
-                                 impl, smoke=args.smoke, device=args.device)), flush=True)
+                                 impl, smoke=args.smoke, device=args.device,
+                                 overrides=overrides)), flush=True)
     return 0
 
 

@@ -1,4 +1,5 @@
-"""The port's LM substrate: the Zamba2 hybrid serving path."""
+"""The port's LM substrate: the serving paths of the dense, MoE, SSM, VLM,
+encoder-decoder and hybrid families."""
 from .config import ArchConfig, RunConfig, smoke_variant
 from .model import Model, build, synth_batch
 

@@ -77,3 +77,10 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def layer(tree, i: int):
+    """Layer ``i`` of a stacked tree: every leaf indexed on axis 0 (views)."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]

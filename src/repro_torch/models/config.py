@@ -3,9 +3,9 @@
 A copy of ``src/repro/models/config.py`` (the port imports nothing of the
 JAX package): :class:`ArchConfig` carries the published architecture
 hyperparameters, :class:`RunConfig` the deployment knobs the serving path
-reads (parameter dtype, and the implementation of each kernel:
-``"cuda"``, the hand-written CUDA kernel, or ``"ref"``, its plain PyTorch
-version).
+reads (parameter dtype, the implementation of each kernel: ``"cuda"``,
+the hand-written CUDA kernel, or ``"ref"``, its plain PyTorch version, and
+the MoE capacity factor).
 """
 from __future__ import annotations
 
@@ -60,6 +60,60 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run the 500k-context decode cell?"""
+        return self.family in ("ssm", "hybrid") or self.window is not None
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), the
+        reference's formula."""
+        D, F, V = self.d_model, self.d_ff, self.vocab
+        H, Hkv, Dh = self.n_heads, self.n_kv_heads, self.head_dim
+        attn = D * (H + 2 * Hkv) * Dh + H * Dh * D
+        if self.qkv_bias:
+            attn += (H + 2 * Hkv) * Dh
+        mlp = 3 * D * F
+        moe = 0
+        if self.is_moe:
+            moe = self.n_experts * 3 * D * F + D * self.n_experts
+            mlp = 0
+        ssm = 0
+        if self.family in ("ssm", "hybrid"):
+            din = self.ssm_expand * D
+            nh = din // self.ssm_head_dim
+            dconv_in = din + 2 * self.ssm_groups * self.ssm_state
+            proj = D * (2 * din + 2 * self.ssm_groups * self.ssm_state + nh)
+            ssm = proj + self.ssm_conv * dconv_in + dconv_in + 3 * nh + din + din * D
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        norms = 2 * D * self.n_layers + D
+        if self.family == "moe":
+            total = self.n_layers * (attn + moe)
+        elif self.family == "ssm":
+            total = self.n_layers * ssm
+        elif self.family == "hybrid":
+            total = self.n_layers * ssm + (attn + mlp)  # shared block counted once
+        elif self.family == "encdec":
+            enc = self.n_enc_layers * (attn + mlp)
+            dec = self.n_dec_layers * (2 * attn + mlp)  # self + cross
+            total = enc + dec
+        else:                                           # dense, vlm
+            total = self.n_layers * (attn + mlp)
+        return int(total + emb + norms)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        D, F = self.d_model, self.d_ff
+        full_moe = self.n_layers * self.n_experts * 3 * D * F
+        active_moe = self.n_layers * self.top_k * 3 * D * F
+        return int(self.param_count() - full_moe + active_moe)
+
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
@@ -69,6 +123,7 @@ class RunConfig:
     attn_impl: str = "cuda"          # cuda | ref
     ssd_impl: str = "cuda"
     conv_impl: str = "cuda"
+    capacity_factor: float = 1.25    # MoE expert capacity over the even share
 
     def __post_init__(self):
         for f in ("attn_impl", "ssd_impl", "conv_impl"):

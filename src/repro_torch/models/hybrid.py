@@ -19,7 +19,7 @@ from . import layers as ly
 from . import losses as lo
 from . import ssm as ssm_mod
 from .config import ArchConfig, RunConfig
-from .transformer import attn_cfg, head_weight, ssm_cfg
+from .transformer import attn_cfg, head_weight, param_dtype, ssm_cfg
 
 
 def _group_layout(cfg: ArchConfig) -> tuple[int, int, int]:
@@ -28,14 +28,10 @@ def _group_layout(cfg: ArchConfig) -> tuple[int, int, int]:
     return n_groups, k, rem
 
 
-def _dtype(rc: RunConfig) -> torch.dtype:
-    return getattr(torch, rc.param_dtype)
-
-
 def model_init(gen: torch.Generator, cfg: ArchConfig, rc: RunConfig):
     """Parameters on ``gen``'s device, drawn from ``gen`` with the
     reference's distributions."""
-    dtype, dev = _dtype(rc), gen.device
+    dtype, dev = param_dtype(rc), gen.device
     n_groups, k, rem = _group_layout(cfg)
 
     def mamba_layer():
@@ -61,15 +57,9 @@ def model_init(gen: torch.Generator, cfg: ArchConfig, rc: RunConfig):
     return tree
 
 
-def _index(tree, i):
-    if isinstance(tree, dict):
-        return {n: _index(t, i) for n, t in tree.items()}
-    return tree[i]
-
-
 def init_cache(cfg: ArchConfig, rc: RunConfig, batch: int, max_seq: int, device,
                dtype=None):
-    dtype = _dtype(rc) if dtype is None else dtype
+    dtype = param_dtype(rc) if dtype is None else dtype
     n_groups, _, _ = _group_layout(cfg)
     sc = ssm_cfg(cfg)
     Ln = cfg.n_layers
@@ -108,7 +98,7 @@ def prefill(params, cfg: ArchConfig, rc: RunConfig, tokens, max_seq: int):
 
     def run_stack(stacked, h, n):
         for i in range(n):
-            bp = _index(stacked, i)
+            bp = cm.layer(stacked, i)
             hn = ly.norm_apply(bp["norm"], h, cfg.norm_eps)
             out, st = ssm_mod.ssm_apply(bp["ssm"], hn, sc, ssd_impl=rc.ssd_impl,
                                         conv_impl=rc.conv_impl, return_state=True)
@@ -118,7 +108,7 @@ def prefill(params, cfg: ArchConfig, rc: RunConfig, tokens, max_seq: int):
         return h
 
     for g in range(n_groups):
-        h = run_stack(_index(params["mamba"], g), h, k)
+        h = run_stack(cm.layer(params["mamba"], g), h, k)
         h, (kk, vv) = _shared_block(params["shared"], h, cfg, rc, positions)
         kcs.append(torch.nn.functional.pad(kk, (0, 0, 0, max_seq - L)))
         vcs.append(torch.nn.functional.pad(vv, (0, 0, 0, max_seq - L)))
@@ -142,7 +132,7 @@ def decode_step(params, cfg: ArchConfig, rc: RunConfig, token, cache, pos):
 
     def run_stack(stacked, h, n, first):
         for i in range(n):
-            bp = _index(stacked, i)
+            bp = cm.layer(stacked, i)
             li = first + i
             hn = ly.norm_apply(bp["norm"], h, cfg.norm_eps)
             out, st = ssm_mod.ssm_decode(bp["ssm"], hn, sc,
@@ -154,7 +144,7 @@ def decode_step(params, cfg: ArchConfig, rc: RunConfig, token, cache, pos):
 
     sp = params["shared"]
     for g in range(n_groups):
-        h = run_stack(_index(params["mamba"], g), h, k, g * k)
+        h = run_stack(cm.layer(params["mamba"], g), h, k, g * k)
         a_in = ly.norm_apply(sp["attn_norm"], h, cfg.norm_eps)
         a, _ = ly.attn_decode(sp["attn"], a_in, attn_cfg(cfg), cache["k"][g],
                               cache["v"][g], pos)

@@ -1,6 +1,7 @@
 """Family dispatch: the one facade the serving launcher and the tests drive,
-the twin of ``src/repro/models/model.py`` for the families ported so far
-(hybrid)."""
+the twin of ``src/repro/models/model.py`` (serving). ``dense``, ``moe``,
+``ssm`` and ``vlm`` go to ``transformer``, ``encdec`` to ``encdec`` and
+``hybrid`` to ``hybrid``."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,10 +10,14 @@ from typing import Optional
 import torch
 
 from ..core.device import resolve_device
+from . import common as cm
+from . import encdec as encdec_mod
 from . import hybrid as hybrid_mod
+from . import transformer as tf_mod
 from .config import ArchConfig, RunConfig
 
-_PORTED = {"hybrid": hybrid_mod}
+FAMILIES = {"dense": tf_mod, "moe": tf_mod, "ssm": tf_mod, "vlm": tf_mod,
+            "encdec": encdec_mod, "hybrid": hybrid_mod}
 
 
 @dataclasses.dataclass
@@ -22,11 +27,9 @@ class Model:
     device: torch.device
 
     def __post_init__(self):
-        if self.cfg.family not in _PORTED:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (ROADMAP queue 1, item 9: "
-                "the dense, MoE, SSM, enc-dec and VLM stacks)")
-        self._mod = _PORTED[self.cfg.family]
+        if self.cfg.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.cfg.family!r}; known: {sorted(FAMILIES)}")
+        self._mod = FAMILIES[self.cfg.family]
 
     def init(self, gen: torch.Generator):
         """Parameters drawn from ``gen``, on ``gen``'s device (the model's)."""
@@ -38,7 +41,16 @@ class Model:
         return self._mod.init_cache(self.cfg, self.rc, batch, max_seq, self.device)
 
     def prefill(self, params, batch, max_seq: int):
-        return self._mod.prefill(params, self.cfg, self.rc, batch["tokens"], max_seq)
+        """``batch``: {"tokens"} and, for a VLM, "patch_embeds" (B, n, D); for
+        an enc-dec, "frames" (B, S_src, D)."""
+        cfg, rc = self.cfg, self.rc
+        if cfg.family == "encdec":
+            return encdec_mod.prefill(params, cfg, rc, batch["tokens"], max_seq,
+                                      frames=batch["frames"])
+        if cfg.family == "hybrid":
+            return hybrid_mod.prefill(params, cfg, rc, batch["tokens"], max_seq)
+        return tf_mod.prefill(params, cfg, rc, batch["tokens"], max_seq,
+                              prefix_embeds=batch.get("patch_embeds"))
 
     def decode_step(self, params, token, cache, pos):
         return self._mod.decode_step(params, self.cfg, self.rc, token, cache, pos)
@@ -50,10 +62,28 @@ def build(cfg: ArchConfig, rc: Optional[RunConfig] = None, device="cuda") -> Mod
 
 def synth_batch(model: Model, gen: torch.Generator, seq_len: int, global_batch: int,
                 mode: str = "prefill"):
-    """A random prompt batch {"tokens": (B, L) int64} drawn from ``gen``."""
+    """A random prefill batch drawn from ``gen``, the reference's shapes:
+    {"tokens": (B, L) int64}; a VLM's prompt is ``n_patches`` patch
+    embeddings then ``L - n_patches`` tokens, an enc-dec's source is
+    ``source_len`` frames. Embeddings are N(0, 1) * 0.02 at the parameter
+    dtype."""
     if mode != "prefill":
         raise NotImplementedError(
             f"mode {mode!r}: training batches wait for training (ROADMAP queue 1, item 9)")
-    tokens = torch.randint(0, model.cfg.vocab, (global_batch, seq_len), generator=gen,
-                           device=gen.device)
-    return {"tokens": tokens.to(model.device)}
+    cfg, B = model.cfg, global_batch
+    dtype = tf_mod.param_dtype(model.rc)
+    n_tok = seq_len - cfg.n_patches if cfg.family == "vlm" else seq_len
+    if n_tok < 1:
+        raise ValueError(f"seq_len {seq_len} leaves no tokens after {cfg.n_patches} patches")
+
+    def embeds(n):
+        return cm.normal(gen, (B, n, cfg.d_model), 0.02, dtype).to(model.device)
+
+    out = {"tokens": torch.randint(0, cfg.vocab, (B, n_tok), generator=gen,
+                                   device=gen.device).to(model.device)}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = embeds(cfg.n_patches)
+    if cfg.family == "encdec":
+        out["frames"] = embeds(cfg.source_len)
+    return out
+

@@ -735,6 +735,64 @@ def test_lm_serve_backends_agree_on_the_card(card):
                              impl="cuda").abs().max() == 0
 
 
+# the other LM families' prefill shapes (stablelm, qwen3's GQA rep 8, phi-3,
+# the enc-dec's non-causal encoder; mamba2-130m's conv1d and SSD)
+@pytest.mark.parametrize("B,Hq,Hkv,L,D,causal", [(4, 32, 32, 1024, 80, True),
+                                                 (4, 64, 8, 1024, 128, True),
+                                                 (4, 32, 32, 1024, 96, True),
+                                                 (4, 16, 16, 1024, 64, False)])
+def test_attention_at_family_shapes(card, B, Hq, Hkv, L, D, causal, rng):
+    q, k, v = (_randn(rng, (B, h, L, D), card) for h in (Hq, Hkv, Hkv))
+    before = attention.launches
+    got = attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    torch.testing.assert_close(got, ref.attention(q, k, v, causal=causal), rtol=1e-5, atol=1e-5)
+
+
+def test_conv1d_and_ssd_at_mamba2_shapes(card, rng):
+    B, L, H, P, N = 4, 1024, 24, 64, 128
+    C = 2 * H * P + 2 * N                     # d_conv_in = 1792
+    x, w, b = _randn(rng, (B, L, C), card), _randn(rng, (4, C), card, 0.5), \
+        _randn(rng, (C,), card, 0.1)
+    got = conv1d.conv1d_causal(x, w, b, silu=True)
+    torch.testing.assert_close(got, conv1d.plain(x, w, b, silu=True), rtol=1e-5, atol=1e-6)
+    xs = _randn(rng, (B, L, H, P), card, 0.5)
+    dt = torch.tensor((np.abs(rng.randn(B, L, H)) * 0.05 + 0.001).astype(np.float32),
+                      device=card)
+    A = torch.tensor((-rng.rand(H) * 15 - 1).astype(np.float32), device=card)
+    Bm, Cm = _randn(rng, (B, L, 1, N), card, 0.3), _randn(rng, (B, L, 1, N), card, 0.3)
+    D = torch.ones(H, device=card)
+    before = ssd.launches
+    y, h = ssd.ssd_chunk_scan(xs, dt, A, Bm, Cm, D=D, chunk=64)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    yw, hw = ref.ssd(xs, dt, A, Bm, Cm, D=D, chunk=ssd.pick_chunk(L, 64))
+    torch.testing.assert_close(y, yw, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, hw, rtol=1e-4, atol=1e-4)
+
+
+# each family's smoke config: (kernel launches a request: conv1d, ssd, attention)
+FAMILY_LAUNCHES = {"stablelm-3b": (0, 0, 2), "moonshot-v1-16b-a3b": (0, 0, 2),
+                   "mamba2-130m": (2, 2, 0), "phi-3-vision-4.2b": (0, 0, 2),
+                   "seamless-m4t-medium": (0, 0, 4)}
+
+
+@pytest.mark.parametrize("arch", FAMILY_LAUNCHES)
+def test_family_serve_backends_agree_on_the_card(card, arch):
+    scfg = lm_serve.ServeConfig(batch=2, prompt_len=40, gen_len=6)
+    counts = (conv1d.launches, ssd.launches, attention.launches)
+    got, info = lm_serve.serve(arch, scfg, smoke=True, device="cuda", log_fn=lambda *a: None)
+    assert (conv1d.launches - counts[0], ssd.launches - counts[1],
+            attention.launches - counts[2]) == FAMILY_LAUNCHES[arch]
+    rc = RunConfig(attn_impl="ref", ssd_impl="ref", conv_impl="ref")
+    want, winfo = lm_serve.serve(arch, scfg, rc=rc, smoke=True, device="cuda",
+                                 log_fn=lambda *a: None)
+    torch.testing.assert_close(info["prefill_logits"], winfo["prefill_logits"],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # march_axis streaming and the finite/nan_count reductions
 # ---------------------------------------------------------------------------

@@ -54,6 +54,22 @@ sc = dict(lam=1.0, dt=1e-4, _dx=7.0, _dy=7.0, _dz=15.0)
 assert autotune.tile_candidates(kern, f, sc, 2, None, 3)[0] == kern.compiled(nsteps=2, **f, **sc).shape
 assert roofline.stencil_roofline(kern.cost_model(**f, **sc))["dominant"] == "memory"
 assert physics.random_porosity(torch.Generator().manual_seed(0), Grid((6, 5)), device="cpu").shape == (6, 5)
+import repro_torch.models.transformer, repro_torch.models.moe, repro_torch.models.encdec
+from repro_torch import configs
+from repro_torch.models import build as build_lm, synth_batch
+assert len(configs.ARCH_IDS) == 10
+families = set()
+for a in configs.ARCH_IDS:
+    cfg = configs.get_arch(a)
+    if cfg.family in families:
+        continue
+    families.add(cfg.family)
+    lm = build_lm(configs.get_smoke(a), device="cpu")
+    lp = lm.init(torch.Generator().manual_seed(0))
+    logits, cache = lm.prefill(lp, synth_batch(lm, torch.Generator().manual_seed(1), 8, 1), 9)
+    logits, cache = lm.decode_step(lp, logits.argmax(-1), cache, 8)
+    assert logits.shape == (1, 256) and bool(torch.isfinite(logits).all())
+assert families == {"dense", "moe", "ssm", "vlm", "encdec", "hybrid"}, families
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m in sys.modules if sys.modules[m] is not None)
 print("imported", len(names), "modules")

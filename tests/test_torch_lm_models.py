@@ -65,17 +65,15 @@ def test_config_matches_reference():
     assert fields(configs.get_smoke("zamba2-1.2b")) == \
         fields(r_configs.get_smoke("zamba2-1.2b"))
     assert t_config.SMOKE_OVERRIDES == r_config.SMOKE_OVERRIDES
-    assert configs.ARCH_IDS == ("zamba2-1.2b",)
-    with pytest.raises(KeyError, match="queue 1, item 9"):
-        configs.get_arch("mamba2-130m")
+    assert configs.ARCH_IDS == r_configs.ARCH_IDS and len(configs.ARCH_IDS) == 10
     with pytest.raises(ValueError, match="impl"):
         RunConfig(ssd_impl="chunked")
 
 
 def test_unported_family_raises():
-    dense = dataclasses.replace(configs.get_smoke("zamba2-1.2b"), family="dense")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        build(dense, device="cpu")
+    odd = dataclasses.replace(configs.get_smoke("zamba2-1.2b"), family="retnet")
+    with pytest.raises(ValueError, match="unknown family 'retnet'"):
+        build(odd, device="cpu")
 
 
 # --------------------------------------------------------------------------
