@@ -22,7 +22,23 @@ same weights and prompt: launches exactly as listed, logits within
 the routing choices that differ between the two runs and the smallest
 gap between the k-th and (k+1)-th gate probability; the phase must take at
 most 150 s. ``times_lm_families`` times each kernel at those shapes beside
-its bound, plain version and library call. The paper's two coupled solvers follow
+its bound, plain version and library call. Training follows
+(``train_kernel_cases``, ``main_path_train``, ``main_path_train_lm``,
+``times_train``; at most 150 s together): each backward kernel
+(``csrc/{conv1d,ssd,attention}_bwd.cu``) against ``autograd.grad`` of its
+plain version within ``TRAIN_TOL``, twice bitwise the same, the attention
+forward's log-sum-exp against the plain logsumexp, and the refusals that
+keep a backward from falling back; Zamba2-1.2B trained at full width and
+depth (batch 4 x 1024, f32) through ``repro_torch.launch.train`` for
+``TRAIN_STEPS`` steps on the kernels and on the plain versions from the same
+weights and batches (step 0's loss and gradient norm, every later loss,
+exact launches a step forward and backward, peak GB, warm ms a step,
+tokens/s), and, cut to its first group for the disk, a run stopped at step 2
+and resumed from its checkpoint against the uninterrupted one; then the
+``train_lm`` twin (mamba2-130m, 300 steps), whose loss must fall; then each
+backward kernel's ms at the training shapes beside its bound, plain version
+and library call (SDPA forward plus backward, ``F.conv1d``'s backward), and
+the attention forward with and without its log-sum-exp, in turns. The paper's two coupled solvers follow
 through ``repro_torch.examples.porosity_waves`` (2-D, 8192^2: staggered
 Darcy fluxes, every boundary condition, the flux-split scheme, a fixed run
 and a ``--tol`` run) and ``repro_torch.examples.gross_pitaevskii`` (3-D,
@@ -418,6 +434,7 @@ def main() -> int:
     lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
     sources = ([("diffusion3d", build.read_source(diffusion3d.SOURCE))]
                + [(n, build.read_source(m.SOURCE)) for n, m in lm_kernels.items()]
+               + [(f"{n}_bwd", build.read_source(m.BWD_SOURCE)) for n, m in lm_kernels.items()]
                + [(c.lib_name, c.source) for c in calls]
                + [(c.lib_name, c.source) for c in calls_k.values()]
                + [(c.lib_name, c.source) for c in calls_mixed.values()]
@@ -667,6 +684,16 @@ def main() -> int:
     families = lm_families_main_path(torch, dev)
     torch.cuda.empty_cache()
 
+    # ---- 4b'. LM training: the backward kernels, Zamba2-1.2B trained, train_lm --
+    t_train = time.perf_counter()
+    train_cases, train_err = check_train_kernels(
+        torch, dev, torch.Generator(device="cpu").manual_seed(20261018))
+    train_run = train_main_path(torch, dev)
+    torch.cuda.empty_cache()
+    train_lm_main_path(torch, dev)
+    torch.cuda.empty_cache()
+    train_s = time.perf_counter() - t_train
+
     # ---- 4c. the coupled solvers' main paths ----------------------------------
     coupled_runs = coupled_main_path(torch, coupled)
 
@@ -764,6 +791,14 @@ def main() -> int:
           "serving": {a: {k: r[k] for k in ("prefill_ms", "decode_tok_per_s", "peak_gb")}
                       for a, r in families.items()}})
     del lm_cases
+    t_train = time.perf_counter()
+    train_t = times_train(torch, teff, train_cases, spec, dev,
+                          torch.Generator(device="cpu").manual_seed(20261019), train_run)
+    train_s += time.perf_counter() - t_train
+    emit({"phase": "train_wall", "wall_s": train_s, "budget_s": TRAIN_BUDGET_S})
+    require(train_s <= TRAIN_BUDGET_S,
+            f"the training phases took {train_s:.1f} s, over {TRAIN_BUDGET_S} s")
+    del train_cases
 
     # ---- 5c. times of the coupled kernels at full size --------------------------
     coupled_times = {}
@@ -862,6 +897,15 @@ def main() -> int:
                  "replaces": rep, "launches": lm_counts[k], "max_abs_err": err_at[k],
                  **{x: lm_times[k][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "bound_f32_cuda_cores_ms", "library_ms")}}
+                for k, rep in lm_rows]
+    kernels += [{"name": f"{k}_bwd", "route": "cuda",
+                 "source": f"src/repro_torch/kernels/csrc/{k}_bwd.cu", "replaces": rep,
+                 "role": "backward (the TPU kernel has none; the reference differentiates "
+                         "its chunked jnp twin)",
+                 "launches": train_run["launches"][f"{k}_bwd"], "max_abs_err": train_err[k],
+                 **{x: train_t["kernels"][f"{k}_zamba2"][x]
+                    for x in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_3xtf32_ms",
+                              "library_ms")}}
                 for k, rep in lm_rows]
     kernels += [{"name": f"{label.split('_')[0]}[{label.split('_', 1)[1]}]", "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{label.split('_')[0]}.cu",
@@ -1263,6 +1307,499 @@ def lm_kernel_cases(torch, dev, gen):
             "bytes": 4 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D),
             "flops": 4 * B * Hq * D * pairs, "tensor_cores": True}
     return cases
+
+
+# train_kernel_cases: each backward kernel against autograd.grad of its plain
+# version. (rtol, atol relative to the largest gradient of the case, over all
+# its parts: a part that is 0 in exact arithmetic, as dq and dk of a row
+# that sees only its own key, comes out a few ulp of the case's scale off 0
+# through the forward's log-sum-exp): conv1d
+# sums dw and dbias over B x L = 4096 terms in another order than autograd;
+# attention recomputes p from the forward kernel's 3xTF32 log-sum-exp and
+# sums its products in tiles; the SSD backward walks the recurrence step by
+# step in f32 where the plain version differentiates the chunked algebra, and
+# its dla is a suffix sum (in double) of differences over up to 1024 steps.
+TRAIN_TOL = {"conv1d": (1e-4, 1e-5), "ssd": (1e-3, 1e-4), "attention": (1e-3, 1e-4)}
+TRAIN_KERNELS = ("conv1d_bwd", "ssd_bwd", "attention_bwd")
+TRAIN_CASE_SHAPES = {
+    "conv1d": {"odd": (2, 70, 300, 3, True), "zamba2": (4, 1024, 4224, 4, True),
+               "zamba2_nosilu": (4, 1024, 4224, 4, False),
+               "mamba2": (4, 128, 1792, 4, True)},
+    # (B, L, H, P, G, N, chunk, h0, dh_final)
+    "ssd": {"P6_N10_h0_dhf": (1, 40, 2, 6, 1, 10, 16, True, True),
+            "L1000_G2_h0_dhf": (1, 1000, 8, 64, 2, 64, 64, True, True),
+            "L100_N128_G2": (2, 100, 4, 36, 2, 128, 64, False, False),
+            "L65_N17_h0": (1, 65, 4, 16, 4, 17, 32, True, False),
+            "zamba2": (4, 1024, 64, 64, 1, 64, 64, False, False),
+            "mamba2": (4, 128, 24, 64, 1, 128, 64, False, False)},
+    # (B, Hq, Hkv, L, D, causal, window)
+    "attention": {"L1_rep2": (1, 4, 2, 1, 64, True, None),
+                  "L63_rep4_D128_w37": (1, 8, 2, 63, 128, True, 37),
+                  "L65_D16_noncausal": (2, 4, 4, 65, 16, False, None),
+                  "L65_w0": (1, 2, 2, 65, 64, True, 0),
+                  "L1024_D80_rep2_w256": (1, 4, 2, 1024, 80, True, 256),
+                  "L1024_D128_rep4_noncausal": (1, 8, 2, 1024, 128, False, None),
+                  "zamba2": (4, 32, 32, 1024, 64, True, None)},
+}
+
+
+def grad_report(torch, got, want, rtol, atol_rel, scale) -> dict:
+    """``close_report`` with atol ``atol_rel`` times ``scale`` (the case's
+    largest |gradient|)."""
+    rep = close_report(torch, got, want, rtol, atol_rel * scale)
+    rep["max_abs_want"] = float(want.abs().max()) if want.numel() else 0.0
+    rep["finite"] = bool(torch.isfinite(got).all())
+    rep["ok"] = rep["ok"] and rep["finite"]
+    return rep
+
+
+def train_kernel_cases(torch, dev, gen, shapes=TRAIN_CASE_SHAPES) -> dict:
+    """Inputs, backward kernel, plain backward (autograd.grad through the
+    plain forward), library call, bytes and operations of each backward
+    kernel at TRAIN_CASE_SHAPES. The forward kernels' outputs the backward
+    reads (attention's output and log-sum-exp, SSD's chunk-start states)
+    are made once here, so each case calls only its backward kernel."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention, conv1d, ref, ssd
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def pick(grads, names):
+        return [grads[n] for n in names]
+
+    cases = {}
+    for label, (B, L, C, K, silu) in shapes["conv1d"].items():
+        x, w, b = randn(B, L, C), randn(K, C, scale=K ** -0.5), randn(C, scale=0.1)
+        g = randn(B, L, C)
+
+        def library(x=x, w=w, b=b, g=g, L=L, C=C, K=K, silu=silu):
+            xs, ws, bs = (t.detach().requires_grad_(True) for t in (x, w, b))
+            out = F.conv1d(xs.transpose(1, 2), ws.flip(0).t()[:, None, :], bs,
+                           padding=K - 1, groups=C)[..., :L].transpose(1, 2)
+            out = F.silu(out) if silu else out
+            return torch.autograd.grad(out, (xs, ws, bs), g)
+
+        cases[f"conv1d_{label}"] = {
+            "name": "conv1d", "shape": {"x": [B, L, C], "K": K, "silu": silu},
+            "parts": ["dx", "dw", "db"],
+            "kernel": lambda x=x, w=w, b=b, g=g, s=silu: conv1d.conv1d_causal_bwd(g, x, w, b, s),
+            "plain": lambda x=x, w=w, b=b, g=g, s=silu: ref.conv1d_bwd(g, x, w, b, s),
+            "library_name": "autograd.grad of F.conv1d(groups=C) (+ SiLU): the backward "
+                            "(cuDNN, TF32 off)",
+            "library": library,
+            "bytes": 4 * (3 * B * L * C + 2 * (K * C + C)),
+            "flops": B * L * C * (6 * K + 8), "tensor_cores": False}
+    for label, (B, L, H, P, G, N, chunk, with_h0, with_dhf) in shapes["ssd"].items():
+        x = randn(B, L, H, P, scale=0.5)
+        u = torch.rand((B, L, H), generator=gen)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).to(dev)
+        A = -(torch.rand((H,), generator=gen) * 15 + 1).to(dev)
+        Bm, Cm = randn(B, L, G, N, scale=0.3), randn(B, L, G, N, scale=0.3)
+        D = (torch.rand(H, generator=gen) + 0.5).to(dev)
+        h0 = randn(B, H, P, N, scale=0.2) if with_h0 else None
+        dy = randn(B, L, H, P)
+        dhf = randn(B, H, P, N) if with_dhf else None
+        _, h_final, states = ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, D=D, h0=h0, chunk=chunk,
+                                                return_states=True)
+        cs_k, nc = ssd.plan(L, chunk)
+        names = ["dx", "ddt", "dA", "dB", "dC", "dD"] + (["dh0"] if with_h0 else [])
+        cases[f"ssd_{label}"] = {
+            "name": "ssd", "parts": names,
+            "shape": {"x": [B, L, H, P], "G": G, "N": N, "kernel_chunk": cs_k,
+                      "plain_chunk": ssd.pick_chunk(L, chunk), "h0": with_h0,
+                      "dh_final": with_dhf},
+            "kernel": lambda a=(x, dt, A, Bm, Cm, dy), kw=dict(
+                D=D, h0=h0, dh_final=dhf, states=states, h_final=h_final, chunk=chunk),
+                names=names: pick(ssd.ssd_chunk_scan_bwd(*a, **kw), names),
+            "plain": lambda a=(x, dt, A, Bm, Cm, dy), kw=dict(
+                D=D, h0=h0, dh_final=dhf, chunk=ssd.pick_chunk(L, chunk)), names=names:
+                pick(ref.ssd_bwd(*a, **kw), names),
+            "library_name": None, "library": None,
+            # read: x, dy, dt, A, B, C, D, the chunk-start states (h0,
+            # dh_final and h_final); written: every gradient
+            "bytes": 4 * (2 * 2 * B * L * H * P + 2 * B * L * H + 2 * 2 * B * L * G * N
+                          + 2 * 2 * H + B * nc * H * P * N
+                          + (2 if with_h0 else 0) * B * H * P * N
+                          + (2 if with_dhf else 0) * B * H * P * N),
+            # per step and state element, 14 operations (csrc/ssd_bwd.cu's
+            # header lists them): h's update (3), y's row sum (2) and dC's
+            # column sum (2) forward; G's update (3), G·B's row sum (2) and
+            # dB's column sum (2) backward
+            "flops": 14 * B * L * H * P * N, "tensor_cores": True}
+    for label, (B, Hq, Hkv, L, D, causal, window) in shapes["attention"].items():
+        q, k, v = randn(B, Hq, L, D), randn(B, Hkv, L, D), randn(B, Hkv, L, D)
+        g = randn(B, Hq, L, D)
+        out, lse = attention.flash_attention(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+        i = torch.arange(L)
+        allowed = torch.ones(L, L, dtype=torch.bool)
+        if causal:
+            allowed &= i[None, :] <= i[:, None]
+        if window is not None:
+            allowed &= i[None, :] > i[:, None] - window
+        pairs = int(allowed.sum())
+
+        def library(q=q, k=k, v=v, g=g, c=causal, gqa=Hq != Hkv):
+            qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=c, enable_gqa=gqa)
+            return torch.autograd.grad(o, (qs, ks, vs), g)
+
+        cases[f"attention_{label}"] = {
+            "name": "attention", "parts": ["dq", "dk", "dv"],
+            "shape": {"q": [B, Hq, L, D], "Hkv": Hkv, "causal": causal, "window": window},
+            "kernel": lambda a=(q, k, v, out, g, lse), c=causal, wd=window:
+                attention.flash_attention_bwd(*a, causal=c, window=wd),
+            "plain": lambda q=q, k=k, v=v, g=g, c=causal, wd=window:
+                ref.attention_bwd(q, k, v, g, causal=c, window=wd),
+            "lse": (lse, lambda q=q, k=k, c=causal, wd=window:
+                    ref.attention_lse(q, k, causal=c, window=wd)),
+            "library_name": (f"F.scaled_dot_product_attention(is_causal={causal}"
+                             + (", enable_gqa=True)" if Hq != Hkv else ")")
+                             + ": forward plus backward"),
+            "library": library if window is None else None,
+            "bytes": 4 * (4 * B * Hq * L * D + 4 * B * Hkv * L * D + B * Hq * L),
+            # per allowed (b, q head, i, j), the five products the function
+            # needs: q·k, g·v, dv, dk and dq (the kernels compute q·k and g·v
+            # twice, in the dK/dV and the dQ launch; that is their design's
+            # cost, not the function's)
+            "flops": 10 * D * B * Hq * pairs, "tensor_cores": True}
+    return cases
+
+
+def check_train_kernels(torch, dev, gen, shapes=TRAIN_CASE_SHAPES) -> tuple[dict, dict]:
+    """Each backward kernel against its plain version (TRAIN_TOL), twice and
+    bitwise the same, the forward's log-sum-exp against the plain
+    logsumexp; on the card, the refusals that keep a kernel from falling
+    back. Returns (cases, max abs error by kernel); every case is printed
+    before any fails."""
+    from repro_torch.kernels import attention, conv1d, ssd
+
+    cases = train_kernel_cases(torch, dev, gen, shapes)
+    failures, err_at = [], {}
+    for label, case in cases.items():
+        kernel = case["name"]
+        got = list(case["kernel"]())
+        again = list(case["kernel"]())
+        sync(torch, dev)
+        want = list(case["plain"]())
+        rtol, atol = TRAIN_TOL[kernel]
+        row = {"phase": "train_kernel_cases", "kernel": kernel + "_bwd", "case": label,
+               "shape": case["shape"], "rtol": rtol, "atol_rel": atol,
+               "bitwise_twice": all(bool(torch.equal(a, b)) for a, b in zip(got, again))}
+        scale = max(float(w.abs().max()) for w in want if w.numel())
+        row["scale"] = scale
+        for part, g, w in zip(case["parts"], got, want):
+            row[part] = grad_report(torch, g, w, rtol, atol, scale)
+        if "lse" in case:
+            lse, plain = case["lse"][0], case["lse"][1]()
+            fin = torch.isfinite(plain)
+            row["lse"] = {"same_infinite": bool(torch.equal(fin, torch.isfinite(lse))),
+                          "finite_rows": int(fin.sum()),
+                          **(close_report(torch, lse[fin], plain[fin], 1e-5, 1e-5)
+                             if bool(fin.any()) else {"ok": True})}
+            if not (row["lse"]["ok"] and row["lse"]["same_infinite"]):
+                failures.append(f"{label}: lse {row['lse']}")
+        emit(row)
+        failures += [f"{kernel}_bwd ({label}): {part} outside rtol {rtol}, atol {atol} x max: "
+                     f"{row[part]}" for part in case["parts"] if not row[part]["ok"]]
+        if not row["bitwise_twice"]:
+            failures.append(f"{kernel}_bwd ({label}): two calls differ")
+        err_at[kernel] = max(err_at.get(kernel, 0.0),
+                             max(row[p]["max_abs_err"] for p in case["parts"]))
+        del got, again, want
+    if dev.type != "cuda":
+        require(not failures, "; ".join(failures))
+        return cases, err_at
+    refusals = {}
+    x = torch.zeros((1, 8, 32), device=dev)
+    for name, call in {
+            "conv1d_bwd K=9": lambda: conv1d.conv1d_causal_bwd(
+                x, x, torch.zeros((9, 32), device=dev), None),
+            "ssd_bwd N=130": lambda: ssd.ssd_chunk_scan_bwd(
+                *(torch.zeros(s, device=dev) for s in ((1, 8, 2, 4), (1, 8, 2), (2,),
+                                                       (1, 8, 1, 130), (1, 8, 1, 130),
+                                                       (1, 8, 2, 4))),
+                states=torch.zeros((1, 1, 2, 4, 130), device=dev)),
+            "attention_bwd D=24": lambda: attention.flash_attention_bwd(
+                *(torch.zeros((1, 2, 8, 24), device=dev) for _ in range(5)),
+                torch.zeros((1, 2, 8), device=dev)),
+            "attention_bwd f64": lambda: attention.flash_attention_bwd(
+                *(torch.zeros((1, 2, 8, 16), device=dev, dtype=torch.float64)
+                  for _ in range(5)), torch.zeros((1, 2, 8), device=dev))}.items():
+        try:
+            call()
+            refusals[name] = "no error"
+        except (ValueError, TypeError) as e:
+            refusals[name] = f"{type(e).__name__}: {e}"
+    emit({"phase": "train_kernel_refusals", "refusals": refusals})
+    failures += [f"{n} was not refused" for n, r in refusals.items() if r == "no error"]
+    require(not failures, "; ".join(failures))
+    return cases, err_at
+
+
+def train_case_times(torch, teff, case) -> dict:
+    """One backward kernel case timed (CUDA events, median of 20) beside its
+    plain version and its library call, with its bound on the CUDA cores
+    (the units the backward kernels run on) and, for the products that the
+    forward kernels run on the tensor cores (attention, SSD), the bound at
+    the 3xTF32 rate beside it, the forward rows' yardstick."""
+    t = {"ms": teff.measure(case["kernel"], iters=20, warmup=3).median_s * 1e3,
+         "plain_ms": teff.measure(case["plain"], iters=5, warmup=1).median_s * 1e3,
+         "library_ms": (teff.measure(case["library"], iters=20, warmup=3).median_s * 1e3
+                        if case["library"] else None),
+         "library": case["library_name"], "bytes": case["bytes"], "flops": case["flops"]}
+    by_bytes, by_ops = case["bytes"] / PEAK_BYTES_PER_S, case["flops"] / PEAK_F32_PER_S
+    t["bound_ms"] = max(by_bytes, by_ops) * 1e3
+    t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    t["bound_rate"] = "f32 CUDA cores"
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    t["bound_3xtf32_ms"] = (max(by_bytes, case["flops"] / PEAK_3XTF32_PER_S) * 1e3
+                            if case["tensor_cores"] else None)
+    return t
+
+
+def lse_times(torch, teff, dev, gen) -> dict:
+    """The attention forward at Zamba2's shape without and with its
+    log-sum-exp output, in turns (plain, lse, lse, plain)."""
+    from repro_torch.kernels import attention
+
+    B, Hq, Hkv, L, D, causal, window = TRAIN_CASE_SHAPES["attention"]["zamba2"]
+    q, k, v = ((torch.randn((B, h, L, D), generator=gen)).to(dev) for h in (Hq, Hkv, Hkv))
+    runs = {"without_lse": [], "with_lse": []}
+    for name in ("without_lse", "with_lse", "with_lse", "without_lse"):
+        fn = (lambda: attention.flash_attention(q, k, v, causal=causal, return_lse=True)) \
+            if name == "with_lse" else (lambda: attention.flash_attention(q, k, v, causal=causal))
+        runs[name].append(teff.measure(fn, iters=20, warmup=3).median_s * 1e3)
+    return {"shape": [B, Hq, L, D], "ms": runs,
+            "without_lse_ms": min(runs["without_lse"]), "with_lse_ms": min(runs["with_lse"])}
+
+
+# main_path_train: Zamba2-1.2B trained at full width and depth (38 Mamba2
+# layers, the shared attention block applied 6 times, f32), batch 4 x 1024
+# tokens, through repro_torch.launch.train: TRAIN_STEPS steps on the kernels,
+# then on the plain versions from the same weights and batches. No remat
+# (TRAIN_REMAT): a step without it peaks at 55.6 GB on an H100 (PERF.md §6).
+# The resume check runs Zamba2 at full width cut to its first group
+# (TRAIN_RESUME_OVERRIDES: 6 Mamba2 layers and one shared-block application):
+# a full-depth checkpoint of the weights and both AdamW moments is 14.4 GB,
+# and a chip call may write at most 45 GiB to its disk, which the earlier
+# checkpoint phases already use much of; the cut one is 4.3 GB, written
+# twice (at step 2 by the stopped run and at step 4 by the resumed one, which
+# saves at its last step as the reference's train() does).
+TRAIN_ARCH = "zamba2-1.2b"
+TRAIN_LOOP = dict(seq_len=1024, global_batch=4)
+TRAIN_STEPS = 4
+TRAIN_REMAT = False
+TRAIN_RESUME_OVERRIDES = {"n_layers": 6}
+# the train_lm twin at its defaults but for its checkpoints (four saves of
+# 1.6 GB; the resume check above covers checkpointing on the card)
+TRAIN_LM_ARGV = ["--ckpt-dir", ""]
+# Step 0's loss and gradient norm of the kernels against the plain versions
+# (rtol): one forward and backward through 38 layers, each kernel within its
+# TRAIN_TOL of its plain version. Every later loss (rtol): AdamW's first
+# update is lr sign(g), so a gradient element near 0 whose sign differs
+# between the runs moves its weight by 2 lr = 6e-4, and later updates carry
+# that on; the loss moves by the gradient times that, far below 1e-3.
+TRAIN_STEP0_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
+TRAIN_LATER_RTOL = 1e-3
+# A run resumed from the step-2 checkpoint against the uninterrupted run
+# (rtol, the reference's own bound for its resume test): the kernels and the
+# token stream are deterministic, and these runs train inside
+# train.deterministic_algorithms, where PyTorch's own accumulating backwards
+# are deterministic or raise. (The plain versions' chunked SSD takes a float
+# cumsum, which has no deterministic CUDA algorithm, so the kernels-against-
+# plain runs, held to tolerances, train outside it.)
+TRAIN_RESUME_RTOL = 1e-5
+TRAIN_BUDGET_S = 150.0    # train_kernel_cases, main_path_train, main_path_train_lm, times_train
+
+
+def train_counts(torch) -> dict:
+    from repro_torch.kernels import attention, conv1d, ssd
+
+    return {"conv1d": conv1d.launches, "ssd": ssd.launches, "attention": attention.launches,
+            "conv1d_bwd": conv1d.launches_bwd, "ssd_bwd": ssd.launches_bwd,
+            "attention_bwd": attention.launches_bwd}
+
+
+def zero_train_counts() -> None:
+    from repro_torch.kernels import attention, conv1d, ssd
+
+    for m in (attention, conv1d, ssd):
+        m.launches = m.launches_bwd = 0
+    attention.launches_by_mode.clear()
+
+
+def train_main_path(torch, dev, smoke: bool = False, steps: int = TRAIN_STEPS,
+                    loop_kw=TRAIN_LOOP, remat: bool = TRAIN_REMAT,
+                    resume_overrides=TRAIN_RESUME_OVERRIDES) -> dict:
+    """Train TRAIN_ARCH through ``repro_torch.launch.train.train`` on the
+    kernels (the launch counts set to 0 just before, read after every
+    step), then on the plain versions from the same weights and batches;
+    then, cut by ``resume_overrides``, uninterrupted and cut at step 2 and
+    resumed from its checkpoint. Check losses, gradient norms, launches and
+    the resume; every check is printed before any fails."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch import train as lm_train
+
+    on_card = dev.type == "cuda"
+    cfg = configs.get_smoke(TRAIN_ARCH) if smoke else configs.get_arch(TRAIN_ARCH)
+    n_groups = cfg.n_layers // cfg.attn_every
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    base = lm_train.TrainLoopConfig(steps=steps, log_every=1, **loop_kw)
+    rc = dataclasses.replace(lm_train.default_run_config(base), remat=remat)
+    # the plain versions keep far more for their backward (the chunked SSD's
+    # decay tensors, attention's L x L scores): without remat they ran out of
+    # the card's 80 GB (PERF.md §6); recomputing a layer gives the
+    # same values, so the same gradients
+    plain_rc = dataclasses.replace(rc, attn_impl="ref", ssd_impl="ref", conv_impl="ref",
+                                   remat=True)
+    quiet = dict(log_fn=lambda *a: None, smoke=smoke, device=dev)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    failures = []
+    try:
+        # --- on the kernels -----------------------------------------------------------
+        rows, last = [], {}
+
+        def record(step, metrics, seconds):
+            counts = train_counts(torch)
+            rows.append({"step": step, **metrics, "ms": seconds * 1e3,
+                         "launches": {k: v - last.get(k, 0) for k, v in counts.items()}})
+            last.update(counts)
+
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        zero_train_counts()
+        t0 = time.perf_counter()
+        params, _, hist = lm_train.train(TRAIN_ARCH, base, rc=rc, on_step=record, **quiet)
+        wall = time.perf_counter() - t0
+        counts = train_counts(torch)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+        n_params = sum(t.numel() for t in flat_tensors(params))
+        del params
+        free()
+        # --- on the plain versions -----------------------------------------------------
+        plain_rows = []
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _, _, plain_hist = lm_train.train(
+            TRAIN_ARCH, base, rc=plain_rc,
+            on_step=lambda s, m, dt: plain_rows.append({"step": s, **m, "ms": dt * 1e3}),
+            **quiet)
+        plain_peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+        free()
+        # --- cut: uninterrupted, and stopped at step 2 then resumed, at a
+        # constant rate (as the reference's resume test: the two-step run's
+        # schedule horizon would otherwise differ) ---------------------------------------
+        cut = dict(quiet, overrides=resume_overrides, deterministic=True,
+                   rc=dataclasses.replace(rc, schedule="const", warmup_steps=1))
+        _, _, whole = lm_train.train(TRAIN_ARCH, base, **cut)
+        free()
+        ck = os.path.join(work, "resume")
+        lm_train.train(TRAIN_ARCH, dataclasses.replace(base, steps=2, ckpt_dir=ck,
+                                                       ckpt_every=2), **cut)
+        free()
+        said = []
+        _, _, resumed = lm_train.train(
+            TRAIN_ARCH, dataclasses.replace(base, ckpt_dir=ck, resume=True, ckpt_every=steps),
+            **{**cut, "log_fn": said.append})
+        free()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    warm = sorted(r["ms"] for r in rows[1:]) or [rows[0]["ms"]]
+    warm_ms = warm[len(warm) // 2]
+    plain_warm = sorted(r["ms"] for r in plain_rows[1:]) or [plain_rows[0]["ms"]]
+    tokens = loop_kw["global_batch"] * loop_kw["seq_len"]
+    mult = 2 if remat else 1
+    want = {"conv1d": mult * cfg.n_layers, "ssd": mult * cfg.n_layers, "attention": n_groups,
+            "conv1d_bwd": cfg.n_layers, "ssd_bwd": cfg.n_layers, "attention_bwd": n_groups}
+    step0 = {k: {"kernels": rows[0][k], "plain": plain_rows[0][k],
+                 "rel_err": abs(rows[0][k] - plain_rows[0][k]) / abs(plain_rows[0][k]),
+                 "rtol": TRAIN_STEP0_TOL[k]} for k in ("loss", "grad_norm")}
+    later = [abs(a - b) / abs(b) for a, b in zip(hist[1:], plain_hist[1:])]
+    resume_err = [abs(a - b) / abs(b) for a, b in zip(resumed, whole[2:])]
+    row = {"phase": "main_path_train", "arch": cfg.name, "smoke": smoke,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "shared_block_applications": n_groups,
+           "params": n_params, "param_count": cfg.param_count(), "remat": remat,
+           "plain_remat": plain_rc.remat,
+           "batch": loop_kw["global_batch"], "seq_len": loop_kw["seq_len"], "steps": steps,
+           "losses": hist, "plain_losses": plain_hist, "steps_detail": rows,
+           "plain_steps_detail": plain_rows, "step0": step0,
+           "later_loss_rel_err": later, "later_rtol": TRAIN_LATER_RTOL,
+           "launches": counts, "launches_per_step_want": want,
+           "peak_gb": peak, "plain_peak_gb": plain_peak,
+           "warm_ms_per_step": warm_ms, "tokens_per_s": tokens / (warm_ms / 1e3),
+           "plain_warm_ms_per_step": plain_warm[len(plain_warm) // 2], "wall_s": wall,
+           "resume": {"overrides": resume_overrides, "said": said[:1], "losses": resumed,
+                      "uninterrupted": whole[2:], "rel_err": resume_err,
+                      "rtol": TRAIN_RESUME_RTOL}}
+    emit(row)
+    if not all(math.isfinite(h) for h in hist + plain_hist):
+        failures.append("a training loss is not finite")
+    for k, v in step0.items():
+        if not v["rel_err"] <= v["rtol"]:
+            failures.append(f"step 0 {k}: kernels {v['kernels']}, plain {v['plain']}")
+    if not all(e <= TRAIN_LATER_RTOL for e in later):
+        failures.append(f"later losses differ from the plain run: {later}")
+    if said[:1] != ["resumed from step 2"] or len(resumed) != steps - 2 or \
+            not all(e <= TRAIN_RESUME_RTOL for e in resume_err):
+        failures.append(f"the resumed run {resumed} ({said[:1]}) is not the uninterrupted "
+                        f"{whole[2:]}")
+    if on_card and not smoke:
+        for r in rows:
+            if r["launches"] != want:
+                failures.append(f"step {r['step']} launched {r['launches']}, want {want}")
+    require(not failures, "; ".join(failures))
+    return row
+
+
+def train_lm_main_path(torch, dev, argv=TRAIN_LM_ARGV) -> dict:
+    """The train_lm twin: ``python -m repro_torch.examples.train_lm`` at its
+    defaults (mamba2-130m, 300 steps, batch 4 x 128) with ``argv``
+    (TRAIN_LM_ARGV: no checkpoints); the loss must decrease."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import train_lm
+
+    out = io.StringIO()
+    zero_train_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_lm.main(["--device", dev.type] + list(argv))
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    row = {"phase": "main_path_train_lm", "exit": rc, "wall_s": wall,
+           "launches": train_counts(torch), "log": lines[:3] + lines[-3:]}
+    emit(row)
+    require(rc == 0, f"train_lm: the loss did not decrease: {lines[-2:]}")
+    return row
+
+
+def times_train(torch, teff, cases, spec, dev, gen, train_row) -> dict:
+    """Each backward kernel at Zamba2's training shapes (and mamba2-130m's)
+    beside its plain version, library call and bound; the attention forward
+    with and without its log-sum-exp."""
+    kernels = {}
+    for label, case in cases.items():
+        if label.endswith(("zamba2", "mamba2")):
+            t = kernels[label] = train_case_times(torch, teff, case)
+            t.update(kernel=case["name"] + "_bwd", shape=case["shape"])
+    counts = train_row["launches_per_step_want"]
+    row = {"phase": "times_train", "card": spec.name, "power_limit": spec.power_limit,
+           "kernels": kernels, "lse": lse_times(torch, teff, dev, gen),
+           "launches_per_training_step": counts,
+           "warm_ms_per_step": train_row["warm_ms_per_step"],
+           "tokens_per_s": train_row["tokens_per_s"], "peak_gb": train_row["peak_gb"]}
+    emit(row)
+    return row
 
 
 def coupled_variants(torch, dev) -> dict:

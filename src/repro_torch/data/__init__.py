@@ -1,3 +1,4 @@
-from . import physics
+from . import physics, tokens
+from .tokens import DataConfig, make_source
 
-__all__ = ["physics"]
+__all__ = ["physics", "tokens", "DataConfig", "make_source"]

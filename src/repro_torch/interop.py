@@ -5,8 +5,11 @@ they become the port's tensors with :func:`fields_from_numpy`, and the port's
 tensors go back with :func:`fields_to_numpy`. An LM parameter tree or
 serving cache taken to numpy (``jax.tree.map(np.asarray, tree)``) becomes
 the port's tree key for key with :func:`params_from_numpy` or
-:func:`cache_from_numpy`, since both packages keep one layout. Nothing here
-imports JAX.
+:func:`cache_from_numpy`, since both packages keep one layout; an AdamW
+state (``m``, ``v``, ``count`` and, for low-precision parameters,
+``master``) crosses with :func:`opt_state_from_numpy` and
+:func:`opt_state_to_numpy`, so that a reference run's (params, opt_state)
+continues in the port. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -67,3 +70,20 @@ def cache_to_numpy(cache: Mapping) -> dict:
     """The port's serving cache as numpy arrays on the host (copies)."""
     return {n: (cache_to_numpy(t) if isinstance(t, Mapping)
                 else t.detach().cpu().numpy().copy()) for n, t in cache.items()}
+
+
+def opt_state_from_numpy(state: Mapping, *, device="cuda") -> dict:
+    """The reference's AdamW state taken to numpy (``jax.tree.map(np.asarray,
+    opt_state)``) as the port's ``optim.adamw`` state: the same keys, ``m``,
+    ``v`` (and ``master``) f32 trees like the parameters', ``count`` an int32
+    scalar tensor."""
+    return _tree_from_numpy(state, resolve_device(device))
+
+
+def opt_state_to_numpy(state: Mapping) -> dict:
+    """The port's AdamW state (or any tree of tensors) as numpy arrays on the
+    host (copies), key for key: what ``jax.tree.map(jnp.asarray, ...)``
+    takes back into the reference. bf16 leaves come back as f32 (exact)."""
+    return {n: (opt_state_to_numpy(t) if isinstance(t, Mapping) else
+                (t.detach().float() if t.dtype == torch.bfloat16 else t.detach())
+                .cpu().numpy().copy()) for n, t in state.items()}

@@ -11,6 +11,11 @@ for tensors that lie on the CPU.
 
 Self-attention only (Lq == Lk), as the TPU kernel. Decode against a cache
 is ``ops.decode_attention``, plain PyTorch, as in the reference.
+
+Training differentiates the kernel through :class:`AttentionFn`: the
+forward also writes each row's log-sum-exp, and the backward is the
+hand-written ``csrc/attention_bwd.cu`` (:func:`flash_attention_bwd`; plain
+version ``ref.attention_bwd``).
 """
 from __future__ import annotations
 
@@ -26,20 +31,28 @@ from .args import all_on_cpu, check_cuda_tensors
 from .stencil import stream_of
 
 SOURCE = build.CSRC_DIR / "attention.cu"
+BWD_SOURCE = build.CSRC_DIR / "attention_bwd.cu"
 
-# Launches of the CUDA kernel; :func:`flash_attention` adds one where it
+# Launches of the CUDA kernels; :func:`flash_attention` adds one where it
 # launches, and nowhere else: to ``launches``, and to ``launches_by_mode``
-# under "causal", "window" or "noncausal".
+# under "causal", "window" or "noncausal"; :func:`flash_attention_bwd` one to
+# ``launches_bwd`` (a call makes three device launches: delta, dk and dv,
+# dq).
 launches = 0
 launches_by_mode: collections.Counter = collections.Counter()
+launches_bwd = 0
 
 # Head dimensions the kernel takes: whole 16-dim groups (one float4 of q and
 # k per thread makes two 8-deep mma k-steps), at most 128.
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 _MAX_GRID_Y = 65535
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 8 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 8 + [ctypes.c_float]
              + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8 + [ctypes.c_float]
+                 + [ctypes.c_void_p])
+# the backward's tiles: 32 query rows, 32 keys
+BWD_TILE = 32
 
 
 @functools.cache
@@ -47,34 +60,116 @@ def library() -> build.Library:
     return build.Library("attention", build.read_source(SOURCE), _ARGTYPES)
 
 
-def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None):
-    """q (B, Hq, L, D), k/v (B, Hkv, L, D) -> (B, Hq, L, D); kv head =
-    q head // (Hq / Hkv). CUDA tensors run the kernel; CPU tensors run the
-    plain version."""
-    global launches
-    if all_on_cpu(q, k, v):
-        return ref.attention(q, k, v, causal=causal, scale=scale, window=window)
+@functools.cache
+def bwd_library() -> build.Library:
+    return build.Library("attention_bwd", build.read_source(BWD_SOURCE), _BWD_ARGTYPES)
+
+
+def bwd_smem_floats(D: int) -> int:
+    """Shared memory of a backward block in floats (``csrc/attention_bwd.cu``'s
+    ``smem_floats``): q, g, k, v tiles of D + 1 words a row, p and ds tiles,
+    lse and delta."""
+    return 4 * BWD_TILE * (D + 1) + 2 * BWD_TILE * (BWD_TILE + 1) + 2 * BWD_TILE
+
+
+def _check(q, k, v, what: str):
+    """(B, Hq, Hkv, L, D), or ValueError for a shape the kernels refuse."""
     B, Hq, L, D = q.shape
     Hkv = k.shape[1]
     if Hkv < 1 or Hq % Hkv:
-        raise ValueError(f"attention: Hkv={Hkv} must divide Hq={Hq}")
+        raise ValueError(f"{what}: Hkv={Hkv} must divide Hq={Hq}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"attention: head dim {D} is not one the kernel takes {HEAD_DIMS}")
+        raise ValueError(f"{what}: head dim {D} is not one the kernel takes {HEAD_DIMS}")
     if B * Hq > _MAX_GRID_Y:
-        raise ValueError(f"attention: B * Hq = {B * Hq} exceeds {_MAX_GRID_Y}")
+        raise ValueError(f"{what}: B * Hq = {B * Hq} exceeds {_MAX_GRID_Y}")
+    return B, Hq, Hkv, L, D
+
+
+def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None, return_lse: bool = False):
+    """q (B, Hq, L, D), k/v (B, Hkv, L, D) -> (B, Hq, L, D); kv head =
+    q head // (Hq / Hkv). With ``return_lse``, also each row's log-sum-exp
+    of its scaled scores (B, Hq, L) f32 (-inf for a row with no key). CUDA
+    tensors run the kernel; CPU tensors run the plain version."""
+    global launches
+    if all_on_cpu(q, k, v):
+        out = ref.attention(q, k, v, causal=causal, scale=scale, window=window)
+        return ((out, ref.attention_lse(q, k, causal=causal, scale=scale, window=window))
+                if return_lse else out)
+    B, Hq, Hkv, L, D = _check(q, k, v, "attention")
     dev = check_cuda_tensors({"q": (q, (B, Hq, L, D)), "k": (k, (B, Hkv, L, D)),
                               "v": (v, (B, Hkv, L, D))}, "attention")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("attention: q, k and v must start on a 16-byte boundary")
     scale = (D ** -0.5) if scale is None else scale
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, L), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     with torch.cuda.device(dev):
-        library().launch(out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        library().launch(out.data_ptr(), None if lse is None else lse.data_ptr(),
+                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          B, Hq, Hkv, L, D, int(bool(causal)), int(window is not None),
                          0 if window is None else int(window), float(scale),
                          stream_of(dev))
     launches += 1
     launches_by_mode["window" if window is not None else
                      "causal" if causal else "noncausal"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def bwd_arguments(q, k, v, out, dout, lse, causal, window, scale):
+    """The backward kernel's outputs (dq, dk, dv) and its entry point's
+    arguments but the stream, for tensors on one device (the card, or the
+    CPU for ``rehearse``)."""
+    B, Hq, L, D = q.shape
+    Hkv = k.shape[1]
+    scale = (D ** -0.5) if scale is None else scale
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Hq, L), dtype=torch.float32, device=q.device)
+    args = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            B, Hq, Hkv, L, D, int(bool(causal)), int(window is not None),
+            0 if window is None else int(window), float(scale))
+    return (dq, dk, dv), args, delta
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True,
+                        window: Optional[int] = None, scale: Optional[float] = None):
+    """(dq, dk, dv) of :func:`flash_attention` given ``dout``, from the
+    forward's output ``out`` and log-sum-exp ``lse``. CUDA tensors run
+    ``csrc/attention_bwd.cu``; CPU tensors run the plain version
+    (``ref.attention_bwd``)."""
+    global launches_bwd
+    if all_on_cpu(q, k, v, dout):
+        return ref.attention_bwd(q, k, v, dout, causal=causal, scale=scale, window=window)
+    B, Hq, Hkv, L, D = _check(q, k, v, "attention_bwd")
+    dev = check_cuda_tensors({"q": (q, (B, Hq, L, D)), "k": (k, (B, Hkv, L, D)),
+                              "v": (v, (B, Hkv, L, D)), "out": (out, (B, Hq, L, D)),
+                              "dout": (dout, (B, Hq, L, D)), "lse": (lse, (B, Hq, L))},
+                             "attention_bwd")
+    (dq, dk, dv), args, _delta = bwd_arguments(q, k, v, out, dout, lse, causal, window, scale)
+    with torch.cuda.device(dev):
+        bwd_library().launch(*args, stream_of(dev))
+    launches_bwd += 1
+    return dq, dk, dv
+
+
+class AttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with its backward on ``csrc/attention_bwd.cu``:
+    what ``ops.attention`` runs on CUDA tensors that need a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                                   return_lse=True)
+        ctx.opts = (causal, window, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None

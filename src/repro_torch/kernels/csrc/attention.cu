@@ -58,6 +58,10 @@
 // - Masks are tested only on tiles that straddle the causal or window
 //   edge, or L, for the warp's 16 rows; tiles wholly outside the band are
 //   not visited, and the heaviest query tiles are launched first.
+// - Given a pointer for it, the kernel writes each row's log-sum-exp of its
+//   scaled scores, ln(sum_j exp(s[i, j])) = m ln 2 + ln l (-inf for a row
+//   with no key), which the backward (csrc/attention_bwd.cu) reads to
+//   recompute the probabilities; serving passes none.
 // What bounds it now: the instruction rate of mma.sync (three per f32
 // product, 16 rows per warp) and of the split arithmetic beside it, which
 // every warp repeats on the K and V values it reads. wgmma, which reads B
@@ -76,6 +80,7 @@ constexpr int kRows = 16 * kWarps;  // query rows per block
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Shape {
@@ -89,7 +94,7 @@ struct Shape {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2) attention_kernel(
-    float* __restrict__ out, const float* __restrict__ q,
+    float* __restrict__ out, float* __restrict__ lse, const float* __restrict__ q,
     const float* __restrict__ k, const float* __restrict__ v, const int Hq,
     const int rep, const int64_t L, const int causal, const int has_window,
     const int64_t window, const float scale) {
@@ -294,6 +299,9 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2) attention_kernel(
     const int64_t row = r ? r1 : r0;
     if (row >= L) continue;
     const float safe = l[r] > 0.0f ? l[r] : 1.0f;
+    if (lse != nullptr && t == 0)
+      lse[static_cast<int64_t>(bh) * L + row] =
+          l[r] > 0.0f ? m[r] * kLn2 + logf(l[r]) : __int_as_float(0xff800000);
     float* orow = out + (static_cast<int64_t>(bh) * L + row) * D;
 #pragma unroll
     for (int qg = 0; qg < NQ; ++qg) {
@@ -309,21 +317,22 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2) attention_kernel(
 }
 
 template <int D>
-int launch_d(dim3 grid, cudaStream_t st, float* out, const float* q, const float* k,
+int launch_d(dim3 grid, cudaStream_t st, float* out, float* lse, const float* q, const float* k,
              const float* v, int Hq, int rep, int64_t L, int causal, int has_window,
              int64_t window, float scale) {
   const cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Shape<D>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   attention_kernel<D><<<grid, kThreads, Shape<D>::kSmem, st>>>(
-      out, q, k, v, Hq, rep, L, causal, has_window, window, scale);
+      out, lse, q, k, v, Hq, rep, L, causal, has_window, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Head dimensions this kernel takes: multiples of 16 up to 128.
-extern "C" int launch(void* out, const void* q, const void* k, const void* v,
+// Head dimensions this kernel takes: multiples of 16 up to 128. lse, (B, Hq,
+// L) f32, may be null.
+extern "C" int launch(void* out, void* lse, const void* q, const void* k, const void* v,
                       int64_t B, int64_t Hq, int64_t Hkv, int64_t L, int64_t D,
                       int64_t causal, int64_t has_window, int64_t window,
                       float scale, void* stream) {
@@ -331,20 +340,21 @@ extern "C" int launch(void* out, const void* q, const void* k, const void* v,
                   static_cast<unsigned>(B * Hq), 1);
   auto st = static_cast<cudaStream_t>(stream);
   auto o = static_cast<float*>(out);
+  auto ls = static_cast<float*>(lse);
   auto qi = static_cast<const float*>(q);
   auto ki = static_cast<const float*>(k);
   auto vi = static_cast<const float*>(v);
   const int hq = static_cast<int>(Hq), rep = static_cast<int>(Hq / Hkv);
   const int c = static_cast<int>(causal), hw = static_cast<int>(has_window);
   switch (D) {
-    case 16: return launch_d<16>(grid, st, o, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 32: return launch_d<32>(grid, st, o, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 48: return launch_d<48>(grid, st, o, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 64: return launch_d<64>(grid, st, o, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 80: return launch_d<80>(grid, st, o, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 96: return launch_d<96>(grid, st, o, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 112: return launch_d<112>(grid, st, o, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 128: return launch_d<128>(grid, st, o, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 16: return launch_d<16>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 32: return launch_d<32>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 48: return launch_d<48>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 64: return launch_d<64>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 80: return launch_d<80>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 96: return launch_d<96>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 112: return launch_d<112>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 128: return launch_d<128>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,7 +2,12 @@
 ``impl="cuda"`` runs the hand-written kernel (its plain version for CPU
 tensors), ``impl="ref"`` the plain PyTorch version. Decode's attention and
 SSD step are plain PyTorch, as the reference computes them outside any
-Pallas kernel."""
+Pallas kernel.
+
+Under ``impl="cuda"``, a call on CUDA tensors that needs a gradient runs
+the kernel inside its ``torch.autograd.Function`` (``AttentionFn``,
+``SSDFn``, ``Conv1dFn``), whose backward is a hand-written kernel too; on
+CPU tensors the plain forward is differentiated directly."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,12 +19,21 @@ from . import conv1d as _conv_kernel
 from . import diffusion3d as _diff_kernel
 from . import ref as _ref
 from . import ssd as _ssd_kernel
+from .args import all_on_cpu
 from .ref import NEG_INF
 
 
 def _check_impl(impl: str) -> None:
     if impl not in ("cuda", "ref"):
         raise ValueError(f"impl must be 'cuda' or 'ref', got {impl!r}")
+
+
+def _kernel_grad(*tensors) -> bool:
+    """Whether a ``cuda`` call differentiates through the kernels' autograd
+    Functions: grad mode on, some input needing a gradient, and the
+    tensors on the card."""
+    return (torch.is_grad_enabled() and not all_on_cpu(*tensors)
+            and any(t is not None and t.requires_grad for t in tensors))
 
 
 # =====================================================================
@@ -43,6 +57,8 @@ def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     """Self-attention with GQA; q (B, Hq, L, D), k/v (B, Hkv, L, D)."""
     _check_impl(impl)
     if impl == "cuda":
+        if _kernel_grad(q, k, v):
+            return _attn_kernel.AttentionFn.apply(q, k, v, causal, window, scale)
         return _attn_kernel.flash_attention(q, k, v, causal=causal, window=window,
                                             scale=scale)
     return _ref.attention(q, k, v, causal=causal, scale=scale, window=window)
@@ -84,6 +100,8 @@ def ssd(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64, impl: str = "cuda"):
     sequential oracle is ``ref.ssd_scan``."""
     _check_impl(impl)
     if impl == "cuda":
+        if _kernel_grad(x, dt, A, Bm, Cm, D, h0):
+            return _ssd_kernel.SSDFn.apply(x, dt, A, Bm, Cm, D, h0, chunk)
         return _ssd_kernel.ssd_chunk_scan(x, dt, A, Bm, Cm, D=D, h0=h0, chunk=chunk)
     return _ref.ssd(x, dt, A, Bm, Cm, D=D, h0=h0, chunk=chunk)
 
@@ -103,5 +121,7 @@ def ssd_decode_step(h, x_t, dt_t, A, B_t, C_t, D=None):
 def conv1d_causal(x, w, b=None, silu: bool = False, impl: str = "cuda"):
     _check_impl(impl)
     if impl == "cuda":
+        if _kernel_grad(x, w, b):
+            return _conv_kernel.Conv1dFn.apply(x, w, b, silu)
         return _conv_kernel.conv1d_causal(x, w, b, silu=silu)
     return _conv_kernel.plain(x, w, b, silu=silu)

@@ -1,6 +1,10 @@
 """Plain PyTorch versions of the kernels: the semantic ground truth that the
 CPU tests hold against the JAX package, and that ``chip_smoke.py`` holds
-each CUDA kernel against on the card."""
+each CUDA kernel against on the card.
+
+The backward kernels' plain versions (``conv1d_bwd``, ``ssd_bwd``,
+``attention_bwd``) are ``torch.autograd.grad`` through the plain forward.
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -93,33 +97,76 @@ def conv1d_causal(x, w, b=None):
     return out
 
 
+def conv1d_bwd(dout, x, w, b=None, silu: bool = False):
+    """(dx, dw, db) of :func:`conv1d_causal` (then SiLU if asked) given
+    ``dout``; db is None when b is."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, w, b) if t is not None]
+        out = conv1d_causal(*leaves)
+        if silu:
+            out = out * torch.sigmoid(out)
+        grads = torch.autograd.grad(out, leaves, dout)
+    return (*grads, None) if b is None else grads
+
+
 # -- attention oracle ----------------------------------------------------------
+def _allowed(Lq: int, Lk: int, causal: bool, window: Optional[int], device):
+    """(Lq, Lk) mask of the keys each query attends to (queries are the last
+    Lq positions)."""
+    qpos = torch.arange(Lq, device=device)[:, None] + (Lk - Lq)
+    kpos = torch.arange(Lk, device=device)[None, :]
+    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _scores(q, k, scale):
+    """f32 scaled scores (B, Hq, Lq, Lk), k broadcast over the GQA groups."""
+    Hq, Hkv = q.shape[1], k.shape[1]
+    k = torch.repeat_interleave(k, Hq // Hkv, dim=1) if Hq > Hkv else k
+    scale = (q.shape[-1] ** -0.5) if scale is None else scale
+    return torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+
+
 def attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
               window: Optional[int] = None):
     """q: (B, Hq, Lq, D), k/v: (B, Hkv, Lk, D); GQA by head broadcast
     (``kv head = q head // rep``). ``window``: each query attends to its last
     ``window`` keys. Computed in f32; a row with no key left gives 0."""
-    B, Hq, Lq, D = q.shape
-    Hkv, Lk = k.shape[1], k.shape[2]
-    rep = Hq // Hkv
-    if rep > 1:
-        k = torch.repeat_interleave(k, rep, dim=1)
-        v = torch.repeat_interleave(v, rep, dim=1)
-    scale = (D ** -0.5) if scale is None else scale
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    qpos = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
-    kpos = torch.arange(Lk, device=q.device)[None, :]
-    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    logits = torch.where(mask[None, None], logits, float("-inf"))
-    # a row with no key left would be a softmax of -inf only (NaN); it gives
-    # 0, as the flash kernel gives it
+    Hq, Hkv = q.shape[1], k.shape[1]
+    if Hq > Hkv:
+        v = torch.repeat_interleave(v, Hq // Hkv, dim=1)
+    mask = _allowed(q.shape[2], k.shape[2], causal, window, q.device)
+    # masked scores are NEG_INF, the reference's chunked path's value: exp
+    # underflows to exactly 0 beside any allowed key, and a row with no key
+    # left stays finite (its softmax is uniform), so its gradient does too
+    logits = torch.where(mask[None, None], _scores(q, k, scale), NEG_INF)
+    # a row with no key left gives 0, as the flash kernel gives it
     p = torch.where(mask.any(-1, keepdim=True)[None, None], torch.softmax(logits, dim=-1), 0.0)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+def attention_lse(q, k, causal: bool = True, scale: Optional[float] = None,
+                  window: Optional[int] = None):
+    """Each row's log-sum-exp of its allowed scaled scores (B, Hq, Lq), f32:
+    what the attention kernel writes beside its output for the backward;
+    ``-inf`` for a row with no key."""
+    mask = _allowed(q.shape[2], k.shape[2], causal, window, q.device)
+    return torch.logsumexp(torch.where(mask[None, None], _scores(q, k, scale),
+                                       float("-inf")), dim=-1)
+
+
+def attention_bwd(q, k, v, dout, causal: bool = True, scale: Optional[float] = None,
+                  window: Optional[int] = None):
+    """(dq, dk, dv) of :func:`attention` given ``dout``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention(*leaves, causal=causal, scale=scale, window=window)
+        return torch.autograd.grad(out, leaves, dout)
 
 
 # -- Mamba2 SSD ------------------------------------------------------------------
@@ -157,6 +204,23 @@ def ssd_step(h, x_t, dt_t, A, B_t, C_t):
     dA = torch.exp(dt_t * A.float()[None, :])
     h = h * dA[..., None, None] + (dt_t[..., None] * x_t)[..., None] * B_t[:, :, None, :]
     return h, torch.einsum("bhpn,bhn->bhp", h, C_t)
+
+
+def ssd_states(x, dt, A, Bm, Cm, h0=None, chunk: int = 64):
+    """The sequential recurrence's state at the start of each chunk of
+    ``chunk`` steps (the last one short), (B, nc, H, P, N) f32, and the
+    final state: what the SSD kernel's forward keeps for its backward."""
+    b, L, H, P = x.shape
+    N = Bm.shape[3]
+    Bh, Ch = _heads(Bm, H).float(), _heads(Cm, H).float()
+    h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    starts = []
+    for t in range(L):
+        if t % chunk == 0:
+            starts.append(h)
+        h, _ = ssd_step(h, x[:, t].float(), dt[:, t].float(), A, Bh[:, t], Ch[:, t])
+    return torch.stack(starts, dim=1).contiguous(), h
 
 
 def ssd(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64):
@@ -204,3 +268,25 @@ def ssd(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64):
     if D is not None:
         y = y + x.float() * D[None, None, :, None].float()
     return y.to(x.dtype), h
+
+
+def ssd_bwd(x, dt, A, Bm, Cm, dy, D=None, h0=None, dh_final=None, chunk: int = 64):
+    """The gradients of :func:`ssd` (at ``chunk``) given ``dy`` and, if not
+    None, the final state's ``dh_final``: a dict with dx, ddt, dA, dB, dC (per
+    state group) and dD, dh0 (None where D or h0 is)."""
+    names = ["x", "dt", "A", "B", "C", "D", "h0"]
+    given = [(n, t) for n, t in zip(names, (x, dt, A, Bm, Cm, D, h0)) if t is not None]
+    with torch.enable_grad():
+        leaves = {n: t.detach().requires_grad_(True) for n, t in given}
+        y, h = ssd(leaves["x"], leaves["dt"], leaves["A"], leaves["B"], leaves["C"],
+                   D=leaves.get("D"), h0=leaves.get("h0"), chunk=chunk)
+        outs, grads_out = [y], [dy]
+        if dh_final is not None:
+            outs.append(h)
+            grads_out.append(dh_final)
+        grads = torch.autograd.grad(outs, list(leaves.values()), grads_out,
+                                    allow_unused=True)
+    got = dict(zip(leaves, grads))
+    return {f"d{n}": (None if n not in got else
+                      torch.zeros_like(leaves[n]) if got[n] is None else got[n])
+            for n in names}

@@ -37,6 +37,13 @@ that the ``torch`` backend on CPU tensors is the bitwise reference.
 
     from repro_torch.kernels import rehearse
     outs, reds = rehearse.run(kernel.compiled(**fields, **scalars), fields, scalars)
+
+The LM backward kernels (``csrc/conv1d_bwd.cu``, ``csrc/ssd_bwd.cu``,
+``csrc/attention_bwd.cu``) are rehearsed the same way through
+:func:`conv1d_bwd`, :func:`ssd_bwd` and :func:`attention_bwd`, which pass
+their wrappers' own arguments (``bwd_arguments``) to the source's entry
+point; every output and scratch buffer is NaN before the launch, so an
+element no thread writes shows.
 """
 from __future__ import annotations
 
@@ -309,17 +316,20 @@ static void run_grid(dim3 grid, dim3 block, std::function<void()> body) {
 _LAUNCH = re.compile(r"(stencil_kernel|diffusion3d_steps_kernel<K, S>|kernel)"
                      r"<<<grid, block, [A-Za-z0-9]+, "
                      r"(?:st|static_cast<cudaStream_t>\(stream\))>>>\(")
+# any kernel launched as ``name<<<grid, block, smem, st>>>(`` (the LM
+# backward sources)
+_LAUNCH_ANY = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)<<<grid, block, [A-Za-z0-9_]+, st>>>\(")
 _LAUNCHED = re.compile(r"(run_grid\(grid, block, \[&\] \{ [A-Za-z0-9_<>, ]+\(\n[^;]*\));")
 _SET_SHARED = re.compile(r"  const cudaError_t set = cudaFuncSetAttribute\([^;]*;\n"
                          r"  if \(set != cudaSuccess\) [^\n]*\n")
 
 
-def _host_text(text: str, shared_floats: int = 0) -> str:
+def _host_text(text: str, shared_floats: int = 0, launch: re.Pattern = _LAUNCH) -> str:
     """CUDA source as C++ for the host behind :data:`_SHIM`: each launch a
     loop over the grid's blocks and threads; dynamic shared memory (of
     ``shared_floats`` 4-byte words) a static array whose bytes are all set
     to 0xff before each block, as a card may leave it holding anything
-    (a NaN as f32, bf16 and f16 alike)."""
+    (a NaN as f32, bf16 and f16 alike). ``launch`` finds the launches."""
     if "extern __shared__ float smem[];" in text:
         shared_floats = max(shared_floats, 1)     # a launch may need none
         text = text.replace("extern __shared__ float smem[];", "float* const smem = g_smem;")
@@ -334,7 +344,7 @@ def _host_text(text: str, shared_floats: int = 0) -> str:
     for header in ("cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h"):
         text = text.replace(f"#include <{header}>\n", "")
     text = _SET_SHARED.sub("", text)
-    text = _LAUNCH.sub(r"run_grid(grid, block, [&] { \1(", text)
+    text = launch.sub(r"run_grid(grid, block, [&] { \1(", text)
     text = _LAUNCHED.sub(r"\1; });", text)
     text = text.replace("return static_cast<int>(cudaGetLastError());", "return 0;")
     text = text.replace("static_cast<int>(cudaErrorInvalidValue)", "1")
@@ -642,3 +652,83 @@ def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1
     if stray:
         raise RuntimeError(f"the rehearsed diffusion3d made {stray} loads outside its fields")
     return out.clone() if alias else out
+
+
+# The runtime calls of the LM backward sources: every one succeeds.
+_LM_SHIM = r"""
+typedef int cudaError_t;
+static const int cudaSuccess = 0;
+static const int cudaErrorInvalidValue = 1;
+static const int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+"""
+
+
+def lm_library(path, name: str, shared_floats: int = 0) -> ctypes.CDLL:
+    """The hand-written source at ``path`` compiled for the CPU, with
+    ``shared_floats`` words of dynamic shared memory."""
+    text = _host_text(build.read_source(path), shared_floats, _LAUNCH_ANY)
+    return _compile(text.replace(_SHIM, _SHIM + _LM_SHIM, 1), name)
+
+
+def _run_lm(path, name: str, argtypes, args, shared_floats: int = 0) -> None:
+    """The hand-written source at ``path`` run on the CPU through its
+    ``launch`` entry point with ``args`` (the stream None)."""
+    lib = lm_library(path, name, shared_floats)
+    lib.rehearse_inputs(0, None, None)
+    fn = lib.launch
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    if fn(*args, None):
+        raise RuntimeError(f"the rehearsed {name} refused its launch")
+
+
+def _nan(*tensors) -> None:
+    for t in tensors:
+        if t is not None:
+            t.fill_(float("nan"))
+
+
+def conv1d_bwd(dout, x, w, b, silu: bool = False):
+    """``csrc/conv1d_bwd.cu`` on CPU tensors: (dx, dw, db), as
+    ``conv1d.conv1d_causal_bwd`` launches it on a card."""
+    from . import conv1d
+
+    (dx, dw, db), args, part = conv1d.bwd_arguments(dout.contiguous(), x.contiguous(),
+                                                    w.contiguous(), b.contiguous(), silu)
+    _nan(dx, dw, db, part)
+    _run_lm(conv1d.BWD_SOURCE, "conv1d_bwd", conv1d._BWD_ARGTYPES, args)
+    return dx, dw, db
+
+
+def ssd_bwd(x, dt, A, Bm, Cm, dy, D=None, h0=None, dh_final=None, chunk: int = 64):
+    """``csrc/ssd_bwd.cu`` on CPU tensors, from the chunk-start states and
+    final state of the plain recurrence (``ref.ssd_states``) at the
+    forward kernel's chunk (``ssd.plan``): the gradients as
+    ``ssd.ssd_chunk_scan_bwd`` returns them."""
+    from . import ref, ssd
+
+    cs, _ = ssd.plan(x.shape[1], chunk)
+    states, h_final = ref.ssd_states(x, dt, A, Bm, Cm, h0=h0, chunk=cs)
+    grads, args, work = ssd.bwd_arguments(x, dt, A, Bm, Cm, dy, D, h0, dh_final, states,
+                                          h_final, chunk)
+    _nan(work, *grads.values())
+    _run_lm(ssd.BWD_SOURCE, "ssd_bwd", ssd._BWD_ARGTYPES, args)
+    return grads
+
+
+def attention_bwd(q, k, v, dout, causal: bool = True, window=None, scale=None):
+    """``csrc/attention_bwd.cu`` on CPU tensors, from the plain forward's
+    output and log-sum-exp: (dq, dk, dv), as ``attention.flash_attention_bwd``
+    launches it on a card."""
+    from . import attention, ref
+
+    out = ref.attention(q, k, v, causal=causal, scale=scale, window=window)
+    lse = ref.attention_lse(q, k, causal=causal, scale=scale, window=window)
+    grads, args, delta = attention.bwd_arguments(q, k, v, out, dout, lse, causal, window,
+                                                 scale)
+    _nan(delta, *grads)
+    _run_lm(attention.BWD_SOURCE, "attention_bwd", attention._BWD_ARGTYPES, args,
+            attention.bwd_smem_floats(max(attention.HEAD_DIMS)))
+    return grads

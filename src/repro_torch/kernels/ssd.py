@@ -13,6 +13,11 @@ for tensors that lie on the CPU.
 
 Unlike the TPU kernel, it takes B and C per state group (B, L, G, N) and
 reads each head's group itself, so nothing is broadcast to heads first.
+
+Training differentiates the kernels through :class:`SSDFn`: the forward
+keeps its chunk-start states, and the backward is the hand-written
+``csrc/ssd_bwd.cu`` (:func:`ssd_chunk_scan_bwd`; plain version
+``ref.ssd_bwd``), at the forward's own chunk plan.
 """
 from __future__ import annotations
 
@@ -26,10 +31,14 @@ from .args import all_on_cpu, check_cuda_tensors
 from .stencil import stream_of
 
 SOURCE = build.CSRC_DIR / "ssd.cu"
+BWD_SOURCE = build.CSRC_DIR / "ssd_bwd.cu"
 
-# Calls that launched the CUDA kernels (two device launches each);
-# :func:`ssd_chunk_scan` adds one where it launches, and nowhere else.
+# Calls that launched the CUDA kernels: :func:`ssd_chunk_scan` adds one to
+# ``launches`` (two device launches each), :func:`ssd_chunk_scan_bwd` one to
+# ``launches_bwd`` (five device launches: the forward walk, the backward
+# walk and three folds), where they launch and nowhere else.
 launches = 0
+launches_bwd = 0
 
 # Steps of the kernels' chunk tile. A longer chunk runs as chunks of this
 # many steps: the same function, summed in another order.
@@ -39,12 +48,21 @@ _TILE = 64   # p columns of an output block (csrc/ssd.cu's kTile)
 MAX_SMEM = 232448
 _MAX_GRID_Z = 65535
 
+# the backward keeps a lane's columns n = lane + 32 j, j < 4, of its rows
+MAX_N_BWD = 128
+
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
 
 
 @functools.cache
 def library() -> build.Library:
     return build.Library("ssd", build.read_source(SOURCE), _ARGTYPES)
+
+
+@functools.cache
+def bwd_library() -> build.Library:
+    return build.Library("ssd_bwd", build.read_source(BWD_SOURCE), _BWD_ARGTYPES)
 
 
 def pick_chunk(L: int, chunk: int) -> int:
@@ -74,10 +92,13 @@ def smem_bytes(N: int) -> int:
                 + 2 * KERNEL_CHUNK)
 
 
-def ssd_chunk_scan(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64):
+def ssd_chunk_scan(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64,
+                   return_states: bool = False):
     """x (B, L, H, P); dt (B, L, H) positive; A (H,) negative; Bm/Cm
     (B, L, G, N) per state group (G divides H); D (H,) or None; h0
-    (B, H, P, N) or None. Returns (y (B, L, H, P), h_final (B, H, P, N) f32).
+    (B, H, P, N) or None. Returns (y (B, L, H, P), h_final (B, H, P, N) f32)
+    and, with ``return_states``, the chunk-start states (B, nc, H, P, N) f32
+    at :func:`plan`'s chunk (None on the CPU), which the backward reads.
 
     CUDA tensors run the kernels (at :func:`plan`'s chunk); CPU tensors run
     the plain version at :func:`pick_chunk`'s."""
@@ -85,7 +106,8 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64):
     Bb, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if all_on_cpu(x, dt, A, Bm, Cm, D, h0):
-        return ref.ssd(x, dt, A, Bm, Cm, D=D, h0=h0, chunk=pick_chunk(L, chunk))
+        y, h = ref.ssd(x, dt, A, Bm, Cm, D=D, h0=h0, chunk=pick_chunk(L, chunk))
+        return (y, h, None) if return_states else (y, h)
     if G < 1 or H % G:
         raise ValueError(f"ssd: the groups G={G} must divide the heads H={H}")
     args = {"x": (x, (Bb, L, H, P)), "dt": (dt, (Bb, L, H)), "A": (A, (H,)),
@@ -114,4 +136,105 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64):
                          None if h0 is None else h0.data_ptr(),
                          Bb, L, H, P, G, N, cs, nc, int(vec4), stream_of(dev))
     launches += 1
-    return y, h_final
+    return (y, h_final, states) if return_states else (y, h_final)
+
+
+def bwd_rows(N: int) -> int:
+    """State rows a block of the backward owns (``csrc/ssd_bwd.cu``'s
+    ``state_rows``)."""
+    return 32 if N <= 64 else 16
+
+
+def bwd_work_floats(Bb: int, L: int, H: int, P: int, N: int) -> int:
+    """f32 scratch of the backward (``csrc/ssd_bwd.cu``'s ``work_floats``)."""
+    nt = -(-P // bwd_rows(N))
+    return 2 * Bb * L * H * nt * N + 2 * Bb * L * H * nt + 2 * Bb * H * nt + 2 * Bb * H
+
+
+def bwd_arguments(x, dt, A, Bm, Cm, dy, D, h0, dh_final, states, h_final, chunk: int):
+    """The backward's gradients (a dict as ``ref.ssd_bwd`` returns it) and
+    its entry point's arguments but the stream, for tensors on one device
+    (the card, or the CPU for ``rehearse``)."""
+    Bb, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    cs, nc = plan(L, chunk)
+    grads = {"dx": torch.empty_like(x), "ddt": torch.empty_like(dt), "dA": torch.empty_like(A),
+             "dB": torch.empty_like(Bm), "dC": torch.empty_like(Cm),
+             "dD": None if D is None else torch.empty_like(D),
+             "dh0": None if h0 is None else torch.empty_like(h0)}
+    size = bwd_work_floats(Bb, L, H, P, N)
+    work = torch.empty((size,), dtype=torch.float32, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    args = (*(ptr(grads[k]) for k in ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")),
+            work.data_ptr(), ptr(dy), ptr(dh_final), ptr(h_final), ptr(states), ptr(x),
+            ptr(dt), ptr(A), ptr(Bm), ptr(Cm), ptr(D), Bb, L, H, P, G, N, cs, nc, size)
+    return grads, args, work
+
+
+def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, D=None, h0=None, dh_final=None, states=None,
+                       h_final=None, chunk: int = 64):
+    """The gradients of :func:`ssd_chunk_scan` given ``dy`` (B, L, H, P) and,
+    if not None, ``dh_final``: a dict with dx, ddt, dA, dB and dC (per state
+    group, summed over its heads), dD and dh0 (None where D or h0 is).
+
+    CUDA tensors run ``csrc/ssd_bwd.cu`` from the forward's chunk-start
+    ``states`` (and ``h_final`` where ``dh_final`` is given), at
+    :func:`plan`'s chunk, the forward's own; CPU tensors run the plain
+    version (``ref.ssd_bwd``) at :func:`pick_chunk`'s."""
+    global launches_bwd
+    Bb, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if all_on_cpu(x, dt, A, Bm, Cm, dy, D, h0, dh_final):
+        return ref.ssd_bwd(x, dt, A, Bm, Cm, dy, D=D, h0=h0, dh_final=dh_final,
+                           chunk=pick_chunk(L, chunk))
+    cs, nc = plan(L, chunk)
+    args = {"x": (x, (Bb, L, H, P)), "dt": (dt, (Bb, L, H)), "A": (A, (H,)),
+            "Bm": (Bm, (Bb, L, G, N)), "Cm": (Cm, (Bb, L, G, N)), "dy": (dy, (Bb, L, H, P)),
+            "states": (states, (Bb, nc, H, P, N))}
+    for name, t, shape in (("D", D, (H,)), ("h0", h0, (Bb, H, P, N)),
+                           ("dh_final", dh_final, (Bb, H, P, N)),
+                           ("h_final", h_final if dh_final is not None else None,
+                            (Bb, H, P, N))):
+        if t is not None:
+            args[name] = (t, shape)
+    if states is None or (dh_final is not None and h_final is None):
+        raise ValueError("ssd_bwd: needs the forward's chunk-start states, and h_final "
+                         "where dh_final is given")
+    if G < 1 or H % G or not 1 <= N <= MAX_N_BWD or Bb * H > _MAX_GRID_Z:
+        raise ValueError(f"ssd_bwd: needs G | H, 1 <= N <= {MAX_N_BWD} and B * H <= "
+                         f"{_MAX_GRID_Z}, got G={G}, H={H}, N={N}, B={Bb}")
+    dev = check_cuda_tensors(args, "ssd_bwd")
+    grads, cargs, _work = bwd_arguments(x, dt, A, Bm, Cm, dy, D, h0, dh_final, states,
+                                        h_final, chunk)
+    with torch.cuda.device(dev):
+        bwd_library().launch(*cargs, stream_of(dev))
+    launches_bwd += 1
+    return grads
+
+
+class SSDFn(torch.autograd.Function):
+    """:func:`ssd_chunk_scan` with its backward on ``csrc/ssd_bwd.cu``: what
+    ``ops.ssd`` runs on CUDA tensors that need a gradient. Returns (y,
+    h_final)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, h0, chunk):
+        y, h_final, states = ssd_chunk_scan(x, dt, A, Bm, Cm, D=D, h0=h0, chunk=chunk,
+                                            return_states=True)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D, h0, states, h_final)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        x, dt, A, Bm, Cm, D, h0, states, h_final = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        g = ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy.contiguous(), D=D, h0=h0,
+                               dh_final=None if dh_final is None else dh_final.contiguous(),
+                               states=states, h_final=h_final, chunk=ctx.chunk)
+        return g["dx"], g["ddt"], g["dA"], g["dB"], g["dC"], g["dD"], g["dh0"], None

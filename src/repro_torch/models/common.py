@@ -10,6 +10,7 @@ distributions, not its random bits.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -77,6 +78,36 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree as ``n`` trees of views: one
+    ``unbind`` per leaf, whose backward stacks the layers' gradients in one
+    operation (indexing each layer would add a full-size zero gradient per
+    layer)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def remat(fn, enabled: bool, policy: str = "full"):
+    """``fn`` rematerialised in the backward (``torch.utils.checkpoint``,
+    non-reentrant) when ``enabled`` and autograd records; ``fn`` itself
+    otherwise."""
+    if not enabled:
+        return fn
+    if policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {policy!r}: only 'full' is ported; saving the matmul outputs "
+            "('dots') waits in ROADMAP queue 1, item 9")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped
 
 
 def layer(tree, i: int):

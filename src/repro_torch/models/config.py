@@ -2,10 +2,12 @@
 
 A copy of ``src/repro/models/config.py`` (the port imports nothing of the
 JAX package): :class:`ArchConfig` carries the published architecture
-hyperparameters, :class:`RunConfig` the deployment knobs the serving path
-reads (parameter dtype, the implementation of each kernel: ``"cuda"``,
-the hand-written CUDA kernel, or ``"ref"``, its plain PyTorch version, and
-the MoE capacity factor).
+hyperparameters, :class:`RunConfig` the deployment knobs the serving and
+training paths read (parameter dtype, the implementation of each kernel:
+``"cuda"``, the hand-written CUDA kernel, or ``"ref"``, its plain PyTorch
+version, the MoE capacity factor, and the reference's training fields:
+rematerialisation, microbatches, the loss chunk and z-loss, the optimiser
+and its schedule).
 """
 from __future__ import annotations
 
@@ -124,6 +126,21 @@ class RunConfig:
     ssd_impl: str = "cuda"
     conv_impl: str = "cuda"
     capacity_factor: float = 1.25    # MoE expert capacity over the even share
+    # training (the reference's fields and defaults)
+    remat: bool = True               # recompute each block in the backward
+    remat_policy: str = "full"       # full | dots (dots: ROADMAP queue 1, item 9)
+    n_microbatch: int = 1            # gradient-accumulation microbatches
+    loss_chunk: int = 512
+    z_loss: float = 0.0
+    # optimizer
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    schedule: str = "cosine"          # cosine | wsd | const
+    warmup_steps: int = 100
+    total_steps: int = 1000
 
     def __post_init__(self):
         for f in ("attn_impl", "ssd_impl", "conv_impl"):

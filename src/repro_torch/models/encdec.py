@@ -6,8 +6,8 @@ embeddings (B, S_src, D). Encoder blocks are bidirectional self-attention
 (the attention kernel with ``causal=False``) and an MLP; decoder blocks are
 causal self-attention (the attention kernel in prefill), cross-attention to
 the encoder memory, and an MLP. The cross-attention K/V are computed once
-at prefill and cached (``mk``/``mv``). ``decode_train`` and the loss wait
-for training (ROADMAP queue 1, item 9).
+at prefill and cached (``mk``/``mv``). ``decode_train`` and ``loss_fn``
+train it, each encoder and decoder block rematerialised under ``rc.remat``.
 """
 from __future__ import annotations
 
@@ -91,13 +91,17 @@ def encode(params, cfg: ArchConfig, rc: RunConfig, frames):
     h = frames.to(param_dtype(rc))
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
-    for i in range(cfg.n_enc_layers):
-        bp = cm.layer(params["enc_blocks"], i)
+
+    def body(bp, h):
         a_in = ly.norm_apply(bp["attn_norm"], h, cfg.norm_eps)
         a, _ = ly.attn_apply(bp["attn"], a_in, _enc_attn_cfg(cfg), positions,
                              attn_impl=rc.attn_impl)
         h = h + a
-        h = h + ly.mlp_apply(bp["mlp"], ly.norm_apply(bp["mlp_norm"], h, cfg.norm_eps))
+        return h + ly.mlp_apply(bp["mlp"], ly.norm_apply(bp["mlp_norm"], h, cfg.norm_eps))
+
+    body = cm.remat(body, rc.remat, rc.remat_policy)
+    for bp in cm.unstack(params["enc_blocks"], cfg.n_enc_layers):
+        h = body(bp, h)
     return ly.norm_apply(params["enc_norm_f"], h, cfg.norm_eps)
 
 
@@ -109,6 +113,38 @@ def _memory_kv(bp, memory, cfg: ArchConfig):
     k = (memory @ bp["wk"]).reshape(B, S, Hkv, Dh).transpose(1, 2)
     v = (memory @ bp["wv"]).reshape(B, S, Hkv, Dh).transpose(1, 2)
     return k, v
+
+
+def decode_train(params, cfg: ArchConfig, rc: RunConfig, memory, tokens):
+    """The teacher-forced decoder over ``tokens`` (B, L) against the encoder
+    memory -> the final-normed hidden (B, L, D)."""
+    h = params["embed"][tokens]
+    B, L, _ = h.shape
+    positions = torch.arange(L, device=h.device).expand(B, L)
+
+    def body(bp, h):
+        a_in = ly.norm_apply(bp["self_norm"], h, cfg.norm_eps)
+        a, _ = ly.attn_apply(bp["self_attn"], a_in, attn_cfg(cfg), positions,
+                             attn_impl=rc.attn_impl)
+        h = h + a
+        c_in = ly.norm_apply(bp["cross_norm"], h, cfg.norm_eps)
+        mkv = _memory_kv(bp["cross_attn"], memory, cfg)
+        h = h + _cross_attend(bp["cross_attn"], c_in, mkv, cfg)
+        return h + ly.mlp_apply(bp["mlp"], ly.norm_apply(bp["mlp_norm"], h, cfg.norm_eps))
+
+    body = cm.remat(body, rc.remat, rc.remat_policy)
+    for bp in cm.unstack(params["dec_blocks"], cfg.n_dec_layers):
+        h = body(bp, h)
+    return ly.norm_apply(params["norm_f"], h, cfg.norm_eps)
+
+
+def loss_fn(params, cfg: ArchConfig, rc: RunConfig, tokens, labels, frames):
+    """tokens/labels (B, L) (labels with ``losses.IGNORE`` padding); frames
+    (B, S_src, D), the stub frontend's embeddings."""
+    memory = encode(params, cfg, rc, frames)
+    h = decode_train(params, cfg, rc, memory, tokens)
+    return lo.chunked_softmax_xent(h, head_weight(params, cfg), labels,
+                                   chunk=rc.loss_chunk, z_loss=rc.z_loss)
 
 
 def init_cache(cfg: ArchConfig, rc: RunConfig, batch: int, max_seq: int, device,

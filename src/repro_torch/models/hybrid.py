@@ -7,8 +7,10 @@ every ``attn_every`` Mamba2 layers, with the same parameters at each
 application. The tree keeps the reference's layout: the Mamba2 leaves are
 stacked (n_groups, attn_every, ...), the ``rem = n_layers % attn_every``
 layers after the last group in ``mamba_tail`` (rem, ...), and the shared
-block is held once. ``forward_hidden`` and ``loss_fn`` wait for training
-(ROADMAP queue 1, item 9).
+block is held once. ``forward_hidden`` and ``loss_fn`` train it: each
+Mamba2 layer is rematerialised under ``rc.remat`` (the shared block is not,
+as in the reference), and the shared block's gradients accumulate over its
+applications.
 """
 from __future__ import annotations
 
@@ -83,6 +85,39 @@ def _shared_block(sp, h, cfg, rc, positions):
     h = h + a
     h = h + ly.mlp_apply(sp["mlp"], ly.norm_apply(sp["mlp_norm"], h, cfg.norm_eps))
     return h, kv
+
+
+def _mamba_layer(bp, h, cfg: ArchConfig, rc: RunConfig):
+    hn = ly.norm_apply(bp["norm"], h, cfg.norm_eps)
+    out, _ = ssm_mod.ssm_apply(bp["ssm"], hn, ssm_cfg(cfg), ssd_impl=rc.ssd_impl,
+                               conv_impl=rc.conv_impl)
+    return h + out
+
+
+def forward_hidden(params, cfg: ArchConfig, rc: RunConfig, embeds, positions=None):
+    """embeds (B, L, D) -> (final-normed hidden (B, L, D), 0 aux)."""
+    B, L, _ = embeds.shape
+    if positions is None:
+        positions = torch.arange(L, device=embeds.device).expand(B, L)
+    n_groups, k, rem = _group_layout(cfg)
+    body = cm.remat(lambda bp, h: _mamba_layer(bp, h, cfg, rc), rc.remat, rc.remat_policy)
+    h = embeds
+    for gp in cm.unstack(params["mamba"], n_groups):
+        for bp in cm.unstack(gp, k):
+            h = body(bp, h)
+        h, _ = _shared_block(params["shared"], h, cfg, rc, positions)
+    if rem:
+        for bp in cm.unstack(params["mamba_tail"], rem):
+            h = body(bp, h)
+    h = ly.norm_apply(params["norm_f"], h, cfg.norm_eps)
+    return h, torch.zeros((), device=h.device)
+
+
+def loss_fn(params, cfg: ArchConfig, rc: RunConfig, tokens, labels):
+    """tokens (B, L) int; labels (B, L) with ``losses.IGNORE`` padding."""
+    h, _ = forward_hidden(params, cfg, rc, params["embed"][tokens])
+    return lo.chunked_softmax_xent(h, head_weight(params, cfg), labels,
+                                   chunk=rc.loss_chunk, z_loss=rc.z_loss)
 
 
 def prefill(params, cfg: ArchConfig, rc: RunConfig, tokens, max_seq: int):

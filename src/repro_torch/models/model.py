@@ -1,7 +1,7 @@
-"""Family dispatch: the one facade the serving launcher and the tests drive,
-the twin of ``src/repro/models/model.py`` (serving). ``dense``, ``moe``,
-``ssm`` and ``vlm`` go to ``transformer``, ``encdec`` to ``encdec`` and
-``hybrid`` to ``hybrid``."""
+"""Family dispatch: the one facade the serving and training launchers and
+the tests drive, the twin of ``src/repro/models/model.py``. ``dense``,
+``moe``, ``ssm`` and ``vlm`` go to ``transformer``, ``encdec`` to ``encdec``
+and ``hybrid`` to ``hybrid``."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,6 +37,18 @@ class Model:
             raise ValueError(f"generator on {gen.device}, model on {self.device}")
         return self._mod.model_init(gen, self.cfg, self.rc)
 
+    def loss_fn(self, params, batch):
+        """The training loss of ``batch``: {"tokens", "labels"} and, for a
+        VLM, "patch_embeds"; for an enc-dec, "frames"."""
+        cfg, rc = self.cfg, self.rc
+        if cfg.family == "encdec":
+            return encdec_mod.loss_fn(params, cfg, rc, batch["tokens"], batch["labels"],
+                                      frames=batch["frames"])
+        if cfg.family == "hybrid":
+            return hybrid_mod.loss_fn(params, cfg, rc, batch["tokens"], batch["labels"])
+        return tf_mod.loss_fn(params, cfg, rc, batch["tokens"], batch["labels"],
+                              prefix_embeds=batch.get("patch_embeds"))
+
     def init_cache(self, batch: int, max_seq: int):
         return self._mod.init_cache(self.cfg, self.rc, batch, max_seq, self.device)
 
@@ -62,14 +74,14 @@ def build(cfg: ArchConfig, rc: Optional[RunConfig] = None, device="cuda") -> Mod
 
 def synth_batch(model: Model, gen: torch.Generator, seq_len: int, global_batch: int,
                 mode: str = "prefill"):
-    """A random prefill batch drawn from ``gen``, the reference's shapes:
-    {"tokens": (B, L) int64}; a VLM's prompt is ``n_patches`` patch
+    """A random prefill or training (``mode="train"``) batch drawn from
+    ``gen``, the reference's shapes: {"tokens": (B, L) int64} and, to train,
+    "labels" of the tokens' shape; a VLM's prompt is ``n_patches`` patch
     embeddings then ``L - n_patches`` tokens, an enc-dec's source is
     ``source_len`` frames. Embeddings are N(0, 1) * 0.02 at the parameter
     dtype."""
-    if mode != "prefill":
-        raise NotImplementedError(
-            f"mode {mode!r}: training batches wait for training (ROADMAP queue 1, item 9)")
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"mode must be 'prefill' or 'train', got {mode!r}")
     cfg, B = model.cfg, global_batch
     dtype = tf_mod.param_dtype(model.rc)
     n_tok = seq_len - cfg.n_patches if cfg.family == "vlm" else seq_len
@@ -81,6 +93,9 @@ def synth_batch(model: Model, gen: torch.Generator, seq_len: int, global_batch: 
 
     out = {"tokens": torch.randint(0, cfg.vocab, (B, n_tok), generator=gen,
                                    device=gen.device).to(model.device)}
+    if mode == "train":
+        out["labels"] = torch.randint(0, cfg.vocab, (B, n_tok), generator=gen,
+                                      device=gen.device).to(model.device)
     if cfg.family == "vlm":
         out["patch_embeds"] = embeds(cfg.n_patches)
     if cfg.family == "encdec":

@@ -4,10 +4,11 @@ the serving half of ``src/repro/models/transformer.py``.
 Parameters keep the reference's stacked (scan) layout: every leaf of
 ``blocks`` carries a leading layer axis, and the forward pass is a Python
 loop over the layers. Attention blocks launch the attention kernel in
-prefill; the SSM family's blocks (``models/ssm.py``) launch conv1d and SSD.
-Decode runs plain PyTorch, as the reference does outside its kernels, and
-updates the cache in place. The loss waits for training (ROADMAP queue 1,
-item 9).
+prefill and training; the SSM family's blocks (``models/ssm.py``) launch
+conv1d and SSD. Decode runs plain PyTorch, as the reference does outside
+its kernels, and updates the cache in place. ``loss_fn`` is the training
+loss: the chunked cross-entropy plus ``AUX_COEF`` times the MoE's
+load-balancing loss, with each block rematerialised under ``rc.remat``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from . import losses as lo
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ArchConfig, RunConfig
+
+AUX_COEF = 0.01
 
 
 def attn_cfg(cfg: ArchConfig) -> ly.AttnCfg:
@@ -117,13 +120,16 @@ def block_apply(bp, h, cfg: ArchConfig, rc: RunConfig, positions):
 
 
 def forward_hidden(params, cfg: ArchConfig, rc: RunConfig, embeds, positions=None):
-    """embeds (B, L, D) -> (final-normed hidden (B, L, D), mean aux)."""
+    """embeds (B, L, D) -> (final-normed hidden (B, L, D), mean aux); each
+    block rematerialised in the backward under ``rc.remat``."""
     B, L, _ = embeds.shape
     if positions is None:
         positions = torch.arange(L, device=embeds.device).expand(B, L)
+    body = cm.remat(lambda bp, h: block_apply(bp, h, cfg, rc, positions), rc.remat,
+                    rc.remat_policy)
     h, auxs = embeds, []
-    for i in range(cfg.n_layers):
-        h, aux = block_apply(cm.layer(params["blocks"], i), h, cfg, rc, positions)
+    for bp in cm.unstack(params["blocks"], cfg.n_layers):
+        h, aux = body(bp, h)
         auxs.append(aux)
     h = ly.norm_apply(params["norm_f"], h, cfg.norm_eps)
     return h, torch.stack(auxs).mean()
@@ -134,6 +140,22 @@ def embed_tokens(params, cfg: ArchConfig, tokens, prefix_embeds=None):
     if prefix_embeds is not None:  # VLM / audio stub frontends
         emb = torch.cat([prefix_embeds.to(emb.dtype), emb], dim=1)
     return emb
+
+
+def loss_fn(params, cfg: ArchConfig, rc: RunConfig, tokens, labels, prefix_embeds=None):
+    """tokens (B, L) int; labels (B, L) with ``losses.IGNORE`` padding; a
+    VLM's patch embeddings (B, n, D) come first, their labels ignored."""
+    emb = embed_tokens(params, cfg, tokens, prefix_embeds)
+    if prefix_embeds is not None:
+        pad = torch.full(prefix_embeds.shape[:2], lo.IGNORE, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    h, aux = forward_hidden(params, cfg, rc, emb)
+    loss = lo.chunked_softmax_xent(h, head_weight(params, cfg), labels,
+                                   chunk=rc.loss_chunk, z_loss=rc.z_loss)
+    if cfg.is_moe:
+        loss = loss + AUX_COEF * aux
+    return loss
 
 
 # --------------------------------------------------------------------------

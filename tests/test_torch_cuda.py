@@ -22,6 +22,7 @@ attention rtol 1e-5 / atol 1e-5 (3xTF32 products on the tensor cores, about
 softmax per row), SSD rtol 1e-4 / atol 1e-4 (3xTF32 products summed in
 another order, and the state carries rounding across chunks).
 """
+import dataclasses
 import inspect
 
 import numpy as np
@@ -1003,3 +1004,101 @@ def test_parallel_tile_launches_the_layout_asked_for(card, rng):
     with pytest.raises(ValueError, match="cannot serve"):
         autotune.diffusion3d_kernel(ps, codegen.KernelShape((32, 16), 1, 2, block=256))(
             **f, **sc)
+
+
+# --------------------------------------------------------------------------
+# training: the backward kernels, their autograd Functions, a smoke train
+# --------------------------------------------------------------------------
+# Tolerances of the backward kernels against autograd.grad of the plain
+# version (rtol, atol x the case's largest gradient), chip_smoke.TRAIN_TOL's.
+TRAIN_TOL = {"conv1d": (1e-4, 1e-5), "ssd": (1e-3, 1e-4), "attention": (1e-3, 1e-4)}
+
+
+def _close_grads(got, want, tol):
+    scale = max(float(w.abs().max()) for w in want if w is not None and w.numel())
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g, w, rtol=tol[0], atol=tol[1] * scale)
+
+
+@pytest.mark.parametrize("B,L,C,K,silu", [(2, 70, 300, 3, True), (4, 1024, 4224, 4, False)])
+def test_conv1d_bwd_equals_plain(card, B, L, C, K, silu):
+    gen = torch.Generator().manual_seed(0)
+    x, w, b, g = (torch.randn(s, generator=gen).to(card)
+                  for s in ((B, L, C), (K, C), (C,), (B, L, C)))
+    before = conv1d.launches_bwd
+    got = conv1d.conv1d_causal_bwd(g, x, w, b, silu)
+    assert conv1d.launches_bwd == before + 1
+    _close_grads(got, ref.conv1d_bwd(g, x, w, b, silu), TRAIN_TOL["conv1d"])
+    assert all(torch.equal(a, c) for a, c in zip(got, conv1d.conv1d_causal_bwd(g, x, w, b, silu)))
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk,h0,dhf", [(1, 100, 4, 6, 2, 10, 16, True, True),
+                                                      (2, 130, 4, 64, 1, 128, 64, False, False)])
+def test_ssd_bwd_equals_plain(card, B, L, H, P, G, N, chunk, h0, dhf):
+    gen = torch.Generator().manual_seed(1)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=gen) * scale).to(card)
+
+    x, Bm, Cm = r(B, L, H, P, scale=0.5), r(B, L, G, N, scale=0.3), r(B, L, G, N, scale=0.3)
+    dt = (torch.rand((B, L, H), generator=gen) * 0.09 + 0.01).to(card)
+    A, D = -(torch.rand(H, generator=gen) * 8 + 1).to(card), r(H)
+    h0t = r(B, H, P, N, scale=0.2) if h0 else None
+    dy, dhft = r(B, L, H, P), (r(B, H, P, N) if dhf else None)
+    _, hf, states = ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, D=D, h0=h0t, chunk=chunk,
+                                       return_states=True)
+    got = ssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, D=D, h0=h0t, dh_final=dhft,
+                                 states=states, h_final=hf, chunk=chunk)
+    want = ref.ssd_bwd(x, dt, A, Bm, Cm, dy, D=D, h0=h0t, dh_final=dhft,
+                       chunk=ssd.pick_chunk(L, chunk))
+    _close_grads([got[k] for k in want], list(want.values()), TRAIN_TOL["ssd"])
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,D,causal,window", [(1, 8, 2, 63, 128, True, 37),
+                                                        (2, 4, 4, 65, 16, False, None),
+                                                        (1, 2, 2, 65, 64, True, 0)])
+def test_attention_bwd_and_lse_equal_plain(card, B, Hq, Hkv, L, D, causal, window):
+    gen = torch.Generator().manual_seed(2)
+    q, g = (torch.randn((B, Hq, L, D), generator=gen).to(card) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, L, D), generator=gen).to(card) for _ in range(2))
+    out, lse = attention.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    plain_lse = ref.attention_lse(q, k, causal=causal, window=window)
+    fin = torch.isfinite(plain_lse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    torch.testing.assert_close(lse[fin], plain_lse[fin], rtol=1e-5, atol=1e-5)
+    got = attention.flash_attention_bwd(q, k, v, out, g, lse, causal=causal, window=window)
+    _close_grads(got, ref.attention_bwd(q, k, v, g, causal=causal, window=window),
+                 TRAIN_TOL["attention"])
+
+
+def test_ops_route_gradients_through_the_backward_kernels(card):
+    """A grad-enabled call of ops on CUDA tensors runs the Functions: one
+    backward launch each, the gradients the plain version's."""
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((1, 2, 40, 16), generator=gen).to(card).requires_grad_(True)
+    before = (attention.launches_bwd, conv1d.launches_bwd)
+    out = ops.attention(q, q, q, causal=True)
+    x = torch.randn((1, 40, 8), generator=gen).to(card).requires_grad_(True)
+    y = ops.conv1d_causal(x, torch.randn((4, 8), generator=gen).to(card), silu=True)
+    (out.sum() + y.sum()).backward()
+    assert (attention.launches_bwd, conv1d.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert bool(torch.isfinite(q.grad).all()) and bool(torch.isfinite(x.grad).all())
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-130m", "stablelm-3b",
+                                  "seamless-m4t-medium"])
+def test_smoke_train_on_the_card_matches_the_plain_run(card, arch):
+    """Four steps of each arch's smoke config on the kernels and on the
+    plain versions: the losses within 1e-3 (chip_smoke.TRAIN_LATER_RTOL)."""
+    from repro_torch.launch import train as lm_train
+
+    loop = lm_train.TrainLoopConfig(steps=4, seq_len=64, global_batch=2, log_every=100)
+    quiet = dict(smoke=True, device=card, log_fn=lambda *a: None)
+    _, _, hist = lm_train.train(arch, loop, **quiet)
+    rc = dataclasses.replace(lm_train.default_run_config(loop), attn_impl="ref",
+                             ssd_impl="ref", conv_impl="ref")
+    _, _, plain = lm_train.train(arch, loop, rc=rc, **quiet)
+    np.testing.assert_allclose(hist, plain, rtol=1e-3)

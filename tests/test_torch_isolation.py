@@ -70,6 +70,12 @@ for a in configs.ARCH_IDS:
     logits, cache = lm.decode_step(lp, logits.argmax(-1), cache, 8)
     assert logits.shape == (1, 256) and bool(torch.isfinite(logits).all())
 assert families == {"dense", "moe", "ssm", "vlm", "encdec", "hybrid"}, families
+import repro_torch.optim, repro_torch.data.tokens, repro_torch.launch.train
+from repro_torch.launch import train as lm_train
+_, opt, hist = lm_train.train("mamba2-130m", lm_train.TrainLoopConfig(
+    steps=2, seq_len=16, global_batch=2, log_every=100), smoke=True, device="cpu",
+    log_fn=lambda *a: None)
+assert len(hist) == 2 and all(h == h for h in hist) and int(opt["count"]) == 2
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
                for m in sys.modules if sys.modules[m] is not None)
 print("imported", len(names), "modules")

@@ -233,15 +233,20 @@ def test_build_caches_by_source(monkeypatch, tmp_path):
 
 def test_library_argtypes_match_the_c_entry_points():
     """Pointers and the stream are c_void_p, sizes c_int64, scalars c_float,
-    in the order each C source declares them."""
+    in the order each C source declares them: the forward kernels (the
+    attention forward's log-sum-exp pointer among them) and the backward
+    kernels of conv1d, SSD and attention."""
     from repro_torch.kernels import attention, conv1d, ssd
     kinds = {"int64_t": ctypes.c_int64, "float": ctypes.c_float}
-    for mod in (diffusion3d, conv1d, ssd, attention):
-        src = mod.SOURCE.read_text()
+    pairs = [(mod.SOURCE, mod._ARGTYPES) for mod in (diffusion3d, conv1d, ssd, attention)]
+    pairs += [(mod.BWD_SOURCE, mod._BWD_ARGTYPES) for mod in (conv1d, ssd, attention)]
+    for path, argtypes in pairs:
+        src = path.read_text()
         head = 'extern "C" int launch('
         sig = src[src.index(head) + len(head):].split(")", 1)[0]
         want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]] for p in sig.split(",")]
-        assert mod._ARGTYPES == want, mod.__name__
+        assert argtypes == want, path.name
+    assert "void* lse" in attention.SOURCE.read_text()
 
 
 def test_read_source_inlines_the_csrc_headers(tmp_path, monkeypatch):
