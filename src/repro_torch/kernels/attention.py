@@ -51,8 +51,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 8 + [ctypes.c_float]
              + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8 + [ctypes.c_float]
                  + [ctypes.c_void_p])
-# the backward's tiles: 32 query rows, 32 keys
-BWD_TILE = 32
+# the backward's blocks own 64 rows (keys for dK/dV, query rows for dQ) and
+# walk inner tiles of ``bwd_tile(D)`` rows: 64, 32 at D = 80, 16 at D >= 96
+BWD_ROWS = 64
+
+
+def bwd_tile(D: int) -> int:
+    """Rows of the backward's inner tiles at head dim D (``csrc/attention_bwd.cu``'s
+    ``Shape<D>::kBI``)."""
+    return 64 if D <= 64 else 32 if D <= 80 else 16
 
 
 @functools.cache
@@ -67,9 +74,11 @@ def bwd_library() -> build.Library:
 
 def bwd_smem_floats(D: int) -> int:
     """Shared memory of a backward block in floats (``csrc/attention_bwd.cu``'s
-    ``smem_floats``): q, g, k, v tiles of D + 1 words a row, p and ds tiles,
-    lse and delta."""
-    return 4 * BWD_TILE * (D + 1) + 2 * BWD_TILE * (BWD_TILE + 1) + 2 * BWD_TILE
+    ``smem_floats``): the block's own two tiles of BWD_ROWS rows and two
+    stages of two inner tiles (rows of D padded to a multiple of 32 words)
+    with the rows' lse and delta."""
+    ld, bi = -(-D // 32) * 32, bwd_tile(D)
+    return 2 * BWD_ROWS * ld + 2 * (2 * bi * ld + 2 * bi)
 
 
 def _check(q, k, v, what: str):
@@ -147,6 +156,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True,
                               "v": (v, (B, Hkv, L, D)), "out": (out, (B, Hq, L, D)),
                               "dout": (dout, (B, Hq, L, D)), "lse": (lse, (B, Hq, L))},
                              "attention_bwd")
+    # the kernels copy 16 bytes at a time: a tensor off a 16-byte boundary is
+    # copied to one on it
+    q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, dout))
     (dq, dk, dv), args, _delta = bwd_arguments(q, k, v, out, dout, lse, causal, window, scale)
     with torch.cuda.device(dev):
         bwd_library().launch(*args, stream_of(dev))

@@ -1,6 +1,7 @@
 // Hand-written CUDA kernels for the backward pass of the Mamba2 SSD chunk
-// scan (csrc/ssd.cu is the forward). Per batch row b and head h, with
-// g = h / (H / G) the head's state group, the forward's recurrence is
+// scan (csrc/ssd.cu is the forward), on Hopper's tensor cores. Per batch row
+// b and head h, with g = h / (H / G) the head's state group, the forward's
+// recurrence is
 //
 //   h_t = a_t h_{t-1} + dt_t x_t B_tᵀ,   a_t = exp(dt_t A),   (P x N state)
 //   y_t = h_t C_t + D x_t,
@@ -17,8 +18,8 @@
 //   dh0     = a_0 G_0.
 //
 // The identity for dla (it follows from the two recurrences) keeps the
-// states and their gradients apart: one pass walks forward with h, one
-// backward with G, and neither needs the other.
+// states and their gradients apart, and dy_v·(h_v C_v) = C_v·dC_v of the
+// head, so it needs neither.
 //
 // The TPU kernel src/repro/kernels/ssd.py::ssd_chunk_scan (pl.pallas_call at
 // :78) has no backward: the reference differentiates its chunked jnp twin
@@ -26,349 +27,732 @@
 // port's forward kernels, which training runs inside a
 // torch.autograd.Function (kernels/ssd.py::SSDFn).
 //
-// What bounds it on the H100: operations, on the CUDA cores (the simple
-// design below; the tensor cores come with a later redesign). Per step and
-// state element the two walks do 14 f32 operations (an FMA counts 2):
-//   forward walk:  h = a h + (dt x) B   (a multiply and an FMA: 3)
-//                  y's row sum h·C      (an FMA: 2)
-//                  dC's column sum h dy (an FMA: 2)
-//   backward walk: G = a G + dy C       (a multiply and an FMA: 3)
-//                  G·B's row sum        (an FMA: 2)
-//                  dB's column sum G x  (an FMA: 2)
-// At Zamba2's training shape (B = 4, L = 1024, H = 64, P = N = 64, G = 1)
-// that is 14 x 1.07e9 = 15.0 GFLOP, 0.224 ms at 67 TFLOP/s, against 0.34 GB
-// of inputs, chunk-start states and outputs (0.10 ms at 3.35 TB/s).
+// The chunked algebra, as the forward's. Over the forward's chunks of cs
+// steps, lc is the in-chunk cumulative sum of dt·A and Gin(c) the gradient
+// of the chunk's last state from later chunks (Gin(nc - 1) = dh_final):
 //
-// What the design does. A block is one warp and owns R rows of one head's
-// state (R = 32 for N <= 64, 16 up to N = 128): each lane holds the R rows of
-// its columns n = lane + 32 j in registers. Inputs are staged in shared
-// memory 16 steps at a time. A sum over n (y's rows, G·B) is a transposed
-// butterfly of 31 __shfl_xor_sync that leaves row (lane mod R) in each lane;
-// a sum over the tile's rows (dB, dC) is each lane's own.
-// 1. ssd_bwd_forward, one block per (chunk, row tile, b·h): starts from the
-//    forward's saved chunk-start state, walks the chunk forward and writes,
-//    per step, the tile's part of dC_t and of dy_t·(h_t C_t).
-// 2. ssd_bwd_reverse, one block per (row tile, b·h): walks every chunk
-//    backward with G, writes dx and, per step, the tile's part of dB_t and
-//    of e_t; then dh0 and the tile's parts of dD and <dh_final, h_final>.
-// 3. ssd_bwd_fold_bc folds dB and dC over the group's heads and the row
-//    tiles; ssd_bwd_fold_dt walks each (b, h) backward for dla (in double),
-//    ddt and dA; ssd_bwd_fold_heads folds dA and dD over b. Every sum runs in
-//    a fixed order: no atomics, the same bits on every call.
+//   Gin(c - 1) = sum_{v in c} exp(lc_v) dy_v C_vᵀ + exp(lc_last) Gin(c),
+//   dh0 = Gin(-1),
+//   G_t B_t  = sum_{v >= t} exp(lc_v - lc_t)(C_v·B_t) dy_v
+//              + exp(lc_last - lc_t) Gin B_t,
+//   dB_t     = dt_t [sum_{v >= t} exp(lc_v - lc_t)(dy_v·x_t) C_v
+//                    + exp(lc_last - lc_t) Ginᵀ x_t],
+//   dC_t     = exp(lc_t) h_startᵀ dy_t
+//              + sum_{u <= t} exp(lc_t - lc_u) dt_u (x_u·dy_t) B_u,
+//
+// with h_start the forward's saved chunk-start state: every term a product
+// of cs x cs masked-decay matrices (C·Bᵀ, x·dyᵀ) or of the state tiles.
+//
+// What bounds it on the H100: operations, once the products run on the
+// tensor cores. At Zamba2's training shape (B = 4, L = 1024, H = 64,
+// P = N = 64, G = 1) the 14 operations a step and state element of the step
+// recurrence, 15.0 GFLOP, take 0.091 ms at the 3xTF32 rate; the function
+// reads x, dy, dt, B, C and the chunk-start states and writes the
+// gradients, 0.27 GB, 0.082 ms at 3.35 TB/s. The chunked algebra below does
+// about 21 GFLOP over the chunks' triangles (0.13 ms at the same rate).
+//
+// What the design does. Every product runs as mma.sync.m16n8k8 tf32 with
+// each f32 operand split into a TF32 hi and lo (3xTF32, tf32x3.cuh), 4 warps
+// a block. Only the passing of the state gradient across chunks is
+// sequential. One call makes up to five launches:
+// 1. ssd_bwd_gin, one block per (b, h, 64 p, 64 n): the forward's
+//    ssd_states_kernel in reverse. It walks the chunks from the last with
+//    Gin in the accumulators' registers, writes Gin(c) to a (B, nc, H, P, N)
+//    buffer, sums the chunk's exp(lc_v) dy_v C_vᵀ in a fresh accumulator on
+//    the tensor cores and adds it to exp(lc_last)·Gin on the CUDA cores; dy
+//    and C of the next chunk load by cp.async meanwhile. Gin(-1) is dh0.
+// 2. ssd_bwd_chunk, one block per (chunk, b, slice of hb heads of a group):
+//    each warp owns 16 steps of the chunk. Per head it loads x, dy, Gin and
+//    the start state (B and C once for the slice), then C·Bᵀ -> the masked
+//    decay -> G B (with B·Ginᵀ) -> dx and e; x·dyᵀ -> dB (with x·Gin); dy·xᵀ
+//    -> dC (with dy·h_start) and dy·(h C) = C·dC. A matrix that comes out of
+//    an accumulator feeds the next product as its A operand without a trip
+//    through shared memory (A column t <-> key 2t, t + 4 <-> 2t + 1, as the
+//    forward's W·x), the decays masked before the exponential (exp2f of log2
+//    units); a warp skips the key tiles across its diagonal. The slice's
+//    dB and dC are summed over its heads in order in the block's own rows
+//    of a (B, L, G·slices, N) buffer (the gradients themselves where a
+//    slice is a whole group). Tiles are rows of a multiple of 32 words with
+//    swizzled 16-byte chunks (chunk c of row r at c ^ s(r), s(r) = (r & 6)
+//    ^ 4 (r & 1)), so the loads of a row's k-steps and of two rows' columns
+//    are both free of bank conflicts.
+// 3. ssd_bwd_fold_slices (slices > 1): dB and dC, the slices of each group
+//    summed in order.
+// 4. ssd_bwd_dla, one block of 256 threads per (b, h): the suffix sums of
+//    dy·(h C) - dt e in double as thread sums, a scan over the threads and a
+//    walk of each thread's steps; ddt, and the (b, h) parts of dA and dD.
+// 5. ssd_bwd_fold_heads folds dA and dD over b in order.
+// A chunk's products are summed in accumulators fresh for the chunk (and
+// its head), never chained across chunks through the tensor cores' adds,
+// which truncate (tf32x3.cuh); where P > 64 a block walks P in tiles of 64
+// and the tiles of one head chain. hb (heads_per_block) trades the
+// slices' scratch for blocks: a call of fewer blocks than SMs takes whole
+// groups, otherwise the most heads that keep four blocks an SM. Every sum
+// runs in a fixed order and there are no atomics: the same bits on every
+// call.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kStage = 16;     // steps staged in shared memory at a time
-constexpr int kFold = 128;     // threads of a fold block
+using namespace tf32x3;
 
-// v[k]: this lane's part of row k's sum over the warp's lanes (R = 16 or 32).
-// Returns row (lane mod R)'s sum, in 31 shuffles: a plain sum over the lanes
-// above R, then halves of the rows traded at each offset below it.
-template <int R>
-__device__ __forceinline__ float rows_sum(const float (&v)[R], int lane) {
-  float w[R];
-#pragma unroll
-  for (int k = 0; k < R; ++k) w[k] = v[k];
-#pragma unroll
-  for (int o = 16; o >= R; o >>= 1) {
-#pragma unroll
-    for (int k = 0; k < R; ++k) w[k] += __shfl_xor_sync(kFull, w[k], o);
-  }
-#pragma unroll
-  for (int o = R / 2; o >= 1; o >>= 1) {
-    const bool hi = (lane & o) != 0;
-#pragma unroll
-    for (int k = 0; k < o; ++k) {
-      const float send = hi ? w[k] : w[k + o];
-      const float keep = hi ? w[k + o] : w[k];
-      w[k] = keep + __shfl_xor_sync(kFull, send, o);
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kChunk = 64;        // steps of a chunk tile: cs <= 64
+constexpr int kTile = 64;         // p (and n) columns of a tile
+constexpr int kLdX = kTile + 4;   // words, = 4 mod 16 (ssd_bwd_gin's tiles)
+constexpr int kFold = 128;        // threads of a fold block
+constexpr int kDla = 256;         // threads of a dla block
+constexpr int kSMs = 132;         // H100 SXM
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Word of column c of row r in a swizzled tile (a row a multiple of 32 words).
+__device__ __forceinline__ int swz(int r, int c) {
+  return c ^ ((((r & 6) ^ ((r & 1) << 2))) << 2);
+}
+
+// Copy rows [0, kChunk) x columns [0, cols_tile) of a row-major global tile
+// (row stride ldg) into shared memory (row stride lds, swizzled or not);
+// rows >= rows and columns >= cols are zero-filled. vec4: 16-byte copies
+// (every column count, stride and base is a multiple of 4 words / 16 bytes).
+__device__ __forceinline__ void load_tile(float* s, int lds, bool swizzled, const float* g,
+                                          int64_t ldg, int rows, int cols, int cols_tile,
+                                          bool vec4) {
+  if (vec4) {
+    const int chunks = cols_tile / 4;
+    for (int i = threadIdx.x; i < kChunk * chunks; i += kThreads) {
+      const int r = i / chunks, c = 4 * (i % chunks);
+      const bool ok = r < rows && c < cols;
+      cp_async16(s + r * lds + (swizzled ? swz(r, c) : c), ok ? g + r * ldg + c : g, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kChunk * cols_tile; i += kThreads) {
+      const int r = i / cols_tile, c = i % cols_tile;
+      const bool ok = r < rows && c < cols;
+      cp_async4(s + r * lds + (swizzled ? swz(r, c) : c), ok ? g + r * ldg + c : g, ok);
     }
   }
-  return w[0];
 }
 
-__device__ __forceinline__ float lanes_sum(float v) {
+// dt of the chunk's rows (stride H), zero past `rows`
+__device__ __forceinline__ void load_dt(float* s, const float* dt, int64_t H, int rows) {
+  for (int u = threadIdx.x; u < kChunk; u += kThreads) {
+    const bool ok = u < rows;
+    cp_async4(s + u, ok ? dt + u * H : dt, ok);
+  }
+}
+
+// In-chunk cumulative log decay by one warp: lane l returns lc[2l] and
+// lc[2l + 1], lc[u] = sum_{v <= u} dt[v] a (dt is 0 past the chunk).
+__device__ __forceinline__ void logcum(const float* dts, float a, int lane, float& l0,
+                                       float& l1) {
+  const float v0 = dts[2 * lane] * a, v1 = dts[2 * lane + 1] * a;
+  float s = v0 + v1;
 #pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float n = __shfl_up_sync(kFull, s, off);
+    if (lane >= off) s += n;
+  }
+  float e = __shfl_up_sync(kFull, s, 1);
+  if (lane == 0) e = 0.0f;
+  l0 = e + v0;
+  l1 = l0 + v1;
 }
 
-template <int NJ>
-struct Shape {
-  static constexpr int kR = NJ <= 2 ? 32 : 16;  // state rows of a block
-  static constexpr int kCols = 32 * NJ;         // state columns, padded
-};
-
-// x and dy rows p0 .. p0 + R of steps t0 .. t0 + kStage (zero past t1 or P),
-// B and C of the group, dt (pointers at batch row b); one warp.
-template <int NJ>
-struct Staged {
-  float x[kStage][Shape<NJ>::kR];
-  float dy[kStage][Shape<NJ>::kR];
-  float b[kStage][Shape<NJ>::kCols];
-  float c[kStage][Shape<NJ>::kCols];
-  float dt[kStage];
-};
-
-template <int NJ>
-__device__ __forceinline__ void stage(Staged<NJ>& s, const float* x, const float* dy,
-                                      const float* Bm, const float* Cm, const float* dt,
-                                      int64_t t0, int64_t t1, int h, int grp,
-                                      int p0, int64_t H, int P, int64_t G, int N, int lane) {
-  constexpr int R = Shape<NJ>::kR, NC = Shape<NJ>::kCols;
-  __syncthreads();  // every lane is done with the previous stage
-  for (int i = lane; i < kStage * R; i += 32) {
-    const int u = i / R, r = i % R;
-    const int64_t t = t0 + u;
-    const bool ok = t < t1 && p0 + r < P;
-    const int64_t at = (t * H + h) * P + p0 + r;
-    s.x[u][r] = ok ? x[at] : 0.0f;
-    s.dy[u][r] = ok ? dy[at] : 0.0f;
-  }
-  for (int i = lane; i < kStage * NC; i += 32) {
-    const int u = i / NC, n = i % NC;
-    const int64_t t = t0 + u;
-    const bool ok = t < t1 && n < N;
-    const int64_t at = (t * G + grp) * N + n;
-    s.b[u][n] = ok ? Bm[at] : 0.0f;
-    s.c[u][n] = ok ? Cm[at] : 0.0f;
-  }
-  for (int u = lane; u < kStage; u += 32) s.dt[u] = t0 + u < t1 ? dt[(t0 + u) * H + h] : 0.0f;
-  __syncthreads();
+// The accumulators acc[4 Q][4] of a warp's 16 x 32 Q tile hold, for the row
+// half (0: row g, 1: row g + 8) and column group q (32 columns), columns
+// 32q + 8t + e, e = 0..7, at acc[4q + e % 4][e / 4 + 2·half].
+template <int M, class T>
+__device__ __forceinline__ T& frag(T (&acc)[M][4], int q, int half, int e) {
+  return acc[4 * q + (e & 3)][(e >> 2) + 2 * half];
 }
 
-// Pass 1: the states of one chunk from its saved start state; per step the
-// tile's part of dC_t (cpart) and of dy_t·(h_t C_t) (upart).
+__device__ __forceinline__ void load8(const float* src, int left, bool vec4, float (&v)[8]) {
+  if (vec4 && left >= 8) {
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    const float4 b = *reinterpret_cast<const float4*>(src + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = e < left ? src[e] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store8(float* dst, int left, bool vec4, const float (&v)[8]) {
+  if (vec4 && left >= 8) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < left) dst[e] = v[e];
+  }
+}
+
+// Rows prow + 8·half (< P - p0) of the (P, N) state at `base`, columns
+// n0 + 32q + 8t + e: from the accumulators (store) or into them (load).
+template <bool kStore, typename T>
+__device__ __forceinline__ void state_rows(float (&acc)[8][4], T* base, int prow, int t,
+                                           int P, int N, int p0, int n0, bool vec4) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int p = p0 + prow + 8 * half;
+    if (p >= P) continue;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int n = n0 + 32 * q + 8 * t;
+      T* at = base + static_cast<int64_t>(p) * N + n;
+      float v[8];
+      if constexpr (kStore) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = frag(acc, q, half, e);
+        store8(at, N - n, vec4, v);
+      } else {
+        load8(at, N - n, vec4, v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) frag(acc, q, half, e) = v[e];
+      }
+    }
+  }
+}
+
+constexpr int kGinStage = 2 * kChunk * kLdX + kChunk;  // dy, C, dt
+constexpr int kGinSmem = 4 * (2 * kGinStage + kChunk + 4);
+
+// 1. Gin(c) for every chunk, walking back from dh_final; dh0 = Gin(-1).
+__global__ void __launch_bounds__(kThreads) ssd_bwd_gin(
+    float* __restrict__ gin, float* __restrict__ dh0, const float* __restrict__ dy,
+    const float* __restrict__ dt, const float* __restrict__ A, const float* __restrict__ Cm,
+    const float* __restrict__ dh_final, const int64_t L, const int H, const int P, const int G,
+    const int N, const int cs, const int nc, const int vec4) {
+  extern __shared__ float smem[];
+  float* const sm = smem;
+  float* const co = sm + 2 * kGinStage;  // exp(lc[v])
+  float* const decay = co + kChunk;      // exp(lc[cs-1])
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, grp = h / (H / G);
+  const int p0 = blockIdx.y * kTile, n0 = blockIdx.z * kTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int prow = 16 * warp + g;
+  const int pc = P - p0 < kTile ? P - p0 : kTile;
+  const int ncols = N - n0 < kTile ? N - n0 : kTile;
+  const float a = A[h];
+  const int64_t state_size = static_cast<int64_t>(P) * N;
+
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  if (dh_final != nullptr)
+    state_rows<false>(acc, dh_final + static_cast<int64_t>(bh) * state_size, prow, t, P, N, p0,
+                      n0, vec4);
+
+  auto load = [&](int stage, int c) {
+    float* ys = sm + stage * kGinStage;
+    float* cs_ = ys + kChunk * kLdX;
+    const int64_t r0 = static_cast<int64_t>(c) * cs;
+    const int rows = L - r0 < cs ? static_cast<int>(L - r0) : cs;
+    load_tile(ys, kLdX, false, dy + ((b * L + r0) * H + h) * P + p0,
+              static_cast<int64_t>(H) * P, rows, pc, kTile, vec4);
+    load_tile(cs_, kLdX, false, Cm + ((b * L + r0) * G + grp) * N + n0,
+              static_cast<int64_t>(G) * N, rows, ncols, kTile, vec4);
+    load_dt(cs_ + kChunk * kLdX, dt + (b * L + r0) * H + h, H, rows);
+  };
+
+  if (nc > 0) load(0, nc - 1);
+  cp_async_commit();
+  for (int i = 0; i < nc; ++i) {
+    const int c = nc - 1 - i;
+    cp_async_wait_all();
+    __syncthreads();  // chunk c landed; every warp is done with chunk c + 1
+    if (i + 1 < nc) load((i + 1) & 1, c - 1);
+    cp_async_commit();
+    const float* ys = sm + (i & 1) * kGinStage;
+    const float* cs_ = ys + kChunk * kLdX;
+    if (warp == 0) {
+      const float* dts = cs_ + kChunk * kLdX;
+      float l0, l1;
+      logcum(dts, a, lane, l0, l1);
+      co[2 * lane] = expf(l0);
+      co[2 * lane + 1] = expf(l1);
+      if (lane == 31) *decay = expf(l1);
+    }
+    __syncthreads();
+
+    // Gin(c), then Gin <- decay·Gin + (coeff ⊙ dy)ᵀ·C
+    state_rows<true>(acc, gin + ((static_cast<int64_t>(b) * nc + c) * H + h) * state_size,
+                     prow, t, P, N, p0, n0, vec4);
+    // the chunk's own part in a fresh accumulator, added to decay·Gin on
+    // the CUDA cores (the tensor cores' adds truncate: tf32x3.cuh)
+    float gacc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) gacc[j][0] = gacc[j][1] = gacc[j][2] = gacc[j][3] = 0.0f;
+    const int64_t r0 = static_cast<int64_t>(c) * cs;
+    const int rows = L - r0 < cs ? static_cast<int>(L - r0) : cs;
+    const int ksteps = (rows + 7) / 8;
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 8; ++ks) {
+      if (ks >= ksteps) break;
+      // A[p][v] = coeff[v] dy[v][p]: column t <-> v = 8ks + 2t, t + 4 <-> v + 1
+      const int v = 8 * ks + 2 * t;
+      const float c0 = co[v], c1 = co[v + 1];
+      const float av[4] = {ys[v * kLdX + prow] * c0, ys[v * kLdX + prow + 8] * c0,
+                           ys[(v + 1) * kLdX + prow] * c1, ys[(v + 1) * kLdX + prow + 8] * c1};
+      uint32_t ah[4], al[4];
+      split4(av, ah, al);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float4 w0 = *reinterpret_cast<const float4*>(cs_ + v * kLdX + 32 * q + 4 * g);
+        const float4 w1 = *reinterpret_cast<const float4*>(cs_ + (v + 1) * kLdX + 32 * q + 4 * g);
+        mma3(gacc[4 * q + 0], ah, al, w0.x, w1.x);
+        mma3(gacc[4 * q + 1], ah, al, w0.y, w1.y);
+        mma3(gacc[4 * q + 2], ah, al, w0.z, w1.z);
+        mma3(gacc[4 * q + 3], ah, al, w0.w, w1.w);
+      }
+    }
+    const float dec = *decay;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = acc[j][e] * dec + gacc[j][e];
+    }
+  }
+  cp_async_wait_all();
+  if (dh0 != nullptr)
+    state_rows<true>(acc, dh0 + static_cast<int64_t>(bh) * state_size, prow, t, P, N, p0, n0,
+                     vec4);
+}
+
+__device__ __forceinline__ float4 ld4(const float* tile, int ld, int r, int c) {
+  return *reinterpret_cast<const float4*>(tile + r * ld + swz(r, c));
+}
+__device__ __forceinline__ float2 ld2(const float* tile, int ld, int r, int c) {
+  return *reinterpret_cast<const float2*>(tile + r * ld + swz(r, c));
+}
+__device__ __forceinline__ float at(const float* tile, int ld, int r, int c) {
+  return tile[r * ld + swz(r, c)];
+}
+
+// acc[n] += (s ⊙ A)·Bᵀ for one warp over kdim (a multiple of 16) columns:
+// A's rows ra, ra + 8 of tile a (scaled by s0, s1), B's rows brow(n) of
+// tile b, n in [nlo, nhi]; columns 16i + 4t .. + 3 give the k-steps 2i,
+// 2i + 1 of both operands.
+template <int NT, class BRow>
+__device__ __forceinline__ void rows_product(float (&acc)[NT][4], const float* a, int lda,
+                                             int ra, float s0, float s1, const float* b,
+                                             int ldb, int kdim, int nlo, int nhi, BRow brow,
+                                             int t) {
+  for (int i = 0; i < kdim / 16; ++i) {
+    const float4 x = ld4(a, lda, ra, 16 * i + 4 * t), y = ld4(a, lda, ra + 8, 16 * i + 4 * t);
+    const float a0[4] = {x.x * s0, y.x * s1, x.y * s0, y.y * s1};
+    const float a1[4] = {x.z * s0, y.z * s1, x.w * s0, y.w * s1};
+    uint32_t ah0[4], al0[4], ah1[4], al1[4];
+    split4(a0, ah0, al0);
+    split4(a1, ah1, al1);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (n < nlo || n > nhi) continue;
+      const float4 z = ld4(b, ldb, brow(n), 16 * i + 4 * t);
+      mma3(acc[n], ah0, al0, z.x, z.y);
+      mma3(acc[n], ah1, al1, z.z, z.w);
+    }
+  }
+}
+
+// out[4q + jj] += A·B over the k-steps j in [jlo, jhi] of 8 rows of tile b:
+// A's fragment of k-step j from afrag(j, a) (column t <-> row 8j + 2t of b,
+// t + 4 <-> 8j + 2t + 1), B's columns 32q + 4g + jj.
+template <int NQ, class AFrag>
+__device__ __forceinline__ void cols_product(float (&out)[4 * NQ][4], AFrag afrag, int jlo,
+                                             int jhi, const float* b, int ldb, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < kChunk / 8; ++j) {
+    if (j < jlo || j > jhi) continue;
+    float a[4];
+    afrag(j, a);
+    uint32_t ah[4], al[4];
+    split4(a, ah, al);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float4 b0 = ld4(b, ldb, 8 * j + 2 * t, 32 * q + 4 * g);
+      const float4 b1 = ld4(b, ldb, 8 * j + 2 * t + 1, 32 * q + 4 * g);
+      mma3(out[4 * q + 0], ah, al, b0.x, b1.x);
+      mma3(out[4 * q + 1], ah, al, b0.y, b1.y);
+      mma3(out[4 * q + 2], ah, al, b0.z, b1.z);
+      mma3(out[4 * q + 3], ah, al, b0.w, b1.w);
+    }
+  }
+}
+
+// A fragment of k-step j from an accumulator tile m (keys 8j + 2t, + 1)
+template <int M>
+__device__ __forceinline__ void acc_frag(const float (&m)[M][4], int j, float (&a)[4]) {
+  a[0] = m[j][0]; a[1] = m[j][2]; a[2] = m[j][1]; a[3] = m[j][3];
+}
+
+// A fragment of k-step j from rows r, r + 8 of a tile (columns 8j + 2t, + 1),
+// scaled by s0, s1
+__device__ __forceinline__ void tile_frag(const float* tile, int ld, int r, int j, int t,
+                                          float s0, float s1, float (&a)[4]) {
+  const float2 x = ld2(tile, ld, r, 8 * j + 2 * t), y = ld2(tile, ld, r + 8, 8 * j + 2 * t);
+  a[0] = x.x * s0; a[1] = y.x * s1; a[2] = x.y * s0; a[3] = y.y * s1;
+}
+
+// Rows t0 + 8·half (< rows) of a 16 x 32 NQ accumulator tile times mul[half]
+// into the (row stride ld) rows at base, columns 32q + 8t + e < N; added to
+// what is there unless `first`.
+template <int NQ>
+__device__ __forceinline__ void store_part(float* base, int64_t ld, const float (&acc)[4 * NQ][4],
+                                           int t0, int rows, int N, int t, bool first,
+                                           bool vec4, const float (&mul)[2]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = t0 + 8 * half;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int n = 32 * q + 8 * t;
+      if (n >= N) continue;
+      float* dst = base + row * ld + n;
+      float v[8], o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = frag(acc, q, half, e) * mul[half];
+      if (!first) {
+        load8(dst, N - n, vec4, o);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] += o[e];
+      }
+      store8(dst, N - n, vec4, v);
+    }
+  }
+}
+
+// Shared memory of a chunk block in floats: x and dy (64 steps x 64 p), B
+// and C (64 steps x ldn), Gin and the start state (64 p x ldn), dt and lc;
+// ldn = N padded to 32. kernels/ssd.py::bwd_smem_floats computes the same.
+__host__ __device__ constexpr int chunk_smem_floats(int ldn) {
+  return 2 * kChunk * kTile + 2 * kChunk * ldn + 2 * kTile * ldn + 2 * kChunk;
+}
+
+// 2. Per (chunk, b, slice of hb heads): dx, e_t (into ddt), dy·(h C) -
+// dt e (dsc) and dy·x (ddg) per step, and the slice's dB and dC.
 template <int NJ>
-__global__ void __launch_bounds__(32) ssd_bwd_forward(
-    float* __restrict__ cpart, float* __restrict__ upart, const float* __restrict__ states,
+__global__ void __launch_bounds__(kThreads, NJ <= 2 ? 2 : 1) ssd_bwd_chunk(
+    float* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dsc,
+    float* __restrict__ ddg, float* __restrict__ pB, float* __restrict__ pC,
+    const float* __restrict__ states, const float* __restrict__ gin,
     const float* __restrict__ x, const float* __restrict__ dy, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm, const float* __restrict__ Cm,
-    const int64_t L, const int H, const int P, const int G, const int N, const int cs,
-    const int nc) {
-  constexpr int R = Shape<NJ>::kR;
-  __shared__ Staged<NJ> s;
-  const int c = blockIdx.x, tile = blockIdx.y, bh = blockIdx.z;
-  const int ntiles = gridDim.y;
-  const int64_t b = bh / H;
-  const int h = bh % H, grp = h / (H / G), p0 = tile * R;
-  const int lane = threadIdx.x;
-  const float a_log = A[h];
-  const int64_t t0 = static_cast<int64_t>(c) * cs;
-  const int64_t t1 = t0 + cs < L ? t0 + cs : L;
-  const float* xb = x + b * L * H * P;
-  const float* dyb = dy + b * L * H * P;
-  const float* Bb = Bm + b * L * G * N;
-  const float* Cb = Cm + b * L * G * N;
-  const float* dtb = dt + b * L * H;
+    const float* __restrict__ D, const int64_t L, const int H, const int P, const int G,
+    const int N, const int cs, const int nc, const int hb, const int vec4) {
+  constexpr int LDN = 32 * NJ;
+  extern __shared__ float smem[];
+  float* const xs = smem;                    // [t][p]
+  float* const dys = xs + kChunk * kTile;    // [t][p]
+  float* const bs = dys + kChunk * kTile;    // [t][n]
+  float* const cms = bs + kChunk * LDN;      // [t][n]
+  float* const gs = cms + kChunk * LDN;      // Gin [p][n]
+  float* const hs = gs + kTile * LDN;        // start state [p][n]
+  float* const dts = hs + kTile * LDN;
+  float* const lc = dts + kChunk;            // log2 units
 
-  float st[R][NJ];
-  const float* h_start = states + ((b * nc + c) * H + h) * static_cast<int64_t>(P) * N;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = lane + 32 * j;
-      st[r][j] = (p0 + r < P && n < N) ? h_start[static_cast<int64_t>(p0 + r) * N + n] : 0.0f;
+  const int c = blockIdx.x;
+  const int rep = H / G, ns = rep / hb, slots = G * ns;
+  const int64_t b = blockIdx.y / slots;
+  const int slot = blockIdx.y % slots;
+  const int grp = slot / ns, h_first = grp * rep + (slot % ns) * hb;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int64_t r0 = static_cast<int64_t>(c) * cs;
+  const int rows = L - r0 < cs ? static_cast<int>(L - r0) : cs;
+  const int t0 = 16 * warp + gq;  // this thread's steps t0, t0 + 8 of the chunk
+  const bool live = 16 * warp < rows;
+  const int np = (P + kTile - 1) / kTile;
+  const int kn = (N + 15) / 16 * 16;  // the n columns a product sums over
+  const int64_t state_size = static_cast<int64_t>(P) * N;
+  auto nat = [gq](int n) { return 8 * n + gq; };
+  // B's row of n-tile n of a product whose columns are 32q + 4g + jj
+  auto perm = [gq](int n) { return 32 * (n >> 2) + 4 * gq + (n & 3); };
+
+  const int64_t bc = ((b * L + r0) * G + grp) * N;
+  load_tile(bs, LDN, true, Bm + bc, static_cast<int64_t>(G) * N, rows, N, LDN, vec4);
+  load_tile(cms, LDN, true, Cm + bc, static_cast<int64_t>(G) * N, rows, N, LDN, vec4);
+  // x, dy, Gin and the start state of head h and p tile pt, then a barrier
+  auto load_p = [&](int h, int pt) {
+    const int p0 = pt * kTile, pc = P - p0 < kTile ? P - p0 : kTile;
+    load_tile(xs, kTile, true, x + ((b * L + r0) * H + h) * P + p0,
+              static_cast<int64_t>(H) * P, rows, pc, kTile, vec4);
+    load_tile(dys, kTile, true, dy + ((b * L + r0) * H + h) * P + p0,
+              static_cast<int64_t>(H) * P, rows, pc, kTile, vec4);
+    const int64_t so = ((b * nc + c) * H + h) * state_size + static_cast<int64_t>(p0) * N;
+    load_tile(gs, LDN, true, gin + so, N, pc, N, LDN, vec4);
+    load_tile(hs, LDN, true, states + so, N, pc, N, LDN, vec4);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+  };
+  auto reload = [&](int h, int pt) {
+    __syncthreads();  // every warp is done with the tiles loaded now
+    load_p(h, pt);
+  };
+
+  for (int j = 0; j < hb; ++j) {
+    const int h = h_first + j;
+    __syncthreads();  // every warp is done with the previous head's tiles
+    load_dt(dts, dt + (b * L + r0) * H + h, H, rows);
+    load_p(h, 0);
+    if (warp == 0) {
+      float l0, l1;
+      logcum(dts, A[h], lane, l0, l1);
+      lc[2 * lane] = l0 * kLog2e;
+      lc[2 * lane + 1] = l1 * kLog2e;
     }
-  }
-  for (int64_t ts = t0; ts < t1; ts += kStage) {
-    stage<NJ>(s, xb, dyb, Bb, Cb, dtb, ts, t1, h, grp, p0, H, P, G, N, lane);
-    const int steps = t1 - ts < kStage ? static_cast<int>(t1 - ts) : kStage;
-    for (int u = 0; u < steps; ++u) {
-      const float d = s.dt[u];
-      const float a = expf(d * a_log);
-      float yrow[R];
+    __syncthreads();
+    const float llast = lc[kChunk - 1];
+    const float lrow[2] = {lc[t0], lc[t0 + 8]};
+    const float dtr[2] = {dts[t0], dts[t0 + 8]};
+    const float dec[2] = {exp2f(llast - lrow[0]), exp2f(llast - lrow[1])};
+    const float elc[2] = {exp2f(lrow[0]), exp2f(lrow[1])};
+    const float one[2] = {1.0f, 1.0f};
+    const float dskip = D != nullptr ? D[h] : 0.0f;
+
+    // M1 = (C·Bᵀ masked, decayed): element (n, e) is step t0 + 8 (e / 2) and
+    // key v = 8n + 2t + e % 2; keys before the warp's first step are 0
+    float m[8][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float dx = d * s.x[u][r];
-        float acc = 0.0f;
+    for (int n = 0; n < 8; ++n) m[n][0] = m[n][1] = m[n][2] = m[n][3] = 0.0f;
+    if (live) rows_product<8>(m, bs, LDN, t0, 1.0f, 1.0f, cms, LDN, kn, 2 * warp, 7, nat, t);
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          st[r][j] = st[r][j] * a + dx * s.b[u][lane + 32 * j];
-          acc += st[r][j] * s.c[u][lane + 32 * j];
-        }
-        yrow[r] = acc;
+    for (int n = 0; n < 8; ++n) {
+      if (n < 2 * warp) continue;  // keys before the warp's steps: left 0
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = t0 + 8 * (e >> 1), v = 8 * n + 2 * t + (e & 1);
+        m[n][e] = v >= row ? m[n][e] * exp2f(lc[v] - lrow[e >> 1]) : 0.0f;
       }
-      const float y = rows_sum<R>(yrow, lane);
-      const float dot = lanes_sum(lane < R ? s.dy[u][lane] * y : 0.0f);
-      const int64_t t = ts + u;
-      const int64_t at = ((b * L + t) * H + h) * ntiles + tile;
-      if (lane == 0) upart[at] = dot;
+    }
+    // G B = M1·dy + dec ⊙ B·Ginᵀ per p tile: dx, and e = x·(G B)
+    float esum[2] = {0.0f, 0.0f};
+    for (int pt = 0; pt < np; ++pt) {
+      if (pt > 0) reload(h, pt);
+      float gb[8][4];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = lane + 32 * j;
-        float acc = 0.0f;
+      for (int n = 0; n < 8; ++n) gb[n][0] = gb[n][1] = gb[n][2] = gb[n][3] = 0.0f;
+      if (live) {
+        cols_product<2>(gb, [&](int jj, float (&a)[4]) { acc_frag(m, jj, a); }, 2 * warp, 7,
+                        dys, kTile, gq, t);
+        rows_product<8>(gb, bs, LDN, t0, dec[0], dec[1], gs, LDN, kn, 0, 7, perm, t);
+      }
+      const int p0 = pt * kTile;
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc += st[r][j] * s.dy[u][r];
-        if (n < N) cpart[at * N + n] = acc;
+      for (int half = 0; half < 2; ++half) {
+        const int row = t0 + 8 * half;
+        if (row >= rows) continue;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int p = 32 * q + 8 * t;
+          float v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float val = frag(gb, q, half, e);
+            esum[half] += at(xs, kTile, row, p + e) * val;
+            v[e] = dtr[half] * val + dskip * at(dys, kTile, row, p + e);
+          }
+          store8(dx + ((b * L + r0 + row) * H + h) * P + p0 + p, P - p0 - p, vec4, v);
+        }
+      }
+    }
+
+    // dB = dt ⊙ (M2·C + dec ⊙ x·Gin), M2 = (x·dyᵀ masked, decayed)
+    float da[4 * NJ][4];
+#pragma unroll
+    for (int n = 0; n < 4 * NJ; ++n) da[n][0] = da[n][1] = da[n][2] = da[n][3] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) m[n][0] = m[n][1] = m[n][2] = m[n][3] = 0.0f;
+    for (int pt = 0; pt < np; ++pt) {
+      if (np > 1) reload(h, pt);
+      if (live) {
+        rows_product<8>(m, xs, kTile, t0, 1.0f, 1.0f, dys, kTile, kTile, 2 * warp, 7, nat, t);
+        cols_product<NJ>(da, [&](int jj, float (&a)[4]) {
+          tile_frag(xs, kTile, t0, jj, t, dec[0], dec[1], a);
+        }, 0, 7, gs, LDN, gq, t);
+      }
+    }
+    float xd[2] = {0.0f, 0.0f};  // x_t·dy_t
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (n < 2 * warp) continue;  // keys before the warp's steps: left 0
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = t0 + 8 * (e >> 1), v = 8 * n + 2 * t + (e & 1);
+        if (v == row) xd[e >> 1] = m[n][e];
+        m[n][e] = v >= row ? m[n][e] * exp2f(lc[v] - lrow[e >> 1]) : 0.0f;
+      }
+    }
+    if (live)
+      cols_product<NJ>(da, [&](int jj, float (&a)[4]) { acc_frag(m, jj, a); }, 2 * warp, 7,
+                       cms, LDN, gq, t);
+    const int64_t ldp = static_cast<int64_t>(slots) * N;
+    store_part<NJ>(pB + ((b * L + r0) * slots + slot) * N, ldp, da, t0, rows, N, t, j == 0,
+                   vec4, dtr);
+
+    // dC = M3·B + exp(lc) ⊙ dy·h_start, M3 = (dy·xᵀ masked, decayed, ⊙ dt)
+#pragma unroll
+    for (int n = 0; n < 4 * NJ; ++n) da[n][0] = da[n][1] = da[n][2] = da[n][3] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) m[n][0] = m[n][1] = m[n][2] = m[n][3] = 0.0f;
+    for (int pt = 0; pt < np; ++pt) {
+      if (np > 1) reload(h, pt);
+      if (live) {
+        rows_product<8>(m, dys, kTile, t0, 1.0f, 1.0f, xs, kTile, kTile, 0, 2 * warp + 1, nat,
+                        t);
+        cols_product<NJ>(da, [&](int jj, float (&a)[4]) {
+          tile_frag(dys, kTile, t0, jj, t, elc[0], elc[1], a);
+        }, 0, 7, hs, LDN, gq, t);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (n > 2 * warp + 1) continue;  // keys after the warp's steps: left 0
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = t0 + 8 * (e >> 1), u = 8 * n + 2 * t + (e & 1);
+        m[n][e] = u <= row ? m[n][e] * exp2f(lrow[e >> 1] - lc[u]) * dts[u] : 0.0f;
+      }
+    }
+    if (live)
+      cols_product<NJ>(da, [&](int jj, float (&a)[4]) { acc_frag(m, jj, a); }, 0,
+                       2 * warp + 1, bs, LDN, gq, t);
+    // dy·(h C) = C·dC
+    float usum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int q = 0; q < NJ; ++q) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          usum[half] += at(cms, LDN, t0 + 8 * half, 32 * q + 8 * t + e) * frag(da, q, half, e);
+      }
+    }
+    store_part<NJ>(pC + ((b * L + r0) * slots + slot) * N, ldp, da, t0, rows, N, t, j == 0,
+                   vec4, one);
+
+    // the step's scalars: sums over the quad's lanes
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        esum[half] += __shfl_xor_sync(kFull, esum[half], o);
+        usum[half] += __shfl_xor_sync(kFull, usum[half], o);
+        xd[half] += __shfl_xor_sync(kFull, xd[half], o);
+      }
+      const int row = t0 + 8 * half;
+      if (t == 0 && row < rows) {
+        const int64_t s = (b * L + r0 + row) * H + h;
+        ddt[s] = esum[half];
+        dsc[s] = usum[half] - dtr[half] * esum[half];
+        ddg[s] = xd[half];
       }
     }
   }
 }
 
-// Pass 2: G backward over every chunk; dx, and per step the tile's part of
-// dB_t (bpart) and of e_t (epart); then dh0, and the tile's parts of dD
-// (ddpart) and of <dh_final, h_final> (hfpart).
-template <int NJ>
-__global__ void __launch_bounds__(32) ssd_bwd_reverse(
-    float* __restrict__ dx, float* __restrict__ dh0, float* __restrict__ bpart,
-    float* __restrict__ epart, float* __restrict__ ddpart, float* __restrict__ hfpart,
-    const float* __restrict__ dy, const float* __restrict__ dh_final,
-    const float* __restrict__ h_final, const float* __restrict__ x,
-    const float* __restrict__ dt, const float* __restrict__ A, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, const float* __restrict__ D, const int64_t L, const int H,
-    const int P, const int G, const int N) {
-  constexpr int R = Shape<NJ>::kR;
-  __shared__ Staged<NJ> s;
-  const int tile = blockIdx.x, bh = blockIdx.y;
-  const int ntiles = gridDim.x;
-  const int64_t b = bh / H;
-  const int h = bh % H, grp = h / (H / G), p0 = tile * R;
-  const int lane = threadIdx.x;
-  const float a_log = A[h];
-  const float dskip = D != nullptr ? D[h] : 0.0f;
-  const int64_t state = static_cast<int64_t>(bh) * P * N;
-  const float* xb = x + b * L * H * P;
-  const float* dyb = dy + b * L * H * P;
-  const float* Bb = Bm + b * L * G * N;
-  const float* Cb = Cm + b * L * G * N;
-  const float* dtb = dt + b * L * H;
-
-  float gs[R][NJ];
-  float hf = 0.0f;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = lane + 32 * j;
-      const bool ok = dh_final != nullptr && p0 + r < P && n < N;
-      const int64_t at = state + static_cast<int64_t>(p0 + r) * N + n;
-      gs[r][j] = ok ? dh_final[at] : 0.0f;
-      if (ok) hf += gs[r][j] * h_final[at];
-    }
-  }
-  hf = lanes_sum(hf);
-  float a_next = 1.0f, dd = 0.0f;
-  const int row = lane % R;
-  const int64_t nstages = (L + kStage - 1) / kStage;
-  for (int64_t k = nstages - 1; k >= 0; --k) {
-    const int64_t ts = k * kStage;
-    const int64_t t1 = ts + kStage < L ? ts + kStage : L;
-    stage<NJ>(s, xb, dyb, Bb, Cb, dtb, ts, t1, h, grp, p0, H, P, G, N, lane);
-    for (int u = static_cast<int>(t1 - ts) - 1; u >= 0; --u) {
-      const float d = s.dt[u];
-      float gb[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float dyr = s.dy[u][r];
-        float acc = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          gs[r][j] = gs[r][j] * a_next + dyr * s.c[u][lane + 32 * j];
-          acc += gs[r][j] * s.b[u][lane + 32 * j];
-        }
-        gb[r] = acc;
-      }
-      const float gbr = rows_sum<R>(gb, lane);
-      const int64_t t = ts + u;
-      const float xr = s.x[u][row], dyr = s.dy[u][row];
-      if (lane < R && p0 + row < P) dx[((b * L + t) * H + h) * P + p0 + row] = d * gbr + dskip * dyr;
-      const float e = lanes_sum(lane < R ? xr * gbr : 0.0f);
-      if (lane < R) dd += dyr * xr;
-      const int64_t at = ((b * L + t) * H + h) * ntiles + tile;
-      if (lane == 0) epart[at] = e;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = lane + 32 * j;
-        float acc = 0.0f;
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc += gs[r][j] * s.x[u][r];
-        if (n < N) bpart[at * N + n] = d * acc;
-      }
-      a_next = expf(d * a_log);
-    }
-  }
-  if (dh0 != nullptr) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = lane + 32 * j;
-        if (p0 + r < P && n < N) dh0[state + static_cast<int64_t>(p0 + r) * N + n] = a_next * gs[r][j];
-      }
-    }
-  }
-  dd = lanes_sum(dd);
-  if (lane == 0) {
-    ddpart[static_cast<int64_t>(bh) * ntiles + tile] = dd;
-    hfpart[static_cast<int64_t>(bh) * ntiles + tile] = hf;
-  }
-}
-
-// dB and dC (B, L, G, N): the parts of the group's heads and the row tiles,
-// summed in order.
-__global__ void __launch_bounds__(kFold) ssd_bwd_fold_bc(
-    float* __restrict__ dB, float* __restrict__ dC, const float* __restrict__ bpart,
-    const float* __restrict__ cpart, const int64_t total, const int H, const int G,
-    const int N, const int ntiles) {
+// 3. dB and dC (B, L, G, N): the slices of each group summed in order.
+__global__ void __launch_bounds__(kFold) ssd_bwd_fold_slices(
+    float* __restrict__ dB, float* __restrict__ dC, const float* __restrict__ pB,
+    const float* __restrict__ pC, const int64_t total, const int G, const int N,
+    const int ns) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kFold + threadIdx.x;
   if (i >= total) return;
   const int n = static_cast<int>(i % N);
-  const int64_t bt = i / (static_cast<int64_t>(G) * N);
-  const int grp = static_cast<int>((i / N) % G);
-  const int rep = H / G;
+  const int64_t row = i / N;  // (b, t, group)
   float sb = 0.0f, sc = 0.0f;
-  for (int hh = grp * rep; hh < (grp + 1) * rep; ++hh) {
-    for (int tile = 0; tile < ntiles; ++tile) {
-      const int64_t at = ((bt * H + hh) * ntiles + tile) * N + n;
-      sb += bpart[at];
-      sc += cpart[at];
-    }
+  for (int s = 0; s < ns; ++s) {
+    const int64_t at = (row * ns + s) * N + n;
+    sb += pB[at];
+    sc += pC[at];
   }
   dB[i] = sb;
   dC[i] = sc;
 }
 
-// Per (b, h): dla backward over t in double, ddt, and the (b, h) parts of
-// dA and dD.
-__global__ void __launch_bounds__(kFold) ssd_bwd_fold_dt(
-    float* __restrict__ ddt, float* __restrict__ da_bh, float* __restrict__ dd_bh,
-    const float* __restrict__ upart, const float* __restrict__ epart,
-    const float* __restrict__ ddpart, const float* __restrict__ hfpart,
-    const float* __restrict__ dt, const float* __restrict__ A, const int64_t BH,
-    const int64_t L, const int H, const int ntiles) {
-  const int64_t bh = static_cast<int64_t>(blockIdx.x) * kFold + threadIdx.x;
-  if (bh >= BH) return;
-  const int64_t b = bh / H;
-  const int h = static_cast<int>(bh % H);
-  const float a_log = A[h];
-  double suffix = 0.0, da = 0.0, hf = 0.0, dd = 0.0;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    hf += hfpart[bh * ntiles + tile];
-    dd += ddpart[bh * ntiles + tile];
-  }
-  for (int64_t t = L - 1; t >= 0; --t) {
-    const int64_t at = ((b * L + t) * H + h) * ntiles;
-    float e = 0.0f, u = 0.0f;
-    for (int tile = 0; tile < ntiles; ++tile) {
-      e += epart[at + tile];
-      u += upart[at + tile];
-    }
-    const float d = dt[(b * L + t) * H + h];
-    suffix += static_cast<double>(u) - static_cast<double>(d) * e;
-    const double dla = suffix + hf;
-    ddt[(b * L + t) * H + h] = static_cast<float>(e + a_log * dla);
-    da += d * dla;
-  }
-  da_bh[bh] = static_cast<float>(da);
-  dd_bh[bh] = static_cast<float>(dd);
+// A block's sum of v in double, in a fixed order (each warp's butterfly,
+// then the warps in turn); every thread returns it. `part` holds a value a
+// warp.
+__device__ __forceinline__ double block_sum(double v, double* part) {
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  __syncthreads();  // `part` is free
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  double s = 0.0;
+  for (int w = 0; w < kDla / 32; ++w) s += part[w];
+  return s;
 }
 
-// dA[h] and dD[h]: the (b, h) parts summed over b in order.
+// 4. Per (b, h), one block: dla_t = <dh_final, h_final> + sum_{v >= t} dsc_v
+// in double (thread i holds steps [i·per, (i + 1)·per): its sum, a suffix
+// scan over the warp's lanes and over the warps, then a walk of its steps);
+// ddt = e + A dla (e is in ddt), and the (b, h) parts of dA = sum dt dla and
+// dD = sum ddg.
+__global__ void __launch_bounds__(kDla) ssd_bwd_dla(
+    float* __restrict__ ddt, float* __restrict__ da_bh, float* __restrict__ dd_bh,
+    const float* __restrict__ dsc, const float* __restrict__ ddg,
+    const float* __restrict__ dt, const float* __restrict__ A,
+    const float* __restrict__ dh_final, const float* __restrict__ h_final, const int64_t L,
+    const int H, const int64_t state_size) {
+  __shared__ double part[kDla / 32];
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / H;
+  const int h = static_cast<int>(bh % H);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  double hf = 0.0;
+  if (dh_final != nullptr)
+    for (int64_t i = tid; i < state_size; i += kDla)
+      hf += static_cast<double>(dh_final[bh * state_size + i]) * h_final[bh * state_size + i];
+  hf = block_sum(hf, part);
+  const int64_t per = (L + kDla - 1) / kDla;
+  const int64_t lo = tid * per < L ? tid * per : L;
+  const int64_t hi = lo + per < L ? lo + per : L;
+  double mine = 0.0;
+  for (int64_t t = lo; t < hi; ++t) mine += dsc[(b * L + t) * H + h];
+  double incl = mine;  // sum over the warp's lanes >= this one
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double n = __shfl_down_sync(kFull, incl, o);
+    if (lane + o < 32) incl += n;
+  }
+  double run = __shfl_down_sync(kFull, incl, 1);
+  if (lane == 31) run = 0.0;
+  __syncthreads();  // every thread has read `part`
+  if (lane == 0) part[warp] = incl;
+  __syncthreads();
+  for (int w = warp + 1; w < kDla / 32; ++w) run += part[w];
+  run += hf;
+  const float a = A[h];
+  double da = 0.0, dd = 0.0;
+  for (int64_t t = hi - 1; t >= lo; --t) {
+    const int64_t s = (b * L + t) * H + h;
+    run += dsc[s];
+    ddt[s] = static_cast<float>(ddt[s] + static_cast<double>(a) * run);
+    da += static_cast<double>(dt[s]) * run;
+    dd += ddg[s];
+  }
+  da = block_sum(da, part);
+  dd = block_sum(dd, part);
+  if (tid == 0) {
+    da_bh[bh] = static_cast<float>(da);
+    dd_bh[bh] = static_cast<float>(dd);
+  }
+}
+
+// 5. dA[h] and dD[h]: the (b, h) parts summed over b in order.
 __global__ void __launch_bounds__(kFold) ssd_bwd_fold_heads(
     float* __restrict__ dA, float* __restrict__ dD, const float* __restrict__ da_bh,
     const float* __restrict__ dd_bh, const int64_t B, const int H) {
@@ -383,65 +767,55 @@ __global__ void __launch_bounds__(kFold) ssd_bwd_fold_heads(
   if (dD != nullptr) dD[h] = sd;
 }
 
+__host__ __device__ constexpr int64_t round4(int64_t n) { return (n + 3) / 4 * 4; }
+
 template <int NJ>
-int launch_nj(cudaStream_t st, float* dx, float* dh0, float* cpart, float* bpart, float* upart,
-              float* epart, float* ddpart, float* hfpart, const float* dy,
-              const float* dh_final, const float* h_final, const float* states,
-              const float* x, const float* dt, const float* A, const float* Bm,
-              const float* Cm, const float* D, int64_t B, int64_t L, int H, int P, int G,
-              int N, int cs, int nc, int ntiles) {
-  const dim3 block(32, 1, 1);
-  if (nc > 0) {
-    const dim3 grid(static_cast<unsigned>(nc), static_cast<unsigned>(ntiles),
-                    static_cast<unsigned>(B * H));
-    ssd_bwd_forward<NJ><<<grid, block, 0, st>>>(
-        cpart, upart, states, x, dy, dt, A, Bm, Cm, L, H, P, G, N, cs, nc);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(static_cast<unsigned>(ntiles), static_cast<unsigned>(B * H), 1);
-  ssd_bwd_reverse<NJ><<<grid, block, 0, st>>>(
-      dx, dh0, bpart, epart, ddpart, hfpart, dy, dh_final, h_final, x, dt, A, Bm, Cm, D, L,
-      H, P, G, N);
+int launch_chunk(cudaStream_t st, float* dx, float* ddt, float* dsc, float* ddg, float* pB,
+                 float* pC, const float* states, const float* gin, const float* x,
+                 const float* dy, const float* dt, const float* A, const float* Bm,
+                 const float* Cm, const float* D, int64_t B, int64_t L, int H, int P, int G,
+                 int N, int cs, int nc, int hb, int vec4) {
+  const int smem = 4 * chunk_smem_floats(32 * NJ);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_chunk<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(nc), static_cast<unsigned>(B * H / hb), 1);
+  const dim3 block(kThreads, 1, 1);
+  ssd_bwd_chunk<NJ><<<grid, block, smem, st>>>(
+      dx, ddt, dsc, ddg, pB, pC, states, gin, x, dy, dt, A, Bm, Cm, D, L, H, P, G, N, cs, nc,
+      hb, vec4);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_folds(cudaStream_t st, float* ddt, float* dA, float* dB, float* dC, float* dD,
-                 const float* cpart, const float* bpart, const float* upart,
-                 const float* epart, const float* ddpart, const float* hfpart, float* da_bh,
-                 float* dd_bh, const float* dt, const float* A, int64_t B, int64_t L, int H,
-                 int G, int N, int ntiles) {
-  const dim3 block(kFold, 1, 1);
-  const int64_t total = B * L * G * N;
-  if (total > 0) {
-    const dim3 grid(static_cast<unsigned>((total + kFold - 1) / kFold), 1, 1);
-    ssd_bwd_fold_bc<<<grid, block, 0, st>>>(
-        dB, dC, bpart, cpart, total, H, G, N, ntiles);
-  }
-  {
-    const dim3 grid(static_cast<unsigned>((B * H + kFold - 1) / kFold), 1, 1);
-    ssd_bwd_fold_dt<<<grid, block, 0, st>>>(
-        ddt, da_bh, dd_bh, upart, epart, ddpart, hfpart, dt, A, B * H, L, H, ntiles);
-  }
-  {
-    const dim3 grid(static_cast<unsigned>((H + kFold - 1) / kFold), 1, 1);
-    ssd_bwd_fold_heads<<<grid, block, 0, st>>>(
-        dA, dD, da_bh, dd_bh, B, H);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// Rows of the state a block owns at state size N (kernels/ssd.py::bwd_rows
+// Heads a chunk block takes (a divisor of the group's H / G): a whole group
+// where the call has fewer blocks than the card has SMs, otherwise the most
+// that keep at least four blocks an SM (kernels/ssd.py::bwd_heads_per_block
 // computes the same).
-extern "C" int state_rows(int64_t N) { return N <= 64 ? 32 : 16; }
+extern "C" int heads_per_block(int64_t B, int64_t L, int64_t H, int64_t G, int64_t cs) {
+  const int64_t rep = H / G, blocks = (L + cs - 1) / cs * B * H;
+  if (blocks < kSMs) return static_cast<int>(rep);
+  int64_t best = 1;
+  for (int64_t d = 1; d <= rep; ++d)
+    if (rep % d == 0 && blocks / d >= 4 * kSMs) best = d;
+  return static_cast<int>(best);
+}
 
-// f32 scratch the backward needs: the per-step parts of dB and dC, of e and
-// of dy·(h C); the (b, h, tile) parts of dD and <dh_final, h_final>; the
-// (b, h) parts of dA and dD.
-extern "C" int64_t work_floats(int64_t B, int64_t L, int64_t H, int64_t N, int64_t ntiles) {
-  return 2 * B * L * H * ntiles * N + 2 * B * L * H * ntiles + 2 * B * H * ntiles + 2 * B * H;
+// Shared memory of a chunk block at state size N, in floats.
+extern "C" int64_t chunk_smem(int64_t N) { return chunk_smem_floats((N + 31) / 32 * 32); }
+
+// f32 scratch of the backward: Gin of every chunk (B, nc, H, P, N); the
+// slices' dB and dC (B, L, G·slices, N) where a group has more than one
+// slice; dy·(h C) - dt e and dy·x per step (B, L, H); the (b, h) parts of
+// dA and dD. Each part starts on a 16-byte boundary.
+extern "C" int64_t work_floats(int64_t B, int64_t L, int64_t H, int64_t P, int64_t G,
+                               int64_t N, int64_t cs) {
+  const int64_t nc = (L + cs - 1) / cs, ns = H / G / heads_per_block(B, L, H, G, cs);
+  return round4(B * nc * H * P * N) + (ns > 1 ? 2 * round4(B * L * G * ns * N) : 0) +
+         2 * round4(B * L * H) + 2 * round4(B * H);
 }
 
 // dh0 and dh_final (with h_final) may be null; N <= 128; states is the
@@ -453,53 +827,87 @@ extern "C" int launch(void* dx, void* ddt, void* dA, void* dB, void* dC, void* d
                       int64_t H, int64_t P, int64_t G, int64_t N, int64_t cs, int64_t nc,
                       int64_t work_size, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  const int rows = state_rows(N);
-  const int ntiles = static_cast<int>((P + rows - 1) / rows);
-  if (N < 1 || N > 128 || work_size < work_floats(B, L, H, N, ntiles))
+  if (N < 1 || N > 128 || cs < 1 || cs > kChunk || nc != (L + cs - 1) / cs ||
+      work_size < work_floats(B, L, H, P, G, N, cs))
     return static_cast<int>(cudaErrorInvalidValue);
-  float* w = static_cast<float*>(work);
-  float* cpart = w;
-  float* bpart = cpart + B * L * H * ntiles * N;
-  float* upart = bpart + B * L * H * ntiles * N;
-  float* epart = upart + B * L * H * ntiles;
-  float* ddpart = epart + B * L * H * ntiles;
-  float* hfpart = ddpart + B * H * ntiles;
-  float* da_bh = hfpart + B * H * ntiles;
-  float* dd_bh = da_bh + B * H;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const int hb = heads_per_block(B, L, H, G, cs);
+  const int64_t ns = H / G / hb;
+  float* w = static_cast<float*>(work);
+  float* gin = w;
+  float* pB = gin + round4(B * nc * H * P * N);
+  float* pC = pB + (ns > 1 ? round4(B * L * G * ns * N) : 0);
+  float* dsc = pC + (ns > 1 ? round4(B * L * G * ns * N) : 0);
+  float* ddg = dsc + round4(B * L * H);
+  float* da_bh = ddg + round4(B * L * H);
+  float* dd_bh = da_bh + round4(B * H);
+  if (ns == 1) {
+    pB = static_cast<float*>(dB);
+    pC = static_cast<float*>(dC);
+  }
+  const bool vec4 = P % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(dy) &&
+                    aligned16(Bm) && aligned16(Cm) && aligned16(states) && aligned16(dx) &&
+                    aligned16(work) && aligned16(dB) && aligned16(dC) &&
+                    (dh_final == nullptr || aligned16(dh_final)) &&
+                    (dh0 == nullptr || aligned16(dh0));
   const int h = static_cast<int>(H), p = static_cast<int>(P), g = static_cast<int>(G);
   const int n = static_cast<int>(N), c = static_cast<int>(cs), k = static_cast<int>(nc);
-  int err = 0;
+  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_gin,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kGinSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  {
+    const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>((P + kTile - 1) / kTile),
+                    static_cast<unsigned>((N + kTile - 1) / kTile));
+    const dim3 block(kThreads, 1, 1);
+    ssd_bwd_gin<<<grid, block, kGinSmem, st>>>(
+        gin, static_cast<float*>(dh0), f(dy), f(dt), f(A), f(Cm), f(dh_final), L, h, p, g, n,
+        c, k, vec4);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int e = 0;
+  auto ddtp = static_cast<float*>(ddt);
+  auto dxp = static_cast<float*>(dx);
   switch ((N + 31) / 32) {
     case 1:
-      err = launch_nj<1>(st, static_cast<float*>(dx), static_cast<float*>(dh0), cpart, bpart,
-                         upart, epart, ddpart, hfpart, f(dy), f(dh_final), f(h_final),
-                         f(states), f(x), f(dt), f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n,
-                         c, k, ntiles);
+      e = launch_chunk<1>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, f(x), f(dy), f(dt),
+                          f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
       break;
     case 2:
-      err = launch_nj<2>(st, static_cast<float*>(dx), static_cast<float*>(dh0), cpart, bpart,
-                         upart, epart, ddpart, hfpart, f(dy), f(dh_final), f(h_final),
-                         f(states), f(x), f(dt), f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n,
-                         c, k, ntiles);
+      e = launch_chunk<2>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, f(x), f(dy), f(dt),
+                          f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
       break;
     case 3:
-      err = launch_nj<3>(st, static_cast<float*>(dx), static_cast<float*>(dh0), cpart, bpart,
-                         upart, epart, ddpart, hfpart, f(dy), f(dh_final), f(h_final),
-                         f(states), f(x), f(dt), f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n,
-                         c, k, ntiles);
+      e = launch_chunk<3>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, f(x), f(dy), f(dt),
+                          f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
       break;
     default:
-      err = launch_nj<4>(st, static_cast<float*>(dx), static_cast<float*>(dh0), cpart, bpart,
-                         upart, epart, ddpart, hfpart, f(dy), f(dh_final), f(h_final),
-                         f(states), f(x), f(dt), f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n,
-                         c, k, ntiles);
+      e = launch_chunk<4>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, f(x), f(dy), f(dt),
+                          f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
   }
-  if (err != 0) return err;
-  return launch_folds(st, static_cast<float*>(ddt), static_cast<float*>(dA),
-                      static_cast<float*>(dB), static_cast<float*>(dC),
-                      static_cast<float*>(dD), cpart, bpart, upart, epart, ddpart, hfpart,
-                      da_bh, dd_bh, f(dt), f(A), B, L, h, g, n, ntiles);
+  if (e != 0) return e;
+  const dim3 fold(kFold, 1, 1);
+  if (ns > 1) {
+    const int64_t total = B * L * G * N;
+    const dim3 grid(static_cast<unsigned>((total + kFold - 1) / kFold), 1, 1);
+    const dim3 block = fold;
+    ssd_bwd_fold_slices<<<grid, block, 0, st>>>(
+        static_cast<float*>(dB), static_cast<float*>(dC), pB, pC, total, g, n,
+        static_cast<int>(ns));
+  }
+  {
+    const dim3 grid(static_cast<unsigned>(B * H), 1, 1);
+    const dim3 block(kDla, 1, 1);
+    ssd_bwd_dla<<<grid, block, 0, st>>>(
+        ddtp, da_bh, dd_bh, dsc, ddg, f(dt), f(A), f(dh_final), f(h_final), L, h, P * N);
+  }
+  {
+    const dim3 grid(static_cast<unsigned>((H + kFold - 1) / kFold), 1, 1);
+    const dim3 block = fold;
+    ssd_bwd_fold_heads<<<grid, block, 0, st>>>(
+        static_cast<float*>(dA), static_cast<float*>(dD), da_bh, dd_bh, B, h);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* error_string(int err) {

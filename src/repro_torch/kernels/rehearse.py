@@ -43,7 +43,10 @@ The LM backward kernels (``csrc/conv1d_bwd.cu``, ``csrc/ssd_bwd.cu``,
 :func:`conv1d_bwd`, :func:`ssd_bwd` and :func:`attention_bwd`, which pass
 their wrappers' own arguments (``bwd_arguments``) to the source's entry
 point; every output and scratch buffer is NaN before the launch, so an
-element no thread writes shows.
+element no thread writes shows. Their tensor-core code runs too: the
+inlined ``csrc/tf32x3.cuh`` becomes a host twin whose ``mma_tf32`` is
+``mma.sync.m16n8k8`` computed from the warp's fragments in PTX's layout
+(:data:`_TF32X3_HOST`, :func:`mma_tf32_lanes`).
 """
 from __future__ import annotations
 
@@ -99,6 +102,9 @@ struct Fiber {
   int wait_gen = 0;
   bool done = false;
   std::vector<std::function<void()>> copies;  // issued, not yet waited for
+  // cp.async copies of the LM sources: (group, copy), performed at a wait
+  std::vector<std::pair<int, std::function<void()>>> groups;
+  int open = 0;                                // the group being issued
 };
 static ucontext_t g_main;
 static std::vector<Fiber>* g_fibers;
@@ -287,6 +293,8 @@ static void run_grid(dim3 grid, dim3 block, std::function<void()> body) {
           f.wait = nullptr;
           f.done = false;
           f.copies.clear();
+          f.groups.clear();
+          f.open = 0;
           getcontext(&f.ctx);
           f.ctx.uc_stack.ss_sp = f.stack.data();
           f.ctx.uc_stack.ss_size = f.stack.size();
@@ -334,7 +342,7 @@ def _host_text(text: str, shared_floats: int = 0, launch: re.Pattern = _LAUNCH) 
         shared_floats = max(shared_floats, 1)     # a launch may need none
         text = text.replace("extern __shared__ float smem[];", "float* const smem = g_smem;")
         text = text.replace("namespace {\n", "namespace {\n"
-                            f"float g_smem[{shared_floats}];\n"
+                            f"alignas(16) float g_smem[{shared_floats}];\n"
                             "void nan_smem() { std::memset(g_smem, 0xff, sizeof g_smem); }\n"
                             "const int g_smem_hook = (g_block_start = nan_smem, 0);\n", 1)
     for part in ("copies", "pinned"):      # the shim's stand-ins take their place
@@ -654,7 +662,8 @@ def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1
     return out.clone() if alias else out
 
 
-# The runtime calls of the LM backward sources: every one succeeds.
+# The runtime calls of the LM sources: every one succeeds. Warp shuffles of
+# any 4- or 8-byte type, each through a barrier of the warp's 32 threads.
 _LM_SHIM = r"""
 typedef int cudaError_t;
 static const int cudaSuccess = 0;
@@ -662,14 +671,190 @@ static const int cudaErrorInvalidValue = 1;
 static const int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline uint32_t __float_as_uint(float f) { return f32_bits(f); }
+inline float __uint_as_float(uint32_t u) { return bits_f32(u); }
+static uint64_t g_lane_bits[2048];
+inline int lane_tid() { return threadIdx.y * blockDim.x + threadIdx.x; }
+// v of lane `from` of the calling warp (v itself where `keep`)
+template <class T> inline T lane_value(T v, int from, bool keep) {
+  static_assert(sizeof(T) <= 8, "a shuffle moves at most 8 bytes");
+  const int tid = lane_tid();
+  uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  g_lane_bits[tid] = bits;
+  arrive(g_warp[tid >> 5]);
+  T r = v;
+  if (!keep) std::memcpy(&r, &g_lane_bits[(tid & ~31) | (from & 31)], sizeof(T));
+  arrive(g_warp[tid >> 5]);
+  return r;
+}
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int o) {
+  return lane_value(v, (lane_tid() & 31) ^ o, false);
+}
+template <class T> inline T __shfl_up_sync(unsigned, T v, unsigned d) {
+  const int lane = lane_tid() & 31;
+  return lane_value(v, lane - int(d), lane < int(d));
+}
+template <class T> inline T __shfl_down_sync(unsigned, T v, unsigned d) {
+  const int lane = lane_tid() & 31;
+  return lane_value(v, lane + int(d), lane + int(d) > 31);
+}
+"""
+
+# The host twin of csrc/tf32x3.cuh, which takes its place where an LM source
+# inlines it. The splits are the card's integer arithmetic. mma_tf32 is
+# mma.sync.m16n8k8 on the warp's fragments in PTX's layout (group g = lane /
+# 4, t = lane % 4: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+# b0 (t, g), b1 (t + 4, g); c0, c1 (g, 2t, 2t + 1), c2, c3 (g + 8, 2t, 2t +
+# 1)): each lane posts its fragments, passes the warp's barrier and sums its
+# D elements in f32 over k in order (a product of two TF32 values is exact
+# in f32). Every lane of the warp must reach it, as on the card. A cp.async
+# copy writes NaN at once and its value only at a wait that covers its
+# group, so a read before the wait shows.
+_TF32X3_HOST = r"""
+// two banks a lane, taken in turns: a lane posts its next fragments into the
+// other bank, which every lane of its warp finished reading before the
+// barrier that let it go on, so a product needs one barrier
+static float g_mma[2][2048][12];
+static unsigned g_mma_calls[2048];
+inline void* __cvta_generic_to_shared(const void* p) { return const_cast<void*>(p); }
+namespace tf32x3 {
+inline uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+inline void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+inline void split4(const float (&a)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  for (int r = 0; r < 4; ++r) split(a[r], hi[r], lo[r]);
+}
+// d += A·B of m16n8k8 from the fragments the warp's lanes posted in g_mma:
+// A's a0..a3 in slots sa..sa+3 and B's b0, b1 in slots sb, sb+1 of each lane
+inline void mma_posted(float (&d)[4], const float (*post)[12], int lane, int sa, int sb) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    float s = d[e];
+    for (int k = 0; k < 8; ++k)
+      s += post[4 * (row & 7) + (k & 3)][sa + (row >> 3) + 2 * (k >> 2)] *
+           post[4 * col + (k & 3)][sb + (k >> 2)];
+    d[e] = s;
+  }
+}
+inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  const int tid = lane_tid();
+  const float (*post)[12] = g_mma[g_mma_calls[tid]++ & 1] + (tid & ~31);
+  float* mine = g_mma[g_mma_calls[tid] - 1 & 1][tid];
+  for (int r = 0; r < 4; ++r) mine[r] = __uint_as_float(a[r]);
+  mine[4] = __uint_as_float(b0);
+  mine[5] = __uint_as_float(b1);
+  arrive(g_warp[tid >> 5]);
+  mma_posted(d, post, tid & 31, 0, 4);
+}
+// the device's three mma_tf32 in its order, on one posting of the fragments
+inline void mma3(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4], float b0,
+                 float b1) {
+  const int tid = lane_tid();
+  const float (*post)[12] = g_mma[g_mma_calls[tid]++ & 1] + (tid & ~31);
+  float* mine = g_mma[g_mma_calls[tid] - 1 & 1][tid];
+  uint32_t b[4];  // b0 hi, b1 hi, b0 lo, b1 lo
+  split(b0, b[0], b[2]);
+  split(b1, b[1], b[3]);
+  for (int r = 0; r < 4; ++r) {
+    mine[r] = __uint_as_float(ah[r]);
+    mine[4 + r] = __uint_as_float(al[r]);
+    mine[8 + r] = __uint_as_float(b[r]);
+  }
+  arrive(g_warp[tid >> 5]);
+  mma_posted(d, post, tid & 31, 4, 8);
+  mma_posted(d, post, tid & 31, 0, 10);
+  mma_posted(d, post, tid & 31, 0, 8);
+}
+inline void async_words(void* smem, const void* gmem, int words, bool valid) {
+  float* dst = static_cast<float*>(smem);
+  const float* src = static_cast<const float*>(gmem);
+  const uint32_t nan = 0x7fc00000u;
+  for (int i = 0; i < words; ++i) std::memcpy(dst + i, &nan, 4);
+  Fiber& f = (*g_fibers)[g_cur];
+  f.groups.emplace_back(f.open, [=] {
+    for (int i = 0; i < words; ++i) dst[i] = valid ? src[i] : 0.0f;
+  });
+}
+inline void cp_async16(void* smem, const void* gmem, bool valid) {
+  async_words(smem, gmem, 4, valid);
+}
+inline void cp_async4(void* smem, const void* gmem, bool valid) {
+  async_words(smem, gmem, 1, valid);
+}
+inline void cp_async_commit() { ++(*g_fibers)[g_cur].open; }
+// the copies of every committed group
+inline void cp_async_wait_all() {
+  Fiber& f = (*g_fibers)[g_cur];
+  std::vector<std::pair<int, std::function<void()>>> left;
+  for (auto& c : f.groups) {
+    if (c.first < f.open) c.second();
+    else left.push_back(c);
+  }
+  f.groups.swap(left);
+}
+}  // namespace tf32x3
 """
 
 
 def lm_library(path, name: str, shared_floats: int = 0) -> ctypes.CDLL:
     """The hand-written source at ``path`` compiled for the CPU, with
-    ``shared_floats`` words of dynamic shared memory."""
-    text = _host_text(build.read_source(path), shared_floats, _LAUNCH_ANY)
+    ``shared_floats`` words of dynamic shared memory; ``csrc/tf32x3.cuh``
+    where it is inlined becomes its host twin (``_TF32X3_HOST``)."""
+    return _lm_compile(build.read_source(path), name, shared_floats)
+
+
+def _lm_compile(text: str, name: str, shared_floats: int = 0) -> ctypes.CDLL:
+    header = (build.CSRC_DIR / "tf32x3.cuh").read_text()
+    text = _host_text(text.replace(header, _TF32X3_HOST), shared_floats, _LAUNCH_ANY)
     return _compile(text.replace(_SHIM, _SHIM + _LM_SHIM, 1), name)
+
+
+# One warp's mma_tf32 on fragments given per lane: what
+# tests/test_torch_train_kernels.py holds to the product in PTX's layout.
+_MMA_SOURCE = r"""#include <cstdint>
+#include <cuda_runtime.h>
+#include "tf32x3.cuh"
+namespace {
+using namespace tf32x3;
+__global__ void mma_lanes(float* d, const uint32_t* a, const uint32_t* b, const float* c) {
+  const int lane = threadIdx.x;
+  const uint32_t af[4] = {a[4 * lane], a[4 * lane + 1], a[4 * lane + 2], a[4 * lane + 3]};
+  float acc[4] = {c[4 * lane], c[4 * lane + 1], c[4 * lane + 2], c[4 * lane + 3]};
+  mma_tf32(acc, af, b[2 * lane], b[2 * lane + 1]);
+  for (int e = 0; e < 4; ++e) d[4 * lane + e] = acc[e];
+}
+}  // namespace
+extern "C" int launch(float* d, const uint32_t* a, const uint32_t* b, const float* c) {
+  const dim3 grid(1, 1, 1), block(32, 1, 1);
+  cudaStream_t st = nullptr;
+  mma_lanes<<<grid, block, 0, st>>>(
+      d, a, b, c);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" const char* error_string(int) { return ""; }
+"""
+
+
+def mma_tf32_lanes(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """One warp's ``tf32x3::mma_tf32`` of the host twin on fragments given per
+    lane: ``a`` (32, 4) and ``b`` (32, 2) TF32 values (f32 with the low 13
+    mantissa bits 0), ``c`` (32, 4) f32. Returns each lane's D fragment (32,
+    4)."""
+    text = build._LOCAL_INCLUDE.sub(
+        lambda m: (build.CSRC_DIR / m.group(1)).read_text(), _MMA_SOURCE)
+    lib = _lm_compile(text, "mma_lanes")
+    lib.rehearse_inputs(0, None, None)
+    d = torch.full((32, 4), float("nan"))
+    a, b, c = (t.to(torch.float32).contiguous() for t in (a, b, c))
+    lib.launch.argtypes = [ctypes.c_void_p] * 4
+    lib.launch.restype = ctypes.c_int
+    if lib.launch(d.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr()):
+        raise RuntimeError("the rehearsed mma_tf32 refused its launch")
+    return d
 
 
 def _run_lm(path, name: str, argtypes, args, shared_floats: int = 0) -> None:
@@ -714,7 +899,8 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, D=None, h0=None, dh_final=None, chunk: int = 6
     grads, args, work = ssd.bwd_arguments(x, dt, A, Bm, Cm, dy, D, h0, dh_final, states,
                                           h_final, chunk)
     _nan(work, *grads.values())
-    _run_lm(ssd.BWD_SOURCE, "ssd_bwd", ssd._BWD_ARGTYPES, args)
+    _run_lm(ssd.BWD_SOURCE, "ssd_bwd", ssd._BWD_ARGTYPES, args,
+            ssd.bwd_smem_floats(ssd.MAX_N_BWD))
     return grads
 
 
@@ -730,5 +916,5 @@ def attention_bwd(q, k, v, dout, causal: bool = True, window=None, scale=None):
                                                  scale)
     _nan(delta, *grads)
     _run_lm(attention.BWD_SOURCE, "attention_bwd", attention._BWD_ARGTYPES, args,
-            attention.bwd_smem_floats(max(attention.HEAD_DIMS)))
+            max(map(attention.bwd_smem_floats, attention.HEAD_DIMS)))
     return grads

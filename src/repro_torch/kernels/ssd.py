@@ -35,8 +35,9 @@ BWD_SOURCE = build.CSRC_DIR / "ssd_bwd.cu"
 
 # Calls that launched the CUDA kernels: :func:`ssd_chunk_scan` adds one to
 # ``launches`` (two device launches each), :func:`ssd_chunk_scan_bwd` one to
-# ``launches_bwd`` (five device launches: the forward walk, the backward
-# walk and three folds), where they launch and nowhere else.
+# ``launches_bwd`` (four or five device launches: the chunk-state gradients,
+# the chunks, the slices' fold where a group has more than one, dla and the
+# fold over b), where they launch and nowhere else.
 launches = 0
 launches_bwd = 0
 
@@ -48,8 +49,9 @@ _TILE = 64   # p columns of an output block (csrc/ssd.cu's kTile)
 MAX_SMEM = 232448
 _MAX_GRID_Z = 65535
 
-# the backward keeps a lane's columns n = lane + 32 j, j < 4, of its rows
+# the backward's tiles hold at most 128 state columns
 MAX_N_BWD = 128
+_SMS = 132   # the H100 SXM's SMs (csrc/ssd_bwd.cu's kSMs)
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
@@ -139,16 +141,40 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64,
     return (y, h_final, states) if return_states else (y, h_final)
 
 
-def bwd_rows(N: int) -> int:
-    """State rows a block of the backward owns (``csrc/ssd_bwd.cu``'s
-    ``state_rows``)."""
-    return 32 if N <= 64 else 16
+def bwd_heads_per_block(Bb: int, L: int, H: int, G: int, chunk: int) -> int:
+    """Heads a chunk block of the backward takes (``csrc/ssd_bwd.cu``'s
+    ``heads_per_block``): the whole group where the call has fewer blocks
+    than the card has SMs, otherwise the most (a divisor of H / G) that keep
+    at least four blocks an SM."""
+    rep, blocks = H // G, plan(L, chunk)[1] * Bb * H
+    if blocks < _SMS:
+        return rep
+    return max((d for d in range(1, rep + 1) if rep % d == 0 and blocks // d >= 4 * _SMS),
+               default=1)
 
 
-def bwd_work_floats(Bb: int, L: int, H: int, P: int, N: int) -> int:
-    """f32 scratch of the backward (``csrc/ssd_bwd.cu``'s ``work_floats``)."""
-    nt = -(-P // bwd_rows(N))
-    return 2 * Bb * L * H * nt * N + 2 * Bb * L * H * nt + 2 * Bb * H * nt + 2 * Bb * H
+def bwd_smem_floats(N: int) -> int:
+    """Shared memory of a chunk block of the backward in floats
+    (``csrc/ssd_bwd.cu``'s ``chunk_smem``): x and dy (64 steps x 64 p), B and
+    C (64 steps x N padded to 32), the chunk's Gin and start state (64 p x N
+    padded to 32), dt and the log decay."""
+    ldn = -(-N // 32) * 32
+    return 2 * KERNEL_CHUNK * _TILE + 4 * KERNEL_CHUNK * ldn + 2 * KERNEL_CHUNK
+
+
+def bwd_work_floats(Bb: int, L: int, H: int, P: int, G: int, N: int, chunk: int) -> int:
+    """f32 scratch of the backward (``csrc/ssd_bwd.cu``'s ``work_floats``):
+    the chunk-state gradients (B, nc, H, P, N), the slices' dB and dC where
+    a group has more than one slice, two values a step and head, two a
+    (b, h); each part rounded up to 4 floats."""
+    nc = plan(L, chunk)[1]
+    ns = H // G // bwd_heads_per_block(Bb, L, H, G, chunk)
+
+    def r4(n):
+        return -(-n // 4) * 4
+
+    return (r4(Bb * nc * H * P * N) + (2 * r4(Bb * L * G * ns * N) if ns > 1 else 0)
+            + 2 * r4(Bb * L * H) + 2 * r4(Bb * H))
 
 
 def bwd_arguments(x, dt, A, Bm, Cm, dy, D, h0, dh_final, states, h_final, chunk: int):
@@ -162,7 +188,7 @@ def bwd_arguments(x, dt, A, Bm, Cm, dy, D, h0, dh_final, states, h_final, chunk:
              "dB": torch.empty_like(Bm), "dC": torch.empty_like(Cm),
              "dD": None if D is None else torch.empty_like(D),
              "dh0": None if h0 is None else torch.empty_like(h0)}
-    size = bwd_work_floats(Bb, L, H, P, N)
+    size = bwd_work_floats(Bb, L, H, P, G, N, chunk)
     work = torch.empty((size,), dtype=torch.float32, device=x.device)
 
     def ptr(t):

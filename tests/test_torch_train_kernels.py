@@ -123,7 +123,10 @@ def test_ssd_bwd_plain_matches_jax_grad(B, L, H, P, G, N, chunk, with_h0, with_d
     (1, 20, 2, 6, 1, 10, 8, True, True),      # P, N not multiples of 4
     (2, 37, 4, 5, 2, 7, 16, False, False),    # G < H, a short last chunk
     (1, 33, 2, 40, 1, 70, 64, True, True),    # two row tiles of 16, N over 64
-    (1, 19, 4, 16, 2, 16, 4, True, False)])
+    (1, 19, 4, 16, 2, 16, 4, True, False),
+    (1, 150, 2, 8, 1, 64, 64, True, True),    # three chunks, the last of 22 steps, N 64
+    (1, 24, 4, 72, 2, 12, 8, True, True),     # P over 64: two p tiles
+    (1, 136, 4, 4, 1, 8, 4, False, True)])    # 136 blocks: a head a block, four slices
 def test_ssd_bwd_kernel_rehearsed(B, L, H, P, G, N, chunk, with_h0, with_dhf, rng):
     """csrc/ssd_bwd.cu on the CPU from the plain recurrence's chunk-start
     states at the forward kernel's chunk plan."""
@@ -137,16 +140,71 @@ def test_ssd_bwd_kernel_rehearsed(B, L, H, P, G, N, chunk, with_h0, with_dhf, rn
     _close_scaled([got[k] for k in keys], [want[k] for k in keys], "ssd_bwd")
 
 
+# (B, L, H, P, G, N, chunk): chip_smoke.py's TRAIN_CASE_SHAPES["ssd"] and two more
+SSD_BWD_SHAPES = [(1, 40, 2, 6, 1, 10, 16), (1, 1000, 8, 64, 2, 64, 64),
+                  (2, 100, 4, 36, 2, 128, 64), (1, 65, 4, 16, 4, 17, 32),
+                  (4, 1024, 64, 64, 1, 64, 64), (4, 128, 24, 64, 1, 128, 64),
+                  (1, 7, 3, 5, 3, 10, 64), (1, 136, 4, 4, 1, 8, 4)]
+
+
 def test_ssd_bwd_scratch_and_rows_match_the_c_source():
-    """ssd.py's scratch size and row tile are csrc/ssd_bwd.cu's own."""
+    """ssd.py's scratch size, heads a block and shared memory are
+    csrc/ssd_bwd.cu's own."""
     import ctypes
-    lib = rehearse.lm_library(ssd.BWD_SOURCE, "ssd_bwd")
-    lib.work_floats.restype, lib.work_floats.argtypes = ctypes.c_int64, [ctypes.c_int64] * 5
-    lib.state_rows.restype, lib.state_rows.argtypes = ctypes.c_int, [ctypes.c_int64]
-    for (B, L, H, P, N) in [(4, 1024, 64, 64, 64), (4, 128, 24, 64, 128), (1, 7, 3, 5, 10)]:
-        rows = ssd.bwd_rows(N)
-        assert lib.state_rows(N) == rows
-        assert lib.work_floats(B, L, H, N, -(-P // rows)) == ssd.bwd_work_floats(B, L, H, P, N)
+    lib = rehearse.lm_library(ssd.BWD_SOURCE, "ssd_bwd", ssd.bwd_smem_floats(ssd.MAX_N_BWD))
+    lib.work_floats.restype, lib.work_floats.argtypes = ctypes.c_int64, [ctypes.c_int64] * 7
+    lib.heads_per_block.restype = ctypes.c_int
+    lib.heads_per_block.argtypes = [ctypes.c_int64] * 5
+    lib.chunk_smem.restype, lib.chunk_smem.argtypes = ctypes.c_int64, [ctypes.c_int64]
+    for (B, L, H, P, G, N, chunk) in SSD_BWD_SHAPES:
+        cs, _ = ssd.plan(L, chunk)
+        assert lib.heads_per_block(B, L, H, G, cs) == ssd.bwd_heads_per_block(B, L, H, G, chunk)
+        assert lib.work_floats(B, L, H, P, G, N, cs) == ssd.bwd_work_floats(B, L, H, P, G, N,
+                                                                             chunk)
+    for N in range(1, ssd.MAX_N_BWD + 1):
+        assert lib.chunk_smem(N) == ssd.bwd_smem_floats(N)
+        assert 4 * ssd.bwd_smem_floats(N) <= ssd.MAX_SMEM
+
+
+def test_ssd_bwd_scratch_is_below_the_step_walks():
+    """At every shape chip_smoke checks, the chunked backward's scratch is
+    at most the step-walk design's (per-step, per-row-tile parts of dB and
+    dC, of e and dy·(h C); row tiles of 32 state rows, 16 above N = 64)."""
+    for (B, L, H, P, G, N, chunk) in SSD_BWD_SHAPES[:6]:
+        nt = -(-P // (32 if N <= 64 else 16))
+        walks = 2 * B * L * H * nt * N + 2 * B * L * H * nt + 2 * B * H * nt + 2 * B * H
+        assert ssd.bwd_work_floats(B, L, H, P, G, N, chunk) <= walks, (B, L, H, P, G, N)
+
+
+def test_ssd_bwd_heads_per_block():
+    """A call of fewer blocks than SMs folds whole groups in a block (no
+    slices to fold); a large one keeps four blocks an SM."""
+    assert ssd.bwd_heads_per_block(1, 40, 2, 1, 16) == 2
+    assert ssd.bwd_heads_per_block(4, 1024, 64, 1, 64) == 4      # 1024 blocks
+    assert ssd.bwd_heads_per_block(4, 128, 24, 1, 64) == 1       # 192 blocks
+    assert ssd.bwd_heads_per_block(1, 65, 4, 4, 32) == 1         # a head a group
+
+
+def test_ssd_bwd_kernel_rehearsed_against_jax_grad(rng):
+    """The rehearsed csrc/ssd_bwd.cu against the reference's own gradient:
+    jax.value_and_grad of _ssd_chunked_jnp (B and C repeated to the heads
+    inside, so their gradients sum over each group's heads)."""
+    from repro.kernels.ops import _ssd_chunked_jnp
+    B, L, H, P, G, N, chunk = 1, 48, 4, 8, 2, 16, 16
+    x, dt, A, Bm, Cm, D, h0, dy, dhf = _ssd_case(rng, B, L, H, P, G, N, True, True)
+
+    def loss(x, dt, A, Bm, Cm, D, h0):
+        rep = H // G
+        y, h = _ssd_chunked_jnp(x, dt, A, jnp.repeat(Bm, rep, axis=2),
+                                jnp.repeat(Cm, rep, axis=2), D, h0, chunk)
+        return jnp.sum(y * dy) + jnp.sum(h * dhf)
+
+    given = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm, D, h0)]
+    _, want = compiled(jax.value_and_grad(loss, argnums=tuple(range(7))), *given)(*given)
+    got = rehearse.ssd_bwd(*map(_t, (x, dt, A, Bm, Cm, dy)), D=_t(D), h0=_t(h0),
+                           dh_final=_t(dhf), chunk=chunk)
+    names = ["dx", "ddt", "dA", "dB", "dC", "dD", "dh0"]
+    _close_scaled([got[n] for n in names], want, "ssd_bwd against jax")
 
 
 def test_ssd_states_are_the_chunk_starts():
@@ -201,7 +259,8 @@ def test_attention_plain_gradient_of_a_row_with_no_key_is_zero():
     (2, 2, 2, 33, 16, False, None),   # non-causal
     (1, 2, 2, 5, 48, True, 0),        # no key at all
     (1, 1, 1, 1, 16, True, None),     # L = 1
-    (1, 2, 1, 65, 80, True, 70)])     # a window past L
+    (1, 2, 1, 65, 80, True, 70),      # a window past L
+    (1, 4, 2, 70, 128, True, 20)])    # D 128: 16-row inner tiles, GQA, a window
 def test_attention_bwd_kernel_rehearsed(B, Hq, Hkv, L, D, causal, window, rng):
     """csrc/attention_bwd.cu on the CPU (shared memory NaN before each
     block) from the plain forward's output and log-sum-exp."""
@@ -216,14 +275,53 @@ def test_attention_bwd_kernel_rehearsed(B, Hq, Hkv, L, D, causal, window, rng):
     _close_scaled(got, want, "attention_bwd")
 
 
+def test_attention_bwd_kernel_rehearsed_against_jax_grad(rng):
+    """The rehearsed csrc/attention_bwd.cu against the reference's own
+    gradient: jax.value_and_grad of _chunked_attention (GQA, a window)."""
+    from repro.kernels.ops import _chunked_attention
+    B, Hq, Hkv, L, D, window = 1, 4, 2, 40, 32, 9
+    q = rng.randn(B, Hq, L, D).astype(np.float32)
+    k, v = (rng.randn(B, Hkv, L, D).astype(np.float32) for _ in range(2))
+    g = rng.randn(B, Hq, L, D).astype(np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(_chunked_attention(q, k, v, True, window, None, 8, 8) * g)
+
+    qkv = [jnp.asarray(a) for a in (q, k, v)]
+    _, want = compiled(jax.value_and_grad(loss, argnums=(0, 1, 2)), *qkv)(*qkv)
+    got = rehearse.attention_bwd(_t(q), _t(k), _t(v), _t(g), causal=True, window=window)
+    _close_scaled(got, want, "attention_bwd against jax")
+
+
 def test_attention_bwd_shared_memory_matches_the_c_source():
     import ctypes
     lib = rehearse.lm_library(attention.BWD_SOURCE, "attention_bwd",
-                              attention.bwd_smem_floats(max(attention.HEAD_DIMS)))
+                              max(map(attention.bwd_smem_floats, attention.HEAD_DIMS)))
     lib.bwd_smem_floats.restype, lib.bwd_smem_floats.argtypes = ctypes.c_int64, [ctypes.c_int64]
     for D in attention.HEAD_DIMS:
         assert lib.bwd_smem_floats(D) == attention.bwd_smem_floats(D)
         assert 4 * attention.bwd_smem_floats(D) <= 232448
+
+
+def test_mma_tf32_emulation_is_ptx_layout():
+    """The rehearsal's mma.sync.m16n8k8 on known operands: each lane's D
+    fragment is A·B + C at PTX's positions (group g = lane / 4, t = lane % 4:
+    a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (t, g), b1
+    (t + 4, g); c0, c1 (g, 2t, 2t + 1), c2, c3 (g + 8, 2t, 2t + 1)). Small
+    integers are TF32 values and the sums exact, so a misplaced element
+    shows as a difference."""
+    A = np.arange(16 * 8, dtype=np.float32).reshape(16, 8) % 13 - 6
+    Bk = np.arange(8 * 8, dtype=np.float32).reshape(8, 8) % 7 - 3
+    C = np.arange(16 * 8, dtype=np.float32).reshape(16, 8) * 10
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    a = np.stack([A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4]], 1)
+    b = np.stack([Bk[t, g], Bk[t + 4, g]], 1)
+    c = np.stack([C[g, 2 * t], C[g, 2 * t + 1], C[g + 8, 2 * t], C[g + 8, 2 * t + 1]], 1)
+    d = rehearse.mma_tf32_lanes(_t(a), _t(b), _t(c)).numpy()
+    Dm = A @ Bk + C
+    want = np.stack([Dm[g, 2 * t], Dm[g, 2 * t + 1], Dm[g + 8, 2 * t], Dm[g + 8, 2 * t + 1]], 1)
+    np.testing.assert_array_equal(d, want)
 
 
 def test_attention_lse_is_the_logsumexp_of_the_scores(rng):
