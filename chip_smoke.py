@@ -49,7 +49,12 @@ held within ``TRAIN_TC_LIMIT`` of their plain versions. ``python3
 chip_smoke.py --train-kernels`` runs the training kernels' build, checks and
 times alone; ``python3 chip_smoke.py --bwd-probes`` holds a 1xTF32 control
 of the attention and SSD backward to the same checks and times variants of
-the SSD chunk kernel with one part taken out. The paper's two coupled solvers follow
+the SSD chunk kernel with one part taken out; ``python3 chip_smoke.py --conv1d
+[--against DIR]`` checks and times the conv1d kernels alone, of this checkout
+and another in turns. The LM kernels' time rows carry, beside the events
+around one call (``ms``), the profiler's device ms, the events over 20
+back-to-back calls and the wrapper's host µs (``call_times``): one call
+under ~0.1 ms reads the host. The paper's two coupled solvers follow
 through ``repro_torch.examples.porosity_waves`` (2-D, 8192^2: staggered
 Darcy fluxes, every boundary condition, the flux-split scheme, a fixed run
 and a ``--tol`` run) and ``repro_torch.examples.gross_pitaevskii`` (3-D,
@@ -281,6 +286,8 @@ STEPS_FULL = {"fig1": (512, 512, 512), "porosity": (8192, 8192), "gp": (512, 512
               "staggered": (8192, 8192)}
 STEPS_RUN = 12      # steps of each k-step main-path run, a multiple of every k
 HAND_KS = (2, 3, 4)
+# k above the kernel's MAX_STEPS: launches of at most MAX_STEPS, chained
+HAND_CHAINED_KS = (5, 9)
 
 # Sub-f32 storage: the fields stored bf16 or f16 and computed in f32 (the
 # hand kernel computes at the storage dtype, as its reference does). Every
@@ -305,13 +312,15 @@ MIXED_ONE_STEP_EPS = 4
 # heads of P = N = 64, one group, chunk 64; attention with 32 heads of 64).
 LM_ARCH = "zamba2-1.2b"
 LM_SERVE = dict(batch=4, prompt_len=1024, gen_len=32)
-# (rtol, atol) of each LM kernel against its plain version, f32: conv1d sums
-# its taps in the plain version's order, and SiLU's exponential differs by a
-# few ulp; attention's online softmax over key tiles rounds otherwise than
+# (rtol, atol) of each LM kernel against its plain version, f32: conv1d
+# bitwise (it sums its taps in the plain version's order, each multiply and
+# add rounded on its own, and its SiLU's expf and division gave PyTorch's
+# sigmoid bit for bit on the card at every case); attention's online softmax
+# over key tiles rounds otherwise than
 # one softmax per row, and each 3xTF32 product is about 2^-21 relative off;
 # the SSD kernel sums its 3xTF32 products in another order, over 64-step
 # chunks where the plain version's pick_chunk may take 1-step ones.
-LM_TOL = {"conv1d": (1e-5, 1e-6), "ssd": (1e-4, 1e-4), "attention": (1e-5, 1e-5)}
+LM_TOL = {"conv1d": (0.0, 0.0), "ssd": (1e-4, 1e-4), "attention": (1e-5, 1e-5)}
 # Prefill logits (O(1) for these random weights) of the kernels against the
 # plain versions after 38 Mamba2 layers and 6 shared-block applications,
 # each a few f32 roundings apart.
@@ -609,6 +618,7 @@ def main() -> int:
         for base in ((13, 17, 130), (33, 20, 131), (33, 20, 130), STEPS_FULL["fig1"]):
             err_at.update(check_hand_steps(torch, base, cgen))
         torch.cuda.empty_cache()
+    err_at.update(check_hand_steps(torch, STEPS_FULL["fig1"], cgen, ks=HAND_CHAINED_KS))
     check_ring_rule(torch, ksteps, cgen)
 
     # ---- 3e. bf16 and f16 storage: every variant against its plain version -----
@@ -912,7 +922,8 @@ def main() -> int:
     kernels += [{"name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{k}.cu",
                  "replaces": rep, "launches": lm_counts[k], "max_abs_err": err_at[k],
                  **{x: lm_times[k][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "bound_f32_cuda_cores_ms", "library_ms")}}
+                                                "bound_f32_cuda_cores_ms", "library_ms",
+                                                "device_ms", "event_ms_inner", "host_us")}}
                 for k, rep in lm_rows]
     kernels += [{"name": f"{k}_bwd", "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{k}_bwd.cu", "replaces": rep,
@@ -921,14 +932,16 @@ def main() -> int:
                  "launches": train_run["launches"][f"{k}_bwd"], "max_abs_err": train_err[k],
                  **{x: train_t["kernels"][f"{k}_zamba2"][x]
                     for x in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "bound_f32_cuda_cores_ms", "library_ms")}}
+                              "bound_f32_cuda_cores_ms", "library_ms", "device_ms",
+                              "event_ms_inner", "host_us")}}
                 for k, rep in lm_rows]
     kernels += [{"name": f"{label.split('_')[0]}[{label.split('_', 1)[1]}]", "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{label.split('_')[0]}.cu",
                  "replaces": dict(lm_rows)[label.split("_")[0]],
                  "launches": t["launches_per_request"], "max_abs_err": err_at[label],
                  **{x: t[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "bound_f32_cuda_cores_ms", "library_ms")}}
+                                      "bound_f32_cuda_cores_ms", "library_ms", "device_ms",
+                                      "event_ms_inner", "host_us")}}
                 for label, t in family_times.items()]
     kernels += [{"name": k, "route": "cuda", "source": gen_src,
                  "replaces": "src/repro/kernels/stencil.py:1052",
@@ -1065,11 +1078,14 @@ def lm_main_path(torch, dev, smoke: bool = False, serve_kw=LM_SERVE) -> dict:
 
 
 def lm_case_times(torch, teff, case) -> dict:
-    """One LM kernel case timed (CUDA events, median of 20) beside its plain
-    version and its library call, with its bound: at the rate of the units
-    the kernel runs its products on (attention, SSD: 3xTF32 tensor cores;
-    conv1d: f32 CUDA cores), the f32 CUDA-core bound beside it."""
+    """One LM kernel case timed (CUDA events around one call, median of 20:
+    ``ms``; and ``call_times``' device ms, event ms over back-to-back calls
+    and host µs) beside its plain version and its library call, with its
+    bound: at the rate of the units the kernel runs its products on
+    (attention, SSD: 3xTF32 tensor cores; conv1d: f32 CUDA cores), the f32
+    CUDA-core bound beside it."""
     t = {"ms": teff.measure(case["kernel"], iters=20, warmup=3).median_s * 1e3,
+         **call_times(torch, teff, case["kernel"]),
          "plain_ms": teff.measure(case["plain"], iters=20, warmup=3).median_s * 1e3,
          "library_ms": (teff.measure(case["library"], iters=20, warmup=3).median_s * 1e3
                         if case["library"] else None),
@@ -1080,6 +1096,7 @@ def lm_case_times(torch, teff, case) -> dict:
     t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
     t["bound_rate"] = "3xTF32 tensor cores" if case["tensor_cores"] else "f32 CUDA cores"
     t["bound_f32_cuda_cores_ms"] = max(by_bytes, case["flops"] / PEAK_F32_PER_S) * 1e3
+    t["device_share_of_bound"] = t["bound_ms"] / t["device_ms"]
     t["library"] = case["library_name"]
     return t
 
@@ -1215,31 +1232,61 @@ def lm_families_main_path(torch, dev, smoke: bool = False, serve_kw=LM_FAMILY_SE
     return out
 
 
-def lm_kernel_cases(torch, dev, gen):
+# conv1d's forward cases: (B, L, C, K, silu, bias, offset): Zamba2's and
+# mamba2-130m's prefill shapes, and the tile edges: C not a multiple of 4
+# (4-byte loads), L not a multiple of the positions a block covers, L < K,
+# K = 1 and 8 (the ends of the tiled kernel's instances) and 9 (the generic
+# kernel), no bias, no SiLU, and x one f32 off its allocation's start (an
+# offset view: 4-byte loads)
+LM_CONV1D_CASES = {"odd": (2, 70, 300, 3, True, True, False),
+                   "C301": (2, 70, 301, 4, True, True, False),
+                   "L37": (3, 37, 256, 4, True, True, False),
+                   "L2_K4": (2, 2, 132, 4, True, True, False),
+                   "K1_nobias": (1, 50, 260, 1, True, False, False),
+                   "K8_nosilu": (1, 150, 264, 8, False, True, False),
+                   "K9": (1, 50, 264, 9, True, True, False),
+                   "offset": (2, 70, 300, 4, True, True, True),
+                   "zamba2": (4, 1024, 4224, 4, True, True, False),
+                   "mamba2": (4, 1024, 1792, 4, True, True, False)}
+
+
+def conv1d_case(torch, randn, B, L, C, K, silu=True, bias=True, offset=False) -> dict:
+    """One forward case of lm_kernel_cases: inputs from ``randn``, the
+    kernel, its plain version, ``F.conv1d``, bytes and operations."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv1d
+
+    x, w = randn(B, L, C), randn(K, C, scale=K ** -0.5)
+    b = randn(C, scale=0.1) if bias else None
+    x = off_word(torch, x) if offset else x
+    return {
+        "name": "conv1d", "parts": ["out"],
+        "shape": {"x": [B, L, C], "K": K, "silu": silu, "bias": bias, "offset": offset},
+        "kernel": lambda: (conv1d.conv1d_causal(x, w, b, silu=silu),),
+        "plain": lambda: (conv1d.plain(x, w, b, silu=silu),),
+        "library_name": "F.conv1d(groups=C, padding=K-1) + SiLU (cuDNN, TF32 off)",
+        "library": lambda: F.silu(F.conv1d(
+            x.transpose(1, 2), w.flip(0).t()[:, None, :], b, padding=K - 1,
+            groups=C)[..., :L]).transpose(1, 2),
+        "bytes": 4 * (2 * B * L * C + K * C + C), "flops": B * L * C * (2 * K + 5),
+        "tensor_cores": False}
+
+
+def lm_kernel_cases(torch, dev, gen, others=True):
     """Inputs, kernel, plain version, library call, bytes and operations of
     each LM kernel, at small shapes on the kernels' tile edges, at the
-    Zamba2 prefill shape and at each other family's (LM_FAMILY_CASES)."""
+    Zamba2 prefill shape and at each other family's (LM_FAMILY_CASES);
+    without ``others`` only conv1d's."""
     import torch.nn.functional as F
-    from repro_torch.kernels import attention, conv1d, ref, ssd
+    from repro_torch.kernels import attention, ref, ssd
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
-    cases = {}
-    for label, (B, L, C, K) in {"odd": (2, 70, 300, 3),
-                                "zamba2": (4, 1024, 4224, 4),
-                                "mamba2": (4, 1024, 1792, 4)}.items():
-        x, w, b = randn(B, L, C), randn(K, C, scale=K ** -0.5), randn(C, scale=0.1)
-        cases[f"conv1d_{label}"] = {
-            "name": "conv1d", "shape": {"x": [B, L, C], "K": K}, "parts": ["out"],
-            "kernel": lambda x=x, w=w, b=b: (conv1d.conv1d_causal(x, w, b, silu=True),),
-            "plain": lambda x=x, w=w, b=b: (conv1d.plain(x, w, b, silu=True),),
-            "library_name": "F.conv1d(groups=C, padding=K-1) + SiLU (cuDNN, TF32 off)",
-            "library": lambda x=x, w=w, b=b, L=L, C=C, K=K: F.silu(F.conv1d(
-                x.transpose(1, 2), w.flip(0).t()[:, None, :], b, padding=K - 1,
-                groups=C)[..., :L]).transpose(1, 2),
-            "bytes": 4 * (2 * B * L * C + K * C + C), "flops": B * L * C * (2 * K + 5),
-            "tensor_cores": False}
+    cases = {f"conv1d_{label}": conv1d_case(torch, randn, *shape)
+             for label, shape in LM_CONV1D_CASES.items()}
+    if not others:
+        return cases
     for label, (B, L, H, P, G, N, chunk, with_h0) in {
             "odd": (2, 100, 8, 16, 4, 16, 64, True),
             # pick_chunk halves to 8; chunks 16 and 32 with G = 2; P and N
@@ -1346,9 +1393,14 @@ TRAIN_TOL = {"conv1d": (1e-4, 1e-5), "ssd": (1e-3, 1e-4), "attention": (1e-3, 1e
 TRAIN_TC_LIMIT = {"ssd": 2e-5, "attention": 2e-5}
 TRAIN_KERNELS = ("conv1d_bwd", "ssd_bwd", "attention_bwd")
 TRAIN_CASE_SHAPES = {
+    # (B, L, C, K, silu[, bias, offset]): as LM_CONV1D_CASES's tile edges
+    # (K up to 8, the backward's largest)
     "conv1d": {"odd": (2, 70, 300, 3, True), "zamba2": (4, 1024, 4224, 4, True),
                "zamba2_nosilu": (4, 1024, 4224, 4, False),
-               "mamba2": (4, 128, 1792, 4, True)},
+               "mamba2": (4, 128, 1792, 4, True),
+               "C301": (2, 70, 301, 4, True), "L37": (3, 37, 256, 4, True),
+               "L2_K4": (2, 2, 132, 4, True), "K1_nobias": (1, 50, 260, 1, True, False, False),
+               "K8": (1, 150, 264, 8, True), "offset": (2, 70, 300, 4, True, True, True)},
     # (B, L, H, P, G, N, chunk, h0, dh_final)
     "ssd": {"P6_N10_h0_dhf": (1, 40, 2, 6, 1, 10, 16, True, True),
             "L1000_G2_h0_dhf": (1, 1000, 8, 64, 2, 64, 64, True, True),
@@ -1381,6 +1433,40 @@ def grad_report(torch, got, want, rtol, atol_rel, scale) -> dict:
     return rep
 
 
+def conv1d_bwd_case(torch, randn, B, L, C, K, silu, bias=True, offset=False) -> dict:
+    """One conv1d case of train_kernel_cases: inputs from ``randn`` (x and g
+    one f32 off their allocations' start with ``offset``), the backward
+    kernel, autograd.grad of the plain forward, F.conv1d's backward, bytes
+    and operations."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv1d, ref
+
+    x, w = randn(B, L, C), randn(K, C, scale=K ** -0.5)
+    b = randn(C, scale=0.1) if bias else None
+    g = randn(B, L, C)
+    if offset:
+        x, g = off_word(torch, x), off_word(torch, g)
+
+    def library():
+        leaves = [t.detach().requires_grad_(True) for t in (x, w, b) if t is not None]
+        out = F.conv1d(leaves[0].transpose(1, 2), leaves[1].flip(0).t()[:, None, :],
+                       leaves[2] if bias else None, padding=K - 1,
+                       groups=C)[..., :L].transpose(1, 2)
+        out = F.silu(out) if silu else out
+        return torch.autograd.grad(out, leaves, g)
+
+    return {
+        "name": "conv1d", "parts": ["dx", "dw", "db"] if bias else ["dx", "dw"],
+        "shape": {"x": [B, L, C], "K": K, "silu": silu, "bias": bias, "offset": offset},
+        "kernel": lambda: conv1d.conv1d_causal_bwd(g, x, w, b, silu),
+        "plain": lambda: ref.conv1d_bwd(g, x, w, b, silu),
+        "library_name": "autograd.grad of F.conv1d(groups=C) (+ SiLU): the backward "
+                        "(cuDNN, TF32 off)",
+        "library": library,
+        "bytes": 4 * (3 * B * L * C + 2 * (K * C + C)),
+        "flops": B * L * C * (6 * K + 8), "tensor_cores": False}
+
+
 def train_kernel_cases(torch, dev, gen, shapes=TRAIN_CASE_SHAPES) -> dict:
     """Inputs, backward kernel, plain backward (autograd.grad through the
     plain forward), library call, bytes and operations of each backward
@@ -1396,28 +1482,8 @@ def train_kernel_cases(torch, dev, gen, shapes=TRAIN_CASE_SHAPES) -> dict:
     def pick(grads, names):
         return [grads[n] for n in names]
 
-    cases = {}
-    for label, (B, L, C, K, silu) in shapes["conv1d"].items():
-        x, w, b = randn(B, L, C), randn(K, C, scale=K ** -0.5), randn(C, scale=0.1)
-        g = randn(B, L, C)
-
-        def library(x=x, w=w, b=b, g=g, L=L, C=C, K=K, silu=silu):
-            xs, ws, bs = (t.detach().requires_grad_(True) for t in (x, w, b))
-            out = F.conv1d(xs.transpose(1, 2), ws.flip(0).t()[:, None, :], bs,
-                           padding=K - 1, groups=C)[..., :L].transpose(1, 2)
-            out = F.silu(out) if silu else out
-            return torch.autograd.grad(out, (xs, ws, bs), g)
-
-        cases[f"conv1d_{label}"] = {
-            "name": "conv1d", "shape": {"x": [B, L, C], "K": K, "silu": silu},
-            "parts": ["dx", "dw", "db"],
-            "kernel": lambda x=x, w=w, b=b, g=g, s=silu: conv1d.conv1d_causal_bwd(g, x, w, b, s),
-            "plain": lambda x=x, w=w, b=b, g=g, s=silu: ref.conv1d_bwd(g, x, w, b, s),
-            "library_name": "autograd.grad of F.conv1d(groups=C) (+ SiLU): the backward "
-                            "(cuDNN, TF32 off)",
-            "library": library,
-            "bytes": 4 * (3 * B * L * C + 2 * (K * C + C)),
-            "flops": B * L * C * (6 * K + 8), "tensor_cores": False}
+    cases = {f"conv1d_{label}": conv1d_bwd_case(torch, randn, *shape)
+             for label, shape in shapes["conv1d"].items()}
     for label, (B, L, H, P, G, N, chunk, with_h0, with_dhf) in shapes["ssd"].items():
         x = randn(B, L, H, P, scale=0.5)
         u = torch.rand((B, L, H), generator=gen)
@@ -1513,9 +1579,8 @@ def train_case_report(torch, label, case, on_card) -> tuple[dict, list]:
     plain version (TRAIN_TOL, and on the card TRAIN_TC_LIMIT) and to its
     own first call bitwise. Returns (row, failures)."""
     kernel = case["name"]
-    got = list(case["kernel"]())
-    again = list(case["kernel"]())
-    want = list(case["plain"]())
+    got, again, want = ([t for t in case[k]() if t is not None]
+                        for k in ("kernel", "kernel", "plain"))
     rtol, atol = TRAIN_TOL[kernel]
     row = {"phase": "train_kernel_cases", "kernel": kernel + "_bwd", "case": label,
            "shape": case["shape"], "rtol": rtol, "atol_rel": atol,
@@ -1599,8 +1664,11 @@ def train_case_times(torch, teff, case) -> dict:
     SSD, f32 CUDA cores for conv1d) and on the CUDA cores beside it; for
     attention also SDPA's backward alone (its forward outside the timed
     calls) and the port's forward with its log-sum-exp plus backward; and
-    the profiler's device ms of each launch a call makes."""
+    ``call_times``: the profiler's device ms of each launch a call makes
+    (``split``) and their sum, the event ms over back-to-back calls and the
+    host µs a call."""
     t = {"ms": teff.measure(case["kernel"], iters=20, warmup=3).median_s * 1e3,
+         **call_times(torch, teff, case["kernel"]),
          "plain_ms": teff.measure(case["plain"], iters=5, warmup=1).median_s * 1e3,
          "library_ms": (teff.measure(case["library"], iters=20, warmup=3).median_s * 1e3
                         if case["library"] else None),
@@ -1618,8 +1686,8 @@ def train_case_times(torch, teff, case) -> dict:
     t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
     t["bound_rate"] = "3xTF32 tensor cores" if case["tensor_cores"] else "f32 CUDA cores"
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    t["device_share_of_bound"] = t["bound_ms"] / t["device_ms"]
     t["bound_f32_cuda_cores_ms"] = max(by_bytes, by_f32) * 1e3
-    t["split"] = launch_split(torch, case["kernel"])
     return t
 
 
@@ -1643,6 +1711,30 @@ def launch_split(torch, fn, reps: int = 5) -> dict:
         if us > 0:
             out[e.key[:100]] = {"launches_a_call": e.count / reps, "ms_a_call": us / 1e3 / reps}
     return out
+
+
+# calls between two events in call_times' reading: enough that the host's
+# time for one call (checks, allocation, the launch) hides behind the
+# device's, where a one-call reading measures the host when it is slower
+CALL_INNER = 20
+
+
+def call_times(torch, teff, fn, inner=CALL_INNER, host_calls=100) -> dict:
+    """Three readings of a call of ``fn``: the profiler's device ms summed
+    over the launches it makes (``launch_split``), the event ms a call over
+    ``inner`` back-to-back calls, and the host µs a call (the host clock
+    over ``host_calls`` calls that are not waited for: what the wrapper
+    costs the host)."""
+    split = launch_split(torch, fn)
+    ev = teff.measure(fn, iters=10, warmup=3, inner=inner).median_s * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(host_calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / host_calls * 1e6
+    torch.cuda.synchronize()
+    return {"device_ms": sum(v["ms_a_call"] for v in split.values()), "split": split,
+            "event_ms_inner": ev, "inner": inner, "host_us": host_us}
 
 
 def sass_hmma(library) -> dict:
@@ -1674,17 +1766,19 @@ def ptxas_by_function(log: str) -> dict:
 
 def kernel_name(symbol: str) -> str:
     """A kernel's name from its mangled symbol: the name of a kernel in the
-    anonymous namespace, an instance's template argument in brackets
-    (``ssd_bwd_chunk<2>``); any other symbol as it is."""
-    # _ZN<len><anonymous namespace><len><name>[ILi<n>EE]...
+    anonymous namespace, an instance's integer template arguments in
+    brackets (``ssd_bwd_chunk<2>``, ``conv1d_tile<4, 4>``); any other symbol
+    as it is."""
+    # _ZN<len><anonymous namespace><len><name>[I(Li<n>E)+E]...
     ns = re.match(r"_ZN(\d+)_GLOBAL__N_", symbol)
     d = ns and re.match(r"(\d+)", symbol[ns.end(1) + int(ns.group(1)):])
     if not d:
         return symbol
     rest = symbol[ns.end(1) + int(ns.group(1)) + d.end():]
     n = int(d.group(1))
-    arg = re.match(r"ILi(\d+)E", rest[n:])
-    return rest[:n] + (f"<{arg.group(1)}>" if arg else "")
+    args = re.match(r"I((?:Li\d+E)+)E", rest[n:])
+    return rest[:n] + (f"<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+                       if args else "")
 
 
 def lse_times(torch, teff, dev, gen) -> dict:
@@ -2430,9 +2524,11 @@ def check_k_steps(torch, name, v, k, base, gen) -> float:
 
 
 def check_hand_steps(torch, base, gen, dtype=None, ks=HAND_KS) -> dict:
-    """The hand kernel's k steps in one launch, in place and not, against k
-    single-step launches (T2 a copy of T), and its k-step ring rule against
-    the plain version (T2 apart from T on the ring); fields stored as
+    """The hand kernel's k steps in one launch (above MAX_STEPS in launches
+    of at most MAX_STEPS, ``diffusion3d.chunks``; the row counts them), in
+    place and not, against k single-step launches (T2 a copy of T), and its
+    k-step ring rule against the plain version (T2 apart from T on the
+    ring); fields stored as
     ``dtype`` (f32 by default), where each operation rounds to it. At f16
     the steep random fields leave its range within two steps: inf and NaN
     must then stand where the plain version has them (``same``), and the
@@ -2455,9 +2551,13 @@ def check_hand_steps(torch, base, gen, dtype=None, ks=HAND_KS) -> dict:
         diffs = []
         for alias in (False, True):
             T2 = T.clone()
+            before = diffusion3d.launches
             got = diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=alias)
             torch.cuda.synchronize()
             row["layout"] = diffusion3d.last_layout
+            row["launches"] = diffusion3d.launches - before
+            require(row["launches"] == len(diffusion3d.chunks(k)),
+                    f"diffusion3d nsteps={k}: {row['launches']} launches")
             diffs.append(finite_diff(torch, got, b))
             row[f"alias={alias}"] = {"max_abs_diff": diffs[-1],
                                      "in_place": got.data_ptr() == T2.data_ptr()}
@@ -2483,8 +2583,10 @@ def check_hand_steps(torch, base, gen, dtype=None, ks=HAND_KS) -> dict:
 
 
 def off_word(torch, t):
-    """A copy of a 2-byte tensor two bytes off a 4-byte word: the hand
-    kernel's pair layout refuses it (``diffusion3d.pairs_fit``)."""
+    """A copy of ``t`` one element off its allocation's start: a 2-byte
+    tensor two bytes off a 4-byte word, which the hand kernel's pair layout
+    refuses (``diffusion3d.pairs_fit``); an f32 one off a 16-byte line,
+    which conv1d's 16-byte loads refuse (``conv1d.layout``)."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     return buf[1:].view(t.shape).copy_(t)
 
@@ -5866,6 +5968,128 @@ def train_kernels_alone() -> int:
     return 0
 
 
+# python3 chip_smoke.py --conv1d [--against DIR]: the conv1d kernels alone,
+# for work on them. Each checkout's kernels (this one's, and DIR's: another
+# checkout, e.g. the parent unpacked by ``git archive``) are built, held to
+# their plain versions at every LM_CONV1D_CASES and TRAIN_CASE_SHAPES
+# conv1d case and timed at the CONV1D_TIMED cases in a process of their own
+# (``--conv1d-child SRC``), in turns: DIR, this, this, DIR.
+CONV1D_TIMED = ("zamba2", "mamba2")
+
+
+def conv1d_child(src: str) -> int:
+    """The conv1d kernels of the package under ``src`` built (ptxas's
+    registers and spills of each instance), checked and timed on the card
+    (``lm_case_times``, ``train_case_times``); one JSON line, then exit 1
+    if a check failed."""
+    import torch
+
+    sys.path.insert(0, src)
+    from repro_torch.core import teff
+    from repro_torch.kernels import build, conv1d
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    builds = build.compile_many([("conv1d", build.read_source(conv1d.SOURCE)),
+                                 ("conv1d_bwd", build.read_source(conv1d.BWD_SOURCE))])
+    out = {"src": src, "build_s": time.perf_counter() - t0,
+           "ptxas": {b.name: ptxas_by_function(b.log) for b in builds},
+           "checks": {}, "forward": {}, "backward": {}}
+    gen = torch.Generator(device="cpu").manual_seed(20261020)
+    fwd = lm_kernel_cases(torch, dev, gen, others=False)
+    bwd = train_kernel_cases(torch, dev, gen, {"conv1d": TRAIN_CASE_SHAPES["conv1d"],
+                                               "ssd": {}, "attention": {}})
+    failures = []
+    for label, case in fwd.items():
+        rep = close_report(torch, case["kernel"]()[0], case["plain"]()[0], *LM_TOL["conv1d"])
+        out["checks"][f"forward/{label}"] = rep
+        failures += [] if rep["ok"] else [f"forward {label}: {rep}"]
+    for label, case in bwd.items():
+        row, fails = train_case_report(torch, label, case, True)
+        out["checks"][f"backward/{label}"] = {
+            "worst_err_over_scale": row["worst_err_over_scale"],
+            "bitwise_twice": row["bitwise_twice"], "ok": not fails}
+        failures += fails
+    torch.backends.cudnn.allow_tf32 = False
+    for label in CONV1D_TIMED:
+        for way, case, timer in (("forward", fwd[f"conv1d_{label}"], lm_case_times),
+                                 ("backward", bwd[f"conv1d_{label}"], train_case_times)):
+            t = out[way][label] = timer(torch, teff, case)
+            t["layout"] = conv1d_layout(conv1d, case)
+            if hasattr(conv1d, "TILES"):       # the device ms at each tile the sources take
+                tiles = conv1d.TILES
+                t["by_tile"] = {}
+                try:
+                    for tile in tiles:
+                        conv1d.TILES = (tile,)
+                        t["by_tile"][tile] = {
+                            "layout": conv1d_layout(conv1d, case),
+                            "device_ms": sum(v["ms_a_call"] for v in
+                                             launch_split(torch, case["kernel"]).values())}
+                finally:
+                    conv1d.TILES = tiles
+    out["failures"] = failures
+    print(json.dumps({"conv1d_child": out}), flush=True)
+    return 1 if failures else 0
+
+
+def conv1d_layout(conv1d, case):
+    """The layout name of a conv1d case's launch (None before the tiled
+    kernels)."""
+    case["kernel"]()
+    if getattr(conv1d, "last_layout", None) is None:
+        return None
+    B, L, C = case["shape"]["x"]
+    return conv1d.layout_name(B, L, C, *conv1d.last_layout)
+
+
+def conv1d_alone(against: str | None = None) -> int:
+    """``python3 chip_smoke.py --conv1d [--against DIR]``: ``conv1d_child``
+    of this checkout, and of DIR's in turns with it (DIR, this, this, DIR);
+    each child's line, then the device ms of each timed case by checkout.
+    Not the smoke test's contract."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import teff
+
+    card_name, card_power = teff.card_info(0)
+    emit({"phase": "card", "name": card_name, "power_limit": card_power,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    roots = [against, ROOT, ROOT, against] if against else [ROOT]
+    summary, failures = {}, []
+    for root in roots:
+        src = os.path.join(os.path.abspath(root), "src")
+        done = subprocess.run([sys.executable, os.path.abspath(__file__), "--conv1d-child", src],
+                              capture_output=True, text=True, timeout=900, cwd=ROOT)
+        child = next((json.loads(ln)["conv1d_child"] for ln in done.stdout.splitlines()
+                      if ln.startswith('{"conv1d_child"')), None)
+        emit({"phase": "conv1d_run", "checkout": root, "exit": done.returncode,
+              **(child or {"stderr": done.stderr[-6000:]})})
+        if done.returncode != 0 or child is None:    # the other runs still go
+            failures.append(f"the conv1d kernels of {root} failed: "
+                            f"{child['failures'] if child else done.stderr[-2000:]}")
+            continue
+        name = "this" if root == ROOT else "against"
+        for way in ("forward", "backward"):
+            for label, t in child[way].items():
+                row = summary.setdefault(f"{way}/{label}", {}).setdefault(
+                    name, {"device_ms": [], "event_ms_inner": [], "ms": [], "host_us": []})
+                for key in row:
+                    row[key].append(t[key])
+                summary[f"{way}/{label}"]["bound_ms"] = t["bound_ms"]
+                summary[f"{way}/{label}"]["library_ms"] = t["library_ms"]
+    print(f"{card_name}, {card_power}", flush=True)
+    require(not failures, "; ".join(failures))
+    emit({"phase": "conv1d_alone", "ok": True, "card": card_name, "power_limit": card_power,
+          "cases": summary, "wall_s": time.perf_counter() - START})
+    return 0
+
+
 # --bwd-probes: variants of the attention and SSD backward sources, each a
 # list of (regular expression, replacement, matches wanted; None: at least
 # one) applied to the source with tf32x3.cuh inlined. "1xtf32" keeps only
@@ -5996,6 +6220,10 @@ if __name__ == "__main__":
             sys.exit(train_kernels_alone())
         if sys.argv[1:] == ["--bwd-probes"]:
             sys.exit(bwd_probes())
+        if sys.argv[1:2] == ["--conv1d"]:
+            sys.exit(conv1d_alone(sys.argv[3] if sys.argv[2:3] == ["--against"] else None))
+        if sys.argv[1:2] == ["--conv1d-child"]:
+            sys.exit(conv1d_child(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -10,6 +10,11 @@ plain version is :func:`plain`, used only for tensors that lie on the CPU.
 Training differentiates the kernel through :class:`Conv1dFn`, whose
 backward is the hand-written kernel ``csrc/conv1d_bwd.cu``
 (:func:`conv1d_causal_bwd`; plain version ``ref.conv1d_bwd``).
+
+Both kernels cover the (L, C) slab of each batch row in tiles of 32 x
+``vec`` channels by ``tile`` positions; :func:`layout` picks ``vec`` and
+``tile`` from the shapes and the tensors' alignment, and the sources take
+them as arguments and refuse any other.
 """
 from __future__ import annotations
 
@@ -28,20 +33,33 @@ BWD_SOURCE = build.CSRC_DIR / "conv1d_bwd.cu"
 # Launches of the CUDA kernels; :func:`conv1d_causal` adds one to
 # ``launches`` where it launches, :func:`conv1d_causal_bwd` one to
 # ``launches_bwd`` (a call makes two device launches: the kernel, then the
-# fold of dw and dbias), and nowhere else.
+# fold of dw and dbias), and nowhere else. ``last_layout`` is the (vec,
+# tile) of the last launch of either (:func:`layout`).
 launches = 0
 launches_bwd = 0
+last_layout = None
 
-# t positions each thread marches (the grid's z axis holds at most 65535
-# segments)
-SEGMENT = 64
+# A block's threads: 32 along C, each owning ``vec`` adjacent channels, by 4
+# along t, each owning a run of tile / 4 positions (the sources' kLanes,
+# kRows).
+LANES, ROWS = 32, 4
+# Positions a block covers, largest first: the largest that still gives
+# MIN_BLOCKS blocks (16 on each of the H100's 132 SMs), else the smallest.
+# The sources take these and no other. Timed on the card at 16, 32 and 64
+# (PERF.md §6): 32 was the fastest at Zamba2's 4224 channels, forward and
+# backward, 16 at mamba2-130m's 1792.
+TILES = (32, 16)
+MAX_TILE = 32
+MIN_BLOCKS = 2112
 _MAX_GRID_YZ = 65535
 
-# the backward kernel keeps its K inputs and K gradients in registers
-MAX_K_BWD = 8
+# The kernels keep their K inputs (the backward also its K gradients) in
+# registers, one instance per K up to MAX_K (the sources' kMaxK); the
+# forward takes a larger K in its generic kernel, the backward refuses it.
+MAX_K = 8
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
 
 
 @functools.cache
@@ -54,10 +72,40 @@ def bwd_library() -> build.Library:
     return build.Library("conv1d_bwd", build.read_source(BWD_SOURCE), _BWD_ARGTYPES)
 
 
-def segment(L: int) -> int:
-    """t positions a thread marches (the grid's z axis holds at most 65535
-    segments)."""
-    return max(SEGMENT, -(-L // _MAX_GRID_YZ))
+def layout(B: int, L: int, C: int, K: int, *tensors) -> tuple[int, int]:
+    """``(vec, tile)`` of a launch: ``vec`` channels a thread, 4 (16-byte
+    copies and stores) where K is at most MAX_K, C a multiple of 4 and each
+    of ``tensors`` (those read and written along C) 16-byte aligned, else
+    1; ``tile`` positions a block, the largest of TILES that gives at least
+    MIN_BLOCKS blocks, else the smallest."""
+    vec = 4 if K <= MAX_K and C % 4 == 0 else 1
+    for t in tensors:
+        if t.data_ptr() % 16:
+            vec = 1
+    per_tile = -(-C // (LANES * vec)) * B
+    for tile in TILES:
+        if per_tile * -(-L // tile) >= MIN_BLOCKS:
+            return vec, tile
+    return vec, TILES[-1]
+
+
+def layout_name(B: int, L: int, C: int, vec: int, tile: int) -> str:
+    """``v<vec>/t<tile>/<grid>``: the grid is (position tiles, channel
+    tiles, B) blocks."""
+    return f"v{vec}/t{tile}/{-(-L // tile)}x{-(-C // (LANES * vec))}x{B}"
+
+
+def smem_floats(K: int, vec: int, tile: int) -> int:
+    """Shared memory of a forward block in floats (the source's launch):
+    tile + K - 1 rows of 32 x vec channels; none in the generic kernel."""
+    return (tile + K - 1) * LANES * vec if K <= MAX_K else 0
+
+
+def bwd_smem_floats(K: int, vec: int, tile: int) -> int:
+    """Shared memory of a backward block in floats (the source's
+    ``bwd_smem_floats``): x's tile + 2(K-1) rows and g's tile + K - 1 of 32 x
+    vec channels, or the partials' 4 x (K + 1) rows where more."""
+    return max(2 * tile + 3 * (K - 1), ROWS * (K + 1)) * LANES * vec
 
 
 def plain(x, w, b=None, silu: bool = False):
@@ -71,7 +119,7 @@ def conv1d_causal(x, w, b=None, silu: bool = False):
     ``out[t] = sum_d w[d] x[t-d]`` (zero where ``t - d < 0``) plus the
     bias, then SiLU if asked. CUDA tensors run the kernel; CPU tensors run
     the plain version."""
-    global launches
+    global launches, last_layout
     if all_on_cpu(x, w, b):
         return plain(x, w, b, silu)
     if x.dim() != 3 or w.dim() != 2:
@@ -85,26 +133,38 @@ def conv1d_causal(x, w, b=None, silu: bool = False):
                              "conv1d")
     if K < 1 or B > _MAX_GRID_YZ:
         raise ValueError(f"conv1d: needs K >= 1 and B <= {_MAX_GRID_YZ}, got K={K}, B={B}")
-    out = torch.empty_like(x)
-    seg = segment(L)
+    out, args = fwd_arguments(x, w, b, silu)
     with torch.cuda.device(dev):
-        library().launch(out.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                         B, L, C, K, seg, int(bool(silu)), stream_of(dev))
+        library().launch(*args, stream_of(dev))
     launches += 1
+    last_layout = args[8:10]
     return out
 
 
-def bwd_arguments(dout, x, w, b, silu: bool):
-    """The backward kernel's outputs (dx, dw, db) and its entry point's
-    arguments but the stream, for tensors on one device (the card, or the
-    CPU for ``rehearse``)."""
+def fwd_arguments(x, w, b, silu: bool):
+    """The forward kernel's output and its entry point's arguments but the
+    stream, for tensors on one device (the card, or the CPU for
+    ``rehearse``)."""
     B, L, C = x.shape
     K = w.shape[0]
-    seg = segment(L)
+    out = torch.empty_like(x)
+    vec, tile = layout(B, L, C, K, x, out)
+    return out, (out.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(), B, L, C, K, vec,
+                 tile, int(bool(silu)))
+
+
+def bwd_arguments(dout, x, w, b, silu: bool):
+    """The backward kernel's outputs (dx, dw, db), its entry point's
+    arguments but the stream, and its scratch (a partial row of dw and
+    dbias for each block: B x position tiles rows of (K + 1, C)), for
+    tensors on one device (the card, or the CPU for ``rehearse``)."""
+    B, L, C = x.shape
+    K = w.shape[0]
     dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(b)
-    part = torch.empty((B * -(-L // seg), K + 1, C), dtype=torch.float32, device=x.device)
+    vec, tile = layout(B, L, C, K, dout, x, dx)
+    part = torch.empty((B * -(-L // tile), K + 1, C), dtype=torch.float32, device=x.device)
     args = (dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part.data_ptr(), dout.data_ptr(),
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), B, L, C, K, seg, int(bool(silu)))
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), B, L, C, K, vec, tile, int(bool(silu)))
     return (dx, dw, db), args, part
 
 
@@ -112,13 +172,13 @@ def conv1d_causal_bwd(dout, x, w, b=None, silu: bool = False):
     """The gradients (dx, dw, db) of ``conv1d_causal(x, w, b, silu)`` given
     ``dout``; db is None when b is. CUDA tensors run ``csrc/conv1d_bwd.cu``;
     CPU tensors run the plain version (``ref.conv1d_bwd``)."""
-    global launches_bwd
+    global launches_bwd, last_layout
     if all_on_cpu(dout, x, w, b):
         return ref.conv1d_bwd(dout, x, w, b, silu)
     B, L, C = x.shape
     K = w.shape[0]
-    if not 1 <= K <= MAX_K_BWD or B > _MAX_GRID_YZ:
-        raise ValueError(f"conv1d_bwd: needs 1 <= K <= {MAX_K_BWD} and B <= {_MAX_GRID_YZ}, "
+    if not 1 <= K <= MAX_K or B > _MAX_GRID_YZ:
+        raise ValueError(f"conv1d_bwd: needs 1 <= K <= {MAX_K} and B <= {_MAX_GRID_YZ}, "
                          f"got K={K}, B={B}")
     bias = b if b is not None else torch.zeros((C,), dtype=x.dtype, device=x.device)
     dev = check_cuda_tensors({"dout": (dout, (B, L, C)), "x": (x, (B, L, C)),
@@ -127,6 +187,7 @@ def conv1d_causal_bwd(dout, x, w, b=None, silu: bool = False):
     with torch.cuda.device(dev):
         bwd_library().launch(*args, stream_of(dev))
     launches_bwd += 1
+    last_layout = args[12:14]
     return dx, dw, (db if b is not None else None)
 
 

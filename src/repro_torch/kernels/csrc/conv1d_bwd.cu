@@ -17,26 +17,39 @@
 // (kernels/conv1d.py::Conv1dFn).
 //
 // What bounds it on the H100: bytes. It reads x and g and writes dx (12 bytes
-// per element) against about 4K + 12 f32 operations per element, far below
-// the card's ratio of f32 operations to bytes.
+// per element) against about 6K + 8 f32 operations per element, far below
+// the card's ratio of f32 operations to bytes. Streaming at the memory rate
+// needs about 15-20 KB of loads in flight on each SM.
 //
-// What the design does: the forward's layout. A thread owns one channel c of
-// one batch row and a segment of t, and marches along t with the last K
-// inputs (to recompute pre and SiLU') and the last K values of gp in
-// registers, so x and g are read once per segment plus a K-1 halo; threadIdx.x
-// runs along c, so a warp's loads and stores coalesce. dw and dbias are summed
-// per thread over its segment into a partial row (B x segments rows of
-// (K + 1) x C values), and a second launch folds the rows of each (d, c) in
-// a fixed order: no atomics, the same bits on every call.
+// What the design does: the forward's tiles. A block covers 32 x VEC
+// channels by `tile` positions [t0, t0 + tile) (kernels/conv1d.py::layout:
+// 32 or 16, so that mamba2-130m's training shape too gives several blocks
+// an SM). Its 128 threads first issue every load it needs at once, as
+// cp.async copies into shared memory (16 bytes a copy at VEC = 4, else 4):
+// x over the tile and K-1 positions on each side, g over the tile and the
+// K-1 after it. Then gp is computed once for each of those tile + K - 1
+// positions, in place of g, each thread marching a run of positions with its
+// last K inputs in registers; the same window gives its partial dw and dbias
+// over the tile's positions. After a barrier each thread computes dx over its
+// run from the K gp that follow each position. The block then sums its
+// threads' partials through shared memory in a fixed order and writes one
+// partial row (K + 1 values a channel); a second launch folds the rows of each
+// (d, c) in a fixed order, its threads each summing a strided share of the
+// rows with their loads in flight together. No atomics: the same bits on
+// every call.
 //
-// K up to kMaxK (one template instance per K); the wrapper refuses a larger K.
+// K up to kMaxK (one instance per K and VEC); the wrapper refuses a larger K.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include "tf32x3.cuh"
+#include "conv1d_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxK = 8;
+using namespace conv1d_tiles;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait_all;
+constexpr int kFoldRows = 8;          // threads of a fold block along the rows
 
 // SiLU'(v) = s (1 + v (1 - s)), s = sigmoid(v), with the forward's expf
 __device__ __forceinline__ float silu_grad(float v) {
@@ -44,114 +57,208 @@ __device__ __forceinline__ float silu_grad(float v) {
   return s * (1.0f + v * (1.0f - s));
 }
 
-template <int K>
-__global__ void __launch_bounds__(kThreads) conv1d_bwd_kernel(
+// Shared memory of a block in floats: x's rows (tile + 2(K-1)) and g's, then
+// gp's (tile + K - 1), of 32 x VEC channels; the partials' kRows x (K + 1)
+// rows reuse it. kernels/conv1d.py::bwd_smem_floats computes the same.
+__host__ __device__ constexpr int bwd_smem_floats(int K, int vec, int tile) {
+  return (2 * tile + 3 * (K - 1) > kRows * (K + 1) ? 2 * tile + 3 * (K - 1) : kRows * (K + 1)) *
+         kLanes * vec;
+}
+
+// grid (ceil(L / tile), ceil(C / (32 VEC)), B), block (32, 4). part: one row
+// of (K + 1) x C a block, row b * gridDim.x + blockIdx.x: dw[0..K-1], dbias.
+template <int K, int VEC>
+__global__ void __launch_bounds__(kThreads) conv1d_bwd_tile(
     float* __restrict__ dx, float* __restrict__ part, const float* __restrict__ g,
     const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ bias, const int64_t L, const int64_t C, const int64_t seg,
+    const float* __restrict__ bias, const int64_t L, const int64_t C, const int tile,
     const int silu) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const int64_t b = blockIdx.y;
-  const int64_t t0 = static_cast<int64_t>(blockIdx.z) * seg;
-  const int64_t t1 = t0 + seg < L ? t0 + seg : L;
-  const float* xb = x + b * L * C + c;
-  const float* gb = g + b * L * C + c;
-  float* dxb = dx + b * L * C + c;
-  float wr[K];
+  extern __shared__ float smem[];
+  constexpr int kWidth = kLanes * VEC;   // channels of the tile, a row of smem
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kWidth;
+  const int64_t slab = static_cast<int64_t>(blockIdx.z) * L * C;
+  // xs row r: x at t0 - (K-1) + r; gs row r: g, then gp, at t0 + r
+  float* const xs = smem;
+  float* const gs = smem + (tile + 2 * (K - 1)) * kWidth;
+  stage<VEC>(xs, x + slab, t0 - (K - 1), tile + 2 * (K - 1), L, C, c0);
+  stage<VEC>(gs, g + slab, t0, tile + K - 1, L, C, c0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int64_t c = c0 + threadIdx.x * VEC;
+  const bool live = c < C;               // every thread reaches every barrier
+  const int col = threadIdx.x * VEC;     // the thread's channels in a row of smem
+  float wr[K][VEC], bc[VEC], dw[K][VEC], db[VEC];
 #pragma unroll
-  for (int d = 0; d < K; ++d) wr[d] = w[d * C + c];
-  const float bc = bias[c];
-  // xw[k] = x[t - (K-1) + k]; gw[k] = gp[t - (K-1) + k] (0 before t0: those
-  // only reach dx before the segment)
-  float xw[K], gw[K], dw[K], db = 0.0f;
+  for (int v = 0; v < VEC; ++v) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int64_t s = t0 - (K - 1) + k;
-    xw[k] = (k < K - 1 && s >= 0) ? xb[s * C] : 0.0f;
-    gw[k] = 0.0f;
-    dw[k] = 0.0f;
+    for (int d = 0; d < K; ++d) {
+      wr[d][v] = live ? w[d * C + c + v] : 0.0f;
+      dw[d][v] = 0.0f;
+    }
+    bc[v] = live ? bias[c + v] : 0.0f;
+    db[v] = 0.0f;
   }
-  for (int64_t t = t0; t < t1 + K - 1; ++t) {
-    float gp = 0.0f;
-    if (t < L) {
-      xw[K - 1] = xb[t * C];
-      gp = gb[t * C];
-      if (silu) {
+  const int run = tile / kRows;
+  const int r0 = threadIdx.y * run;      // the thread's first row of the tile
+  // gp at rows [r0, r0 + run) and, for the last row of threads, the K-1
+  // rows after the tile (which dx needs); dw and dbias over the tile's rows
+  const int r1 = threadIdx.y == kRows - 1 ? tile + K - 1 : r0 + run;
+  // win[k] = x at row r - (K-1) + k for gp's row r: xs row r + k
+  float win[K][VEC];
+#pragma unroll
+  for (int k = 0; k < K - 1; ++k) load_vec<VEC>(win[k], xs + (r0 + k) * kWidth + col);
+  for (int r = r0; r < r1; ++r) {
+    load_vec<VEC>(win[K - 1], xs + (r + K - 1) * kWidth + col);
+    float gp[VEC];
+    load_vec<VEC>(gp, gs + r * kWidth + col);
+    if (silu) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
         float pre = 0.0f;
 #pragma unroll
-        for (int k = 0; k < K; ++k) pre = pre + xw[k] * wr[K - 1 - k];
-        gp *= silu_grad(pre + bc);
+        for (int k = 0; k < K; ++k) pre = pre + win[k][v] * wr[K - 1 - k][v];
+        gp[v] *= silu_grad(pre + bc[v]);
       }
     }
-    if (t < t1) {
+    store_vec<VEC>(gs + r * kWidth + col, gp);
+    if (r < tile) {
 #pragma unroll
-      for (int d = 0; d < K; ++d) dw[d] += gp * xw[K - 1 - d];
-      db += gp;
+      for (int v = 0; v < VEC; ++v) {
+#pragma unroll
+        for (int d = 0; d < K; ++d) dw[d][v] += gp[v] * win[K - 1 - d][v];
+        db[v] += gp[v];
+      }
     }
 #pragma unroll
-    for (int k = 0; k < K - 1; ++k) gw[k] = gw[k + 1];
-    gw[K - 1] = gp;
-    // gw[d] = gp[s + d] with s = t - (K-1): dx[s] is complete
-    const int64_t s = t - (K - 1);
-    if (s >= t0) {
-      float acc = 0.0f;
+    for (int k = 0; k < K - 1; ++k) {
 #pragma unroll
-      for (int d = 0; d < K; ++d) acc += wr[d] * gw[d];
-      dxb[s * C] = acc;
+      for (int v = 0; v < VEC; ++v) win[k][v] = win[k + 1][v];
     }
-#pragma unroll
-    for (int k = 0; k < K - 1; ++k) xw[k] = xw[k + 1];
   }
-  // this thread's partial row: dw[0..K-1], then dbias
-  const int64_t row = b * gridDim.z + blockIdx.z;
-  float* pr = part + row * (K + 1) * C + c;
+  __syncthreads();
+
+  // dx over the run: gw[d] = gp at row s + d
+  float gw[K][VEC];
 #pragma unroll
-  for (int d = 0; d < K; ++d) pr[d * C] = dw[d];
-  pr[K * C] = db;
+  for (int d = 0; d < K - 1; ++d) load_vec<VEC>(gw[d], gs + (r0 + d) * kWidth + col);
+  float* const dxb = dx + slab + c;
+  for (int s = r0; s < r0 + run; ++s) {
+    load_vec<VEC>(gw[K - 1], gs + (s + K - 1) * kWidth + col);
+    if (live && t0 + s < L) {
+      float acc[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        acc[v] = 0.0f;
+#pragma unroll
+        for (int d = 0; d < K; ++d) acc[v] += wr[d][v] * gw[d][v];
+      }
+      store_vec<VEC>(dxb + (t0 + s) * C, acc);
+    }
+#pragma unroll
+    for (int d = 0; d < K - 1; ++d) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) gw[d][v] = gw[d + 1][v];
+    }
+  }
+  __syncthreads();                       // every read of xs and gs done
+
+  // the threads' partials, red[y][d][channel] (d = K: dbias), summed over y
+  // in order into the block's row of part
+  float* const red = smem;
+#pragma unroll
+  for (int d = 0; d < K; ++d) {
+    store_vec<VEC>(red + (threadIdx.y * (K + 1) + d) * kWidth + col, dw[d]);
+  }
+  store_vec<VEC>(red + (threadIdx.y * (K + 1) + K) * kWidth + col, db);
+  __syncthreads();
+  float* const row = part + (static_cast<int64_t>(blockIdx.z) * gridDim.x + blockIdx.x) *
+                                (K + 1) * C;
+  for (int i = threadIdx.y * kLanes + threadIdx.x; i < (K + 1) * kWidth; i += kThreads) {
+    const int d = i / kWidth, cc = i % kWidth;
+    if (c0 + cc >= C) continue;
+    float acc = red[d * kWidth + cc];
+#pragma unroll
+    for (int y = 1; y < kRows; ++y) acc += red[(y * (K + 1) + d) * kWidth + cc];
+    row[d * C + c0 + cc] = acc;
+  }
 }
 
-// dw[d, c] (d < K) and dbias[c] (d = K): the partial rows summed in order
-__global__ void __launch_bounds__(kThreads) conv1d_bwd_fold(
+// dw[d, c] (d < K) and dbias[c] (d = K): the partial rows summed in a fixed
+// order. Block (32, 8): lane l of the block's 32 columns, thread y sums rows
+// y, y + 8, ... (their loads issued together), then thread 0 of each column
+// adds the 8 sums in order. Grid ceil((K + 1) C / 32).
+__global__ void __launch_bounds__(kLanes * kFoldRows) conv1d_bwd_fold(
     float* __restrict__ dw, float* __restrict__ db, const float* __restrict__ part,
     const int64_t rows, const int64_t C, const int64_t K) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= (K + 1) * C) return;
+  extern __shared__ float smem[];
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kLanes + threadIdx.x;
+  const int64_t width = (K + 1) * C;
   float acc = 0.0f;
-  for (int64_t r = 0; r < rows; ++r) acc += part[r * (K + 1) * C + i];
+  if (i < width) {
+#pragma unroll 4
+    for (int64_t r = threadIdx.y; r < rows; r += kFoldRows) acc += part[r * width + i];
+  }
+  smem[threadIdx.y * kLanes + threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y != 0 || i >= width) return;
+  float sum = smem[threadIdx.x];
+#pragma unroll
+  for (int y = 1; y < kFoldRows; ++y) sum += smem[y * kLanes + threadIdx.x];
   if (i < K * C) {
-    dw[i] = acc;
+    dw[i] = sum;
   } else {
-    db[i - K * C] = acc;
+    db[i - K * C] = sum;
   }
 }
 
-void launch_fold(dim3 grid, cudaStream_t st, float* dw, float* db, const float* part,
-                 int64_t rows, int64_t C, int64_t K) {
-  const dim3 block(kThreads, 1, 1);
-  conv1d_bwd_fold<<<grid, block, 0, st>>>(
+int launch_fold(dim3 grid, cudaStream_t st, float* dw, float* db, const float* part,
+                int64_t rows, int64_t C, int64_t K) {
+  const dim3 block(kLanes, kFoldRows, 1);
+  const int smem = kLanes * kFoldRows * static_cast<int>(sizeof(float));
+  conv1d_bwd_fold<<<grid, block, smem, st>>>(
       dw, db, part, rows, C, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K, int VEC>
+int launch_tile(dim3 grid, cudaStream_t st, float* dx, float* part, const float* g,
+                const float* x, const float* w, const float* bias, int64_t L, int64_t C,
+                int tile, int silu) {
+  const dim3 block(kLanes, kRows, 1);
+  const int smem = bwd_smem_floats(K, VEC, tile) * static_cast<int>(sizeof(float));
+  const cudaError_t set = cudaFuncSetAttribute(
+      conv1d_bwd_tile<K, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  conv1d_bwd_tile<K, VEC><<<grid, block, smem, st>>>(
+      dx, part, g, x, w, bias, L, C, tile, silu);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
-int launch_k(dim3 grid, cudaStream_t st, float* dx, float* part, const float* g,
+int launch_k(dim3 grid, cudaStream_t st, int vec, float* dx, float* part, const float* g,
              const float* x, const float* w, const float* bias, int64_t L, int64_t C,
-             int64_t seg, int silu) {
-  const dim3 block(kThreads, 1, 1);
-  conv1d_bwd_kernel<K><<<grid, block, 0, st>>>(
-      dx, part, g, x, w, bias, L, C, seg, silu);
-  return static_cast<int>(cudaGetLastError());
+             int tile, int silu) {
+  return vec == 4 ? launch_tile<K, 4>(grid, st, dx, part, g, x, w, bias, L, C, tile, silu)
+                  : launch_tile<K, 1>(grid, st, dx, part, g, x, w, bias, L, C, tile, silu);
 }
 
 }  // namespace
 
-// part: (B * ceil(L / seg), K + 1, C) f32 scratch; K <= kMaxK.
+// part: (B * ceil(L / tile), K + 1, C) f32 scratch; K <= kMaxK; vec and tile
+// as the forward's (kernels/conv1d.py::layout), vec 4 needing g, x and dx
+// 16-byte aligned.
 extern "C" int launch(void* dx, void* dw, void* db, void* part, const void* g,
                       const void* x, const void* w, const void* bias, int64_t B, int64_t L,
-                      int64_t C, int64_t K, int64_t seg, int64_t silu, void* stream) {
-  const dim3 grid(static_cast<unsigned>((C + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(B),
-                  static_cast<unsigned>((L + seg - 1) / seg));
+                      int64_t C, int64_t K, int64_t vec, int64_t tile, int64_t silu,
+                      void* stream) {
+  if (K < 1 || K > kMaxK || !takes(C, vec, tile, aligned16(g) && aligned16(x) && aligned16(dx)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((L + tile - 1) / tile),
+                  static_cast<unsigned>((C + kLanes * vec - 1) / (kLanes * vec)),
+                  static_cast<unsigned>(B));
   auto st = static_cast<cudaStream_t>(stream);
   auto dxo = static_cast<float*>(dx);
   auto pt = static_cast<float*>(part);
@@ -159,24 +266,26 @@ extern "C" int launch(void* dx, void* dw, void* db, void* part, const void* g,
   auto xi = static_cast<const float*>(x);
   auto wi = static_cast<const float*>(w);
   auto bi = static_cast<const float*>(bias);
-  const int s = static_cast<int>(silu);
+  const int s = static_cast<int>(silu), v = static_cast<int>(vec), tl = static_cast<int>(tile);
   int err = 0;
   switch (K) {
-    case 1: err = launch_k<1>(grid, st, dxo, pt, gi, xi, wi, bi, L, C, seg, s); break;
-    case 2: err = launch_k<2>(grid, st, dxo, pt, gi, xi, wi, bi, L, C, seg, s); break;
-    case 3: err = launch_k<3>(grid, st, dxo, pt, gi, xi, wi, bi, L, C, seg, s); break;
-    case 4: err = launch_k<4>(grid, st, dxo, pt, gi, xi, wi, bi, L, C, seg, s); break;
-    case 5: err = launch_k<5>(grid, st, dxo, pt, gi, xi, wi, bi, L, C, seg, s); break;
-    case 6: err = launch_k<6>(grid, st, dxo, pt, gi, xi, wi, bi, L, C, seg, s); break;
-    case 7: err = launch_k<7>(grid, st, dxo, pt, gi, xi, wi, bi, L, C, seg, s); break;
-    case kMaxK: err = launch_k<kMaxK>(grid, st, dxo, pt, gi, xi, wi, bi, L, C, seg, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: err = launch_k<1>(grid, st, v, dxo, pt, gi, xi, wi, bi, L, C, tl, s); break;
+    case 2: err = launch_k<2>(grid, st, v, dxo, pt, gi, xi, wi, bi, L, C, tl, s); break;
+    case 3: err = launch_k<3>(grid, st, v, dxo, pt, gi, xi, wi, bi, L, C, tl, s); break;
+    case 4: err = launch_k<4>(grid, st, v, dxo, pt, gi, xi, wi, bi, L, C, tl, s); break;
+    case 5: err = launch_k<5>(grid, st, v, dxo, pt, gi, xi, wi, bi, L, C, tl, s); break;
+    case 6: err = launch_k<6>(grid, st, v, dxo, pt, gi, xi, wi, bi, L, C, tl, s); break;
+    case 7: err = launch_k<7>(grid, st, v, dxo, pt, gi, xi, wi, bi, L, C, tl, s); break;
+    default: err = launch_k<kMaxK>(grid, st, v, dxo, pt, gi, xi, wi, bi, L, C, tl, s); break;
   }
   if (err != 0) return err;
-  const int64_t rows = B * static_cast<int64_t>(grid.z);
-  const dim3 fold_grid(static_cast<unsigned>(((K + 1) * C + kThreads - 1) / kThreads), 1, 1);
-  launch_fold(fold_grid, st, static_cast<float*>(dw), static_cast<float*>(db), pt, rows, C, K);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 fold_grid(static_cast<unsigned>(((K + 1) * C + kLanes - 1) / kLanes), 1, 1);
+  return launch_fold(fold_grid, st, static_cast<float*>(dw), static_cast<float*>(db), pt,
+                     B * static_cast<int64_t>(grid.x), C, K);
+}
+
+extern "C" int64_t smem_floats(int64_t K, int64_t vec, int64_t tile) {
+  return bwd_smem_floats(static_cast<int>(K), static_cast<int>(vec), static_cast<int>(tile));
 }
 
 extern "C" const char* error_string(int err) {

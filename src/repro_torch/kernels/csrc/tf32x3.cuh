@@ -1,7 +1,8 @@
 // f32-accurate products on Hopper's TF32 tensor cores (3xTF32), and the
 // cp.async copies that feed them: the helpers shared by attention.cu and
-// ssd.cu. kernels/build.py::read_source inlines this file where a source
-// includes it, so a change here rebuilds both.
+// ssd.cu (and their backward sources; the conv1d sources use the copies).
+// kernels/build.py::read_source inlines this file where a source includes
+// it, so a change here rebuilds each of them.
 //
 // A TF32 operand keeps 10 mantissa bits, so one TF32 product is off by
 // about 5e-4 relative. Each f32 operand x is split into hi = rna_tf32(x)

@@ -49,8 +49,14 @@ STEPS_WAVES = 3             # waves of the k-step kernel's resident blocks
 # its rings and queues (kRing, kSlots).
 _TILE_Z, _PLANES, _STEP_THREADS = 32, 2, 256
 _RING, _SLOTS = 6, 4
-MAX_STEPS = 4               # the largest nsteps the kernel takes (kMaxSteps)
+MAX_STEPS = 4               # the largest nsteps a launch takes (kMaxSteps)
 MAX_RESIDENT = 2            # the k-step kernel's most resident blocks (kMaxResident)
+
+
+def chunks(nsteps: int) -> list[int]:
+    """The steps of each launch that :func:`diffusion3d_step` makes for
+    ``nsteps``: MAX_STEPS each, then the rest."""
+    return [MAX_STEPS] * (nsteps // MAX_STEPS) + [nsteps % MAX_STEPS] * (nsteps % MAX_STEPS > 0)
 
 
 def tile_rows(nsteps: int, itemsize: int = 4) -> int:
@@ -173,8 +179,12 @@ def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1
     By default (``None``) the result aliases T2 on the card and is a new
     tensor on the CPU, as the reference aliases on its accelerator only.
 
-    CUDA tensors run the kernel (``nsteps`` at most ``MAX_STEPS``); CPU
-    tensors run the plain version. The scalars are squared here in Python
+    CUDA tensors run the kernel; CPU tensors run the plain version. Above
+    ``MAX_STEPS`` the steps run as launches of at most MAX_STEPS
+    (:func:`chunks`), each into a new tensor with T's ring kept (its T2 the
+    field it steps), the last with T2's ring into the result, as the
+    reference's one launch keeps T's ring until its last step; on CPU tensors
+    each is the plain k-step version. The scalars are squared here in Python
     double, as the plain version squares them, then rounded to the fields'
     dtype (``ref.stored_scalars``), and reach the kernel as f32."""
     global launches, last_layout
@@ -187,6 +197,11 @@ def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1
     if alias and (_shares_storage(T2, T) or _shares_storage(T2, Ci)):
         raise ValueError("alias=True writes into T2's buffer, which must not share "
                          "storage with T or Ci")
+    if nsteps > MAX_STEPS:
+        *ahead, last = chunks(nsteps)
+        for k in ahead:
+            T = diffusion3d_step(T, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, k, alias=False)
+        return diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, last, alias=alias)
     if on_cpu:
         out = ref.diffusion3d_steps(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps)
         return T2.copy_(out) if alias else out
@@ -195,10 +210,6 @@ def diffusion3d_step(T2, T, Ci, lam, dt, inv_dx, inv_dy, inv_dz, nsteps: int = 1
     if T.dtype not in STORAGE_DTYPES:
         raise TypeError(f"T is {T.dtype}; the CUDA kernel takes float32, bfloat16 or float16")
     dev = check_cuda_fields(fields, T.shape, T.dtype)
-    if nsteps > MAX_STEPS:
-        raise NotImplementedError(
-            f"nsteps={nsteps}: the kernel takes at most {MAX_STEPS} steps per launch, "
-            "the steps the card checks")
     out = T2 if alias else torch.empty_like(T)
     pairs = nsteps == 1 and pairs_fit(T.shape[2], out, T2, T, Ci)
     launch = column_launch(tuple(T.shape), torch.cuda.get_device_properties(dev)

@@ -38,10 +38,11 @@ that the ``torch`` backend on CPU tensors is the bitwise reference.
     from repro_torch.kernels import rehearse
     outs, reds = rehearse.run(kernel.compiled(**fields, **scalars), fields, scalars)
 
-The LM backward kernels (``csrc/conv1d_bwd.cu``, ``csrc/ssd_bwd.cu``,
-``csrc/attention_bwd.cu``) are rehearsed the same way through
-:func:`conv1d_bwd`, :func:`ssd_bwd` and :func:`attention_bwd`, which pass
-their wrappers' own arguments (``bwd_arguments``) to the source's entry
+The conv1d forward kernel (``csrc/conv1d.cu``) and the LM backward kernels
+(``csrc/conv1d_bwd.cu``, ``csrc/ssd_bwd.cu``, ``csrc/attention_bwd.cu``)
+are rehearsed the same way through :func:`conv1d`, :func:`conv1d_bwd`,
+:func:`ssd_bwd` and :func:`attention_bwd`, which pass their wrappers' own
+arguments (``fwd_arguments``, ``bwd_arguments``) to the source's entry
 point; every output and scratch buffer is NaN before the launch, so an
 element no thread writes shows. Their tensor-core code runs too: the
 inlined ``csrc/tf32x3.cuh`` becomes a host twin whose ``mma_tf32`` is
@@ -875,16 +876,33 @@ def _nan(*tensors) -> None:
             t.fill_(float("nan"))
 
 
+def conv1d(x, w, b, silu: bool = False):
+    """``csrc/conv1d.cu`` on CPU tensors: the output, as
+    ``conv1d.conv1d_causal`` launches it on a card (a contiguous view that
+    is not 16-byte aligned takes the 4-byte copies here too)."""
+    from . import conv1d as conv
+
+    b = torch.zeros(x.shape[2]) if b is None else b
+    out, args = conv.fwd_arguments(x.contiguous(), w.contiguous(), b.contiguous(), silu)
+    _nan(out)
+    _run_lm(conv.SOURCE, "conv1d", conv._ARGTYPES, args,
+            conv.smem_floats(conv.MAX_K, 4, conv.MAX_TILE))
+    return out
+
+
 def conv1d_bwd(dout, x, w, b, silu: bool = False):
     """``csrc/conv1d_bwd.cu`` on CPU tensors: (dx, dw, db), as
-    ``conv1d.conv1d_causal_bwd`` launches it on a card."""
-    from . import conv1d
+    ``conv1d.conv1d_causal_bwd`` launches it on a card (db None where b
+    is)."""
+    from . import conv1d as conv
 
-    (dx, dw, db), args, part = conv1d.bwd_arguments(dout.contiguous(), x.contiguous(),
-                                                    w.contiguous(), b.contiguous(), silu)
+    bias = torch.zeros(x.shape[2]) if b is None else b
+    (dx, dw, db), args, part = conv.bwd_arguments(dout.contiguous(), x.contiguous(),
+                                                  w.contiguous(), bias.contiguous(), silu)
     _nan(dx, dw, db, part)
-    _run_lm(conv1d.BWD_SOURCE, "conv1d_bwd", conv1d._BWD_ARGTYPES, args)
-    return dx, dw, db
+    _run_lm(conv.BWD_SOURCE, "conv1d_bwd", conv._BWD_ARGTYPES, args,
+            conv.bwd_smem_floats(conv.MAX_K, 4, conv.MAX_TILE))
+    return dx, dw, (db if b is not None else None)
 
 
 def ssd_bwd(x, dt, A, Bm, Cm, dy, D=None, h0=None, dh_final=None, chunk: int = 64):

@@ -36,7 +36,7 @@ from .. import configs
 from ..core.device import resolve_device
 from ..models import RunConfig, build, synth_batch
 
-OWN_KERNELS = ("conv1d_window", "conv1d_any", "ssd_states_kernel", "ssd_output_kernel",
+OWN_KERNELS = ("conv1d_tile", "conv1d_any", "ssd_states_kernel", "ssd_output_kernel",
                "attention_kernel")
 MATMUL_MARKS = ("gemm", "gemv", "cutlass", "sm90_xmma", "cublas")
 

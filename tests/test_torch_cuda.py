@@ -206,11 +206,12 @@ def test_gp_kernels_equal_torch_backend(card, bc, shape, rng):
 
 
 @pytest.mark.parametrize("shape", [(33, 20, 130), (13, 17, 130), (9, 10, 33)])
-@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 9])
 def test_diffusion3d_nsteps_equals_k_launches(card, shape, k, rng):
-    """k steps in one launch equal k rotated single-step launches bitwise
-    (T2 and T agree on the ring), in place and not; the plain version's
-    k-step rule (T2 apart on the ring) too."""
+    """k steps in one launch (above MAX_STEPS, in launches of at most
+    MAX_STEPS: ``diffusion3d.chunks``) equal k rotated single-step launches
+    bitwise (T2 and T agree on the ring), in place and not; the plain
+    version's k-step rule (T2 apart on the ring) too."""
     T, Ci = _rand(rng, shape, card), _rand(rng, shape, card)
     args = (1.0, 1e-4, 32.0, 19.0, 129.0)
     a, b = T.clone(), T.clone()
@@ -219,7 +220,7 @@ def test_diffusion3d_nsteps_equals_k_launches(card, shape, k, rng):
         a, b = b, a
     before = diffusion3d.launches
     got = diffusion3d.diffusion3d_step(T.clone(), T, Ci, *args, nsteps=k, alias=False)
-    assert diffusion3d.launches == before + 1 and torch.equal(got, b)
+    assert diffusion3d.launches == before + len(diffusion3d.chunks(k)) and torch.equal(got, b)
     T2 = T.clone()
     got = diffusion3d.diffusion3d_step(T2, T, Ci, *args, nsteps=k, alias=True)
     torch.cuda.synchronize()
@@ -229,8 +230,6 @@ def test_diffusion3d_nsteps_equals_k_launches(card, shape, k, rng):
                        ref.diffusion3d_steps(T2, T, Ci, *args, nsteps=k))
     with pytest.raises(ValueError, match="storage"):
         diffusion3d.diffusion3d_step(T, T, Ci, *args, nsteps=k, alias=True)
-    with pytest.raises(NotImplementedError, match="at most"):
-        diffusion3d.diffusion3d_step(T.clone(), T, Ci, *args, nsteps=diffusion3d.MAX_STEPS + 1)
 
 
 def _sequential_launches(kern, f, sc, k):

@@ -67,8 +67,10 @@ def test_conv1d_bwd_plain_matches_jax_grad(B, L, C, K, silu, bias, rng):
 @pytest.mark.parametrize("B,L,C,K,silu", [(2, 70, 37, 4, True), (1, 5, 130, 3, False),
                                           (1, 130, 5, 8, True), (3, 9, 3, 1, True)])
 def test_conv1d_bwd_kernel_rehearsed(B, L, C, K, silu, rng):
-    """csrc/conv1d_bwd.cu on the CPU: segments of 64 steps (L = 70, 130
-    cross one), every K of its instances' range, C not a multiple of 128."""
+    """csrc/conv1d_bwd.cu on the CPU: tiles of 16 positions (L = 70, 130
+    end inside one; L = 5, 9 in the first), the ends of its instances' K
+    range, C not a multiple of 4 (4-byte copies; the 16-byte ones, every
+    tile and the other edges: tests/test_torch_conv1d_tiles.py)."""
     x, w = rng.randn(B, L, C).astype(np.float32), rng.randn(K, C).astype(np.float32)
     b, g = rng.randn(C).astype(np.float32), rng.randn(B, L, C).astype(np.float32)
     got = rehearse.conv1d_bwd(_t(g), _t(x), _t(w), _t(b), silu)
