@@ -90,6 +90,28 @@ lead's share of a chunk, and whether a step of the launch takes no longer
 than the single step of the same variant and dtype timed in the same run
 (``at_most_single_step``; a k-step kernel is launched either way).
 
+The LM kernels with bf16 inputs (``lm_bf16_phase``, after the f32 training
+phases, the card freed between): every source also builds a bf16 instance
+(``build.instance``), which converts each storage value on load, runs the
+f32 instance's arithmetic and rounds once on store. Every forward case of
+``lm_kernel_cases`` and every backward case of ``TRAIN_CASE_SHAPES`` at bf16
+(``check_lm_bf16``) must be bitwise the f32 instance on the upcast inputs,
+rounded, and within its f32 tolerance of the plain version at bf16 plus one
+bf16 ulp; Zamba2-1.2B served at bf16 (``main_path_lm_bf16``, batch 4, a
+1024-position prompt, 16 tokens: cold and warm prefill ms, decode tok/s,
+peak GB, launches 38 / 38 / 6; the logits held on a second prompt too) and
+trained at bf16 (``main_path_train_bf16``,
+``TRAIN_STEPS`` steps: launches a step, warm ms, tokens/s, peak GB), each on
+the kernels, the plain versions and a plain f32 run on the weights upcast
+(the control that bounds the stated tolerance); ``times_lm_bf16`` times the
+six bf16 instances at Zamba2's shapes beside the f32 instance's device ms,
+the bound at bf16 storage bytes and at each product's operand types
+(``case_bound``) and the library call at bf16. ``python3
+chip_smoke.py --lm-bf16`` runs the LM kernels' checks and these phases
+alone; ``python3 chip_smoke.py --lm-against DIR`` holds the f32 instances of
+the six LM kernels bitwise to another checkout's (e.g. the parent's) on the
+same inputs.
+
 Then all of it with the fields stored bf16 and f16 (computed in f32): every
 generated variant above (``check_mixed`` for FIG1's three and the generic
 kernel, ``check_coupled`` and ``check_k_steps`` rows with a ``dtype``) held
@@ -261,6 +283,11 @@ PEAK_F32_PER_S = 67e12
 # TFLOP/s dense) per f32 product (3xTF32), the route of the attention and
 # SSD kernels
 PEAK_3XTF32_PER_S = 495e12 / 3
+# with bf16 storage: a product of two bf16 values is exact at the bf16 rate
+# (989 TFLOP/s dense, f32 accumulation); a bf16 value times an f32 one takes
+# two TF32 products (the f32 operand's hi and lo parts; bf16 is exact in TF32)
+PEAK_BF16_PER_S = 989e12
+PEAK_2XTF32_PER_S = 495e12 / 2
 T_RANGE = (1.7, 2.7)      # the maximum principle for the Fig. 1 initial state
 T_SLACK = 2.0 ** -20      # a few f32 ulps of rounding at T ~ 2
 
@@ -451,10 +478,9 @@ def main() -> int:
     serve_kern, serve_plain = demo_kernel("cuda"), demo_kernel("cuda", backend="torch")
     calls_serve = serve_sources(torch, serve_kern, coupled)
     t0 = time.perf_counter()
-    lm_kernels = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
+    lm_sources = lm_instances()      # the six LM sources, each at f32 and at bf16
     sources = ([("diffusion3d", build.read_source(diffusion3d.SOURCE))]
-               + [(n, build.read_source(m.SOURCE)) for n, m in lm_kernels.items()]
-               + [(f"{n}_bwd", build.read_source(m.BWD_SOURCE)) for n, m in lm_kernels.items()]
+               + lm_sources
                + [(c.lib_name, c.source) for c in calls]
                + [(c.lib_name, c.source) for c in calls_k.values()]
                + [(c.lib_name, c.source) for c in calls_mixed.values()]
@@ -462,10 +488,13 @@ def main() -> int:
                + [(c.lib_name, c.source) for c in calls_cells]
                + [(c.lib_name, c.source) for c in calls_serve])
     builds = build.compile_many(sources)
-    # each instance of the LM kernels (forward and backward), by source name
-    lm_ptx = {b.name: ptxas_by_function(b.log) for b in builds[1:1 + 2 * len(lm_kernels)]}
+    # each instance of the LM kernels (forward and backward, f32 and bf16), by
+    # library name
+    lm_builds = builds[1:1 + len(lm_sources)]
+    lm_ptx = {b.name: ptxas_by_function(b.log) for b in lm_builds}
     emit({"phase": "build_lm", "ptxas": lm_ptx,
-          "hmma": {b.name: sass_hmma(b.library) for b in builds[1:1 + 2 * len(lm_kernels)]}})
+          "hmma": {b.name: sass_hmma(b.library) for b in lm_builds},
+          "seconds": {b.name: b.seconds for b in lm_builds}})
     serve_ptx = {src: ptxas_summary(b.log)
                  for b, (_, src) in zip(builds[-len(calls_serve):], sources[-len(calls_serve):])}
     builds, sources = builds[:-len(calls_serve)], sources[:-len(calls_serve)]
@@ -562,26 +591,7 @@ def main() -> int:
 
     # ---- 3b. the LM kernels against their plain versions -------------------
     lm_cases = lm_kernel_cases(torch, dev, gen)
-    lm_failures = []     # every case is checked and printed before any fails
-    for label, case in lm_cases.items():
-        kernel = case["name"]
-        got = case["kernel"]()
-        torch.cuda.synchronize()
-        want = case["plain"]()
-        rtol, atol = LM_TOL[kernel]
-        row = {"phase": "check_lm", "kernel": kernel, "case": label, "shape": case["shape"],
-               "rtol": rtol, "atol": atol}
-        for part, g, w in zip(case["parts"], got, want):
-            row[part] = close_report(torch, g, w, rtol, atol)
-        emit(row)
-        lm_failures += [f"{kernel} ({label}): {part} outside rtol {rtol}, atol {atol}: "
-                        f"{row[part]}" for part in case["parts"] if not row[part]["ok"]]
-        if label.endswith("zamba2"):
-            err_at[kernel] = max(row[part]["max_abs_err"] for part in case["parts"])
-        if label in LM_FAMILY_CASES:
-            err_at[label] = max(row[part]["max_abs_err"] for part in case["parts"])
-        del got, want
-    require(not lm_failures, "; ".join(lm_failures))
+    err_at.update(check_lm_cases(torch, lm_cases))
 
     # ---- 3c. the coupled solvers' generated kernels against the torch backend
     cgen = torch.Generator(device=dev).manual_seed(20260715)
@@ -719,6 +729,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_s = time.perf_counter() - t_train
 
+    # ---- 4b''. bf16 storage in the LM kernels: the cases, Zamba2 served and
+    # trained at bf16 (the card freed after the f32 phases; times at 5b)
+    lm16, train16, err16 = lm_bf16_phase(torch, dev, lm_cases, train_cases)
+    torch.cuda.empty_cache()
+
     # ---- 4c. the coupled solvers' main paths ----------------------------------
     coupled_runs = coupled_main_path(torch, coupled)
 
@@ -815,7 +830,6 @@ def main() -> int:
           "kernels": family_times,
           "serving": {a: {k: r[k] for k in ("prefill_ms", "decode_tok_per_s", "peak_gb")}
                       for a, r in families.items()}})
-    del lm_cases
     t_train = time.perf_counter()
     train_t = times_train(torch, teff, train_cases, spec, dev,
                           torch.Generator(device="cpu").manual_seed(20261019), train_run,
@@ -824,7 +838,8 @@ def main() -> int:
     emit({"phase": "train_wall", "wall_s": train_s, "budget_s": TRAIN_BUDGET_S})
     require(train_s <= TRAIN_BUDGET_S,
             f"the training phases took {train_s:.1f} s, over {TRAIN_BUDGET_S} s")
-    del train_cases
+    times16 = times_lm_bf16(torch, teff, spec, lm_cases, train_cases, lm_ptx, lm16, train16)
+    del lm_cases, train_cases
 
     # ---- 5c. times of the coupled kernels at full size --------------------------
     coupled_times = {}
@@ -943,6 +958,7 @@ def main() -> int:
                                       "bound_f32_cuda_cores_ms", "library_ms", "device_ms",
                                       "event_ms_inner", "host_us")}}
                 for label, t in family_times.items()]
+    kernels += lm_bf16_rows(lm16, train16, times16, err16)
     kernels += [{"name": k, "route": "cuda", "source": gen_src,
                  "replaces": "src/repro/kernels/stencil.py:1052",
                  "launches": coupled_runs["launches"][k], "max_abs_err": err_at[k],
@@ -1018,6 +1034,17 @@ def flat_tensors(tree):
             yield v
 
 
+def lm_instances() -> list:
+    """(library name, source text) of each LM source (forward and backward
+    of conv1d, SSD and attention) at each storage dtype: the f32 instances,
+    then the bf16 ones (``build.instance``)."""
+    from repro_torch.kernels import attention, build, conv1d, ssd
+
+    mods = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
+    return [build.instance(f"{n}{part}", getattr(m, src), b) for b in (False, True)
+            for part, src in (("", "SOURCE"), ("_bwd", "BWD_SOURCE")) for n, m in mods.items()]
+
+
 def lm_main_path(torch, dev, smoke: bool = False, serve_kw=LM_SERVE) -> dict:
     """Serve the LM through ``repro_torch.launch.serve`` on the kernels (the
     launch counts set to 0 just before, read just after), then on the plain
@@ -1077,6 +1104,34 @@ def lm_main_path(torch, dev, smoke: bool = False, serve_kw=LM_SERVE) -> dict:
     return lm
 
 
+def check_lm_cases(torch, lm_cases) -> dict:
+    """Each forward case of lm_kernel_cases against its plain version
+    (LM_TOL); every case is checked and printed before any fails. Returns
+    the max abs error at Zamba2's shape by kernel and at each family's by
+    case label."""
+    err_at, failures = {}, []
+    for label, case in lm_cases.items():
+        kernel = case["name"]
+        got = case["kernel"]()
+        torch.cuda.synchronize()
+        want = case["plain"]()
+        rtol, atol = LM_TOL[kernel]
+        row = {"phase": "check_lm", "kernel": kernel, "case": label, "shape": case["shape"],
+               "rtol": rtol, "atol": atol}
+        for part, g, w in zip(case["parts"], got, want):
+            row[part] = close_report(torch, g, w, rtol, atol)
+        emit(row)
+        failures += [f"{kernel} ({label}): {part} outside rtol {rtol}, atol {atol}: "
+                     f"{row[part]}" for part in case["parts"] if not row[part]["ok"]]
+        if label.endswith("zamba2"):
+            err_at[kernel] = max(row[part]["max_abs_err"] for part in case["parts"])
+        if label in LM_FAMILY_CASES:
+            err_at[label] = max(row[part]["max_abs_err"] for part in case["parts"])
+        del got, want
+    require(not failures, "; ".join(failures))
+    return err_at
+
+
 def lm_case_times(torch, teff, case) -> dict:
     """One LM kernel case timed (CUDA events around one call, median of 20:
     ``ms``; and ``call_times``' device ms, event ms over back-to-back calls
@@ -1089,13 +1144,7 @@ def lm_case_times(torch, teff, case) -> dict:
          "plain_ms": teff.measure(case["plain"], iters=20, warmup=3).median_s * 1e3,
          "library_ms": (teff.measure(case["library"], iters=20, warmup=3).median_s * 1e3
                         if case["library"] else None),
-         "bytes": case["bytes"], "flops": case["flops"]}
-    rate = PEAK_3XTF32_PER_S if case["tensor_cores"] else PEAK_F32_PER_S
-    by_bytes, by_ops = case["bytes"] / PEAK_BYTES_PER_S, case["flops"] / rate
-    t["bound_ms"] = max(by_bytes, by_ops) * 1e3
-    t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-    t["bound_rate"] = "3xTF32 tensor cores" if case["tensor_cores"] else "f32 CUDA cores"
-    t["bound_f32_cuda_cores_ms"] = max(by_bytes, case["flops"] / PEAK_F32_PER_S) * 1e3
+         "bytes": case["bytes"], "flops": case["flops"], **case_bound(case)}
     t["device_share_of_bound"] = t["bound_ms"] / t["device_ms"]
     t["library"] = case["library_name"]
     return t
@@ -1250,6 +1299,55 @@ LM_CONV1D_CASES = {"odd": (2, 70, 300, 3, True, True, False),
                    "mamba2": (4, 1024, 1792, 4, True, True, False)}
 
 
+def on_storage(case: dict, kernel: bool = True) -> dict:
+    """A case with its ``plain`` and ``library`` calls (and ``kernel``,
+    unless the case calls its kernel on inputs of its own): ``run_plain``,
+    ``run_library`` and ``run`` on the case's storage inputs. A backward
+    ``run`` returns (gradients, aux); ``kernel`` the gradients."""
+    s, run = case["storage"], case["run"]
+    case["plain"] = lambda: case["run_plain"](**s)
+    lib = case["run_library"]
+    case["library"] = (lambda: lib(**s)) if lib else None
+    if kernel:
+        case["kernel"] = ((lambda: run(**s)[0]) if case.get("backward") else
+                          (lambda: run(**s)))
+    return case
+
+
+def products(storage: int, mixed: int) -> dict:
+    """A tensor-core case's operations: ``flops`` in all, and ``products``
+    by operand types at bf16 storage (``storage``: both operands storage
+    values; ``mixed``: one an f32 value). At f32 storage all are f32."""
+    return {"flops": storage + mixed, "tensor_cores": True,
+            "products": {"storage": storage, "mixed": mixed}}
+
+
+def case_bound(case, byts=None, bf16=False) -> dict:
+    """A case's least time, the larger of its bytes (``byts``, else the
+    case's f32 count) over the memory rate and its operations over the peak
+    rate of their operand types: conv1d's on the f32 CUDA cores; a
+    tensor-core case's products at 3xTF32 at f32 storage, and at bf16
+    storage (``bf16``) each at its operands' rate (``products``). The bound
+    on the f32 CUDA cores beside it, and at bf16 the one at 3xTF32."""
+    by_bytes = (case["bytes"] if byts is None else byts) / PEAK_BYTES_PER_S
+    by_f32 = case["flops"] / PEAK_F32_PER_S
+    by_3x = case["flops"] / PEAK_3XTF32_PER_S
+    if not case["tensor_cores"]:
+        by_ops, rate = by_f32, "f32 CUDA cores"
+    elif bf16:
+        p = case["products"]
+        by_ops = p["storage"] / PEAK_BF16_PER_S + p["mixed"] / PEAK_2XTF32_PER_S
+        rate = "bf16 tensor cores (bf16 x bf16), 2xTF32 (bf16 x f32)"
+    else:
+        by_ops, rate = by_3x, "3xTF32 tensor cores"
+    out = {"bound_ms": max(by_bytes, by_ops) * 1e3,
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations", "bound_rate": rate,
+           "bound_f32_cuda_cores_ms": max(by_bytes, by_f32) * 1e3}
+    if bf16 and case["tensor_cores"]:
+        out["bound_3xtf32_ms"] = max(by_bytes, by_3x) * 1e3
+    return out
+
+
 def conv1d_case(torch, randn, B, L, C, K, silu=True, bias=True, offset=False) -> dict:
     """One forward case of lm_kernel_cases: inputs from ``randn``, the
     kernel, its plain version, ``F.conv1d``, bytes and operations."""
@@ -1259,17 +1357,20 @@ def conv1d_case(torch, randn, B, L, C, K, silu=True, bias=True, offset=False) ->
     x, w = randn(B, L, C), randn(K, C, scale=K ** -0.5)
     b = randn(C, scale=0.1) if bias else None
     x = off_word(torch, x) if offset else x
-    return {
+    return on_storage({
         "name": "conv1d", "parts": ["out"],
         "shape": {"x": [B, L, C], "K": K, "silu": silu, "bias": bias, "offset": offset},
-        "kernel": lambda: (conv1d.conv1d_causal(x, w, b, silu=silu),),
-        "plain": lambda: (conv1d.plain(x, w, b, silu=silu),),
+        # the storage inputs by name, and the kernel, the plain version and
+        # the library call on any such inputs (bf16 ones: storage_inputs)
+        "storage": {"x": x, "w": w, **({"b": b} if bias else {})}, "offset": ("x",) * offset,
+        "run": lambda x, w, b=None: (conv1d.conv1d_causal(x, w, b, silu=silu),),
+        "run_plain": lambda x, w, b=None: (conv1d.plain(x, w, b, silu=silu),),
         "library_name": "F.conv1d(groups=C, padding=K-1) + SiLU (cuDNN, TF32 off)",
-        "library": lambda: F.silu(F.conv1d(
+        "run_library": lambda x, w, b=None: F.silu(F.conv1d(
             x.transpose(1, 2), w.flip(0).t()[:, None, :], b, padding=K - 1,
             groups=C)[..., :L]).transpose(1, 2),
         "bytes": 4 * (2 * B * L * C + K * C + C), "flops": B * L * C * (2 * K + 5),
-        "tensor_cores": False}
+        "tensor_cores": False})
 
 
 def lm_kernel_cases(torch, dev, gen, others=True):
@@ -1310,22 +1411,25 @@ def lm_kernel_cases(torch, dev, gen, others=True):
         cs = ssd.pick_chunk(L, chunk)      # the plain version's chunk
         kcs, nc = ssd.plan(L, chunk)         # the kernels'
         rows = [min(kcs, L - c * kcs) for c in range(nc)]
-        cases[f"ssd_{label}"] = {
+        cases[f"ssd_{label}"] = on_storage({
             "name": "ssd", "parts": ["y", "h_final"],
             "shape": {"x": [B, L, H, P], "G": G, "N": N, "chunk": cs, "kernel_chunk": kcs,
                       "h0": with_h0},
-            "kernel": lambda a=(x, dt, A, Bm, Cm), D=D, h0=h0, c=chunk:
-                ssd.ssd_chunk_scan(*a, D=D, h0=h0, chunk=c),
-            "plain": lambda a=(x, dt, A, Bm, Cm), D=D, h0=h0, cs=cs:
-                ref.ssd(*a, D=D, h0=h0, chunk=cs),
-            "library_name": None, "library": None,
+            "storage": {"x": x, "Bm": Bm, "Cm": Cm},
+            "run": lambda x, Bm, Cm, f=(dt, A, D, h0), c=chunk:
+                ssd.ssd_chunk_scan(x, f[0], f[1], Bm, Cm, D=f[2], h0=f[3], chunk=c),
+            "run_plain": lambda x, Bm, Cm, f=(dt, A, D, h0), cs=cs:
+                ref.ssd(x, f[0], f[1], Bm, Cm, D=f[2], h0=f[3], chunk=cs),
+            "library_name": None, "run_library": None,
             # x, dt, A, B, C, D (and h0) read once; y and the final state written once
             "bytes": 4 * (2 * B * L * H * P + B * L * H + 2 * H + 2 * B * L * G * N
                           + (2 if with_h0 else 1) * B * H * P * N),
-            # per (b, h) and kernel chunk of r steps: C·Bᵀ and W·x over the
-            # causal triangle, C·h and the state update over (r, P, N)
-            "flops": B * H * sum(r * (r + 1) * (N + P) + 4 * r * P * N for r in rows),
-            "tensor_cores": True}
+            # per kernel chunk of r steps: C·Bᵀ over the causal triangle per
+            # (b, group), of two storage operands; per (b, h) W·x over the
+            # triangle, C·h and the state update over (r, P, N), each with
+            # one f32 operand (W, h, the decayed x)
+            **products(storage=B * G * sum(r * (r + 1) * N for r in rows),
+                       mixed=B * H * sum(r * (r + 1) * P + 4 * r * P * N for r in rows))})
     for label, (B, Hq, Hkv, L, D, causal, window) in {
             "odd": (2, 4, 2, 200, 64, True, 37),
             # the tile edges (64 query rows, 32 keys), GQA rep 2 and 4,
@@ -1355,20 +1459,23 @@ def lm_kernel_cases(torch, dev, gen, others=True):
         if window is not None:
             allowed &= i[None, :] > i[:, None] - window
         pairs = int(allowed.sum())
-        cases[f"attention_{label}"] = {
+        cases[f"attention_{label}"] = on_storage({
             "name": "attention", "parts": ["out"],
             "shape": {"q": [B, Hq, L, D], "Hkv": Hkv, "causal": causal, "window": window},
-            "kernel": lambda q=q, k=k, v=v, c=causal, wd=window:
+            "storage": {"q": q, "k": k, "v": v},
+            "run": lambda q, k, v, c=causal, wd=window:
                 (attention.flash_attention(q, k, v, causal=c, window=wd),),
-            "plain": lambda q=q, k=k, v=v, c=causal, wd=window:
+            "run_plain": lambda q, k, v, c=causal, wd=window:
                 (ref.attention(q, k, v, causal=c, window=wd),),
             "library_name": f"F.scaled_dot_product_attention(is_causal={causal}"
                             + (", enable_gqa=True)" if Hq != Hkv else ")"),
-            "library": (lambda q=q, k=k, v=v, c=causal, g=Hq != Hkv:
-                        F.scaled_dot_product_attention(q, k, v, is_causal=c, enable_gqa=g))
+            "run_library": (lambda q, k, v, c=causal, g=Hq != Hkv:
+                            F.scaled_dot_product_attention(q, k, v, is_causal=c, enable_gqa=g))
             if window is None else None,
             "bytes": 4 * (2 * B * Hq * L * D + 2 * B * Hkv * L * D),
-            "flops": 4 * B * Hq * D * pairs, "tensor_cores": True}
+            # per allowed (b, q head, i, j): q·k (two storage operands) and
+            # p·v (p f32)
+            **products(storage=2 * B * Hq * D * pairs, mixed=2 * B * Hq * D * pairs)})
     return cases
 
 
@@ -1447,7 +1554,7 @@ def conv1d_bwd_case(torch, randn, B, L, C, K, silu, bias=True, offset=False) -> 
     if offset:
         x, g = off_word(torch, x), off_word(torch, g)
 
-    def library():
+    def library(g, x, w, b=None):
         leaves = [t.detach().requires_grad_(True) for t in (x, w, b) if t is not None]
         out = F.conv1d(leaves[0].transpose(1, 2), leaves[1].flip(0).t()[:, None, :],
                        leaves[2] if bias else None, padding=K - 1,
@@ -1455,16 +1562,21 @@ def conv1d_bwd_case(torch, randn, B, L, C, K, silu, bias=True, offset=False) -> 
         out = F.silu(out) if silu else out
         return torch.autograd.grad(out, leaves, g)
 
-    return {
+    return on_storage({
         "name": "conv1d", "parts": ["dx", "dw", "db"] if bias else ["dx", "dw"],
         "shape": {"x": [B, L, C], "K": K, "silu": silu, "bias": bias, "offset": offset},
-        "kernel": lambda: conv1d.conv1d_causal_bwd(g, x, w, b, silu),
-        "plain": lambda: ref.conv1d_bwd(g, x, w, b, silu),
+        "backward": True,
+        "storage": {"g": g, "x": x, "w": w, **({"b": b} if bias else {})},
+        "offset": ("g", "x") * offset,
+        "run": lambda g, x, w, b=None, aux=None: (
+            [t for t in conv1d.conv1d_causal_bwd(g, x, w, b, silu) if t is not None], None),
+        "run_plain": lambda g, x, w, b=None: [
+            t for t in ref.conv1d_bwd(g, x, w, b, silu) if t is not None],
+        "run_library": library,
         "library_name": "autograd.grad of F.conv1d(groups=C) (+ SiLU): the backward "
                         "(cuDNN, TF32 off)",
-        "library": library,
         "bytes": 4 * (3 * B * L * C + 2 * (K * C + C)),
-        "flops": B * L * C * (6 * K + 8), "tensor_cores": False}
+        "flops": B * L * C * (6 * K + 8), "tensor_cores": False})
 
 
 def train_kernel_cases(torch, dev, gen, shapes=TRAIN_CASE_SHAPES) -> dict:
@@ -1498,7 +1610,7 @@ def train_kernel_cases(torch, dev, gen, shapes=TRAIN_CASE_SHAPES) -> dict:
                                                 return_states=True)
         cs_k, nc = ssd.plan(L, chunk)
         names = ["dx", "ddt", "dA", "dB", "dC", "dD"] + (["dh0"] if with_h0 else [])
-        cases[f"ssd_{label}"] = {
+        cases[f"ssd_{label}"] = on_storage({
             "name": "ssd", "parts": names,
             "shape": {"x": [B, L, H, P], "G": G, "N": N, "kernel_chunk": cs_k,
                       "plain_chunk": ssd.pick_chunk(L, chunk), "h0": with_h0,
@@ -1506,10 +1618,15 @@ def train_kernel_cases(torch, dev, gen, shapes=TRAIN_CASE_SHAPES) -> dict:
             "kernel": lambda a=(x, dt, A, Bm, Cm, dy), kw=dict(
                 D=D, h0=h0, dh_final=dhf, states=states, h_final=h_final, chunk=chunk),
                 names=names: pick(ssd.ssd_chunk_scan_bwd(*a, **kw), names),
-            "plain": lambda a=(x, dt, A, Bm, Cm, dy), kw=dict(
-                D=D, h0=h0, dh_final=dhf, chunk=ssd.pick_chunk(L, chunk)), names=names:
-                pick(ref.ssd_bwd(*a, **kw), names),
-            "library_name": None, "library": None,
+            "backward": True, "storage": {"x": x, "Bm": Bm, "Cm": Cm, "dy": dy},
+            # the forward at the inputs' dtype gives the states (f32, the same
+            # at bf16 as at f32 on the upcast inputs), then the backward
+            "run": lambda x, Bm, Cm, dy, aux=None, f=(dt, A, D, h0, dhf), c=chunk,
+                names=names: ssd_fwd_bwd(ssd, x, Bm, Cm, dy, f, c, names, aux),
+            "run_plain": lambda x, Bm, Cm, dy, f=(dt, A, D, h0, dhf),
+                c=ssd.pick_chunk(L, chunk), names=names: pick(ref.ssd_bwd(
+                    x, f[0], f[1], Bm, Cm, dy, D=f[2], h0=f[3], dh_final=f[4], chunk=c), names),
+            "library_name": None, "run_library": None,
             # each once: x, dy, dt, A, B, C, D, the chunk-start states, h0,
             # dh_final and h_final read; dx, ddt, dA, dB, dC, dD and dh0 written
             "bytes": 4 * (3 * B * L * H * P + 2 * B * L * H + 2 * 2 * B * L * G * N
@@ -1520,8 +1637,9 @@ def train_kernel_cases(torch, dev, gen, shapes=TRAIN_CASE_SHAPES) -> dict:
             # recurrence (the fewest the function needs; the chunked algebra
             # the kernel runs does more): h's update (3), y's row sum (2) and
             # dC's column sum (2) forward; G's update (3), G·B's row sum (2)
-            # and dB's column sum (2) backward
-            "flops": 14 * B * L * H * P * N, "tensor_cores": True}
+            # and dB's column sum (2) backward; each has an f32 operand (the
+            # state h or G, or the step dt)
+            **products(storage=0, mixed=14 * B * L * H * P * N)}, kernel=False)
     for label, (B, Hq, Hkv, L, D, causal, window) in shapes["attention"].items():
         q, k, v = randn(B, Hq, L, D), randn(B, Hkv, L, D), randn(B, Hkv, L, D)
         g = randn(B, Hq, L, D)
@@ -1535,11 +1653,6 @@ def train_kernel_cases(torch, dev, gen, shapes=TRAIN_CASE_SHAPES) -> dict:
             allowed &= i[None, :] > i[:, None] - window
         pairs = int(allowed.sum())
 
-        def library(q=q, k=k, v=v, g=g, c=causal, gqa=Hq != Hkv):
-            qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
-            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=c, enable_gqa=gqa)
-            return torch.autograd.grad(o, (qs, ks, vs), g)
-
         def sdpa_bwd(q=q, k=k, v=v, g=g, c=causal, gqa=Hq != Hkv):
             """SDPA's backward alone: the forward runs here, outside the
             timed calls of the function returned."""
@@ -1551,27 +1664,68 @@ def train_kernel_cases(torch, dev, gen, shapes=TRAIN_CASE_SHAPES) -> dict:
             o, ls = attention.flash_attention(q, k, v, causal=c, window=wd, return_lse=True)
             return attention.flash_attention_bwd(q, k, v, o, g, ls, causal=c, window=wd)
 
-        cases[f"attention_{label}"] = {
+        cases[f"attention_{label}"] = on_storage({
             "name": "attention", "parts": ["dq", "dk", "dv"],
             "shape": {"q": [B, Hq, L, D], "Hkv": Hkv, "causal": causal, "window": window},
             "kernel": lambda a=(q, k, v, out, g, lse), c=causal, wd=window:
                 attention.flash_attention_bwd(*a, causal=c, window=wd),
-            "plain": lambda q=q, k=k, v=v, g=g, c=causal, wd=window:
+            "backward": True, "storage": {"q": q, "k": k, "v": v, "g": g},
+            # the forward at the inputs' dtype gives (out32, lse), which the
+            # f32 instance then takes as they are (aux)
+            "run": lambda q, k, v, g, aux=None, c=causal, wd=window:
+                attention_fwd_bwd(attention, q, k, v, g, c, wd, aux),
+            "run_plain": lambda q, k, v, g, c=causal, wd=window:
                 ref.attention_bwd(q, k, v, g, causal=c, window=wd),
+            "run_library": (lambda q, k, v, g, c=causal, gqa=Hq != Hkv:
+                            sdpa_grad(torch, F, q, k, v, g, c, gqa)) if window is None else None,
             "lse": (lse, lambda q=q, k=k, c=causal, wd=window:
                     ref.attention_lse(q, k, causal=c, window=wd)),
             "library_name": (f"F.scaled_dot_product_attention(is_causal={causal}"
                              + (", enable_gqa=True)" if Hq != Hkv else ")")
                              + ": forward plus backward"),
-            "library": library if window is None else None,
             "sdpa_bwd": sdpa_bwd if window is None else None,
             "port_fwd_bwd": port_fwd_bwd,
             "bytes": 4 * (4 * B * Hq * L * D + 4 * B * Hkv * L * D + B * Hq * L),
             # per allowed (b, q head, i, j), the five products the function
-            # needs: q·k, g·v, dv, dk and dq (the dQ launch recomputes q·k
-            # and g·v; that is the design's cost, not the function's)
-            "flops": 10 * D * B * Hq * pairs, "tensor_cores": True}
+            # needs: q·k and g·v (two storage operands), dv, dk and dq (p or
+            # ds f32; the dQ launch recomputes q·k and g·v: the design's
+            # cost, not the function's)
+            **products(storage=4 * D * B * Hq * pairs, mixed=6 * D * B * Hq * pairs)},
+            kernel=False)
     return cases
+
+
+def ssd_fwd_bwd(ssd, x, Bm, Cm, dy, f, chunk, names, aux=None):
+    """An SSD backward case's kernels on storage inputs: the forward's
+    chunk-start states and h_final (``aux``: another call's, as they are),
+    then the backward; (gradients, (states, h_final))."""
+    dt, A, D, h0, dhf = f
+    if aux is None:
+        _, h_final, states = ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, D=D, h0=h0, chunk=chunk,
+                                                return_states=True)
+        aux = (states, h_final)
+    grads = ssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, D=D, h0=h0, dh_final=dhf,
+                                   states=aux[0], h_final=aux[1], chunk=chunk)
+    return [grads[n] for n in names], aux
+
+
+def attention_fwd_bwd(attention, q, k, v, g, causal, window, aux=None):
+    """An attention backward case's kernels on storage inputs: the forward's
+    f32 output and log-sum-exp (``aux``: another call's, as they are), then
+    the backward; (gradients, (out32, lse))."""
+    if aux is None:
+        _, lse, out32 = attention.flash_attention(q, k, v, causal=causal, window=window,
+                                                  return_lse=True, return_out32=True)
+        aux = (out32, lse)
+    return list(attention.flash_attention_bwd(q, k, v, aux[0], g, aux[1], causal=causal,
+                                              window=window)), aux
+
+
+def sdpa_grad(torch, F, q, k, v, g, causal, gqa):
+    """SDPA's forward and backward on (q, k, v) given g."""
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=gqa)
+    return torch.autograd.grad(o, (qs, ks, vs), g)
 
 
 def train_case_report(torch, label, case, on_card) -> tuple[dict, list]:
@@ -1678,16 +1832,9 @@ def train_case_times(torch, teff, case) -> dict:
     if case.get("port_fwd_bwd"):
         t["port_fwd_bwd_ms"] = teff.measure(case["port_fwd_bwd"], iters=20,
                                             warmup=3).median_s * 1e3
-    by_bytes = case["bytes"] / PEAK_BYTES_PER_S
-    by_f32 = case["flops"] / PEAK_F32_PER_S
-    by_tc = case["flops"] / PEAK_3XTF32_PER_S
-    by_ops = by_tc if case["tensor_cores"] else by_f32
-    t["bound_ms"] = max(by_bytes, by_ops) * 1e3
-    t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-    t["bound_rate"] = "3xTF32 tensor cores" if case["tensor_cores"] else "f32 CUDA cores"
+    t.update(case_bound(case))
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
     t["device_share_of_bound"] = t["bound_ms"] / t["device_ms"]
-    t["bound_f32_cuda_cores_ms"] = max(by_bytes, by_f32) * 1e3
     return t
 
 
@@ -2032,6 +2179,440 @@ def times_train(torch, teff, cases, spec, dev, gen, train_row, ptxas=None) -> di
            "tokens_per_s": train_row["tokens_per_s"], "peak_gb": train_row["peak_gb"]}
     emit(row)
     return row
+
+
+# ---- bf16 storage in the LM kernels -------------------------------------------------
+# Every LM kernel takes bf16 storage as the reference's kernels take the
+# parameter dtype: its bf16 instance (build.instance) converts each storage
+# value to f32 on load, runs the f32 instance's arithmetic and rounds once on
+# store. check_lm_bf16 holds every forward case of lm_kernel_cases and every
+# backward case of TRAIN_CASE_SHAPES at bf16 (each f32 input rounded) to the
+# f32 instance on the upcast inputs, rounded: bitwise, no tolerance; and to
+# the plain version at bf16 within the case's f32 tolerance (LM_TOL;
+# TRAIN_TOL and, for the tensor-core backward, TRAIN_TC_LIMIT) plus one bf16
+# ulp of the larger of the two values (both are f32 results rounded once).
+LM_KERNELS = ("conv1d", "ssd", "attention")
+# Zamba2-1.2B at bf16 (RunConfig(param_dtype="bfloat16")): served at batch 4,
+# a 1024-position prompt and 16 generated tokens, and trained TRAIN_STEPS
+# steps at batch 4 x 1024, on the kernels and on the plain versions from the
+# same bf16 weights. Prefill logits (atol) and losses (rtol) of the kernels
+# against the plain versions: each kernel is within its f32 tolerance of its
+# plain version before the one rounding both share, so the runs part where a
+# rounding falls the other way and that difference is carried through 38
+# bf16 layers. Each bound must be at most its f32 control, the plain bf16
+# run's distance from a plain f32 run on the same weights upcast (printed
+# beside it): the kernels move the result less than bf16 itself does. The
+# logits bound is a sanity bound: one rounding that falls the other way
+# spreads through the bf16 projections, so the kernels' distance nears the
+# control's (0.76 of it in max, 0.80 in RMS, PERF.md); the per-case checks
+# (bitwise to the f32 instance) are the guard. It holds on a second prompt
+# (LM_BF16_PROMPTS: the prompts' seeds over the serving seed), same weights.
+LM_BF16_SERVE = dict(batch=4, prompt_len=1024, gen_len=16)
+LM_BF16_LOGITS_ATOL = 0.2
+LM_BF16_PROMPTS = (1, 2)
+TRAIN_BF16_RTOL = 2e-3
+
+
+def bf16_ulp(torch, t):
+    """One bf16 ulp of each |t| (8 significant bits), 0 where t is 0."""
+    m = t.abs().float()
+    return torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - 7), torch.zeros_like(m))
+
+
+def storage_inputs(torch, case, dtype, upcast=None) -> dict:
+    """A case's storage inputs at ``dtype``, new tensors: each f32 input
+    rounded, or with ``upcast`` (inputs at bf16) each of those widened; an
+    input the case places one element off its allocation (``offset``) is
+    placed so again, so both instances take the same layout and tile."""
+    src = upcast if upcast is not None else case["storage"]
+    out = {}
+    for n, t in src.items():
+        t = t.to(dtype) if t.dtype != dtype else t.clone()
+        out[n] = off_word(torch, t) if n in case.get("offset", ()) else t
+    return out
+
+
+def bf16_case_report(torch, label, case, backward, on_card) -> tuple[dict, list]:
+    """One case at bf16: the kernels' outputs bitwise the f32 instance's on
+    the upcast inputs, rounded (f32 outputs equal), the storage outputs
+    bf16, and each within the case's tolerance of the plain version at bf16
+    plus one bf16 ulp. Returns (row, failures)."""
+    bf16 = torch.bfloat16
+    s16 = storage_inputs(torch, case, bf16)
+    s32 = storage_inputs(torch, case, torch.float32, upcast=s16)
+    if backward:
+        got, aux = case["run"](**s16)
+        f32, _ = case["run"](**s32, aux=aux)
+        rtol, atol = TRAIN_TOL[case["name"]]
+    else:
+        got, f32 = list(case["run"](**s16)), list(case["run"](**s32))
+        rtol, atol = LM_TOL[case["name"]]
+    plain = list(case["run_plain"](**s16))
+    kernel = case["name"] + ("_bwd" if backward else "")
+    scale = max(float(w.abs().max()) for w in plain if w.numel()) if backward else 1.0
+    atol_abs = atol * scale if backward else atol
+    limit = TRAIN_TC_LIMIT.get(case["name"]) if backward and on_card else None
+    row = {"phase": "check_lm_bf16", "kernel": kernel, "case": label, "shape": case["shape"],
+           "rtol": rtol, "atol": atol_abs, "tc_limit": limit, "scale": scale}
+    failures = []
+    for part, g, f, p in zip(case["parts"], got, f32, plain):
+        same = bool(torch.equal(g, f.to(g.dtype)))
+        ulp = bf16_ulp(torch, torch.maximum(g.abs().float(), p.abs().float())) \
+            if g.dtype == bf16 else torch.zeros_like(g, dtype=torch.float32)
+        diff = (g.float() - p.float()).abs()
+        excess = diff - (atol_abs + rtol * p.float().abs() + ulp)
+        rep = {"dtype": str(g.dtype).split(".")[-1], "bitwise_f32_rounded": same,
+               "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+               "max_excess": float(excess.max()) if diff.numel() else 0.0,
+               "finite": bool(torch.isfinite(g).all())}
+        rep["ok"] = rep["max_excess"] <= 0 and rep["finite"]
+        if limit is not None and diff.numel():
+            rep["tc_excess"] = float((diff - (limit * scale + ulp)).max())
+            rep["ok"] = rep["ok"] and rep["tc_excess"] <= 0
+        row[part] = rep
+        if not same:
+            failures.append(f"{kernel} ({label}) at bf16: {part} is not the f32 instance's "
+                            "on the upcast inputs, rounded")
+        if not rep["ok"]:
+            failures.append(f"{kernel} ({label}) at bf16: {part} outside the tolerance of the "
+                            f"plain version: {rep}")
+    storage_out = [g for g, f in zip(got, f32) if f.dtype == torch.float32 and g.dtype == bf16]
+    row["storage_outputs_bf16"] = len(storage_out)
+    if not storage_out:
+        failures.append(f"{kernel} ({label}): no output came back bf16")
+    return row, failures
+
+
+def check_lm_bf16(torch, cases, backward, on_card=True) -> tuple[dict, list]:
+    """bf16_case_report of every case; returns (max abs error against the
+    plain version by kernel, failures); every row is printed."""
+    err, failures = {}, []
+    for label, case in cases.items():
+        row, fails = bf16_case_report(torch, label, case, backward, on_card)
+        emit(row)
+        failures += fails
+        key = case["name"] + ("_bwd" if backward else "")
+        err[key] = max(err.get(key, 0.0), max(row[p]["max_abs_err"] for p in case["parts"]))
+    return err, failures
+
+
+def storage_bytes(torch, case, outs) -> int:
+    """A case's bytes (``bytes``: every input read once, every output written
+    once, at f32) with its storage inputs and its bf16 outputs at 2 bytes."""
+    n = sum(t.numel() for t in case["storage"].values()) + \
+        sum(o.numel() for o in outs if o.dtype == torch.bfloat16)
+    return case["bytes"] - 2 * n
+
+
+def lm_bf16_times(torch, teff, case, backward, ptx16) -> dict:
+    """One Zamba2 case at bf16: the profiler's device ms of the bf16 call
+    and of the f32 instance's on the upcast inputs, in turns (f32, bf16,
+    bf16, f32; the lower of each); events around one call; the plain
+    version and the library call at bf16; the bound at bf16 storage bytes
+    and, where there are products, each at the rate of its operand types
+    (``case_bound``; the 3xTF32 bound beside it); ptxas's registers of the
+    bf16 instance."""
+    s16 = storage_inputs(torch, case, torch.bfloat16)
+    s32 = storage_inputs(torch, case, torch.float32, upcast=s16)
+    if backward:
+        outs, aux = case["run"](**s16)
+        fns = {"bf16": lambda: case["run"](**s16, aux=aux),
+               "f32": lambda: case["run"](**s32, aux=aux)}
+    else:
+        outs = list(case["run"](**s16))
+        fns = {"bf16": lambda: case["run"](**s16), "f32": lambda: case["run"](**s32)}
+    dev_ms = {"bf16": [], "f32": []}
+    for way in ("f32", "bf16", "bf16", "f32"):
+        dev_ms[way].append(sum(v["ms_a_call"] for v in launch_split(torch, fns[way]).values()))
+    byts = storage_bytes(torch, case, outs)
+    lib = case.get("run_library")
+    t = {"device_ms": min(dev_ms["bf16"]), "f32_device_ms": min(dev_ms["f32"]),
+         "device_ms_runs": dev_ms,
+         "ms": teff.measure(fns["bf16"], iters=20, warmup=3).median_s * 1e3,
+         "plain_ms": teff.measure(lambda: case["run_plain"](**s16), iters=5,
+                                  warmup=1).median_s * 1e3,
+         "library_ms": (teff.measure(lambda: lib(**s16), iters=20, warmup=3).median_s * 1e3
+                        if lib else None),
+         "library": (case["library_name"] + " at bf16") if lib else None,
+         "bytes": byts, "flops": case["flops"], "products": case.get("products"),
+         **case_bound(case, byts, bf16=True), "ptxas": ptx16}
+    t["device_share_of_bound"] = t["bound_ms"] / t["device_ms"]
+    t["over_f32"] = t["device_ms"] / t["f32_device_ms"]
+    return t
+
+
+def lm_bf16_main_path(torch, dev, smoke: bool = False, serve_kw=LM_BF16_SERVE) -> dict:
+    """Zamba2-1.2B served at bf16 through ``repro_torch.launch.serve`` with
+    ``RunConfig(param_dtype="bfloat16")``: on the kernels twice (the launch
+    counts set to 0 just before the first, cold request and read just after;
+    then a warm one), then on the plain versions with the same bf16 weights
+    and prompt, then a plain f32 run on the weights upcast (the control);
+    then the three again on a second prompt (LM_BF16_PROMPTS). Checks
+    launches, shapes, and at each prompt the logits against the plain run
+    within LM_BF16_LOGITS_ATOL, and that bound against the control."""
+    from repro_torch import configs
+    from repro_torch.kernels import attention, conv1d, ssd
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import RunConfig, build as build_model, synth_batch
+    from repro_torch.optim import adamw
+
+    on_card = dev.type == "cuda"
+    mods = {"conv1d": conv1d, "ssd": ssd, "attention": attention}
+    scfg = lm_serve.ServeConfig(**serve_kw)
+    cfg = configs.get_smoke(LM_ARCH) if smoke else configs.get_arch(LM_ARCH)
+    rc = RunConfig(param_dtype="bfloat16")
+    plain = dict(attn_impl="ref", ssd_impl="ref", conv_impl="ref")
+    model = build_model(cfg, rc, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(scfg.seed))
+    prompts = [synth_batch(model, torch.Generator(device=dev).manual_seed(scfg.seed + k),
+                           scfg.prompt_len, scfg.batch)["tokens"] for k in LM_BF16_PROMPTS]
+
+    def serve(rc_, p, prompt):
+        return lm_serve.serve(LM_ARCH, scfg, rc=rc_, params=p, smoke=smoke, device=dev,
+                              tokens=prompt, log_fn=lambda *a: None)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    runs, counts = [], None
+    for _ in range(2):
+        for m in mods.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        toks, info = serve(rc, params, prompts[0])
+        if on_card:
+            torch.cuda.synchronize()
+        runs.append((toks, info, time.perf_counter() - t0))
+        counts = counts or {n: m.launches for n, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+    kernels = [runs[0][:2]] + [serve(rc, params, p) for p in prompts[1:]]
+    plains = [serve(RunConfig(param_dtype="bfloat16", **plain), params, p) for p in prompts]
+    up = adamw.tree_map(lambda t: t.float(), params)
+    del params
+    f32s = [serve(RunConfig(param_dtype="float32", **plain), up, p)[1] for p in prompts]
+    del up
+
+    def rms(a, b):
+        return float((a - b).square().mean().sqrt())
+
+    logits_rows = []
+    for (tk, ik), (tp, ip), i32 in zip(kernels, plains, f32s):
+        got = ik["prefill_logits"].float()
+        ref16, ref32 = ip["prefill_logits"].float(), i32["prefill_logits"].float()
+        logits_rows.append({
+            "shape": list(got.shape), "dtype": str(ik["prefill_logits"].dtype),
+            "finite": bool(torch.isfinite(got).all()),
+            "max_abs_err_vs_plain": max_abs_diff(got, ref16), "atol": LM_BF16_LOGITS_ATOL,
+            "f32_control": max_abs_diff(ref16, ref32), "rms_vs_plain": rms(got, ref16),
+            "rms_f32_control": rms(ref16, ref32),
+            "tokens_agree_with_plain": int((tk == tp).sum()), "of": int(tk.size)})
+    toks, info, wall = runs[0]
+    info_ref = plains[0][1]
+    row = {"phase": "main_path_lm_bf16", "arch": cfg.name, "smoke": smoke, "serve": serve_kw,
+           "param_dtype": rc.param_dtype, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "wall_s": wall, "launches": counts,
+           "prefill_ms_cold": info["t_prefill_s"] * 1e3,
+           "prefill_ms_warm": runs[1][1]["t_prefill_s"] * 1e3,
+           "decode_tok_per_s": runs[1][1]["tok_per_s"],
+           "decode_tok_per_s_cold": info["tok_per_s"], "peak_gb": peak,
+           "plain_prefill_ms": info_ref["t_prefill_s"] * 1e3,
+           "plain_decode_tok_per_s": info_ref["tok_per_s"],
+           "logits": logits_rows[0], "logits_prompt2": logits_rows[1:],
+           "tokens": {"warm_same_as_cold": bool((runs[1][0] == toks).all()),
+                      "first_row": toks[0].tolist()}}
+    emit(row)
+    for k, lg in zip(LM_BF16_PROMPTS, logits_rows):
+        require(lg["finite"] and lg["shape"] == [scfg.batch, cfg.vocab],
+                f"bf16 prefill logits (prompt {k}) are not finite or of the wrong shape")
+        require(lg["max_abs_err_vs_plain"] <= LM_BF16_LOGITS_ATOL <= lg["f32_control"],
+                f"bf16 prefill logits (prompt {k}): kernels against plain "
+                f"{lg['max_abs_err_vs_plain']}, atol {LM_BF16_LOGITS_ATOL}, "
+                f"f32 control {lg['f32_control']}")
+    require(toks.shape == (scfg.batch, scfg.gen_len) and 0 <= toks.min()
+            and toks.max() < cfg.vocab, "bf16 generated tokens out of range")
+    if on_card:
+        n_groups = cfg.n_layers // cfg.attn_every
+        require(counts == {"conv1d": cfg.n_layers, "ssd": cfg.n_layers, "attention": n_groups},
+                f"launches on the bf16 serving path {counts}")
+    return row
+
+
+def train_bf16_main_path(torch, dev, smoke: bool = False, steps: int = TRAIN_STEPS,
+                         loop_kw=TRAIN_LOOP) -> dict:
+    """Zamba2-1.2B trained at bf16 (bf16 parameters, the f32 master in the
+    AdamW state) through ``repro_torch.launch.train.train``: ``steps`` steps on
+    the kernels (the launch counts set to 0 just before, read after every
+    step), on the plain versions (remat, as the f32 phase's plain run) from
+    the same weights and batches, and a plain f32 run from the weights
+    upcast (the control). Checks launches a step, losses within
+    TRAIN_BF16_RTOL and that bound against the control."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import build as build_model
+    from repro_torch.optim import adamw
+
+    on_card = dev.type == "cuda"
+    cfg = configs.get_smoke(TRAIN_ARCH) if smoke else configs.get_arch(TRAIN_ARCH)
+    n_groups = cfg.n_layers // cfg.attn_every
+    base = lm_train.TrainLoopConfig(steps=steps, log_every=1, **loop_kw)
+    rc = dataclasses.replace(lm_train.default_run_config(base), param_dtype="bfloat16",
+                             remat=TRAIN_REMAT)
+    plain_rc = dataclasses.replace(rc, attn_impl="ref", ssd_impl="ref", conv_impl="ref",
+                                   remat=True)
+    params = build_model(cfg, rc, dev).init(torch.Generator(device=dev).manual_seed(base.seed))
+    quiet = dict(log_fn=lambda *a: None, smoke=smoke, device=dev)
+
+    def clone(dtype=None):
+        return adamw.tree_map(lambda t: t.detach().to(dtype or t.dtype).clone(), params)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    rows, last = [], {}
+
+    def record(step, metrics, seconds):
+        counts = train_counts(torch)
+        rows.append({"step": step, **metrics, "ms": seconds * 1e3,
+                     "launches": {k: v - last.get(k, 0) for k, v in counts.items()}})
+        last.update(counts)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_train_counts()
+    t0 = time.perf_counter()
+    out, state, hist = lm_train.train(TRAIN_ARCH, base, rc=rc, params=clone(), on_step=record,
+                                      **quiet)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+    dtypes = sorted({str(t.dtype) for t in adamw.leaves(out)})
+    master = "master" in state
+    del out, state
+    free()
+    plain_rows = []
+    _, _, plain_hist = lm_train.train(
+        TRAIN_ARCH, base, rc=plain_rc, params=clone(),
+        on_step=lambda s, m, dt: plain_rows.append({"step": s, **m, "ms": dt * 1e3}), **quiet)
+    free()
+    _, _, f32_hist = lm_train.train(
+        TRAIN_ARCH, base, rc=dataclasses.replace(plain_rc, param_dtype="float32"),
+        params=clone(torch.float32), **quiet)
+    free()
+    warm = sorted(r["ms"] for r in rows[1:]) or [rows[0]["ms"]]
+    warm_ms = warm[len(warm) // 2]
+    plain_warm = sorted(r["ms"] for r in plain_rows[1:]) or [plain_rows[0]["ms"]]
+    tokens = loop_kw["global_batch"] * loop_kw["seq_len"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(hist, plain_hist))
+    control = max(abs(a - b) / abs(b) for a, b in zip(plain_hist, f32_hist))
+    want = {"conv1d": cfg.n_layers, "ssd": cfg.n_layers, "attention": n_groups,
+            "conv1d_bwd": cfg.n_layers, "ssd_bwd": cfg.n_layers, "attention_bwd": n_groups}
+    row = {"phase": "main_path_train_bf16", "arch": cfg.name, "smoke": smoke,
+           "param_dtype": rc.param_dtype, "param_dtypes": dtypes, "f32_master": master,
+           "remat": rc.remat, "plain_remat": plain_rc.remat, "batch": loop_kw["global_batch"],
+           "seq_len": loop_kw["seq_len"], "steps": steps, "losses": hist,
+           "plain_losses": plain_hist, "plain_f32_losses": f32_hist,
+           "loss_rel_err": err, "rtol": TRAIN_BF16_RTOL, "f32_control": control,
+           "steps_detail": rows, "launches": train_counts(torch),
+           "launches_per_step_want": want, "peak_gb": peak, "warm_ms_per_step": warm_ms,
+           "tokens_per_s": tokens / (warm_ms / 1e3),
+           "plain_warm_ms_per_step": plain_warm[len(plain_warm) // 2], "wall_s": wall}
+    emit(row)
+    failures = []
+    if not all(math.isfinite(h) for h in hist + plain_hist + f32_hist):
+        failures.append("a bf16 training loss is not finite")
+    if not err <= TRAIN_BF16_RTOL <= control:
+        failures.append(f"bf16 losses: kernels against plain {err}, rtol {TRAIN_BF16_RTOL}, "
+                        f"f32 control {control}")
+    if not master or "torch.bfloat16" not in dtypes:
+        failures.append(f"bf16 training: parameters {dtypes}, f32 master {master}")
+    if on_card and not smoke:
+        for r in rows:
+            if r["launches"] != want:
+                failures.append(f"bf16 step {r['step']} launched {r['launches']}, want {want}")
+    require(not failures, "; ".join(failures))
+    return row
+
+
+def lm_bf16_rows(lm16, train16, times16, err16) -> list:
+    """The kernels line's rows of the six bf16 instances."""
+    reps = {"conv1d": "src/repro/kernels/conv1d.py:44", "ssd": "src/repro/kernels/ssd.py:78",
+            "attention": "src/repro/kernels/attention.py:74"}
+    rows = []
+    for k in LM_KERNELS:
+        for key, launches in ((k, lm16["launches"][k]),
+                              (f"{k}_bwd", train16["launches"][f"{k}_bwd"])):
+            t = times16[key]
+            rows.append({"name": f"{key}:bf16", "route": "cuda",
+                         "source": f"src/repro_torch/kernels/csrc/{key}.cu",
+                         "replaces": reps[k], "storage": "bfloat16 (f32 compute)",
+                         "launches": launches, "max_abs_err": err16[key],
+                         **{x: t[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms", "device_ms", "f32_device_ms")},
+                         "bound_3xtf32_ms": t.get("bound_3xtf32_ms")})
+    return rows
+
+
+def lm_bf16_phase(torch, dev, lm_cases, train_cases, strict: bool = True) -> tuple:
+    """The bf16 LM phases but the times: the forward and backward cases at
+    bf16, Zamba2 served and trained at bf16. Returns (the serving row, the
+    training row, the errors by kernel). Without ``strict`` (work on the
+    kernels) a failed check stops only its own part, and all fail together
+    at the end."""
+    failures = []
+
+    def part(fn, *args):
+        try:
+            return fn(*args)
+        except SmokeFailure as e:
+            if strict:
+                raise
+            failures.append(str(e))
+            return None
+
+    err16, fails = check_lm_bf16(torch, lm_cases, backward=False)
+    err_b, fails_b = check_lm_bf16(torch, train_cases, backward=True)
+    err16.update(err_b)
+    part(require, not fails + fails_b, "; ".join(fails + fails_b))
+    torch.cuda.empty_cache()
+    lm16 = part(lm_bf16_main_path, torch, dev)
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    train16 = part(train_bf16_main_path, torch, dev)
+    train_s = time.perf_counter() - t_train
+    torch.cuda.empty_cache()
+    emit({"phase": "train_bf16_wall", "wall_s": train_s, "budget_s": TRAIN_BUDGET_S})
+    part(require, train_s <= TRAIN_BUDGET_S,
+         f"the bf16 training phase took {train_s:.1f} s, over {TRAIN_BUDGET_S} s")
+    require(not failures, "; ".join(failures))
+    return lm16, train16, err16
+
+
+def times_lm_bf16(torch, teff, spec, lm_cases, train_cases, lm_ptx, lm16, train16) -> dict:
+    """The six bf16 instances timed at Zamba2's shapes (``lm_bf16_times``),
+    with the bf16 serving and training figures beside them. (Run with the
+    other times, after the main paths: once a process had used the profiler
+    before the later phases, it read no device time at the f32 times; PERF.md
+    §6.)"""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    times16 = {}
+    for k in LM_KERNELS:
+        times16[k] = lm_bf16_times(torch, teff, lm_cases[f"{k}_zamba2"], False,
+                                   lm_ptx.get(f"{k}_bf16"))
+        times16[f"{k}_bwd"] = lm_bf16_times(torch, teff, train_cases[f"{k}_zamba2"], True,
+                                            lm_ptx.get(f"{k}_bwd_bf16"))
+    emit({"phase": "times_lm_bf16", "card": spec.name, "power_limit": spec.power_limit,
+          "shapes": {k: lm_cases[f"{k}_zamba2"]["shape"] for k in LM_KERNELS},
+          "train_shapes": {k: train_cases[f"{k}_zamba2"]["shape"] for k in LM_KERNELS},
+          "kernels": times16,
+          "serving": {x: lm16[x] for x in ("prefill_ms_cold", "prefill_ms_warm",
+                                            "decode_tok_per_s", "peak_gb")} if lm16 else None,
+          "training": ({x: train16[x] for x in ("warm_ms_per_step", "tokens_per_s", "peak_gb")}
+                       if train16 else None),
+          "wall_s": time.perf_counter() - t0})
+    return times16
 
 
 def coupled_variants(torch, dev) -> dict:
@@ -5968,68 +6549,82 @@ def train_kernels_alone() -> int:
     return 0
 
 
-# python3 chip_smoke.py --conv1d [--against DIR]: the conv1d kernels alone,
-# for work on them. Each checkout's kernels (this one's, and DIR's: another
-# checkout, e.g. the parent unpacked by ``git archive``) are built, held to
-# their plain versions at every LM_CONV1D_CASES and TRAIN_CASE_SHAPES
-# conv1d case and timed at the CONV1D_TIMED cases in a process of their own
-# (``--conv1d-child SRC``), in turns: DIR, this, this, DIR.
+# python3 chip_smoke.py --lm-against DIR, and --conv1d [--against DIR]: the
+# f32 LM kernels of this checkout and of DIR's (another checkout, e.g. the
+# parent unpacked by ``git archive``), each built, checked and run in a
+# process of its own (``--lm-child SRC KERNELS TIMED``) on the same inputs
+# (lm_kernel_cases and TRAIN_CASE_SHAPES, from fixed seeds): the sha256 of
+# every output, which --lm-against requires to be the same, that is every
+# output bitwise equal. --conv1d takes the conv1d kernels alone, for work on
+# them, and times the CONV1D_TIMED cases in turns (DIR, this, this, DIR),
+# with the device ms at each tile.
 CONV1D_TIMED = ("zamba2", "mamba2")
 
 
-def conv1d_child(src: str) -> int:
-    """The conv1d kernels of the package under ``src`` built (ptxas's
-    registers and spills of each instance), checked and timed on the card
-    (``lm_case_times``, ``train_case_times``); one JSON line, then exit 1
+def lm_child(src: str, names, timed=()) -> int:
+    """The f32 kernels ``names`` (of LM_KERNELS) of the package under
+    ``src`` built (ptxas's registers and spills of each instance), each of
+    their forward and backward cases checked against its plain version and
+    its outputs hashed, the ``timed`` cases timed (``lm_case_times``,
+    ``train_case_times``; conv1d's also by tile); one JSON line, then exit 1
     if a check failed."""
+    import hashlib
+
     import torch
 
     sys.path.insert(0, src)
     from repro_torch.core import teff
-    from repro_torch.kernels import build, conv1d
+    from repro_torch.kernels import attention, build, conv1d, ssd
 
     dev = torch.device("cuda", 0)
+    mods = {n: m for n, m in (("conv1d", conv1d), ("ssd", ssd), ("attention", attention))
+            if n in names}
     t0 = time.perf_counter()
-    builds = build.compile_many([("conv1d", build.read_source(conv1d.SOURCE)),
-                                 ("conv1d_bwd", build.read_source(conv1d.BWD_SOURCE))])
+    builds = build.compile_many([(f"{n}{part}", build.read_source(getattr(m, s)))
+                                 for part, s in (("", "SOURCE"), ("_bwd", "BWD_SOURCE"))
+                                 for n, m in mods.items()])
     out = {"src": src, "build_s": time.perf_counter() - t0,
            "ptxas": {b.name: ptxas_by_function(b.log) for b in builds},
-           "checks": {}, "forward": {}, "backward": {}}
-    gen = torch.Generator(device="cpu").manual_seed(20261020)
-    fwd = lm_kernel_cases(torch, dev, gen, others=False)
-    bwd = train_kernel_cases(torch, dev, gen, {"conv1d": TRAIN_CASE_SHAPES["conv1d"],
-                                               "ssd": {}, "attention": {}})
+           "checks": {}, "sha256": {}, "forward": {}, "backward": {}}
+
+    def sha(t):
+        return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+    gen = torch.Generator(device="cpu").manual_seed(20261021)
+    fwd = {k: c for k, c in lm_kernel_cases(torch, dev, gen, others=names != ["conv1d"]).items()
+           if c["name"] in mods}
+    bwd = train_kernel_cases(torch, dev, gen, {k: v if k in mods else {}
+                                               for k, v in TRAIN_CASE_SHAPES.items()})
     failures = []
     for label, case in fwd.items():
-        rep = close_report(torch, case["kernel"]()[0], case["plain"]()[0], *LM_TOL["conv1d"])
-        out["checks"][f"forward/{label}"] = rep
-        failures += [] if rep["ok"] else [f"forward {label}: {rep}"]
+        got = case["kernel"]()
+        out["sha256"][f"forward/{label}"] = [sha(t) for t in got]
+        rep = {p: close_report(torch, g, w, *LM_TOL[case["name"]])
+               for p, g, w in zip(case["parts"], got, case["plain"]())}
+        out["checks"][f"forward/{label}"] = {"max_abs_err": max(r["max_abs_err"]
+                                                                 for r in rep.values()),
+                                             "ok": all(r["ok"] for r in rep.values())}
+        failures += [] if out["checks"][f"forward/{label}"]["ok"] else [f"forward {label}: {rep}"]
     for label, case in bwd.items():
+        out["sha256"][f"backward/{label}"] = [sha(t) for t in case["kernel"]() if t is not None]
         row, fails = train_case_report(torch, label, case, True)
         out["checks"][f"backward/{label}"] = {
             "worst_err_over_scale": row["worst_err_over_scale"],
             "bitwise_twice": row["bitwise_twice"], "ok": not fails}
         failures += fails
+    out["launches"] = {n: [m.launches, m.launches_bwd] for n, m in mods.items()}
     torch.backends.cudnn.allow_tf32 = False
-    for label in CONV1D_TIMED:
-        for way, case, timer in (("forward", fwd[f"conv1d_{label}"], lm_case_times),
-                                 ("backward", bwd[f"conv1d_{label}"], train_case_times)):
-            t = out[way][label] = timer(torch, teff, case)
-            t["layout"] = conv1d_layout(conv1d, case)
-            if hasattr(conv1d, "TILES"):       # the device ms at each tile the sources take
-                tiles = conv1d.TILES
-                t["by_tile"] = {}
-                try:
-                    for tile in tiles:
-                        conv1d.TILES = (tile,)
-                        t["by_tile"][tile] = {
-                            "layout": conv1d_layout(conv1d, case),
-                            "device_ms": sum(v["ms_a_call"] for v in
-                                             launch_split(torch, case["kernel"]).values())}
-                finally:
-                    conv1d.TILES = tiles
+    for label in timed:
+        for way, cases, timer in (("forward", fwd, lm_case_times),
+                                  ("backward", bwd, train_case_times)):
+            for n in mods:
+                case = cases[f"{n}_{label}"]
+                t = out[way][f"{n}_{label}"] = timer(torch, teff, case)
+                if n == "conv1d":
+                    t["layout"] = conv1d_layout(conv1d, case)
+                    t["by_tile"] = conv1d_by_tile(torch, conv1d, case)
     out["failures"] = failures
-    print(json.dumps({"conv1d_child": out}), flush=True)
+    print(json.dumps({"lm_child": out}), flush=True)
     return 1 if failures else 0
 
 
@@ -6043,50 +6638,122 @@ def conv1d_layout(conv1d, case):
     return conv1d.layout_name(B, L, C, *conv1d.last_layout)
 
 
-def conv1d_alone(against: str | None = None) -> int:
-    """``python3 chip_smoke.py --conv1d [--against DIR]``: ``conv1d_child``
-    of this checkout, and of DIR's in turns with it (DIR, this, this, DIR);
-    each child's line, then the device ms of each timed case by checkout.
-    Not the smoke test's contract."""
-    import torch
+def conv1d_by_tile(torch, conv1d, case):
+    """The device ms of a conv1d case at each tile the sources take (None
+    before the tiled kernels)."""
+    if not hasattr(conv1d, "TILES"):
+        return None
+    tiles, by_tile = conv1d.TILES, {}
+    try:
+        for tile in tiles:
+            conv1d.TILES = (tile,)
+            by_tile[tile] = {"layout": conv1d_layout(conv1d, case),
+                             "device_ms": sum(v["ms_a_call"] for v in
+                                              launch_split(torch, case["kernel"]).values())}
+    finally:
+        conv1d.TILES = tiles
+    return by_tile
 
+
+def card_or_exit(torch):
+    """The card's name and power limit, after putting the port on the path;
+    None without a card."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
               file=sys.stderr)
-        return 2
+        return None
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import teff
 
     card_name, card_power = teff.card_info(0)
     emit({"phase": "card", "name": card_name, "power_limit": card_power,
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    roots = [against, ROOT, ROOT, against] if against else [ROOT]
-    summary, failures = {}, []
+    return card_name, card_power
+
+
+def lm_against(against: str | None, names=LM_KERNELS, timed=(), same_bits=True) -> int:
+    """``python3 chip_smoke.py --lm-against DIR`` (``--conv1d [--against
+    DIR]``: ``names`` conv1d, ``timed`` CONV1D_TIMED, ``same_bits`` off):
+    ``lm_child`` of DIR's checkout and of this one (DIR, this, this, DIR
+    when timing; this one alone without DIR); each child's line, the device
+    ms of each timed case by checkout, the outputs that differ. With
+    ``same_bits`` every output must be bitwise the same. Not the smoke
+    test's contract."""
+    import torch
+
+    card = card_or_exit(torch)
+    if card is None:
+        return 2
+    roots = ([against, ROOT, ROOT, against] if timed else [against, ROOT]) if against else [ROOT]
+    summary, shas, failures = {}, {}, []
     for root in roots:
         src = os.path.join(os.path.abspath(root), "src")
-        done = subprocess.run([sys.executable, os.path.abspath(__file__), "--conv1d-child", src],
-                              capture_output=True, text=True, timeout=900, cwd=ROOT)
-        child = next((json.loads(ln)["conv1d_child"] for ln in done.stdout.splitlines()
-                      if ln.startswith('{"conv1d_child"')), None)
-        emit({"phase": "conv1d_run", "checkout": root, "exit": done.returncode,
+        done = subprocess.run([sys.executable, os.path.abspath(__file__), "--lm-child", src,
+                               ",".join(names), ",".join(timed)],
+                              capture_output=True, text=True, timeout=1500, cwd=ROOT)
+        child = next((json.loads(ln)["lm_child"] for ln in done.stdout.splitlines()
+                      if ln.startswith('{"lm_child"')), None)
+        emit({"phase": "lm_child", "checkout": root, "exit": done.returncode,
               **(child or {"stderr": done.stderr[-6000:]})})
         if done.returncode != 0 or child is None:    # the other runs still go
-            failures.append(f"the conv1d kernels of {root} failed: "
+            failures.append(f"the LM kernels of {root} failed: "
                             f"{child['failures'] if child else done.stderr[-2000:]}")
             continue
         name = "this" if root == ROOT else "against"
+        shas.setdefault(name, child["sha256"])
         for way in ("forward", "backward"):
             for label, t in child[way].items():
                 row = summary.setdefault(f"{way}/{label}", {}).setdefault(
                     name, {"device_ms": [], "event_ms_inner": [], "ms": [], "host_us": []})
                 for key in row:
                     row[key].append(t[key])
-                summary[f"{way}/{label}"]["bound_ms"] = t["bound_ms"]
-                summary[f"{way}/{label}"]["library_ms"] = t["library_ms"]
-    print(f"{card_name}, {card_power}", flush=True)
+                summary[f"{way}/{label}"].update(bound_ms=t["bound_ms"],
+                                                 library_ms=t["library_ms"])
+    a, b = shas.get("against", {}), shas.get("this", {})
+    differ = sorted(k for k in a if a[k] != b.get(k))
+    print(f"{card[0]}, {card[1]}", flush=True)
+    emit({"phase": "lm_against", "kernels": list(names), "against": against,
+          "cases": len(b), "outputs": sum(map(len, b.values())),
+          "same_cases": sorted(a) == sorted(b), "differ": differ, "times": summary,
+          "wall_s": time.perf_counter() - START})
+    if same_bits and against:
+        failures += [] if sorted(a) == sorted(b) and not differ else [
+            f"the f32 LM kernels differ from {against}'s: {differ}"]
     require(not failures, "; ".join(failures))
-    emit({"phase": "conv1d_alone", "ok": True, "card": card_name, "power_limit": card_power,
-          "cases": summary, "wall_s": time.perf_counter() - START})
+    return 0
+
+
+def lm_bf16_alone() -> int:
+    """``python3 chip_smoke.py --lm-bf16``: the LM kernels alone on one card,
+    for work on their storage dtypes. Builds the six LM sources at f32 and
+    bf16, holds every forward and backward case to its plain version at f32
+    (as the smoke test's phases 3b and 4b' do), then runs the bf16 phase
+    (``lm_bf16_phase``: the cases at bf16, Zamba2 served and trained at bf16,
+    the times). Not the smoke test's contract."""
+    import torch
+
+    card = card_or_exit(torch)
+    if card is None:
+        return 2
+    from repro_torch.core import teff
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    builds = build.compile_many(lm_instances())
+    lm_ptx = {b.name: ptxas_by_function(b.log) for b in builds}
+    emit({"phase": "build_lm", "wall_s": time.perf_counter() - t0, "ptxas": lm_ptx,
+          "seconds": {b.name: b.seconds for b in builds}})
+    lm_cases = lm_kernel_cases(torch, dev, torch.Generator(device="cpu").manual_seed(20260714))
+    err = check_lm_cases(torch, lm_cases)
+    train_cases, train_err = check_train_kernels(
+        torch, dev, torch.Generator(device="cpu").manual_seed(20261018))
+    lm16, train16, err16 = lm_bf16_phase(torch, dev, lm_cases, train_cases, strict=False)
+    times_lm_bf16(torch, teff, teff.device_spec(0), lm_cases, train_cases, lm_ptx, lm16,
+                  train16)
+    print(f"{card[0]}, {card[1]}", flush=True)
+    emit({"phase": "lm_bf16_alone", "ok": True, "max_abs_err": {**err, **train_err},
+          "max_abs_err_bf16": err16, "wall_s": time.perf_counter() - START})
     return 0
 
 
@@ -6171,7 +6838,7 @@ def bwd_probes() -> int:
             row, fails = train_case_report(torch, label, case, True)
             emit(row)
             failures += fails
-            mods[k].bwd_library = lambda lib=libs[k, "1xtf32"]: lib
+            mods[k].bwd_library = lambda bf16=False, lib=libs[k, "1xtf32"]: lib
             crow, cfails = train_case_report(torch, label, case, True)
             mods[k].bwd_library = originals[k]
             parts = case["parts"]
@@ -6197,7 +6864,7 @@ def bwd_probes() -> int:
             order = ["kernel", *BWD_PROBED[k], "kernel"]
             runs = {}
             for v in order:
-                mods[k].bwd_library = lambda lib=libs[k, v]: lib
+                mods[k].bwd_library = lambda bf16=False, lib=libs[k, v]: lib
                 runs.setdefault(v, []).append({
                     "ms": teff.measure(case["kernel"], iters=20, warmup=3).median_s * 1e3,
                     "split": launch_split(torch, case["kernel"])})
@@ -6221,9 +6888,15 @@ if __name__ == "__main__":
         if sys.argv[1:] == ["--bwd-probes"]:
             sys.exit(bwd_probes())
         if sys.argv[1:2] == ["--conv1d"]:
-            sys.exit(conv1d_alone(sys.argv[3] if sys.argv[2:3] == ["--against"] else None))
-        if sys.argv[1:2] == ["--conv1d-child"]:
-            sys.exit(conv1d_child(sys.argv[2]))
+            sys.exit(lm_against(sys.argv[3] if sys.argv[2:3] == ["--against"] else None,
+                                ["conv1d"], CONV1D_TIMED, same_bits=False))
+        if sys.argv[1:] == ["--lm-bf16"]:
+            sys.exit(lm_bf16_alone())
+        if sys.argv[1:2] == ["--lm-against"]:
+            sys.exit(lm_against(sys.argv[2]))
+        if sys.argv[1:2] == ["--lm-child"]:
+            sys.exit(lm_child(sys.argv[2], sys.argv[3].split(","),
+                              [t for t in sys.argv[4].split(",") if t]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -45,16 +45,26 @@ def fields_to_numpy(fields: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]
             .cpu().numpy().copy() for n, t in fields.items()}
 
 
+def _leaf_from_numpy(a, dev) -> torch.Tensor:
+    """A numpy array as a new tensor of the same dtype on ``dev``; a bf16
+    array (``ml_dtypes``, which torch cannot read) crosses as its 16-bit
+    words, bit for bit."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev).contiguous()
+    return torch.from_numpy(a).to(dev).contiguous()
+
+
 def _tree_from_numpy(tree, dev):
     if isinstance(tree, Mapping):
         return {k: _tree_from_numpy(v, dev) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(dev).contiguous()
+    return _leaf_from_numpy(tree, dev)
 
 
 def params_from_numpy(tree: Mapping, *, device="cuda") -> dict:
     """A nested dict of numpy arrays (the reference's parameter tree) as the
     port's tree: the same keys, each leaf a new tensor of the same dtype on
-    ``device``."""
+    ``device`` (bf16 leaves bit for bit)."""
     return _tree_from_numpy(tree, resolve_device(device))
 
 
@@ -67,9 +77,10 @@ def cache_from_numpy(cache: Mapping, *, device="cuda") -> dict:
 
 
 def cache_to_numpy(cache: Mapping) -> dict:
-    """The port's serving cache as numpy arrays on the host (copies)."""
-    return {n: (cache_to_numpy(t) if isinstance(t, Mapping)
-                else t.detach().cpu().numpy().copy()) for n, t in cache.items()}
+    """The port's serving cache as numpy arrays on the host (copies); bf16
+    leaves come back as f32 (exact), as :func:`opt_state_to_numpy` gives
+    them."""
+    return opt_state_to_numpy(cache)
 
 
 def opt_state_from_numpy(state: Mapping, *, device="cuda") -> dict:

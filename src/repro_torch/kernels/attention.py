@@ -16,6 +16,15 @@ Training differentiates the kernel through :class:`AttentionFn`: the
 forward also writes each row's log-sum-exp, and the backward is the
 hand-written ``csrc/attention_bwd.cu`` (:func:`flash_attention_bwd`; plain
 version ``ref.attention_bwd``).
+
+q, k, v and the output (in the backward also dout, dq, dk and dv) are
+float32 or bfloat16, one dtype a call, as the reference's kernel takes the
+parameter dtype; the log-sum-exp is float32, and so is the output the
+backward reads (the forward's ``out32``, its output before rounding: the
+bf16 output would put an error of about 1e-3 of the largest gradient into
+dq and dk through delta = dout·out). Each dtype runs its own instance of
+the sources (``library(bf16)``), which converts to f32 on load, computes in
+f32 and rounds once on store.
 """
 from __future__ import annotations
 
@@ -47,7 +56,7 @@ launches_bwd = 0
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 _MAX_GRID_Y = 65535
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 8 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 8 + [ctypes.c_float]
              + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8 + [ctypes.c_float]
                  + [ctypes.c_void_p])
@@ -63,13 +72,13 @@ def bwd_tile(D: int) -> int:
 
 
 @functools.cache
-def library() -> build.Library:
-    return build.Library("attention", build.read_source(SOURCE), _ARGTYPES)
+def library(bf16: bool = False) -> build.Library:
+    return build.Library(*build.instance("attention", SOURCE, bf16), _ARGTYPES)
 
 
 @functools.cache
-def bwd_library() -> build.Library:
-    return build.Library("attention_bwd", build.read_source(BWD_SOURCE), _BWD_ARGTYPES)
+def bwd_library(bf16: bool = False) -> build.Library:
+    return build.Library(*build.instance("attention_bwd", BWD_SOURCE, bf16), _BWD_ARGTYPES)
 
 
 def bwd_smem_floats(D: int) -> int:
@@ -95,35 +104,46 @@ def _check(q, k, v, what: str):
 
 
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None, return_lse: bool = False):
-    """q (B, Hq, L, D), k/v (B, Hkv, L, D) -> (B, Hq, L, D); kv head =
-    q head // (Hq / Hkv). With ``return_lse``, also each row's log-sum-exp
-    of its scaled scores (B, Hq, L) f32 (-inf for a row with no key). CUDA
-    tensors run the kernel; CPU tensors run the plain version."""
+                    scale: Optional[float] = None, return_lse: bool = False,
+                    return_out32: bool = False):
+    """q (B, Hq, L, D), k/v (B, Hkv, L, D) -> (B, Hq, L, D) in q's dtype;
+    kv head = q head // (Hq / Hkv). With ``return_lse``, also each row's
+    log-sum-exp of its scaled scores (B, Hq, L) f32 (-inf for a row with no
+    key); with ``return_out32``, then the output before rounding, f32 (the
+    output itself for f32 inputs), which :func:`flash_attention_bwd` reads.
+    CUDA tensors run the kernel; CPU tensors run the plain version."""
     global launches
     if all_on_cpu(q, k, v):
-        out = ref.attention(q, k, v, causal=causal, scale=scale, window=window)
-        return ((out, ref.attention_lse(q, k, causal=causal, scale=scale, window=window))
-                if return_lse else out)
+        out32 = ref.attention(q.float(), k.float(), v.float(), causal=causal, scale=scale,
+                              window=window)
+        extra = ((ref.attention_lse(q, k, causal=causal, scale=scale, window=window),)
+                 if return_lse else ()) + ((out32,) if return_out32 else ())
+        out = out32.to(q.dtype)
+        return (out, *extra) if extra else out
     B, Hq, Hkv, L, D = _check(q, k, v, "attention")
-    dev = check_cuda_tensors({"q": (q, (B, Hq, L, D)), "k": (k, (B, Hkv, L, D)),
-                              "v": (v, (B, Hkv, L, D))}, "attention")
+    dev, dtype = check_cuda_tensors({"q": (q, (B, Hq, L, D)), "k": (k, (B, Hkv, L, D)),
+                                     "v": (v, (B, Hkv, L, D))}, "attention")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("attention: q, k and v must start on a 16-byte boundary")
     scale = (D ** -0.5) if scale is None else scale
     out = torch.empty_like(q)
     lse = (torch.empty((B, Hq, L), dtype=torch.float32, device=q.device) if return_lse
            else None)
+    bf16 = dtype == torch.bfloat16
+    out32 = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+             if return_out32 and bf16 else None)
     with torch.cuda.device(dev):
-        library().launch(out.data_ptr(), None if lse is None else lse.data_ptr(),
-                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         B, Hq, Hkv, L, D, int(bool(causal)), int(window is not None),
-                         0 if window is None else int(window), float(scale),
-                         stream_of(dev))
+        library(bf16).launch(
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            None if out32 is None else out32.data_ptr(), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), B, Hq, Hkv, L, D, int(bool(causal)), int(window is not None),
+            0 if window is None else int(window), float(scale), stream_of(dev))
     launches += 1
     launches_by_mode["window" if window is not None else
                      "causal" if causal else "noncausal"] += 1
-    return (out, lse) if return_lse else out
+    extra = ((lse,) if return_lse else ()) + \
+        ((out if out32 is None else out32,) if return_out32 else ())
+    return (out, *extra) if extra else out
 
 
 def bwd_arguments(q, k, v, out, dout, lse, causal, window, scale):
@@ -145,23 +165,24 @@ def bwd_arguments(q, k, v, out, dout, lse, causal, window, scale):
 def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True,
                         window: Optional[int] = None, scale: Optional[float] = None):
     """(dq, dk, dv) of :func:`flash_attention` given ``dout``, from the
-    forward's output ``out`` and log-sum-exp ``lse``. CUDA tensors run
-    ``csrc/attention_bwd.cu``; CPU tensors run the plain version
-    (``ref.attention_bwd``)."""
+    forward's output before rounding ``out`` (f32: the output itself at
+    f32, ``return_out32``'s at bf16) and log-sum-exp ``lse``, each in its
+    input's dtype. CUDA tensors run ``csrc/attention_bwd.cu``; CPU tensors
+    run the plain version (``ref.attention_bwd``)."""
     global launches_bwd
     if all_on_cpu(q, k, v, dout):
         return ref.attention_bwd(q, k, v, dout, causal=causal, scale=scale, window=window)
     B, Hq, Hkv, L, D = _check(q, k, v, "attention_bwd")
-    dev = check_cuda_tensors({"q": (q, (B, Hq, L, D)), "k": (k, (B, Hkv, L, D)),
-                              "v": (v, (B, Hkv, L, D)), "out": (out, (B, Hq, L, D)),
-                              "dout": (dout, (B, Hq, L, D)), "lse": (lse, (B, Hq, L))},
-                             "attention_bwd")
+    dev, dtype = check_cuda_tensors({"q": (q, (B, Hq, L, D)), "k": (k, (B, Hkv, L, D)),
+                                     "v": (v, (B, Hkv, L, D)), "out": (out, (B, Hq, L, D)),
+                                     "dout": (dout, (B, Hq, L, D)), "lse": (lse, (B, Hq, L))},
+                                    "attention_bwd", ("out", "lse"))
     # the kernels copy 16 bytes at a time: a tensor off a 16-byte boundary is
     # copied to one on it
     q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, dout))
     (dq, dk, dv), args, _delta = bwd_arguments(q, k, v, out, dout, lse, causal, window, scale)
     with torch.cuda.device(dev):
-        bwd_library().launch(*args, stream_of(dev))
+        bwd_library(dtype == torch.bfloat16).launch(*args, stream_of(dev))
     launches_bwd += 1
     return dq, dk, dv
 
@@ -172,10 +193,10 @@ class AttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        out, lse = flash_attention(q, k, v, causal=causal, window=window, scale=scale,
-                                   return_lse=True)
+        out, lse, out32 = flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                                          return_lse=True, return_out32=True)
         ctx.opts = (causal, window, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, out32, lse)
         return out
 
     @staticmethod

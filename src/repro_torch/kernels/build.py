@@ -16,7 +16,13 @@ two processes building the same source never see a half-written file; the
 threads of one process build and load one at a time (a lock), so serving
 workers may meet a kernel's first build together.
 
-The flags are per source (:func:`flags`). ``--fmad=false`` keeps every
+An LM source (attention, SSD, conv1d, forward and backward) is built once
+for each storage dtype of its inputs (:func:`instance`): as it is for
+float32, and with ``REPRO_TORCH_BF16`` defined in front (``csrc/storage.cuh``)
+as a library of its own, ``<name>_bf16``, for bfloat16; both instances can
+then be built by one :func:`compile_many`.
+
+The flags are per source (:func:`flags`; an instance takes its source's). ``--fmad=false`` keeps every
 multiply and add rounded on its own, as PyTorch's elementwise operators
 round them, so the stencil kernels and conv1d can be compared bitwise with
 their plain versions on the card. The sources in :data:`CONTRACTED`
@@ -85,8 +91,22 @@ def read_source(path: Path) -> str:
                               Path(path).read_text())
 
 
+BF16_SUFFIX = "_bf16"
+BF16_DEFINE = "#define REPRO_TORCH_BF16 1\n"
+
+
+def instance(name: str, path: Path, bf16: bool = False) -> tuple[str, str]:
+    """(library name, source text) of the LM source ``name`` at ``path``
+    for float32 storage, or with ``bf16`` for bfloat16 storage: the same
+    text with ``REPRO_TORCH_BF16`` defined in front, named ``name_bf16``."""
+    text = read_source(path)
+    return (name + BF16_SUFFIX, BF16_DEFINE + text) if bf16 else (name, text)
+
+
 def flags(name: str) -> tuple[str, ...]:
-    """nvcc's flags for the source called ``name``."""
+    """nvcc's flags for the source called ``name`` (a bf16 instance's are
+    its source's)."""
+    name = name.removesuffix(BF16_SUFFIX)
     return NVCC_FLAGS if name in CONTRACTED else NVCC_FLAGS + ("--fmad=false",)
 
 

@@ -15,6 +15,11 @@ Both kernels cover the (L, C) slab of each batch row in tiles of 32 x
 ``vec`` channels by ``tile`` positions; :func:`layout` picks ``vec`` and
 ``tile`` from the shapes and the tensors' alignment, and the sources take
 them as arguments and refuse any other.
+
+x, w, b and the output (in the backward dout, dx, dw and db) are float32 or
+bfloat16, one dtype a call, as the reference's kernel takes the parameter
+dtype; each dtype runs its own instance of the sources (``library(bf16)``),
+which converts to f32 on load, computes in f32 and rounds once on store.
 """
 from __future__ import annotations
 
@@ -63,21 +68,23 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
 
 
 @functools.cache
-def library() -> build.Library:
-    return build.Library("conv1d", build.read_source(SOURCE), _ARGTYPES)
+def library(bf16: bool = False) -> build.Library:
+    return build.Library(*build.instance("conv1d", SOURCE, bf16), _ARGTYPES)
 
 
 @functools.cache
-def bwd_library() -> build.Library:
-    return build.Library("conv1d_bwd", build.read_source(BWD_SOURCE), _BWD_ARGTYPES)
+def bwd_library(bf16: bool = False) -> build.Library:
+    return build.Library(*build.instance("conv1d_bwd", BWD_SOURCE, bf16), _BWD_ARGTYPES)
 
 
 def layout(B: int, L: int, C: int, K: int, *tensors) -> tuple[int, int]:
-    """``(vec, tile)`` of a launch: ``vec`` channels a thread, 4 (16-byte
-    copies and stores) where K is at most MAX_K, C a multiple of 4 and each
-    of ``tensors`` (those read and written along C) 16-byte aligned, else
-    1; ``tile`` positions a block, the largest of TILES that gives at least
-    MIN_BLOCKS blocks, else the smallest."""
+    """``(vec, tile)`` of a launch: ``vec`` channels a thread, 4 (one copy
+    and one store of 4 channels: 16 bytes at f32, 8 at bf16) where K is at
+    most MAX_K, C a multiple of 4 and each of ``tensors`` (those read and
+    written along C) 16-byte aligned, else 1; ``tile`` positions a block,
+    the largest of TILES that gives at least MIN_BLOCKS blocks, else the
+    smallest. Neither depends on the dtype, so a bf16 call sums dw and
+    dbias in the order of the f32 call on the same shapes."""
     vec = 4 if K <= MAX_K and C % 4 == 0 else 1
     for t in tensors:
         if t.data_ptr() % 16:
@@ -95,30 +102,38 @@ def layout_name(B: int, L: int, C: int, vec: int, tile: int) -> str:
     return f"v{vec}/t{tile}/{-(-L // tile)}x{-(-C // (LANES * vec))}x{B}"
 
 
-def smem_floats(K: int, vec: int, tile: int) -> int:
-    """Shared memory of a forward block in floats (the source's launch):
-    tile + K - 1 rows of 32 x vec channels; none in the generic kernel."""
-    return (tile + K - 1) * LANES * vec if K <= MAX_K else 0
+def smem_floats(K: int, vec: int, tile: int, size: int = 4) -> int:
+    """Shared memory of a forward block in floats (the source's launch) for
+    inputs of ``size`` bytes: tile + K - 1 rows of 32 x vec channels; none
+    in the generic kernel."""
+    return (tile + K - 1) * LANES * vec * size // 4 if K <= MAX_K else 0
 
 
-def bwd_smem_floats(K: int, vec: int, tile: int) -> int:
+def bwd_smem_floats(K: int, vec: int, tile: int, size: int = 4) -> int:
     """Shared memory of a backward block in floats (the source's
-    ``bwd_smem_floats``): x's tile + 2(K-1) rows and g's tile + K - 1 of 32 x
-    vec channels, or the partials' 4 x (K + 1) rows where more."""
-    return max(2 * tile + 3 * (K - 1), ROWS * (K + 1)) * LANES * vec
+    ``bwd_smem_floats``) for inputs of ``size`` bytes: x's tile + 2(K-1)
+    rows and g's tile + K - 1 of 32 x vec channels (and gp's tile + K - 1
+    f32 rows where the inputs are narrower), or the partials' 4 x (K + 1)
+    f32 rows where more."""
+    staged = (2 * tile + 3 * (K - 1)) * size + (0 if size == 4 else (tile + K - 1) * 4)
+    return max(staged, ROWS * (K + 1) * 4) * LANES * vec // 4
 
 
 def plain(x, w, b=None, silu: bool = False):
-    """The plain PyTorch version: the reference oracle, then SiLU."""
-    out = ref.conv1d_causal(x, w, b)
-    return out * torch.sigmoid(out) if silu else out
+    """The plain PyTorch version: the reference oracle (then SiLU) in f32,
+    rounded once to x's dtype, as the reference's kernel and this one
+    compute."""
+    xf, wf = x.float(), w.float()
+    out = ref.conv1d_causal(xf, wf, None if b is None else b.float())
+    return (out * torch.sigmoid(out) if silu else out).to(x.dtype)
 
 
 def conv1d_causal(x, w, b=None, silu: bool = False):
     """x (B, L, C), w (K, C), b (C,) or None -> (B, L, C):
     ``out[t] = sum_d w[d] x[t-d]`` (zero where ``t - d < 0``) plus the
-    bias, then SiLU if asked. CUDA tensors run the kernel; CPU tensors run
-    the plain version."""
+    bias, then SiLU if asked, in x's dtype (float32 or bfloat16, which w
+    and b share). CUDA tensors run the kernel; CPU tensors run the plain
+    version."""
     global launches, last_layout
     if all_on_cpu(x, w, b):
         return plain(x, w, b, silu)
@@ -129,13 +144,13 @@ def conv1d_causal(x, w, b=None, silu: bool = False):
     K = w.shape[0]
     if b is None:
         b = torch.zeros((C,), dtype=x.dtype, device=x.device)
-    dev = check_cuda_tensors({"x": (x, (B, L, C)), "w": (w, (K, C)), "b": (b, (C,))},
-                             "conv1d")
+    dev, dtype = check_cuda_tensors({"x": (x, (B, L, C)), "w": (w, (K, C)),
+                                     "b": (b, (C,))}, "conv1d")
     if K < 1 or B > _MAX_GRID_YZ:
         raise ValueError(f"conv1d: needs K >= 1 and B <= {_MAX_GRID_YZ}, got K={K}, B={B}")
     out, args = fwd_arguments(x, w, b, silu)
     with torch.cuda.device(dev):
-        library().launch(*args, stream_of(dev))
+        library(dtype == torch.bfloat16).launch(*args, stream_of(dev))
     launches += 1
     last_layout = args[8:10]
     return out
@@ -170,7 +185,8 @@ def bwd_arguments(dout, x, w, b, silu: bool):
 
 def conv1d_causal_bwd(dout, x, w, b=None, silu: bool = False):
     """The gradients (dx, dw, db) of ``conv1d_causal(x, w, b, silu)`` given
-    ``dout``; db is None when b is. CUDA tensors run ``csrc/conv1d_bwd.cu``;
+    ``dout``, each in its input's dtype; db is None when b is. CUDA tensors
+    run ``csrc/conv1d_bwd.cu``;
     CPU tensors run the plain version (``ref.conv1d_bwd``)."""
     global launches_bwd, last_layout
     if all_on_cpu(dout, x, w, b):
@@ -181,11 +197,11 @@ def conv1d_causal_bwd(dout, x, w, b=None, silu: bool = False):
         raise ValueError(f"conv1d_bwd: needs 1 <= K <= {MAX_K} and B <= {_MAX_GRID_YZ}, "
                          f"got K={K}, B={B}")
     bias = b if b is not None else torch.zeros((C,), dtype=x.dtype, device=x.device)
-    dev = check_cuda_tensors({"dout": (dout, (B, L, C)), "x": (x, (B, L, C)),
-                              "w": (w, (K, C)), "b": (bias, (C,))}, "conv1d_bwd")
+    dev, dtype = check_cuda_tensors({"dout": (dout, (B, L, C)), "x": (x, (B, L, C)),
+                                     "w": (w, (K, C)), "b": (bias, (C,))}, "conv1d_bwd")
     (dx, dw, db), args, _part = bwd_arguments(dout, x, w, bias, silu)
     with torch.cuda.device(dev):
-        bwd_library().launch(*args, stream_of(dev))
+        bwd_library(dtype == torch.bfloat16).launch(*args, stream_of(dev))
     launches_bwd += 1
     last_layout = args[12:14]
     return dx, dw, (db if b is not None else None)

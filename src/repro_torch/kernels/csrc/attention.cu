@@ -6,8 +6,16 @@
 //                  j <= i (causal), j > i - window (window); -1e30 elsewhere.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/attention.py::
-// flash_attention (pl.pallas_call at :74, body _body at :26). f32 in, online
-// softmax (m, l, acc) in f32, f32 out; the masking discipline is the TPU
+// flash_attention (pl.pallas_call at :74, body _body at :26). q, k, v and out
+// at the storage type T (storage.cuh: f32, or bf16 in the bf16 instance, as
+// the TPU kernel takes the parameter dtype), converted to f32 on load (at
+// bf16, K and V are loaded and stored into shared memory as f32, not by
+// cp.async); online softmax (m, l, acc) in f32; out rounded once; lse f32.
+// Given a pointer for it, the kernel also writes out before rounding (out32,
+// f32), which the bf16 backward reads for its delta = dO·O: computed from the
+// rounded out, delta would be off by up to 2^-9 of |dO||O| and dq and dk by
+// about 1e-3 of their largest value at Zamba2's shape (a CPU estimate).
+// The masking discipline is the TPU
 // kernel's: masked scores are -1e30, masked p are set to exactly 0, and the
 // output divides by l only where l > 0, so a row with no key gives 0.
 //
@@ -70,10 +78,12 @@
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
+#include "storage.cuh"
 
 namespace {
 
 using namespace tf32x3;
+using storage::T;
 
 constexpr int kWarps = 4;
 constexpr int kRows = 16 * kWarps;  // query rows per block
@@ -94,8 +104,8 @@ struct Shape {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2) attention_kernel(
-    float* __restrict__ out, float* __restrict__ lse, const float* __restrict__ q,
-    const float* __restrict__ k, const float* __restrict__ v, const int Hq,
+    T* __restrict__ out, float* __restrict__ lse, float* __restrict__ out32,
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const int Hq,
     const int rep, const int64_t L, const int causal, const int has_window,
     const int64_t window, const float scale) {
   using S = Shape<D>;
@@ -111,9 +121,9 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2) attention_kernel(
   const int bh = blockIdx.y;
   const int b = bh / Hq, h = bh % Hq;
   const int64_t kvbase = (static_cast<int64_t>(b) * (Hq / rep) + h / rep) * L * D;
-  const float* qb = q + static_cast<int64_t>(bh) * L * D;
-  const float* kb = k + kvbase;
-  const float* vb = v + kvbase;
+  const T* qb = q + static_cast<int64_t>(bh) * L * D;
+  const T* kb = k + kvbase;
+  const T* vb = v + kvbase;
 
   // this thread's rows and their q fragments (k-steps 2i, 2i + 1 from one
   // float4 of each row)
@@ -123,9 +133,9 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2) attention_kernel(
 #pragma unroll
   for (int i = 0; i < D / 16; ++i) {
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* qa = qb + r0 * D + 16 * i + 4 * t;
-    const float4 a = r0 < L ? *reinterpret_cast<const float4*>(qa) : zero;
-    const float4 c = r1 < L ? *reinterpret_cast<const float4*>(qa + 8 * D) : zero;
+    const T* qa = qb + r0 * D + 16 * i + 4 * t;
+    const float4 a = r0 < L ? storage::load4(qa) : zero;
+    const float4 c = r1 < L ? storage::load4(qa + 8 * D) : zero;
     qf[2 * i][0] = a.x; qf[2 * i][1] = c.x; qf[2 * i][2] = a.y; qf[2 * i][3] = c.y;
     qf[2 * i + 1][0] = a.z; qf[2 * i + 1][1] = c.z; qf[2 * i + 1][2] = a.w; qf[2 * i + 1][3] = c.w;
   }
@@ -161,8 +171,8 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2) attention_kernel(
       const int64_t kp = k0 + r;
       const bool ok = kp < L;
       const int64_t off = (ok ? kp : 0) * D + c;
-      cp_async16(Ks + r * S::kLdK + c, kb + off, ok);
-      cp_async16(Vs + r * S::kLdV + c, vb + off, ok);
+      storage::copy4(Ks + r * S::kLdK + c, kb + off, ok);
+      storage::copy4(Vs + r * S::kLdV + c, vb + off, ok);
     }
   };
 
@@ -302,59 +312,64 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 3 : 2) attention_kernel(
     if (lse != nullptr && t == 0)
       lse[static_cast<int64_t>(bh) * L + row] =
           l[r] > 0.0f ? m[r] * kLn2 + logf(l[r]) : __int_as_float(0xff800000);
-    float* orow = out + (static_cast<int64_t>(bh) * L + row) * D;
+    T* orow = out + (static_cast<int64_t>(bh) * L + row) * D;
+    float* orow32 = out32 == nullptr ? nullptr : out32 + (static_cast<int64_t>(bh) * L + row) * D;
 #pragma unroll
     for (int qg = 0; qg < NQ; ++qg) {
       float val[2 * NG];
 #pragma unroll
       for (int e = 0; e < 2 * NG; ++e) val[e] = o[qg * NG + e % NG][2 * r + e / NG] / safe;
 #pragma unroll
-      for (int e = 0; e < 2 * NG; e += 4)
-        *reinterpret_cast<float4*>(orow + qg * W + 2 * NG * t + e) =
-            make_float4(val[e], val[e + 1], val[e + 2], val[e + 3]);
+      for (int e = 0; e < 2 * NG; e += 4) {
+        const float4 o4 = make_float4(val[e], val[e + 1], val[e + 2], val[e + 3]);
+        storage::store4(orow + qg * W + 2 * NG * t + e, o4);
+        if (orow32 != nullptr) *reinterpret_cast<float4*>(orow32 + qg * W + 2 * NG * t + e) = o4;
+      }
     }
   }
 }
 
 template <int D>
-int launch_d(dim3 grid, cudaStream_t st, float* out, float* lse, const float* q, const float* k,
-             const float* v, int Hq, int rep, int64_t L, int causal, int has_window,
+int launch_d(dim3 grid, cudaStream_t st, T* out, float* lse, float* out32, const T* q, const T* k,
+             const T* v, int Hq, int rep, int64_t L, int causal, int has_window,
              int64_t window, float scale) {
   const cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Shape<D>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   attention_kernel<D><<<grid, kThreads, Shape<D>::kSmem, st>>>(
-      out, lse, q, k, v, Hq, rep, L, causal, has_window, window, scale);
+      out, lse, out32, q, k, v, Hq, rep, L, causal, has_window, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Head dimensions this kernel takes: multiples of 16 up to 128. lse, (B, Hq,
+// Head dimensions this kernel takes: multiples of 16 up to 128. out32, (B,
+// Hq, L, D) f32, may be null; lse, (B, Hq,
 // L) f32, may be null.
-extern "C" int launch(void* out, void* lse, const void* q, const void* k, const void* v,
-                      int64_t B, int64_t Hq, int64_t Hkv, int64_t L, int64_t D,
+extern "C" int launch(void* out, void* lse, void* out32, const void* q, const void* k,
+                      const void* v, int64_t B, int64_t Hq, int64_t Hkv, int64_t L, int64_t D,
                       int64_t causal, int64_t has_window, int64_t window,
                       float scale, void* stream) {
   const dim3 grid(static_cast<unsigned>((L + kRows - 1) / kRows),
                   static_cast<unsigned>(B * Hq), 1);
   auto st = static_cast<cudaStream_t>(stream);
-  auto o = static_cast<float*>(out);
+  auto o = static_cast<T*>(out);
   auto ls = static_cast<float*>(lse);
-  auto qi = static_cast<const float*>(q);
-  auto ki = static_cast<const float*>(k);
-  auto vi = static_cast<const float*>(v);
+  auto o32 = static_cast<float*>(out32);
+  auto qi = static_cast<const T*>(q);
+  auto ki = static_cast<const T*>(k);
+  auto vi = static_cast<const T*>(v);
   const int hq = static_cast<int>(Hq), rep = static_cast<int>(Hq / Hkv);
   const int c = static_cast<int>(causal), hw = static_cast<int>(has_window);
   switch (D) {
-    case 16: return launch_d<16>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 32: return launch_d<32>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 48: return launch_d<48>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 64: return launch_d<64>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 80: return launch_d<80>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 96: return launch_d<96>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 112: return launch_d<112>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
-    case 128: return launch_d<128>(grid, st, o, ls, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 16: return launch_d<16>(grid, st, o, ls, o32, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 32: return launch_d<32>(grid, st, o, ls, o32, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 48: return launch_d<48>(grid, st, o, ls, o32, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 64: return launch_d<64>(grid, st, o, ls, o32, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 80: return launch_d<80>(grid, st, o, ls, o32, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 96: return launch_d<96>(grid, st, o, ls, o32, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 112: return launch_d<112>(grid, st, o, ls, o32, qi, ki, vi, hq, rep, L, c, hw, window, scale);
+    case 128: return launch_d<128>(grid, st, o, ls, o32, qi, ki, vi, hq, rep, L, c, hw, window, scale);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

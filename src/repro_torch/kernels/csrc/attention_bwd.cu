@@ -60,14 +60,23 @@
 // cannot see, masks are tested only on tiles that straddle an edge, and the
 // heaviest blocks launch first. Every sum runs in a fixed order and there
 // are no atomics: the same bits on every call.
+//
+// q, k, v and dO, and dq, dk and dv, are at the storage type T (storage.cuh:
+// f32, or bf16 in the bf16 instance), converted to f32 as they are loaded (at
+// bf16 stored into shared memory as f32, not by cp.async) and rounded once on
+// store; o (the forward's output before rounding: csrc/attention.cu's out32
+// at bf16), lse and delta are f32.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
+#include "storage.cuh"
 
 namespace {
 
 using namespace tf32x3;
+using storage::T;
+using storage::widen;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;
@@ -115,15 +124,15 @@ __device__ __forceinline__ void ldng(const float* tile, int r, int c, float (&v)
   }
 }
 
-// rows [r0, r0 + n) of a (L, D) matrix into a swizzled tile, zero past L
+// rows [r0, r0 + n) of a (L, D) matrix into a swizzled f32 tile, zero past L
 template <int D>
-__device__ __forceinline__ void load_rows(float* tile, const float* src, int64_t r0, int n,
+__device__ __forceinline__ void load_rows(float* tile, const T* src, int64_t r0, int n,
                                           int64_t L) {
   for (int i = threadIdx.x; i < n * (D / 4); i += kThreads) {
     const int r = i / (D / 4), c = 4 * (i % (D / 4));
     const int64_t row = r0 + r;
     const bool ok = row < L;
-    cp_async16(tile + r * Shape<D>::kLd + swz(r, c), src + (ok ? row : 0) * D + c, ok);
+    storage::copy4(tile + r * Shape<D>::kLd + swz(r, c), src + (ok ? row : 0) * D + c, ok);
   }
 }
 
@@ -181,10 +190,10 @@ __device__ __forceinline__ void cols_product(float (&out)[D / 8][4], const float
   }
 }
 
-// rows r (r < L) of an accumulator tile times `mul` to dst (row stride D):
-// thread t holds columns qg·W + 2·NG·t + e of each group.
+// rows r (r < L) of an accumulator tile times `mul` to dst (row stride D),
+// rounded once to T: thread t holds columns qg·W + 2·NG·t + e of each group.
 template <int D>
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8][4], int64_t r0,
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[D / 8][4], int64_t r0,
                                            int64_t L, int t, float mul) {
   constexpr int NG = Shape<D>::kNG, W = 8 * NG;
 #pragma unroll
@@ -198,8 +207,8 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8]
       for (int e = 0; e < 2 * NG; ++e) val[e] = acc[qg * NG + e % NG][2 * half + e / NG] * mul;
 #pragma unroll
       for (int e = 0; e < 2 * NG; e += 4)
-        *reinterpret_cast<float4*>(dst + row * D + qg * W + 2 * NG * t + e) =
-            make_float4(val[e], val[e + 1], val[e + 2], val[e + 3]);
+        storage::store4(dst + row * D + qg * W + 2 * NG * t + e,
+                        make_float4(val[e], val[e + 1], val[e + 2], val[e + 3]));
     }
   }
 }
@@ -210,13 +219,13 @@ __device__ __forceinline__ bool allowed(int64_t i, int64_t j, int64_t L, int cau
 }
 
 __global__ void __launch_bounds__(256) attention_bwd_delta(
-    float* __restrict__ delta, const float* __restrict__ o, const float* __restrict__ g,
+    float* __restrict__ delta, const float* __restrict__ o, const T* __restrict__ g,
     const int64_t rows, const int D) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   float acc = 0.0f;
   if (row < rows)
-    for (int d = lane; d < D; d += 32) acc += g[row * D + d] * o[row * D + d];
+    for (int d = lane; d < D; d += 32) acc += widen(g[row * D + d]) * o[row * D + d];
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
   if (row < rows && lane == 0) delta[row] = acc;
@@ -224,8 +233,8 @@ __global__ void __launch_bounds__(256) attention_bwd_delta(
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2) attention_bwd_dkdv(
-    float* __restrict__ dk, float* __restrict__ dv, const float* __restrict__ q,
-    const float* __restrict__ k, const float* __restrict__ v, const float* __restrict__ g,
+    T* __restrict__ dk, T* __restrict__ dv, const T* __restrict__ q,
+    const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta, const int Hkv,
     const int rep, const int64_t L, const int causal, const int has_window,
     const int64_t window, const float scale) {
@@ -333,8 +342,8 @@ __global__ void __launch_bounds__(kThreads, 2) attention_bwd_dkdv(
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2) attention_bwd_dq(
-    float* __restrict__ dq, const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ g, const float* __restrict__ lse,
+    T* __restrict__ dq, const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ g, const float* __restrict__ lse,
     const float* __restrict__ delta, const int Hq, const int rep, const int64_t L,
     const int causal, const int has_window, const int64_t window, const float scale) {
   using S = Shape<D>;
@@ -423,8 +432,8 @@ __global__ void __launch_bounds__(kThreads, 2) attention_bwd_dq(
 }
 
 template <int D>
-int launch_d(cudaStream_t st, float* dq, float* dk, float* dv, const float* q,
-             const float* k, const float* v, const float* g, const float* lse,
+int launch_d(cudaStream_t st, T* dq, T* dk, T* dv, const T* q,
+             const T* k, const T* v, const T* g, const float* lse,
              const float* delta, int64_t B, int Hq, int Hkv, int64_t L, int causal,
              int has_window, int64_t window, float scale) {
   const int smem = smem_floats(D) * 4;
@@ -452,7 +461,7 @@ int launch_d(cudaStream_t st, float* dq, float* dk, float* dv, const float* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_delta(cudaStream_t st, float* delta, const float* o, const float* g, int64_t rows,
+int launch_delta(cudaStream_t st, float* delta, const float* o, const T* g, int64_t rows,
                  int D) {
   const dim3 grid(static_cast<unsigned>((rows + 7) / 8), 1, 1);
   const dim3 block(256, 1, 1);
@@ -467,31 +476,33 @@ int launch_delta(cudaStream_t st, float* delta, const float* o, const float* g, 
 extern "C" int64_t bwd_smem_floats(int64_t D) { return smem_floats(static_cast<int>(D)); }
 
 // Head dimensions multiples of 16 up to 128 (attention.cu's); q, k, v, g
-// start on 16-byte boundaries. delta is a (B, Hq, L) f32 scratch; lse is
-// the forward's.
+// start on 16-byte boundaries. delta is a (B, Hq, L) f32 scratch; lse and o
+// (f32) are the forward's.
 extern "C" int launch(void* dq, void* dk, void* dv, void* delta, const void* q, const void* k,
                       const void* v, const void* o, const void* g, const void* lse, int64_t B,
                       int64_t Hq, int64_t Hkv, int64_t L, int64_t D, int64_t causal,
                       int64_t has_window, int64_t window, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto f = [](const void* p) { return static_cast<const T*>(p); };
   auto dl = static_cast<float*>(delta);
-  const int err = launch_delta(st, dl, f(o), f(g), B * Hq * L, static_cast<int>(D));
+  const int err = launch_delta(st, dl, static_cast<const float*>(o), f(g), B * Hq * L,
+                               static_cast<int>(D));
   if (err != 0) return err;
-  auto qo = static_cast<float*>(dq);
-  auto ko = static_cast<float*>(dk);
-  auto vo = static_cast<float*>(dv);
+  auto ls = static_cast<const float*>(lse);
+  auto qo = static_cast<T*>(dq);
+  auto ko = static_cast<T*>(dk);
+  auto vo = static_cast<T*>(dv);
   const int hq = static_cast<int>(Hq), hkv = static_cast<int>(Hkv);
   const int c = static_cast<int>(causal), hw = static_cast<int>(has_window);
   switch (D) {
-    case 16: return launch_d<16>(st, qo, ko, vo, f(q), f(k), f(v), f(g), f(lse), dl, B, hq, hkv, L, c, hw, window, scale);
-    case 32: return launch_d<32>(st, qo, ko, vo, f(q), f(k), f(v), f(g), f(lse), dl, B, hq, hkv, L, c, hw, window, scale);
-    case 48: return launch_d<48>(st, qo, ko, vo, f(q), f(k), f(v), f(g), f(lse), dl, B, hq, hkv, L, c, hw, window, scale);
-    case 64: return launch_d<64>(st, qo, ko, vo, f(q), f(k), f(v), f(g), f(lse), dl, B, hq, hkv, L, c, hw, window, scale);
-    case 80: return launch_d<80>(st, qo, ko, vo, f(q), f(k), f(v), f(g), f(lse), dl, B, hq, hkv, L, c, hw, window, scale);
-    case 96: return launch_d<96>(st, qo, ko, vo, f(q), f(k), f(v), f(g), f(lse), dl, B, hq, hkv, L, c, hw, window, scale);
-    case 112: return launch_d<112>(st, qo, ko, vo, f(q), f(k), f(v), f(g), f(lse), dl, B, hq, hkv, L, c, hw, window, scale);
-    case 128: return launch_d<128>(st, qo, ko, vo, f(q), f(k), f(v), f(g), f(lse), dl, B, hq, hkv, L, c, hw, window, scale);
+    case 16: return launch_d<16>(st, qo, ko, vo, f(q), f(k), f(v), f(g), ls, dl, B, hq, hkv, L, c, hw, window, scale);
+    case 32: return launch_d<32>(st, qo, ko, vo, f(q), f(k), f(v), f(g), ls, dl, B, hq, hkv, L, c, hw, window, scale);
+    case 48: return launch_d<48>(st, qo, ko, vo, f(q), f(k), f(v), f(g), ls, dl, B, hq, hkv, L, c, hw, window, scale);
+    case 64: return launch_d<64>(st, qo, ko, vo, f(q), f(k), f(v), f(g), ls, dl, B, hq, hkv, L, c, hw, window, scale);
+    case 80: return launch_d<80>(st, qo, ko, vo, f(q), f(k), f(v), f(g), ls, dl, B, hq, hkv, L, c, hw, window, scale);
+    case 96: return launch_d<96>(st, qo, ko, vo, f(q), f(k), f(v), f(g), ls, dl, B, hq, hkv, L, c, hw, window, scale);
+    case 112: return launch_d<112>(st, qo, ko, vo, f(q), f(k), f(v), f(g), ls, dl, B, hq, hkv, L, c, hw, window, scale);
+    case 128: return launch_d<128>(st, qo, ko, vo, f(q), f(k), f(v), f(g), ls, dl, B, hq, hkv, L, c, hw, window, scale);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -17,31 +17,34 @@
 // (kernels/conv1d.py::Conv1dFn).
 //
 // What bounds it on the H100: bytes. It reads x and g and writes dx (12 bytes
-// per element) against about 6K + 8 f32 operations per element, far below
-// the card's ratio of f32 operations to bytes. Streaming at the memory rate
+// per element at f32, 6 at bf16) against about 6K + 8 f32 operations per
+// element, far below the card's ratio of f32 operations to bytes. Streaming at the memory rate
 // needs about 15-20 KB of loads in flight on each SM.
 //
 // What the design does: the forward's tiles. A block covers 32 x VEC
 // channels by `tile` positions [t0, t0 + tile) (kernels/conv1d.py::layout:
 // 32 or 16, so that mamba2-130m's training shape too gives several blocks
 // an SM). Its 128 threads first issue every load it needs at once, as
-// cp.async copies into shared memory (16 bytes a copy at VEC = 4, else 4):
-// x over the tile and K-1 positions on each side, g over the tile and the
-// K-1 after it. Then gp is computed once for each of those tile + K - 1
-// positions, in place of g, each thread marching a run of positions with its
-// last K inputs in registers; the same window gives its partial dw and dbias
-// over the tile's positions. After a barrier each thread computes dx over its
+// cp.async copies of x and g at their storage type T (storage.cuh) into
+// shared memory (4 channels a copy at VEC = 4, else one; see
+// conv1d_tiles.cuh): x over the tile and K-1 positions on each side, g over
+// the tile and the K-1 after it. Then gp is computed in f32 once for each of
+// those tile + K - 1 positions, in place of g at f32 (in rows of its own at
+// bf16), each thread marching a run of positions with its last K inputs in
+// registers; the same window gives its partial dw and dbias over the tile's
+// positions. After a barrier each thread computes dx over its
 // run from the K gp that follow each position. The block then sums its
 // threads' partials through shared memory in a fixed order and writes one
 // partial row (K + 1 values a channel); a second launch folds the rows of each
 // (d, c) in a fixed order, its threads each summing a strided share of the
-// rows with their loads in flight together. No atomics: the same bits on
-// every call.
+// rows with their loads in flight together, and rounds each once to T. No
+// atomics: the same bits on every call.
 //
 // K up to kMaxK (one instance per K and VEC); the wrapper refuses a larger K.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include "tf32x3.cuh"
+#include "storage.cuh"
 #include "conv1d_tiles.cuh"
 
 namespace {
@@ -57,30 +60,38 @@ __device__ __forceinline__ float silu_grad(float v) {
   return s * (1.0f + v * (1.0f - s));
 }
 
-// Shared memory of a block in floats: x's rows (tile + 2(K-1)) and g's, then
-// gp's (tile + K - 1), of 32 x VEC channels; the partials' kRows x (K + 1)
-// rows reuse it. kernels/conv1d.py::bwd_smem_floats computes the same.
+// Shared memory of a block in floats: x's rows (tile + 2(K-1)) and g's (tile
+// + K - 1) of 32 x VEC channels of T, gp in g's rows at f32 and in tile + K
+// - 1 rows of f32 after them at bf16; the partials' kRows x (K + 1) f32 rows
+// reuse it. kernels/conv1d.py::bwd_smem_floats computes the same.
 __host__ __device__ constexpr int bwd_smem_floats(int K, int vec, int tile) {
-  return (2 * tile + 3 * (K - 1) > kRows * (K + 1) ? 2 * tile + 3 * (K - 1) : kRows * (K + 1)) *
-         kLanes * vec;
+  return ((2 * tile + 3 * (K - 1)) * static_cast<int>(sizeof(T)) +
+                      (kTwoByte ? (tile + K - 1) * 4 : 0) >
+                  kRows * (K + 1) * 4
+              ? (2 * tile + 3 * (K - 1)) * static_cast<int>(sizeof(T)) +
+                    (kTwoByte ? (tile + K - 1) * 4 : 0)
+              : kRows * (K + 1) * 4) *
+         kLanes * vec / 4;
 }
 
 // grid (ceil(L / tile), ceil(C / (32 VEC)), B), block (32, 4). part: one row
 // of (K + 1) x C a block, row b * gridDim.x + blockIdx.x: dw[0..K-1], dbias.
 template <int K, int VEC>
 __global__ void __launch_bounds__(kThreads) conv1d_bwd_tile(
-    float* __restrict__ dx, float* __restrict__ part, const float* __restrict__ g,
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ bias, const int64_t L, const int64_t C, const int tile,
+    T* __restrict__ dx, float* __restrict__ part, const T* __restrict__ g,
+    const T* __restrict__ x, const T* __restrict__ w,
+    const T* __restrict__ bias, const int64_t L, const int64_t C, const int tile,
     const int silu) {
   extern __shared__ float smem[];
   constexpr int kWidth = kLanes * VEC;   // channels of the tile, a row of smem
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * tile;
   const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kWidth;
   const int64_t slab = static_cast<int64_t>(blockIdx.z) * L * C;
-  // xs row r: x at t0 - (K-1) + r; gs row r: g, then gp, at t0 + r
-  float* const xs = smem;
-  float* const gs = smem + (tile + 2 * (K - 1)) * kWidth;
+  // xs row r: x at t0 - (K-1) + r; gs row r: g at t0 + r, and gps row r gp
+  // there (gs's own rows at f32)
+  T* const xs = reinterpret_cast<T*>(smem);
+  T* const gs = xs + (tile + 2 * (K - 1)) * kWidth;
+  float* const gps = reinterpret_cast<float*>(kTwoByte ? gs + (tile + K - 1) * kWidth : gs);
   stage<VEC>(xs, x + slab, t0 - (K - 1), tile + 2 * (K - 1), L, C, c0);
   stage<VEC>(gs, g + slab, t0, tile + K - 1, L, C, c0);
   cp_async_commit();
@@ -95,10 +106,10 @@ __global__ void __launch_bounds__(kThreads) conv1d_bwd_tile(
   for (int v = 0; v < VEC; ++v) {
 #pragma unroll
     for (int d = 0; d < K; ++d) {
-      wr[d][v] = live ? w[d * C + c + v] : 0.0f;
+      wr[d][v] = live ? widen(w[d * C + c + v]) : 0.0f;
       dw[d][v] = 0.0f;
     }
-    bc[v] = live ? bias[c + v] : 0.0f;
+    bc[v] = live ? widen(bias[c + v]) : 0.0f;
     db[v] = 0.0f;
   }
   const int run = tile / kRows;
@@ -123,7 +134,7 @@ __global__ void __launch_bounds__(kThreads) conv1d_bwd_tile(
         gp[v] *= silu_grad(pre + bc[v]);
       }
     }
-    store_vec<VEC>(gs + r * kWidth + col, gp);
+    store_vec<VEC>(gps + r * kWidth + col, gp);
     if (r < tile) {
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
@@ -143,10 +154,10 @@ __global__ void __launch_bounds__(kThreads) conv1d_bwd_tile(
   // dx over the run: gw[d] = gp at row s + d
   float gw[K][VEC];
 #pragma unroll
-  for (int d = 0; d < K - 1; ++d) load_vec<VEC>(gw[d], gs + (r0 + d) * kWidth + col);
-  float* const dxb = dx + slab + c;
+  for (int d = 0; d < K - 1; ++d) load_vec<VEC>(gw[d], gps + (r0 + d) * kWidth + col);
+  T* const dxb = dx + slab + c;
   for (int s = r0; s < r0 + run; ++s) {
-    load_vec<VEC>(gw[K - 1], gs + (s + K - 1) * kWidth + col);
+    load_vec<VEC>(gw[K - 1], gps + (s + K - 1) * kWidth + col);
     if (live && t0 + s < L) {
       float acc[VEC];
 #pragma unroll
@@ -187,11 +198,12 @@ __global__ void __launch_bounds__(kThreads) conv1d_bwd_tile(
 }
 
 // dw[d, c] (d < K) and dbias[c] (d = K): the partial rows summed in a fixed
-// order. Block (32, 8): lane l of the block's 32 columns, thread y sums rows
-// y, y + 8, ... (their loads issued together), then thread 0 of each column
-// adds the 8 sums in order. Grid ceil((K + 1) C / 32).
+// order, then rounded to T. Block (32, 8): lane l of the block's 32 columns,
+// thread y sums rows y, y + 8, ... (their loads issued together), then
+// thread 0 of each column adds the 8 sums in order. Grid ceil((K + 1) C /
+// 32).
 __global__ void __launch_bounds__(kLanes * kFoldRows) conv1d_bwd_fold(
-    float* __restrict__ dw, float* __restrict__ db, const float* __restrict__ part,
+    T* __restrict__ dw, T* __restrict__ db, const float* __restrict__ part,
     const int64_t rows, const int64_t C, const int64_t K) {
   extern __shared__ float smem[];
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kLanes + threadIdx.x;
@@ -208,13 +220,13 @@ __global__ void __launch_bounds__(kLanes * kFoldRows) conv1d_bwd_fold(
 #pragma unroll
   for (int y = 1; y < kFoldRows; ++y) sum += smem[y * kLanes + threadIdx.x];
   if (i < K * C) {
-    dw[i] = sum;
+    dw[i] = narrow<T>(sum);
   } else {
-    db[i - K * C] = sum;
+    db[i - K * C] = narrow<T>(sum);
   }
 }
 
-int launch_fold(dim3 grid, cudaStream_t st, float* dw, float* db, const float* part,
+int launch_fold(dim3 grid, cudaStream_t st, T* dw, T* db, const float* part,
                 int64_t rows, int64_t C, int64_t K) {
   const dim3 block(kLanes, kFoldRows, 1);
   const int smem = kLanes * kFoldRows * static_cast<int>(sizeof(float));
@@ -224,8 +236,8 @@ int launch_fold(dim3 grid, cudaStream_t st, float* dw, float* db, const float* p
 }
 
 template <int K, int VEC>
-int launch_tile(dim3 grid, cudaStream_t st, float* dx, float* part, const float* g,
-                const float* x, const float* w, const float* bias, int64_t L, int64_t C,
+int launch_tile(dim3 grid, cudaStream_t st, T* dx, float* part, const T* g,
+                const T* x, const T* w, const T* bias, int64_t L, int64_t C,
                 int tile, int silu) {
   const dim3 block(kLanes, kRows, 1);
   const int smem = bwd_smem_floats(K, VEC, tile) * static_cast<int>(sizeof(float));
@@ -238,8 +250,8 @@ int launch_tile(dim3 grid, cudaStream_t st, float* dx, float* part, const float*
 }
 
 template <int K>
-int launch_k(dim3 grid, cudaStream_t st, int vec, float* dx, float* part, const float* g,
-             const float* x, const float* w, const float* bias, int64_t L, int64_t C,
+int launch_k(dim3 grid, cudaStream_t st, int vec, T* dx, float* part, const T* g,
+             const T* x, const T* w, const T* bias, int64_t L, int64_t C,
              int tile, int silu) {
   return vec == 4 ? launch_tile<K, 4>(grid, st, dx, part, g, x, w, bias, L, C, tile, silu)
                   : launch_tile<K, 1>(grid, st, dx, part, g, x, w, bias, L, C, tile, silu);
@@ -260,12 +272,12 @@ extern "C" int launch(void* dx, void* dw, void* db, void* part, const void* g,
                   static_cast<unsigned>((C + kLanes * vec - 1) / (kLanes * vec)),
                   static_cast<unsigned>(B));
   auto st = static_cast<cudaStream_t>(stream);
-  auto dxo = static_cast<float*>(dx);
+  auto dxo = static_cast<T*>(dx);
   auto pt = static_cast<float*>(part);
-  auto gi = static_cast<const float*>(g);
-  auto xi = static_cast<const float*>(x);
-  auto wi = static_cast<const float*>(w);
-  auto bi = static_cast<const float*>(bias);
+  auto gi = static_cast<const T*>(g);
+  auto xi = static_cast<const T*>(x);
+  auto wi = static_cast<const T*>(w);
+  auto bi = static_cast<const T*>(bias);
   const int s = static_cast<int>(silu), v = static_cast<int>(vec), tl = static_cast<int>(tile);
   int err = 0;
   switch (K) {
@@ -280,7 +292,7 @@ extern "C" int launch(void* dx, void* dw, void* db, void* part, const void* g,
   }
   if (err != 0) return err;
   const dim3 fold_grid(static_cast<unsigned>(((K + 1) * C + kLanes - 1) / kLanes), 1, 1);
-  return launch_fold(fold_grid, st, static_cast<float*>(dw), static_cast<float*>(db), pt,
+  return launch_fold(fold_grid, st, static_cast<T*>(dw), static_cast<T*>(db), pt,
                      B * static_cast<int64_t>(grid.x), C, K);
 }
 

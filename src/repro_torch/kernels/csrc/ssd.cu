@@ -13,8 +13,11 @@
 // with h starting from h0 (or zero) and returned after the last chunk.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd.py::ssd_chunk_scan
-// (pl.pallas_call at :78, body _body at :27). f32 in, f32 state and
-// accumulation, f32 out.
+// (pl.pallas_call at :78, body _body at :27). x, B, C and y at the storage
+// type T (storage.cuh: f32, or bf16 in the bf16 instance, as the TPU kernel
+// takes the parameter dtype), converted to f32 as they are staged in shared
+// memory (at bf16 by a load and a store, not cp.async); dt, A, D, h0, the
+// states and h_final f32; f32 state and accumulation; y rounded once.
 //
 // What bounds it on the H100: bytes, once the products run on the tensor
 // cores. At Zamba2's prefill (B = 4, L = 1024, H = 64, P = N = 64, G = 1,
@@ -70,10 +73,12 @@
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
+#include "storage.cuh"
 
 namespace {
 
 using namespace tf32x3;
+using storage::T;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -89,8 +94,10 @@ __device__ __forceinline__ int swz_col(int r, int c, int swz) { return c ^ (r & 
 // Copy rows [0, kChunk) x columns [0, cols_tile) of a row-major global tile
 // (row stride ldg) into shared memory (row stride lds, swizzled by swz);
 // rows >= rows and columns >= cols are zero-filled. vec4: 16-byte copies
-// (every column count, stride and base is a multiple of 4 words / 16 bytes).
-__device__ __forceinline__ void load_tile(float* s, int lds, int swz, const float* g,
+// (every column count, stride and base is a multiple of 4 elements and 16
+// bytes at f32); storage values are converted to f32 (storage::copy4).
+template <class S>
+__device__ __forceinline__ void load_tile(float* s, int lds, int swz, const S* g,
                                           int64_t ldg, int rows, int cols, int cols_tile,
                                           bool vec4) {
   if (vec4) {
@@ -98,13 +105,13 @@ __device__ __forceinline__ void load_tile(float* s, int lds, int swz, const floa
     for (int i = threadIdx.x; i < kChunk * chunks; i += kThreads) {
       const int r = i / chunks, c = 4 * (i % chunks);
       const bool ok = r < rows && c < cols;
-      cp_async16(s + r * lds + swz_col(r, c, swz), ok ? g + r * ldg + c : g, ok);
+      storage::copy4(s + r * lds + swz_col(r, c, swz), ok ? g + r * ldg + c : g, ok);
     }
   } else {
     for (int i = threadIdx.x; i < kChunk * cols_tile; i += kThreads) {
       const int r = i / cols_tile, c = i % cols_tile;
       const bool ok = r < rows && c < cols;
-      cp_async4(s + r * lds + swz_col(r, c, swz), ok ? g + r * ldg + c : g, ok);
+      storage::copy1(s + r * lds + swz_col(r, c, swz), ok ? g + r * ldg + c : g, ok);
     }
   }
 }
@@ -141,26 +148,29 @@ __device__ __forceinline__ float& frag(float (&acc)[8][4], int q, int half, int 
   return acc[4 * q + (e & 3)][(e >> 2) + 2 * half];
 }
 
-__device__ __forceinline__ void load8(const float* src, int left, bool vec4, float (&v)[8]) {
+template <class S>
+__device__ __forceinline__ void load8(const S* src, int left, bool vec4, float (&v)[8]) {
   if (vec4 && left >= 8) {
-    const float4 a = *reinterpret_cast<const float4*>(src);
-    const float4 b = *reinterpret_cast<const float4*>(src + 4);
+    const float4 a = storage::load4(src);
+    const float4 b = storage::load4(src + 4);
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
   } else {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = e < left ? src[e] : 0.0f;
+    for (int e = 0; e < 8; ++e) v[e] = e < left ? storage::widen(src[e]) : 0.0f;
   }
 }
 
-__device__ __forceinline__ void store8(float* dst, int left, bool vec4, const float (&v)[8]) {
+// 8 values to dst, rounded once to its type
+template <class S>
+__device__ __forceinline__ void store8(S* dst, int left, bool vec4, const float (&v)[8]) {
   if (vec4 && left >= 8) {
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    storage::store4(dst, make_float4(v[0], v[1], v[2], v[3]));
+    storage::store4(dst + 4, make_float4(v[4], v[5], v[6], v[7]));
   } else {
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      if (e < left) dst[e] = v[e];
+      if (e < left) dst[e] = storage::narrow<S>(v[e]);
   }
 }
 
@@ -195,8 +205,8 @@ constexpr int kStatesStage = 2 * kChunk * kLdX + kChunk;  // x, B, dt
 constexpr int kStatesSmem = 4 * (2 * kStatesStage + kChunk + 4);
 
 __global__ void __launch_bounds__(kThreads) ssd_states_kernel(
-    float* __restrict__ states, float* __restrict__ hout, const float* __restrict__ x,
-    const float* __restrict__ dt, const float* __restrict__ A, const float* __restrict__ Bm,
+    float* __restrict__ states, float* __restrict__ hout, const T* __restrict__ x,
+    const float* __restrict__ dt, const float* __restrict__ A, const T* __restrict__ Bm,
     const float* __restrict__ h0, const int64_t L, const int H, const int P, const int G,
     const int N, const int cs, const int nc, const int vec4) {
   extern __shared__ float4 smem4[];
@@ -304,9 +314,9 @@ __host__ __device__ constexpr int out_smem_bytes(int npad) {
 }
 
 __global__ void __launch_bounds__(kThreads, 3) ssd_output_kernel(
-    float* __restrict__ y, const float* __restrict__ states, const float* __restrict__ x,
-    const float* __restrict__ dt, const float* __restrict__ A, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, const float* __restrict__ D, const int64_t L, const int H,
+    T* __restrict__ y, const float* __restrict__ states, const T* __restrict__ x,
+    const float* __restrict__ dt, const float* __restrict__ A, const T* __restrict__ Bm,
+    const T* __restrict__ Cm, const float* __restrict__ D, const int64_t L, const int H,
     const int P, const int G, const int N, const int cs, const int nc, const int vec4) {
   extern __shared__ float4 smem4[];
   const int npad = (N + 15) & ~15;
@@ -423,7 +433,7 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_output_kernel(
   for (int half = 0; half < 2; ++half) {
     const int row = t0 + 8 * half;
     if (row >= rows) continue;
-    float* yrow = y + ((b * L + r0 + row) * H + h) * P + p0;
+    T* yrow = y + ((b * L + r0 + row) * H + h) * P + p0;
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int p = 32 * q + 8 * t;
@@ -462,17 +472,17 @@ extern "C" int launch(void* y, void* hout, void* states, const void* x, const vo
   const int v4 = static_cast<int>(vec4);
   ssd_states_kernel<<<dim3(static_cast<unsigned>(B * H), ptiles, ntiles), kThreads,
                       kStatesSmem, st>>>(
-      static_cast<float*>(states), static_cast<float*>(hout), static_cast<const float*>(x),
+      static_cast<float*>(states), static_cast<float*>(hout), static_cast<const T*>(x),
       static_cast<const float*>(dt), static_cast<const float*>(A),
-      static_cast<const float*>(Bm), static_cast<const float*>(h0), L, h, p, g, n, c, k, v4);
+      static_cast<const T*>(Bm), static_cast<const float*>(h0), L, h, p, g, n, c, k, v4);
   err = cudaGetLastError();
   if (err != cudaSuccess || nc == 0) return static_cast<int>(err);
   ssd_output_kernel<<<dim3(static_cast<unsigned>(nc), ptiles, static_cast<unsigned>(B * H)),
                       kThreads, out_smem, st>>>(
-      static_cast<float*>(y), static_cast<const float*>(states),
-      static_cast<const float*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const float*>(Bm),
-      static_cast<const float*>(Cm), static_cast<const float*>(D), L, h, p, g, n, c, k, v4);
+      static_cast<T*>(y), static_cast<const float*>(states),
+      static_cast<const T*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<const float*>(D), L, h, p, g, n, c, k, v4);
   return static_cast<int>(cudaGetLastError());
 }
 

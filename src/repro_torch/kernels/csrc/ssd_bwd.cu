@@ -90,14 +90,24 @@
 // groups, otherwise the most heads that keep four blocks an SM. Every sum
 // runs in a fixed order and there are no atomics: the same bits on every
 // call.
+//
+// x, dy, B and C, and dx, dB and dC, are at the storage type T
+// (storage.cuh: f32, or bf16 in the bf16 instance), converted to f32 as
+// they are staged in shared memory (at bf16 by a load and a store, not
+// cp.async) and rounded once on store; dB and dC are then always summed in
+// the f32 slices' buffer and rounded by the fold (3.), also where a slice is
+// a whole group. Everything else is f32.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "tf32x3.cuh"
+#include "storage.cuh"
 
 namespace {
 
 using namespace tf32x3;
+using storage::T;
+using storage::kTwoByte;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;
@@ -118,8 +128,10 @@ __device__ __forceinline__ int swz(int r, int c) {
 // Copy rows [0, kChunk) x columns [0, cols_tile) of a row-major global tile
 // (row stride ldg) into shared memory (row stride lds, swizzled or not);
 // rows >= rows and columns >= cols are zero-filled. vec4: 16-byte copies
-// (every column count, stride and base is a multiple of 4 words / 16 bytes).
-__device__ __forceinline__ void load_tile(float* s, int lds, bool swizzled, const float* g,
+// (every column count, stride and base is a multiple of 4 elements and 16
+// bytes at f32); storage values are converted to f32 (storage::copy4).
+template <class S>
+__device__ __forceinline__ void load_tile(float* s, int lds, bool swizzled, const S* g,
                                           int64_t ldg, int rows, int cols, int cols_tile,
                                           bool vec4) {
   if (vec4) {
@@ -127,13 +139,13 @@ __device__ __forceinline__ void load_tile(float* s, int lds, bool swizzled, cons
     for (int i = threadIdx.x; i < kChunk * chunks; i += kThreads) {
       const int r = i / chunks, c = 4 * (i % chunks);
       const bool ok = r < rows && c < cols;
-      cp_async16(s + r * lds + (swizzled ? swz(r, c) : c), ok ? g + r * ldg + c : g, ok);
+      storage::copy4(s + r * lds + (swizzled ? swz(r, c) : c), ok ? g + r * ldg + c : g, ok);
     }
   } else {
     for (int i = threadIdx.x; i < kChunk * cols_tile; i += kThreads) {
       const int r = i / cols_tile, c = i % cols_tile;
       const bool ok = r < rows && c < cols;
-      cp_async4(s + r * lds + (swizzled ? swz(r, c) : c), ok ? g + r * ldg + c : g, ok);
+      storage::copy1(s + r * lds + (swizzled ? swz(r, c) : c), ok ? g + r * ldg + c : g, ok);
     }
   }
 }
@@ -166,38 +178,41 @@ __device__ __forceinline__ void logcum(const float* dts, float a, int lane, floa
 // The accumulators acc[4 Q][4] of a warp's 16 x 32 Q tile hold, for the row
 // half (0: row g, 1: row g + 8) and column group q (32 columns), columns
 // 32q + 8t + e, e = 0..7, at acc[4q + e % 4][e / 4 + 2·half].
-template <int M, class T>
-__device__ __forceinline__ T& frag(T (&acc)[M][4], int q, int half, int e) {
+template <int M, class V>
+__device__ __forceinline__ V& frag(V (&acc)[M][4], int q, int half, int e) {
   return acc[4 * q + (e & 3)][(e >> 2) + 2 * half];
 }
 
-__device__ __forceinline__ void load8(const float* src, int left, bool vec4, float (&v)[8]) {
+template <class S>
+__device__ __forceinline__ void load8(const S* src, int left, bool vec4, float (&v)[8]) {
   if (vec4 && left >= 8) {
-    const float4 a = *reinterpret_cast<const float4*>(src);
-    const float4 b = *reinterpret_cast<const float4*>(src + 4);
+    const float4 a = storage::load4(src);
+    const float4 b = storage::load4(src + 4);
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
   } else {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = e < left ? src[e] : 0.0f;
+    for (int e = 0; e < 8; ++e) v[e] = e < left ? storage::widen(src[e]) : 0.0f;
   }
 }
 
-__device__ __forceinline__ void store8(float* dst, int left, bool vec4, const float (&v)[8]) {
+// 8 values to dst, rounded once to its type
+template <class S>
+__device__ __forceinline__ void store8(S* dst, int left, bool vec4, const float (&v)[8]) {
   if (vec4 && left >= 8) {
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    storage::store4(dst, make_float4(v[0], v[1], v[2], v[3]));
+    storage::store4(dst + 4, make_float4(v[4], v[5], v[6], v[7]));
   } else {
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      if (e < left) dst[e] = v[e];
+      if (e < left) dst[e] = storage::narrow<S>(v[e]);
   }
 }
 
 // Rows prow + 8·half (< P - p0) of the (P, N) state at `base`, columns
 // n0 + 32q + 8t + e: from the accumulators (store) or into them (load).
-template <bool kStore, typename T>
-__device__ __forceinline__ void state_rows(float (&acc)[8][4], T* base, int prow, int t,
+template <bool kStore, typename S>
+__device__ __forceinline__ void state_rows(float (&acc)[8][4], S* base, int prow, int t,
                                            int P, int N, int p0, int n0, bool vec4) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -206,7 +221,7 @@ __device__ __forceinline__ void state_rows(float (&acc)[8][4], T* base, int prow
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int n = n0 + 32 * q + 8 * t;
-      T* at = base + static_cast<int64_t>(p) * N + n;
+      S* at = base + static_cast<int64_t>(p) * N + n;
       float v[8];
       if constexpr (kStore) {
 #pragma unroll
@@ -226,8 +241,8 @@ constexpr int kGinSmem = 4 * (2 * kGinStage + kChunk + 4);
 
 // 1. Gin(c) for every chunk, walking back from dh_final; dh0 = Gin(-1).
 __global__ void __launch_bounds__(kThreads) ssd_bwd_gin(
-    float* __restrict__ gin, float* __restrict__ dh0, const float* __restrict__ dy,
-    const float* __restrict__ dt, const float* __restrict__ A, const float* __restrict__ Cm,
+    float* __restrict__ gin, float* __restrict__ dh0, const T* __restrict__ dy,
+    const float* __restrict__ dt, const float* __restrict__ A, const T* __restrict__ Cm,
     const float* __restrict__ dh_final, const int64_t L, const int H, const int P, const int G,
     const int N, const int cs, const int nc, const int vec4) {
   extern __shared__ float smem[];
@@ -444,11 +459,11 @@ __host__ __device__ constexpr int chunk_smem_floats(int ldn) {
 // dt e (dsc) and dy·x (ddg) per step, and the slice's dB and dC.
 template <int NJ>
 __global__ void __launch_bounds__(kThreads, NJ <= 2 ? 2 : 1) ssd_bwd_chunk(
-    float* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dsc,
+    T* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dsc,
     float* __restrict__ ddg, float* __restrict__ pB, float* __restrict__ pC,
     const float* __restrict__ states, const float* __restrict__ gin,
-    const float* __restrict__ x, const float* __restrict__ dy, const float* __restrict__ dt,
-    const float* __restrict__ A, const float* __restrict__ Bm, const float* __restrict__ Cm,
+    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ dt,
+    const float* __restrict__ A, const T* __restrict__ Bm, const T* __restrict__ Cm,
     const float* __restrict__ D, const int64_t L, const int H, const int P, const int G,
     const int N, const int cs, const int nc, const int hb, const int vec4) {
   constexpr int LDN = 32 * NJ;
@@ -663,9 +678,10 @@ __global__ void __launch_bounds__(kThreads, NJ <= 2 ? 2 : 1) ssd_bwd_chunk(
   }
 }
 
-// 3. dB and dC (B, L, G, N): the slices of each group summed in order.
+// 3. dB and dC (B, L, G, N): the slices of each group summed in order, then
+// rounded to T.
 __global__ void __launch_bounds__(kFold) ssd_bwd_fold_slices(
-    float* __restrict__ dB, float* __restrict__ dC, const float* __restrict__ pB,
+    T* __restrict__ dB, T* __restrict__ dC, const float* __restrict__ pB,
     const float* __restrict__ pC, const int64_t total, const int G, const int N,
     const int ns) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kFold + threadIdx.x;
@@ -678,8 +694,8 @@ __global__ void __launch_bounds__(kFold) ssd_bwd_fold_slices(
     sb += pB[at];
     sc += pC[at];
   }
-  dB[i] = sb;
-  dC[i] = sc;
+  dB[i] = storage::narrow<T>(sb);
+  dC[i] = storage::narrow<T>(sc);
 }
 
 // A block's sum of v in double, in a fixed order (each warp's butterfly,
@@ -770,10 +786,10 @@ __global__ void __launch_bounds__(kFold) ssd_bwd_fold_heads(
 __host__ __device__ constexpr int64_t round4(int64_t n) { return (n + 3) / 4 * 4; }
 
 template <int NJ>
-int launch_chunk(cudaStream_t st, float* dx, float* ddt, float* dsc, float* ddg, float* pB,
-                 float* pC, const float* states, const float* gin, const float* x,
-                 const float* dy, const float* dt, const float* A, const float* Bm,
-                 const float* Cm, const float* D, int64_t B, int64_t L, int H, int P, int G,
+int launch_chunk(cudaStream_t st, T* dx, float* ddt, float* dsc, float* ddg, float* pB,
+                 float* pC, const float* states, const float* gin, const T* x,
+                 const T* dy, const float* dt, const float* A, const T* Bm,
+                 const T* Cm, const float* D, int64_t B, int64_t L, int H, int P, int G,
                  int N, int cs, int nc, int hb, int vec4) {
   const int smem = 4 * chunk_smem_floats(32 * NJ);
   const cudaError_t err = cudaFuncSetAttribute(
@@ -807,14 +823,19 @@ extern "C" int heads_per_block(int64_t B, int64_t L, int64_t H, int64_t G, int64
 // Shared memory of a chunk block at state size N, in floats.
 extern "C" int64_t chunk_smem(int64_t N) { return chunk_smem_floats((N + 31) / 32 * 32); }
 
+// Whether dB and dC are summed in the slices' f32 buffer and folded: where a
+// group has more than one slice, and always at bf16 (rounded once, by the
+// fold).
+bool folds(int64_t ns) { return ns > 1 || kTwoByte; }
+
 // f32 scratch of the backward: Gin of every chunk (B, nc, H, P, N); the
-// slices' dB and dC (B, L, G·slices, N) where a group has more than one
-// slice; dy·(h C) - dt e and dy·x per step (B, L, H); the (b, h) parts of
-// dA and dD. Each part starts on a 16-byte boundary.
+// slices' dB and dC (B, L, G·slices, N) where they fold; dy·(h C) - dt e and
+// dy·x per step (B, L, H); the (b, h) parts of dA and dD. Each part starts
+// on a 16-byte boundary.
 extern "C" int64_t work_floats(int64_t B, int64_t L, int64_t H, int64_t P, int64_t G,
                                int64_t N, int64_t cs) {
   const int64_t nc = (L + cs - 1) / cs, ns = H / G / heads_per_block(B, L, H, G, cs);
-  return round4(B * nc * H * P * N) + (ns > 1 ? 2 * round4(B * L * G * ns * N) : 0) +
+  return round4(B * nc * H * P * N) + (folds(ns) ? 2 * round4(B * L * G * ns * N) : 0) +
          2 * round4(B * L * H) + 2 * round4(B * H);
 }
 
@@ -831,17 +852,18 @@ extern "C" int launch(void* dx, void* ddt, void* dA, void* dB, void* dC, void* d
       work_size < work_floats(B, L, H, P, G, N, cs))
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto s = [](const void* p) { return static_cast<const T*>(p); };
   const int hb = heads_per_block(B, L, H, G, cs);
   const int64_t ns = H / G / hb;
   float* w = static_cast<float*>(work);
   float* gin = w;
   float* pB = gin + round4(B * nc * H * P * N);
-  float* pC = pB + (ns > 1 ? round4(B * L * G * ns * N) : 0);
-  float* dsc = pC + (ns > 1 ? round4(B * L * G * ns * N) : 0);
+  float* pC = pB + (folds(ns) ? round4(B * L * G * ns * N) : 0);
+  float* dsc = pC + (folds(ns) ? round4(B * L * G * ns * N) : 0);
   float* ddg = dsc + round4(B * L * H);
   float* da_bh = ddg + round4(B * L * H);
   float* dd_bh = da_bh + round4(B * H);
-  if (ns == 1) {
+  if (!folds(ns)) {
     pB = static_cast<float*>(dB);
     pC = static_cast<float*>(dC);
   }
@@ -860,39 +882,39 @@ extern "C" int launch(void* dx, void* ddt, void* dA, void* dB, void* dC, void* d
                     static_cast<unsigned>((N + kTile - 1) / kTile));
     const dim3 block(kThreads, 1, 1);
     ssd_bwd_gin<<<grid, block, kGinSmem, st>>>(
-        gin, static_cast<float*>(dh0), f(dy), f(dt), f(A), f(Cm), f(dh_final), L, h, p, g, n,
+        gin, static_cast<float*>(dh0), s(dy), f(dt), f(A), s(Cm), f(dh_final), L, h, p, g, n,
         c, k, vec4);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   int e = 0;
   auto ddtp = static_cast<float*>(ddt);
-  auto dxp = static_cast<float*>(dx);
+  auto dxp = static_cast<T*>(dx);
   switch ((N + 31) / 32) {
     case 1:
-      e = launch_chunk<1>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, f(x), f(dy), f(dt),
-                          f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
+      e = launch_chunk<1>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, s(x), s(dy), f(dt),
+                          f(A), s(Bm), s(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
       break;
     case 2:
-      e = launch_chunk<2>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, f(x), f(dy), f(dt),
-                          f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
+      e = launch_chunk<2>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, s(x), s(dy), f(dt),
+                          f(A), s(Bm), s(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
       break;
     case 3:
-      e = launch_chunk<3>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, f(x), f(dy), f(dt),
-                          f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
+      e = launch_chunk<3>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, s(x), s(dy), f(dt),
+                          f(A), s(Bm), s(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
       break;
     default:
-      e = launch_chunk<4>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, f(x), f(dy), f(dt),
-                          f(A), f(Bm), f(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
+      e = launch_chunk<4>(st, dxp, ddtp, dsc, ddg, pB, pC, f(states), gin, s(x), s(dy), f(dt),
+                          f(A), s(Bm), s(Cm), f(D), B, L, h, p, g, n, c, k, hb, vec4);
   }
   if (e != 0) return e;
   const dim3 fold(kFold, 1, 1);
-  if (ns > 1) {
+  if (folds(ns)) {
     const int64_t total = B * L * G * N;
     const dim3 grid(static_cast<unsigned>((total + kFold - 1) / kFold), 1, 1);
     const dim3 block = fold;
     ssd_bwd_fold_slices<<<grid, block, 0, st>>>(
-        static_cast<float*>(dB), static_cast<float*>(dC), pB, pC, total, g, n,
+        static_cast<T*>(dB), static_cast<T*>(dC), pB, pC, total, g, n,
         static_cast<int>(ns));
   }
   {

@@ -62,11 +62,17 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, ah, b0h, b1h);
 }
 
-// 16 (or 4) bytes from global to shared memory, zero-filled where !valid
+// 16 (or 8, or 4) bytes from global to shared memory, zero-filled where !valid
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 8 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {

@@ -99,13 +99,14 @@ def conv1d_causal(x, w, b=None):
 
 def conv1d_bwd(dout, x, w, b=None, silu: bool = False):
     """(dx, dw, db) of :func:`conv1d_causal` (then SiLU if asked) given
-    ``dout``; db is None when b is."""
+    ``dout``, computed in f32 and each rounded once to its input's dtype
+    (``conv1d.plain``'s function); db is None when b is."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (x, w, b) if t is not None]
-        out = conv1d_causal(*leaves)
+        out = conv1d_causal(*(t.float() for t in leaves))
         if silu:
             out = out * torch.sigmoid(out)
-        grads = torch.autograd.grad(out, leaves, dout)
+        grads = torch.autograd.grad(out, leaves, dout.float())
     return (*grads, None) if b is None else grads
 
 
@@ -126,7 +127,8 @@ def _allowed(Lq: int, Lk: int, causal: bool, window: Optional[int], device):
 def _scores(q, k, scale):
     """f32 scaled scores (B, Hq, Lq, Lk), k broadcast over the GQA groups."""
     Hq, Hkv = q.shape[1], k.shape[1]
-    k = torch.repeat_interleave(k, Hq // Hkv, dim=1) if Hq > Hkv else k
+    # widened before the broadcast, so a bf16 k's gradient sums its heads in f32
+    k = torch.repeat_interleave(k.float(), Hq // Hkv, dim=1) if Hq > Hkv else k
     scale = (q.shape[-1] ** -0.5) if scale is None else scale
     return torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
 
@@ -138,7 +140,7 @@ def attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
     ``window`` keys. Computed in f32; a row with no key left gives 0."""
     Hq, Hkv = q.shape[1], k.shape[1]
     if Hq > Hkv:
-        v = torch.repeat_interleave(v, Hq // Hkv, dim=1)
+        v = torch.repeat_interleave(v.float(), Hq // Hkv, dim=1)
     mask = _allowed(q.shape[2], k.shape[2], causal, window, q.device)
     # masked scores are NEG_INF, the reference's chunked path's value: exp
     # underflows to exactly 0 beside any allowed key, and a row with no key
@@ -171,8 +173,10 @@ def attention_bwd(q, k, v, dout, causal: bool = True, scale: Optional[float] = N
 
 # -- Mamba2 SSD ------------------------------------------------------------------
 def _heads(m, H):
-    """(B, L, G, N) per state group -> (B, L, H, N) per head."""
+    """(B, L, G, N) per state group -> (B, L, H, N) per head, in f32 (so a
+    bf16 input's gradient sums its heads in f32 and is rounded once)."""
     rep = H // m.shape[2]
+    m = m.float()
     return torch.repeat_interleave(m, rep, dim=2) if rep > 1 else m
 
 
@@ -234,7 +238,8 @@ def ssd(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64):
     cs = pick_divisor(L, chunk)
     nc = L // cs
     f32 = torch.float32
-    xr = x.reshape(B, nc, cs, H, P).float()
+    xf = x.float()      # once: a bf16 x's gradient is summed in f32, rounded once
+    xr = xf.reshape(B, nc, cs, H, P)
     dtr = dt.reshape(B, nc, cs, H).float()
     Br = _heads(Bm, H).reshape(B, nc, cs, H, N).float()
     Cr = _heads(Cm, H).reshape(B, nc, cs, H, N).float()
@@ -266,7 +271,7 @@ def ssd(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64):
     y_inter = torch.einsum("bnths,bnhps->bnthp", Cr * torch.exp(logcum)[..., None], h_starts)
     y = (y_intra + y_inter).reshape(B, L, H, P)
     if D is not None:
-        y = y + x.float() * D[None, None, :, None].float()
+        y = y + xf * D[None, None, :, None].float()
     return y.to(x.dtype), h
 
 

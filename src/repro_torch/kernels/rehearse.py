@@ -47,7 +47,10 @@ point; every output and scratch buffer is NaN before the launch, so an
 element no thread writes shows. Their tensor-core code runs too: the
 inlined ``csrc/tf32x3.cuh`` becomes a host twin whose ``mma_tf32`` is
 ``mma.sync.m16n8k8`` computed from the warp's fragments in PTX's layout
-(:data:`_TF32X3_HOST`, :func:`mma_tf32_lanes`).
+(:data:`_TF32X3_HOST`, :func:`mma_tf32_lanes`). bf16 inputs run each
+source's bf16 instance (``build.instance``: ``csrc/storage.cuh`` with
+``REPRO_TORCH_BF16``), whose ``cp.async`` copies move the 2-byte values as
+bytes; :func:`compile_lm` builds several instances at once.
 """
 from __future__ import annotations
 
@@ -770,18 +773,23 @@ inline void mma3(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4]
   mma_posted(d, post, tid & 31, 0, 10);
   mma_posted(d, post, tid & 31, 0, 8);
 }
+// the words are moved as bytes (two bf16 values a word at 2 bytes); a NaN
+// in every 2- and 4-byte value until the wait
 inline void async_words(void* smem, const void* gmem, int words, bool valid) {
-  float* dst = static_cast<float*>(smem);
-  const float* src = static_cast<const float*>(gmem);
-  const uint32_t nan = 0x7fc00000u;
-  for (int i = 0; i < words; ++i) std::memcpy(dst + i, &nan, 4);
+  char* dst = static_cast<char*>(smem);
+  const char* src = static_cast<const char*>(gmem);
+  std::memset(dst, 0xff, 4 * words);
   Fiber& f = (*g_fibers)[g_cur];
   f.groups.emplace_back(f.open, [=] {
-    for (int i = 0; i < words; ++i) dst[i] = valid ? src[i] : 0.0f;
+    if (valid) std::memcpy(dst, src, 4 * words);
+    else std::memset(dst, 0, 4 * words);
   });
 }
 inline void cp_async16(void* smem, const void* gmem, bool valid) {
   async_words(smem, gmem, 4, valid);
+}
+inline void cp_async8(void* smem, const void* gmem, bool valid) {
+  async_words(smem, gmem, 2, valid);
 }
 inline void cp_async4(void* smem, const void* gmem, bool valid) {
   async_words(smem, gmem, 1, valid);
@@ -801,11 +809,13 @@ inline void cp_async_wait_all() {
 """
 
 
-def lm_library(path, name: str, shared_floats: int = 0) -> ctypes.CDLL:
+def lm_library(path, name: str, shared_floats: int = 0, bf16: bool = False) -> ctypes.CDLL:
     """The hand-written source at ``path`` compiled for the CPU, with
     ``shared_floats`` words of dynamic shared memory; ``csrc/tf32x3.cuh``
-    where it is inlined becomes its host twin (``_TF32X3_HOST``)."""
-    return _lm_compile(build.read_source(path), name, shared_floats)
+    where it is inlined becomes its host twin (``_TF32X3_HOST``). With
+    ``bf16``, its bfloat16 instance (``build.instance``)."""
+    name, text = build.instance(name, path, bf16)
+    return _lm_compile(text, name, shared_floats)
 
 
 def _lm_compile(text: str, name: str, shared_floats: int = 0) -> ctypes.CDLL:
@@ -858,10 +868,43 @@ def mma_tf32_lanes(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.T
     return d
 
 
-def _run_lm(path, name: str, argtypes, args, shared_floats: int = 0) -> None:
-    """The hand-written source at ``path`` run on the CPU through its
-    ``launch`` entry point with ``args`` (the stream None)."""
-    lib = lm_library(path, name, shared_floats)
+def lm_instance(name: str, bf16: bool = False) -> tuple:
+    """(source path, shared memory in floats) of the rehearsed LM source
+    ``name`` (conv1d, conv1d_bwd, ssd_bwd, attention_bwd), for its float32
+    instance or with ``bf16`` its bfloat16 one: room for every launch the
+    wrapper makes."""
+    from . import attention, conv1d as conv, ssd
+
+    size = 2 if bf16 else 4
+    return {"conv1d": (conv.SOURCE, conv.smem_floats(conv.MAX_K, 4, conv.MAX_TILE, size)),
+            "conv1d_bwd": (conv.BWD_SOURCE, conv.bwd_smem_floats(conv.MAX_K, 4, conv.MAX_TILE,
+                                                                 size)),
+            "ssd_bwd": (ssd.BWD_SOURCE, ssd.bwd_smem_floats(ssd.MAX_N_BWD)),
+            "attention_bwd": (attention.BWD_SOURCE,
+                              max(map(attention.bwd_smem_floats, attention.HEAD_DIMS)))}[name]
+
+
+LM_REHEARSED = ("conv1d", "conv1d_bwd", "ssd_bwd", "attention_bwd")
+
+
+def compile_lm(instances) -> None:
+    """Compile the rehearsals of ``instances`` ((name, bf16) pairs of
+    :data:`LM_REHEARSED`) together, one g++ each in its own thread; each is
+    then loaded from its file as the rehearsal calls it."""
+    import concurrent.futures
+
+    jobs = [(*lm_instance(name, bf16), bf16, name) for name, bf16 in instances]
+    with concurrent.futures.ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+        list(pool.map(lambda j: lm_library(j[0], j[3], j[1], j[2]), jobs))
+
+
+def _run_lm(name: str, argtypes, args, dtype: torch.dtype) -> None:
+    """The rehearsed LM source ``name`` (its instance for ``dtype``) run on
+    the CPU through its ``launch`` entry point with ``args`` (the stream
+    None)."""
+    bf16 = dtype == torch.bfloat16
+    path, shared = lm_instance(name, bf16)
+    lib = lm_library(path, name, shared, bf16)
     lib.rehearse_inputs(0, None, None)
     fn = lib.launch
     fn.argtypes = list(argtypes)
@@ -877,39 +920,39 @@ def _nan(*tensors) -> None:
 
 
 def conv1d(x, w, b, silu: bool = False):
-    """``csrc/conv1d.cu`` on CPU tensors: the output, as
-    ``conv1d.conv1d_causal`` launches it on a card (a contiguous view that
-    is not 16-byte aligned takes the 4-byte copies here too)."""
+    """``csrc/conv1d.cu`` on CPU tensors (its bf16 instance for bf16 ones):
+    the output, as ``conv1d.conv1d_causal`` launches it on a card (a
+    contiguous view that is not 16-byte aligned takes the one-channel
+    copies here too)."""
     from . import conv1d as conv
 
-    b = torch.zeros(x.shape[2]) if b is None else b
+    b = torch.zeros(x.shape[2], dtype=x.dtype) if b is None else b
     out, args = conv.fwd_arguments(x.contiguous(), w.contiguous(), b.contiguous(), silu)
     _nan(out)
-    _run_lm(conv.SOURCE, "conv1d", conv._ARGTYPES, args,
-            conv.smem_floats(conv.MAX_K, 4, conv.MAX_TILE))
+    _run_lm("conv1d", conv._ARGTYPES, args, x.dtype)
     return out
 
 
 def conv1d_bwd(dout, x, w, b, silu: bool = False):
-    """``csrc/conv1d_bwd.cu`` on CPU tensors: (dx, dw, db), as
-    ``conv1d.conv1d_causal_bwd`` launches it on a card (db None where b
-    is)."""
+    """``csrc/conv1d_bwd.cu`` on CPU tensors (its bf16 instance for bf16
+    ones): (dx, dw, db), as ``conv1d.conv1d_causal_bwd`` launches it on a
+    card (db None where b is)."""
     from . import conv1d as conv
 
-    bias = torch.zeros(x.shape[2]) if b is None else b
+    bias = torch.zeros(x.shape[2], dtype=x.dtype) if b is None else b
     (dx, dw, db), args, part = conv.bwd_arguments(dout.contiguous(), x.contiguous(),
                                                   w.contiguous(), bias.contiguous(), silu)
     _nan(dx, dw, db, part)
-    _run_lm(conv.BWD_SOURCE, "conv1d_bwd", conv._BWD_ARGTYPES, args,
-            conv.bwd_smem_floats(conv.MAX_K, 4, conv.MAX_TILE))
+    _run_lm("conv1d_bwd", conv._BWD_ARGTYPES, args, x.dtype)
     return dx, dw, (db if b is not None else None)
 
 
 def ssd_bwd(x, dt, A, Bm, Cm, dy, D=None, h0=None, dh_final=None, chunk: int = 64):
-    """``csrc/ssd_bwd.cu`` on CPU tensors, from the chunk-start states and
-    final state of the plain recurrence (``ref.ssd_states``) at the
-    forward kernel's chunk (``ssd.plan``): the gradients as
-    ``ssd.ssd_chunk_scan_bwd`` returns them."""
+    """``csrc/ssd_bwd.cu`` on CPU tensors (its bf16 instance where x, Bm,
+    Cm and dy are bf16), from the chunk-start states and final state of the
+    plain recurrence (``ref.ssd_states``, f32) at the forward kernel's
+    chunk (``ssd.plan``): the gradients as ``ssd.ssd_chunk_scan_bwd``
+    returns them."""
     from . import ref, ssd
 
     cs, _ = ssd.plan(x.shape[1], chunk)
@@ -917,22 +960,25 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, D=None, h0=None, dh_final=None, chunk: int = 6
     grads, args, work = ssd.bwd_arguments(x, dt, A, Bm, Cm, dy, D, h0, dh_final, states,
                                           h_final, chunk)
     _nan(work, *grads.values())
-    _run_lm(ssd.BWD_SOURCE, "ssd_bwd", ssd._BWD_ARGTYPES, args,
-            ssd.bwd_smem_floats(ssd.MAX_N_BWD))
+    _run_lm("ssd_bwd", ssd._BWD_ARGTYPES, args, x.dtype)
     return grads
 
 
-def attention_bwd(q, k, v, dout, causal: bool = True, window=None, scale=None):
-    """``csrc/attention_bwd.cu`` on CPU tensors, from the plain forward's
-    output and log-sum-exp: (dq, dk, dv), as ``attention.flash_attention_bwd``
-    launches it on a card."""
+def attention_bwd(q, k, v, dout, causal: bool = True, window=None, scale=None, out=None,
+                  lse=None):
+    """``csrc/attention_bwd.cu`` on CPU tensors (its bf16 instance for bf16
+    ones), from the forward's f32 output and log-sum-exp (the plain
+    forward's where ``out`` or ``lse`` is None): (dq, dk, dv), as
+    ``attention.flash_attention_bwd`` launches it on a card."""
     from . import attention, ref
 
-    out = ref.attention(q, k, v, causal=causal, scale=scale, window=window)
-    lse = ref.attention_lse(q, k, causal=causal, scale=scale, window=window)
+    if out is None:    # before rounding, as the forward kernel's out32
+        out = ref.attention(q.float(), k.float(), v.float(), causal=causal, scale=scale,
+                            window=window)
+    if lse is None:
+        lse = ref.attention_lse(q, k, causal=causal, scale=scale, window=window)
     grads, args, delta = attention.bwd_arguments(q, k, v, out, dout, lse, causal, window,
                                                  scale)
     _nan(delta, *grads)
-    _run_lm(attention.BWD_SOURCE, "attention_bwd", attention._BWD_ARGTYPES, args,
-            max(map(attention.bwd_smem_floats, attention.HEAD_DIMS)))
+    _run_lm("attention_bwd", attention._BWD_ARGTYPES, args, q.dtype)
     return grads

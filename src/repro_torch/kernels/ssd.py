@@ -18,6 +18,12 @@ Training differentiates the kernels through :class:`SSDFn`: the forward
 keeps its chunk-start states, and the backward is the hand-written
 ``csrc/ssd_bwd.cu`` (:func:`ssd_chunk_scan_bwd`; plain version
 ``ref.ssd_bwd``), at the forward's own chunk plan.
+
+x, Bm and Cm (and y; in the backward dy, dx, dB and dC) are float32 or
+bfloat16, one dtype a call, as the reference's kernel takes the parameter
+dtype; dt, A, D, h0, the states and h_final (and their gradients) are
+float32. Each dtype runs its own instance of the sources (``library(bf16)``),
+which converts to f32 on load, computes in f32 and rounds once on store.
 """
 from __future__ import annotations
 
@@ -57,14 +63,18 @@ _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
 
 
-@functools.cache
-def library() -> build.Library:
-    return build.Library("ssd", build.read_source(SOURCE), _ARGTYPES)
+# the arguments kept in float32 whatever the storage dtype
+F32_ARGS = ("dt", "A", "D", "h0", "dh_final", "states", "h_final")
 
 
 @functools.cache
-def bwd_library() -> build.Library:
-    return build.Library("ssd_bwd", build.read_source(BWD_SOURCE), _BWD_ARGTYPES)
+def library(bf16: bool = False) -> build.Library:
+    return build.Library(*build.instance("ssd", SOURCE, bf16), _ARGTYPES)
+
+
+@functools.cache
+def bwd_library(bf16: bool = False) -> build.Library:
+    return build.Library(*build.instance("ssd_bwd", BWD_SOURCE, bf16), _BWD_ARGTYPES)
 
 
 def pick_chunk(L: int, chunk: int) -> int:
@@ -122,7 +132,7 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64,
     if smem > MAX_SMEM or Bb * H > _MAX_GRID_Z:
         raise ValueError(f"ssd: N={N} needs {smem} bytes of shared memory (at most "
                          f"{MAX_SMEM}); B * H = {Bb * H} (at most {_MAX_GRID_Z})")
-    dev = check_cuda_tensors(args, "ssd")
+    dev, dtype = check_cuda_tensors(args, "ssd", F32_ARGS)
     cs, nc = plan(L, chunk)
     y = torch.empty_like(x)
     h_final = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
@@ -132,11 +142,11 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, D=None, h0=None, chunk: int = 64,
     vec4 = P % 4 == 0 and N % 4 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (x, Bm, Cm, h0) if t is not None)
     with torch.cuda.device(dev):
-        library().launch(y.data_ptr(), h_final.data_ptr(), states.data_ptr(), x.data_ptr(),
-                         dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                         None if D is None else D.data_ptr(),
-                         None if h0 is None else h0.data_ptr(),
-                         Bb, L, H, P, G, N, cs, nc, int(vec4), stream_of(dev))
+        library(dtype == torch.bfloat16).launch(
+            y.data_ptr(), h_final.data_ptr(), states.data_ptr(), x.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), None if D is None else D.data_ptr(),
+            None if h0 is None else h0.data_ptr(), Bb, L, H, P, G, N, cs, nc, int(vec4),
+            stream_of(dev))
     launches += 1
     return (y, h_final, states) if return_states else (y, h_final)
 
@@ -162,10 +172,12 @@ def bwd_smem_floats(N: int) -> int:
     return 2 * KERNEL_CHUNK * _TILE + 4 * KERNEL_CHUNK * ldn + 2 * KERNEL_CHUNK
 
 
-def bwd_work_floats(Bb: int, L: int, H: int, P: int, G: int, N: int, chunk: int) -> int:
+def bwd_work_floats(Bb: int, L: int, H: int, P: int, G: int, N: int, chunk: int,
+                    bf16: bool = False) -> int:
     """f32 scratch of the backward (``csrc/ssd_bwd.cu``'s ``work_floats``):
     the chunk-state gradients (B, nc, H, P, N), the slices' dB and dC where
-    a group has more than one slice, two values a step and head, two a
+    a group has more than one slice or the gradients are bf16 (summed in
+    f32, rounded once by the fold), two values a step and head, two a
     (b, h); each part rounded up to 4 floats."""
     nc = plan(L, chunk)[1]
     ns = H // G // bwd_heads_per_block(Bb, L, H, G, chunk)
@@ -173,7 +185,7 @@ def bwd_work_floats(Bb: int, L: int, H: int, P: int, G: int, N: int, chunk: int)
     def r4(n):
         return -(-n // 4) * 4
 
-    return (r4(Bb * nc * H * P * N) + (2 * r4(Bb * L * G * ns * N) if ns > 1 else 0)
+    return (r4(Bb * nc * H * P * N) + (2 * r4(Bb * L * G * ns * N) if ns > 1 or bf16 else 0)
             + 2 * r4(Bb * L * H) + 2 * r4(Bb * H))
 
 
@@ -188,7 +200,7 @@ def bwd_arguments(x, dt, A, Bm, Cm, dy, D, h0, dh_final, states, h_final, chunk:
              "dB": torch.empty_like(Bm), "dC": torch.empty_like(Cm),
              "dD": None if D is None else torch.empty_like(D),
              "dh0": None if h0 is None else torch.empty_like(h0)}
-    size = bwd_work_floats(Bb, L, H, P, G, N, chunk)
+    size = bwd_work_floats(Bb, L, H, P, G, N, chunk, x.dtype == torch.bfloat16)
     work = torch.empty((size,), dtype=torch.float32, device=x.device)
 
     def ptr(t):
@@ -204,7 +216,8 @@ def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, D=None, h0=None, dh_final=None, sta
                        h_final=None, chunk: int = 64):
     """The gradients of :func:`ssd_chunk_scan` given ``dy`` (B, L, H, P) and,
     if not None, ``dh_final``: a dict with dx, ddt, dA, dB and dC (per state
-    group, summed over its heads), dD and dh0 (None where D or h0 is).
+    group, summed over its heads), dD and dh0 (None where D or h0 is), each
+    in its input's dtype.
 
     CUDA tensors run ``csrc/ssd_bwd.cu`` from the forward's chunk-start
     ``states`` (and ``h_final`` where ``dh_final`` is given), at
@@ -232,11 +245,11 @@ def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, D=None, h0=None, dh_final=None, sta
     if G < 1 or H % G or not 1 <= N <= MAX_N_BWD or Bb * H > _MAX_GRID_Z:
         raise ValueError(f"ssd_bwd: needs G | H, 1 <= N <= {MAX_N_BWD} and B * H <= "
                          f"{_MAX_GRID_Z}, got G={G}, H={H}, N={N}, B={Bb}")
-    dev = check_cuda_tensors(args, "ssd_bwd")
+    dev, dtype = check_cuda_tensors(args, "ssd_bwd", F32_ARGS)
     grads, cargs, _work = bwd_arguments(x, dt, A, Bm, Cm, dy, D, h0, dh_final, states,
                                         h_final, chunk)
     with torch.cuda.device(dev):
-        bwd_library().launch(*cargs, stream_of(dev))
+        bwd_library(dtype == torch.bfloat16).launch(*cargs, stream_of(dev))
     launches_bwd += 1
     return grads
 

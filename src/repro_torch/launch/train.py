@@ -11,8 +11,9 @@ Every arch of ``configs.ARCH_IDS`` trains. On ``--device cuda`` (the
 default) the forward runs the hand-written CUDA kernels inside their
 autograd Functions and the backward runs their hand-written backward
 kernels; ``--device cpu`` differentiates the kernels' plain versions.
-Training is f32 (the reference's ``train()`` trains at f32 too; bf16
-inputs are ROADMAP queue 2). A VLM's patch embeddings and an enc-dec's
+Training defaults to f32, as the reference's ``train()`` does; a
+``RunConfig(param_dtype="bfloat16")`` trains bf16 parameters, with the f32
+master in the AdamW state and the kernels' bf16 instances. A VLM's patch embeddings and an enc-dec's
 source frames are drawn per step from a generator seeded with the step, as
 the reference draws them from ``PRNGKey(step)`` (the same distribution, not
 the same bits).
@@ -38,6 +39,10 @@ from ..models import RunConfig, build
 from ..models import common as cm
 from ..optim import adamw
 from . import steps as steps_mod
+
+
+# parameter dtypes train() takes: the kernels' storage dtypes
+TRAIN_DTYPES = ("float32", "bfloat16")
 
 
 @dataclasses.dataclass
@@ -120,9 +125,9 @@ def train(arch: str, loop: TrainLoopConfig, rc: Optional[RunConfig] = None,
     if overrides:
         cfg = configs.apply_overrides(cfg, overrides)
     rc = rc or default_run_config(loop)
-    if rc.param_dtype != "float32":
-        raise ValueError(f"param_dtype {rc.param_dtype!r}: training is f32 (bf16 inputs to "
-                         "the kernels are ROADMAP queue 2)")
+    if rc.param_dtype not in TRAIN_DTYPES:
+        raise ValueError(f"param_dtype {rc.param_dtype!r}: training takes {TRAIN_DTYPES} "
+                         "(bf16 parameters keep an f32 master in the AdamW state)")
     with deterministic_algorithms() if deterministic else contextlib.nullcontext():
         return _train(cfg, rc, loop, resolve_device(device), log_fn, params, on_step)
 

@@ -119,9 +119,12 @@ class ArchConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    # The CUDA kernels take float32; bf16 storage is ROADMAP queue 2,
-    # items 3-5 ("bf16 inputs").
-    param_dtype: str = "float32"
+    # the reference's defaults: bf16 parameters (the LM kernels take them
+    # as bf16 storage, f32 compute); compute_dtype is read nowhere, as in
+    # the reference, and so takes only the reference's default or
+    # param_dtype (a reference RunConfig's value, never a silent setting)
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
     attn_impl: str = "cuda"          # cuda | ref
     ssd_impl: str = "cuda"
     conv_impl: str = "cuda"
@@ -146,6 +149,11 @@ class RunConfig:
         for f in ("attn_impl", "ssd_impl", "conv_impl"):
             if getattr(self, f) not in IMPLS:
                 raise ValueError(f"{f} must be one of {IMPLS}, got {getattr(self, f)!r}")
+        if self.compute_dtype not in ("bfloat16", self.param_dtype):
+            raise ValueError(
+                f"compute_dtype {self.compute_dtype!r} is read nowhere (the kernels compute "
+                "in float32, the rest at param_dtype): it must be 'bfloat16' or param_dtype "
+                f"({self.param_dtype!r})")
 
 
 SMOKE_OVERRIDES = dict(

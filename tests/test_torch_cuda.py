@@ -725,7 +725,7 @@ def test_lm_serve_backends_agree_on_the_card(card):
     # the smoke config: 2 Mamba2 layers and one application of the shared block
     assert (conv1d.launches - counts[0], ssd.launches - counts[1],
             attention.launches - counts[2]) == (2, 2, 1)
-    rc = RunConfig(attn_impl="ref", ssd_impl="ref", conv_impl="ref")
+    rc = RunConfig(param_dtype="float32", attn_impl="ref", ssd_impl="ref", conv_impl="ref")
     want, winfo = lm_serve.serve("zamba2-1.2b", scfg, rc=rc, smoke=True, device="cuda",
                                  log_fn=lambda *a: None)
     torch.testing.assert_close(info["prefill_logits"], winfo["prefill_logits"],
@@ -785,7 +785,7 @@ def test_family_serve_backends_agree_on_the_card(card, arch):
     got, info = lm_serve.serve(arch, scfg, smoke=True, device="cuda", log_fn=lambda *a: None)
     assert (conv1d.launches - counts[0], ssd.launches - counts[1],
             attention.launches - counts[2]) == FAMILY_LAUNCHES[arch]
-    rc = RunConfig(attn_impl="ref", ssd_impl="ref", conv_impl="ref")
+    rc = RunConfig(param_dtype="float32", attn_impl="ref", ssd_impl="ref", conv_impl="ref")
     want, winfo = lm_serve.serve(arch, scfg, rc=rc, smoke=True, device="cuda",
                                  log_fn=lambda *a: None)
     torch.testing.assert_close(info["prefill_logits"], winfo["prefill_logits"],
@@ -1101,3 +1101,126 @@ def test_smoke_train_on_the_card_matches_the_plain_run(card, arch):
                              ssd_impl="ref", conv_impl="ref")
     _, _, plain = lm_train.train(arch, loop, rc=rc, **quiet)
     np.testing.assert_allclose(hist, plain, rtol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# bf16 storage in the LM kernels: each bf16 instance is its f32 instance on
+# the upcast inputs, rounded, bit for bit (forward and backward); float16 and
+# mixed storage dtypes are refused, and nothing falls back.
+# --------------------------------------------------------------------------
+def _bf16(gen, card, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(card).to(torch.bfloat16)
+
+
+def _rounded(got, want):
+    assert got.dtype == torch.bfloat16 and want.dtype == torch.float32
+    assert torch.equal(got, want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("B,L,C,K,silu", [(2, 70, 264, 4, True),    # vec 4: 8-byte copies
+                                          (2, 37, 301, 3, False),   # C % 4 != 0: vec 1
+                                          (4, 1024, 4224, 4, True)])
+def test_conv1d_bf16_is_f32_rounded(card, B, L, C, K, silu):
+    gen = torch.Generator().manual_seed(4)
+    x, g = _bf16(gen, card, B, L, C), _bf16(gen, card, B, L, C)
+    w, b = _bf16(gen, card, K, C, scale=K ** -0.5), _bf16(gen, card, C, scale=0.1)
+    up = [t.float() for t in (x, w, b, g)]
+    before = (conv1d.launches, conv1d.launches_bwd)
+    out = conv1d.conv1d_causal(x, w, b, silu=silu)
+    grads = conv1d.conv1d_causal_bwd(g, x, w, b, silu)
+    assert (conv1d.launches, conv1d.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert conv1d.last_layout[0] == (4 if C % 4 == 0 else 1)
+    _rounded(out, conv1d.conv1d_causal(*up[:3], silu=silu))
+    assert torch.equal(out, conv1d.plain(x, w, b, silu=silu))
+    for a, f in zip(grads, conv1d.conv1d_causal_bwd(up[3], *up[:3], silu)):
+        _rounded(a, f)
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk,h0", [(1, 100, 4, 6, 2, 10, 16, True),
+                                                  (4, 1024, 64, 64, 1, 64, 64, False)])
+def test_ssd_bf16_is_f32_rounded(card, B, L, H, P, G, N, chunk, h0):
+    gen = torch.Generator().manual_seed(5)
+    x, dy = _bf16(gen, card, B, L, H, P, scale=0.5), _bf16(gen, card, B, L, H, P)
+    Bm, Cm = _bf16(gen, card, B, L, G, N, scale=0.3), _bf16(gen, card, B, L, G, N, scale=0.3)
+    dt = (torch.rand((B, L, H), generator=gen) * 0.09 + 0.01).to(card)
+    A, D = -(torch.rand(H, generator=gen) * 8 + 1).to(card), torch.ones(H, device=card)
+    h0t = (torch.randn((B, H, P, N), generator=gen) * 0.2).to(card) if h0 else None
+    y, hf, st = ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, D=D, h0=h0t, chunk=chunk,
+                                   return_states=True)
+    y32, hf32, st32 = ssd.ssd_chunk_scan(x.float(), dt, A, Bm.float(), Cm.float(), D=D, h0=h0t,
+                                         chunk=chunk, return_states=True)
+    _rounded(y, y32)
+    assert torch.equal(hf, hf32) and torch.equal(st, st32)
+    kw = dict(D=D, h0=h0t, states=st, h_final=hf, chunk=chunk)
+    got = ssd.ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, dy, **kw)
+    want = ssd.ssd_chunk_scan_bwd(x.float(), dt, A, Bm.float(), Cm.float(), dy.float(), **kw)
+    for n in ("dx", "dB", "dC"):
+        _rounded(got[n], want[n])
+    for n in ("ddt", "dA", "dD", "dh0"):
+        assert (got[n] is None and want[n] is None) or torch.equal(got[n], want[n]), n
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,D,causal,window", [(1, 8, 2, 63, 128, True, 37),
+                                                        (2, 4, 4, 65, 16, False, None),
+                                                        (4, 32, 32, 1024, 64, True, None)])
+def test_attention_bf16_is_f32_rounded(card, B, Hq, Hkv, L, D, causal, window):
+    gen = torch.Generator().manual_seed(6)
+    q, g = _bf16(gen, card, B, Hq, L, D), _bf16(gen, card, B, Hq, L, D)
+    k, v = _bf16(gen, card, B, Hkv, L, D), _bf16(gen, card, B, Hkv, L, D)
+    kw = dict(causal=causal, window=window)
+    out, lse, o32 = attention.flash_attention(q, k, v, return_lse=True, return_out32=True, **kw)
+    out32, lse32 = attention.flash_attention(q.float(), k.float(), v.float(), return_lse=True,
+                                             **kw)
+    _rounded(out, out32)
+    assert torch.equal(lse, lse32) and torch.equal(o32, out32)
+    got = attention.flash_attention_bwd(q, k, v, o32, g, lse, **kw)
+    want = attention.flash_attention_bwd(q.float(), k.float(), v.float(), o32, g.float(), lse,
+                                         **kw)
+    for a, f in zip(got, want):
+        _rounded(a, f)
+
+
+def test_lm_kernels_refuse_float16_and_mixed_storage(card):
+    h, f = torch.float16, torch.float32
+    x = torch.zeros((1, 8, 16), device=card)
+    with pytest.raises(TypeError, match="float16"):
+        conv1d.conv1d_causal(x.to(h), torch.zeros((4, 16), device=card, dtype=h))
+    with pytest.raises(TypeError, match="share one dtype"):
+        conv1d.conv1d_causal(x.to(torch.bfloat16), torch.zeros((4, 16), device=card))
+    q = torch.zeros((1, 2, 8, 16), device=card)
+    with pytest.raises(TypeError, match="share one dtype"):
+        attention.flash_attention(q.to(torch.bfloat16), q, q)
+    qb = q.to(torch.bfloat16)     # the backward reads the forward's f32 output
+    with pytest.raises(TypeError, match="'out' is torch.bfloat16"):
+        attention.flash_attention_bwd(qb, qb, qb, qb, qb, torch.zeros((1, 2, 8), device=card))
+    with pytest.raises(TypeError, match="'dt'.*float32"):
+        ssd.ssd_chunk_scan(*(torch.zeros(s, device=card, dtype=torch.bfloat16)
+                             for s in ((1, 8, 2, 4), (1, 8, 2))),
+                           torch.zeros(2, device=card, dtype=f),
+                           *(torch.zeros((1, 8, 1, 8), device=card, dtype=torch.bfloat16)
+                             for _ in range(2)))
+
+
+def test_smoke_train_and_serve_bf16_on_the_card(card):
+    """Zamba2's smoke config at bf16 (RunConfig(param_dtype="bfloat16")):
+    training's losses and serving's tokens on the kernels and on the plain
+    versions."""
+    from repro_torch.launch import train as lm_train
+
+    loop = lm_train.TrainLoopConfig(steps=4, seq_len=64, global_batch=2, log_every=100)
+    rc = dataclasses.replace(lm_train.default_run_config(loop), param_dtype="bfloat16")
+    quiet = dict(smoke=True, device=card, log_fn=lambda *a: None)
+    before = conv1d.launches_bwd
+    _, _, hist = lm_train.train("zamba2-1.2b", loop, rc=rc, **quiet)
+    assert conv1d.launches_bwd == before + 2 * 4
+    plain = dataclasses.replace(rc, attn_impl="ref", ssd_impl="ref", conv_impl="ref")
+    _, _, want = lm_train.train("zamba2-1.2b", loop, rc=plain, **quiet)
+    np.testing.assert_allclose(hist, want, rtol=1e-2)
+    scfg = lm_serve.ServeConfig(batch=2, prompt_len=40, gen_len=6)
+    got, info = lm_serve.serve("zamba2-1.2b", scfg, rc=RunConfig(), **quiet)
+    wtok, winfo = lm_serve.serve("zamba2-1.2b", scfg, rc=RunConfig(attn_impl="ref",
+                                                                 ssd_impl="ref",
+                                                                 conv_impl="ref"), **quiet)
+    assert info["prefill_logits"].dtype == winfo["prefill_logits"].dtype
+    torch.testing.assert_close(info["prefill_logits"].float(), winfo["prefill_logits"].float(),
+                               rtol=0, atol=0.1)

@@ -93,7 +93,7 @@ def test_smoke_param_count_equals_the_tree(arch):
     exact for the dense and MoE stacks (the formula leaves out qk_norm's
     two scales)."""
     cfg = configs.get_smoke(arch)
-    params = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    params = build(cfg, RunConfig(param_dtype="float32"), device="cpu").init(torch.Generator().manual_seed(0))
     actual = sum(t.numel() for t in _leaves(params))
     assert 0.5 < cfg.param_count() / actual < 1.6
     if cfg.family in ("dense", "moe") and not cfg.qk_norm:
@@ -175,7 +175,7 @@ def _prefill_and_decode(arch, impl, rng, L=10, n_dec=1):
     rcfg = r_configs.get_smoke(arch)
     rmodel = r_build(rcfg, _r_rc(impl))
     rparams, _ = rmodel.init(jax.random.PRNGKey(0))
-    tmodel = build(configs.get_smoke(arch), RunConfig(), device="cpu")
+    tmodel = build(configs.get_smoke(arch), RunConfig(param_dtype="float32"), device="cpu")
     tparams = interop.params_from_numpy(_np_tree(rparams), device="cpu")
     toks, extras = _inputs(rcfg, rng, 2, L)
     n_tok = toks.shape[1] - 1
@@ -228,8 +228,8 @@ def test_forward_hidden_and_aux_match_reference(arch, rng):
     tparams = interop.params_from_numpy(_np_tree(rparams), device="cpu")
     emb = (rng.randn(2, 10, rcfg.d_model) * 0.5).astype(np.float32)
     want, waux = r_tf.forward_hidden(rparams, rcfg, _r_rc("chunked"), jnp.asarray(emb))
-    got, gaux = t_tf.forward_hidden(tparams, configs.get_smoke(arch), RunConfig(),
-                                    torch.tensor(emb))
+    got, gaux = t_tf.forward_hidden(tparams, configs.get_smoke(arch),
+                                    RunConfig(param_dtype="float32"), torch.tensor(emb))
     _close(got, want, MODEL_TOL)
     _close(gaux, waux, LAYER_TOL)
     assert (float(gaux) > 0) == configs.get_smoke(arch).is_moe
@@ -254,7 +254,7 @@ def test_prefill_then_decode_equals_full_forward(arch, rng):
     count, so the MoE archs run drop-free (capacity_factor 8, as the
     reference's test does)."""
     cfg = configs.get_smoke(arch)
-    model = build(cfg, RunConfig(capacity_factor=8.0), device="cpu")
+    model = build(cfg, RunConfig(param_dtype="float32", capacity_factor=8.0), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     L = 12
     toks, extras = _inputs(cfg, rng, 2, L)
@@ -270,7 +270,7 @@ def test_prefill_then_decode_equals_full_forward(arch, rng):
 
 def test_encdec_prefill_decode_consistency(rng):
     cfg = configs.get_smoke("seamless-m4t-medium")
-    model = build(cfg, device="cpu")
+    model = build(cfg, RunConfig(param_dtype="float32"), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     L = 10
     toks, extras = _inputs(cfg, rng, 2, L)
@@ -290,7 +290,7 @@ def test_window_attention_limits_context(rng):
     """One layer with window w: a token farther than w behind the last
     position cannot change the last logits at all; a near one does."""
     cfg = dataclasses.replace(configs.get_smoke("stablelm-3b"), n_layers=1, window=8)
-    model = build(cfg, device="cpu")
+    model = build(cfg, RunConfig(param_dtype="float32"), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     L = 24
     toks = torch.tensor(rng.randint(0, cfg.vocab, size=(1, L))).long()
@@ -307,7 +307,7 @@ def test_window_attention_limits_context(rng):
 
 def test_vlm_prefix_is_used(rng):
     cfg = configs.get_smoke("phi-3-vision-4.2b")
-    model = build(cfg, device="cpu")
+    model = build(cfg, RunConfig(param_dtype="float32"), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     b = synth_batch(model, torch.Generator().manual_seed(1), 16, 2)
     assert tuple(b["patch_embeds"].shape) == (2, cfg.n_patches, cfg.d_model)

@@ -197,10 +197,11 @@ def test_zamba2_prefill_and_decode_match_reference(variant, impl, rng):
     else:
         assert "mamba_tail" not in tparams
     rlog, rcache = rmodel.prefill(rparams, {"tokens": jnp.asarray(toks[:, :L])}, max_seq)
-    tmodel = build(tcfg, RunConfig(), device="cpu")
+    tmodel = build(tcfg, RunConfig(param_dtype="float32"), device="cpu")
     tlog, tcache = tmodel.prefill(tparams, {"tokens": torch.tensor(toks[:, :L]).long()},
                                   max_seq)
-    rlog_ref, _ = build(tcfg, RunConfig(attn_impl="ref", ssd_impl="ref", conv_impl="ref"),
+    rlog_ref, _ = build(tcfg, RunConfig(param_dtype="float32", attn_impl="ref",
+                                        ssd_impl="ref", conv_impl="ref"),
                         device="cpu").prefill(tparams,
                                               {"tokens": torch.tensor(toks[:, :L]).long()},
                                               max_seq)
@@ -225,7 +226,7 @@ def test_prefill_then_decode_equals_full_forward(variant, rng):
     """The serving invariant within the port: prefill over t_0..t_{n-1} and
     a decode of t_n give the last logits of a prefill over t_0..t_n."""
     tcfg = t_config.ArchConfig(**dataclasses.asdict(_zamba(variant)))
-    model = build(tcfg, RunConfig(), device="cpu")
+    model = build(tcfg, RunConfig(param_dtype="float32"), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     L = 12
     toks = torch.tensor(rng.randint(0, tcfg.vocab, size=(2, L + 1)))
@@ -238,7 +239,8 @@ def test_prefill_then_decode_equals_full_forward(variant, rng):
 
 def test_port_init_follows_reference_distributions():
     tcfg = configs.get_smoke("zamba2-1.2b")
-    params = build(tcfg, device="cpu").init(torch.Generator().manual_seed(1))
+    params = build(tcfg, RunConfig(param_dtype="float32"), device="cpu").init(
+        torch.Generator().manual_seed(1))
     rparams, _ = r_build(r_configs.get_smoke("zamba2-1.2b"), R_RC["chunked"]).init(
         jax.random.PRNGKey(1))
     flat_t = dict(_flatten(params))
